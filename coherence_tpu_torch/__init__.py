@@ -6,16 +6,19 @@ math is exact integer arithmetic).  Plain tensor code is PyTorch; each
 Pallas TPU kernel on the ported path is a hand-written Hopper kernel under
 ``kernels/``, with a plain PyTorch version beside it that CPU tensors use.
 
-Ported so far, the animated blur-filtered tiled frame path:
+Ported so far, the animated blur-filtered tiled frame path, with brush
+strokes, zoom and the dense layer-stack compositor:
   colour                         — packed colours and exact tensor compositing
-  raster/compositor              — packed-pixel tile format and `over`
-  raster/region, fills           — boxes, shapes, sprites, plain fills
+  raster/compositor              — packed-pixel format, `over`, layer stacks
+  raster/region, fills           — boxes, sprites, box dilation, plain fills
   raster/scanline, aa            — host sweep, Gaussian-matte AA coverage
-  raster/tile_raster             — objects -> frame-aligned atlas pieces
+  raster/tile_raster             — paths -> frame-aligned atlas pieces
+  raster/brush, brush_tiles      — brush host math; strokes -> atlas pieces
   raster/tiled_scene             — atlas, piece lists, tile compositor wrappers
   raster/convolve, framepath     — exact integer blur and the filter blend
-  scene/render, pdfscene, examples — scene model, PDF scenes, the lion
-  scene/fastframe                — DeviceView and FilteredDisplay
+  scene/render, pdfscene, examples — scene model, PDF scenes, benchmark scenes
+  scene/fastframe                — scene build and its cache, DeviceView
+                                   (zoom, prefetch), FilteredDisplay
   kernels/                       — CUDA build, binding, launch counters
   convert                        — JAX-side state (as numpy) -> port objects
 

@@ -5,7 +5,7 @@ holds as device arrays plus host piece lists.  These functions rebuild the
 port's objects from that state once the caller has read it out as numpy
 arrays and plain Python containers, so both sides can run from one
 identical atlas and set of lists.  Packed uint32 words (atlas, frame,
-background) keep their bits as int32.
+background, layer stacks) keep their bits as int32.
 
 Keys stay whatever hashable objects the JAX side used.  A converted view
 carries no source objects (``DeviceView.objs``), so it cannot re-rasterize
@@ -30,6 +30,15 @@ def packed(words: np.ndarray, device) -> torch.Tensor:
     if words.dtype != np.uint32:
         raise ValueError(f"packed pixels must be uint32, got {words.dtype}")
     return torch.from_numpy(words.view(np.int32).copy()).to(device)
+
+
+def layers(words: np.ndarray, device) -> torch.Tensor:
+    """A packed uint32 (K, H, W) layer stack (the JAX package's
+    composite_layers input) -> the port's int32 stack, same bits."""
+    words = np.asarray(words)
+    if words.ndim != 3:
+        raise ValueError(f"a layer stack is (K, H, W), got shape {words.shape}")
+    return packed(words, device)
 
 
 def plane(values: np.ndarray, device) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels: build, binding and launch counters.
 
-``csrc/tile_composite.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, on first use and again whenever
-the source is newer than the library, under ``build/kernels/`` at the root
-of the checkout.  It is loaded with ``ctypes``; every pointer and the
-stream (PyTorch's current stream) pass as ``c_void_p``.  Each entry point
-returns ``cudaGetLastError()`` after its launch, and the wrapper raises on
-a nonzero value.
+Every CUDA source in ``csrc/`` is compiled by one ``nvcc`` call for
+``sm_90a`` into one shared library with a plain C interface,
+``build/kernels/libcomposite.so`` at the root of the checkout: on first
+use, and again whenever any file in ``csrc/`` is newer than the library.
+The library is loaded with ``ctypes``; every pointer and the stream
+(PyTorch's current stream) pass as ``c_void_p``.  Each entry point returns
+``cudaGetLastError()`` after its launch, and the wrapper raises on a
+nonzero value.
 
 ``launches`` counts, per kernel, the launches made through its wrapper.
 
@@ -17,27 +18,37 @@ with no CUDA toolkit and no card.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "tile_composite.cu")
+_CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libtile_composite.so")
+LIBRARY = os.path.join(BUILD_DIR, "libcomposite.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-launches = {"composite_dirty": 0, "composite_full": 0}
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# entry point -> argument types
+_ENTRY_POINTS = {
+    "composite_dirty": [_ptr] * 6 + [_i32] * 2 + [_ptr],
+    "composite_full": [_ptr] * 5 + [_i32] * 2 + [_ptr],
+    "composite_runs": [_ptr] * 4 + [_i32] * 2 + [_ptr],
+    "composite_layers": [_ptr] * 3 + [_i32] * 3 + [_ptr],
+}
+
+launches = {name: 0 for name in _ENTRY_POINTS}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_fns: Optional[Dict[str, ctypes._CFuncPtr]] = None
 
 
 def _nvcc() -> str:
@@ -53,37 +64,39 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the library if it is missing or older than its source.
-    Returns the compiler's output (ptxas register and spill counts), or ""
-    when the library was already up to date."""
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
+    """Compile every ``csrc/*.cu`` into the library if it is missing or
+    older than any file in ``csrc/``.  Returns nvcc's output (ptxas
+    register and spill counts), or "" when the library was up to date."""
+    inputs = sorted(glob.glob(os.path.join(_CSRC, "*")))
+    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(os.path.getmtime(p) for p in inputs):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
-    )
+    sources = [p for p in inputs if p.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    return proc.stdout
 
 
-def load() -> ctypes.CDLL:
-    """The built library, built first if need be, with its entry points
-    declared."""
-    global _lib
+def load() -> Dict[str, ctypes._CFuncPtr]:
+    """Every entry point by name, the library built first if need be, with
+    its argument types declared."""
+    global _fns
     with _lock:
-        if _lib is None:
+        if _fns is None:
             build()
             lib = ctypes.CDLL(LIBRARY)
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.composite_dirty.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
-            lib.composite_dirty.restype = i32
-            lib.composite_full.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
-            lib.composite_full.restype = i32
-            _lib = lib
-        return _lib
+            fns = {}
+            for entry, argtypes in _ENTRY_POINTS.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = _i32
+                fns[entry] = fn
+            _fns = fns
+        return _fns
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, shape=None) -> None:
@@ -123,7 +136,7 @@ def composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots: int)
     _check("spans", spans, device, (2 * n_slots,))
     _check("idxs", idxs, device, (idxs.shape[0],))
     _check("frame", frame, device, (ph, pw))
-    rc = load().composite_dirty(
+    rc = load()["composite_dirty"](
         coords.data_ptr(), spans.data_ptr(), idxs.data_ptr(), background.data_ptr(),
         frame.data_ptr(), atlas.data_ptr(), n_slots, pw,
         torch.cuda.current_stream(device).cuda_stream,
@@ -141,10 +154,51 @@ def composite_full(starts, idxs, background, atlas, nty: int, ntx: int) -> torch
     _check("starts", starts, device, (nty * ntx + 1,))
     _check("idxs", idxs, device, (idxs.shape[0],))
     out = torch.empty_like(background)
-    rc = load().composite_full(
+    rc = load()["composite_full"](
         starts.data_ptr(), idxs.data_ptr(), background.data_ptr(), out.data_ptr(),
         atlas.data_ptr(), nty, ntx, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on("composite_full", rc)
     launches["composite_full"] += 1
+    return out
+
+
+def composite_runs(starts, background, runs, nty: int, ntx: int) -> torch.Tensor:
+    """Launch ``composite_runs``: one block per tile over the tile-major
+    piece runs (tile t's pieces are runs[starts[t]:starts[t+1]]), into a
+    new frame."""
+    device, ph, pw = _check_planes(background, runs)
+    if (ph, pw) != (nty * 64, ntx * 128):
+        raise ValueError(f"plane {ph}x{pw} does not match the {nty}x{ntx} tile grid")
+    _check("starts", starts, device, (nty * ntx + 1,))
+    out = torch.empty_like(background)
+    rc = load()["composite_runs"](
+        starts.data_ptr(), background.data_ptr(), out.data_ptr(), runs.data_ptr(), nty, ntx,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on("composite_runs", rc)
+    launches["composite_runs"] += 1
+    return out
+
+
+def composite_layers(background, layers) -> torch.Tensor:
+    """Launch ``composite_layers``: one block per tile over a dense (K, H,
+    W) stack, layer 0 topmost, into a new frame."""
+    device = layers.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA compositor needs tensors on a CUDA device, got {device}")
+    if layers.dim() != 3:
+        raise ValueError(f"layers: need a (K, H, W) stack, got shape {tuple(layers.shape)}")
+    k, ph, pw = layers.shape
+    if ph % 64 or pw % 128:
+        raise ValueError(f"plane {ph}x{pw} is not tile-aligned")
+    _check("layers", layers, device)
+    _check("background", background, device, (ph, pw))
+    out = torch.empty_like(background)
+    rc = load()["composite_layers"](
+        background.data_ptr(), layers.data_ptr(), out.data_ptr(), k, ph // 64, pw // 128,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on("composite_layers", rc)
+    launches["composite_layers"] += 1
     return out

@@ -10,10 +10,7 @@
 // (prelerp(l, q, 255) == q for every byte l), so stopping early never
 // changes the output and one entry point serves both.
 //
-// Pixels are premultiplied RGBA packed in one 32-bit word, r | g<<8 |
-// b<<16 | a<<24 (the PyTorch side stores the same bits as int32).  The
-// arithmetic is the JAX package's _over_packed bit for bit, including the
-// bare OR of the packed fields with no clamp.
+// The packed-pixel math and the tile layout are in tile_math.cuh.
 //
 // What bounds it: HBM bytes.  Per tile the kernel reads 4 B/px for every
 // listed piece, plus the background tile, and writes the frame tile once;
@@ -35,34 +32,11 @@
 // slot, so two blocks may write one tile; that is safe because a compositing
 // slot never reads the frame, and both write the same values.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "tile_math.cuh"
 
 namespace {
 
-constexpr int kTileH = 64;
-constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kVecPerRow = kTileW / 4;                  // 32 uint4 per row
-constexpr int kVecPerThread = kTileH * kTileW / 4 / kThreads;  // 8
-
-__device__ __forceinline__ int prelerp(int p, int q, int a) {
-  int t = a * p + 128;
-  return p + q - (((t >> 8) + t) >> 8);
-}
-
-// Porter/Duff over of packed words, acc above layer.
-__device__ __forceinline__ uint32_t over_packed(uint32_t acc, uint32_t layer) {
-  int aa = static_cast<int>(acc >> 24);
-  int r = prelerp(layer & 0xFF, acc & 0xFF, aa);
-  int g = prelerp((layer >> 8) & 0xFF, (acc >> 8) & 0xFF, aa);
-  int b = prelerp((layer >> 16) & 0xFF, (acc >> 16) & 0xFF, aa);
-  int a = prelerp(layer >> 24, aa, aa);
-  return static_cast<uint32_t>(r) | (static_cast<uint32_t>(g) << 8) |
-         (static_cast<uint32_t>(b) << 16) | (static_cast<uint32_t>(a) << 24);
-}
-
-__device__ __forceinline__ bool is_open(uint32_t px) { return (px >> 24) != 255u; }
+using namespace tile;
 
 // Composite idxs[lo:hi] front to back over the background tile `bg` into
 // `out`; both point at the tile's top-left pixel, rows `pitch` words apart.
@@ -85,23 +59,12 @@ __device__ __forceinline__ void composite_tile(const int* __restrict__ idxs, int
       acc[j].y = over_packed(acc[j].y, l.y);
       acc[j].z = over_packed(acc[j].z, l.z);
       acc[j].w = over_packed(acc[j].w, l.w);
-      open |= is_open(acc[j].x) | is_open(acc[j].y) | is_open(acc[j].z) | is_open(acc[j].w);
+      open |= any_open4(acc[j]);
     }
     if (!__syncthreads_or(open)) break;
   }
 
-#pragma unroll
-  for (int j = 0; j < kVecPerThread; ++j) {
-    int v = threadIdx.x + j * kThreads;
-    long off = (v / kVecPerRow) * pitch + (v % kVecPerRow) * 4;
-    uint4 b = __ldg(reinterpret_cast<const uint4*>(bg + off));
-    uint4 o;
-    o.x = over_packed(acc[j].x, b.x);
-    o.y = over_packed(acc[j].y, b.y);
-    o.z = over_packed(acc[j].z, b.z);
-    o.w = over_packed(acc[j].w, b.w);
-    *reinterpret_cast<uint4*>(out + off) = o;
-  }
+  finish_tile(acc, bg, out, pitch);
 }
 
 __global__ void __launch_bounds__(kThreads)

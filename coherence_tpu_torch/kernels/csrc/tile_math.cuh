@@ -1,0 +1,85 @@
+// Packed-pixel tile math shared by the Hopper compositors (sm_90a).
+//
+// Pixels are premultiplied RGBA packed in one 32-bit word, r | g<<8 |
+// b<<16 | a<<24 (the PyTorch side stores the same bits as int32).  The
+// arithmetic is the JAX package's _over_packed bit for bit, including the
+// bare OR of the packed fields with no clamp.
+//
+// A tile is 64x128 pixels, composited by one block of 256 threads; each
+// thread owns 32 pixels of the tile in registers, as 8 16-byte vectors with
+// neighbouring threads on neighbouring addresses, so every tile read and
+// write is a coalesced 16-byte access.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tile {
+
+constexpr int kTileH = 64;
+constexpr int kTileW = 128;
+constexpr int kThreads = 256;
+constexpr int kVecPerRow = kTileW / 4;                         // 32 uint4 per row
+constexpr int kVecPerThread = kTileH * kTileW / 4 / kThreads;  // 8
+
+__device__ __forceinline__ int prelerp(int p, int q, int a) {
+  int t = a * p + 128;
+  return p + q - (((t >> 8) + t) >> 8);
+}
+
+// Porter/Duff over of packed words, acc above layer.
+__device__ __forceinline__ uint32_t over_packed(uint32_t acc, uint32_t layer) {
+  int aa = static_cast<int>(acc >> 24);
+  int r = prelerp(layer & 0xFF, acc & 0xFF, aa);
+  int g = prelerp((layer >> 8) & 0xFF, (acc >> 8) & 0xFF, aa);
+  int b = prelerp((layer >> 16) & 0xFF, (acc >> 16) & 0xFF, aa);
+  int a = prelerp(layer >> 24, aa, aa);
+  return static_cast<uint32_t>(r) | (static_cast<uint32_t>(g) << 8) |
+         (static_cast<uint32_t>(b) << 16) | (static_cast<uint32_t>(a) << 24);
+}
+
+__device__ __forceinline__ bool is_open(uint32_t px) { return (px >> 24) != 255u; }
+
+// `over` only where the accumulator is still open: the reference kernels'
+// per-pixel mask.  (On an opaque accumulator `over` is the identity, so the
+// mask never changes a value; it is kept to mirror the reference.)
+__device__ __forceinline__ uint32_t over_open(uint32_t acc, uint32_t layer) {
+  return is_open(acc) ? over_packed(acc, layer) : acc;
+}
+
+__device__ __forceinline__ uint4 over_open4(uint4 acc, uint4 layer) {
+  return make_uint4(over_open(acc.x, layer.x), over_open(acc.y, layer.y),
+                    over_open(acc.z, layer.z), over_open(acc.w, layer.w));
+}
+
+__device__ __forceinline__ bool any_open4(uint4 v) {
+  return is_open(v.x) | is_open(v.y) | is_open(v.z) | is_open(v.w);
+}
+
+// Word offset of this thread's j-th vector inside a tile whose rows lie
+// `pitch` words apart.
+__device__ __forceinline__ long vec_offset(int j, long pitch) {
+  int v = threadIdx.x + j * kThreads;
+  return (v / kVecPerRow) * pitch + (v % kVecPerRow) * 4;
+}
+
+// out = acc over bg for this thread's pixels; `bg` and `out` point at the
+// tile's top-left pixel, rows `pitch` words apart.
+__device__ __forceinline__ void finish_tile(const uint4 (&acc)[kVecPerThread],
+                                            const uint32_t* __restrict__ bg,
+                                            uint32_t* __restrict__ out, long pitch) {
+#pragma unroll
+  for (int j = 0; j < kVecPerThread; ++j) {
+    long off = vec_offset(j, pitch);
+    uint4 b = __ldg(reinterpret_cast<const uint4*>(bg + off));
+    uint4 o;
+    o.x = over_packed(acc[j].x, b.x);
+    o.y = over_packed(acc[j].y, b.y);
+    o.z = over_packed(acc[j].z, b.z);
+    o.w = over_packed(acc[j].w, b.w);
+    *reinterpret_cast<uint4*>(out + off) = o;
+  }
+}
+
+}  // namespace tile

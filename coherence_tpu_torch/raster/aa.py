@@ -57,6 +57,12 @@ _WQ = np.stack(
 )  # (256, 4): quadrant order (db, da) = (0,0), (0,1), (1,0), (1,1)
 
 
+def span_bucket(n: int, floor: int) -> int:
+    """The JAX package's pow2 bucket with a floor; the brush-tile build
+    keeps it because it fixes the atlas block layout."""
+    return max(floor, 1 << (max(1, n) - 1).bit_length())
+
+
 def mask_of_spans(n: int, h: int, w: int, item, rows, starts, stops, device) -> torch.Tensor:
     """bool (n, h, w) masks from inclusive column spans: +1 at (item, row,
     start), -1 at (item, row, stop), then a prefix sum along each row.

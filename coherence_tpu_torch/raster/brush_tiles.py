@@ -1,0 +1,181 @@
+"""Batched brush-stroke rasterization at atlas-tile granularity.
+
+The PyTorch counterpart of ``coherence_tpu.raster.brush_tiles``.  Strokes
+are staged on the host (stamp points, the stroke's box grown by the brush
+radius, its grid-clipped tile set) and grouped by the JAX package's static
+buckets; ``flush`` rasterizes each group into the (TILE_H, TILE_W) pieces
+that ``TiledScene.add_rastered`` ingests:
+
+  * the stamps alpha_over the Gaussian patch one after another, in the
+    reference's order and integer arithmetic, batched over the group's
+    strokes (each stroke owns its own plane);
+  * the stroke's shape mask is the box-window dilation of the stamp-point
+    plane (``region._box_count > 0``, the reference's bloat);
+  * the plain fill dissolves by the stamped alpha inside the mask, and each
+    (stroke, tile) piece is sliced out packed.
+
+The JAX package runs this as one XLA program per group, not as a Pallas
+kernel; here it is plain torch ops.  Blocks keep the JAX layout (sorted
+groups, pow2 stroke and piece buckets, padding pieces cut from stroke 0 at
+the plane origin), so a scene's atlas is equal to the reference's slot for
+slot.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .. import colour as C
+from . import aa as raa
+from . import region
+from .brush import GAUSSIAN, _int_points, drawround_alpha, points_of_brushstroke, sizeof_brush
+from .compositor import TILE_H, TILE_W, pack_rgba
+
+# Stamp-point coordinates the JAX scatter drops (its mode="drop"); the
+# host filters them out before the scatter here.
+_FAR = 32767
+
+
+def _stamp_alpha(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
+    """(s, hp, wp) int32 alpha planes: each stroke's valid stamps
+    alpha_over its (bhb, bwb) brush patch at offsets[s, i] (top-left
+    corner), in stamp order.  Strokes are independent, so stamp i of every
+    stroke runs in one batched step; an invalid stamp leaves its patch as
+    it is, and a step with no valid stamp is skipped on the host."""
+    s, bhb, bwb = brushes.shape
+    canvas = torch.zeros((s, hp, wp), dtype=torch.int32, device=device)
+    aa = torch.from_numpy(brushes).to(device)
+    offs = torch.from_numpy(offsets).to(device).long()
+    live = torch.from_numpy(valid).to(device)[:, :, None, None]
+    si = torch.arange(s, device=device)[:, None, None]
+    ar, ac = torch.arange(bhb, device=device), torch.arange(bwb, device=device)
+    for i in np.nonzero(valid.any(axis=0))[0]:
+        rows = (offs[:, i, 0, None] + ar)[:, :, None]
+        cols = (offs[:, i, 1, None] + ac)[:, None, :]
+        patch = canvas[si, rows, cols]
+        stamped = torch.where(aa == 255, aa, C.prelerp_arr(patch, aa, aa))
+        canvas[si, rows, cols] = torch.where((aa == 0) | ~live[:, i], patch, stamped)
+    return canvas
+
+
+class BrushTileBuild:
+    """Accumulate plain-filled Gaussian brush strokes; ``flush`` returns
+    (blocks, registry) for ``TiledScene.add_rastered``.  Keys whose strokes
+    produce no visible pieces appear in the registry with an empty list."""
+
+    def __init__(self, nty: int, ntx: int, device):
+        self.nty, self.ntx = nty, ntx
+        self.device = torch.device(device)
+        # static-bucket key -> list of per-stroke host data
+        self.groups: Dict[tuple, list] = {}
+        self.empty_keys: List[object] = []
+
+    def add_stroke(self, key, brushstroke, fill4) -> bool:
+        """Stage one stroke's host data.  False when the stroke is not a
+        Gaussian brush (those need the scalar path)."""
+        brush, _path = brushstroke
+        opacity, kind = brush
+        if kind[0] != GAUSSIAN:
+            return False
+        points = _int_points(points_of_brushstroke(brushstroke))
+        if not points:
+            self.empty_keys.append(key)
+            return True
+        bw, bh = sizeof_brush(brush)
+        wr, hr = (bw - 1) // 2, (bh - 1) // 2
+        parr = np.asarray(points, np.int64)
+        x0, y0 = int(parr[:, 0].min()), int(parr[:, 1].min())
+        x1, y1 = int(parr[:, 0].max()), int(parr[:, 1].max())
+        # Shape box = point bbox grown by the brush radii (region.bloat).
+        sx0, sy0, sx1, sy1 = x0 - wr, y0 - hr, x1 + wr, y1 + hr
+        tx_lo = max(0, (sx0 - 1) // TILE_W)
+        tx_hi = min(self.ntx - 1, (sx1 - 1) // TILE_W)
+        ty_lo = max(0, (sy0 - 1) // TILE_H)
+        ty_hi = min(self.nty - 1, (sy1 - 1) // TILE_H)
+        if tx_hi < tx_lo or ty_hi < ty_lo:
+            self.empty_keys.append(key)
+            return True
+        th, tw = ty_hi - ty_lo + 1, tx_hi - tx_lo + 1
+        bhb, bwb = region.bucket_hw(bh, bw)
+        th_b, tw_b = raa.span_bucket(th, floor=1), raa.span_bucket(tw, floor=1)
+        hp = bhb + th_b * TILE_H + 2 * bhb
+        wp = bwb + tw_b * TILE_W + 2 * bwb
+        # Plane row 0 / col 0 in 1-based frame pixels.
+        oy0 = ty_lo * TILE_H + 1 - bhb
+        ox0 = tx_lo * TILE_W + 1 - bwb
+        offs = np.stack([parr[:, 1] - hr - oy0, parr[:, 0] - wr - ox0], axis=1).astype(np.int32)
+        # A stamp is kept iff its (bh, bw) patch can touch the real tile
+        # region; kept offsets then keep the padded patch inside the plane,
+        # and dropped stamps cannot touch any piece pixel.  Dropped offsets
+        # are zeroed as in the JAX package, whose dynamic_slice would clamp
+        # an out-of-range one.
+        val = (
+            (offs[:, 0] + bh > bhb)
+            & (offs[:, 0] < bhb + th * TILE_H)
+            & (offs[:, 1] + bw > bwb)
+            & (offs[:, 1] < bwb + tw * TILE_W)
+        )
+        offs[~val] = 0
+        pt = np.stack([parr[:, 1] - oy0, parr[:, 0] - ox0], axis=1).astype(np.int32)
+        outside = (pt[:, 0] < 0) | (pt[:, 0] >= hp) | (pt[:, 1] < 0) | (pt[:, 1] >= wp)
+        pt[outside] = _FAR
+        npb = raa.span_bucket(len(points), floor=8)
+        gkey = (hp, wp, bhb, bwb, npb)
+        pieces = [
+            (ty * self.ntx + tx, bhb + (ty - ty_lo) * TILE_H, bwb + (tx - tx_lo) * TILE_W)
+            for ty in range(ty_lo, ty_hi + 1)
+            for tx in range(tx_lo, tx_hi + 1)
+        ]
+        bpad = np.zeros((bhb, bwb), np.int32)
+        bpad[:bh, :bw] = drawround_alpha(kind[1], opacity)
+        self.groups.setdefault(gkey, []).append(
+            (key, bpad, offs, val, pt, np.asarray(fill4, np.int32), (wr, hr), pieces)
+        )
+        return True
+
+    def _group_block(self, hp: int, wp: int, bhb: int, bwb: int, npb: int, items) -> torch.Tensor:
+        """One group's (pb, TILE_H, TILE_W) int32 block: its strokes'
+        pieces in staging order, then padding pieces."""
+        s = len(items)
+        offsets = np.zeros((s, npb, 2), np.int32)
+        valid = np.zeros((s, npb), bool)
+        for si, it in enumerate(items):
+            offsets[si, : len(it[2])] = it[2]
+            valid[si, : len(it[3])] = it[3]
+        alpha = _stamp_alpha(np.stack([it[1] for it in items]), offsets, valid, hp, wp, self.device)
+        planes = []
+        for si, (_, _, _, _, pt, f4, (wr, hr), _) in enumerate(items):
+            pt = torch.from_numpy(pt[pt[:, 0] != _FAR].astype(np.int64)).to(self.device)
+            ptplane = torch.zeros((hp, wp), dtype=torch.int32, device=self.device)
+            ptplane.index_put_((pt[:, 0], pt[:, 1]), torch.ones_like(pt[:, 0], dtype=torch.int32), accumulate=True)
+            mask = region._box_count(ptplane, wr, hr) > 0
+            fill = torch.from_numpy(f4).to(self.device)[None, None, :]
+            planes.append(pack_rgba(torch.where(mask[..., None], C.dissolve_rgba(fill, alpha[si]), 0)))
+        metas = [(si, oy, ox) for si, it in enumerate(items) for _tile, oy, ox in it[7]]
+        # Padding pieces are stroke 0's plane at the origin, as the JAX
+        # package's zero meta rows slice it.
+        pad = planes[0][None, :TILE_H, :TILE_W]
+        pieces = [planes[si][oy : oy + TILE_H, ox : ox + TILE_W] for si, oy, ox in metas]
+        n_pad = raa.span_bucket(len(metas), floor=8) - len(metas)
+        return torch.cat([torch.stack(pieces), pad.expand(n_pad, TILE_H, TILE_W)])
+
+    def flush(self):
+        """Returns (blocks, registry): a list of (p, TILE_H, TILE_W) int32
+        tensors and key -> [(tile, block_id, slot)]."""
+        blocks: List[torch.Tensor] = []
+        registry: Dict[object, List[Tuple[int, int, int]]] = {}
+        for key in self.empty_keys:
+            registry.setdefault(key, [])
+        for gkey in sorted(self.groups):
+            items = self.groups[gkey]
+            slot = 0
+            for it in items:
+                entries = registry.setdefault(it[0], [])
+                for tile, _oy, _ox in it[7]:
+                    entries.append((tile, len(blocks), slot))
+                    slot += 1
+            blocks.append(self._group_block(*gkey, items))
+        return blocks, registry

@@ -1,7 +1,8 @@
-"""Packed-pixel layout of the tile compositor.
+"""Packed pixels and the dense layer-stack compositor.
 
-The PyTorch counterpart of ``coherence_tpu.raster.pallas_compositor``'s
-pixel format: premultiplied RGBA packed in one 32-bit word,
+The PyTorch counterpart of ``coherence_tpu.raster.pallas_compositor``: its
+pixel format, and ``composite_layers`` (which replaces the Pallas
+``_kernel``).  Pixels are premultiplied RGBA packed in one 32-bit word,
 ``r | g << 8 | b << 16 | a << 24``.  PyTorch has no shifts or adds on
 ``uint32`` tensors, so the port stores the same bits in ``int32``.  A word
 whose alpha is >= 128 is then negative and ``>>`` sign-extends, so every
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..colour import prelerp_arr
 
 TILE_H = 64
@@ -53,3 +55,24 @@ def _over_packed(acc: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
     b = prelerp_arr(lb, ab, aa)
     a = prelerp_arr(la, aa, aa)
     return r | (g << 8) | (b << 16) | (a << 24)
+
+
+def composite_layers_torch(background: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``composite_layers`` (the JAX package's
+    composite_layers_xla): fold the (K, H, W) stack front to back, layer 0
+    topmost, under the per-pixel open mask, then `over` the background."""
+    acc = torch.zeros_like(background)
+    for layer in layers:
+        open_mask = ((acc >> 24) & 0xFF) != 255
+        acc = torch.where(open_mask, _over_packed(acc, layer), acc)
+    return _over_packed(acc, background)
+
+
+def composite_layers(background: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+    """A dense (K, H, W) packed stack, layer 0 topmost, over a (H, W)
+    packed background; H and W are tile multiples.  On the CPU the plain
+    version runs; on a CUDA device the hand-written kernel launches or the
+    wrapper raises."""
+    if layers.device.type == "cpu":
+        return composite_layers_torch(background, layers)
+    return kernels.composite_layers(background, layers)

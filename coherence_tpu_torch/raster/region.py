@@ -50,6 +50,28 @@ def bucket_hw(h: int, w: int) -> Tuple[int, int]:
     return _bucket(h, _MIN_H), _bucket(w, _MIN_W)
 
 
+def _box_count(m_int: torch.Tensor, rx: int, ry: int) -> torch.Tensor:
+    """Separable box-window sum of an int32 (H, W) plane over [x-rx, x+rx]
+    x [y-ry, y+ry]; cells outside the plane count as zero.  `> 0` of it is
+    the box dilation of a mask (the reference's bloat)."""
+    H, W = m_int.shape
+    dev = m_int.device
+    # Row pass: windowed sum over columns, from clipped prefix-sum reads.
+    c = torch.cumsum(m_int, dim=1, dtype=torch.int32)
+    xx = torch.arange(W, device=dev)
+    hi = c[:, (xx + rx).clamp(0, W - 1)]
+    lo_idx = xx - rx - 1
+    lo = torch.where(lo_idx >= 0, c[:, lo_idx.clamp(0, W - 1)], 0)
+    row = hi - lo
+    # Column pass: windowed sum over rows.
+    c2 = torch.cumsum(row, dim=0, dtype=torch.int32)
+    yy = torch.arange(H, device=dev)
+    hi2 = c2[(yy + ry).clamp(0, H - 1), :]
+    lo_idx2 = yy - ry - 1
+    lo2 = torch.where((lo_idx2 >= 0)[:, None], c2[lo_idx2.clamp(0, H - 1), :], 0)
+    return hi2 - lo2
+
+
 @dataclass
 class Sprite:
     box: Box

@@ -10,7 +10,10 @@ with box arithmetic, and one kernel launch composites the listed pieces:
     on the frame (replaces the Pallas ``_kernel_subset``);
   * ``composite_full`` over every tile into a fresh frame (replaces both
     ``_kernel_atlas_row`` and ``_kernel``: they compute the same function,
-    because ``over`` onto an opaque accumulator is the identity).
+    because ``over`` onto an opaque accumulator is the identity);
+  * ``composite_runs`` over every tile into a fresh frame, from the listed
+    pieces gathered tile-major into contiguous runs (``gather_runs``;
+    replaces ``_kernel_runs_row``).
 
 Each wrapper picks by the tensors' device: on the CPU it runs the plain
 PyTorch version beside it here; on a CUDA device it launches the hand
@@ -39,15 +42,18 @@ def _tiles(plane: torch.Tensor) -> torch.Tensor:
     return plane.view(ph // TILE_H, TILE_H, pw // TILE_W, TILE_W).transpose(1, 2)
 
 
-def _fold(acc: torch.Tensor, atlas: torch.Tensor, idxs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Front-to-back fold of each tile's list idxs[lo[i]:hi[i]] into acc[i],
-    with the per-pixel open mask of the reference kernels (a pixel stops
-    taking pieces once its alpha is 255)."""
+def _fold(acc: torch.Tensor, atlas: torch.Tensor, idxs: Optional[torch.Tensor], lo: torch.Tensor,
+          hi: torch.Tensor) -> torch.Tensor:
+    """Front-to-back fold of each tile's list idxs[lo[i]:hi[i]] (slots
+    lo[i]:hi[i] themselves when `idxs` is None) into acc[i], with the
+    per-pixel open mask of the reference kernels (a pixel stops taking
+    pieces once its alpha is 255)."""
     depth = hi - lo
     for d in range(int(depth.max()) if depth.numel() else 0):
         sel = torch.nonzero(depth > d).flatten()
         a = acc[sel]
-        layer = atlas[idxs[lo[sel] + d].long()]
+        slots = lo[sel] + d
+        layer = atlas[slots if idxs is None else idxs[slots].long()]
         open_mask = ((a >> 24) & 0xFF) != 255
         acc[sel] = torch.where(open_mask, _over_packed(a, layer), a)
     return acc
@@ -59,6 +65,30 @@ def composite_full_torch(starts, idxs, background, atlas, nty: int, ntx: int) ->
     starts = starts.long()
     acc = torch.zeros((nty * ntx, TILE_H, TILE_W), dtype=torch.int32, device=atlas.device)
     acc = _fold(acc, atlas, idxs, starts[:-1], starts[1:])
+    out = torch.empty_like(background)
+    _tiles(out)[...] = _over_packed(acc.view(nty, ntx, TILE_H, TILE_W), _tiles(background))
+    return out
+
+
+# Pieces per chunk of the run walk (the JAX package's _RUN_CHUNK): the runs
+# end in _RUN_CHUNK - 1 zero pieces, as the reference pads them.
+_RUN_CHUNK = 4
+
+
+def gather_runs(atlas: torch.Tensor, idxs: torch.Tensor) -> torch.Tensor:
+    """Tile-major piece runs: runs[k] = atlas[idxs[k]], then _RUN_CHUNK - 1
+    zero pieces (the JAX package's _gather_runs_kernel, an XLA op outside
+    its Pallas kernel)."""
+    pad = torch.zeros((_RUN_CHUNK - 1, TILE_H, TILE_W), dtype=atlas.dtype, device=atlas.device)
+    return torch.cat([atlas.index_select(0, idxs), pad])
+
+
+def composite_runs_torch(starts, background, runs, nty: int, ntx: int) -> torch.Tensor:
+    """Plain version of ``composite_runs``: every tile's pieces
+    runs[starts[t]:starts[t+1]] over its background tile, into a new frame."""
+    starts = starts.long()
+    acc = torch.zeros((nty * ntx, TILE_H, TILE_W), dtype=torch.int32, device=runs.device)
+    acc = _fold(acc, runs, None, starts[:-1], starts[1:])
     out = torch.empty_like(background)
     _tiles(out)[...] = _over_packed(acc.view(nty, ntx, TILE_H, TILE_W), _tiles(background))
     return out
@@ -84,6 +114,13 @@ def composite_full(starts, idxs, background, atlas, nty: int, ntx: int) -> torch
     if atlas.device.type == "cpu":
         return composite_full_torch(starts, idxs, background, atlas, nty, ntx)
     return kernels.composite_full(starts, idxs, background, atlas, nty, ntx)
+
+
+def composite_runs(starts, background, runs, nty: int, ntx: int) -> torch.Tensor:
+    """Every tile's run of pieces over the background, into a new frame."""
+    if runs.device.type == "cpu":
+        return composite_runs_torch(starts, background, runs, nty, ntx)
+    return kernels.composite_runs(starts, background, runs, nty, ntx)
 
 
 def composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
@@ -175,6 +212,19 @@ class TiledScene:
         # animated objects: key -> (slot base, capacity)
         self._reserved: Dict[object, Tuple[int, int]] = {}
         self._order_cache: Optional[Tuple[object, int, Dict[object, int]]] = None
+
+    def reset(self) -> None:
+        """Clear the scene and keep the atlas's capacity: the slots re-zero
+        in place (restoring the spare-capacity invariant) and the piece
+        lists, reservations and caches clear.  An in-place scene swap, as
+        an interactive zoom makes, then reuses the allocation."""
+        if self._data is not None:
+            self._data.zero_()
+        self._n_pieces = 0
+        self._free_runs = []
+        self.pieces = PieceMap()
+        self._reserved = {}
+        self._order_cache = None
 
     def _ensure(self, k: int) -> None:
         """Spare capacity for `k` more pieces; new slots are zero."""
@@ -365,6 +415,13 @@ class TiledScene:
     def render_full(self, background, starts, idxs) -> torch.Tensor:
         """Every listed piece over `background`, into a new frame."""
         return composite_full(starts, idxs, background, self.atlas(), self.nty, self.ntx)
+
+    def render_runs(self, background, starts, idxs) -> torch.Tensor:
+        """Every listed piece over `background`, into a new frame, through
+        the run-contiguous compositor: the listed pieces are gathered
+        tile-major first.  Equal to render_full."""
+        runs = gather_runs(self.atlas(), idxs)
+        return composite_runs(starts, background, runs, self.nty, self.ntx)
 
     def _dirty_args(self, order, dirty_tiles, pieces_override=None):
         """Host (coords, spans, idxs, n_slots) numpy arrays for the compacted

@@ -13,43 +13,72 @@ the port runs the same three stages (shatter, dirty recomposite, windowed
 blur blend) as separate launches that update the atlas, the content frame
 and the display plane in place.
 
+Scene builds go through a content-addressed scene-build cache, so that an
+interactive zoom back to a scale seen before (or prefetched) restores the
+atlas from a snapshot instead of rasterizing again.
+
 Every view holds its tensors on the device it was made for; there is no
 default device.
 """
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
+from coherence_tpu import transform as tr
 from coherence_tpu.geometry import path as gpath
 
 from .. import colour as C
 from ..raster import aa as raa
+from ..raster import brush as rbrush
 from ..raster import fills as rfills
 from ..raster import region, scanline
 from ..raster.compositor import TILE_H, TILE_W, pack_rgba, unpack_rgba
 from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window
+from ..raster.brush_tiles import BrushTileBuild
 from ..raster.region import Box, Sprite, translate_sprite
 from ..raster.tile_raster import TileBuild
 from ..raster.tiled_scene import TiledScene, composite_dirty, shatter_into
 from . import render as R
 
 
-def _batch_extract(o: R.Obj):
-    """(edges, shape_winding, aa_winding, fill_rgba4) for a plain-filled
-    path, the objects the tile rasterizer takes; else None."""
+def _plain_shapekind(o: R.Obj):
+    """(transformed shape kind, plain fill) of a plain-filled basic object;
+    else None."""
     g = o.geometry
     if not isinstance(g, R.Basic):
         return None
     f = g.fill
     if type(f) is not rfills.PlainFill or f.kind != rfills.PLAIN:
         return None
-    sk = R.transform_shapekind(o.transform, g.shape)
-    edges = gpath.edgelist_of_path(sk.path)
-    return edges, sk.path.winding, sk.path.winding, f._rgba
+    return R.transform_shapekind(o.transform, g.shape), f
+
+
+def _batch_extract(o: R.Obj):
+    """(edges, shape_winding, aa_winding, fill_rgba4) for a plain-filled
+    path, the objects the tile rasterizer takes; else None."""
+    got = _plain_shapekind(o)
+    if got is None or not isinstance(got[0], R.PathShape):
+        return None
+    sk, f = got
+    return gpath.edgelist_of_path(sk.path), sk.path.winding, sk.path.winding, f._rgba
+
+
+def _brush_extract(o: R.Obj):
+    """(brushstroke, fill_rgba4) for a plain-filled Gaussian brush stroke,
+    the objects the brush-tile build takes; else None."""
+    got = _plain_shapekind(o)
+    if got is None or not isinstance(got[0], R.BrushStroke):
+        return None
+    sk, f = got
+    if sk.brushstroke[0][1][0] != rbrush.GAUSSIAN:
+        return None
+    return sk.brushstroke, f._rgba
 
 
 def _tile_extract(o: R.Obj):
@@ -61,15 +90,92 @@ def _tile_extract(o: R.Obj):
     return ext
 
 
+def _scalar_path_error(o: R.Obj) -> NotImplementedError:
+    return NotImplementedError(
+        f"object {o.idset}: {type(o.geometry).__name__} of "
+        f"{type(getattr(o.geometry, 'shape', None)).__name__} needs the scalar raster path, which is not ported"
+    )
+
+
+# Scene-build cache (build_tiled_scene): content digest -> (atlas snapshot,
+# n_pieces, positional piece lists), least recently used first.  Four
+# entries cover the zoom tool's prefetched pair (2x and 0.5x) plus the
+# current and the last-visited scale; each holds one atlas-sized snapshot
+# on the scene's device.
+_SCENE_BUILD_CACHE: "OrderedDict[bytes, tuple]" = OrderedDict()
+_SCENE_BUILD_CACHE_MAX = 4
+_SCENE_BUILD_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def scene_build_cache_stats(reset: bool = False) -> dict:
+    """Hits and misses of cacheable builds (since the last reset)."""
+    out = dict(_SCENE_BUILD_CACHE_STATS)
+    if reset:
+        _SCENE_BUILD_CACHE_STATS["hits"] = 0
+        _SCENE_BUILD_CACHE_STATS["misses"] = 0
+    return out
+
+
+def scene_build_cache_clear() -> None:
+    _SCENE_BUILD_CACHE.clear()
+
+
+def zoom_transform(cx: float, cy: float, f: float) -> list:
+    """The zoom tool's transform: scale by `f` about (cx, cy).  A zoom step
+    and its prefetch must build it the same way, so that their digests
+    match bit for bit."""
+    return [tr.Translate(cx, cy), tr.Scale((0.0, 0.0), f, f), tr.Translate(-cx, -cy)]
+
+
+def _scene_digest_update(h, tag: bytes, *parts) -> None:
+    # Every part is length-framed, and arrays carry their dtype and shape,
+    # so distinct part sequences never hash the same byte stream: the
+    # digest is a content address, and an alias would restore the wrong
+    # scene's atlas.
+    h.update(len(tag).to_bytes(4, "big"))
+    h.update(tag)
+    for p in parts:
+        if isinstance(p, np.ndarray):
+            head = repr((p.dtype.str, p.shape)).encode()
+            h.update(len(head).to_bytes(4, "big"))
+            h.update(head)
+            b = np.ascontiguousarray(p).tobytes()
+        else:
+            b = repr(p).encode()
+        h.update(len(b).to_bytes(8, "big"))
+        h.update(b)
+
+
 def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, device):
-    """Sweep every object and stage its spans into tile work items.
-    Returns (tb, handled, culled): the builder, the keys it rasterizes and
-    the keys culled as wholly off the grid."""
+    """The host half of build_tiled_scene: sweep every object and stage it
+    into tile work items (paths) or brush groups (Gaussian brush strokes).
+    Returns (tb, bb, handled, culled, digest): the tile and brush builds,
+    the keys the tile rasterizer takes, the keys culled as wholly off the
+    grid, and a content digest of the staged scene (the scene-build cache
+    key).  An object neither build takes raises NotImplementedError: the
+    scalar raster path is not ported."""
     tb = TileBuild(nty, ntx, device)
+    bb = BrushTileBuild(nty, ntx, device)
     handled, culled = [], []
+    h = hashlib.blake2b(digest_size=16)
+    _scene_digest_update(h, b"grid", nty, ntx, width, height)
     for key, o in keyed_objs:
-        ext = _tile_extract(o)
-        edges = ext[0]
+        ext = _batch_extract(o)
+        if ext is None:
+            # Objects off the grid (the viewport) are culled by bounds.
+            xmin, xmax, ymin, ymax = R.bounds_of_basicshape(o)
+            if xmax < -1 or xmin > width + 2 or ymax < -1 or ymin > height + 2:
+                culled.append(key)
+                _scene_digest_update(h, b"cull")
+                continue
+            bext = _brush_extract(o)
+            if bext is None or not bb.add_stroke(key, *bext):
+                raise _scalar_path_error(o)
+            # The brushstroke's structure (exact float reprs) determines
+            # its staged stamps.
+            _scene_digest_update(h, b"brush", *bext)
+            continue
+        edges, sw, aw, fill4 = ext
         if len(edges):
             e = np.asarray(edges, dtype=np.int64)
             # Subbins -> conservative pixel bounds (the AA matte reaches half
@@ -81,23 +187,62 @@ def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, d
                 or e[:, [1, 3]].min() // 32 > height + 2
             ):
                 culled.append(key)
+                _scene_digest_update(h, b"cull")
                 continue
         if not tb.add_object(key, *ext):
-            raise NotImplementedError("an object beyond every tile span class needs the scalar path")
+            raise _scalar_path_error(o)
         handled.append(key)
-    return tb, handled, culled
+        _scene_digest_update(h, b"tile", np.asarray(edges, np.int64), sw, aw, fill4)
+    return tb, bb, handled, culled, h.digest()
 
 
-def build_tiled_scene(ts: TiledScene, keyed_objs) -> None:
-    """Rasterize `keyed_objs` ([(key, R.Obj)]) into `ts` through the tile
-    rasterizer."""
-    tb, handled, culled = stage_tiled_scene(ts.nty, ts.ntx, ts.width, ts.height, keyed_objs, ts.device)
+def build_tiled_scene(ts: TiledScene, keyed_objs, staged=None) -> None:
+    """Rasterize `keyed_objs` ([(key, R.Obj)]) into `ts`: paths through the
+    tile rasterizer, Gaussian brush strokes through the brush-tile build.
+    `staged`: a stage_tiled_scene result for these objects, if the host
+    sweep already ran.
+
+    A build into an empty scene is cacheable: a scene whose staged content
+    was built before (with any object ids, as the zoom tool mints fresh
+    ones every step) restores from the snapshot of that build, an atlas
+    copy plus the piece lists, provided the atlas capacity matches."""
+    if staged is None:
+        staged = stage_tiled_scene(ts.nty, ts.ntx, ts.width, ts.height, keyed_objs, ts.device)
+    tb, bb, handled, culled, digest = staged
+    cacheable = ts._n_pieces == 0 and not ts.pieces
+    if cacheable:
+        hit = _SCENE_BUILD_CACHE.get(digest)
+        if hit is not None and (ts._data is None or hit[0].shape == ts._data.shape):
+            snap, snap_n, snap_entries = hit
+            _SCENE_BUILD_CACHE.move_to_end(digest)
+            _SCENE_BUILD_CACHE_STATS["hits"] += 1
+            if ts._data is None:
+                ts._data = snap.clone()
+            else:
+                ts._data.copy_(snap)
+            ts._n_pieces = snap_n
+            ts._free_runs = []
+            for (key, _o), entries in zip(keyed_objs, snap_entries):
+                ts.pieces[key] = entries
+            return
+        _SCENE_BUILD_CACHE_STATS["misses"] += 1
+
     for key in culled:
         ts.pieces[key] = []
     blocks, registry = tb.flush()
     ts.add_rastered(registry, blocks)
+    bblocks, bregistry = bb.flush()
+    ts.add_rastered(bregistry, bblocks)
     for key in handled:
         ts.pieces.setdefault(key, [])  # swept-empty objects have no pieces
+
+    if cacheable:
+        # Snapshot after the whole build; the clone keeps it apart from the
+        # in-place updates the live atlas sees later.
+        snap_entries = [list(ts.pieces.get(key, ())) for key, _o in keyed_objs]
+        _SCENE_BUILD_CACHE[digest] = (ts.atlas().clone(), ts._n_pieces, snap_entries)
+        while len(_SCENE_BUILD_CACHE) > _SCENE_BUILD_CACHE_MAX:
+            _SCENE_BUILD_CACHE.popitem(last=False)
 
 
 def tiled_sprite_of_object(o: R.Obj, width: int, height: int, device) -> Optional[Sprite]:
@@ -206,6 +351,44 @@ class DeviceView:
             self.objs[o.idset] = o
             self.order.append(o.idset)
             self.dirty |= self._tiles_of(o.idset)
+
+    def reset_scene(self, scene: List[R.Obj]) -> None:
+        """Replace the whole scene in place, as an interactive zoom or pan
+        does (the reference transforms the scene and redraws,
+        engine.ml:1015-1057): the atlas keeps its allocation and capacity,
+        so a build of the same content restores from the scene-build
+        cache."""
+        self.ts.reset()
+        self.sprites = {}
+        self.dirty = set(range(self.ts.nty * self.ts.ntx))
+        self.set_scene(scene)
+
+    def prefetch_scene(self, scene: List[R.Obj]) -> None:
+        """Build `scene` into the scene-build cache ahead of a reset_scene
+        whose staged content will match (the digest is content-addressed,
+        so fresh object ids still hit).  The live view is untouched: the
+        build runs into a scratch TiledScene of the live atlas's capacity,
+        since a restore needs equal capacities.  A scene already cached is
+        not built again."""
+        keyed = [(o.idset, o) for o in scene]
+        ts = TiledScene(self.pw, self.ph, self.device)
+        if self.ts._data is not None:
+            ts._ensure(int(self.ts._data.shape[0]))
+        staged = stage_tiled_scene(ts.nty, ts.ntx, ts.width, ts.height, keyed, self.device)
+        if staged[4] in _SCENE_BUILD_CACHE:
+            return
+        build_tiled_scene(ts, keyed, staged=staged)
+
+    def prefetch_zoom_candidates(self, scene: List[R.Obj]) -> None:
+        """Prefetch the scenes the zoom tool would produce next: the whole
+        scene scaled 2x and 0.5x about the logical frame's centre (not the
+        tile-padded one), with the zoom tool's exact transform recipe, so
+        that a real zoom step's digest matches bit for bit.  The JAX
+        package runs this from an idle thread; here the caller runs it
+        when it likes, and it blocks."""
+        for f in (2.0, 0.5):
+            tmat = zoom_transform(self.width / 2.0, self.height / 2.0, f)
+            self.prefetch_scene([R.transform_renderobject_many(tmat, o) for o in scene])
 
     def make_animated(self, key) -> None:
         """Reserve atlas slots for an object that moves every frame; its

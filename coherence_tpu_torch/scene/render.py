@@ -2,9 +2,10 @@
 frame path uses (parity: ``render.ml:19-437``).
 
 Scenes are front-to-back lists of renderobjects (element 0 topmost).  The
-port models plain-filled paths (``Basic`` of a ``PathShape``) and groups of
-them; strokes, brush strokes, CPG, convolved and filter geometry, and the
-hidden-surface-removal renderer itself are not ported yet.
+port models plain-filled paths (``Basic`` of a ``PathShape``), brush
+strokes (``BrushStroke``) and groups of them; stroked paths, CPG, convolved
+and filter geometry, and the hidden-surface-removal renderer itself are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from coherence_tpu import transform as tr
 from coherence_tpu.geometry import path as gpath
 from coherence_tpu.geometry import shapes as gshapes
 
+from ..raster import brush as rbrush
 from ..raster import fills as rfills
 
 OVER = "over"
@@ -28,9 +30,14 @@ class PathShape:
 
 
 @dataclass(frozen=True)
+class BrushStroke:
+    brushstroke: tuple  # (brush, path)
+
+
+@dataclass(frozen=True)
 class Basic:
     fill: rfills.PlainFill
-    shape: PathShape
+    shape: object  # PathShape | BrushStroke
 
 
 @dataclass(frozen=True)
@@ -50,10 +57,12 @@ def rectangle(x, y, w, h) -> PathShape:
     return PathShape(gshapes.rectangle(x, y, w, h))
 
 
-def transform_shapekind(f, sk: PathShape) -> PathShape:
-    if not isinstance(sk, PathShape):
-        raise NotImplementedError(f"shape kind {type(sk).__name__} is not ported")
-    return PathShape(gpath.transform_path(list(f), sk.path))
+def transform_shapekind(f, sk):
+    if isinstance(sk, PathShape):
+        return PathShape(gpath.transform_path(list(f), sk.path))
+    if isinstance(sk, BrushStroke):
+        return BrushStroke(rbrush.transform_brushstroke(list(f), sk.brushstroke))
+    raise NotImplementedError(f"shape kind {type(sk).__name__} is not ported")
 
 
 def transform_renderobject_many(ts, o: Obj) -> Obj:
@@ -102,4 +111,7 @@ def bounds_of_basicshape(o: Obj) -> Tuple[int, int, int, int]:
         )
     if not isinstance(g, Basic):
         raise NotImplementedError(f"geometry {type(g).__name__} is not ported")
-    return gpath.bounds_polygon(transform_shapekind(o.transform, g.shape).path)
+    sk = transform_shapekind(o.transform, g.shape)
+    if isinstance(sk, BrushStroke):
+        return rbrush.bounds_brushstroke(sk.brushstroke)
+    return gpath.bounds_polygon(sk.path)

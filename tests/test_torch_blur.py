@@ -18,6 +18,8 @@ from coherence_tpu.raster import framepath as JFP
 from coherence_tpu_torch.raster import convolve as TV
 from coherence_tpu_torch.raster import framepath as TFP
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RADII = [1, 2, 5, 16]
 
 

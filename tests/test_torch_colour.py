@@ -16,6 +16,8 @@ from coherence_tpu.raster import pallas_compositor as JP
 import coherence_tpu_torch.colour as TC
 from coherence_tpu_torch.raster import compositor as TP
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 _X, _Y = (a.reshape(-1) for a in np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
 _X = _X.astype(np.int32)
 _Y = _Y.astype(np.int32)

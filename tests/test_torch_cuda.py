@@ -1,4 +1,4 @@
-"""The hand-written CUDA tile compositor against its plain PyTorch version,
+"""The hand-written CUDA compositors against their plain PyTorch versions,
 on the card.
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels are
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from coherence_tpu_torch import convert, kernels
+from coherence_tpu_torch.raster import compositor as PC
 from coherence_tpu_torch.raster import tiled_scene as T
 from coherence_tpu_torch.raster.compositor import TILE_H, TILE_W
+from coherence_tpu_torch.scene import examples
 
 
 def _pow2(n: int, lo: int = 8) -> int:
@@ -98,6 +100,21 @@ def dirty_case(seed: int, nty: int = 4, ntx: int = 4, cap: int = 64, n_real: int
     return atlas, random_plane(rng, ph, pw), random_plane(rng, ph, pw), coords, spans, idxs, n_slots
 
 
+def layer_stack(rng, k: int, nty: int, ntx: int, opaque_top: bool = False) -> np.ndarray:
+    """(k, ph, pw) uint32 packed premultiplied layers: random rectangles of
+    opaque, translucent and sparse pixels, zero elsewhere."""
+    ph, pw = nty * TILE_H, ntx * TILE_W
+    out = np.zeros((k, ph, pw), np.uint32)
+    for j in range(k):
+        piece = random_atlas(rng, 4)[j % 4]
+        y0, x0 = int(rng.integers(0, ph)), int(rng.integers(0, pw))
+        h, w = int(rng.integers(1, ph - y0 + 1)), int(rng.integers(1, pw - x0 + 1))
+        out[j, y0 : y0 + h, x0 : x0 + w] = np.resize(piece, (h, w))
+    if opaque_top:
+        out[0] = random_atlas(rng, 1)[0, np.arange(ph) % TILE_H][:, np.arange(pw) % TILE_W]
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -159,3 +176,65 @@ def test_kernel_wrappers_reject_bad_tensors(cuda_device):
         kernels.composite_full(s, i, b, a, 4, 5)
     with pytest.raises(ValueError):
         kernels.composite_full(s.cpu(), i, b, a, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,nty,ntx", [(0, 4, 4), (1, 3, 7), (2, 17, 15), (3, 34, 30)])
+def test_composite_runs_kernel_matches_plain(cuda_device, seed, nty, ntx):
+    atlas, bg, starts, idxs = composite_case(seed, nty, ntx)
+    a, b = convert.packed(atlas, cuda_device), convert.packed(bg, cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    runs = T.gather_runs(a, i)
+    before = kernels.launches["composite_runs"]
+    got = T.composite_runs(s, b, runs, nty, ntx)
+    assert kernels.launches["composite_runs"] == before + 1
+    want = T.composite_runs_torch(s, b, runs, nty, ntx)
+    full = T.composite_full(s, i, b, a, nty, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,nty,ntx,opaque_top", [
+    (0, 1, 1, 1, False), (1, 5, 2, 2, False), (2, 13, 5, 3, False), (3, 9, 4, 4, True),
+])
+def test_composite_layers_kernel_matches_plain(cuda_device, seed, k, nty, ntx, opaque_top):
+    rng = np.random.default_rng(seed)
+    layers = convert.layers(layer_stack(rng, k, nty, ntx, opaque_top), cuda_device)
+    bg = convert.packed(random_plane(rng, nty * TILE_H, ntx * TILE_W), cuda_device)
+    before = kernels.launches["composite_layers"]
+    got = PC.composite_layers(bg, layers)
+    assert kernels.launches["composite_layers"] == before + 1
+    want = PC.composite_layers_torch(bg, layers)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if opaque_top:
+        assert torch.equal(got, layers[0])
+
+
+@pytest.mark.cuda
+def test_composite_layers_kernel_on_the_config2_stack(cuda_device):
+    layers = examples.hsr_layers(100, 1088, 1920, device=cuda_device)
+    white = torch.full((1088, 1920), -1, dtype=torch.int32, device=cuda_device)
+    got = PC.composite_layers(white, layers)
+    want = PC.composite_layers_torch(white, layers)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_new_kernel_wrappers_reject_bad_tensors(cuda_device):
+    atlas, bg, starts, idxs = composite_case(0)
+    a, b = convert.packed(atlas, cuda_device), convert.packed(bg, cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    runs = T.gather_runs(a, i)
+    with pytest.raises(ValueError):
+        kernels.composite_runs(s, b, runs, 4, 5)
+    with pytest.raises(ValueError):
+        kernels.composite_runs(s.cpu(), b, runs, 4, 4)
+    layers = a[:3].reshape(3, TILE_H, TILE_W)
+    with pytest.raises(ValueError):
+        kernels.composite_layers(b, layers)  # background of another size
+    with pytest.raises(ValueError):
+        kernels.composite_layers(b[:TILE_H, :TILE_W], layers.long())

@@ -1,6 +1,8 @@
 """The port runs without JAX: importing every module of coherence_tpu_torch
-and driving a small animated blur-filtered scene on the CPU loads no JAX
-module, and of the JAX package only its jax-free host modules.
+and driving a small animated blur-filtered scene with a brush stroke on the
+CPU (frames, the full-frame and run-contiguous renders, a zoom step and a
+dense layer stack) loads no JAX module, and of the JAX package only its
+jax-free host modules.
 
 The check runs in a fresh interpreter, since this test process has JAX
 loaded already (tests/conftest.py)."""
@@ -24,8 +26,8 @@ from coherence_tpu import transform as tr
 from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu_torch import colour as C
 from coherence_tpu_torch import kernels
-from coherence_tpu_torch.raster import convolve, fills, region
-from coherence_tpu_torch.scene import fastframe
+from coherence_tpu_torch.raster import brush, compositor, convolve, fills, region
+from coherence_tpu_torch.scene import examples, fastframe
 from coherence_tpu_torch.scene import render as R
 
 for m in pkgutil.walk_packages(coherence_tpu_torch.__path__, "coherence_tpu_torch."):
@@ -36,7 +38,8 @@ def obj(shape, col, t=()):
 
 W, H = 256, 128
 scene = [obj(R.rectangle(10.5, 8.0, 120.0, 90.0), C.dissolve(C.teal, delta=200)),
-         obj(R.PathShape(gshapes.circle(0.0, 0.0, 40.0)), C.gold, (tr.Translate(180.0, 60.0),))]
+         obj(R.PathShape(gshapes.circle(0.0, 0.0, 40.0)), C.gold, (tr.Translate(180.0, 60.0),)),
+         obj(R.BrushStroke((brush.mkround(6.0, 0.5), gshapes.circle(120.0, 64.0, 40.0))), C.darkorange)]
 blob = obj(R.PathShape(gshapes.circle(0.0, 0.0, 12.0)), C.dissolve(C.crimson, delta=170), (tr.Translate(40.0, 40.0),))
 view = fastframe.DeviceView(W, H, atlas_cap=64, device="cpu")
 view.set_scene(scene)
@@ -55,13 +58,27 @@ disp.step(region.box_union(prev, view.sprites[blob.idset].box))
 dirty_frame = view.frame.clone()
 view.render(full=True)
 out = disp.read()
+full_equals_dirty = bool(torch.equal(view.frame, dirty_frame))
+starts, idxs = view.ts.build_lists(view.order)
+runs_equal_full = bool(torch.equal(view.ts.render_runs(view.background, starts, idxs), view.frame))
+before_zoom = view.frame.clone()
+zoom = fastframe.zoom_transform(W / 2.0, H / 2.0, 2.0)
+view.prefetch_zoom_candidates(scene)
+view.reset_scene([R.transform_renderobject_many(zoom, o) for o in scene])
+view.render(full=True)
+stack = examples.hsr_layers(4, H, W, device="cpu")
+layered = compositor.composite_layers(view.background, stack)
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "coherence_tpu": sorted(m for m in sys.modules if m.startswith("coherence_tpu.")),
     "shape": list(out.shape),
     "in_range": bool(((out >= 0) & (out <= 255)).all()),
     "changed": bool((out != first).any()),
-    "full_equals_dirty": bool(torch.equal(view.frame, dirty_frame)),
+    "full_equals_dirty": full_equals_dirty,
+    "runs_equal_full": runs_equal_full,
+    "zoom_changed": bool(not torch.equal(view.frame, before_zoom)),
+    "zoom_cache": fastframe.scene_build_cache_stats(),
+    "layered_differs_from_background": bool(not torch.equal(layered, view.background)),
     "launches": dict(kernels.launches),
 }))
 """
@@ -96,8 +113,13 @@ def test_port_imports_only_jax_free_host_modules(report):
 def test_small_slice_runs_on_cpu(report):
     assert report["shape"] == [128, 256, 4]
     assert report["in_range"] and report["changed"] and report["full_equals_dirty"]
+    assert report["runs_equal_full"] and report["zoom_changed"]
+    # The prefetch built the 2x scene, so the zoom step restored it.
+    assert report["zoom_cache"]["hits"] == 1
+    assert report["layered_differs_from_background"]
     # CPU tensors take the plain versions: no kernel was launched.
-    assert report["launches"] == {"composite_dirty": 0, "composite_full": 0}
+    assert report["launches"] == {"composite_dirty": 0, "composite_full": 0, "composite_runs": 0,
+                                  "composite_layers": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -111,4 +133,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kernels.composite_full(ints[:2], ints, bg, z, 1, 1)
     with pytest.raises(ValueError):
         kernels.composite_dirty(ints, ints, ints, bg, bg.clone(), z, 8)
+    with pytest.raises(ValueError):
+        kernels.composite_runs(ints[:2], bg, z, 1, 1)
+    with pytest.raises(ValueError):
+        kernels.composite_layers(bg, z)
     assert kernels.launches == before

@@ -36,6 +36,8 @@ from coherence_tpu_torch.raster import region as TRG
 from coherence_tpu_torch.scene import examples as TE
 from coherence_tpu_torch.scene import fastframe as TF
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W, H = 512, 256
 BLOB_R = 20
 BLOB_AT = (32.0, 95.0)

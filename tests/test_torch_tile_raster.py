@@ -27,6 +27,8 @@ from coherence_tpu_torch.raster import fills as TFL
 from coherence_tpu_torch.raster import tile_raster as TTR
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
+
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_slice import jax_scene, port_scene
 
 W, H = 512, 256

@@ -22,6 +22,8 @@ from coherence_tpu_torch import convert
 from coherence_tpu_torch.raster import tiled_scene as T
 from coherence_tpu_torch.raster.compositor import TILE_H, TILE_W
 from coherence_tpu_torch.raster.region import translate_sprite
+
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_cuda import composite_case, dirty_case
 
 
