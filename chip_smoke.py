@@ -6,7 +6,7 @@ and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Three paths run, each with the launch counters zeroed just before it and
+Five paths run, each with the launch counters zeroed just before it and
 read just after:
 
   * the lion (bench.py) at 1920x1080: the lion's 132 paths rasterized into
@@ -22,7 +22,14 @@ read just after:
     the frame centre, through the scene-build cache), then a prefetch of
     both zoom directions and a 0.5x step;
   * the dense layer stack (benchmarks/run.py config 2): 100 rectangles at
-    1088x1920, composited over white by composite_layers.
+    1088x1920, composited over white by composite_layers;
+  * config 5 on a 2-band mesh (two cards where there are two; with one
+    card both bands share it): 200 filtered frames through the sharded
+    step_animated, a full render through render_sharded and a zoom step,
+    each against the unsharded view on the same card;
+  * the lion on a 17-band mesh (one tile row per band, so most bands are
+    idle every frame): a full render and 20 filtered frames against the
+    unsharded lion.
 
 Phases, one JSON line each:
 
@@ -43,7 +50,19 @@ Phases, one JSON line each:
      composite_full on config 5's full-frame lists, bit for bit, timed;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
-     for bit, timed.
+     for bit, timed;
+  8. mesh_4k: config 5 on 2 bands: the devices used, frame times of the
+     meshed and the unsharded view (same call), the display held bit for
+     bit at frame 3 and frame 200, no banded-atlas rebuild in the loop, the
+     banded atlas's build seconds and per-band bytes against the global
+     atlas, the zoom step against a fresh unsharded view;
+  9. mesh_kernels: composite_full_banded and composite_dirty_banded against
+     their plain versions on config 5's 2-band lists (the dirty case with
+     an idle band), bit for bit, timed beside the unbanded kernels;
+ 10. mesh_lion: the 17-band lion against the unsharded lion;
+ 11. play_animated: the lion's play_animated over 400 deltas against 400
+     step_animated calls, with its time per frame;
+ 12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}.  Any
 mismatch or exception ends the run with a nonzero exit code.
@@ -85,9 +104,9 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def build_scene(device):
-    """The bench.py scene on `device`, through the port's entry points.
-    Returns (view, display, blob_key)."""
+def build_scene(device, mesh=None):
+    """The bench.py scene on `device`, through the port's entry points,
+    split over `mesh` if one is given.  Returns (view, display, blob_key)."""
     from coherence_tpu_torch.raster import convolve
     from coherence_tpu_torch.scene import examples, fastframe
 
@@ -97,6 +116,8 @@ def build_scene(device):
     view.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, view.pw, view.ph, device)
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)
+    if mesh is not None:
+        view.use_mesh(mesh)
     f_alpha = fastframe.alpha_plane_of_object(f_geom, W, H, device)
     disp = fastframe.FilteredDisplay(view, f_alpha, convolve.mkgaussian(BLUR_RADIUS))
     disp.full_refresh()
@@ -107,9 +128,10 @@ def delta(k: int):
     return (7, 3) if (k // 200) % 2 == 0 else (-7, -3)
 
 
-def build_interactive(device):
+def build_interactive(device, mesh=None):
     """Config 5 on `device`, through the port's entry points, as run.py
-    builds it.  Returns (view, display, blob_key, objects)."""
+    builds it, split over `mesh` if one is given.  Returns (view, display,
+    blob_key, objects)."""
     from coherence_tpu_torch.raster import convolve
     from coherence_tpu_torch.scene import examples, fastframe
 
@@ -119,6 +141,8 @@ def build_interactive(device):
     view.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, view.pw, view.ph, device)
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)
+    if mesh is not None:
+        view.use_mesh(mesh)
     disp = fastframe.FilteredDisplay(view, fastframe.alpha_plane_of_object(f_geom, W4, H4, device),
                                      convolve.mkgaussian(BLUR4))
     disp.full_refresh()
@@ -471,6 +495,249 @@ def layers_path(torch, dev, kernels, scrub):
     return counts, (err, ms, plain_ms)
 
 
+def mesh_devices(torch, n: int):
+    """n distinct cards where there are as many, else n contiguous bands
+    over the cards there are (all on cuda:0 with one card)."""
+    count = torch.cuda.device_count()
+    if count >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return [f"cuda:{i * count // n}" for i in range(n)]
+
+
+def mesh_4k_path(torch, dev, kernels):
+    """Phase 8: config 5 under a 2-band mesh against the unsharded view on
+    the same card, counted from zero.  Returns (launch counts, the mesh,
+    the unsharded display, its blob key)."""
+    from coherence_tpu_torch.parallel import make_mesh
+    from coherence_tpu_torch.raster import tiled_scene as T
+    from coherence_tpu_torch.scene import fastframe
+
+    mesh = make_mesh(2, mesh_devices(torch, 2))
+    fastframe.scene_build_cache_clear()
+    zero_counts(torch, kernels)
+    t0 = time.perf_counter()
+    mview, mdisp, mkey, objs = build_interactive(dev, mesh)
+    torch.cuda.synchronize()
+    mesh_build_s = time.perf_counter() - t0
+    fastframe.scene_build_cache_clear()
+    uview, udisp, ukey, _ = build_interactive(dev)
+    require(torch.equal(mdisp.rgba.gather(dev), udisp.rgba), "4K meshed full refresh differs from the unsharded one")
+    mview.render(full=True)
+    uview.render(full=True)
+    torch.cuda.synchronize()
+    require(torch.equal(mview.content(dev), uview.frame), "4K render_sharded differs from render_full")
+
+    banded = mview.ts._banded
+    state = {"rebuilds": 0, "banded": banded, "bands_under_blob": set()}
+    snaps = {}
+    band_tiles = mview.ts.ntx * mview.ts.nty // mesh.size
+
+    def mframe(k):
+        mdisp.step_animated(mkey, *delta4(k))
+        if mview.ts._banded is not state["banded"]:
+            state["rebuilds"] += 1
+            state["banded"] = mview.ts._banded
+        state["bands_under_blob"].update(t // band_tiles for t, _ in mview.ts.pieces[mkey])
+        if k == 2:
+            snaps["m3"] = mdisp.rgba.gather(dev)
+
+    def uframe(k):
+        udisp.step_animated(ukey, *delta4(k))
+        if k == 2:
+            snaps["u3"] = udisp.rgba.clone()
+
+    m_ms, m_s = timed_frames(torch, mframe, N_FRAMES4)
+    u_ms, u_s = timed_frames(torch, uframe, N_FRAMES4)
+    require(torch.equal(snaps["m3"], snaps["u3"]), "4K meshed display after 3 frames differs from the unsharded one")
+    require(torch.equal(mdisp.rgba.gather(dev), udisp.rgba),
+            f"4K meshed display after {N_FRAMES4} frames differs from the unsharded one")
+    require(torch.equal(mview.content(dev), uview.frame), "4K meshed content differs from the unsharded one")
+    require(state["rebuilds"] == 0, f"the banded atlas was rebuilt {state['rebuilds']} times in the animated loop")
+    require(len(state["bands_under_blob"]) == mesh.size, "the blob never crossed the band border")
+    t0 = time.perf_counter()
+    T.BandedAtlas(mview.ts, mesh)
+    torch.cuda.synchronize()
+    banded_build_s = time.perf_counter() - t0
+    band_bytes = [d[b].numel() * 4 for d in banded.data for b in range(d.shape[0])]
+    global_bytes = mview.ts.atlas().numel() * 4
+
+    # One zoom step under the mesh against a fresh unsharded view.
+    cur = zoomed(objs, 2.0)
+    t0 = time.perf_counter()
+    mview.reset_scene(cur)
+    mview.render(full=True)
+    torch.cuda.synchronize()
+    zoom_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    fastframe.scene_build_cache_clear()
+    fresh = fastframe.DeviceView(W4, H4, atlas_cap=ATLAS_CAP4, device=dev)
+    fresh.set_scene(cur)
+    fresh.render(full=True)
+    torch.cuda.synchronize()
+    require(torch.equal(mview.content(dev), fresh.frame), "4K zoom step under the mesh differs from a fresh view")
+    require(counts["composite_full_banded"] >= 2, f"composite_full_banded launched {counts['composite_full_banded']}")
+    require(counts["composite_dirty_banded"] >= N_FRAMES4 + 1,
+            f"composite_dirty_banded launched {counts['composite_dirty_banded']}")
+    emit({"phase": "mesh_4k", "width": W4, "height": H4, "bands": mesh.size,
+          "devices": [str(d) for d in mesh.devices], "cards": torch.cuda.device_count(),
+          "build_s": mesh_build_s, "banded_build_s": banded_build_s, "local_cap": banded.local_cap,
+          "band_atlas_bytes": band_bytes, "global_atlas_bytes": global_bytes,
+          "meshed": frame_stats(m_ms), "meshed_host_ms_per_frame": m_s / N_FRAMES4 * 1e3,
+          "unsharded": frame_stats(u_ms), "unsharded_host_ms_per_frame": u_s / N_FRAMES4 * 1e3,
+          "frames": N_FRAMES4, "banded_rebuilds": state["rebuilds"],
+          "bands_under_blob_in_loop": sorted(state["bands_under_blob"]),
+          "zoom_step_s": zoom_s, "launches": counts, "display_equal_at_frames": [3, N_FRAMES4],
+          "render_sharded_equal_full": True, "zoom_equal_fresh": True})
+    return counts, mesh, udisp, ukey
+
+
+def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
+    """Phase 9: composite_full_banded and composite_dirty_banded against
+    their plain versions on config 5's 2-band lists (the 1x scene of phase
+    8's unsharded view, blob moved), timed beside the unbanded kernels on
+    the same frame.  Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    from coherence_tpu_torch.parallel import RowSharded
+    from coherence_tpu_torch.raster import tiled_scene as T
+
+    view = udisp.view
+    ts = view.ts
+    band_ty = ts.nty // mesh.size
+    rows = band_ty * 64
+    banded = T._banded_of(ts, mesh)
+    bg = RowSharded.scatter(view.background, mesh, rows)
+    starts, idxs = T.sharded_lists(ts, view.order, banded)
+    g_starts, g_idxs = ts.build_lists(view.order)
+    # The dirty tiles of the next animated step, those of its first band
+    # only, so that another band is idle.
+    coords, _, _, n_listed = udisp.stage_animated(ukey, *delta4(0))[4]
+    tiles = {int(coords[2 * j]) * ts.ntx + int(coords[2 * j + 1]) for j in range(n_listed)}
+    first = min(tiles) // (band_ty * ts.ntx)
+    tiles = {t for t in tiles if t // (band_ty * ts.ntx) == first}
+    c, sp, di, n_slots = T.sharded_dirty_lists(ts, view.order, tiles, banded)
+    idle = [d for d in range(mesh.size) if (sp[d] == -1).all()]
+    require(idle, f"no idle band in the dirty case (tiles {sorted(tiles)})")
+    noise = torch.randint(-(2**31), 2**31 - 1, (ts.nty * 64, ts.ntx * 128), dtype=torch.int32,
+                          generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    full_err = dirty_err = 0
+    timed_args = None
+    for g, (dv, b0, b1) in enumerate(mesh.groups):
+        s, i, cc, ss, ii = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs, c, sp, di))
+        atlas = banded.data[g]
+        k = T.composite_full_banded(s, i, bg.parts[g], atlas, band_ty, ts.ntx)
+        p = T.composite_full_banded_torch(s, i, bg.parts[g], atlas, band_ty, ts.ntx)
+        before = noise[b0 * rows : b1 * rows].to(dv, copy=True)
+        fk, fp = before.clone(), before.clone()
+        T.composite_dirty_banded(cc, ss, ii, bg.parts[g], fk, atlas, n_slots)
+        T.composite_dirty_banded_torch(cc, ss, ii, bg.parts[g], fp, atlas, n_slots)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), "composite_full_banded differs from composite_full_banded_torch")
+        require(torch.equal(k, T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx)[
+            b0 * rows : b1 * rows].to(dv)), "composite_full_banded differs from composite_full")
+        require(torch.equal(fk, fp), "composite_dirty_banded differs from composite_dirty_banded_torch")
+        for d in idle:
+            if b0 <= d < b1:
+                r = slice((d - b0) * rows, (d - b0 + 1) * rows)
+                require(torch.equal(fk[r], before[r]), "composite_dirty_banded changed an idle band")
+        full_err, dirty_err = max(full_err, max_abs_err(k, p)), max(dirty_err, max_abs_err(fk, fp))
+        if b0 <= first < b1:
+            timed_args = (g, dv, s, i, cc, ss, ii, bg.parts[g], atlas, fk, fp)
+    # Times on the stack of the device holding the dirty band (the whole
+    # frame with one card), with that device's events and its L2 scrubbed.
+    g, dv, s, i, cc, ss, ii, gbg, atlas, fk, fp = timed_args
+    dscrub = scrub if scrub.device == dv else torch.empty_like(scrub, device=dv)
+    with torch.cuda.device(dv):
+        full_ms = event_ms(torch, lambda: T.composite_full_banded(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
+        full_plain_ms = event_ms(
+            torch, lambda: T.composite_full_banded_torch(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
+        dirty_ms = event_ms(torch, lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub)
+        dirty_plain_ms = event_ms(
+            torch, lambda: T.composite_dirty_banded_torch(cc, ss, ii, gbg, fp, atlas, n_slots), dscrub)
+    del dscrub
+    unbanded_full_ms = event_ms(
+        torch, lambda: T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub)
+    gc, gs, gi, g_slots = ts._dirty_args(view.order, tiles)
+    gargs = ts.upload(gc, gs, gi)
+    gframe = noise.clone()
+    unbanded_dirty_ms = event_ms(
+        torch, lambda: T.composite_dirty(*gargs, view.background, gframe, ts.atlas(), g_slots), scrub)
+    emit({"phase": "mesh_kernels", "tolerance": 0, "bands": mesh.size, "devices": [str(d) for d in mesh.devices],
+          "timed_device": str(dv), "timed_stack_bands": mesh.groups[g][2] - mesh.groups[g][1],
+          "composite_full_banded": {"equal_plain": True, "equal_composite_full": True,
+                                    "band_tiles": band_ty * ts.ntx, "listed_pieces": int(starts[:, -1].sum()),
+                                    "local_cap": banded.local_cap, "global_slots": int(ts.atlas().shape[0]),
+                                    "ms": full_ms, "plain_ms": full_plain_ms,
+                                    "unbanded_composite_full_ms": unbanded_full_ms},
+          "composite_dirty_banded": {"equal_plain": True, "slots": n_slots, "dirty_tiles": len(tiles),
+                                     "idle_bands": idle, "ms": dirty_ms, "plain_ms": dirty_plain_ms,
+                                     "unbanded_composite_dirty_ms": unbanded_dirty_ms}})
+    return {"composite_full_banded": (full_err, full_ms, full_plain_ms),
+            "composite_dirty_banded": (dirty_err, dirty_ms, dirty_plain_ms)}
+
+
+def mesh_lion_path(torch, dev, kernels):
+    """Phase 10: the lion on 17 bands (one tile row each), a full render
+    and N_CHECK filtered frames against the unsharded lion, counted from
+    zero.  Returns the launch counts."""
+    from coherence_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(17, mesh_devices(torch, 17))
+    zero_counts(torch, kernels)
+    mview, mdisp, mkey = build_scene(dev, mesh)
+    uview, udisp, ukey = build_scene(dev)
+    require(torch.equal(mdisp.rgba.gather(dev), udisp.rgba), "17-band lion full refresh differs")
+    mview.render(full=True)
+    uview.render(full=True)
+    require(torch.equal(mview.content(dev), uview.frame), "17-band lion render_sharded differs from render_full")
+    for k in range(N_CHECK):
+        mdisp.step_animated(mkey, *delta(k))
+        udisp.step_animated(ukey, *delta(k))
+    torch.cuda.synchronize()
+    require(torch.equal(mdisp.rgba.gather(dev), udisp.rgba), f"17-band lion display after {N_CHECK} frames differs")
+    require(torch.equal(mview.content(dev), uview.frame), f"17-band lion content after {N_CHECK} frames differs")
+    counts = dict(kernels.launches)
+    require(counts["composite_dirty_banded"] >= N_CHECK + 1,
+            f"composite_dirty_banded launched {counts['composite_dirty_banded']} times on the 17-band lion")
+    require(counts["composite_full_banded"] >= 1,
+            f"composite_full_banded launched {counts['composite_full_banded']} times on the 17-band lion")
+    band_rows = {t // mview.ts.ntx for t, _ in mview.ts.pieces[mkey]}
+    emit({"phase": "mesh_lion", "width": W, "height": H, "bands": mesh.size, "devices": sorted({str(d) for d in
+                                                                                          mesh.devices}),
+          "frames": N_CHECK, "display_equal": True, "full_render_equal": True,
+          "bands_under_the_blob_at_end": sorted(band_rows), "launches": counts})
+    return counts
+
+
+def play_path(torch, dev):
+    """Phase 11: the lion's play_animated over N_FRAMES deltas (staged on
+    the host first, then launched back to back) against N_FRAMES
+    step_animated calls on a second view, in turns (steps, play, play,
+    steps; the deltas return the blob to its start), each timed."""
+    deltas = [delta(k) for k in range(N_FRAMES)]
+    pview, pdisp, pkey = build_scene(dev)
+    sview, sdisp, skey = build_scene(dev)
+
+    def steps():
+        for d in deltas:
+            sdisp.step_animated(skey, *d)
+
+    def play():
+        pdisp.play_animated(pkey, deltas, require_scan=True)
+
+    times = {"play": [], "steps": []}
+    for name, fn in (("steps", steps), ("play", play), ("play", play), ("steps", steps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / N_FRAMES * 1e3)
+        if len(times["play"]) == len(times["steps"]):
+            require(torch.equal(pdisp.rgba, sdisp.rgba), f"play_animated differs from {N_FRAMES} step_animated calls")
+            require(torch.equal(pview.frame, sview.frame), "play_animated content differs from step_animated's")
+    emit({"phase": "play_animated", "frames": N_FRAMES, "require_scan": True, "equal_sequential": True,
+          "order": "steps, play, play, steps", "ms_per_frame": times["play"],
+          "sequential_ms_per_frame": times["steps"]})
+
+
 def main() -> int:
     import torch
 
@@ -505,6 +772,16 @@ def main() -> int:
     lion = lion_path(torch, dev, kernels)
     counts4, timed["composite_runs"] = interactive_path(torch, dev, kernels, scrub)
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
+    counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
+    timed.update(mesh_kernels(torch, dev, scrub, mesh, udisp, ukey))
+    del udisp
+    counts_lion17 = mesh_lion_path(torch, dev, kernels)
+    play_path(torch, dev)
+    from coherence_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, mesh_devices(torch, 2))
+    emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
 
     require("jax" not in sys.modules, "jax was imported")
     rows = [
@@ -513,6 +790,8 @@ def main() -> int:
         ("composite_runs", CSRC + "composite_runs.cu", "coherence_tpu/raster/tiled_scene.py:245", counts4),
         ("composite_layers", CSRC + "composite_layers.cu", "coherence_tpu/raster/pallas_compositor.py:101",
          counts_hsr),
+        ("composite_full_banded", CSRC + "banded.cu", "coherence_tpu/raster/tiled_scene.py:1358", counts_mesh),
+        ("composite_dirty_banded", CSRC + "banded.cu", "coherence_tpu/raster/tiled_scene.py:1516", counts_mesh),
     ]
     line = []
     for kname, source, replaces, counts in rows:
@@ -521,6 +800,10 @@ def main() -> int:
                      "launches": counts[kname], "launches_4k": counts4[kname], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms})
     line[1]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:143"
+    line[4]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:1385"
+    for row in line[4:]:
+        row["launches_4k"] = counts_mesh[row["name"]]
+        row["launches_lion_17_bands"] = counts_lion17[row["name"]]
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

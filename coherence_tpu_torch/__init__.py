@@ -7,7 +7,8 @@ Pallas TPU kernel on the ported path is a hand-written Hopper kernel under
 ``kernels/``, with a plain PyTorch version beside it that CPU tensors use.
 
 Ported so far, the animated blur-filtered tiled frame path, with brush
-strokes, zoom and the dense layer-stack compositor:
+strokes, zoom, the dense layer-stack compositor and the banded multi-device
+path:
   colour                         — packed colours and exact tensor compositing
   raster/compositor              — packed-pixel format, `over`, layer stacks
   raster/region, fills           — boxes, sprites, box dilation, plain fills
@@ -18,7 +19,10 @@ strokes, zoom and the dense layer-stack compositor:
   raster/convolve, framepath     — exact integer blur and the filter blend
   scene/render, pdfscene, examples — scene model, PDF scenes, benchmark scenes
   scene/fastframe                — scene build and its cache, DeviceView
-                                   (zoom, prefetch), FilteredDisplay
+                                   (zoom, prefetch, use_mesh), FilteredDisplay
+                                   (play_animated)
+  parallel/mesh, dryrun          — row-band meshes of one process, halo
+                                   exchange, the multi-band dry run
   kernels/                       — CUDA build, binding, launch counters
   convert                        — JAX-side state (as numpy) -> port objects
 

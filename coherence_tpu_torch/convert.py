@@ -19,8 +19,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .parallel.mesh import Mesh
 from .raster.region import Sprite
-from .raster.tiled_scene import TiledScene
+from .raster.tiled_scene import BandedAtlas, TiledScene
 from .scene.fastframe import DeviceView, FilteredDisplay
 
 
@@ -94,3 +95,19 @@ def filtered_display(view: DeviceView, *, f_alpha: np.ndarray, display: np.ndarr
     disp = FilteredDisplay(view, plane(f_alpha, view.device), kernel)
     disp.rgba = plane(display, view.device)
     return disp
+
+
+def banded_atlas(mesh: Mesh, *, data: np.ndarray, g2l: List[Dict[int, int]],
+                 reserved_local: Dict[object, int], local_cap: int, version: int) -> BandedAtlas:
+    """A BandedAtlas holding a JAX BandedAtlas's state: data (n_bands,
+    local_cap, 64, 128) uint32, each band's global-to-local slot map, the
+    reserved blocks' local offsets, local_cap and the PieceMap version it
+    matches.  Installed as a TiledScene's ``_banded`` with the same piece
+    lists, both sides run from one banded state."""
+    stack = packed(data, "cpu")
+    if tuple(stack.shape) != (mesh.size, int(local_cap), 64, 128):
+        raise ValueError(f"banded data of shape {tuple(stack.shape)} does not fit {mesh} at local_cap {local_cap}")
+    return BandedAtlas.from_state(
+        mesh, [stack[b0:b1].to(dev) for dev, b0, b1 in mesh.groups],
+        [{int(g): int(l) for g, l in m.items()} for m in g2l], dict(reserved_local), int(local_cap), int(version),
+    )

@@ -43,6 +43,8 @@ _ENTRY_POINTS = {
     "composite_full": [_ptr] * 5 + [_i32] * 2 + [_ptr],
     "composite_runs": [_ptr] * 4 + [_i32] * 2 + [_ptr],
     "composite_layers": [_ptr] * 3 + [_i32] * 3 + [_ptr],
+    "composite_full_banded": [_ptr] * 5 + [_i32] * 5 + [_ptr],
+    "composite_dirty_banded": [_ptr] * 6 + [_i32] * 6 + [_ptr],
 }
 
 launches = {name: 0 for name in _ENTRY_POINTS}
@@ -202,3 +204,60 @@ def composite_layers(background, layers) -> torch.Tensor:
     _raise_on("composite_layers", rc)
     launches["composite_layers"] += 1
     return out
+
+
+def _check_banded(background, atlas):
+    """(device, n_bands, band_rows, pw) of a device's band stack."""
+    device = atlas.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA compositor needs tensors on a CUDA device, got {device}")
+    if atlas.dim() != 4 or tuple(atlas.shape[2:]) != (64, 128):
+        raise ValueError(f"atlas: need an (n_bands, local_cap, 64, 128) stack, got shape {tuple(atlas.shape)}")
+    _check("atlas", atlas, device)
+    _check("background", background, device)
+    n_bands = atlas.shape[0]
+    ph, pw = background.shape
+    if ph % (64 * n_bands) or pw % 128:
+        raise ValueError(f"background {ph}x{pw} is not {n_bands} tile-aligned bands")
+    return device, n_bands, ph // n_bands, pw
+
+
+def composite_full_banded(starts, idxs, background, atlas, band_ty: int, ntx: int) -> torch.Tensor:
+    """Launch ``composite_full_banded``: block (t, b) composites tile t of
+    band b of the stack from starts[b], idxs[b] and atlas[b], one launch
+    for every band, into new rows."""
+    device, n_bands, band_rows, pw = _check_banded(background, atlas)
+    if (band_rows, pw) != (band_ty * 64, ntx * 128):
+        raise ValueError(f"band {band_rows}x{pw} does not match the {band_ty}x{ntx} tile grid")
+    _check("starts", starts, device, (n_bands, band_ty * ntx + 1))
+    _check("idxs", idxs, device, (n_bands, idxs.shape[1]))
+    out = torch.empty_like(background)
+    with torch.cuda.device(device):  # a mesh's bands may sit on other cards than the current one
+        rc = load()["composite_full_banded"](
+            starts.data_ptr(), idxs.data_ptr(), background.data_ptr(), out.data_ptr(), atlas.data_ptr(),
+            n_bands, band_ty * ntx, ntx, idxs.shape[1], atlas.shape[1],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("composite_full_banded", rc)
+    launches["composite_full_banded"] += 1
+    return out
+
+
+def composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
+    """Launch ``composite_dirty_banded``: block (s, b) recomposites slot s
+    of band b (band-local tile coordinates) in place in `frame`, one launch
+    for every band."""
+    device, n_bands, _, pw = _check_banded(background, atlas)
+    _check("coords", coords, device, (n_bands, 2 * n_slots))
+    _check("spans", spans, device, (n_bands, 2 * n_slots))
+    _check("idxs", idxs, device, (n_bands, idxs.shape[1]))
+    _check("frame", frame, device, tuple(background.shape))
+    with torch.cuda.device(device):
+        rc = load()["composite_dirty_banded"](
+            coords.data_ptr(), spans.data_ptr(), idxs.data_ptr(), background.data_ptr(), frame.data_ptr(),
+            atlas.data_ptr(), n_bands, n_slots, pw, background.shape[0] // n_bands, idxs.shape[1],
+            atlas.shape[1], torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("composite_dirty_banded", rc)
+    launches["composite_dirty_banded"] += 1
+    return frame

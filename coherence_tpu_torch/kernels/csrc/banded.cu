@@ -1,0 +1,97 @@
+// Banded tile compositors for Hopper (sm_90a): the composition of
+// tile_composite.cu for every row band one device holds under a mesh, each
+// band from its own local atlas, in one launch per device.
+//
+// Replace the Pallas calls that coherence_tpu/raster/tiled_scene.py makes
+// per band under shard_map:
+//   composite_full_banded  <- render_sharded.band_render (:1354), whose two
+//                             pallas_calls (:1358 _kernel_atlas_row, :1385
+//                             _kernel) compute one function
+//   composite_dirty_banded <- render_dirty_sharded.band_dirty (:1509), its
+//                             pallas_call of _kernel_subset (:1516)
+// shard_map runs one program per device over its band; here one launch per
+// device covers all of its bands, with the band as the grid's y index.
+//
+// Band-strided stacks, for the n_bands bands of one device:
+//   starts  (n_bands, band_tiles + 1)      idxs (n_bands, idx_stride)
+//   coords, spans (n_bands, 2 * n_slots)   atlas (n_bands, local_cap, 64, 128)
+//   bg, out / frame: the bands' rows, (n_bands * band_rows, pw), band b
+//   starting at row b * band_rows.
+// Tile coordinates and atlas slots in the lists are band-local.
+//
+// What bounds it: HBM bytes, as for composite_full and composite_dirty: per
+// tile the block reads 4 B/px for every listed piece until the tile turns
+// opaque, plus the background tile, and writes the tile once.  This keeps
+// their simple design (tile_math.cuh composite_tile): one 256-thread block
+// per tile, 32 pixels per thread in registers, coalesced 16-byte loads, a
+// block vote after each piece for the early stop, nothing shared between
+// blocks.  A slot whose span starts below 0 leaves its tile as it is (an
+// idle band's slots all do); padding slots repeat a band's last real slot,
+// which is safe because a compositing slot never reads the frame.
+
+#include "tile_math.cuh"
+
+namespace {
+
+using namespace tile;
+
+__global__ void __launch_bounds__(kThreads)
+composite_full_banded_kernel(const int* __restrict__ starts, const int* __restrict__ idxs,
+                             const uint32_t* __restrict__ bg, uint32_t* __restrict__ out,
+                             const uint32_t* __restrict__ atlas, int band_tiles, int ntx,
+                             int idx_stride, long atlas_stride) {
+  int t = blockIdx.x;
+  int b = blockIdx.y;
+  long pw = static_cast<long>(ntx) * kTileW;
+  const int* s = starts + static_cast<long>(b) * (band_tiles + 1);
+  long off = (static_cast<long>(b) * (band_tiles / ntx) + t / ntx) * kTileH * pw +
+             static_cast<long>(t % ntx) * kTileW;
+  composite_tile(idxs + static_cast<long>(b) * idx_stride, s[t], s[t + 1],
+                 atlas + b * atlas_stride, bg + off, out + off, pw);
+}
+
+__global__ void __launch_bounds__(kThreads)
+composite_dirty_banded_kernel(const int* __restrict__ coords, const int* __restrict__ spans,
+                              const int* __restrict__ idxs, const uint32_t* __restrict__ bg,
+                              uint32_t* __restrict__ frame, const uint32_t* __restrict__ atlas,
+                              int n_slots, int pw, int band_rows, int idx_stride,
+                              long atlas_stride) {
+  int s = blockIdx.x;
+  int b = blockIdx.y;
+  const int* sp = spans + static_cast<long>(b) * 2 * n_slots;
+  int lo = sp[2 * s];
+  if (lo < 0) return;  // passthrough slot: the tile stays as it is
+  const int* c = coords + static_cast<long>(b) * 2 * n_slots;
+  long off = (static_cast<long>(b) * band_rows + static_cast<long>(c[2 * s]) * kTileH) * pw +
+             static_cast<long>(c[2 * s + 1]) * kTileW;
+  composite_tile(idxs + static_cast<long>(b) * idx_stride, lo, sp[2 * s + 1],
+                 atlas + b * atlas_stride, bg + off, frame + off, pw);
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError().
+extern "C" int composite_full_banded(const void* starts, const void* idxs, const void* bg, void* out,
+                                     const void* atlas, int n_bands, int band_tiles, int ntx,
+                                     int idx_stride, int local_cap, void* stream) {
+  dim3 grid(band_tiles, n_bands);
+  composite_full_banded_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(idxs),
+      static_cast<const uint32_t*>(bg), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(atlas), band_tiles, ntx, idx_stride,
+      static_cast<long>(local_cap) * kTileH * kTileW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int composite_dirty_banded(const void* coords, const void* spans, const void* idxs,
+                                      const void* bg, void* frame, const void* atlas, int n_bands,
+                                      int n_slots, int pw, int band_rows, int idx_stride,
+                                      int local_cap, void* stream) {
+  dim3 grid(n_slots, n_bands);
+  composite_dirty_banded_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(coords), static_cast<const int*>(spans),
+      static_cast<const int*>(idxs), static_cast<const uint32_t*>(bg),
+      static_cast<uint32_t*>(frame), static_cast<const uint32_t*>(atlas), n_slots, pw, band_rows,
+      idx_stride, static_cast<long>(local_cap) * kTileH * kTileW);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -10,7 +10,8 @@
 // (prelerp(l, q, 255) == q for every byte l), so stopping early never
 // changes the output and one entry point serves both.
 //
-// The packed-pixel math and the tile layout are in tile_math.cuh.
+// The packed-pixel math, the tile layout and the per-tile walk
+// (composite_tile) are in tile_math.cuh.
 //
 // What bounds it: HBM bytes.  Per tile the kernel reads 4 B/px for every
 // listed piece, plus the background tile, and writes the frame tile once;
@@ -37,35 +38,6 @@
 namespace {
 
 using namespace tile;
-
-// Composite idxs[lo:hi] front to back over the background tile `bg` into
-// `out`; both point at the tile's top-left pixel, rows `pitch` words apart.
-__device__ __forceinline__ void composite_tile(const int* __restrict__ idxs, int lo, int hi,
-                                               const uint32_t* __restrict__ atlas,
-                                               const uint32_t* __restrict__ bg,
-                                               uint32_t* __restrict__ out, long pitch) {
-  uint4 acc[kVecPerThread];
-#pragma unroll
-  for (int j = 0; j < kVecPerThread; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int k = lo; k < hi; ++k) {
-    const uint4* piece =
-        reinterpret_cast<const uint4*>(atlas + static_cast<long>(idxs[k]) * (kTileH * kTileW));
-    bool open = false;
-#pragma unroll
-    for (int j = 0; j < kVecPerThread; ++j) {
-      uint4 l = __ldg(piece + threadIdx.x + j * kThreads);
-      acc[j].x = over_packed(acc[j].x, l.x);
-      acc[j].y = over_packed(acc[j].y, l.y);
-      acc[j].z = over_packed(acc[j].z, l.z);
-      acc[j].w = over_packed(acc[j].w, l.w);
-      open |= any_open4(acc[j]);
-    }
-    if (!__syncthreads_or(open)) break;
-  }
-
-  finish_tile(acc, bg, out, pitch);
-}
 
 __global__ void __launch_bounds__(kThreads)
 composite_dirty_kernel(const int* __restrict__ coords, const int* __restrict__ spans,

@@ -82,4 +82,36 @@ __device__ __forceinline__ void finish_tile(const uint4 (&acc)[kVecPerThread],
   }
 }
 
+// Composite idxs[lo:hi] of `atlas` front to back over the background tile
+// `bg` into `out`; both point at the tile's top-left pixel, rows `pitch`
+// words apart.  After each piece the block votes and stops once every pixel
+// is opaque (an early stop never changes the output: `over` onto an opaque
+// pixel is the identity).  Every thread of the block must call it.
+__device__ __forceinline__ void composite_tile(const int* __restrict__ idxs, int lo, int hi,
+                                               const uint32_t* __restrict__ atlas,
+                                               const uint32_t* __restrict__ bg,
+                                               uint32_t* __restrict__ out, long pitch) {
+  uint4 acc[kVecPerThread];
+#pragma unroll
+  for (int j = 0; j < kVecPerThread; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int k = lo; k < hi; ++k) {
+    const uint4* piece =
+        reinterpret_cast<const uint4*>(atlas + static_cast<long>(idxs[k]) * (kTileH * kTileW));
+    bool open = false;
+#pragma unroll
+    for (int j = 0; j < kVecPerThread; ++j) {
+      uint4 l = __ldg(piece + threadIdx.x + j * kThreads);
+      acc[j].x = over_packed(acc[j].x, l.x);
+      acc[j].y = over_packed(acc[j].y, l.y);
+      acc[j].z = over_packed(acc[j].z, l.z);
+      acc[j].w = over_packed(acc[j].w, l.w);
+      open |= any_open4(acc[j]);
+    }
+    if (!__syncthreads_or(open)) break;
+  }
+
+  finish_tile(acc, bg, out, pitch);
+}
+
 }  // namespace tile

@@ -13,7 +13,11 @@ with box arithmetic, and one kernel launch composites the listed pieces:
     because ``over`` onto an opaque accumulator is the identity);
   * ``composite_runs`` over every tile into a fresh frame, from the listed
     pieces gathered tile-major into contiguous runs (``gather_runs``;
-    replaces ``_kernel_runs_row``).
+    replaces ``_kernel_runs_row``);
+  * ``composite_full_banded`` and ``composite_dirty_banded``, the same two
+    compositions for every row band a device holds under a mesh, each band
+    from its own local atlas (``BandedAtlas``; they replace the Pallas calls
+    of ``render_sharded`` and ``render_dirty_sharded``).
 
 Each wrapper picks by the tensors' device: on the CPU it runs the plain
 PyTorch version beside it here; on a CUDA device it launches the hand
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..parallel.mesh import Mesh, RowSharded
 from .compositor import TILE_H, TILE_W, _over_packed, pack_rgba
 from .region import Sprite
 
@@ -130,18 +135,64 @@ def composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots: int)
     return kernels.composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots)
 
 
+def composite_full_banded_torch(starts, idxs, background, atlas, band_ty: int, ntx: int) -> torch.Tensor:
+    """Plain version of ``composite_full_banded``: for each band b of the
+    stack, composite_full_torch of its lists starts[b], idxs[b] over its
+    rows of the background, from its local atlas atlas[b]."""
+    band_h = band_ty * TILE_H
+    out = torch.empty_like(background)
+    for b in range(atlas.shape[0]):
+        rows = slice(b * band_h, (b + 1) * band_h)
+        out[rows] = composite_full_torch(starts[b], idxs[b], background[rows], atlas[b], band_ty, ntx)
+    return out
+
+
+def composite_dirty_banded_torch(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
+    """Plain version of ``composite_dirty_banded``: for each band b of the
+    stack, composite_dirty_torch of its slots coords[b], spans[b], idxs[b]
+    (band-local tile coordinates), in place in its rows of `frame`."""
+    band_h = frame.shape[0] // atlas.shape[0]
+    for b in range(atlas.shape[0]):
+        rows = slice(b * band_h, (b + 1) * band_h)
+        composite_dirty_torch(coords[b], spans[b], idxs[b], background[rows], frame[rows], atlas[b], n_slots)
+    return frame
+
+
+def composite_full_banded(starts, idxs, background, atlas, band_ty: int, ntx: int) -> torch.Tensor:
+    """Every listed piece of every band of a device's stack over its
+    background rows, into new rows: (n_bands, band_ty * ntx + 1) starts,
+    (n_bands, k) band-local idxs, (n_bands, local_cap, TILE_H, TILE_W)
+    local atlases, background (n_bands * band_ty * TILE_H, ntx * TILE_W)."""
+    if atlas.device.type == "cpu":
+        return composite_full_banded_torch(starts, idxs, background, atlas, band_ty, ntx)
+    return kernels.composite_full_banded(starts, idxs, background, atlas, band_ty, ntx)
+
+
+def composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
+    """Every band's listed dirty tiles of a device's stack recomposited in
+    place in `frame` (its bands' rows): (n_bands, 2 * n_slots) coords and
+    spans, (n_bands, k) band-local idxs, (n_bands, local_cap, TILE_H,
+    TILE_W) local atlases."""
+    if atlas.device.type == "cpu":
+        return composite_dirty_banded_torch(coords, spans, idxs, background, frame, atlas, n_slots)
+    return kernels.composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slots)
+
+
 def shatter_into(atlas: torch.Tensor, rgba: torch.Tensor, oys, oxs, base: int) -> torch.Tensor:
-    """Pack `rgba` and shatter it into len(oys) pieces written in place at
-    atlas slots [base, base + n): piece[r, c] = packed[r + oy, c + ox],
-    zero outside the raster."""
+    """Pack `rgba` and shatter it into pieces written in place at atlas
+    slots [base, base + n): piece[j][r, c] = packed[r + oys[j], c + oxs[j]],
+    zero outside the raster.  (n,) offsets write into a (cap, TILE_H,
+    TILE_W) atlas; (n_bands, n) offsets into a stack of band atlases
+    (n_bands, cap, TILE_H, TILE_W), band b from row b of the offsets.
+    Offsets may be host arrays or tensors on the atlas's device."""
     packed = pack_rgba(rgba)
     hs, ws = packed.shape
     dev = atlas.device
-    iy = torch.arange(TILE_H, device=dev)[None, :] + torch.as_tensor(np.asarray(oys), device=dev)[:, None]
-    ix = torch.arange(TILE_W, device=dev)[None, :] + torch.as_tensor(np.asarray(oxs), device=dev)[:, None]
-    valid = ((iy >= 0) & (iy < hs))[:, :, None] & ((ix >= 0) & (ix < ws))[:, None, :]
-    g = packed[iy.clamp(0, hs - 1)[:, :, None], ix.clamp(0, ws - 1)[:, None, :]]
-    atlas[base : base + len(oys)] = torch.where(valid, g, 0)
+    iy = torch.arange(TILE_H, device=dev) + torch.as_tensor(oys, device=dev)[..., None]
+    ix = torch.arange(TILE_W, device=dev) + torch.as_tensor(oxs, device=dev)[..., None]
+    valid = ((iy >= 0) & (iy < hs))[..., :, None] & ((ix >= 0) & (ix < ws))[..., None, :]
+    g = packed[iy.clamp(0, hs - 1)[..., :, None], ix.clamp(0, ws - 1)[..., None, :]]
+    atlas[..., base : base + iy.shape[-2], :, :] = torch.where(valid, g, 0)
     return atlas
 
 
@@ -154,8 +205,10 @@ class PieceMap(dict):
     def __init__(self):
         super().__init__()
         self.by_tile: Dict[int, Dict[object, List[int]]] = {}
+        self.version = 0  # bumps on every assignment (the banded atlas's cache key)
 
     def __setitem__(self, key, entries):
+        self.version += 1
         for tile, _ in super().get(key) or ():
             d = self.by_tile.get(tile)
             if d is not None:
@@ -212,6 +265,8 @@ class TiledScene:
         # animated objects: key -> (slot base, capacity)
         self._reserved: Dict[object, Tuple[int, int]] = {}
         self._order_cache: Optional[Tuple[object, int, Dict[object, int]]] = None
+        # The per-band atlas of the last mesh render (_banded_of).
+        self._banded: Optional[BandedAtlas] = None
 
     def reset(self) -> None:
         """Clear the scene and keep the atlas's capacity: the slots re-zero
@@ -225,6 +280,9 @@ class TiledScene:
         self.pieces = PieceMap()
         self._reserved = {}
         self._order_cache = None
+        # The fresh PieceMap's version restarts at 0, so a cached banded
+        # atlas could match a new scene's version: drop it.
+        self._banded = None
 
     def _ensure(self, k: int) -> None:
         """Spare capacity for `k` more pieces; new slots are zero."""
@@ -476,3 +534,225 @@ class TiledScene:
     def upload(self, *arrays) -> List[torch.Tensor]:
         """Host int32 arrays as tensors on the scene's device."""
         return [torch.from_numpy(a).to(self.device) for a in arrays]
+
+
+class BandedAtlas:
+    """The atlas split by row bands for a mesh: band d's local atlas holds
+    only the pieces whose tiles fall in band d, plus every reserved
+    (animated) block, so a device holds about 1/n of the global atlas
+    instead of a copy.
+
+    The layout is the JAX package's, slot for slot: the reserved blocks
+    first, at the same local offsets on every band (an animated object
+    roams across bands, and one base addresses it on all of them), then the
+    band's static pieces in global slot order.  Unused local slots hold a
+    copy of global slot 0, as the reference's gather of a zero-filled index
+    leaves them.  local_cap is a power of two, at least 8.  ``g2l[d]`` maps
+    the global entries band d references to its local slots.
+
+    ``data[g]`` is the stack (bands of mesh.groups[g], local_cap, TILE_H,
+    TILE_W) int32 on that group's device.  The global atlas stays the
+    source of truth; ``version`` is the PieceMap version it was built from
+    or last brought up to date with (update_inplace)."""
+
+    def __init__(self, ts: "TiledScene", mesh: Mesh):
+        n = mesh.size
+        if ts.nty % n:
+            raise ValueError(f"{ts.nty} tile rows do not divide into {n} bands")
+        band_tiles = ts.ntx * (ts.nty // n)
+        res = sorted(ts._reserved.items(), key=lambda kv: kv[1][0])
+        reserved_local: Dict[object, int] = {}
+        res_g2l: Dict[int, int] = {}
+        off = 0
+        for key, (base, cap) in res:
+            reserved_local[key] = off
+            for j in range(cap):
+                res_g2l[base + j] = off + j
+            off += cap
+        n_res = off
+        statics = []
+        for d in range(n):
+            seen = set()
+            for t in range(d * band_tiles, (d + 1) * band_tiles):
+                for es in ts.pieces.by_tile.get(t, {}).values():
+                    seen.update(e for e in es if e not in res_g2l)
+            statics.append(sorted(seen))
+        local_cap = 8
+        while local_cap < n_res + max(len(s) for s in statics):
+            local_cap *= 2
+        gidx = np.zeros((n, local_cap), np.int64)
+        g2l = []
+        for d, band_statics in enumerate(statics):
+            m = dict(res_g2l)
+            for g, local in res_g2l.items():
+                gidx[d, local] = g
+            for j, g in enumerate(band_statics):
+                m[g] = n_res + j
+                gidx[d, n_res + j] = g
+            g2l.append(m)
+        atlas = ts.atlas()
+        data = [atlas[torch.from_numpy(gidx[b0:b1]).to(atlas.device)].to(dev) for dev, b0, b1 in mesh.groups]
+        self._set(mesh, data, g2l, reserved_local, local_cap, ts.pieces.version)
+
+    def _set(self, mesh, data, g2l, reserved_local, local_cap, version) -> None:
+        self.mesh = mesh
+        self.data: List[torch.Tensor] = data
+        self.g2l: List[Dict[int, int]] = g2l
+        self.reserved_local: Dict[object, int] = reserved_local
+        self.local_cap = local_cap
+        self.version = version
+
+    @classmethod
+    def from_state(cls, mesh: Mesh, data, g2l, reserved_local, local_cap: int, version: int) -> "BandedAtlas":
+        """A banded atlas holding the given per-group stacks and maps."""
+        banded = cls.__new__(cls)
+        banded._set(mesh, data, g2l, reserved_local, local_cap, version)
+        return banded
+
+    def map_entries(self, d: int, entries: List[int]) -> List[int]:
+        g = self.g2l[d]
+        return [g[e] for e in entries]
+
+    def update_inplace(self, ts: "TiledScene", key, rgba, entries, oys, oxs) -> None:
+        """The per-frame animated update: write the moved object's pieces
+        into every band's reserved slots, one shatter per device over its
+        stack.  A piece whose tile lies in the band gets its content; every
+        other reserved slot gets zeros, through out-of-range offsets.  That
+        is harmless: a band's lists reference only reserved slots whose
+        tiles lie in that band.  Callers set ``version = ts.pieces.version``
+        after installing the new piece list."""
+        rb = self.reserved_local[key]
+        base, cap = ts._reserved[key]
+        band_tiles = ts.ntx * (ts.nty // self.mesh.size)
+        oob = 1 << 20  # beyond any raster: the shatter yields zeros
+        oys_b = np.full((self.mesh.size, cap), oob, np.int64)
+        oxs_b = np.full((self.mesh.size, cap), oob, np.int64)
+        for tile, g_entry in entries:
+            j, d = g_entry - base, tile // band_tiles
+            oys_b[d, j], oxs_b[d, j] = oys[j], oxs[j]
+        for data, (dev, b0, b1) in zip(self.data, self.mesh.groups):
+            shatter_into(data, rgba.to(dev), oys_b[b0:b1], oxs_b[b0:b1], rb)
+
+
+def _banded_of(ts: TiledScene, mesh: Mesh) -> BandedAtlas:
+    """The scene's banded atlas for `mesh`, rebuilt when the mesh or the
+    piece lists changed since it was built."""
+    cached = ts._banded
+    if cached is not None and cached.mesh == mesh and cached.version == ts.pieces.version:
+        return cached
+    ts._banded = BandedAtlas(ts, mesh)
+    return ts._banded
+
+
+def _band_rows(plane, mesh: Mesh, band_h: int) -> RowSharded:
+    return plane if isinstance(plane, RowSharded) else RowSharded.scatter(plane, mesh, band_h)
+
+
+def sharded_lists(ts: TiledScene, order, banded: BandedAtlas):
+    """Host (starts, idxs) int32 arrays, (n_bands, band_tiles + 1) and
+    (n_bands, k): band d's local tile t (row-major in the band) composites
+    its local slots idxs[d, starts[d, t]:starts[d, t + 1]].  Rows of idxs
+    are zero-padded to the longest band's count, at least 1."""
+    n = banded.mesh.size
+    band_tiles = ts.ntx * (ts.nty // n)
+    pos = ts._order_pos(order)
+    starts = np.zeros((n, band_tiles + 1), np.int32)
+    lists = []
+    for d in range(n):
+        g2l = banded.g2l[d]
+        flat: List[int] = []
+        for j, t in enumerate(range(d * band_tiles, (d + 1) * band_tiles)):
+            cand = ts.pieces.tile_entries(t, pos)
+            cand.sort()
+            flat.extend(g2l[e] for _, e in cand)
+            starts[d, j + 1] = len(flat)
+        lists.append(flat)
+    idxs = np.zeros((n, max(1, max(len(f) for f in lists))), np.int32)
+    for d, flat in enumerate(lists):
+        idxs[d, : len(flat)] = flat
+    return starts, idxs
+
+
+def sharded_dirty_lists(ts: TiledScene, order, dirty_tiles, banded: BandedAtlas):
+    """Host (coords, spans, idxs, n_slots): int32 arrays (n_bands, 2 *
+    n_slots), (n_bands, 2 * n_slots), (n_bands, k).  Band d's slot j
+    recomposites its local tile (coords[d, 2j], coords[d, 2j+1]) from its
+    local slots idxs[d, spans[d, 2j]:spans[d, 2j+1]].  n_slots is one power
+    of two (at least 8) for all bands, as is k.  A band's padding slots
+    repeat its last real slot; a band with no dirty tile gets the
+    passthrough span (-1, -1) on local tile (0, 0) in every slot, which
+    leaves its rows as they are."""
+    n = banded.mesh.size
+    band_ty = ts.nty // n
+    band_tiles = band_ty * ts.ntx
+    pos = ts._order_pos(order)
+    by_band: List[List[int]] = [[] for _ in range(n)]
+    for t in sorted(set(dirty_tiles)):
+        by_band[t // band_tiles].append(t)
+    n_slots = 8
+    while n_slots < max(len(b) for b in by_band):
+        n_slots *= 2
+    coords = np.zeros((n, 2 * n_slots), np.int32)
+    spans = np.zeros((n, 2 * n_slots), np.int32)
+    lists = []
+    for d, tiles in enumerate(by_band):
+        g2l = banded.g2l[d]
+        flat: List[int] = []
+        if not tiles:
+            spans[d] = -1
+        for j, t in enumerate(tiles):
+            cand = ts.pieces.tile_entries(t, pos)
+            cand.sort()
+            coords[d, 2 * j], coords[d, 2 * j + 1] = t // ts.ntx - d * band_ty, t % ts.ntx
+            spans[d, 2 * j] = len(flat)
+            flat.extend(g2l[e] for _, e in cand)
+            spans[d, 2 * j + 1] = len(flat)
+        if tiles:
+            k = len(tiles)
+            coords[d, 2 * k :: 2], coords[d, 2 * k + 1 :: 2] = coords[d, 2 * k - 2], coords[d, 2 * k - 1]
+            spans[d, 2 * k :: 2], spans[d, 2 * k + 1 :: 2] = spans[d, 2 * k - 2], spans[d, 2 * k - 1]
+        lists.append(flat)
+    n_idx = 8
+    while n_idx < max(len(f) for f in lists):
+        n_idx *= 2
+    idxs = np.zeros((n, n_idx), np.int32)
+    for d, flat in enumerate(lists):
+        idxs[d, : len(flat)] = flat
+    return coords, spans, idxs, n_slots
+
+
+def render_sharded(ts: TiledScene, background, order, mesh: Mesh) -> RowSharded:
+    """The full frame under a mesh: each band composites its tiles from its
+    own local atlas (BandedAtlas) with lists built on the host, one
+    composite_full_banded launch per device; no data crosses bands.
+    `background` is a RowSharded plane or a whole one.  Returns the new
+    frame as a RowSharded plane."""
+    if ts.nty % mesh.size:
+        raise ValueError(f"{ts.nty} tile rows do not divide into {mesh.size} bands")
+    band_ty = ts.nty // mesh.size
+    banded = _banded_of(ts, mesh)
+    starts, idxs = sharded_lists(ts, order, banded)
+    bg = _band_rows(background, mesh, band_ty * TILE_H)
+    parts = []
+    for g, (dev, b0, b1) in enumerate(mesh.groups):
+        s, i = (torch.from_numpy(a[b0:b1]).to(dev) for a in (starts, idxs))
+        parts.append(composite_full_banded(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx))
+    return RowSharded(mesh, band_ty * TILE_H, parts)
+
+
+def render_dirty_sharded(ts: TiledScene, frame, background, order, dirty_tiles, mesh: Mesh) -> RowSharded:
+    """Re-render `dirty_tiles` under a mesh, in place in each band's frame
+    rows, one composite_dirty_banded launch per device over its bands'
+    lists (sharded_dirty_lists); bands with no dirty tile keep their rows.
+    `frame` and `background` are RowSharded planes or whole ones (a whole
+    frame is copied into bands first).  Returns the frame."""
+    if ts.nty % mesh.size:
+        raise ValueError(f"{ts.nty} tile rows do not divide into {mesh.size} bands")
+    band_h = ts.nty // mesh.size * TILE_H
+    banded = _banded_of(ts, mesh)
+    coords, spans, idxs, n_slots = sharded_dirty_lists(ts, order, dirty_tiles, banded)
+    frame, bg = _band_rows(frame, mesh, band_h), _band_rows(background, mesh, band_h)
+    for g, (dev, b0, b1) in enumerate(mesh.groups):
+        c, s, i = (torch.from_numpy(a[b0:b1]).to(dev) for a in (coords, spans, idxs))
+        composite_dirty_banded(c, s, i, bg.parts[g], frame.parts[g], banded.data[g], n_slots)
+    return frame

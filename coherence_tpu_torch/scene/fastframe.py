@@ -18,7 +18,11 @@ interactive zoom back to a scale seen before (or prefetched) restores the
 atlas from a snapshot instead of rasterizing again.
 
 Every view holds its tensors on the device it was made for; there is no
-default device.
+default device.  Under a mesh (``DeviceView.use_mesh``) the content frame,
+its background and the display plane are split by tile-row bands over the
+mesh's devices (``parallel.mesh.RowSharded``), each band composites from its
+own local atlas, and the global atlas stays on the view's device as the
+source of truth.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from coherence_tpu import transform as tr
 from coherence_tpu.geometry import path as gpath
 
 from .. import colour as C
+from ..parallel.mesh import Mesh, RowSharded
 from ..raster import aa as raa
 from ..raster import brush as rbrush
 from ..raster import fills as rfills
@@ -43,7 +48,14 @@ from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window
 from ..raster.brush_tiles import BrushTileBuild
 from ..raster.region import Box, Sprite, translate_sprite
 from ..raster.tile_raster import TileBuild
-from ..raster.tiled_scene import TiledScene, composite_dirty, shatter_into
+from ..raster.tiled_scene import (
+    TiledScene,
+    _banded_of,
+    composite_dirty,
+    render_dirty_sharded,
+    render_sharded,
+    shatter_into,
+)
 from . import render as R
 
 
@@ -336,6 +348,21 @@ class DeviceView:
         # translate of a tiled object re-rasterizes from here.
         self.objs: Dict[object, R.Obj] = {}
         self.dirty: Set[int] = set(range(self.ts.nty * self.ts.ntx))
+        self.mesh: Optional[Mesh] = None
+
+    def use_mesh(self, mesh: Mesh) -> None:
+        """Split this view by tile rows over `mesh`: band d holds tile rows
+        [d * nty / n, (d + 1) * nty / n) of the frame and background on
+        mesh.devices[d].  Full renders then go through render_sharded,
+        dirty renders through render_dirty_sharded: per-band kernels over
+        a banded atlas (each device holds only its bands' pieces), with no
+        data crossing bands."""
+        if self.ts.nty % mesh.size:
+            raise ValueError(f"use_mesh: {self.ts.nty} tile rows do not divide into {mesh.size} bands")
+        self.mesh = mesh
+        band_h = self.ph // mesh.size
+        self.background = RowSharded.scatter(self.background, mesh, band_h)
+        self.frame = RowSharded.scatter(self.frame, mesh, band_h)
 
     def _tiles_of(self, key) -> Set[int]:
         return {tile for tile, _ in self.ts.pieces.get(key, ())}
@@ -431,15 +458,28 @@ class DeviceView:
     def render(self, full: bool = False) -> None:
         """Composite the dirty tiles (in place) or every tile (a new frame)."""
         if full:
-            starts, idxs = self.ts.build_lists(self.order)
-            self.frame = self.ts.render_full(self.background, starts, idxs)
+            if self.mesh is not None:
+                self.frame = render_sharded(self.ts, self.background, self.order, self.mesh)
+            else:
+                starts, idxs = self.ts.build_lists(self.order)
+                self.frame = self.ts.render_full(self.background, starts, idxs)
         elif self.dirty:
-            self.frame = self.ts.render_dirty(self.frame, self.background, self.order, self.dirty)
+            if self.mesh is not None:
+                self.frame = render_dirty_sharded(self.ts, self.frame, self.background, self.order, self.dirty,
+                                                  self.mesh)
+            else:
+                self.frame = self.ts.render_dirty(self.frame, self.background, self.order, self.dirty)
         self.dirty.clear()
+
+    def content(self, device) -> torch.Tensor:
+        """The packed (ph, pw) content frame, whole, on `device`."""
+        if self.mesh is not None:
+            return self.frame.gather(device)
+        return self.frame.to(device)
 
     def read(self) -> np.ndarray:
         """(height, width, 4) uint8 RGBA of the logical window."""
-        rgba = unpack_rgba(self.frame[: self.height, : self.width])
+        rgba = unpack_rgba(self.content(self.device)[: self.height, : self.width])
         return rgba.to(torch.uint8).cpu().numpy()
 
 
@@ -459,26 +499,47 @@ def blur_blend_window(display, content_packed, f_alpha, oy, ox, ry0, rx0, h, w, 
     return display
 
 
+def blur_blend_window_sharded(display: RowSharded, content: RowSharded, f_alpha, oy, ox, ry0, rx0, h, w,
+                              d_box, hb, wb, weights, total) -> RowSharded:
+    """blur_blend_window under a mesh: the window's content and display rows
+    are copied from the bands it crosses onto f_alpha's device, blended
+    there by the same blur_blend_window, and the display rows written back
+    to their bands.  The window lies inside the frame, so its blur reads the
+    same pixels as the unsharded pass."""
+    dev = f_alpha.device
+    content_win = content.window(oy, oy + hb, ox, ox + wb, dev)
+    display_win = display.window(oy, oy + hb, ox, ox + wb, dev)
+    blur_blend_window(display_win, content_win, f_alpha[oy : oy + hb, ox : ox + wb], 0, 0, ry0, rx0, h, w,
+                      d_box, hb, wb, weights, total)
+    display.write_window(oy, ox, display_win)
+    return display
+
+
 class FilteredDisplay:
     """Display = blur(content) blended by a filter geometry's alpha plane.
 
     The DeviceView's frame holds the exact unfiltered scene content; this
     class derives the displayed frame from it, full-frame once, then per
-    dirty window."""
+    dirty window.  Under a mesh the display plane is split into the view's
+    row bands (a RowSharded plane), as the content frame is."""
 
     def __init__(self, view: DeviceView, f_alpha: torch.Tensor, kernel):
         self.view = view
         self.f_alpha = f_alpha
         self.kernel = kernel
-        self.rgba: Optional[torch.Tensor] = None  # (height, width, 4) int32
+        self.rgba = None  # (height, width, 4) int32, whole or RowSharded
         self.box = (1, 1, view.width, view.height)
 
     def full_refresh(self) -> None:
         """Render pending content (every tile after set_scene) and
-        blur-blend the whole display."""
-        self.view.render()
-        content = unpack_rgba(self.view.frame[: self.view.height, : self.view.width])
+        blur-blend the whole display; under a mesh, on f_alpha's device,
+        then split into bands."""
+        view = self.view
+        view.render()
+        content = unpack_rgba(view.content(self.f_alpha.device)[: view.height, : view.width])
         self.rgba = apply_blur_rect(content, self.f_alpha, self.kernel.values, self.kernel.total)
+        if view.mesh is not None:
+            self.rgba = RowSharded.scatter(self.rgba, view.mesh, view.ph // view.mesh.size)
 
     def _window_tiles(self, oy, ox, ry0, rx0, h, w) -> Set[int]:
         """Tiles covering the logical window (its content must be fresh for
@@ -493,10 +554,9 @@ class FilteredDisplay:
 
     def _blend(self, win) -> None:
         _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = win
-        blur_blend_window(
-            self.rgba, self.view.frame, self.f_alpha, oy, ox, ry0, rx0, h, w, d_box,
-            hb, wb, self.kernel.values, self.kernel.total,
-        )
+        blend = blur_blend_window if self.view.mesh is None else blur_blend_window_sharded
+        blend(self.rgba, self.view.frame, self.f_alpha, oy, ox, ry0, rx0, h, w, d_box, hb, wb,
+              self.kernel.values, self.kernel.total)
 
     def step(self, dirty: Box) -> None:
         """One frame: recomposite the content tiles covering bloat(dirty,
@@ -508,6 +568,22 @@ class FilteredDisplay:
         self.view.dirty |= self._window_tiles(*win[1:7])
         self.view.render()
         self._blend(win)
+
+    def _dirty_box(self, box: Box) -> Box:
+        """`box` grown by every tile already dirty from other edits: those
+        tiles get fresh content this frame, so their displayed pixels must
+        be re-blended too."""
+        view, ts = self.view, self.view.ts
+        for t in view.dirty:
+            ty, tx = t // ts.ntx, t % ts.ntx
+            tile_box = (
+                tx * TILE_W + 1,
+                ty * TILE_H + 1,
+                min(view.width, (tx + 1) * TILE_W),
+                min(view.height, (ty + 1) * TILE_H),
+            )
+            box = region.box_union(box, tile_box)
+        return box
 
     def stage_animated(self, key, dx: int, dy: int):
         """The host half of step_animated, changing no state: (moved sprite,
@@ -522,18 +598,7 @@ class FilteredDisplay:
         if got is None:
             return None
         oys, oxs, base, entries = got
-        dirty_box = region.box_union(spr.box, moved.box)
-        # Tiles dirtied by other edits get fresh content below; their
-        # displayed pixels must be re-blended too.
-        for t in view.dirty:
-            ty, tx = t // ts.ntx, t % ts.ntx
-            tile_box = (
-                tx * TILE_W + 1,
-                ty * TILE_H + 1,
-                min(view.width, (tx + 1) * TILE_W),
-                min(view.height, (ty + 1) * TILE_H),
-            )
-            dirty_box = region.box_union(dirty_box, tile_box)
+        dirty_box = self._dirty_box(region.box_union(spr.box, moved.box))
         win = blur_window(dirty_box, self.box, self.kernel.radius, view.height, view.width)
         if win is None:
             return moved, (oys, oxs, base), entries, None, None
@@ -546,10 +611,14 @@ class FilteredDisplay:
     def step_animated(self, key, dx: int, dy: int) -> None:
         """Move one animated object and refresh the filtered display: shatter
         into its reserved slots, recomposite the dirty tiles, blur-blend the
-        window.  Identical to translate_object + step."""
+        window.  Identical to translate_object + step.  Under a mesh the
+        same three stages run per band (_step_animated_sharded)."""
         view, ts = self.view, self.view.ts
         spr = view.sprites.get(key)
         if spr is None:
+            return
+        if view.mesh is not None and key in ts._reserved:
+            self._step_animated_sharded(key, dx, dy)
             return
         staged = self.stage_animated(key, dx, dy)
         if staged is None:
@@ -569,5 +638,121 @@ class FilteredDisplay:
         view.sprites[key] = moved
         view.dirty.clear()
 
+    def _step_animated_sharded(self, key, dx: int, dy: int) -> None:
+        """The animated frame under a mesh: the banded atlas's reserved
+        slots updated in place, the dirty tiles recomposited per band, the
+        window blended.  Identical to translate_object + step.
+
+        The order keeps the banded atlas valid without a rebuild: fetch it
+        before the new pieces are installed, shatter into the global atlas
+        (the source of truth for later rebuilds), install the pieces, update
+        the bands' reserved slots, then mark the banded atlas current."""
+        view, ts = self.view, self.view.ts
+        spr = view.sprites[key]
+        moved = translate_sprite(dx, dy, spr)
+        got = ts._inplace_args(key, moved)
+        if got is None:
+            view.translate_object(key, dx, dy)
+            self.step(region.box_union(spr.box, view.sprites[key].box))
+            return
+        oys, oxs, base, entries = got
+        banded = _banded_of(ts, view.mesh)
+        shatter_into(ts.atlas(), moved.rgba, oys, oxs, base)
+        old_tiles = {t for t, _ in ts.pieces.get(key, ())}
+        ts.pieces[key] = entries
+        banded.update_inplace(ts, key, moved.rgba, entries, oys, oxs)
+        banded.version = ts.pieces.version
+        view.sprites[key] = moved
+        win = blur_window(self._dirty_box(region.box_union(spr.box, moved.box)), self.box, self.kernel.radius,
+                          view.height, view.width)
+        view.dirty |= old_tiles | {t for t, _ in entries}
+        if win is None:
+            view.render()
+            return
+        view.dirty |= self._window_tiles(*win[1:7])
+        view.render()
+        self._blend(win)
+
+    def play_animated(self, key, deltas, capture_every: int = 0, require_scan: bool = False):
+        """A whole animation of per-step (dx, dy) moves of `key`, equal to
+        calling step_animated per delta.  The JAX package runs it as one
+        device program (a lax.scan of the fused frame); here every step's
+        host work (offsets, dirty lists, blur windows) is staged and
+        uploaded first, then the steps' launches run back to back with no
+        host work between them.  Returns the display planes after every
+        capture_every-th step as (len(deltas) // capture_every, H, W, 4)
+        uint8 when capture_every > 0 (it must divide len(deltas)), else
+        None.
+
+        Falls back to sequential step_animated where the JAX package's scan
+        cannot be staged: a mesh, pending non-animated dirt, an unreserved
+        key, no deltas, a step leaving the reserved capacity, an empty blur
+        window, or windows of different bucket sizes.  require_scan=True
+        raises RuntimeError with the reason instead of falling back."""
+        view, ts = self.view, self.view.ts
+        spr = view.sprites.get(key)
+        if capture_every and len(deltas) % capture_every:
+            raise ValueError("capture_every must divide len(deltas)")
+
+        def fallback(reason):
+            if require_scan:
+                raise RuntimeError(f"play_animated scan unavailable: {reason}")
+            frames = []
+            for i, (dx, dy) in enumerate(deltas):
+                self.step_animated(key, dx, dy)
+                if capture_every and (i + 1) % capture_every == 0:
+                    frames.append(self.read().astype(np.uint8))
+            return np.stack(frames) if capture_every else None
+
+        if spr is None or key not in ts._reserved or view.mesh is not None or view.dirty or not deltas:
+            return fallback("unreserved key, mesh, pending dirt, or no deltas")
+
+        prev, prev_entries = spr, list(ts.pieces.get(key, ()))
+        steps, statics = [], None
+        for dx, dy in deltas:
+            moved = translate_sprite(dx, dy, prev)
+            try:
+                got = ts._inplace_args(key, moved)
+            except ValueError:  # the step outgrows the reserved capacity
+                got = None
+            if got is None:
+                return fallback("step leaves the reserved slot capacity")
+            oys, oxs, base, entries = got
+            win = blur_window(region.box_union(prev.box, moved.box), self.box, self.kernel.radius,
+                              view.height, view.width)
+            if win is None:
+                return fallback("empty blur window")
+            if statics is None:
+                statics = (base, win[7], win[8])
+            elif statics != (base, win[7], win[8]):
+                return fallback("blur windows straddle bucket sizes")
+            dirty_tiles = self._window_tiles(*win[1:7])
+            dirty_tiles |= {t for t, _ in prev_entries}
+            dirty_tiles |= {t for t, _ in entries}
+            args = ts._dirty_args(view.order, dirty_tiles, pieces_override={key: entries})
+            steps.append((oys, oxs, args, win))
+            prev, prev_entries = moved, entries
+
+        # Every step's offsets and lists in one upload.
+        flat = [a for oys, oxs, (coords, spans, idxs, _), _ in steps for a in (oys, oxs, coords, spans, idxs)]
+        sizes = [len(a) for a in flat]
+        uploaded = torch.from_numpy(np.concatenate([np.asarray(a, np.int64) for a in flat])).to(view.device)
+        parts = iter(uploaded.split(sizes))
+        staged = [(next(parts), next(parts), next(parts).int(), next(parts).int(), next(parts).int()) for _ in steps]
+
+        atlas, rgba, base = ts.atlas(), spr.rgba, statics[0]
+        frames = []
+        for i, ((oys, oxs, coords, spans, idxs), (_, _, (_, _, _, n_slots), win)) in enumerate(zip(staged, steps)):
+            shatter_into(atlas, rgba, oys, oxs, base)
+            composite_dirty(coords, spans, idxs, view.background, view.frame, atlas, n_slots)
+            self._blend(win)
+            if capture_every and (i + 1) % capture_every == 0:
+                frames.append(self.rgba.to(torch.uint8))
+        ts.pieces[key] = prev_entries
+        view.sprites[key] = prev
+        return torch.stack(frames).cpu().numpy() if capture_every else None
+
     def read(self) -> np.ndarray:
+        if self.view.mesh is not None:
+            return self.rgba.gather("cpu").numpy()
         return self.rgba.cpu().numpy()

@@ -238,3 +238,143 @@ def test_new_kernel_wrappers_reject_bad_tensors(cuda_device):
         kernels.composite_layers(b, layers)  # background of another size
     with pytest.raises(ValueError):
         kernels.composite_layers(b[:TILE_H, :TILE_W], layers.long())
+
+
+def banded_full_case(seed: int, n_bands: int = 3, band_ty: int = 2, ntx: int = 5, cap: int = 64):
+    """A band stack for one device: composite_case per band, stacked as the
+    mesh path stacks them: (atlas (n_bands, cap, TILE_H, TILE_W), background
+    (n_bands * band_ty * TILE_H, ntx * TILE_W), starts (n_bands, band_ty *
+    ntx + 1), idxs (n_bands, k)), each band's idxs zero-padded to the
+    longest."""
+    cases = [composite_case(seed * 10 + b, band_ty, ntx, cap) for b in range(n_bands)]
+    idxs = np.zeros((n_bands, max(c[3].shape[0] for c in cases)), np.int32)
+    for b, c in enumerate(cases):
+        idxs[b, : c[3].shape[0]] = c[3]
+    return (np.stack([c[0] for c in cases]), np.concatenate([c[1] for c in cases]),
+            np.stack([c[2] for c in cases]), idxs)
+
+
+def banded_dirty_case(seed: int, n_reals=(6, 8, 0, 5), nty: int = 4, ntx: int = 4, cap: int = 64):
+    """A band stack of dirty lists: dirty_case per band (a passthrough slot,
+    an empty list, padding slots repeating the last real slot), and an idle
+    band (n_real 0: every span -1 on local tile (0, 0)), padded to one
+    n_slots and one idxs width.  Returns (atlas, background, frame, coords,
+    spans, idxs, n_slots)."""
+    n_slots = max(_pow2(n) for n in n_reals)
+    cases = []
+    for b, n_real in enumerate(n_reals):
+        if n_real == 0:
+            rng = np.random.default_rng(seed * 10 + b)
+            ph, pw = nty * TILE_H, ntx * TILE_W
+            cases.append((random_atlas(rng, cap), random_plane(rng, ph, pw), random_plane(rng, ph, pw),
+                          np.zeros(2 * n_slots, np.int32), np.full(2 * n_slots, -1, np.int32),
+                          np.zeros(8, np.int32), n_slots))
+            continue
+        c = dirty_case(seed * 10 + b, nty, ntx, cap, n_real)
+        coords, spans = np.empty(2 * n_slots, np.int32), np.empty(2 * n_slots, np.int32)
+        coords[: len(c[3])], spans[: len(c[4])] = c[3], c[4]
+        coords[len(c[3]) :: 2], coords[len(c[3]) + 1 :: 2] = c[3][-2], c[3][-1]
+        spans[len(c[4]) :: 2], spans[len(c[4]) + 1 :: 2] = c[4][-2], c[4][-1]
+        cases.append(c[:3] + (coords, spans, c[5], n_slots))
+    idxs = np.zeros((len(n_reals), max(c[5].shape[0] for c in cases)), np.int32)
+    for b, c in enumerate(cases):
+        idxs[b, : c[5].shape[0]] = c[5]
+    return (np.stack([c[0] for c in cases]), np.concatenate([c[1] for c in cases]),
+            np.concatenate([c[2] for c in cases]), np.stack([c[3] for c in cases]),
+            np.stack([c[4] for c in cases]), idxs, n_slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_bands,band_ty,ntx", [(0, 1, 1, 3), (1, 3, 2, 5), (2, 2, 17, 30), (3, 17, 1, 15)])
+def test_composite_full_banded_kernel_matches_plain(cuda_device, seed, n_bands, band_ty, ntx):
+    atlas, bg, starts, idxs = banded_full_case(seed, n_bands, band_ty, ntx)
+    a, b = convert.packed(atlas, cuda_device), convert.packed(bg, cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    before = dict(kernels.launches)
+    got = T.composite_full_banded(s, i, b, a, band_ty, ntx)
+    assert kernels.launches["composite_full_banded"] == before["composite_full_banded"] + 1  # one launch
+    want = T.composite_full_banded_torch(s, i, b, a, band_ty, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # Each band equals the unbanded kernel on that band's lists and atlas.
+    band_h = band_ty * TILE_H
+    for k in range(n_bands):
+        rows = slice(k * band_h, (k + 1) * band_h)
+        one = T.composite_full(s[k].clone(), i[k].clone(), b[rows].clone(), a[k].clone(), band_ty, ntx)
+        assert torch.equal(got[rows], one), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_reals", [(0, (6,)), (1, (6, 8, 0, 5)), (2, (0, 0)), (3, (16, 0, 9))])
+def test_composite_dirty_banded_kernel_matches_plain(cuda_device, seed, n_reals):
+    atlas, bg, frame, coords, spans, idxs, n_slots = banded_dirty_case(seed, n_reals)
+    a, b, f = (convert.packed(x, cuda_device) for x in (atlas, bg, frame))
+    c, sp, i = _ints((coords, spans, idxs), cuda_device)
+    got, want = f.clone(), f.clone()
+    before = dict(kernels.launches)
+    T.composite_dirty_banded(c, sp, i, b, got, a, n_slots)
+    assert kernels.launches["composite_dirty_banded"] == before["composite_dirty_banded"] + 1
+    T.composite_dirty_banded_torch(c, sp, i, b, want, a, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    band_h = frame.shape[0] // len(n_reals)
+    for k, n_real in enumerate(n_reals):
+        rows = slice(k * band_h, (k + 1) * band_h)
+        if n_real == 0:
+            assert torch.equal(got[rows], f[rows]), "an idle band changed"
+            continue
+        one = f[rows].clone()
+        T.composite_dirty(c[k].clone(), sp[k].clone(), i[k].clone(), b[rows].clone(), one, a[k].clone(), n_slots)
+        assert torch.equal(got[rows], one), k
+
+
+@pytest.mark.cuda
+def test_banded_kernel_wrappers_reject_bad_tensors(cuda_device):
+    atlas, bg, starts, idxs = banded_full_case(0, 2, 2, 3)
+    a, b = convert.packed(atlas, cuda_device), convert.packed(bg, cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    with pytest.raises(ValueError):
+        kernels.composite_full_banded(s, i, b, a[0], 2, 3)  # not a stack
+    with pytest.raises(ValueError):
+        kernels.composite_full_banded(s, i, b, a, 3, 3)  # band rows
+    with pytest.raises(ValueError):
+        kernels.composite_full_banded(s[:1], i, b, a, 2, 3)
+    with pytest.raises(ValueError):
+        kernels.composite_dirty_banded(i, i, i, b, b.clone(), a, 8)
+
+
+@pytest.mark.cuda
+def test_meshed_scene_on_one_card_matches_unmeshed(cuda_device):
+    """Two bands sharing one card: render_sharded and render_dirty_sharded
+    launch the banded kernels once each and equal the unsharded renders."""
+    from coherence_tpu_torch.parallel import RowSharded, make_mesh
+    from coherence_tpu_torch.raster.region import Sprite
+
+    rng = np.random.default_rng(5)
+    nty, ntx = 6, 4
+    ts = T.TiledScene(ntx * TILE_W, nty * TILE_H, cuda_device)
+    order = []
+    for k in range(30):
+        x0, y0 = int(rng.integers(-20, ntx * TILE_W - 10)), int(rng.integers(-20, nty * TILE_H - 10))
+        w, h = int(rng.integers(8, 200)), int(rng.integers(8, 150))
+        alpha = 255 if k % 3 else 150
+        rgba = torch.tensor([int(v) * alpha // 255 for v in rng.integers(0, 256, 3)] + [alpha], dtype=torch.int32,
+                            device=cuda_device).expand(h, w, 4).contiguous()
+        ts.add_object(k, Sprite((x0, y0, x0 + w - 1, y0 + h - 1), torch.ones((h, w), dtype=torch.bool,
+                                                                           device=cuda_device), rgba))
+        order.append(k)
+    bg = convert.packed(random_plane(rng, nty * TILE_H, ntx * TILE_W), cuda_device)
+    mesh = make_mesh(2, ["cuda:0", "cuda:0"])
+    before = dict(kernels.launches)
+    frame = T.render_sharded(ts, bg, order, mesh)
+    assert kernels.launches["composite_full_banded"] == before["composite_full_banded"] + 1
+    full = ts.render_full(bg, *ts.build_lists(order))
+    assert torch.equal(frame.gather(cuda_device), full)
+    dirty = [0, 5, 13]  # band 1 (tiles 12-23) is partly dirty, then idle below
+    T.render_dirty_sharded(ts, frame, bg, order, [0], mesh)  # band 1 idle
+    T.render_dirty_sharded(ts, frame, bg, order, dirty, mesh)
+    plain = ts.render_dirty(full.clone(), bg, order, dirty)
+    torch.cuda.synchronize()
+    assert kernels.launches["composite_dirty_banded"] == before["composite_dirty_banded"] + 2
+    assert torch.equal(frame.gather(cuda_device), plain)
+    assert isinstance(frame, RowSharded) and len(frame.parts) == 1

@@ -1,8 +1,8 @@
 """The port runs without JAX: importing every module of coherence_tpu_torch
 and driving a small animated blur-filtered scene with a brush stroke on the
-CPU (frames, the full-frame and run-contiguous renders, a zoom step and a
-dense layer stack) loads no JAX module, and of the JAX package only its
-jax-free host modules.
+CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
+dense layer stack, and an animated filtered step on a 2-band mesh) loads no
+JAX module, and of the JAX package only its jax-free host modules.
 
 The check runs in a fresh interpreter, since this test process has JAX
 loaded already (tests/conftest.py)."""
@@ -26,6 +26,8 @@ from coherence_tpu import transform as tr
 from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu_torch import colour as C
 from coherence_tpu_torch import kernels
+from coherence_tpu_torch import parallel
+from coherence_tpu_torch.parallel import dryrun
 from coherence_tpu_torch.raster import brush, compositor, convolve, fills, region
 from coherence_tpu_torch.scene import examples, fastframe
 from coherence_tpu_torch.scene import render as R
@@ -66,8 +68,24 @@ zoom = fastframe.zoom_transform(W / 2.0, H / 2.0, 2.0)
 view.prefetch_zoom_candidates(scene)
 view.reset_scene([R.transform_renderobject_many(zoom, o) for o in scene])
 view.render(full=True)
+zoom_cache = fastframe.scene_build_cache_stats()
 stack = examples.hsr_layers(4, H, W, device="cpu")
 layered = compositor.composite_layers(view.background, stack)
+# The same animated filtered step with and without a 2-band mesh; the move
+# crosses the band border at row 64.
+shown = []
+for mesh in (parallel.make_mesh(2, ["cpu"] * 2), None):
+    v = fastframe.DeviceView(W, H, device="cpu")
+    v.set_scene(scene)
+    v.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, v.pw, v.ph, "cpu")
+    v.order.insert(0, blob.idset)
+    v.make_animated(blob.idset)
+    if mesh is not None:
+        v.use_mesh(mesh)
+    d = fastframe.FilteredDisplay(v, f_alpha, convolve.mkgaussian(2))
+    d.full_refresh()
+    d.step_animated(blob.idset, 9, 40)
+    shown.append(d.read())
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "coherence_tpu": sorted(m for m in sys.modules if m.startswith("coherence_tpu.")),
@@ -77,8 +95,10 @@ print(json.dumps({
     "full_equals_dirty": full_equals_dirty,
     "runs_equal_full": runs_equal_full,
     "zoom_changed": bool(not torch.equal(view.frame, before_zoom)),
-    "zoom_cache": fastframe.scene_build_cache_stats(),
+    "zoom_cache": zoom_cache,
     "layered_differs_from_background": bool(not torch.equal(layered, view.background)),
+    "meshed_step_equal": bool((shown[0] == shown[1]).all()),
+    "meshed_step_moved": bool((shown[0] != first).any()),
     "launches": dict(kernels.launches),
 }))
 """
@@ -117,9 +137,11 @@ def test_small_slice_runs_on_cpu(report):
     # The prefetch built the 2x scene, so the zoom step restored it.
     assert report["zoom_cache"]["hits"] == 1
     assert report["layered_differs_from_background"]
+    assert report["meshed_step_equal"] and report["meshed_step_moved"]
     # CPU tensors take the plain versions: no kernel was launched.
     assert report["launches"] == {"composite_dirty": 0, "composite_full": 0, "composite_runs": 0,
-                                  "composite_layers": 0}
+                                  "composite_layers": 0, "composite_full_banded": 0,
+                                  "composite_dirty_banded": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -137,4 +159,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kernels.composite_runs(ints[:2], bg, z, 1, 1)
     with pytest.raises(ValueError):
         kernels.composite_layers(bg, z)
+    with pytest.raises(ValueError):
+        kernels.composite_full_banded(ints[:2].view(1, 2), ints.view(1, 16), bg, z.view(1, 8, 64, 128), 1, 1)
+    with pytest.raises(ValueError):
+        kernels.composite_dirty_banded(ints.view(1, 16), ints.view(1, 16), ints.view(1, 16), bg, bg.clone(),
+                                       z.view(1, 8, 64, 128), 8)
     assert kernels.launches == before
