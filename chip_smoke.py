@@ -36,8 +36,12 @@ Phases, one JSON line each:
   1. device: the card's name, and nvidia-smi's name and power limit;
   2. build: the CUDA kernels compiled from the checkout's sources;
   3. kernels: composite_full and composite_dirty against their plain
-     PyTorch versions on the card, on the lion's shapes, bit for bit, with
-     both times (CUDA events, cold L2);
+     PyTorch versions and against the previous design (the banded kernels
+     over one band: one block a tile, one piece in flight) on the lion's
+     shapes, bit for bit, and on a deep case (a 301-piece translucent tile,
+     a tile opaque at its first piece, a passthrough slot); the times (CUDA
+     events, cold L2, the launch queued behind a device-side wait), the old
+     design's in turns with the new, and the bytes each must move;
   4. main_path: the lion, built and run 400 frames; per-frame times; the
      display after 20 frames held bit for bit against the same 20 frames
      run on the CPU through the plain versions; one full-frame render held
@@ -47,7 +51,8 @@ Phases, one JSON line each:
      on the CPU; frame times, build and zoom seconds, cache hits; the full
      renders held against the dirty-path content;
   6. kernels_4k: composite_runs against composite_runs_torch and against
-     composite_full on config 5's full-frame lists, bit for bit, timed;
+     composite_full, and composite_full against the previous design, on
+     config 5's full-frame lists, bit for bit, timed;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -64,8 +69,14 @@ Phases, one JSON line each:
      step_animated calls, with its time per frame;
  12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card.
 
-Then the kernels line and, last, {"ok": true, "device": {...}}.  Any
-mismatch or exception ends the run with a nonzero exit code.
+Then the kernels line (per kernel: its launches on the main path, its
+time, its plain version's, its bound from the bytes it must move at 3.35
+TB/s, counted per 32-byte sector: the pieces each sector reads until its
+pixels are opaque, its background where it stays translucent, its write;
+and the share of that bound) and,
+last, {"ok": true, "device": {...}}.  Any mismatch or exception ends the
+run with a nonzero exit code, as does an import of JAX or of the JAX
+package.
 """
 
 import json
@@ -93,6 +104,17 @@ HSR_K, HSR_H, HSR_W = 100, 1088, 1920
 
 CSRC = "coherence_tpu_torch/kernels/csrc/"
 SOURCE = CSRC + "tile_composite.cu"
+
+# A kernel's bound: the bytes it must move over the H100 SXM's HBM rate
+# (NVIDIA's data sheet).  Every compositor is bound by bytes, counted per
+# 32-byte sector (8 pixels), the least the memory moves.
+HBM_BYTES_PER_S = 3.35e12
+PIECE_BYTES = 64 * 128 * 4
+SECTOR_BYTES = 32
+# The device-side wait queued before each timed launch: about 0.2 ms at the
+# H100's 1.98 GHz boost clock, longer than a wrapper takes to queue its
+# launch, so the timed window opens on a launch already queued.
+SLEEP_CYCLES = 400_000
 
 
 def emit(obj) -> None:
@@ -204,10 +226,15 @@ def scene_state(view):
 def event_ms(torch, fn, scrub, reps: int = N_TIMED):
     """Median CUDA-event time (ms) of `reps` calls of fn, each after
     `scrub` (a buffer larger than the 50 MB L2) is overwritten, so every
-    call starts with a cold L2 as a once-per-frame caller would."""
+    call starts with a cold L2 as a once-per-frame caller would.  A
+    device-side wait sits between the scrub and the start event, so fn's
+    launches are queued before the window opens and the window holds the
+    device work alone (a plain version that synchronizes inside still
+    shows its host time)."""
     times = []
     for _ in range(reps):
         scrub.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         fn()
@@ -215,6 +242,76 @@ def event_ms(torch, fn, scrub, reps: int = N_TIMED):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def in_turns(torch, old, new, scrub):
+    """{"ms", "prev_design_ms", readings}: `new` and `old` timed with
+    event_ms in the order old, new, new, old; each time the mean of its two
+    readings."""
+    o1 = event_ms(torch, old, scrub)
+    n1 = event_ms(torch, new, scrub)
+    n2 = event_ms(torch, new, scrub)
+    o2 = event_ms(torch, old, scrub)
+    return {"ms": (n1 + n2) / 2, "prev_design_ms": (o1 + o2) / 2, "readings": [o1, n1, n2, o2]}
+
+
+def walked_depths(torch, atlas, idxs, spans):
+    """(reads, still_open): for row t of `spans` (an (n, 2) int64 tensor of
+    [lo, hi) ranges of `idxs`) and each of the tile's 1024 32-byte sectors
+    (8 pixels of a row), the pieces the sector must read: up to and
+    including the piece after which its 8 pixels are opaque, else hi - lo;
+    and whether the sector is still translucent after them (only then does
+    the `over` onto the background read it).  The accumulated alpha follows
+    over_packed's alpha exactly, and stays 255 once it is 255."""
+    n = spans[:, 1] - spans[:, 0]
+    flat = atlas.reshape(atlas.shape[0], -1)
+    n_sectors = flat.shape[1] * 4 // SECTOR_BYTES
+    reads = torch.zeros((spans.shape[0], n_sectors), dtype=torch.int64, device=atlas.device)
+    still_open = torch.ones((spans.shape[0], n_sectors), dtype=torch.bool, device=atlas.device)
+    acc = torch.zeros((spans.shape[0], flat.shape[1]), dtype=torch.int32, device=atlas.device)
+    for k in range(int(n.max()) if n.numel() else 0):
+        rows = ((k < n) & still_open.any(1)).nonzero().squeeze(1)
+        if rows.numel() == 0:
+            break
+        reads[rows] += still_open[rows]
+        la = (flat[idxs[spans[rows, 0] + k].long()] >> 24) & 0xFF
+        t = acc[rows] * la + 128
+        a = la + acc[rows] - (((t >> 8) + t) >> 8)
+        acc[rows] = a
+        still_open[rows] = ~(a == 255).view(rows.numel(), n_sectors, -1).all(2)
+    return reads, still_open
+
+
+def full_spans(torch, starts):
+    """The (n, 2) spans of every tile of a full-frame list."""
+    return torch.stack([starts[:-1], starts[1:]], 1).long()
+
+
+def dirty_spans(torch, coords, spans, n_slots: int, device):
+    """The (n, 2) spans of the distinct real tiles of a dirty list (host
+    arrays): passthrough slots and padding repeats left out."""
+    real = {}
+    for j in range(n_slots):
+        if spans[2 * j] >= 0:
+            real[(int(coords[2 * j]), int(coords[2 * j + 1]))] = (int(spans[2 * j]), int(spans[2 * j + 1]))
+    return torch.tensor(sorted(real.values()), dtype=torch.int64, device=device).reshape(-1, 2)
+
+
+def bound(walks) -> dict:
+    """The bytes a compositor must move for the tiles of `walks`, a list of
+    walked_depths results: each sector's walked pieces read once, its
+    background read where it is still translucent, and every sector written
+    once; and the time they take at the HBM rate.  `depth` is the deepest
+    walk of any tile; `tile_count_bytes` counts instead every tile's pieces
+    until the whole tile is opaque, its background and its write (PR 1-3's
+    count)."""
+    tiles = sum(r.shape[0] for r, _ in walks)
+    sector_reads = sum(int(r.sum()) for r, _ in walks)
+    n_bytes = (sector_reads + sum(int(o.sum()) for _, o in walks) + sum(r.numel() for r, _ in walks)) * SECTOR_BYTES
+    tile_pieces = sum(int(r.max(1).values.sum()) for r, _ in walks)
+    return {"tiles": tiles, "piece_reads": sector_reads * SECTOR_BYTES / PIECE_BYTES,
+            "depth": max(int(r.max()) for r, _ in walks), "bytes": n_bytes,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "tile_count_bytes": (tile_pieces + 2 * tiles) * PIECE_BYTES}
 
 
 def max_abs_err(a, b) -> int:
@@ -247,24 +344,84 @@ def zero_counts(torch, kernels) -> None:
     torch.cuda.synchronize()
 
 
+def one_band(t):
+    """A leading-dimension-1 view: one band of the banded kernels."""
+    return t.view(1, *t.shape)
+
+
+def deep_case(torch, dev, scrub):
+    """Both kernels against their plain versions on a deep case: in a 1x3
+    tile frame, tile 0 lists 301 translucent pieces (alpha 0..3, a span
+    that no ring depth of 2, 4, 6 or 8 divides), tile 1 lists six pieces of
+    which the first is opaque, tile 2 is a passthrough slot of the dirty
+    list.  Tile 0's walk then times one step of each design: composite_full
+    against the previous design over that tile alone, in turns, per piece.
+    Returns what the phase line reports."""
+    from coherence_tpu_torch.raster import tiled_scene as T
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cap = 320
+    alpha = torch.randint(0, 4, (cap, 64, 128), generator=g, device=dev, dtype=torch.int32)
+    alpha[301] = 255
+    rgb = [torch.minimum(torch.randint(0, 256, (cap, 64, 128), generator=g, device=dev, dtype=torch.int32), alpha)
+           for _ in range(3)]
+    atlas = rgb[0] | (rgb[1] << 8) | (rgb[2] << 16) | (alpha << 24)
+    bg = torch.randint(-(2**31), 2**31 - 1, (64, 3 * 128), generator=g, device=dev, dtype=torch.int32)
+    idxs = torch.zeros(512, dtype=torch.int32, device=dev)
+    idxs[:301] = torch.arange(301, device=dev, dtype=torch.int32)
+    idxs[301:307] = torch.tensor([301, 0, 1, 2, 3, 4], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 301, 307, 307], dtype=torch.int32, device=dev)
+    full_k = T.composite_full(starts, idxs, bg, atlas, 1, 3)
+    require(torch.equal(full_k, T.composite_full_torch(starts, idxs, bg, atlas, 1, 3)),
+            "composite_full differs from composite_full_torch on the deep case")
+    n_slots = 8
+    coords = torch.tensor([0, 0, 0, 1, 0, 2] + [0, 2] * 5, dtype=torch.int32, device=dev)
+    spans = torch.tensor([0, 301, 301, 307, -1, -1] + [-1, -1] * 5, dtype=torch.int32, device=dev)
+    frame_k = torch.randint(-(2**31), 2**31 - 1, bg.shape, generator=g, device=dev, dtype=torch.int32)
+    frame_p = frame_k.clone()
+    T.composite_dirty(coords, spans, idxs, bg, frame_k, atlas, n_slots)
+    T.composite_dirty_torch(coords, spans, idxs, bg, frame_p, atlas, n_slots)
+    torch.cuda.synchronize()
+    require(torch.equal(frame_k, frame_p), "composite_dirty differs from composite_dirty_torch on the deep case")
+    require(torch.equal(frame_k[:, :256], full_k[:, :256]), "composite_dirty differs from composite_full")
+    reads, _ = walked_depths(torch, atlas, idxs, full_spans(torch, starts[:3]))
+    walked = [sorted(set(r)) for r in reads.tolist()]
+    require(walked == [[301], [1]], f"deep case walks {walked}, expected every sector [[301], [1]]")
+    s0, bg0 = starts[:2].clone(), bg[:, :128].contiguous()
+    turns = in_turns(torch, lambda: T.composite_full_banded(one_band(s0), one_band(idxs), bg0, one_band(atlas), 1, 1),
+                     lambda: T.composite_full(s0, idxs, bg0, atlas, 1, 1), scrub)
+    return {"equal_plain": True, "tile_pieces": [301, 6], "walked": [w[0] for w in walked], "passthrough_tile": 2,
+            "deep_tile_ms": turns["ms"], "deep_tile_prev_design_ms": turns["prev_design_ms"],
+            "step_us": turns["ms"] / 301 * 1e3, "prev_design_step_us": turns["prev_design_ms"] / 301 * 1e3}
+
+
 def lion_kernels(torch, dev, scrub):
     """Phase 3: composite_full and composite_dirty against their plain
-    versions on the lion's lists.  Returns {kernel: (max_abs_err, ms,
-    plain_ms)}."""
+    versions and the previous design (the banded kernels over one band) on
+    the lion's lists, then on the deep case.  Returns {kernel: row}."""
     from coherence_tpu_torch.raster import tiled_scene as T
 
     view, disp, key = build_scene(dev)
     ts = view.ts
+    atlas = ts.atlas()
     starts, idxs = ts.build_lists(view.order)
-    full_k = T.composite_full(starts, idxs, view.background, ts.atlas(), ts.nty, ts.ntx)
-    full_p = T.composite_full_torch(starts, idxs, view.background, ts.atlas(), ts.nty, ts.ntx)
+    full_k = T.composite_full(starts, idxs, view.background, atlas, ts.nty, ts.ntx)
+    full_p = T.composite_full_torch(starts, idxs, view.background, atlas, ts.nty, ts.ntx)
+
+    def full_old():
+        return T.composite_full_banded(one_band(starts), one_band(idxs), view.background, one_band(atlas), ts.nty,
+                                       ts.ntx)
+
+    full_o = full_old()
     torch.cuda.synchronize()
     require(torch.equal(full_k, full_p), "composite_full differs from composite_full_torch")
-    full_err = max_abs_err(full_k, full_p)
-    full_ms = event_ms(torch, lambda: T.composite_full(starts, idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub)
-    full_plain_ms = event_ms(
-        torch, lambda: T.composite_full_torch(starts, idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub
-    )
+    require(torch.equal(full_k, full_o), "composite_full differs from the previous design")
+    full = {"max_abs_err": max_abs_err(full_k, full_p),
+            **bound([walked_depths(torch, atlas, idxs, full_spans(torch, starts))])}
+    full.update(in_turns(torch, full_old,
+                         lambda: T.composite_full(starts, idxs, view.background, atlas, ts.nty, ts.ntx), scrub))
+    full["plain_ms"] = event_ms(
+        torch, lambda: T.composite_full_torch(starts, idxs, view.background, atlas, ts.nty, ts.ntx), scrub)
     n_listed = int(starts[-1])
 
     moved, (oys, oxs, base), entries, win, dirty = disp.stage_animated(key, *delta(0))
@@ -274,31 +431,42 @@ def lion_kernels(torch, dev, scrub):
     dirty_tiles = {int(coords[2 * j]) * ts.ntx + int(coords[2 * j + 1]) for j in range(n_real)}
     spare = next(t for t in range(ts.nty * ts.ntx) if t not in dirty_tiles)
     coords, spans, n_slots = with_passthrough(coords, spans, n_real, (spare // ts.ntx, spare % ts.ntx))
-    atlas = T.shatter_into(ts.atlas().clone(), moved.rgba, oys, oxs, base)
+    datlas = T.shatter_into(atlas.clone(), moved.rgba, oys, oxs, base)
     args = ts.upload(coords, spans, didx)
     noise = torch.randint(-(2**31), 2**31 - 1, view.frame.shape, dtype=torch.int32,
                           generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    frame_k, frame_p = noise.clone(), noise.clone()
-    T.composite_dirty(*args, view.background, frame_k, atlas, n_slots)
-    T.composite_dirty_torch(*args, view.background, frame_p, atlas, n_slots)
+    frame_k, frame_p, frame_o = noise.clone(), noise.clone(), noise.clone()
+    T.composite_dirty(*args, view.background, frame_k, datlas, n_slots)
+    T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots)
+
+    def dirty_old():
+        T.composite_dirty_banded(*(one_band(a) for a in args), view.background, frame_o, one_band(datlas), n_slots)
+
+    dirty_old()
     torch.cuda.synchronize()
     require(torch.equal(frame_k, frame_p), "composite_dirty differs from composite_dirty_torch")
+    require(torch.equal(frame_k, frame_o), "composite_dirty differs from the previous design")
     sy, sx = (spare // ts.ntx) * 64, (spare % ts.ntx) * 128
     require(torch.equal(frame_k[sy : sy + 64, sx : sx + 128], noise[sy : sy + 64, sx : sx + 128]),
             "composite_dirty wrote a passthrough tile")
-    dirty_err = max_abs_err(frame_k, frame_p)
-    dirty_ms = event_ms(torch, lambda: T.composite_dirty(*args, view.background, frame_k, atlas, n_slots), scrub)
-    dirty_plain_ms = event_ms(
-        torch, lambda: T.composite_dirty_torch(*args, view.background, frame_p, atlas, n_slots), scrub
-    )
-    emit({"phase": "kernels", "tolerance": 0, "composite_full": {"equal": True, "tiles": ts.nty * ts.ntx,
-                                                 "listed_pieces": n_listed, "ms": full_ms,
-                                                 "plain_ms": full_plain_ms},
-          "composite_dirty": {"equal": True, "slots": n_slots, "real_slots": n_real + 1,
-                              "passthrough_tile": spare, "listed_pieces": int(spans[2 * n_real + 1]),
-                              "ms": dirty_ms, "plain_ms": dirty_plain_ms}})
-    return {"composite_full": (full_err, full_ms, full_plain_ms),
-            "composite_dirty": (dirty_err, dirty_ms, dirty_plain_ms)}
+    dspans = dirty_spans(torch, coords, spans, n_slots, dev)
+    dirty_row = {"max_abs_err": max_abs_err(frame_k, frame_p),
+                 **bound([walked_depths(torch, datlas, args[2], dspans)])}
+    dirty_row.update(in_turns(torch, dirty_old,
+                              lambda: T.composite_dirty(*args, view.background, frame_k, datlas, n_slots), scrub))
+    dirty_row["plain_ms"] = event_ms(
+        torch, lambda: T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots), scrub)
+    deep = deep_case(torch, dev, scrub)
+    emit({"phase": "kernels", "tolerance": 0,
+          "composite_full": {"equal_plain": True, "equal_prev_design": True, "tiles": ts.nty * ts.ntx,
+                             "listed_pieces": n_listed, **full},
+          "composite_dirty": {"equal_plain": True, "equal_prev_design": True, "slots": n_slots,
+                              "real_slots": n_real + 1, "passthrough_tile": spare,
+                              "listed_pieces": int(spans[2 * n_real + 1]), **dirty_row},
+          "prev_design": "composite_full_banded / composite_dirty_banded over one band (one block a tile, "
+                         "one piece in flight)",
+          "deep": deep})
+    return {"composite_full": full, "composite_dirty": dirty_row}
 
 
 def lion_path(torch, dev, kernels):
@@ -355,9 +523,10 @@ def lion_path(torch, dev, kernels):
 
 def interactive_path(torch, dev, kernels, scrub):
     """Phases 5 and 6: config 5 on the card, counted from zero, then
-    composite_runs against its plain version and composite_full on the 1x
-    scene's full-frame lists.  Returns (launch counts, (max_abs_err, ms,
-    plain_ms) of composite_runs)."""
+    composite_runs against its plain version and composite_full, and
+    composite_full against the previous design, on the 1x scene's
+    full-frame lists.  Returns (launch counts, composite_runs's row,
+    composite_full's row on these lists)."""
     from coherence_tpu_torch.raster import tiled_scene as T
     from coherence_tpu_torch.scene import fastframe
 
@@ -440,26 +609,33 @@ def interactive_path(torch, dev, kernels, scrub):
     runs_k = T.composite_runs(starts, background, runs, nty, ntx)
     runs_p = T.composite_runs_torch(starts, background, runs, nty, ntx)
     full = T.composite_full(starts, idxs, background, atlas_1x, nty, ntx)
+
+    def full_old():
+        return T.composite_full_banded(one_band(starts), one_band(idxs), background, one_band(atlas_1x), nty, ntx)
+
+    full_o = full_old()
     torch.cuda.synchronize()
     require(torch.equal(runs_k, runs_p), "composite_runs differs from composite_runs_torch")
     require(torch.equal(runs_k, full), "composite_runs differs from composite_full on the same lists")
-    err = max_abs_err(runs_k, runs_p)
-    ms = event_ms(torch, lambda: T.composite_runs(starts, background, runs, nty, ntx), scrub)
-    plain_ms = event_ms(torch, lambda: T.composite_runs_torch(starts, background, runs, nty, ntx), scrub)
-    emit({"phase": "kernels_4k", "tolerance": 0, "composite_runs": {
-        "equal_plain": True, "equal_composite_full": True, "tiles": nty * ntx, "listed_pieces": int(starts[-1]),
-        "runs_pieces": int(runs.shape[0]), "ms": ms, "plain_ms": plain_ms,
-        "gather_runs_ms": event_ms(torch, lambda: T.gather_runs(atlas_1x, idxs), scrub),
-        "composite_full_ms": event_ms(torch, lambda: T.composite_full(starts, idxs, background, atlas_1x, nty, ntx),
-                                      scrub)}})
-    return counts, (err, ms, plain_ms)
+    require(torch.equal(full, full_o), "4K composite_full differs from the previous design")
+    walk = bound([walked_depths(torch, atlas_1x, idxs, full_spans(torch, starts))])
+    runs_row = {"max_abs_err": max_abs_err(runs_k, runs_p), **walk,
+                "ms": event_ms(torch, lambda: T.composite_runs(starts, background, runs, nty, ntx), scrub),
+                "plain_ms": event_ms(torch, lambda: T.composite_runs_torch(starts, background, runs, nty, ntx), scrub)}
+    full_row = {**walk, **in_turns(torch, full_old,
+                                   lambda: T.composite_full(starts, idxs, background, atlas_1x, nty, ntx), scrub)}
+    emit({"phase": "kernels_4k", "tolerance": 0, "tiles": nty * ntx, "listed_pieces": int(starts[-1]),
+          "composite_runs": {"equal_plain": True, "equal_composite_full": True, "runs_pieces": int(runs.shape[0]),
+                             "gather_runs_ms": event_ms(torch, lambda: T.gather_runs(atlas_1x, idxs), scrub),
+                             **runs_row},
+          "composite_full": {"equal_prev_design": True, **full_row}})
+    return counts, runs_row, full_row
 
 
 def layers_path(torch, dev, kernels, scrub):
     """Phase 7: config 2's stack over white through composite_layers,
     counted from zero, then the kernel against its plain version over
-    white and over noise.  Returns (launch counts, (max_abs_err, ms,
-    plain_ms))."""
+    white and over noise.  Returns (launch counts, its row)."""
     from coherence_tpu_torch.raster import compositor as PC
     from coherence_tpu_torch.scene import examples, fastframe
 
@@ -479,20 +655,28 @@ def layers_path(torch, dev, kernels, scrub):
     require(torch.equal(layered, want), "composite_layers differs from composite_layers_torch over white")
     require(torch.equal(over_noise_k, over_noise_p), "composite_layers differs from composite_layers_torch over noise")
     require(bool((((layered >> 24) & 0xFF) == 255).all()), "the layer stack over white is not opaque")
-    err = max(max_abs_err(layered, want), max_abs_err(over_noise_k, over_noise_p))
-    ms = event_ms(torch, lambda: PC.composite_layers(white, stack), scrub)
-    plain_ms = event_ms(torch, lambda: PC.composite_layers_torch(white, stack), scrub)
-    # Layers each tile walks: down to the first layer under which every
-    # pixel of the tile is opaque, else all of them.
-    depth = torch.full((HSR_H, HSR_W), HSR_K, dtype=torch.int32, device=dev)
-    for k in range(HSR_K - 1, -1, -1):
-        depth = torch.where(((stack[k] >> 24) & 0xFF) == 255, k + 1, depth)
-    walk = depth.view(HSR_H // 64, 64, HSR_W // 128, 128).amax(dim=(1, 3))
+    row = {"max_abs_err": max(max_abs_err(layered, want), max_abs_err(over_noise_k, over_noise_p)),
+           "ms": event_ms(torch, lambda: PC.composite_layers(white, stack), scrub),
+           "plain_ms": event_ms(torch, lambda: PC.composite_layers_torch(white, stack), scrub)}
+    # Layers each 32-byte sector walks: down to the layer after which its 8
+    # pixels are opaque, else all of them (over_packed's alpha, exactly).
+    acc = torch.zeros((HSR_H, HSR_W), dtype=torch.int32, device=dev)
+    reads = torch.zeros((HSR_H, HSR_W // 8), dtype=torch.int64, device=dev)
+    still_open = torch.ones_like(reads, dtype=torch.bool)
+    for k in range(HSR_K):
+        reads += still_open
+        la = (stack[k] >> 24) & 0xFF
+        t = acc * la + 128
+        acc = la + acc - (((t >> 8) + t) >> 8)
+        still_open = ~(acc == 255).view(HSR_H, HSR_W // 8, 8).all(2)
+    # As (tiles, 1024 sectors), tile-major.
+    reads, still_open = (x.view(HSR_H // 64, 64, HSR_W // 128, 16).permute(0, 2, 1, 3).reshape(-1, 1024)
+                         for x in (reads, still_open))
+    row.update(bound([(reads, still_open)]))
     emit({"phase": "hsr_layers", "layers": HSR_K, "height": HSR_H, "width": HSR_W, "tolerance": 0,
           "stack_mb": stack.numel() * 4 / 1e6, "launches": counts, "equal_plain_white": True,
-          "equal_plain_noise": True, "ms": ms, "plain_ms": plain_ms,
-          "mean_tile_walk_layers": float(walk.float().mean())})
-    return counts, (err, ms, plain_ms)
+          "equal_plain_noise": True, "mean_tile_walk_layers": float(reads.max(1).values.float().mean()), **row})
+    return counts, row
 
 
 def mesh_devices(torch, n: int):
@@ -595,7 +779,7 @@ def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
     """Phase 9: composite_full_banded and composite_dirty_banded against
     their plain versions on config 5's 2-band lists (the 1x scene of phase
     8's unsharded view, blob moved), timed beside the unbanded kernels on
-    the same frame.  Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    the same frame.  Returns {kernel: row}."""
     from coherence_tpu_torch.parallel import RowSharded
     from coherence_tpu_torch.raster import tiled_scene as T
 
@@ -653,6 +837,9 @@ def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
         dirty_plain_ms = event_ms(
             torch, lambda: T.composite_dirty_banded_torch(cc, ss, ii, gbg, fp, atlas, n_slots), dscrub)
     del dscrub
+    full_walk = bound([walked_depths(torch, atlas[k], i[k], full_spans(torch, s[k])) for k in range(atlas.shape[0])])
+    fb = first - mesh.groups[g][1]
+    dirty_walk = bound([walked_depths(torch, atlas[fb], ii[fb], dirty_spans(torch, c[first], sp[first], n_slots, dv))])
     unbanded_full_ms = event_ms(
         torch, lambda: T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub)
     gc, gs, gi, g_slots = ts._dirty_args(view.order, tiles)
@@ -666,12 +853,14 @@ def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
                                     "band_tiles": band_ty * ts.ntx, "listed_pieces": int(starts[:, -1].sum()),
                                     "local_cap": banded.local_cap, "global_slots": int(ts.atlas().shape[0]),
                                     "ms": full_ms, "plain_ms": full_plain_ms,
-                                    "unbanded_composite_full_ms": unbanded_full_ms},
+                                    "unbanded_composite_full_ms": unbanded_full_ms, **full_walk},
           "composite_dirty_banded": {"equal_plain": True, "slots": n_slots, "dirty_tiles": len(tiles),
                                      "idle_bands": idle, "ms": dirty_ms, "plain_ms": dirty_plain_ms,
-                                     "unbanded_composite_dirty_ms": unbanded_dirty_ms}})
-    return {"composite_full_banded": (full_err, full_ms, full_plain_ms),
-            "composite_dirty_banded": (dirty_err, dirty_ms, dirty_plain_ms)}
+                                     "unbanded_composite_dirty_ms": unbanded_dirty_ms, **dirty_walk}})
+    return {"composite_full_banded": {"max_abs_err": full_err, "ms": full_ms, "plain_ms": full_plain_ms,
+                                      **full_walk},
+            "composite_dirty_banded": {"max_abs_err": dirty_err, "ms": dirty_ms, "plain_ms": dirty_plain_ms,
+                                       **dirty_walk}}
 
 
 def mesh_lion_path(torch, dev, kernels):
@@ -770,7 +959,7 @@ def main() -> int:
     scrub = torch.empty(32 * 2**20, dtype=torch.int32, device=dev)  # 128 MiB
     timed = lion_kernels(torch, dev, scrub)
     lion = lion_path(torch, dev, kernels)
-    counts4, timed["composite_runs"] = interactive_path(torch, dev, kernels, scrub)
+    counts4, timed["composite_runs"], full_4k = interactive_path(torch, dev, kernels, scrub)
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, dev, scrub, mesh, udisp, ukey))
@@ -784,6 +973,8 @@ def main() -> int:
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
 
     require("jax" not in sys.modules, "jax was imported")
+    jax_package = sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu."))
+    require(not jax_package, f"modules of the JAX package were imported: {jax_package}")
     rows = [
         ("composite_dirty", SOURCE, "coherence_tpu/raster/tiled_scene.py:490", lion),
         ("composite_full", SOURCE, "coherence_tpu/raster/tiled_scene.py:379", lion),
@@ -795,11 +986,19 @@ def main() -> int:
     ]
     line = []
     for kname, source, replaces, counts in rows:
-        err, ms, plain_ms = timed[kname]
+        t = timed[kname]
         line.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": counts[kname], "launches_4k": counts4[kname], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "launches": counts[kname], "launches_4k": counts4[kname], "max_abs_err": t["max_abs_err"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     # No one PyTorch call composites a front-to-back piece list with an early stop.
+                     "library_ms": None, "bytes": t["bytes"], "share": t["bound_ms"] / t["ms"],
+                     "depth": t["depth"]})
+        if "prev_design_ms" in t:
+            line[-1]["prev_design_ms"] = t["prev_design_ms"]
     line[1]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:143"
+    line[1].update({"ms_4k": full_4k["ms"], "prev_design_ms_4k": full_4k["prev_design_ms"],
+                    "bytes_4k": full_4k["bytes"], "bound_ms_4k": full_4k["bound_ms"],
+                    "share_4k": full_4k["bound_ms"] / full_4k["ms"], "depth_4k": full_4k["depth"]})
     line[4]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:1385"
     for row in line[4:]:
         row["launches_4k"] = counts_mesh[row["name"]]

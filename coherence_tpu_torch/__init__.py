@@ -23,11 +23,15 @@ path:
                                    (play_animated)
   parallel/mesh, dryrun          — row-band meshes of one process, halo
                                    exchange, the multi-band dry run
+  coord, transform, ident        — copies of the JAX package's host modules
+  geometry/, io/, native_lib     — paths, shapes, PDF input, the native sweep
   kernels/                       — CUDA build, binding, launch counters
   convert                        — JAX-side state (as numpy) -> port objects
 
-It imports only the jax-free host modules of ``coherence_tpu`` (geometry,
-io, transform, ident, coord, native_lib) and never ``jax``.
+It imports nothing of ``coherence_tpu`` and never ``jax``: the host modules
+it needs (coord, transform, ident, geometry, io, native_lib and the native
+sweep library under native/) are its own trimmed copies, each naming the
+JAX module it copies.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,494 @@
+"""PDF reader.
+
+The port's copy of ``coherence_tpu.io.pdf``, trimmed to what the port's
+scenes read: classic cross-reference tables and xref-stream / object-stream
+(ObjStm) files, FlateDecode streams (with PNG/TIFF predictors), and the page
+tree with inheritable attributes.  Other stream filters raise ValueError and
+encrypted files raise NotImplementedError; the writer is not ported.
+
+Object model: Python natives —
+  dict          -> PDF dictionary (keys without the leading '/')
+  list          -> PDF array
+  Name("X")     -> /X
+  Ref(n, g)     -> indirect reference
+  bytes         -> PDF string
+  int/float/bool/None
+  Stream(d, raw)-> stream (lazily decoded)
+"""
+
+from __future__ import annotations
+
+import re
+import zlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Union
+
+
+@dataclass(frozen=True)
+class Name:
+    v: str
+
+    def __repr__(self):
+        return f"/{self.v}"
+
+
+@dataclass(frozen=True)
+class Ref:
+    num: int
+    gen: int = 0
+
+
+def _apply_predictor(data: bytes, parms: dict) -> bytes:
+    """PNG (10-15) and TIFF (2) predictors per /DecodeParms (PDF 7.4.4.4)."""
+    pred = parms.get("Predictor", 1)
+    if not isinstance(pred, int) or pred <= 1:
+        return data
+    colors = int(parms.get("Colors", 1))
+    bpc = int(parms.get("BitsPerComponent", 8))
+    columns = int(parms.get("Columns", 1))
+    bpp = max(1, (colors * bpc + 7) // 8)  # bytes per pixel
+    rowlen = (columns * colors * bpc + 7) // 8
+    if pred == 2:  # TIFF horizontal differencing (8-bit components only)
+        if bpc != 8:
+            raise ValueError("TIFF predictor with bpc != 8 unsupported")
+        out = bytearray(data)
+        for r in range(0, len(out) - rowlen + 1, rowlen):
+            for i in range(bpp, rowlen):
+                out[r + i] = (out[r + i] + out[r + i - bpp]) & 0xFF
+        return bytes(out)
+    # PNG predictors: each row prefixed with a filter-type byte.
+    out = bytearray()
+    prev_row = bytearray(rowlen)
+    pos = 0
+    while pos + 1 <= len(data):
+        ft = data[pos]
+        row = bytearray(data[pos + 1 : pos + 1 + rowlen])
+        pos += 1 + rowlen
+        if ft == 1:  # Sub
+            for i in range(bpp, len(row)):
+                row[i] = (row[i] + row[i - bpp]) & 0xFF
+        elif ft == 2:  # Up
+            for i in range(len(row)):
+                row[i] = (row[i] + prev_row[i]) & 0xFF
+        elif ft == 3:  # Average
+            for i in range(len(row)):
+                left = row[i - bpp] if i >= bpp else 0
+                row[i] = (row[i] + ((left + prev_row[i]) >> 1)) & 0xFF
+        elif ft == 4:  # Paeth
+            for i in range(len(row)):
+                a = row[i - bpp] if i >= bpp else 0
+                b = prev_row[i]
+                c = prev_row[i - bpp] if i >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pr = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                row[i] = (row[i] + pr) & 0xFF
+        elif ft != 0:
+            raise ValueError(f"bad PNG filter type {ft}")
+        out += row
+        prev_row = row
+    return bytes(out)
+
+
+class Stream:
+    def __init__(self, d: dict, raw: bytes, pdf: "Pdf" = None):
+        self.dict = d
+        self.raw = raw
+        self._pdf = pdf
+        self._decoded: Optional[bytes] = None
+
+    def decode(self) -> bytes:
+        if self._decoded is None:
+            res = self._pdf.resolve if self._pdf is not None else (lambda o: o)
+            filt = res(self.dict.get("Filter"))
+            parms = res(self.dict.get("DecodeParms", self.dict.get("DP")))
+            data = self.raw
+            filters: List[str] = []
+            if isinstance(filt, Name):
+                filters = [filt.v]
+            elif isinstance(filt, list):
+                filters = [res(f).v for f in filt]
+            if isinstance(parms, dict) or parms is None:
+                parms_list = [parms] * max(1, len(filters))
+            else:
+                parms_list = [res(p) for p in parms]
+                parms_list += [None] * (len(filters) - len(parms_list))
+            for f, p in zip(filters, parms_list):
+                p = p if isinstance(p, dict) else {}
+                p = {k: res(v) for k, v in p.items()}
+                if f in ("FlateDecode", "Fl"):
+                    data = zlib.decompress(data)
+                    data = _apply_predictor(data, p)
+                else:
+                    raise ValueError(f"unsupported stream filter {f}")
+            self._decoded = data
+        return self._decoded
+
+
+PdfObj = Union[dict, list, Name, Ref, bytes, int, float, bool, None, Stream]
+
+_WS = b"\x00\t\n\x0c\r "
+_DELIM = b"()<>[]{}/%"
+
+
+class _Lexer:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.d = data
+        self.p = pos
+
+    def skip_ws(self):
+        d, n = self.d, len(self.d)
+        while self.p < n:
+            c = self.d[self.p]
+            if c in _WS:
+                self.p += 1
+            elif c == 0x25:  # '%' comment
+                while self.p < n and self.d[self.p] not in b"\r\n":
+                    self.p += 1
+            else:
+                return
+
+    def peek_token(self) -> bytes:
+        save = self.p
+        t = self.next_token()
+        self.p = save
+        return t
+
+    def next_token(self) -> bytes:
+        self.skip_ws()
+        d, n = self.d, len(self.d)
+        if self.p >= n:
+            return b""
+        c = d[self.p]
+        if c == 0x3C and self.p + 1 < n and d[self.p + 1] == 0x3C:
+            self.p += 2
+            return b"<<"
+        if c == 0x3E and self.p + 1 < n and d[self.p + 1] == 0x3E:
+            self.p += 2
+            return b">>"
+        if c in b"[]{}":
+            self.p += 1
+            return bytes([c])
+        if c == 0x2F:  # name
+            start = self.p
+            self.p += 1
+            while self.p < n and d[self.p] not in _WS and d[self.p] not in _DELIM:
+                self.p += 1
+            return d[start : self.p]
+        if c == 0x28:  # ( string
+            return self._lex_string()
+        if c == 0x3C:  # <hex string
+            start = self.p
+            self.p = d.index(b">", self.p) + 1
+            return d[start : self.p]
+        start = self.p
+        while self.p < n and d[self.p] not in _WS and d[self.p] not in _DELIM:
+            self.p += 1
+        if self.p == start:
+            self.p += 1
+        return d[start : self.p]
+
+    def _lex_string(self) -> bytes:
+        d, n = self.d, len(self.d)
+        start = self.p
+        depth = 0
+        while self.p < n:
+            c = d[self.p]
+            if c == 0x5C:
+                self.p += 2
+                continue
+            if c == 0x28:
+                depth += 1
+            elif c == 0x29:
+                depth -= 1
+                if depth == 0:
+                    self.p += 1
+                    return d[start : self.p]
+            self.p += 1
+        raise ValueError("unterminated string")
+
+
+_NUM_RE = re.compile(rb"^[+-]?(\d+\.?\d*|\.\d+)$")
+
+
+def _unescape_string(tok: bytes) -> bytes:
+    body = tok[1:-1]
+    out = bytearray()
+    i = 0
+    esc = {b"n"[0]: 10, b"r"[0]: 13, b"t"[0]: 9, b"b"[0]: 8, b"f"[0]: 12}
+    while i < len(body):
+        c = body[i]
+        if c == 0x5C and i + 1 < len(body):
+            nxt = body[i + 1]
+            if nxt in esc:
+                out.append(esc[nxt])
+                i += 2
+            elif 0x30 <= nxt <= 0x37:
+                j = i + 1
+                oct_ = 0
+                while j < len(body) and j < i + 4 and 0x30 <= body[j] <= 0x37:
+                    oct_ = oct_ * 8 + (body[j] - 0x30)
+                    j += 1
+                out.append(oct_ & 0xFF)
+                i = j
+            else:
+                out.append(nxt)
+                i += 2
+        else:
+            out.append(c)
+            i += 1
+    return bytes(out)
+
+
+class _Parser:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.lex = _Lexer(data, pos)
+
+    def parse(self) -> PdfObj:
+        tok = self.lex.next_token()
+        return self._obj(tok)
+
+    def _obj(self, tok: bytes) -> PdfObj:
+        if tok == b"<<":
+            d = {}
+            while True:
+                k = self.lex.next_token()
+                if k == b">>":
+                    return d
+                if not k.startswith(b"/"):
+                    raise ValueError(f"bad dict key {k!r}")
+                d[k[1:].decode("latin1")] = self.parse()
+        if tok == b"[":
+            arr = []
+            while True:
+                t = self.lex.peek_token()
+                if t == b"]":
+                    self.lex.next_token()
+                    return arr
+                arr.append(self.parse())
+        if tok.startswith(b"/"):
+            return Name(tok[1:].decode("latin1"))
+        if tok == b"true":
+            return True
+        if tok == b"false":
+            return False
+        if tok == b"null":
+            return None
+        if tok.startswith(b"("):
+            return _unescape_string(tok)
+        if tok.startswith(b"<"):
+            hexstr = re.sub(rb"[^0-9A-Fa-f]", b"", tok[1:-1])
+            if len(hexstr) % 2:
+                hexstr += b"0"
+            return bytes.fromhex(hexstr.decode())
+        if _NUM_RE.match(tok):
+            # Could be "N G R" reference.
+            save = self.lex.p
+            t2 = self.lex.next_token()
+            if _NUM_RE.match(t2) and b"." not in tok and b"." not in t2:
+                t3 = self.lex.next_token()
+                if t3 == b"R":
+                    return Ref(int(tok), int(t2))
+            self.lex.p = save
+            if b"." in tok:
+                return float(tok)
+            return int(tok)
+        raise ValueError(f"unexpected token {tok!r}")
+
+
+_OBJ_RE = re.compile(rb"(\d+)\s+(\d+)\s+obj\b")
+
+
+class Pdf:
+    """An in-memory PDF document."""
+
+    def __init__(self, objects: Dict[int, PdfObj], trailer: dict):
+        self.objects = objects
+        self.trailer = trailer
+
+    # --- resolution -------------------------------------------------------
+
+    def resolve(self, o: PdfObj) -> PdfObj:
+        seen = 0
+        while isinstance(o, Ref):
+            o = self.objects.get(o.num)
+            seen += 1
+            if seen > 64:
+                raise ValueError("reference cycle")
+        return o
+
+    def get(self, d: dict, key: str, default=None) -> PdfObj:
+        return self.resolve(d.get(key, default)) if isinstance(d, dict) else default
+
+    # --- page tree --------------------------------------------------------
+
+    def catalog(self) -> dict:
+        return self.resolve(self.trailer["Root"])
+
+    def pages(self) -> List[dict]:
+        """Flattened page list with inherited attributes (Pdfpage parity)."""
+        root = self.resolve(self.catalog()["Pages"])
+        out: List[dict] = []
+        inheritable = ("Resources", "MediaBox", "CropBox", "Rotate")
+
+        def walk(node: dict, inherited: dict):
+            node = self.resolve(node)
+            inh = dict(inherited)
+            for k in inheritable:
+                if k in node:
+                    inh[k] = node[k]
+            t = self.get(node, "Type")
+            if isinstance(t, Name) and t.v == "Pages" or "Kids" in node:
+                for kid in self.resolve(node.get("Kids", [])):
+                    walk(kid, inh)
+            else:
+                page = dict(node)
+                for k, v in inh.items():
+                    page.setdefault(k, v)
+                out.append(page)
+
+        walk(root, {})
+        return out
+
+    def page_content(self, page: dict) -> bytes:
+        """Concatenated decoded content streams of a page."""
+        contents = self.resolve(page.get("Contents"))
+        if contents is None:
+            return b""
+        if isinstance(contents, Stream):
+            return contents.decode()
+        return b"\n".join(self.resolve(c).decode() for c in contents)
+
+
+def pdf_of_bytes(data: bytes) -> Pdf:
+    """Parse by scanning every `N G obj` (robust to broken/linearized xref),
+    then unpack object streams (ObjStm) and read xref-stream trailers.
+
+    Classic and modern (PDF 1.5+ cross-reference-stream) files both load;
+    the byte-offset xref table itself is never needed because the scan
+    discovers every direct object and ObjStm unpacking the compressed ones.
+    """
+    objects: Dict[int, PdfObj] = {}
+    # File offset of each object number's winning definition: incremental
+    # updates append, so LATER byte offset = newer definition, whether the
+    # definition is a direct `N G obj` or lives inside a later ObjStm.
+    obj_off: Dict[int, int] = {}
+    for m in _OBJ_RE.finditer(data):
+        # Reject matches inside streams by attempting a parse; later
+        # definitions override earlier ones (incremental updates).
+        num = int(m.group(1))
+        p = _Parser(data, m.end())
+        try:
+            obj = p.parse()
+        except Exception:
+            continue
+        # stream?
+        lex = p.lex
+        save = lex.p
+        tok = lex.next_token()
+        if tok == b"stream" and isinstance(obj, dict):
+            q = lex.p
+            if data[q : q + 2] == b"\r\n":
+                q += 2
+            elif data[q : q + 1] == b"\n":
+                q += 1
+            length = obj.get("Length")
+            if isinstance(length, Ref):
+                # Resolve later: find the int object inline (common case:
+                # defined after the stream).  Fall back to endstream scan.
+                length = None
+            if isinstance(length, int):
+                raw = data[q : q + length]
+            else:
+                end = data.find(b"endstream", q)
+                raw = data[q:end]
+                # Strip the trailing EOL before `endstream`.
+                while raw[-1:] in (b"\r", b"\n"):
+                    raw = raw[:-1]
+            obj = Stream(obj, raw)
+        else:
+            lex.p = save
+        objects[num] = obj
+        obj_off[num] = m.start()
+    # Resolve Ref lengths now that all objects are known.
+    for obj in objects.values():
+        if isinstance(obj, Stream):
+            length = obj.dict.get("Length")
+            if isinstance(length, Ref) and isinstance(objects.get(length.num), int):
+                obj.raw = obj.raw[: objects[length.num]]
+    # Unpack object streams (PDF 7.5.7): decode each /Type /ObjStm, parse
+    # the (objnum, offset) header pairs, then each contained object.
+    # Precedence is by FILE OFFSET of the defining container: a compressed
+    # copy wins iff its ObjStm's `N G obj` appears later in the file than
+    # the current winning definition (direct or another ObjStm's) — so an
+    # Acrobat full save with object streams correctly overrides stale
+    # direct objects from earlier revisions, and vice versa.
+    proto = Pdf(objects, {})
+    for obj in objects.values():
+        if isinstance(obj, Stream):
+            obj._pdf = proto
+    objstms = sorted(
+        (obj_off.get(num, -1), num)
+        for num, obj in objects.items()
+        if isinstance(obj, Stream)
+        and isinstance(obj.dict.get("Type"), Name)
+        and obj.dict["Type"].v == "ObjStm"
+    )
+    for stm_off, stm_num in objstms:
+        obj = objects[stm_num]
+        try:
+            body = obj.decode()
+            n = proto.resolve(obj.dict.get("N", 0))
+            first = proto.resolve(obj.dict.get("First", 0))
+            head = _Lexer(body[:first])
+            pairs = []
+            for _ in range(int(n)):
+                num = int(head.next_token())
+                off = int(head.next_token())
+                pairs.append((num, off))
+            for num, off in pairs:
+                if obj_off.get(num, -1) < stm_off:
+                    objects[num] = _Parser(body, first + off).parse()
+                    obj_off[num] = stm_off
+        except Exception:
+            continue
+    # Trailer(s): scan for `trailer` dicts; merge (later wins for Root).
+    # Xref-stream files have no `trailer` keyword — their /Type /XRef
+    # stream dict IS the trailer (PDF 7.5.8.2), so merge those too.
+    trailer: dict = {}
+    for num in sorted(objects):
+        obj = objects[num]
+        if isinstance(obj, Stream):
+            t = obj.dict.get("Type")
+            if isinstance(t, Name) and t.v == "XRef":
+                for k in ("Root", "Info", "ID", "Size", "Encrypt"):
+                    if k in obj.dict:
+                        trailer[k] = obj.dict[k]
+    for m in re.finditer(rb"trailer", data):
+        try:
+            t = _Parser(data, m.end()).parse()
+            if isinstance(t, dict):
+                trailer.update(t)
+        except Exception:
+            pass
+    if "Encrypt" in trailer:
+        raise NotImplementedError("encrypted PDF files")
+    if "Root" not in trailer:
+        # Some linearized files only have the Root in an xref-stream dict;
+        # fall back: find an object with /Type /Catalog.
+        for num, obj in objects.items():
+            if isinstance(obj, dict):
+                t = obj.get("Type")
+                if isinstance(t, Name) and t.v == "Catalog":
+                    trailer["Root"] = Ref(num)
+                    break
+    pdf = Pdf(objects, trailer)
+    for obj in objects.values():
+        if isinstance(obj, Stream):
+            obj._pdf = pdf
+    return pdf
+
+
+def pdf_of_file(path: str) -> Pdf:
+    with open(path, "rb") as f:
+        return pdf_of_bytes(f.read())

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels: build, binding and launch counters.
 
-Every CUDA source in ``csrc/`` is compiled by one ``nvcc`` call for
-``sm_90a`` into one shared library with a plain C interface,
-``build/kernels/libcomposite.so`` at the root of the checkout: on first
-use, and again whenever any file in ``csrc/`` is newer than the library.
+Every CUDA source in ``csrc/`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface, ``build/kernels/libcomposite.so``
+at the root of the checkout: on first use, and again whenever any file in
+``csrc/`` is newer than the library.
 The library is loaded with ``ctypes``; every pointer and the stream
 (PyTorch's current stream) pass as ``c_void_p``.  Each entry point returns
 ``cudaGetLastError()`` after its launch, and the wrapper raises on a
@@ -33,7 +34,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kern
 LIBRARY = os.path.join(BUILD_DIR, "libcomposite.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
@@ -67,20 +68,31 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile every ``csrc/*.cu`` into the library if it is missing or
-    older than any file in ``csrc/``.  Returns nvcc's output (ptxas
-    register and spill counts), or "" when the library was up to date."""
+    older than any file in ``csrc/``: one ``nvcc`` per source, in parallel,
+    then one link.  Returns nvcc's output (ptxas register and spill
+    counts), or "" when the library was up to date."""
     inputs = sorted(glob.glob(os.path.join(_CSRC, "*")))
     if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(os.path.getmtime(p) for p in inputs):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    nvcc, tag = _nvcc(), os.getpid()
     sources = [p for p in inputs if p.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
+    objects = [os.path.join(BUILD_DIR, f"{os.path.basename(p)}.{tag}.o") for p in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for src, obj in zip(sources, objects)]
+    logs = [p.communicate()[0] for p in procs]
+    for src, p, log in zip(sources, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} ({p.returncode}):\n{log}")
+    tmp = f"{LIBRARY}.{tag}.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    for obj in objects:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stdout}")
     os.replace(tmp, LIBRARY)
-    return proc.stdout
+    return "".join(logs)
 
 
 def load() -> Dict[str, ctypes._CFuncPtr]:
@@ -130,9 +142,9 @@ def _raise_on(name: str, rc: int) -> None:
 
 
 def composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
-    """Launch ``composite_dirty``: one block per slot of the compacted
-    dirty list (flat (2 * n_slots,) int32 coords and spans), in place in
-    `frame` on the current stream."""
+    """Launch ``composite_dirty``: one block per 4-row stripe of each slot
+    of the compacted dirty list (flat (2 * n_slots,) int32 coords and
+    spans), in place in `frame` on the current stream."""
     device, ph, pw = _check_planes(background, atlas)
     _check("coords", coords, device, (2 * n_slots,))
     _check("spans", spans, device, (2 * n_slots,))
@@ -149,7 +161,8 @@ def composite_dirty(coords, spans, idxs, background, frame, atlas, n_slots: int)
 
 
 def composite_full(starts, idxs, background, atlas, nty: int, ntx: int) -> torch.Tensor:
-    """Launch ``composite_full``: one block per tile, into a new frame."""
+    """Launch ``composite_full``: one block per 4-row stripe of each tile,
+    into a new frame."""
     device, ph, pw = _check_planes(background, atlas)
     if (ph, pw) != (nty * 64, ntx * 128):
         raise ValueError(f"plane {ph}x{pw} does not match the {nty}x{ntx} tile grid")

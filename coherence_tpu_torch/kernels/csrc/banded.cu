@@ -19,13 +19,15 @@
 //   starting at row b * band_rows.
 // Tile coordinates and atlas slots in the lists are band-local.
 //
-// What bounds it: HBM bytes, as for composite_full and composite_dirty: per
-// tile the block reads 4 B/px for every listed piece until the tile turns
-// opaque, plus the background tile, and writes the tile once.  This keeps
-// their simple design (tile_math.cuh composite_tile): one 256-thread block
-// per tile, 32 pixels per thread in registers, coalesced 16-byte loads, a
-// block vote after each piece for the early stop, nothing shared between
-// blocks.  A slot whose span starts below 0 leaves its tile as it is (an
+// What bounds the work: HBM bytes, as for composite_full and
+// composite_dirty: per tile the block reads 4 B/px for every listed piece
+// until the tile turns opaque, plus the background tile, and writes the
+// tile once.  These kernels keep the simple one-piece-in-flight walk
+// (tile_math.cuh composite_tile), which is bound by latency instead: one
+// 256-thread block per tile, 32 pixels per thread in registers, coalesced
+// 16-byte loads, a block vote after each piece for the early stop, nothing
+// shared between blocks.  tile_composite.cu's striped TMA ring is the
+// design to adopt here next.  A slot whose span starts below 0 leaves its tile as it is (an
 // idle band's slots all do); padding slots repeat a band's last real slot,
 // which is safe because a compositing slot never reads the frame.
 

@@ -5,10 +5,17 @@
 // arithmetic is the JAX package's _over_packed bit for bit, including the
 // bare OR of the packed fields with no clamp.
 //
-// A tile is 64x128 pixels, composited by one block of 256 threads; each
-// thread owns 32 pixels of the tile in registers, as 8 16-byte vectors with
-// neighbouring threads on neighbouring addresses, so every tile read and
-// write is a coalesced 16-byte access.
+// A tile is 64x128 pixels.  composite_tile below composites one by one
+// block of 256 threads; each thread owns 32 pixels of the tile in
+// registers, as 8 16-byte vectors with neighbouring threads on neighbouring
+// addresses, so every tile read and write is a coalesced 16-byte access.
+// It keeps one piece in flight per block (a dependent idxs[k] load, the
+// piece's loads, then a block vote), so a tile takes its depth times one
+// round trip to memory: it is bound by latency, not by its bytes.
+// banded.cu (K6, K7) still walks with it, and composite_runs.cu and
+// composite_layers.cu (K4, K5) walk one block a tile the same way with
+// finish_tile; tile_composite.cu (K1, K2) walks row stripes through a ring
+// of TMA bulk copies instead, with this file's over_packed.
 
 #pragma once
 

@@ -1,0 +1,364 @@
+// Native host library of coherence_tpu_torch: the port's copy of the four
+// entry-point families of coherence_tpu/native/coherence_native.cpp that
+// the port calls (bezier_subdivide_batch, edge_spans_*, expand_1x_*,
+// expand_aa_*), unchanged.
+//
+// The bezier subdivision and the scanline sweep are the per-scene host
+// geometry stage (polygon.ml:107-127 subdivision, polygon.ml:306-512 sweep):
+// pure float64/int64 transcriptions of the NumPy formulations in the JAX
+// package's geometry/path.py and raster/scanline.py, bit-identical by
+// construction.  They MUST be compiled with -ffp-contract=off: an FMA
+// contraction of a*b+c changes double rounding against NumPy.
+//
+// Exposed with a plain C ABI for ctypes; built by native_lib.py.
+
+#include <cstdint>
+#include <cmath>
+#include <algorithm>
+#include <array>
+#include <vector>
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Bezier subdivision (geometry/path.py bezier_subdivide; polygon.ml:107-127).
+// ctrl: (n, 8) float64 control points [x1 y1 x2 y2 x3 y3 x4 y4]; out:
+// (cap, 4) float64 chords [ax ay bx by] in DFS left-to-right order; counts:
+// (n,) chords per bezier.  Returns the TOTAL chord count — callers re-call
+// with a larger `out` when it exceeds cap (only the first cap chords are
+// written).  Float semantics match CPython exactly: ** 2 is pow (correctly
+// rounded on glibc), midpoints are (a + b) / 2, the flatness predicate
+// treats nan/inf/zero/subnormal distances as flat.
+// ---------------------------------------------------------------------------
+
+static inline double dist_point_line(double cx, double cy, double ax, double ay,
+                                     double bx, double by) {
+  double l = std::sqrt(std::pow(bx - ax, 2.0) + std::pow(by - ay, 2.0));
+  if (l == 0.0 || !std::isfinite(l)) return NAN;
+  double s = ((ay - cy) * (bx - ax) - (ax - cx) * (by - ay)) / (l * l);
+  return std::fabs(s) * l;
+}
+
+static inline bool dist_normal(double d) {
+  return std::isfinite(d) && d != 0.0 && std::fabs(d) >= 2.2250738585072014e-308;
+}
+
+int64_t bezier_subdivide_batch(const double* ctrl, int64_t n, double eps,
+                               double* out, int64_t cap, int64_t* counts) {
+  std::vector<std::array<double, 8>> stack;
+  int64_t total = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const double* c = ctrl + 8 * i;
+    int64_t cnt = 0;
+    stack.clear();
+    stack.push_back({c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]});
+    while (!stack.empty()) {
+      std::array<double, 8> q = stack.back();
+      stack.pop_back();
+      double ax = q[0], ay = q[1], bx = q[2], by = q[3];
+      double cx = q[4], cy = q[5], dx = q[6], dy = q[7];
+      double d1 = dist_point_line(bx, by, ax, ay, dx, dy);
+      double d2 = dist_point_line(cx, cy, ax, ay, dx, dy);
+      bool flat = (dist_normal(d1) && dist_normal(d2)) ? (d1 < eps && d2 < eps)
+                                                       : true;
+      if (flat) {
+        if (total < cap) {
+          out[4 * total] = ax;
+          out[4 * total + 1] = ay;
+          out[4 * total + 2] = dx;
+          out[4 * total + 3] = dy;
+        }
+        ++total;
+        ++cnt;
+      } else {
+        double l2x = (ax + bx) / 2.0, l2y = (ay + by) / 2.0;
+        double hx = (bx + cx) / 2.0, hy = (by + cy) / 2.0;
+        double l3x = (l2x + hx) / 2.0, l3y = (l2y + hy) / 2.0;
+        double r3x = (cx + dx) / 2.0, r3y = (cy + dy) / 2.0;
+        double r2x = (hx + r3x) / 2.0, r2y = (hy + r3y) / 2.0;
+        double l4x = (l3x + r2x) / 2.0, l4y = (l3y + r2y) / 2.0;
+        // Right pushed first so the left half pops first (in-order chords).
+        stack.push_back({l4x, l4y, r2x, r2y, r3x, r3y, dx, dy});
+        stack.push_back({ax, ay, l2x, l2y, l3x, l3y, l4x, l4y});
+      }
+    }
+    counts[i] = cnt;
+  }
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// Scanline sweep (raster/scanline.py _edge_spans; polygon.ml:306-512).
+// Edges are (n, 4) int64 subbin [x0, y0, x1, y1]; pixel row y covers
+// subbins [32y-47 .. 32y+16].  Two-call protocol: edge_spans_count returns
+// the exact coverage-span count T (one span per active (edge, row) pair
+// after the row clip); edge_spans_fill writes the coverage spans (cov_*,
+// capacity T) and the winding crossing spans (cross_*, capacity 2T is
+// always sufficient: each family emits < its crossing count <= T), in the
+// EXACT array order of the NumPy formulation (edge-major coverage; top
+// crossings sorted by (row, x) stable then bottom ones).
+// ---------------------------------------------------------------------------
+
+static inline int64_t floordiv64(int64_t a, int64_t b) {
+  int64_t q = a / b, r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// Pixel bin of subbin n: trunc-toward-zero of (n + 31) / 32 (coord.ml:44).
+static inline int64_t pix_of_sub64(int64_t nn) { return (nn + 31) / 32; }
+
+int64_t edge_spans_count(const int64_t* edges, int64_t n,
+                         int64_t clip_lo, int64_t clip_hi) {
+  int64_t T = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t ey0 = edges[4 * i + 1], ey1 = edges[4 * i + 3];
+    int64_t ymin = std::min(ey0, ey1), ymax = std::max(ey0, ey1);
+    int64_t ylo = std::max(-floordiv64(-(ymin - 16), 32), clip_lo);
+    int64_t yhi = std::min(floordiv64(ymax + 47, 32), clip_hi);
+    if (yhi >= ylo) T += yhi - ylo + 1;
+  }
+  return T;
+}
+
+struct CrossPt {
+  int64_t r, x;
+  int32_t d;
+};
+
+static int64_t emit_crossing_spans(std::vector<CrossPt>& v, int32_t nonzero,
+                                   int64_t ext, int64_t* rows, int64_t* s,
+                                   int64_t* e, int64_t off) {
+  std::stable_sort(v.begin(), v.end(), [](const CrossPt& a, const CrossPt& b) {
+    return a.r != b.r ? a.r < b.r : a.x < b.x;
+  });
+  int64_t m = 0, wind = 0, idx_in_row = 0;
+  for (size_t i = 0; i < v.size(); ++i) {
+    if (i == 0 || v[i].r != v[i - 1].r) {
+      wind = 0;
+      idx_in_row = 0;
+    }
+    wind += v[i].d;
+    bool same_next = (i + 1 < v.size()) && v[i + 1].r == v[i].r;
+    bool emit = nonzero ? (same_next && wind != 0)
+                        : (same_next && (idx_in_row % 2 == 0));
+    if (emit) {
+      rows[off + m] = v[i].r;
+      s[off + m] = pix_of_sub64(v[i].x - ext);
+      e[off + m] = pix_of_sub64(v[i + 1].x + ext);
+      ++m;
+    }
+    ++idx_in_row;
+  }
+  return m;
+}
+
+void edge_spans_fill(const int64_t* edges, int64_t n, int32_t nonzero,
+                     int64_t crossing_ext, int64_t clip_lo, int64_t clip_hi,
+                     int64_t* cov_rows, int64_t* cov_s, int64_t* cov_e,
+                     int64_t* cross_rows, int64_t* cross_s, int64_t* cross_e,
+                     int64_t* out_counts) {
+  std::vector<CrossPt> tops, bots;
+  int64_t ncov = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t ex0 = edges[4 * i], ey0 = edges[4 * i + 1];
+    int64_t ex1 = edges[4 * i + 2], ey1 = edges[4 * i + 3];
+    int64_t ymin = std::min(ey0, ey1), ymax = std::max(ey0, ey1);
+    bool up = ey1 > ey0, down = ey0 > ey1;
+    int64_t x0in = down ? ex1 : (up ? ex0 : std::min(ex0, ex1));
+    int64_t x1in = down ? ex0 : (up ? ex1 : std::max(ex0, ex1));
+    int32_t dir = up ? 1 : -1;
+    double denom = (double)(ymax - ymin);
+    double grad = denom == 0.0 ? 0.0 : (double)(x1in - x0in) / denom;
+    int64_t ylo = std::max(-floordiv64(-(ymin - 16), 32), clip_lo);
+    int64_t yhi = std::min(floordiv64(ymax + 47, 32), clip_hi);
+    for (int64_t row = ylo; row <= yhi; ++row) {
+      int64_t top = 32 * row - 47;
+      int64_t bot = top + 63;
+      bool has_top = ymin < top;
+      bool has_bot = ymax > bot;
+      int64_t x_t = 0, x_b = 0;
+      if (has_top) {
+        x_t = (int64_t)std::trunc(
+            (double)x0in + grad * ((double)(top - 1 - ymin) + 0.25) + 0.5);
+        tops.push_back({row, x_t, dir});
+      }
+      if (has_bot) {
+        // Top-and-bottom clipped edges compound the already-rounded top
+        // crossing (polygon.ml:365-385); (2*32 - 1) + 0.25 == 63.25.
+        x_b = has_top
+                  ? (int64_t)std::trunc((double)x_t + grad * 63.25 + 0.5)
+                  : (int64_t)std::trunc(
+                        (double)x0in + grad * ((double)(bot - ymin) + 0.25) + 0.5);
+        bots.push_back({row, x_b, dir});
+      }
+      int64_t a = has_top ? x_t : x0in;
+      int64_t b = has_bot ? x_b : x1in;
+      cov_rows[ncov] = row;
+      cov_s[ncov] = pix_of_sub64(std::min(a, b) - 16);
+      cov_e[ncov] = pix_of_sub64(std::max(a, b) + 16);
+      ++ncov;
+    }
+  }
+  int64_t m = emit_crossing_spans(tops, nonzero, crossing_ext, cross_rows,
+                                  cross_s, cross_e, 0);
+  m += emit_crossing_spans(bots, nonzero, crossing_ext, cross_rows, cross_s,
+                           cross_e, m);
+  out_counts[0] = ncov;
+  out_counts[1] = m;
+}
+
+// ---------------------------------------------------------------------------
+// Tile assignment of pixel spans (raster/tile_raster._expand_1x/_expand_aa
+// + _group_slices), fused: expand each span to the tiles it overlaps and
+// bucket-sort the expansions by tile id STABLY (the per-tile entry order
+// matches NumPy's stable argsort of the expansion order, so staged span
+// arrays are bit-identical).  Two-call protocol: *_count returns the total
+// expansion count; *_grouped fills caller buffers of that capacity plus a
+// (n_tiles, 3) group table [tile, lo, hi] and returns the group count.
+// ---------------------------------------------------------------------------
+
+int64_t expand_1x_count(const int64_t* rows, const int64_t* ss,
+                        const int64_t* ee, int64_t T, int64_t nty,
+                        int64_t ntx, int64_t tile_h, int64_t tile_w) {
+  int64_t total = 0;
+  for (int64_t i = 0; i < T; ++i) {
+    int64_t band = floordiv64(rows[i] - 1, tile_h);
+    if (band < 0 || band >= nty || ee[i] < 1) continue;
+    int64_t lo = std::max(floordiv64(ss[i] - 1, tile_w), (int64_t)0);
+    int64_t hi = std::min(floordiv64(ee[i] - 1, tile_w), ntx - 1);
+    if (hi >= lo) total += hi - lo + 1;
+  }
+  return total;
+}
+
+int64_t expand_1x_grouped(const int64_t* rows, const int64_t* ss,
+                          const int64_t* ee, int64_t T, int64_t nty,
+                          int64_t ntx, int64_t tile_h, int64_t tile_w,
+                          int64_t* out_r, int64_t* out_s, int64_t* out_e,
+                          int64_t* groups, int64_t* n_groups) {
+  const int64_t n_tiles = nty * ntx;
+  std::vector<int64_t> counts((size_t)n_tiles, 0);
+  for (int64_t i = 0; i < T; ++i) {
+    int64_t band = floordiv64(rows[i] - 1, tile_h);
+    if (band < 0 || band >= nty || ee[i] < 1) continue;
+    int64_t lo = std::max(floordiv64(ss[i] - 1, tile_w), (int64_t)0);
+    int64_t hi = std::min(floordiv64(ee[i] - 1, tile_w), ntx - 1);
+    for (int64_t tx = lo; tx <= hi; ++tx) ++counts[(size_t)(band * ntx + tx)];
+  }
+  std::vector<int64_t> offs((size_t)n_tiles, 0);
+  int64_t total = 0, ng = 0;
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    offs[(size_t)t] = total;
+    if (counts[(size_t)t]) {
+      groups[3 * ng] = t;
+      groups[3 * ng + 1] = total;
+      groups[3 * ng + 2] = total + counts[(size_t)t];
+      ++ng;
+    }
+    total += counts[(size_t)t];
+  }
+  for (int64_t i = 0; i < T; ++i) {
+    int64_t band = floordiv64(rows[i] - 1, tile_h);
+    if (band < 0 || band >= nty || ee[i] < 1) continue;
+    int64_t lo = std::max(floordiv64(ss[i] - 1, tile_w), (int64_t)0);
+    int64_t hi = std::min(floordiv64(ee[i] - 1, tile_w), ntx - 1);
+    int64_t r_rel = rows[i] - (band * tile_h + 1);
+    for (int64_t tx = lo; tx <= hi; ++tx) {
+      int64_t col0 = tx * tile_w + 1;
+      int64_t& o = offs[(size_t)(band * ntx + tx)];
+      out_r[o] = r_rel;
+      out_s[o] = std::max(ss[i] - col0, (int64_t)0);
+      out_e[o] = std::min(ee[i] - col0, tile_w - 1);
+      ++o;
+    }
+  }
+  *n_groups = ng;
+  return total;
+}
+
+// AA expansion: scaled spans to edge-tile t-plane windows (rows
+// [hstep*ty - hpad, hstep*ty + hstep - 1], cols [wstep*tx - hpad,
+// wstep*tx + wstep - 1]); candidate bands cand = 0 then 1, matching the
+// NumPy concatenation order.  edge_tiles: (nty*ntx,) u8 filter.
+static inline bool aa_row_tile(int64_t row, int64_t cand, int64_t nty,
+                               int64_t hstep, int64_t hpad, int64_t* ty) {
+  int64_t t = floordiv64(row + hpad, hstep) - cand;
+  *ty = t;
+  return t >= 0 && t < nty && hstep * t - hpad <= row &&
+         row <= hstep * t + hstep - 1;
+}
+
+int64_t expand_aa_count(const int64_t* rows, const int64_t* ss,
+                        const int64_t* ee, int64_t T, int64_t nty,
+                        int64_t ntx, int64_t hstep, int64_t wstep,
+                        int64_t hpad, const uint8_t* edge_tiles) {
+  int64_t total = 0;
+  for (int64_t cand = 0; cand < 2; ++cand) {
+    for (int64_t i = 0; i < T; ++i) {
+      int64_t ty;
+      if (!aa_row_tile(rows[i], cand, nty, hstep, hpad, &ty)) continue;
+      int64_t lo = std::max(-floordiv64(-(ss[i] - (wstep - 1)), wstep),
+                            (int64_t)0);
+      int64_t hi = std::min(floordiv64(ee[i] + hpad, wstep), ntx - 1);
+      for (int64_t tx = lo; tx <= hi; ++tx)
+        if (edge_tiles[ty * ntx + tx]) ++total;
+    }
+  }
+  return total;
+}
+
+int64_t expand_aa_grouped(const int64_t* rows, const int64_t* ss,
+                          const int64_t* ee, int64_t T, int64_t nty,
+                          int64_t ntx, int64_t hstep, int64_t wstep,
+                          int64_t hpad, int64_t ttw, const uint8_t* edge_tiles,
+                          int64_t* out_r, int64_t* out_s, int64_t* out_e,
+                          int64_t* groups, int64_t* n_groups) {
+  const int64_t n_tiles = nty * ntx;
+  std::vector<int64_t> counts((size_t)n_tiles, 0);
+  for (int64_t cand = 0; cand < 2; ++cand) {
+    for (int64_t i = 0; i < T; ++i) {
+      int64_t ty;
+      if (!aa_row_tile(rows[i], cand, nty, hstep, hpad, &ty)) continue;
+      int64_t lo = std::max(-floordiv64(-(ss[i] - (wstep - 1)), wstep),
+                            (int64_t)0);
+      int64_t hi = std::min(floordiv64(ee[i] + hpad, wstep), ntx - 1);
+      for (int64_t tx = lo; tx <= hi; ++tx)
+        if (edge_tiles[ty * ntx + tx]) ++counts[(size_t)(ty * ntx + tx)];
+    }
+  }
+  std::vector<int64_t> offs((size_t)n_tiles, 0);
+  int64_t total = 0, ng = 0;
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    offs[(size_t)t] = total;
+    if (counts[(size_t)t]) {
+      groups[3 * ng] = t;
+      groups[3 * ng + 1] = total;
+      groups[3 * ng + 2] = total + counts[(size_t)t];
+      ++ng;
+    }
+    total += counts[(size_t)t];
+  }
+  for (int64_t cand = 0; cand < 2; ++cand) {
+    for (int64_t i = 0; i < T; ++i) {
+      int64_t ty;
+      if (!aa_row_tile(rows[i], cand, nty, hstep, hpad, &ty)) continue;
+      int64_t lo = std::max(-floordiv64(-(ss[i] - (wstep - 1)), wstep),
+                            (int64_t)0);
+      int64_t hi = std::min(floordiv64(ee[i] + hpad, wstep), ntx - 1);
+      int64_t tr0 = hstep * ty - hpad;
+      for (int64_t tx = lo; tx <= hi; ++tx) {
+        if (!edge_tiles[ty * ntx + tx]) continue;
+        int64_t tc0 = wstep * tx - hpad;
+        int64_t& o = offs[(size_t)(ty * ntx + tx)];
+        out_r[o] = rows[i] - tr0;
+        out_s[o] = std::min(std::max(ss[i] - tc0, (int64_t)0), ttw - 1);
+        out_e[o] = std::min(std::max(ee[i] - tc0, (int64_t)0), ttw - 1);
+        ++o;
+      }
+    }
+  }
+  *n_groups = ng;
+  return total;
+}
+
+}  // extern "C"

@@ -1,0 +1,206 @@
+"""ctypes loader for the port's native host library
+(``native/coherence_native.cpp``).
+
+The port's copy of ``coherence_tpu.native_lib``, trimmed to the four entry
+points the port calls: ``bezier_subdivide_batch``, ``edge_spans``,
+``expand_1x_grouped`` and ``expand_aa_grouped``.  The library is compiled
+by g++ on first use, and again whenever the source is newer, into
+``build/native/`` at the root of the checkout.  It is built with
+``-march=native``, so its file name carries a hash of the flags and of the
+host's CPU model and feature flags: a library built on another host is
+never loaded here.  The port has no NumPy fallback for these: a failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "native", "coherence_native.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "native")
+GXX_FLAGS = [
+    "-O3",
+    "-march=native",
+    # The bezier/scanline entry points are bit-exact float64 transcriptions
+    # of NumPy formulas: FMA contraction of a*b+c would change the double
+    # rounding, so forbid it.
+    "-ffp-contract=off",
+    "-shared",
+    "-fPIC",
+]
+
+
+def _host_tag() -> str:
+    """A short hash of the build flags and of what -march=native reads: the
+    CPU's model name and feature flags."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(platform.machine().encode())
+    try:
+        with open("/proc/cpuinfo") as f:
+            seen = set()
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part") and key not in seen:
+                    seen.add(key)
+                    h.update(line.encode())
+    except OSError:
+        h.update(platform.processor().encode())
+    return h.hexdigest()[:12]
+
+
+LIBRARY = os.path.join(BUILD_DIR, f"libcoherence_native-{_host_tag()}.so")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build() -> None:
+    """Compile the library if this host's build is missing or older than
+    its source."""
+    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(_SRC):
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    proc = subprocess.run(["g++", *GXX_FLAGS, _SRC, "-o", tmp],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build the native host library ({proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, LIBRARY)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        build()
+        lib = ctypes.CDLL(LIBRARY)
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i64 = ctypes.c_int64
+        lib.bezier_subdivide_batch.restype = i64
+        lib.bezier_subdivide_batch.argtypes = [f64p, i64, ctypes.c_double, f64p, i64, i64p]
+        lib.edge_spans_count.restype = i64
+        lib.edge_spans_count.argtypes = [i64p, i64, i64, i64]
+        lib.edge_spans_fill.restype = None
+        lib.edge_spans_fill.argtypes = [i64p, i64, ctypes.c_int32, i64, i64, i64] + [i64p] * 7
+        lib.expand_1x_count.restype = i64
+        lib.expand_1x_count.argtypes = [i64p, i64p, i64p] + [i64] * 5
+        lib.expand_1x_grouped.restype = i64
+        lib.expand_1x_grouped.argtypes = [i64p, i64p, i64p] + [i64] * 5 + [i64p] * 5
+        lib.expand_aa_count.restype = i64
+        lib.expand_aa_count.argtypes = [i64p, i64p, i64p] + [i64] * 6 + [u8p]
+        lib.expand_aa_grouped.restype = i64
+        lib.expand_aa_grouped.argtypes = [i64p, i64p, i64p] + [i64] * 7 + [u8p] + [i64p] * 5
+        _lib = lib
+        return _lib
+
+
+def bezier_subdivide_batch(ctrl: np.ndarray, eps: float):
+    """De Casteljau subdivision of a batch of beziers to chords, exactly
+    matching geometry.path.bezier_subdivide's DFS order and flatness
+    classification (polygon.ml:107-127).
+
+    ctrl: (n, 8) float64 control points [x1 y1 x2 y2 x3 y3 x4 y4].
+    Returns (chords (total, 4) float64 [ax ay bx by], counts (n,) int64)."""
+    lib = _load()
+    ctrl = np.ascontiguousarray(ctrl, dtype=np.float64)
+    n = ctrl.shape[0]
+    counts = np.empty(n, dtype=np.int64)
+    cap = max(32 * n, 64)
+    while True:
+        out = np.empty((cap, 4), dtype=np.float64)
+        total = lib.bezier_subdivide_batch(ctrl, n, float(eps), out, cap, counts)
+        if total <= cap:
+            return out[:total], counts
+        cap = int(total)
+
+
+def edge_spans(edges: np.ndarray, nonzero: bool, crossing_ext: int,
+               clip_lo: int, clip_hi: int):
+    """Native scanline sweep (raster/scanline._edge_spans semantics, same
+    array order bit-for-bit).  Returns (rows, cov_s, cov_e, cross_rows,
+    cross_s, cross_e) int64 arrays, or None when no rows survive the clip."""
+    lib = _load()
+    edges = np.ascontiguousarray(edges, dtype=np.int64)
+    n = edges.shape[0]
+    T = lib.edge_spans_count(edges, n, clip_lo, clip_hi)
+    if T == 0:
+        return None
+    cov_rows = np.empty(T, dtype=np.int64)
+    cov_s = np.empty(T, dtype=np.int64)
+    cov_e = np.empty(T, dtype=np.int64)
+    cross_rows = np.empty(2 * T, dtype=np.int64)
+    cross_s = np.empty(2 * T, dtype=np.int64)
+    cross_e = np.empty(2 * T, dtype=np.int64)
+    counts = np.empty(2, dtype=np.int64)
+    lib.edge_spans_fill(
+        edges, n, 1 if nonzero else 0, int(crossing_ext),
+        int(clip_lo), int(clip_hi),
+        cov_rows, cov_s, cov_e, cross_rows, cross_s, cross_e, counts,
+    )
+    m = int(counts[1])
+    return cov_rows, cov_s, cov_e, cross_rows[:m], cross_s[:m], cross_e[:m]
+
+
+def _as_i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _groups(ng, groups, out_r, out_s, out_e):
+    return {
+        int(groups[i, 0]): (
+            out_r[groups[i, 1] : groups[i, 2]],
+            out_s[groups[i, 1] : groups[i, 2]],
+            out_e[groups[i, 1] : groups[i, 2]],
+        )
+        for i in range(int(ng[0]))
+    }
+
+
+def expand_1x_grouped(rows, ss, ee, nty: int, ntx: int, tile_h: int, tile_w: int):
+    """Tile assignment of 1x pixel spans, grouped by tile (fused
+    tile_raster._expand_1x + _group_slices; per-tile entry order matches
+    NumPy's stable sort bit-for-bit).  Returns {tile: (r_rel, s_rel,
+    e_rel)}."""
+    lib = _load()
+    rows, ss, ee = _as_i64(rows), _as_i64(ss), _as_i64(ee)
+    T = rows.shape[0]
+    total = lib.expand_1x_count(rows, ss, ee, T, nty, ntx, tile_h, tile_w) if T else 0
+    if total == 0:
+        return {}
+    out_r, out_s, out_e = (np.empty(total, np.int64) for _ in range(3))
+    groups = np.empty((nty * ntx, 3), np.int64)
+    ng = np.empty(1, np.int64)
+    lib.expand_1x_grouped(rows, ss, ee, T, nty, ntx, tile_h, tile_w, out_r, out_s, out_e, groups, ng)
+    return _groups(ng, groups, out_r, out_s, out_e)
+
+
+def expand_aa_grouped(rows, ss, ee, nty: int, ntx: int, hstep: int, wstep: int,
+                      hpad: int, ttw: int, edge_tiles: np.ndarray):
+    """Tile assignment of 16x AA spans to edge-tile t-plane windows,
+    grouped by tile (fused tile_raster._expand_aa + _group_slices).
+    Returns {tile: (r_rel, s_rel, e_rel)}."""
+    lib = _load()
+    rows, ss, ee = _as_i64(rows), _as_i64(ss), _as_i64(ee)
+    et = np.ascontiguousarray(edge_tiles, dtype=np.uint8)
+    T = rows.shape[0]
+    total = lib.expand_aa_count(rows, ss, ee, T, nty, ntx, hstep, wstep, hpad, et) if T else 0
+    if total == 0:
+        return {}
+    out_r, out_s, out_e = (np.empty(total, np.int64) for _ in range(3))
+    groups = np.empty((nty * ntx, 3), np.int64)
+    ng = np.empty(1, np.int64)
+    lib.expand_aa_grouped(rows, ss, ee, T, nty, ntx, hstep, wstep, hpad, ttw, et,
+                          out_r, out_s, out_e, groups, ng)
+    return _groups(ng, groups, out_r, out_s, out_e)

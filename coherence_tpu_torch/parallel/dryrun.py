@@ -27,10 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from coherence_tpu import ident
-from coherence_tpu.geometry import shapes as gshapes
-
 from .. import colour as C
+from .. import ident
+from ..geometry import shapes as gshapes
 from ..raster import fills as rfills
 from ..raster import region
 from ..raster.compositor import TILE_H, TILE_W, pack_rgba

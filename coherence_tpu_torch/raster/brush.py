@@ -16,10 +16,9 @@ from typing import List, Tuple
 
 import numpy as np
 
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import path as gpath
-
 from .. import colour as C
+from .. import transform as tr
+from ..geometry import path as gpath
 
 GAUSSIAN = "gaussian"
 DUMMY = "dummy"

@@ -1,10 +1,10 @@
 """Scanline sweep of edge lists to pixel spans (parity: ``polygon.ml:306-705``).
 
 The subset of ``coherence_tpu.raster.scanline`` that the tiled frame path
-uses.  The sweep runs on the host, in the JAX package's shared C++ library
-(``coherence_tpu.native_lib``, a bit-exact transcription of the JAX
-package's NumPy formulas; it builds with g++ on first use).  See the JAX
-module for the semantics in full:
+uses.  The sweep runs on the host, in the port's native library
+(``native_lib``, a bit-exact transcription of the JAX package's NumPy
+formulas; it builds with g++ on first use).  See the JAX module for the
+semantics in full:
 
 * pixel row y covers subbins [32y-47 .. 32y+16] (``polygon.ml:538-541``);
 * crossings at band boundaries use the reference's rounding, compounded
@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from coherence_tpu import coord, native_lib
-from coherence_tpu.geometry.path import NONZERO, Path, edgelist_of_path
+from .. import coord, native_lib
+from ..geometry.path import NONZERO, Path, edgelist_of_path
 
 _HALF = coord.halfips  # 16
 
@@ -32,10 +32,7 @@ def _edge_spans(edges: np.ndarray, winding: str, crossing_ext: int, rows_clip=No
     if edges.shape[0] == 0:
         return None
     lo, hi = rows_clip if rows_clip is not None else (-(2**62), 2**62)
-    got = native_lib.edge_spans(edges, winding == NONZERO, crossing_ext, lo, hi)
-    if got is NotImplemented:
-        raise RuntimeError("the native sweep library (coherence_tpu/native) did not build")
-    return got
+    return native_lib.edge_spans(edges, winding == NONZERO, crossing_ext, lo, hi)
 
 
 def shapeminshape_polygon(path: Path):

@@ -7,7 +7,7 @@ directly into frame-aligned TILE_H x TILE_W pieces, the unit of the tiled
 scene's atlas:
 
   * the host sweep runs once per object (``scanline._edge_spans`` at 1x and
-    16x) and assigns spans to the tiles they overlap (the shared C++
+    16x) and assigns spans to the tiles they overlap (the port's native
     library's fused expansion and grouping);
   * tiles with fringe pixels become *edge* items (1x coverage and crossing
     spans plus 16x AA spans); tiles inside the shape become *interior*
@@ -29,9 +29,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from coherence_tpu import native_lib
-
 from .. import colour as C
+from .. import native_lib
 from . import aa as raa
 from . import scanline
 from .compositor import TILE_H, TILE_W, pack_rgba
@@ -138,8 +137,6 @@ class TileBuild:
         if rows.size == 0 and x_rows.size == 0:
             return [], []
         covg = native_lib.expand_1x_grouped(rows, cov_s, cov_e, self.nty, self.ntx, TILE_H, TILE_W)
-        if covg is None:
-            raise RuntimeError("the native sweep library (coherence_tpu/native) did not build")
         crossg = native_lib.expand_1x_grouped(x_rows, x_s, x_e, self.nty, self.ntx, TILE_H, TILE_W)
         edge_tiles = np.zeros(self.nty * self.ntx, dtype=bool)
         if covg:

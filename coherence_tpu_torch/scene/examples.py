@@ -10,13 +10,12 @@ import os
 import numpy as np
 import torch
 
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import shapes as gshapes
-from coherence_tpu.io import pdf as P
-from coherence_tpu.io import pdfgraphics as PG
-
 from .. import colour as C
+from .. import ident
+from .. import transform as tr
+from ..geometry import shapes as gshapes
+from ..io import pdf as P
+from ..io import pdfgraphics as PG
 from ..raster import brush as rbrush
 from ..raster import fills
 from . import pdfscene

@@ -34,10 +34,9 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import path as gpath
-
 from .. import colour as C
+from .. import transform as tr
+from ..geometry import path as gpath
 from ..parallel.mesh import Mesh, RowSharded
 from ..raster import aa as raa
 from ..raster import brush as rbrush

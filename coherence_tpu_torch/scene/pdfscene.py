@@ -7,11 +7,10 @@ Anything else raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
-from coherence_tpu import ident
-from coherence_tpu.geometry import path as gpath
-from coherence_tpu.io import pdfgraphics as PG
-
 from .. import colour as C
+from .. import ident
+from ..geometry import path as gpath
+from ..io import pdfgraphics as PG
 from ..raster import fills as rfills
 from . import render as R
 
@@ -109,9 +108,7 @@ def scene_of_graphic(pdf, graphic: PG.Graphic):
                 if getattr(a, "path_blend", "Normal") not in (None, "Normal", "Compatible"):
                     raise NotImplementedError(f"blend mode {a.path_blend}")
                 if a.path_fill is not None:
-                    cs, vals = a.path_fill
-                    if isinstance(vals, (PG.ShadingPattern, PG.TilingPattern)):
-                        raise NotImplementedError("pattern fills")
+                    cs, vals = a.path_fill  # pattern colours raise in the PDF reader
                     fill = fill_of_pdf_colour(vals, a.path_transparency.fill_transparency, cs)
                     _check_clips(clips, _path_bbox(el.path))
                     out.append(R.Obj(ident.new_ids(), R.Basic(fill, R.PathShape(el.path)), (), R.OVER))

@@ -13,11 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import path as gpath
-from coherence_tpu.geometry import shapes as gshapes
-
+from .. import ident
+from .. import transform as tr
+from ..geometry import path as gpath
+from ..geometry import shapes as gshapes
 from ..raster import brush as rbrush
 from ..raster import fills as rfills
 

@@ -15,9 +15,6 @@ import torch
 
 import coherence_tpu.colour as JC
 import jax.numpy as jnp
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu.raster import brush as JB
 from coherence_tpu.raster import brush_tiles as JBT
 from coherence_tpu.raster import fills as JFL
@@ -36,6 +33,7 @@ from coherence_tpu_torch.raster.tiled_scene import TiledScene as TTiledScene
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
 
+from _torch_hosts import JAX, PORT, ops
 from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 512, 256  # 4 x 4 tiles of 128 x 64
@@ -45,19 +43,19 @@ def _objs(specs, jax_side: bool):
     """Scene objects on one side from specs: ("stroke", cx, cy, r, radius,
     opacity, colour name, alpha, transform) or ("path", cx, cy, r, colour
     name)."""
-    R, FL, B, C = (JR, JFL, JB, JC) if jax_side else (TR, TFL, TB, TC)
+    R, FL, B, C, h = (JR, JFL, JB, JC, JAX) if jax_side else (TR, TFL, TB, TC, PORT)
     out = []
     for spec in specs:
         if spec[0] == "path":
             _, cx, cy, r, name = spec
-            geom = R.Basic(FL.plain(getattr(C, name)), R.PathShape(gshapes.circle(cx, cy, r)))
-            out.append(R.Obj(ident.new_ids(), geom, (), R.OVER))
+            geom = R.Basic(FL.plain(getattr(C, name)), R.PathShape(h.gshapes.circle(cx, cy, r)))
+            out.append(R.Obj(h.ident.new_ids(), geom, (), R.OVER))
             continue
         _, cx, cy, r, radius, opacity, name, alpha, t = spec
         col = getattr(C, name)
         fill = FL.plain(C.dissolve(col, delta=alpha) if alpha != 255 else col)
-        stroke = R.BrushStroke((B.mkround(radius, opacity), gshapes.circle(cx, cy, r)))
-        out.append(R.Obj(ident.new_ids(), R.Basic(fill, stroke), t, R.OVER))
+        stroke = R.BrushStroke((B.mkround(radius, opacity), h.gshapes.circle(cx, cy, r)))
+        out.append(R.Obj(h.ident.new_ids(), R.Basic(fill, stroke), ops(h, t), R.OVER))
     return out
 
 
@@ -80,7 +78,7 @@ LAYOUTS = {
         ("path", 300.0, 128.0, 90.0, "darkgreen"),
         _stroke(120.0, 180.0, 45.0, radius=9.0, opacity=0.4, name="black"),
     ],
-    "transformed": [_stroke(128.0, 64.0, 40.0, t=(tr.Scale((0.0, 0.0), 2.0, 2.0),))],
+    "transformed": [_stroke(128.0, 64.0, 40.0, t=(("Scale", (0.0, 0.0), 2.0, 2.0),))],
 }
 
 
@@ -132,20 +130,23 @@ def test_drawround_alpha_matches_jax(radius, opacity):
 
 @pytest.mark.parametrize("radius,r,t", [
     (6.0, 80.0, ()),
-    (12.0, 100.0, (tr.Translate(10.5, -3.25),)),
-    (4.0, 50.0, (tr.Translate(256.0, 128.0), tr.Scale((0.0, 0.0), 2.0, 2.0), tr.Translate(-256.0, -128.0))),
-    (9.0, 45.0, (tr.Scale((1.0, 2.0), 0.5, 3.0),)),
+    (12.0, 100.0, (("Translate", 10.5, -3.25),)),
+    (4.0, 50.0, (("Translate", 256.0, 128.0), ("Scale", (0.0, 0.0), 2.0, 2.0), ("Translate", -256.0, -128.0))),
+    (9.0, 45.0, (("Scale", (1.0, 2.0), 0.5, 3.0),)),
 ])
 def test_stroke_host_math_matches_jax(radius, r, t):
-    bs = (JB.mkround(radius, 0.5), gshapes.circle(200.0, 120.0, r))
-    jbs, tbs = JB.transform_brushstroke(list(t), bs), TB.transform_brushstroke(list(t), bs)
+    jt, tt = ops(JAX, t), ops(PORT, t)
+    jbs = JB.transform_brushstroke(list(jt), (JB.mkround(radius, 0.5), JAX.gshapes.circle(200.0, 120.0, r)))
+    tbs = TB.transform_brushstroke(list(tt), (TB.mkround(radius, 0.5), PORT.gshapes.circle(200.0, 120.0, r)))
     assert repr(tbs) == repr(jbs)
     assert TB.sizeof_brush(tbs[0]) == JB.sizeof_brush(jbs[0])
     assert TB.points_of_brushstroke(tbs) == JB.points_of_brushstroke(jbs)
     assert TB._int_points(TB.points_of_brushstroke(tbs)) == JB._int_points(JB.points_of_brushstroke(jbs))
     assert TB.bounds_brushstroke(tbs) == JB.bounds_brushstroke(jbs)
-    jo = JR.Obj(ident.new_ids(), JR.Basic(JFL.plain(JC.gold), JR.BrushStroke(bs)), t, JR.OVER)
-    to = TR.Obj(ident.new_ids(), TR.Basic(TFL.plain(TC.gold), TR.BrushStroke(bs)), t, TR.OVER)
+    jbs0 = (JB.mkround(radius, 0.5), JAX.gshapes.circle(200.0, 120.0, r))
+    tbs0 = (TB.mkround(radius, 0.5), PORT.gshapes.circle(200.0, 120.0, r))
+    jo = JR.Obj(JAX.ident.new_ids(), JR.Basic(JFL.plain(JC.gold), JR.BrushStroke(jbs0)), jt, JR.OVER)
+    to = TR.Obj(PORT.ident.new_ids(), TR.Basic(TFL.plain(TC.gold), TR.BrushStroke(tbs0)), tt, TR.OVER)
     assert TR.bounds_of_basicshape(to) == JR.bounds_of_basicshape(jo)
     moved = TR.translate_renderobject(7, -3, to)
     assert TR.bounds_of_basicshape(moved) == JR.bounds_of_basicshape(JR.translate_renderobject(7, -3, jo))

@@ -163,6 +163,119 @@ def test_composite_dirty_kernel_matches_plain(cuda_device, seed, n_real):
     assert torch.equal(got[tile], f[tile])
 
 
+def _ring_depth() -> int:
+    """kStages of tile_composite.cu: the pieces a stripe keeps in flight."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "tile_composite.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int kStages = (\d+);", f.read()).group(1))
+
+
+def _faint_atlas(rng, cap: int) -> np.ndarray:
+    """(cap, TILE_H, TILE_W) pieces of alpha 0..3: hundreds of them stacked
+    stay translucent, so a walk over them never stops early."""
+    alpha = rng.integers(0, 4, (cap, TILE_H, TILE_W))
+    rgb = np.minimum(rng.integers(0, 256, (cap, TILE_H, TILE_W, 3)), alpha[..., None])
+    return (rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (alpha << 24)).astype(np.uint32)
+
+
+def _banded_piece(rng, rows: slice, cols: slice, alpha: int) -> np.ndarray:
+    """A piece covering only rows x cols, at `alpha` (255: opaque there)."""
+    piece = np.zeros((TILE_H, TILE_W), np.uint32)
+    h, w = rows.stop - rows.start, cols.stop - cols.start
+    rgb = rng.integers(0, alpha + 1, (h, w, 3))
+    piece[rows, cols] = (rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (alpha << 24)).astype(np.uint32)
+    return piece
+
+
+def stripe_case(name: str, seed: int = 0):
+    """(atlas, background, per-tile lists) for the striped walk's edges:
+    one tile per list, in a one-row frame."""
+    rng = np.random.default_rng(seed)
+    ring = _ring_depth()
+    if name in ("deep_300", "deep_past_index_cap"):
+        n = 300 if name == "deep_300" else 1100  # past the 1024 indices staged in shared memory
+        atlas = _faint_atlas(rng, 64)
+        return atlas, [list(rng.integers(0, 64, n)), list(rng.integers(0, 64, 7))]
+    atlas = random_atlas(rng, 64)  # every fourth slot opaque
+    translucent = [k for k in range(64) if k % 4 == 1]
+    if name == "empty_and_one":
+        return atlas, [[], [5], []]
+    if name == "ring_plus_one":
+        return atlas, [list(rng.choice(translucent, ring + 1)), list(rng.choice(translucent, ring))]
+    if name == "opaque_first":
+        return atlas, [[8] + list(rng.choice(translucent, 2 * ring + 3)), [4, 12, 16]]
+    if name == "stripe_boundary":
+        # Partial coverage across stripe borders (rows 4, 8, 32, 36, ...)
+        # and down the tile: an opaque band over rows 5..11, translucent
+        # bands over rows 0..9 and 30..40, then pieces that show only where
+        # the bands leave rows open.
+        extra = np.stack([_banded_piece(rng, slice(5, 12), slice(0, 128), 255),
+                          _banded_piece(rng, slice(0, 10), slice(17, 90), 140),
+                          _banded_piece(rng, slice(30, 41), slice(3, 128), 200),
+                          _banded_piece(rng, slice(7, 9), slice(0, 128), 255)])
+        atlas = np.concatenate([atlas, extra])
+        return atlas, [[64, 65, 66, 1, 5, 0], [67, 66, 9, 13], [65, 67, 64, 0]]
+    raise ValueError(name)
+
+
+STRIPE_CASES = ["empty_and_one", "ring_plus_one", "opaque_first", "stripe_boundary", "deep_300",
+                "deep_past_index_cap"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_kernels_match_plain(cuda_device, name):
+    """composite_full and composite_dirty (each slot padded out by
+    repeating the last real slot, one passthrough slot) against their plain
+    versions at the edges of the striped ring walk."""
+    atlas, lists = stripe_case(name)
+    ntx = len(lists) + 1  # the last tile is the dirty list's passthrough slot
+    starts = np.zeros(ntx + 1, np.int32)
+    starts[1 : len(lists) + 1] = np.cumsum([len(p) for p in lists])
+    starts[-1] = starts[-2]
+    idxs = np.zeros(_pow2(max(int(starts[-1]), 1)), np.int32)
+    idxs[: starts[-1]] = [e for p in lists for e in p]
+    rng = np.random.default_rng(1)
+    a = convert.packed(atlas, cuda_device)
+    b = convert.packed(random_plane(rng, TILE_H, ntx * TILE_W), cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    got = T.composite_full(s, i, b, a, 1, ntx)
+    assert torch.equal(got, T.composite_full_torch(s, i, b, a, 1, ntx))
+    n_slots = _pow2(ntx)
+    coords = np.zeros(2 * n_slots, np.int32)
+    spans = np.zeros(2 * n_slots, np.int32)
+    coords[1 : 2 * ntx : 2] = np.arange(ntx)
+    spans[0 : 2 * ntx : 2], spans[1 : 2 * ntx : 2] = starts[:-1], starts[1:]
+    spans[2 * len(lists) : 2 * ntx] = -1
+    real = 2 * len(lists)
+    coords[2 * ntx :: 2], coords[2 * ntx + 1 :: 2] = coords[real - 2], coords[real - 1]
+    spans[2 * ntx :: 2], spans[2 * ntx + 1 :: 2] = spans[real - 2], spans[real - 1]
+    f = convert.packed(random_plane(rng, TILE_H, ntx * TILE_W), cuda_device)
+    c, sp = _ints((coords, spans), cuda_device)
+    k, p = f.clone(), f.clone()
+    T.composite_dirty(c, sp, i, b, k, a, n_slots)
+    T.composite_dirty_torch(c, sp, i, b, p, a, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert torch.equal(k[:, : real // 2 * TILE_W], got[:, : real // 2 * TILE_W])
+    assert torch.equal(k[:, real // 2 * TILE_W :], f[:, real // 2 * TILE_W :]), "the passthrough tile changed"
+
+
+@pytest.mark.cuda
+def test_composite_dirty_all_passthrough_leaves_the_frame(cuda_device):
+    atlas, bg, frame, coords, spans, idxs, n_slots = dirty_case(0)
+    spans[:] = -1
+    a, b, f = (convert.packed(x, cuda_device) for x in (atlas, bg, frame))
+    c, sp, i = _ints((coords, spans, idxs), cuda_device)
+    got = f.clone()
+    T.composite_dirty(c, sp, i, b, got, a, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, f)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_tensors(cuda_device):
     atlas, bg, starts, idxs = composite_case(0)

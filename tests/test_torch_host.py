@@ -1,0 +1,221 @@
+"""The port's copies of the JAX package's host modules against the
+originals, on the same inputs: equal results, bit for bit.
+
+  * ``io.pdf`` + ``io.pdfgraphics``: every PDF in assets/ (the lion is the
+    one the port's scenes load) parsed to the same page content and the
+    same graphic element tree;
+  * ``native_lib``: ``bezier_subdivide_batch``, ``edge_spans``,
+    ``expand_1x_grouped`` and ``expand_aa_grouped`` on seeded numpy inputs
+    (and the batch subdivider against the JAX package's Python
+    ``bezier_subdivide``, the reference it transcribes);
+  * ``geometry``: circles, rectangles, their edge lists, bounds, transforms
+    and spaced points;
+  * ``transform``: the compositions the port builds.
+
+Objects of one package never reach the other: each side builds its own
+from the same numbers, and the results are compared as arrays or as their
+``repr`` (the copied classes keep their names and fields).
+"""
+
+import glob
+import math
+import os
+
+import numpy as np
+import pytest
+
+from coherence_tpu import native_lib as j_native
+from coherence_tpu.io import pdf as JP
+from coherence_tpu.io import pdfgraphics as JPG
+from coherence_tpu.raster import tile_raster as JTR
+
+from coherence_tpu_torch import coord as t_coord
+from coherence_tpu_torch import native_lib as t_native
+from coherence_tpu_torch.io import pdf as TP
+from coherence_tpu_torch.io import pdfgraphics as TPG
+
+from _torch_hosts import JAX, PORT, ops
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ASSETS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "assets", "*.pdf")))
+
+
+def test_assets_include_the_lion():
+    assert "lion.pdf" in ASSETS
+
+
+@pytest.mark.parametrize("asset", ASSETS)
+def test_pdf_asset_parses_equal(asset):
+    fname = os.path.join(ROOT, "assets", asset)
+    jpdf, tpdf = JP.pdf_of_file(fname), TP.pdf_of_file(fname)
+    jpages, tpages = jpdf.pages(), tpdf.pages()
+    assert tpages and len(tpages) == len(jpages)
+    for jpage, tpage in zip(jpages, tpages):
+        assert tpdf.page_content(tpage) == jpdf.page_content(jpage)
+        jg, tg = JPG.graphic_of_page(jpdf, jpage), TPG.graphic_of_page(tpdf, tpage)
+        assert tg.elements and repr(tg.elements) == repr(jg.elements)
+
+
+@pytest.mark.parametrize("content,what", [
+    (b"BT /F1 12 Tf (x) Tj ET", "text"),
+    (b"q 10 0 0 10 0 0 cm BI /W 1 /H 1 /BPC 8 /CS /G ID \x80 EI Q", "inline images"),
+    (b"/Sh0 sh", "shadings"),
+    (b"/P0 scn 0 0 10 10 re f", "pattern colours"),
+])
+def test_pdf_content_outside_the_port_raises(content, what):
+    """What the JAX package carries as text, image, shading or pattern
+    elements, the port's reader refuses by name."""
+    pdf = TP.Pdf({1: {"Type": TP.Name("Page")}}, {})
+    page = {"Contents": TP.Stream({}, content), "Resources": {}}
+    with pytest.raises(NotImplementedError, match=what):
+        TPG.graphic_of_page(pdf, page)
+
+
+def _circle_ctrl(rng, n):
+    """n random cubic beziers, some degenerate (coincident points)."""
+    ctrl = rng.uniform(-300.0, 900.0, (n, 8))
+    ctrl[::7, 2:4] = ctrl[::7, 0:2]
+    ctrl[::11, 4:8] = ctrl[::11, 0:4]
+    return ctrl
+
+
+@pytest.mark.parametrize("eps", [0.2, 1.0])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bezier_subdivide_batch_matches_jax(seed, eps):
+    rng = np.random.default_rng(seed)
+    ctrl = _circle_ctrl(rng, 64)
+    jchords, jcounts = j_native.bezier_subdivide_batch(ctrl, eps)
+    tchords, tcounts = t_native.bezier_subdivide_batch(ctrl, eps)
+    assert np.array_equal(tcounts, jcounts)
+    assert np.array_equal(tchords, jchords)
+    # Against the JAX package's Python subdivision, which both transcribe.
+    flat = JAX.gpath.bezier_epsilon(eps)
+    want = [c for row in ctrl for c in JAX.gpath.bezier_subdivide(flat, *row.reshape(4, 2).tolist())]
+    assert np.array_equal(tchords, np.array([(*a, *b) for a, b in want]))
+
+
+def _edges(seed):
+    """An edge list of random circles and polygons, through each side's
+    geometry: (JAX edges, port edges, winding)."""
+    rng = np.random.default_rng(seed)
+    sides = []
+    for h in (JAX, PORT):
+        r = np.random.default_rng(seed)
+        subpaths = []
+        for _ in range(3):
+            cx, cy, rad = r.uniform(-50, 600), r.uniform(-50, 330), r.uniform(3, 120)
+            subpaths.extend(h.gshapes.circle(cx, cy, rad).subpaths)
+            pts = [tuple(p) for p in r.uniform(-80, 600, (int(r.integers(3, 7)), 2)).tolist()]
+            ring = pts + pts[:1]
+            segs = tuple(h.gpath.Straight(a, b) for a, b in zip(ring, ring[1:]))
+            subpaths.append(h.gpath.Subpath(False, True, segs))
+        sides.append(h.gpath.edgelist_of_path(h.gpath.Path(h.gpath.NONZERO, tuple(subpaths))))
+    return sides[0], sides[1], bool(rng.integers(0, 2))
+
+
+SPAN_CASES = [(seed, nonzero, ext, clip) for seed in (0, 1, 2) for nonzero in (False, True)
+              for ext, clip in ((16, None), (0, None), (16, (1, 256)))]
+
+
+@pytest.mark.parametrize("seed,nonzero,ext,clip", SPAN_CASES)
+def test_edge_spans_matches_jax(seed, nonzero, ext, clip):
+    jedges, tedges, _ = _edges(seed)
+    assert np.array_equal(tedges, jedges)
+    lo, hi = clip if clip is not None else (-(2**62), 2**62)
+    want = j_native.edge_spans(jedges, nonzero, ext, lo, hi)
+    got = t_native.edge_spans(tedges, nonzero, ext, lo, hi)
+    assert want is not None and got is not None
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def _grouped_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for t in want:
+        for g, w in zip(got[t], want[t]):
+            assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_expand_grouped_matches_jax(seed):
+    """The 1x tile assignment of coverage and crossing spans, and the 16x
+    AA assignment, at the tile raster's own constants."""
+    jedges, tedges, nonzero = _edges(seed)
+    nty, ntx, th, tw = 4, 4, 64, 128
+    rows, cov_s, cov_e, x_rows, x_s, x_e = t_native.edge_spans(tedges, nonzero, 16, 1, nty * th)
+    for r, s, e in ((rows, cov_s, cov_e), (x_rows, x_s, x_e)):
+        want = j_native.expand_1x_grouped(r, s, e, nty, ntx, th, tw)
+        got = t_native.expand_1x_grouped(r, s, e, nty, ntx, th, tw)
+        assert want
+        _grouped_equal(got, want)
+    edge_tiles = np.zeros(nty * ntx, dtype=bool)
+    edge_tiles[list(t_native.expand_1x_grouped(rows, cov_s, cov_e, nty, ntx, th, tw))] = True
+    hh = JTR._H
+    aa = t_native.edge_spans(tedges * hh, nonzero, 0, -hh, nty * hh * th - 1)
+    ar, as_, ae = (np.concatenate([aa[0], aa[3]]), np.concatenate([aa[1], aa[4]]), np.concatenate([aa[2], aa[5]]))
+    args = (ar, as_, ae, nty, ntx, hh * th, hh * tw, hh, JTR._TTW, edge_tiles)
+    want = j_native.expand_aa_grouped(*args)
+    assert want
+    _grouped_equal(t_native.expand_aa_grouped(*args), want)
+
+
+def test_native_library_builds_into_build_dir():
+    t_native.bezier_subdivide_batch(np.zeros((1, 8)), 0.2)
+    assert os.path.dirname(t_native.LIBRARY) == os.path.join(ROOT, "build", "native")
+    assert os.path.basename(t_native.LIBRARY).startswith("libcoherence_native-")
+    assert os.path.exists(t_native.LIBRARY)
+
+
+SHAPES = [("circle", (0.0, 0.0, 12.0)), ("circle", (200.5, 120.25, 70.0)), ("circle", (-30.0, 500.0, 0.5)),
+          ("rectangle", (11.0, 76.0, 438.0, 176.0)), ("rectangle", (-15.5, -9.0, 200.0, 300.0))]
+TRANSFORMS = [
+    (),
+    (("Translate", 180.0, 60.0),),
+    (("Translate", 0.0, 256.0), ("Scale", (0.0, 0.0), 1.0, -1.0), ("Scale", (0.0, 0.0), 0.37, 0.37),
+     ("Translate", -17.5, -4.25)),
+    (("Translate", 960.0, 540.0), ("Scale", (0.0, 0.0), 2.0, 2.0), ("Translate", -960.0, -540.0)),
+    (("Rotate", (3.0, 4.0), math.pi / 3.0), ("Scale", (1.0, 2.0), 0.5, 3.0)),
+]
+
+
+@pytest.mark.parametrize("t", range(len(TRANSFORMS)))
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_geometry_matches_jax(shape, t):
+    kind, args = SHAPES[shape]
+    got, want = [], []
+    for h, out in ((JAX, want), (PORT, got)):
+        path = h.gpath.transform_path(list(ops(h, TRANSFORMS[t])), getattr(h.gshapes, kind)(*args))
+        out.append(repr(path))
+        out.append(h.gpath.edgelist_of_path(path))
+        out.append(h.gpath.bounds_polygon(path))
+        out.append(h.gpath.points_on_path(3.5, path))
+    assert got[0] == want[0]
+    assert np.array_equal(got[1], want[1]) and got[1].dtype == want[1].dtype
+    assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("t", range(len(TRANSFORMS)))
+def test_transform_matches_jax(t):
+    j, p = ops(JAX, TRANSFORMS[t]), ops(PORT, TRANSFORMS[t])
+    assert PORT.tr.matrix_of_transform(p) == JAX.tr.matrix_of_transform(j)
+    top = ("Translate", 7.0, -3.0)
+    assert repr(PORT.tr.compose(ops(PORT, [top])[0], list(p))) == repr(JAX.tr.compose(ops(JAX, [top])[0], list(j)))
+    assert repr(PORT.tr.append(list(p), list(p))) == repr(JAX.tr.append(list(j), list(j)))
+    for pt in ((0.0, 0.0), (12.5, -7.25), (1919.0, 1079.0)):
+        assert PORT.tr.transform(p, pt) == JAX.tr.transform(j, pt)
+
+
+@pytest.mark.parametrize("f", [0.0, 0.49, 0.5, -0.5, -16.03125, 1079.99, 1e6])
+def test_coord_matches_jax(f):
+    from coherence_tpu import coord as j_coord
+
+    assert t_coord.pix_of_float(f) == j_coord.pix_of_float(f)
+    assert t_coord.sub_of_float(f) == j_coord.sub_of_float(f)
+    arr = np.array([f, -f, f * 3.7])
+    assert np.array_equal(t_coord.sub_of_float_np(arr), j_coord.sub_of_float_np(arr))
+
+
+def test_ident_draws_fresh_ids():
+    a, b = PORT.ident.new_ids(), PORT.ident.new_ids()
+    assert a != b and a[1] == hash(a[0]) and b[0][0] == a[0][0] + 1

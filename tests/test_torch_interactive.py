@@ -33,9 +33,6 @@ import pytest
 import torch
 
 import coherence_tpu.colour as JC
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu.raster import brush as JB
 from coherence_tpu.raster import convolve as JV
 from coherence_tpu.raster import fills as JFL
@@ -53,6 +50,7 @@ from coherence_tpu_torch.scene import examples as TE
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
 
+from _torch_hosts import JAX, PORT
 from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 1024, 512
@@ -65,8 +63,8 @@ SHRUNK = dict(width=W, height=H, n_objects=120, n_strokes=2, stroke_margin=150, 
 RADIUS = 2
 ATLAS_CAP = 512
 
-JAX_MODULES = SimpleNamespace(C=JC, R=JR, FL=JFL, B=JB)
-PORT_MODULES = SimpleNamespace(C=TC, R=TR, FL=TFL, B=TB)
+JAX_MODULES = SimpleNamespace(C=JC, R=JR, FL=JFL, B=JB, H=JAX)
+PORT_MODULES = SimpleNamespace(C=TC, R=TR, FL=TFL, B=TB, H=PORT)
 
 
 def config5_scene(m, width, height, n_objects, n_strokes, stroke_margin, blob_r, blob_at, f_rect):
@@ -74,6 +72,7 @@ def config5_scene(m, width, height, n_objects, n_strokes, stroke_margin, blob_r,
     JAX package's or the port's), draw for draw as benchmarks/run.py
     config 5 builds them."""
     rng = np.random.default_rng(0)
+    ident, gshapes = m.H.ident, m.H.gshapes
 
     def rand_colour(k):
         alpha = 255 if k % 3 else 150
@@ -99,7 +98,7 @@ def config5_scene(m, width, height, n_objects, n_strokes, stroke_margin, blob_r,
     blob = m.R.Obj(
         ident.new_ids(),
         m.R.Basic(m.FL.plain(m.C.dissolve(m.C.crimson, delta=170)), m.R.PathShape(gshapes.circle(0.0, 0.0, blob_r))),
-        (tr.Translate(*blob_at),),
+        (m.H.tr.Translate(*blob_at),),
         m.R.OVER,
     )
     f_geom = m.R.Obj(ident.new_ids(), m.R.Basic(m.FL.plain(m.C.white), m.R.rectangle(*f_rect)), (), m.R.OVER)
@@ -114,8 +113,12 @@ def port_scene():
     return config5_scene(PORT_MODULES, **SHRUNK)
 
 
-def _zoom(f):
-    return TF.zoom_transform(W / 2.0, H / 2.0, f)
+def _zoom(f, jax_side: bool):
+    """The zoom about the frame centre: the port's zoom_transform, or the
+    same ops of the JAX package's transform module."""
+    if not jax_side:
+        return TF.zoom_transform(W / 2.0, H / 2.0, f)
+    return [JAX.tr.Translate(W / 2.0, H / 2.0), JAX.tr.Scale((0.0, 0.0), f, f), JAX.tr.Translate(-W / 2.0, -H / 2.0)]
 
 
 class Side:
@@ -125,6 +128,7 @@ class Side:
     def __init__(self, view, disp, key, objs, jax_side: bool, cache=None):
         self.view, self.disp, self.key, self.objs = view, disp, key, objs
         self.R, self.RG, self.F = (JR, JRG, JF) if jax_side else (TR, TRG, TF)
+        self.jax_side = jax_side
         self.cache = cache
 
     @contextlib.contextmanager
@@ -171,7 +175,7 @@ class Side:
 
     def zoom(self, f):
         with self.active():
-            self.objs = [self.R.transform_renderobject_many(_zoom(f), o) for o in self.objs]
+            self.objs = [self.R.transform_renderobject_many(_zoom(f, self.jax_side), o) for o in self.objs]
             self.view.reset_scene(self.objs, **({} if self.cache is not None else {"tiled": True}))
             self.view.render(full=True)
 
@@ -291,7 +295,7 @@ def runs():
 
 
 def _summary(R, objs):
-    return [(type(o.geometry.shape).__name__, o.geometry.fill.colour, o.transform, R.bounds_of_basicshape(o))
+    return [(type(o.geometry.shape).__name__, o.geometry.fill.colour, repr(o.transform), R.bounds_of_basicshape(o))
             for o in objs]
 
 

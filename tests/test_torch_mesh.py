@@ -29,8 +29,6 @@ import pytest
 import torch
 
 import coherence_tpu.colour as JC
-from coherence_tpu import ident
-from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu.parallel import make_mesh as jax_make_mesh
 from coherence_tpu.parallel import mesh as JM
 from coherence_tpu.raster import convolve as JV
@@ -52,6 +50,7 @@ from coherence_tpu_torch.raster.compositor import TILE_H, TILE_W
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
 
+from _torch_hosts import JAX, PORT
 from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H = TILE_W * 2, TILE_H * 8
@@ -298,10 +297,11 @@ def test_make_mesh_never_downsizes(monkeypatch):
 
 
 def _objs(R, FL, Cm, specs):
+    h = JAX if R is JR else PORT
     out = []
     for kind, args, col in specs:
-        shape = R.PathShape(gshapes.circle(*args)) if kind == "circle" else R.rectangle(*args)
-        out.append(R.Obj(ident.new_ids(), R.Basic(FL.plain(col(Cm)), shape), (), R.OVER))
+        shape = R.PathShape(h.gshapes.circle(*args)) if kind == "circle" else R.rectangle(*args)
+        out.append(R.Obj(h.ident.new_ids(), R.Basic(FL.plain(col(Cm)), shape), (), R.OVER))
     return out
 
 

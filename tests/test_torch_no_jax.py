@@ -2,7 +2,9 @@
 and driving a small animated blur-filtered scene with a brush stroke on the
 CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
 dense layer stack, and an animated filtered step on a 2-band mesh) loads no
-JAX module, and of the JAX package only its jax-free host modules.
+JAX module and no module of the JAX package ``coherence_tpu``: the port's
+host modules (geometry, io, transform, ident, coord, native_lib) are its
+own copies, and its native sweep library builds into build/native/.
 
 The check runs in a fresh interpreter, since this test process has JAX
 loaded already (tests/conftest.py)."""
@@ -21,10 +23,10 @@ import importlib, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 import coherence_tpu_torch
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu_torch import colour as C
+from coherence_tpu_torch import ident, native_lib
+from coherence_tpu_torch import transform as tr
+from coherence_tpu_torch.geometry import shapes as gshapes
 from coherence_tpu_torch import kernels
 from coherence_tpu_torch import parallel
 from coherence_tpu_torch.parallel import dryrun
@@ -88,7 +90,8 @@ for mesh in (parallel.make_mesh(2, ["cpu"] * 2), None):
     shown.append(d.read())
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
-    "coherence_tpu": sorted(m for m in sys.modules if m.startswith("coherence_tpu.")),
+    "coherence_tpu": sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu.")),
+    "native_library": native_lib.LIBRARY,
     "shape": list(out.shape),
     "in_range": bool(((out >= 0) & (out <= 255)).all()),
     "changed": bool((out != first).any()),
@@ -102,10 +105,6 @@ print(json.dumps({
     "launches": dict(kernels.launches),
 }))
 """
-
-_ALLOWED = ("coherence_tpu.geometry", "coherence_tpu.io", "coherence_tpu.transform",
-            "coherence_tpu.ident", "coherence_tpu.coord", "coherence_tpu.native_lib")
-
 
 @pytest.fixture(scope="module")
 def report():
@@ -125,9 +124,9 @@ def test_port_loads_no_jax(report):
 
 
 def test_port_imports_only_jax_free_host_modules(report):
-    assert report["coherence_tpu"]
-    for name in report["coherence_tpu"]:
-        assert name.startswith(_ALLOWED), name
+    assert report["coherence_tpu"] == []
+    assert os.path.dirname(report["native_library"]) == os.path.join(ROOT, "build", "native")
+    assert os.path.exists(report["native_library"])
 
 
 def test_small_slice_runs_on_cpu(report):

@@ -15,8 +15,6 @@ import torch
 
 import coherence_tpu.colour as JC
 import jax.numpy as jnp
-from coherence_tpu import ident
-from coherence_tpu.geometry import path as gpath
 from coherence_tpu.raster import fills as JFL
 from coherence_tpu.raster import tiled_scene as JTS
 from coherence_tpu.raster.pallas_compositor import pack_rgba as jpack
@@ -30,6 +28,7 @@ from coherence_tpu_torch.raster import tiled_scene as T
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
 
+from _torch_hosts import JAX, PORT
 from _torch_threads import one_torch_thread  # noqa: F401
 
 from test_torch_cuda import random_atlas, random_plane
@@ -53,7 +52,7 @@ def test_gather_runs_matches_jax(seed, cap, n):
 def _polygon_scene(jax_side: bool):
     """The 12 polygons of tests/test_tiled_scene.py:551 (seed 11), opaque
     and translucent, some reaching past the frame."""
-    R, FL, C = (JR, JFL, JC) if jax_side else (TR, TFL, TC)
+    R, FL, C, h = (JR, JFL, JC, JAX) if jax_side else (TR, TFL, TC, PORT)
     W, H = 512, 256
     rng = np.random.default_rng(11)
     objs = []
@@ -63,8 +62,13 @@ def _polygon_scene(jax_side: bool):
         colour = C.colour_of_rgba(*(int(v) for v in rng.integers(0, 256, 3)), 255)
         alpha = 255 if k % 2 else int(rng.integers(60, 256))
         fill = FL.plain(C.dissolve(colour, delta=alpha) if alpha != 255 else colour)
-        path = gpath.path_of_pointlist(gpath.NONZERO, pts)
-        objs.append(R.Obj(ident.new_ids(), R.Basic(fill, R.PathShape(path)), (), R.OVER))
+        if jax_side:
+            path = h.gpath.path_of_pointlist(h.gpath.NONZERO, pts)
+        else:  # the port has no path_of_pointlist: the same closed polygon
+            ring = pts + pts[:1]
+            segs = tuple(h.gpath.Straight(a, b) for a, b in zip(ring, ring[1:]))
+            path = h.gpath.Path(h.gpath.NONZERO, (h.gpath.Subpath(False, True, segs),))
+        objs.append(R.Obj(h.ident.new_ids(), R.Basic(fill, R.PathShape(path)), (), R.OVER))
     return objs
 
 

@@ -14,9 +14,6 @@ import pytest
 import torch
 
 import coherence_tpu.colour as JC
-from coherence_tpu import ident
-from coherence_tpu import transform as tr
-from coherence_tpu.geometry import shapes as gshapes
 from coherence_tpu.raster import fills as JFL
 from coherence_tpu.raster import tile_raster as JTR
 from coherence_tpu.scene import fastframe as JF
@@ -28,6 +25,7 @@ from coherence_tpu_torch.raster import tile_raster as TTR
 from coherence_tpu_torch.scene import fastframe as TF
 from coherence_tpu_torch.scene import render as TR
 
+from _torch_hosts import JAX, PORT
 from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_slice import jax_scene, port_scene
 
@@ -70,15 +68,20 @@ def test_tiled_sprite_matches_jax():
     assert np.array_equal(ps.rgba.numpy(), np.asarray(js.rgba)[:h, :w])
 
 
+def _host(R):
+    return JAX if R is JR else PORT
+
+
 def _rect(x, y, w, h):
-    return lambda R, fills, col: R.Obj(ident.new_ids(), R.Basic(fills.plain(col), R.rectangle(x, y, w, h)), (), R.OVER)
+    return lambda R, fills, col: R.Obj(_host(R).ident.new_ids(), R.Basic(fills.plain(col), R.rectangle(x, y, w, h)),
+                                       (), R.OVER)
 
 
 def _circle(cx, cy, r):
     return lambda R, fills, col: R.Obj(
-        ident.new_ids(),
-        R.Basic(fills.plain(col), R.PathShape(gshapes.circle(0.0, 0.0, r))),
-        (tr.Translate(cx, cy),),
+        _host(R).ident.new_ids(),
+        R.Basic(fills.plain(col), R.PathShape(_host(R).gshapes.circle(0.0, 0.0, r))),
+        (_host(R).tr.Translate(cx, cy),),
         R.OVER,
     )
 
