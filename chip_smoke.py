@@ -36,12 +36,14 @@ Phases, one JSON line each:
   1. device: the card's name, and nvidia-smi's name and power limit;
   2. build: the CUDA kernels compiled from the checkout's sources;
   3. kernels: composite_full and composite_dirty against their plain
-     PyTorch versions and against the previous design (the banded kernels
-     over one band: one block a tile, one piece in flight) on the lion's
-     shapes, bit for bit, and on a deep case (a 301-piece translucent tile,
-     a tile opaque at its first piece, a passthrough slot); the times (CUDA
-     events, cold L2, the launch queued behind a device-side wait), the old
-     design's in turns with the new, and the bytes each must move;
+     PyTorch versions on the lion's shapes, bit for bit; composite_full
+     also against its previous design (composite_full_banded over one
+     band: one block a tile, one piece in flight), composite_dirty against
+     composite_dirty_banded over one band (the same striped design,
+     banded_one_band); a deep case (a 301-piece translucent tile, a tile
+     opaque at its first piece, a passthrough slot); the times (CUDA
+     events, cold L2, the launch queued behind a device-side wait), each
+     comparison's in turns with the kernel's, and the bytes each must move;
   4. main_path: the lion, built and run 400 frames; per-frame times; the
      display after 20 frames held bit for bit against the same 20 frames
      run on the CPU through the plain versions; one full-frame render held
@@ -63,8 +65,13 @@ Phases, one JSON line each:
      atlas, the zoom step against a fresh unsharded view;
   9. mesh_kernels: composite_full_banded and composite_dirty_banded against
      their plain versions on config 5's 2-band lists (the dirty case with
-     an idle band), bit for bit, timed beside the unbanded kernels;
- 10. mesh_lion: the 17-band lion against the unsharded lion;
+     an idle band), bit for bit, timed beside the unbanded kernels
+     (composite_dirty_banded in turns with composite_dirty on the same
+     tiles);
+ 10. mesh_lion: the 17-band lion against the unsharded lion; then
+     composite_dirty_banded on the lion's 17-band dirty lists of one band
+     (16 idle bands), bit for bit, timed in turns with composite_dirty on
+     the same tiles;
  11. play_animated: the lion's play_animated over 400 deltas against 400
      step_animated calls, with its time per frame;
  12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card.
@@ -73,8 +80,10 @@ Then the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
 TB/s, counted per 32-byte sector: the pieces each sector reads until its
 pixels are opaque, its background where it stays translucent, its write;
-and the share of that bound) and,
-last, {"ok": true, "device": {...}}.  Any mismatch or exception ends the
+and the share of that bound; the time of each comparison timed in turns:
+composite_full's previous design, composite_dirty's banded_one_band,
+composite_dirty_banded's unbanded composite_dirty, also on the 17-band
+lion) and, last, {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
 """
@@ -111,6 +120,7 @@ SOURCE = CSRC + "tile_composite.cu"
 HBM_BYTES_PER_S = 3.35e12
 PIECE_BYTES = 64 * 128 * 4
 SECTOR_BYTES = 32
+STRIPES = 16  # 4-row stripes of a tile, stripe_ring.cuh's kStripes
 # The device-side wait queued before each timed launch: about 0.2 ms at the
 # H100's 1.98 GHz boost clock, longer than a wrapper takes to queue its
 # launch, so the timed window opens on a launch already queued.
@@ -244,15 +254,15 @@ def event_ms(torch, fn, scrub, reps: int = N_TIMED):
     return statistics.median(times)
 
 
-def in_turns(torch, old, new, scrub):
-    """{"ms", "prev_design_ms", readings}: `new` and `old` timed with
+def in_turns(torch, old, new, scrub, old_name: str = "prev_design"):
+    """{"ms", old_name + "_ms", "readings"}: `new` and `old` timed with
     event_ms in the order old, new, new, old; each time the mean of its two
     readings."""
     o1 = event_ms(torch, old, scrub)
     n1 = event_ms(torch, new, scrub)
     n2 = event_ms(torch, new, scrub)
     o2 = event_ms(torch, old, scrub)
-    return {"ms": (n1 + n2) / 2, "prev_design_ms": (o1 + o2) / 2, "readings": [o1, n1, n2, o2]}
+    return {"ms": (n1 + n2) / 2, f"{old_name}_ms": (o1 + o2) / 2, "readings": [o1, n1, n2, o2]}
 
 
 def walked_depths(torch, atlas, idxs, spans):
@@ -282,6 +292,25 @@ def walked_depths(torch, atlas, idxs, spans):
     return reads, still_open
 
 
+def layer_walk(torch, stack):
+    """(reads, still_open) of a (K, H, W) layer stack in walked_depths's
+    form, one row per 64x128 tile (tile-major) of its 1024 32-byte sectors:
+    the layers each sector walks, down to the layer after which its 8
+    pixels are opaque, else all K (over_packed's alpha, exactly), and
+    whether the sector is still translucent after them."""
+    k_layers, h, w = stack.shape
+    acc = torch.zeros((h, w), dtype=torch.int32, device=stack.device)
+    reads = torch.zeros((h, w // 8), dtype=torch.int64, device=stack.device)
+    still_open = torch.ones_like(reads, dtype=torch.bool)
+    for k in range(k_layers):
+        reads += still_open
+        la = (stack[k] >> 24) & 0xFF
+        t = acc * la + 128
+        acc = la + acc - (((t >> 8) + t) >> 8)
+        still_open = ~(acc == 255).view(h, w // 8, 8).all(2)
+    return tuple(x.view(h // 64, 64, w // 128, 16).permute(0, 2, 1, 3).reshape(-1, 1024) for x in (reads, still_open))
+
+
 def full_spans(torch, starts):
     """The (n, 2) spans of every tile of a full-frame list."""
     return torch.stack([starts[:-1], starts[1:]], 1).long()
@@ -302,16 +331,20 @@ def bound(walks) -> dict:
     walked_depths results: each sector's walked pieces read once, its
     background read where it is still translucent, and every sector written
     once; and the time they take at the HBM rate.  `depth` is the deepest
-    walk of any tile; `tile_count_bytes` counts instead every tile's pieces
-    until the whole tile is opaque, its background and its write (PR 1-3's
-    count)."""
+    walk of any tile.  Two coarser counts stand beside it: every tile's
+    pieces until the whole tile is opaque, its background and its write
+    (`tile_count_bytes`, the first kernels' count), and the same per 4-row stripe
+    (`stripe_count_bytes`, what a walk that stops each stripe on its own
+    vote reads at least)."""
     tiles = sum(r.shape[0] for r, _ in walks)
     sector_reads = sum(int(r.sum()) for r, _ in walks)
     n_bytes = (sector_reads + sum(int(o.sum()) for _, o in walks) + sum(r.numel() for r, _ in walks)) * SECTOR_BYTES
     tile_pieces = sum(int(r.max(1).values.sum()) for r, _ in walks)
+    stripe_pieces = sum(int(r.view(r.shape[0], STRIPES, -1).max(2).values.sum()) for r, _ in walks)
     return {"tiles": tiles, "piece_reads": sector_reads * SECTOR_BYTES / PIECE_BYTES,
             "depth": max(int(r.max()) for r, _ in walks), "bytes": n_bytes,
-            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "tile_count_bytes": (tile_pieces + 2 * tiles) * PIECE_BYTES}
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "tile_count_bytes": (tile_pieces + 2 * tiles) * PIECE_BYTES,
+            "stripe_count_bytes": (stripe_pieces + 2 * tiles * STRIPES) * PIECE_BYTES // STRIPES}
 
 
 def max_abs_err(a, b) -> int:
@@ -397,8 +430,9 @@ def deep_case(torch, dev, scrub):
 
 def lion_kernels(torch, dev, scrub):
     """Phase 3: composite_full and composite_dirty against their plain
-    versions and the previous design (the banded kernels over one band) on
-    the lion's lists, then on the deep case.  Returns {kernel: row}."""
+    versions on the lion's lists, composite_full against its previous
+    design and composite_dirty against composite_dirty_banded (each over
+    one band), then the deep case.  Returns {kernel: row}."""
     from coherence_tpu_torch.raster import tiled_scene as T
 
     view, disp, key = build_scene(dev)
@@ -435,36 +469,37 @@ def lion_kernels(torch, dev, scrub):
     args = ts.upload(coords, spans, didx)
     noise = torch.randint(-(2**31), 2**31 - 1, view.frame.shape, dtype=torch.int32,
                           generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    frame_k, frame_p, frame_o = noise.clone(), noise.clone(), noise.clone()
+    frame_k, frame_p, frame_b = noise.clone(), noise.clone(), noise.clone()
     T.composite_dirty(*args, view.background, frame_k, datlas, n_slots)
     T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots)
 
-    def dirty_old():
-        T.composite_dirty_banded(*(one_band(a) for a in args), view.background, frame_o, one_band(datlas), n_slots)
+    def dirty_banded():
+        T.composite_dirty_banded(*(one_band(a) for a in args), view.background, frame_b, one_band(datlas), n_slots)
 
-    dirty_old()
+    dirty_banded()
     torch.cuda.synchronize()
     require(torch.equal(frame_k, frame_p), "composite_dirty differs from composite_dirty_torch")
-    require(torch.equal(frame_k, frame_o), "composite_dirty differs from the previous design")
+    require(torch.equal(frame_k, frame_b), "composite_dirty differs from composite_dirty_banded over one band")
     sy, sx = (spare // ts.ntx) * 64, (spare % ts.ntx) * 128
     require(torch.equal(frame_k[sy : sy + 64, sx : sx + 128], noise[sy : sy + 64, sx : sx + 128]),
             "composite_dirty wrote a passthrough tile")
     dspans = dirty_spans(torch, coords, spans, n_slots, dev)
     dirty_row = {"max_abs_err": max_abs_err(frame_k, frame_p),
                  **bound([walked_depths(torch, datlas, args[2], dspans)])}
-    dirty_row.update(in_turns(torch, dirty_old,
-                              lambda: T.composite_dirty(*args, view.background, frame_k, datlas, n_slots), scrub))
+    dirty_row.update(in_turns(torch, dirty_banded,
+                              lambda: T.composite_dirty(*args, view.background, frame_k, datlas, n_slots), scrub,
+                              "banded_one_band"))
     dirty_row["plain_ms"] = event_ms(
         torch, lambda: T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots), scrub)
     deep = deep_case(torch, dev, scrub)
     emit({"phase": "kernels", "tolerance": 0,
           "composite_full": {"equal_plain": True, "equal_prev_design": True, "tiles": ts.nty * ts.ntx,
                              "listed_pieces": n_listed, **full},
-          "composite_dirty": {"equal_plain": True, "equal_prev_design": True, "slots": n_slots,
+          "composite_dirty": {"equal_plain": True, "equal_banded_one_band": True, "slots": n_slots,
                               "real_slots": n_real + 1, "passthrough_tile": spare,
                               "listed_pieces": int(spans[2 * n_real + 1]), **dirty_row},
-          "prev_design": "composite_full_banded / composite_dirty_banded over one band (one block a tile, "
-                         "one piece in flight)",
+          "prev_design": "composite_full_banded over one band (one block a tile, one piece in flight)",
+          "banded_one_band": "composite_dirty_banded over one band (the same striped ring)",
           "deep": deep})
     return {"composite_full": full, "composite_dirty": dirty_row}
 
@@ -658,20 +693,7 @@ def layers_path(torch, dev, kernels, scrub):
     row = {"max_abs_err": max(max_abs_err(layered, want), max_abs_err(over_noise_k, over_noise_p)),
            "ms": event_ms(torch, lambda: PC.composite_layers(white, stack), scrub),
            "plain_ms": event_ms(torch, lambda: PC.composite_layers_torch(white, stack), scrub)}
-    # Layers each 32-byte sector walks: down to the layer after which its 8
-    # pixels are opaque, else all of them (over_packed's alpha, exactly).
-    acc = torch.zeros((HSR_H, HSR_W), dtype=torch.int32, device=dev)
-    reads = torch.zeros((HSR_H, HSR_W // 8), dtype=torch.int64, device=dev)
-    still_open = torch.ones_like(reads, dtype=torch.bool)
-    for k in range(HSR_K):
-        reads += still_open
-        la = (stack[k] >> 24) & 0xFF
-        t = acc * la + 128
-        acc = la + acc - (((t >> 8) + t) >> 8)
-        still_open = ~(acc == 255).view(HSR_H, HSR_W // 8, 8).all(2)
-    # As (tiles, 1024 sectors), tile-major.
-    reads, still_open = (x.view(HSR_H // 64, 64, HSR_W // 128, 16).permute(0, 2, 1, 3).reshape(-1, 1024)
-                         for x in (reads, still_open))
+    reads, still_open = layer_walk(torch, stack)
     row.update(bound([(reads, still_open)]))
     emit({"phase": "hsr_layers", "layers": HSR_K, "height": HSR_H, "width": HSR_W, "tolerance": 0,
           "stack_mb": stack.numel() * 4 / 1e6, "launches": counts, "equal_plain_white": True,
@@ -775,6 +797,82 @@ def mesh_4k_path(torch, dev, kernels):
     return counts, mesh, udisp, ukey
 
 
+def first_band_dirty_tiles(disp, key, step, mesh):
+    """The dirty tiles of the animated step `step` staged on the unsharded
+    display `disp`, those of the first band of `mesh` they reach only, so
+    that every other band is idle."""
+    ts = disp.view.ts
+    coords, _, _, n_listed = disp.stage_animated(key, *step)[4]
+    tiles = {int(coords[2 * j]) * ts.ntx + int(coords[2 * j + 1]) for j in range(n_listed)}
+    band_tiles = ts.nty // mesh.size * ts.ntx
+    first = min(tiles) // band_tiles
+    return {t for t in tiles if t // band_tiles == first}
+
+
+def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
+    """composite_dirty_banded on `mesh`'s band lists of `tiles` (dirty tiles
+    of the unsharded `view`'s scene, all in one band) over noise made from
+    `seed`: against its plain version and against composite_dirty on the
+    same tiles, bit for bit, with the idle bands left as they were; then
+    timed in turns with composite_dirty (its lists, atlas and frame copied
+    onto the dirty band's card), and its plain version's time.  Returns the
+    row: its times, unbanded_ms, the walk's bytes and bound."""
+    from coherence_tpu_torch.parallel import RowSharded
+    from coherence_tpu_torch.raster import tiled_scene as T
+
+    ts = view.ts
+    band_ty = ts.nty // mesh.size
+    rows = band_ty * 64
+    first = min(tiles) // (band_ty * ts.ntx)
+    banded = T._banded_of(ts, mesh)
+    bg = RowSharded.scatter(view.background, mesh, rows)
+    c, sp, di, n_slots = T.sharded_dirty_lists(ts, view.order, tiles, banded)
+    idle = [d for d in range(mesh.size) if (sp[d] == -1).all()]
+    require(len(idle) == mesh.size - 1, f"bands {sorted(set(range(mesh.size)) - set(idle))} of tiles "
+            f"{sorted(tiles)} are dirty, expected band {first} alone")
+    noise = torch.randint(-(2**31), 2**31 - 1, view.frame.shape, dtype=torch.int32,
+                          generator=torch.Generator(device=view.frame.device).manual_seed(seed),
+                          device=view.frame.device)
+    gc, gs, gi, g_slots = ts._dirty_args(view.order, tiles)
+    unbanded = noise.clone()
+    T.composite_dirty(*ts.upload(gc, gs, gi), view.background, unbanded, ts.atlas(), g_slots)
+    err = 0
+    for g, (dv, b0, b1) in enumerate(mesh.groups):
+        cc, ss, ii = (torch.from_numpy(a[b0:b1]).to(dv) for a in (c, sp, di))
+        fk = noise[b0 * rows : b1 * rows].to(dv, copy=True)
+        fp = fk.clone()
+        T.composite_dirty_banded(cc, ss, ii, bg.parts[g], fk, banded.data[g], n_slots)
+        T.composite_dirty_banded_torch(cc, ss, ii, bg.parts[g], fp, banded.data[g], n_slots)
+        torch.cuda.synchronize()
+        require(torch.equal(fk, fp), "composite_dirty_banded differs from composite_dirty_banded_torch")
+        require(torch.equal(fk, unbanded[b0 * rows : b1 * rows].to(dv)),
+                "composite_dirty_banded differs from composite_dirty on the same tiles")
+        for d in idle:
+            if b0 <= d < b1:
+                r = slice(d * rows, (d + 1) * rows)
+                require(torch.equal(fk[(d - b0) * rows : (d - b0 + 1) * rows], noise[r].to(dv)),
+                        "composite_dirty_banded changed an idle band")
+        err = max(err, max_abs_err(fk, fp))
+        if b0 <= first < b1:
+            timed = (g, dv, cc, ss, ii, bg.parts[g], banded.data[g], fk, fp)
+    # Times on the stack of the card holding the dirty band (the whole frame
+    # with one card), with that card's events and its L2 scrubbed.
+    g, dv, cc, ss, ii, gbg, atlas, fk, fp = timed
+    dscrub = scrub if scrub.device == torch.device(dv) else torch.empty_like(scrub, device=dv)
+    uargs = [a.to(dv) for a in ts.upload(gc, gs, gi)]
+    ubg, uatlas, uframe = view.background.to(dv), ts.atlas().to(dv), noise.to(dv, copy=True)
+    with torch.cuda.device(dv):
+        row = in_turns(torch, lambda: T.composite_dirty(*uargs, ubg, uframe, uatlas, g_slots),
+                       lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub, "unbanded")
+        row["plain_ms"] = event_ms(
+            torch, lambda: T.composite_dirty_banded_torch(cc, ss, ii, gbg, fp, atlas, n_slots), dscrub)
+    del dscrub
+    fb = first - mesh.groups[g][1]
+    walk = bound([walked_depths(torch, atlas[fb], ii[fb], dirty_spans(torch, c[first], sp[first], n_slots, dv))])
+    return {"max_abs_err": err, "bands": mesh.size, "slots": n_slots, "dirty_tiles": len(tiles),
+            "dirty_band": first, "idle_bands": idle, "timed_device": str(dv), **row, **walk}
+
+
 def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
     """Phase 9: composite_full_banded and composite_dirty_banded against
     their plain versions on config 5's 2-band lists (the 1x scene of phase
@@ -791,82 +889,52 @@ def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
     bg = RowSharded.scatter(view.background, mesh, rows)
     starts, idxs = T.sharded_lists(ts, view.order, banded)
     g_starts, g_idxs = ts.build_lists(view.order)
-    # The dirty tiles of the next animated step, those of its first band
-    # only, so that another band is idle.
-    coords, _, _, n_listed = udisp.stage_animated(ukey, *delta4(0))[4]
-    tiles = {int(coords[2 * j]) * ts.ntx + int(coords[2 * j + 1]) for j in range(n_listed)}
-    first = min(tiles) // (band_ty * ts.ntx)
-    tiles = {t for t in tiles if t // (band_ty * ts.ntx) == first}
-    c, sp, di, n_slots = T.sharded_dirty_lists(ts, view.order, tiles, banded)
-    idle = [d for d in range(mesh.size) if (sp[d] == -1).all()]
-    require(idle, f"no idle band in the dirty case (tiles {sorted(tiles)})")
-    noise = torch.randint(-(2**31), 2**31 - 1, (ts.nty * 64, ts.ntx * 128), dtype=torch.int32,
-                          generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    full_err = dirty_err = 0
-    timed_args = None
+    full_err = 0
     for g, (dv, b0, b1) in enumerate(mesh.groups):
-        s, i, cc, ss, ii = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs, c, sp, di))
-        atlas = banded.data[g]
-        k = T.composite_full_banded(s, i, bg.parts[g], atlas, band_ty, ts.ntx)
-        p = T.composite_full_banded_torch(s, i, bg.parts[g], atlas, band_ty, ts.ntx)
-        before = noise[b0 * rows : b1 * rows].to(dv, copy=True)
-        fk, fp = before.clone(), before.clone()
-        T.composite_dirty_banded(cc, ss, ii, bg.parts[g], fk, atlas, n_slots)
-        T.composite_dirty_banded_torch(cc, ss, ii, bg.parts[g], fp, atlas, n_slots)
+        s, i = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs))
+        k = T.composite_full_banded(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx)
+        p = T.composite_full_banded_torch(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx)
         torch.cuda.synchronize()
         require(torch.equal(k, p), "composite_full_banded differs from composite_full_banded_torch")
         require(torch.equal(k, T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx)[
             b0 * rows : b1 * rows].to(dv)), "composite_full_banded differs from composite_full")
-        require(torch.equal(fk, fp), "composite_dirty_banded differs from composite_dirty_banded_torch")
-        for d in idle:
-            if b0 <= d < b1:
-                r = slice((d - b0) * rows, (d - b0 + 1) * rows)
-                require(torch.equal(fk[r], before[r]), "composite_dirty_banded changed an idle band")
-        full_err, dirty_err = max(full_err, max_abs_err(k, p)), max(dirty_err, max_abs_err(fk, fp))
-        if b0 <= first < b1:
-            timed_args = (g, dv, s, i, cc, ss, ii, bg.parts[g], atlas, fk, fp)
-    # Times on the stack of the device holding the dirty band (the whole
-    # frame with one card), with that device's events and its L2 scrubbed.
-    g, dv, s, i, cc, ss, ii, gbg, atlas, fk, fp = timed_args
-    dscrub = scrub if scrub.device == dv else torch.empty_like(scrub, device=dv)
+        full_err = max(full_err, max_abs_err(k, p))
+    # The full render timed on the first card's stack (the whole frame with
+    # one card).
+    dv, b0, b1 = mesh.groups[0]
+    s, i = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs))
+    gbg, atlas = bg.parts[0], banded.data[0]
+    dscrub = scrub if scrub.device == torch.device(dv) else torch.empty_like(scrub, device=dv)
     with torch.cuda.device(dv):
         full_ms = event_ms(torch, lambda: T.composite_full_banded(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
         full_plain_ms = event_ms(
             torch, lambda: T.composite_full_banded_torch(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
-        dirty_ms = event_ms(torch, lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub)
-        dirty_plain_ms = event_ms(
-            torch, lambda: T.composite_dirty_banded_torch(cc, ss, ii, gbg, fp, atlas, n_slots), dscrub)
     del dscrub
     full_walk = bound([walked_depths(torch, atlas[k], i[k], full_spans(torch, s[k])) for k in range(atlas.shape[0])])
-    fb = first - mesh.groups[g][1]
-    dirty_walk = bound([walked_depths(torch, atlas[fb], ii[fb], dirty_spans(torch, c[first], sp[first], n_slots, dv))])
     unbanded_full_ms = event_ms(
         torch, lambda: T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub)
-    gc, gs, gi, g_slots = ts._dirty_args(view.order, tiles)
-    gargs = ts.upload(gc, gs, gi)
-    gframe = noise.clone()
-    unbanded_dirty_ms = event_ms(
-        torch, lambda: T.composite_dirty(*gargs, view.background, gframe, ts.atlas(), g_slots), scrub)
+    # The dirty tiles of the next animated step, those of its first band
+    # only, so that another band is idle.
+    dirty = dirty_banded_row(torch, view, mesh, first_band_dirty_tiles(udisp, ukey, delta4(0), mesh), scrub, 2)
     emit({"phase": "mesh_kernels", "tolerance": 0, "bands": mesh.size, "devices": [str(d) for d in mesh.devices],
-          "timed_device": str(dv), "timed_stack_bands": mesh.groups[g][2] - mesh.groups[g][1],
+          "full_timed_device": str(dv), "full_timed_stack_bands": b1 - b0,
           "composite_full_banded": {"equal_plain": True, "equal_composite_full": True,
                                     "band_tiles": band_ty * ts.ntx, "listed_pieces": int(starts[:, -1].sum()),
                                     "local_cap": banded.local_cap, "global_slots": int(ts.atlas().shape[0]),
                                     "ms": full_ms, "plain_ms": full_plain_ms,
                                     "unbanded_composite_full_ms": unbanded_full_ms, **full_walk},
-          "composite_dirty_banded": {"equal_plain": True, "slots": n_slots, "dirty_tiles": len(tiles),
-                                     "idle_bands": idle, "ms": dirty_ms, "plain_ms": dirty_plain_ms,
-                                     "unbanded_composite_dirty_ms": unbanded_dirty_ms, **dirty_walk}})
+          "composite_dirty_banded": {"equal_plain": True, "equal_composite_dirty": True, **dirty}})
     return {"composite_full_banded": {"max_abs_err": full_err, "ms": full_ms, "plain_ms": full_plain_ms,
                                       **full_walk},
-            "composite_dirty_banded": {"max_abs_err": dirty_err, "ms": dirty_ms, "plain_ms": dirty_plain_ms,
-                                       **dirty_walk}}
+            "composite_dirty_banded": dirty}
 
 
-def mesh_lion_path(torch, dev, kernels):
+def mesh_lion_path(torch, dev, kernels, scrub):
     """Phase 10: the lion on 17 bands (one tile row each), a full render
     and N_CHECK filtered frames against the unsharded lion, counted from
-    zero.  Returns the launch counts."""
+    zero; then composite_dirty_banded on the 17-band lists of the next
+    step's dirty tiles in one band (16 idle bands) against composite_dirty
+    on the same tiles.  Returns (the launch counts, that row)."""
     from coherence_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(17, mesh_devices(torch, 17))
@@ -889,11 +957,13 @@ def mesh_lion_path(torch, dev, kernels):
     require(counts["composite_full_banded"] >= 1,
             f"composite_full_banded launched {counts['composite_full_banded']} times on the 17-band lion")
     band_rows = {t // mview.ts.ntx for t, _ in mview.ts.pieces[mkey]}
+    dirty = dirty_banded_row(torch, uview, mesh, first_band_dirty_tiles(udisp, ukey, delta(N_CHECK), mesh), scrub, 3)
     emit({"phase": "mesh_lion", "width": W, "height": H, "bands": mesh.size, "devices": sorted({str(d) for d in
                                                                                           mesh.devices}),
           "frames": N_CHECK, "display_equal": True, "full_render_equal": True,
-          "bands_under_the_blob_at_end": sorted(band_rows), "launches": counts})
-    return counts
+          "bands_under_the_blob_at_end": sorted(band_rows), "launches": counts,
+          "composite_dirty_banded": {"tolerance": 0, "equal_plain": True, "equal_composite_dirty": True, **dirty}})
+    return counts, dirty
 
 
 def play_path(torch, dev):
@@ -964,7 +1034,7 @@ def main() -> int:
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, dev, scrub, mesh, udisp, ukey))
     del udisp
-    counts_lion17 = mesh_lion_path(torch, dev, kernels)
+    counts_lion17, dirty17 = mesh_lion_path(torch, dev, kernels, scrub)
     play_path(torch, dev)
     from coherence_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -993,8 +1063,9 @@ def main() -> int:
                      # No one PyTorch call composites a front-to-back piece list with an early stop.
                      "library_ms": None, "bytes": t["bytes"], "share": t["bound_ms"] / t["ms"],
                      "depth": t["depth"]})
-        if "prev_design_ms" in t:
-            line[-1]["prev_design_ms"] = t["prev_design_ms"]
+        for extra in ("prev_design_ms", "banded_one_band_ms", "unbanded_ms"):
+            if extra in t:
+                line[-1][extra] = t[extra]
     line[1]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:143"
     line[1].update({"ms_4k": full_4k["ms"], "prev_design_ms_4k": full_4k["prev_design_ms"],
                     "bytes_4k": full_4k["bytes"], "bound_ms_4k": full_4k["bound_ms"],
@@ -1003,6 +1074,9 @@ def main() -> int:
     for row in line[4:]:
         row["launches_4k"] = counts_mesh[row["name"]]
         row["launches_lion_17_bands"] = counts_lion17[row["name"]]
+    line[5].update({"ms_lion_17_bands": dirty17["ms"], "unbanded_ms_lion_17_bands": dirty17["unbanded_ms"],
+                    "bytes_lion_17_bands": dirty17["bytes"], "bound_ms_lion_17_bands": dirty17["bound_ms"],
+                    "share_lion_17_bands": dirty17["bound_ms"] / dirty17["ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -197,8 +197,8 @@ def composite_runs(starts, background, runs, nty: int, ntx: int) -> torch.Tensor
 
 
 def composite_layers(background, layers) -> torch.Tensor:
-    """Launch ``composite_layers``: one block per tile over a dense (K, H,
-    W) stack, layer 0 topmost, into a new frame."""
+    """Launch ``composite_layers``: one block per 4-row stripe of each tile
+    over a dense (K, H, W) stack, layer 0 topmost, into a new frame."""
     device = layers.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA compositor needs tensors on a CUDA device, got {device}")
@@ -257,9 +257,9 @@ def composite_full_banded(starts, idxs, background, atlas, band_ty: int, ntx: in
 
 
 def composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slots: int) -> torch.Tensor:
-    """Launch ``composite_dirty_banded``: block (s, b) recomposites slot s
-    of band b (band-local tile coordinates) in place in `frame`, one launch
-    for every band."""
+    """Launch ``composite_dirty_banded``: block (x, b) recomposites stripe
+    x % 16 of slot x // 16 of band b (band-local tile coordinates) in place
+    in `frame`, one launch for every band."""
     device, n_bands, _, pw = _check_banded(background, atlas)
     _check("coords", coords, device, (n_bands, 2 * n_slots))
     _check("spans", spans, device, (n_bands, 2 * n_slots))

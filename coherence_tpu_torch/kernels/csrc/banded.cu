@@ -20,22 +20,23 @@
 // Tile coordinates and atlas slots in the lists are band-local.
 //
 // What bounds the work: HBM bytes, as for composite_full and
-// composite_dirty: per tile the block reads 4 B/px for every listed piece
-// until the tile turns opaque, plus the background tile, and writes the
-// tile once.  These kernels keep the simple one-piece-in-flight walk
+// composite_dirty.  composite_dirty_banded walks as composite_dirty does,
+// on stripe_ring.cuh's striped TMA ring: block (x, b) composites stripe
+// x % 16 of slot x / 16 of band b from that band's lists and local atlas,
+// so an idle band's blocks (its slots all passthrough) and padding slots
+// (repeating a band's last real slot) return at once.
+// composite_full_banded still keeps the simple one-piece-in-flight walk
 // (tile_math.cuh composite_tile), which is bound by latency instead: one
 // 256-thread block per tile, 32 pixels per thread in registers, coalesced
 // 16-byte loads, a block vote after each piece for the early stop, nothing
-// shared between blocks.  tile_composite.cu's striped TMA ring is the
-// design to adopt here next.  A slot whose span starts below 0 leaves its tile as it is (an
-// idle band's slots all do); padding slots repeat a band's last real slot,
-// which is safe because a compositing slot never reads the frame.
+// shared between blocks.
 
-#include "tile_math.cuh"
+#include "stripe_ring.cuh"
 
 namespace {
 
 using namespace tile;
+using namespace ring;
 
 __global__ void __launch_bounds__(kThreads)
 composite_full_banded_kernel(const int* __restrict__ starts, const int* __restrict__ idxs,
@@ -52,22 +53,17 @@ composite_full_banded_kernel(const int* __restrict__ starts, const int* __restri
                  atlas + b * atlas_stride, bg + off, out + off, pw);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStripeThreads)
 composite_dirty_banded_kernel(const int* __restrict__ coords, const int* __restrict__ spans,
                               const int* __restrict__ idxs, const uint32_t* __restrict__ bg,
                               uint32_t* __restrict__ frame, const uint32_t* __restrict__ atlas,
                               int n_slots, int pw, int band_rows, int idx_stride,
                               long atlas_stride) {
-  int s = blockIdx.x;
-  int b = blockIdx.y;
-  const int* sp = spans + static_cast<long>(b) * 2 * n_slots;
-  int lo = sp[2 * s];
-  if (lo < 0) return;  // passthrough slot: the tile stays as it is
-  const int* c = coords + static_cast<long>(b) * 2 * n_slots;
-  long off = (static_cast<long>(b) * band_rows + static_cast<long>(c[2 * s]) * kTileH) * pw +
-             static_cast<long>(c[2 * s + 1]) * kTileW;
-  composite_tile(idxs + static_cast<long>(b) * idx_stride, lo, sp[2 * s + 1],
-                 atlas + b * atlas_stride, bg + off, frame + off, pw);
+  const int b = blockIdx.y;
+  const long band = static_cast<long>(b) * 2 * n_slots;
+  const long off = static_cast<long>(b) * band_rows * pw;
+  composite_dirty_stripe(coords + band, spans + band, idxs + static_cast<long>(b) * idx_stride, bg + off,
+                         frame + off, atlas + b * atlas_stride, pw);
 }
 
 }  // namespace
@@ -89,8 +85,8 @@ extern "C" int composite_dirty_banded(const void* coords, const void* spans, con
                                       const void* bg, void* frame, const void* atlas, int n_bands,
                                       int n_slots, int pw, int band_rows, int idx_stride,
                                       int local_cap, void* stream) {
-  dim3 grid(n_slots, n_bands);
-  composite_dirty_banded_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(n_slots * kStripes, n_bands);
+  composite_dirty_banded_kernel<<<grid, kStripeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(coords), static_cast<const int*>(spans),
       static_cast<const int*>(idxs), static_cast<const uint32_t*>(bg),
       static_cast<uint32_t*>(frame), static_cast<const uint32_t*>(atlas), n_slots, pw, band_rows,

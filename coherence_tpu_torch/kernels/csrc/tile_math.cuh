@@ -11,11 +11,12 @@
 // addresses, so every tile read and write is a coalesced 16-byte access.
 // It keeps one piece in flight per block (a dependent idxs[k] load, the
 // piece's loads, then a block vote), so a tile takes its depth times one
-// round trip to memory: it is bound by latency, not by its bytes.
-// banded.cu (K6, K7) still walks with it, and composite_runs.cu and
-// composite_layers.cu (K4, K5) walk one block a tile the same way with
-// finish_tile; tile_composite.cu (K1, K2) walks row stripes through a ring
-// of TMA bulk copies instead, with this file's over_packed.
+// round trip to memory: it is bound by latency, not by its bytes.  Only
+// banded.cu's composite_full_banded (K6) still walks with it, and
+// composite_runs.cu (K4) walks one block a tile the same way with
+// finish_tile.  K1, K2, K5 and K7 walk row stripes through
+// stripe_ring.cuh's ring of TMA bulk copies instead, with this file's
+// over_packed.
 
 #pragma once
 

@@ -164,11 +164,11 @@ def test_composite_dirty_kernel_matches_plain(cuda_device, seed, n_real):
 
 
 def _ring_depth() -> int:
-    """kStages of tile_composite.cu: the pieces a stripe keeps in flight."""
+    """kStages of stripe_ring.cuh: the layers a stripe keeps in flight."""
     import os
     import re
 
-    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "tile_composite.cu")
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc", "stripe_ring.cuh")
     with open(src) as f:
         return int(re.search(r"constexpr int kStages = (\d+);", f.read()).group(1))
 
@@ -225,25 +225,17 @@ STRIPE_CASES = ["empty_and_one", "ring_plus_one", "opaque_first", "stripe_bounda
                 "deep_past_index_cap"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", STRIPE_CASES)
-def test_striped_kernels_match_plain(cuda_device, name):
-    """composite_full and composite_dirty (each slot padded out by
-    repeating the last real slot, one passthrough slot) against their plain
-    versions at the edges of the striped ring walk."""
-    atlas, lists = stripe_case(name)
-    ntx = len(lists) + 1  # the last tile is the dirty list's passthrough slot
+def stripe_slots(lists):
+    """(starts, idxs, coords, spans, n_slots, n_real) for a one-row frame of
+    len(lists) + 1 tiles: tile j lists lists[j], and the last tile is the
+    dirty list's passthrough slot; the padding slots after it repeat the
+    last real slot."""
+    ntx = len(lists) + 1
     starts = np.zeros(ntx + 1, np.int32)
     starts[1 : len(lists) + 1] = np.cumsum([len(p) for p in lists])
     starts[-1] = starts[-2]
     idxs = np.zeros(_pow2(max(int(starts[-1]), 1)), np.int32)
     idxs[: starts[-1]] = [e for p in lists for e in p]
-    rng = np.random.default_rng(1)
-    a = convert.packed(atlas, cuda_device)
-    b = convert.packed(random_plane(rng, TILE_H, ntx * TILE_W), cuda_device)
-    s, i = _ints((starts, idxs), cuda_device)
-    got = T.composite_full(s, i, b, a, 1, ntx)
-    assert torch.equal(got, T.composite_full_torch(s, i, b, a, 1, ntx))
     n_slots = _pow2(ntx)
     coords = np.zeros(2 * n_slots, np.int32)
     spans = np.zeros(2 * n_slots, np.int32)
@@ -253,6 +245,24 @@ def test_striped_kernels_match_plain(cuda_device, name):
     real = 2 * len(lists)
     coords[2 * ntx :: 2], coords[2 * ntx + 1 :: 2] = coords[real - 2], coords[real - 1]
     spans[2 * ntx :: 2], spans[2 * ntx + 1 :: 2] = spans[real - 2], spans[real - 1]
+    return starts, idxs, coords, spans, n_slots, len(lists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_kernels_match_plain(cuda_device, name):
+    """composite_full and composite_dirty (each slot padded out by
+    repeating the last real slot, one passthrough slot) against their plain
+    versions at the edges of the striped ring walk."""
+    atlas, lists = stripe_case(name)
+    starts, idxs, coords, spans, n_slots, n_real = stripe_slots(lists)
+    ntx = len(lists) + 1
+    rng = np.random.default_rng(1)
+    a = convert.packed(atlas, cuda_device)
+    b = convert.packed(random_plane(rng, TILE_H, ntx * TILE_W), cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    got = T.composite_full(s, i, b, a, 1, ntx)
+    assert torch.equal(got, T.composite_full_torch(s, i, b, a, 1, ntx))
     f = convert.packed(random_plane(rng, TILE_H, ntx * TILE_W), cuda_device)
     c, sp = _ints((coords, spans), cuda_device)
     k, p = f.clone(), f.clone()
@@ -260,8 +270,44 @@ def test_striped_kernels_match_plain(cuda_device, name):
     T.composite_dirty_torch(c, sp, i, b, p, a, n_slots)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
-    assert torch.equal(k[:, : real // 2 * TILE_W], got[:, : real // 2 * TILE_W])
-    assert torch.equal(k[:, real // 2 * TILE_W :], f[:, real // 2 * TILE_W :]), "the passthrough tile changed"
+    assert torch.equal(k[:, : n_real * TILE_W], got[:, : n_real * TILE_W])
+    assert torch.equal(k[:, n_real * TILE_W :], f[:, n_real * TILE_W :]), "the passthrough tile changed"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_banded_dirty_matches_plain(cuda_device, name):
+    """composite_dirty_banded over 3 one-row bands at the edges of the
+    striped ring walk: band 0 lists the case's tiles, band 1 is idle (every
+    slot passthrough), band 2 lists them in reverse order; each band has a
+    passthrough slot and padding slots repeating its last real slot."""
+    atlas, lists = stripe_case(name)
+    ntx = len(lists) + 1
+    band0, band2 = stripe_slots(lists), stripe_slots(lists[::-1])
+    n_slots = band0[4]
+    width = max(band0[1].shape[0], band2[1].shape[0])
+    idxs = np.zeros((3, width), np.int32)
+    idxs[0, : band0[1].shape[0]], idxs[2, : band2[1].shape[0]] = band0[1], band2[1]
+    coords = np.stack([band0[2], np.zeros(2 * n_slots, np.int32), band2[2]])
+    spans = np.stack([band0[3], np.full(2 * n_slots, -1, np.int32), band2[3]])
+    rng = np.random.default_rng(2)
+    a = convert.packed(np.stack([atlas, random_atlas(rng, atlas.shape[0]), atlas]), cuda_device)
+    b = convert.packed(random_plane(rng, 3 * TILE_H, ntx * TILE_W), cuda_device)
+    f = convert.packed(random_plane(rng, 3 * TILE_H, ntx * TILE_W), cuda_device)
+    c, sp, i = _ints((coords, spans, idxs), cuda_device)
+    got, want = f.clone(), f.clone()
+    before = kernels.launches["composite_dirty_banded"]
+    T.composite_dirty_banded(c, sp, i, b, got, a, n_slots)
+    assert kernels.launches["composite_dirty_banded"] == before + 1
+    T.composite_dirty_banded_torch(c, sp, i, b, want, a, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[TILE_H : 2 * TILE_H], f[TILE_H : 2 * TILE_H]), "the idle band changed"
+    for k in (0, 2):
+        rows = slice(k * TILE_H, (k + 1) * TILE_H)
+        one = f[rows].clone()
+        T.composite_dirty(c[k].clone(), sp[k].clone(), i[k].clone(), b[rows].clone(), one, a[k].clone(), n_slots)
+        assert torch.equal(got[rows], one), k
 
 
 @pytest.mark.cuda
@@ -334,6 +380,61 @@ def test_composite_layers_kernel_on_the_config2_stack(cuda_device):
     want = PC.composite_layers_torch(white, layers)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _plane_layer(rng, ph: int, pw: int, alpha_lo: int, alpha_hi: int, rows=None) -> np.ndarray:
+    """(ph, pw) uint32 premultiplied layer of alpha alpha_lo..alpha_hi,
+    covering only `rows` of every tile (all rows when None)."""
+    alpha = rng.integers(alpha_lo, alpha_hi + 1, (ph, pw))
+    rgb = np.minimum(rng.integers(0, 256, (ph, pw, 3)), alpha[..., None])
+    out = (rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (alpha << 24)).astype(np.uint32)
+    if rows is not None:
+        out[(np.arange(ph) % TILE_H < rows.start) | (np.arange(ph) % TILE_H >= rows.stop)] = 0
+    return out
+
+
+def layer_ring_case(name: str, nty: int = 2, ntx: int = 2) -> np.ndarray:
+    """(K, ph, pw) uint32 stacks at the edges of the striped ring walk."""
+    rng = np.random.default_rng(7)
+    ph, pw = nty * TILE_H, ntx * TILE_W
+    ring = _ring_depth()
+    if name == "no_layers":
+        return np.zeros((0, ph, pw), np.uint32)
+    if name == "one_layer":
+        return _plane_layer(rng, ph, pw, 0, 255)[None]
+    if name == "ring_plus_one":
+        return np.stack([_plane_layer(rng, ph, pw, 1, 200) for _ in range(ring + 1)])
+    if name == "faint_301":
+        return np.stack([_plane_layer(rng, ph, pw, 0, 3) for _ in range(301)])
+    if name == "opaque_rows_5_11":
+        # Rows 5..11 of every tile turn opaque at layer 1: stripe 2 (rows
+        # 8..11) stops there, stripe 1 (rows 4..7) keeps row 4 open; every
+        # stripe stops at the full opaque layer ring + 3, with layers after it.
+        stack = [_plane_layer(rng, ph, pw, 1, 254), _plane_layer(rng, ph, pw, 255, 255, slice(5, 12))]
+        stack += [_plane_layer(rng, ph, pw, 0, 200) for _ in range(ring + 1)]
+        stack += [_plane_layer(rng, ph, pw, 255, 255)] + [_plane_layer(rng, ph, pw, 0, 255) for _ in range(3)]
+        return np.stack(stack)
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["no_layers", "one_layer", "ring_plus_one", "faint_301", "opaque_rows_5_11"])
+def test_composite_layers_ring_edges_match_plain(cuda_device, name):
+    """composite_layers against its plain version at the edges of the
+    striped ring walk: K = 0 (the background over zero), K = 1, a stack one
+    deeper than the ring, 301 faint layers, and stripes that stop at
+    different depths."""
+    stack = layer_ring_case(name)
+    layers = convert.layers(stack, cuda_device)
+    bg = convert.packed(random_plane(np.random.default_rng(8), stack.shape[1], stack.shape[2]), cuda_device)
+    before = kernels.launches["composite_layers"]
+    got = PC.composite_layers(bg, layers)
+    assert kernels.launches["composite_layers"] == before + 1
+    want = PC.composite_layers_torch(bg, layers)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if name == "no_layers":
+        assert torch.equal(got, bg)
 
 
 @pytest.mark.cuda
