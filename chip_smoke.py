@@ -36,14 +36,15 @@ Phases, one JSON line each:
   1. device: the card's name, and nvidia-smi's name and power limit;
   2. build: the CUDA kernels compiled from the checkout's sources;
   3. kernels: composite_full and composite_dirty against their plain
-     PyTorch versions on the lion's shapes, bit for bit; composite_full
-     also against its previous design (composite_full_banded over one
-     band: one block a tile, one piece in flight), composite_dirty against
-     composite_dirty_banded over one band (the same striped design,
-     banded_one_band); a deep case (a 301-piece translucent tile, a tile
-     opaque at its first piece, a passthrough slot); the times (CUDA
-     events, cold L2, the launch queued behind a device-side wait), each
-     comparison's in turns with the kernel's, and the bytes each must move;
+     PyTorch versions on the lion's shapes, bit for bit; each also against
+     its banded kernel over one band (banded_one_band: every kernel walks
+     the same striped ring, stripe_ring.cuh); a deep case (a 301-piece
+     translucent tile, a tile opaque at its first piece, an empty tile and
+     a passthrough slot) through composite_full, composite_runs,
+     composite_full_banded and composite_dirty, whose deep tile times one
+     step of the first three in turns; the times (CUDA events, cold L2,
+     the launch queued behind a device-side wait), each comparison's in
+     turns with the kernel's, and the bytes each must move;
   4. main_path: the lion, built and run 400 frames; per-frame times; the
      display after 20 frames held bit for bit against the same 20 frames
      run on the CPU through the plain versions; one full-frame render held
@@ -53,8 +54,9 @@ Phases, one JSON line each:
      on the CPU; frame times, build and zoom seconds, cache hits; the full
      renders held against the dirty-path content;
   6. kernels_4k: composite_runs against composite_runs_torch and against
-     composite_full, and composite_full against the previous design, on
-     config 5's full-frame lists, bit for bit, timed;
+     composite_full, and composite_full against composite_full_banded over
+     one band, on config 5's full-frame lists, bit for bit; the three timed
+     in turns;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -64,14 +66,14 @@ Phases, one JSON line each:
      banded atlas's build seconds and per-band bytes against the global
      atlas, the zoom step against a fresh unsharded view;
   9. mesh_kernels: composite_full_banded and composite_dirty_banded against
-     their plain versions on config 5's 2-band lists (the dirty case with
-     an idle band), bit for bit, timed beside the unbanded kernels
-     (composite_dirty_banded in turns with composite_dirty on the same
-     tiles);
+     their plain versions and the unbanded kernels on config 5's 2-band
+     lists (the dirty case with an idle band), bit for bit, each timed in
+     turns with its unbanded kernel (composite_full on the same frame,
+     composite_dirty on the same tiles);
  10. mesh_lion: the 17-band lion against the unsharded lion; then
      composite_dirty_banded on the lion's 17-band dirty lists of one band
-     (16 idle bands), bit for bit, timed in turns with composite_dirty on
-     the same tiles;
+     (16 idle bands) and composite_full_banded on its 17-band full-frame
+     lists, bit for bit, each timed in turns with its unbanded kernel;
  11. play_animated: the lion's play_animated over 400 deltas against 400
      step_animated calls, with its time per frame;
  12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card.
@@ -80,10 +82,11 @@ Then the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
 TB/s, counted per 32-byte sector: the pieces each sector reads until its
 pixels are opaque, its background where it stays translucent, its write;
-and the share of that bound; the time of each comparison timed in turns:
-composite_full's previous design, composite_dirty's banded_one_band,
-composite_dirty_banded's unbanded composite_dirty, also on the 17-band
-lion) and, last, {"ok": true, "device": {...}}.  Any mismatch or exception ends the
+and the share of that bound, beside the per-stripe count; the time of
+each comparison timed in turns: composite_full's and composite_dirty's
+banded_one_band, composite_runs's composite_full on the same lists, the
+banded kernels' unbanded ones, also on the 17-band lion) and, last,
+{"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
 """
@@ -254,15 +257,16 @@ def event_ms(torch, fn, scrub, reps: int = N_TIMED):
     return statistics.median(times)
 
 
-def in_turns(torch, old, new, scrub, old_name: str = "prev_design"):
-    """{"ms", old_name + "_ms", "readings"}: `new` and `old` timed with
-    event_ms in the order old, new, new, old; each time the mean of its two
-    readings."""
-    o1 = event_ms(torch, old, scrub)
-    n1 = event_ms(torch, new, scrub)
-    n2 = event_ms(torch, new, scrub)
-    o2 = event_ms(torch, old, scrub)
-    return {"ms": (n1 + n2) / 2, f"{old_name}_ms": (o1 + o2) / 2, "readings": [o1, n1, n2, o2]}
+def in_turns(torch, new, scrub, **others):
+    """{"ms", name + "_ms" for each of `others`, "readings"}: `new` and the
+    functions of `others` (name -> fn) timed with event_ms in turns: the
+    others in order, new twice, the others in reverse (old, new, new, old
+    for one other); each time the mean of its two readings, "readings"
+    every reading in that order."""
+    order = [*others, None, None, *reversed(others)]
+    readings = [event_ms(torch, new if name is None else others[name], scrub) for name in order]
+    mean = {name: statistics.mean(r for n, r in zip(order, readings) if n == name) for name in order}
+    return {"ms": mean[None], **{f"{name}_ms": mean[name] for name in others}, "readings": readings}
 
 
 def walked_depths(torch, atlas, idxs, spans):
@@ -383,12 +387,14 @@ def one_band(t):
 
 
 def deep_case(torch, dev, scrub):
-    """Both kernels against their plain versions on a deep case: in a 1x3
-    tile frame, tile 0 lists 301 translucent pieces (alpha 0..3, a span
+    """The list kernels against their plain versions on a deep case: in a
+    1x3 tile frame, tile 0 lists 301 translucent pieces (alpha 0..3, a span
     that no ring depth of 2, 4, 6 or 8 divides), tile 1 lists six pieces of
-    which the first is opaque, tile 2 is a passthrough slot of the dirty
-    list.  Tile 0's walk then times one step of each design: composite_full
-    against the previous design over that tile alone, in turns, per piece.
+    which the first is opaque, tile 2 lists none in the full-frame lists
+    and is a passthrough slot of the dirty list.  composite_full,
+    composite_runs (over the runs gathered from the same list) and
+    composite_full_banded over one band must agree; tile 0's walk then
+    times one step of each, over that tile alone, in turns, per piece.
     Returns what the phase line reports."""
     from coherence_tpu_torch.raster import tiled_scene as T
 
@@ -407,6 +413,17 @@ def deep_case(torch, dev, scrub):
     full_k = T.composite_full(starts, idxs, bg, atlas, 1, 3)
     require(torch.equal(full_k, T.composite_full_torch(starts, idxs, bg, atlas, 1, 3)),
             "composite_full differs from composite_full_torch on the deep case")
+    runs = T.gather_runs(atlas, idxs)
+    runs_k = T.composite_runs(starts, bg, runs, 1, 3)
+    banded = (one_band(starts), one_band(idxs), bg, one_band(atlas), 1, 3)
+    banded_k = T.composite_full_banded(*banded)
+    require(torch.equal(runs_k, T.composite_runs_torch(starts, bg, runs, 1, 3)),
+            "composite_runs differs from composite_runs_torch on the deep case")
+    require(torch.equal(banded_k, T.composite_full_banded_torch(*banded)),
+            "composite_full_banded differs from composite_full_banded_torch on the deep case")
+    require(torch.equal(runs_k, full_k), "composite_runs differs from composite_full on the deep case")
+    require(torch.equal(banded_k, full_k), "composite_full_banded differs from composite_full on the deep case")
+    require(torch.equal(full_k[:, 256:], bg[:, 256:]), "composite_full changed the empty tile's background")
     n_slots = 8
     coords = torch.tensor([0, 0, 0, 1, 0, 2] + [0, 2] * 5, dtype=torch.int32, device=dev)
     spans = torch.tensor([0, 301, 301, 307, -1, -1] + [-1, -1] * 5, dtype=torch.int32, device=dev)
@@ -421,18 +438,24 @@ def deep_case(torch, dev, scrub):
     walked = [sorted(set(r)) for r in reads.tolist()]
     require(walked == [[301], [1]], f"deep case walks {walked}, expected every sector [[301], [1]]")
     s0, bg0 = starts[:2].clone(), bg[:, :128].contiguous()
-    turns = in_turns(torch, lambda: T.composite_full_banded(one_band(s0), one_band(idxs), bg0, one_band(atlas), 1, 1),
-                     lambda: T.composite_full(s0, idxs, bg0, atlas, 1, 1), scrub)
-    return {"equal_plain": True, "tile_pieces": [301, 6], "walked": [w[0] for w in walked], "passthrough_tile": 2,
-            "deep_tile_ms": turns["ms"], "deep_tile_prev_design_ms": turns["prev_design_ms"],
-            "step_us": turns["ms"] / 301 * 1e3, "prev_design_step_us": turns["prev_design_ms"] / 301 * 1e3}
+    runs0 = T.gather_runs(atlas, idxs[:301])
+    turns = in_turns(torch, lambda: T.composite_full(s0, idxs, bg0, atlas, 1, 1), scrub,
+                     banded_one_band=lambda: T.composite_full_banded(one_band(s0), one_band(idxs), bg0,
+                                                                     one_band(atlas), 1, 1),
+                     composite_runs=lambda: T.composite_runs(s0, bg0, runs0, 1, 1))
+    return {"equal_plain": True, "equal_composite_full": True, "tile_pieces": [301, 6, 0],
+            "walked": [w[0] for w in walked], "passthrough_tile": 2, "deep_tile_ms": turns["ms"],
+            "deep_tile_banded_one_band_ms": turns["banded_one_band_ms"],
+            "deep_tile_composite_runs_ms": turns["composite_runs_ms"], "step_us": turns["ms"] / 301 * 1e3,
+            "banded_one_band_step_us": turns["banded_one_band_ms"] / 301 * 1e3,
+            "composite_runs_step_us": turns["composite_runs_ms"] / 301 * 1e3}
 
 
 def lion_kernels(torch, dev, scrub):
     """Phase 3: composite_full and composite_dirty against their plain
-    versions on the lion's lists, composite_full against its previous
-    design and composite_dirty against composite_dirty_banded (each over
-    one band), then the deep case.  Returns {kernel: row}."""
+    versions on the lion's lists, and against composite_full_banded and
+    composite_dirty_banded over one band, then the deep case.  Returns
+    {kernel: row}."""
     from coherence_tpu_torch.raster import tiled_scene as T
 
     view, disp, key = build_scene(dev)
@@ -442,18 +465,18 @@ def lion_kernels(torch, dev, scrub):
     full_k = T.composite_full(starts, idxs, view.background, atlas, ts.nty, ts.ntx)
     full_p = T.composite_full_torch(starts, idxs, view.background, atlas, ts.nty, ts.ntx)
 
-    def full_old():
+    def full_banded():
         return T.composite_full_banded(one_band(starts), one_band(idxs), view.background, one_band(atlas), ts.nty,
                                        ts.ntx)
 
-    full_o = full_old()
+    full_b = full_banded()
     torch.cuda.synchronize()
     require(torch.equal(full_k, full_p), "composite_full differs from composite_full_torch")
-    require(torch.equal(full_k, full_o), "composite_full differs from the previous design")
+    require(torch.equal(full_k, full_b), "composite_full differs from composite_full_banded over one band")
     full = {"max_abs_err": max_abs_err(full_k, full_p),
             **bound([walked_depths(torch, atlas, idxs, full_spans(torch, starts))])}
-    full.update(in_turns(torch, full_old,
-                         lambda: T.composite_full(starts, idxs, view.background, atlas, ts.nty, ts.ntx), scrub))
+    full.update(in_turns(torch, lambda: T.composite_full(starts, idxs, view.background, atlas, ts.nty, ts.ntx),
+                         scrub, banded_one_band=full_banded))
     full["plain_ms"] = event_ms(
         torch, lambda: T.composite_full_torch(starts, idxs, view.background, atlas, ts.nty, ts.ntx), scrub)
     n_listed = int(starts[-1])
@@ -486,20 +509,18 @@ def lion_kernels(torch, dev, scrub):
     dspans = dirty_spans(torch, coords, spans, n_slots, dev)
     dirty_row = {"max_abs_err": max_abs_err(frame_k, frame_p),
                  **bound([walked_depths(torch, datlas, args[2], dspans)])}
-    dirty_row.update(in_turns(torch, dirty_banded,
-                              lambda: T.composite_dirty(*args, view.background, frame_k, datlas, n_slots), scrub,
-                              "banded_one_band"))
+    dirty_row.update(in_turns(torch, lambda: T.composite_dirty(*args, view.background, frame_k, datlas, n_slots),
+                              scrub, banded_one_band=dirty_banded))
     dirty_row["plain_ms"] = event_ms(
         torch, lambda: T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots), scrub)
     deep = deep_case(torch, dev, scrub)
     emit({"phase": "kernels", "tolerance": 0,
-          "composite_full": {"equal_plain": True, "equal_prev_design": True, "tiles": ts.nty * ts.ntx,
+          "composite_full": {"equal_plain": True, "equal_banded_one_band": True, "tiles": ts.nty * ts.ntx,
                              "listed_pieces": n_listed, **full},
           "composite_dirty": {"equal_plain": True, "equal_banded_one_band": True, "slots": n_slots,
                               "real_slots": n_real + 1, "passthrough_tile": spare,
                               "listed_pieces": int(spans[2 * n_real + 1]), **dirty_row},
-          "prev_design": "composite_full_banded over one band (one block a tile, one piece in flight)",
-          "banded_one_band": "composite_dirty_banded over one band (the same striped ring)",
+          "banded_one_band": "composite_full_banded and composite_dirty_banded over one band (the same striped ring)",
           "deep": deep})
     return {"composite_full": full, "composite_dirty": dirty_row}
 
@@ -559,9 +580,9 @@ def lion_path(torch, dev, kernels):
 def interactive_path(torch, dev, kernels, scrub):
     """Phases 5 and 6: config 5 on the card, counted from zero, then
     composite_runs against its plain version and composite_full, and
-    composite_full against the previous design, on the 1x scene's
-    full-frame lists.  Returns (launch counts, composite_runs's row,
-    composite_full's row on these lists)."""
+    composite_full against composite_full_banded over one band, on the 1x
+    scene's full-frame lists, the three timed in turns.  Returns (launch
+    counts, composite_runs's row, composite_full's row on these lists)."""
     from coherence_tpu_torch.raster import tiled_scene as T
     from coherence_tpu_torch.scene import fastframe
 
@@ -645,25 +666,29 @@ def interactive_path(torch, dev, kernels, scrub):
     runs_p = T.composite_runs_torch(starts, background, runs, nty, ntx)
     full = T.composite_full(starts, idxs, background, atlas_1x, nty, ntx)
 
-    def full_old():
+    def full_banded():
         return T.composite_full_banded(one_band(starts), one_band(idxs), background, one_band(atlas_1x), nty, ntx)
 
-    full_o = full_old()
+    full_b = full_banded()
     torch.cuda.synchronize()
     require(torch.equal(runs_k, runs_p), "composite_runs differs from composite_runs_torch")
     require(torch.equal(runs_k, full), "composite_runs differs from composite_full on the same lists")
-    require(torch.equal(full, full_o), "4K composite_full differs from the previous design")
+    require(torch.equal(full, full_b), "4K composite_full differs from composite_full_banded over one band")
     walk = bound([walked_depths(torch, atlas_1x, idxs, full_spans(torch, starts))])
-    runs_row = {"max_abs_err": max_abs_err(runs_k, runs_p), **walk,
-                "ms": event_ms(torch, lambda: T.composite_runs(starts, background, runs, nty, ntx), scrub),
+    turns = in_turns(torch, lambda: T.composite_full(starts, idxs, background, atlas_1x, nty, ntx), scrub,
+                     banded_one_band=full_banded,
+                     composite_runs=lambda: T.composite_runs(starts, background, runs, nty, ntx))
+    runs_row = {"max_abs_err": max_abs_err(runs_k, runs_p), **walk, "ms": turns["composite_runs_ms"],
+                "composite_full_ms": turns["ms"],
                 "plain_ms": event_ms(torch, lambda: T.composite_runs_torch(starts, background, runs, nty, ntx), scrub)}
-    full_row = {**walk, **in_turns(torch, full_old,
-                                   lambda: T.composite_full(starts, idxs, background, atlas_1x, nty, ntx), scrub)}
+    full_row = {**walk, "ms": turns["ms"], "banded_one_band_ms": turns["banded_one_band_ms"]}
     emit({"phase": "kernels_4k", "tolerance": 0, "tiles": nty * ntx, "listed_pieces": int(starts[-1]),
+          "order": "composite_full_banded over one band, composite_runs, composite_full twice, then back",
+          "readings": turns["readings"],
           "composite_runs": {"equal_plain": True, "equal_composite_full": True, "runs_pieces": int(runs.shape[0]),
                              "gather_runs_ms": event_ms(torch, lambda: T.gather_runs(atlas_1x, idxs), scrub),
                              **runs_row},
-          "composite_full": {"equal_prev_design": True, **full_row}})
+          "composite_full": {"equal_banded_one_band": True, **full_row}})
     return counts, runs_row, full_row
 
 
@@ -862,8 +887,8 @@ def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
     uargs = [a.to(dv) for a in ts.upload(gc, gs, gi)]
     ubg, uatlas, uframe = view.background.to(dv), ts.atlas().to(dv), noise.to(dv, copy=True)
     with torch.cuda.device(dv):
-        row = in_turns(torch, lambda: T.composite_dirty(*uargs, ubg, uframe, uatlas, g_slots),
-                       lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub, "unbanded")
+        row = in_turns(torch, lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub,
+                       unbanded=lambda: T.composite_dirty(*uargs, ubg, uframe, uatlas, g_slots))
         row["plain_ms"] = event_ms(
             torch, lambda: T.composite_dirty_banded_torch(cc, ss, ii, gbg, fp, atlas, n_slots), dscrub)
     del dscrub
@@ -873,15 +898,17 @@ def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
             "dirty_band": first, "idle_bands": idle, "timed_device": str(dv), **row, **walk}
 
 
-def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
-    """Phase 9: composite_full_banded and composite_dirty_banded against
-    their plain versions on config 5's 2-band lists (the 1x scene of phase
-    8's unsharded view, blob moved), timed beside the unbanded kernels on
-    the same frame.  Returns {kernel: row}."""
+def full_banded_row(torch, view, mesh, scrub) -> dict:
+    """composite_full_banded on `mesh`'s band lists of the unsharded
+    `view`'s scene: against its plain version and against composite_full on
+    the same frame, bit for bit, on every card's stack of bands; then timed
+    on the first card's stack (the whole frame with one card) in turns with
+    composite_full on the whole frame (its lists, atlas and background
+    copied onto that card), and its plain version's time.  Returns the row:
+    its times, unbanded_ms, the walk's bytes and bound."""
     from coherence_tpu_torch.parallel import RowSharded
     from coherence_tpu_torch.raster import tiled_scene as T
 
-    view = udisp.view
     ts = view.ts
     band_ty = ts.nty // mesh.size
     rows = band_ty * 64
@@ -889,44 +916,48 @@ def mesh_kernels(torch, dev, scrub, mesh, udisp, ukey):
     bg = RowSharded.scatter(view.background, mesh, rows)
     starts, idxs = T.sharded_lists(ts, view.order, banded)
     g_starts, g_idxs = ts.build_lists(view.order)
-    full_err = 0
+    unbanded = T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx)
+    err = 0
     for g, (dv, b0, b1) in enumerate(mesh.groups):
         s, i = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs))
         k = T.composite_full_banded(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx)
         p = T.composite_full_banded_torch(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx)
         torch.cuda.synchronize()
         require(torch.equal(k, p), "composite_full_banded differs from composite_full_banded_torch")
-        require(torch.equal(k, T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx)[
-            b0 * rows : b1 * rows].to(dv)), "composite_full_banded differs from composite_full")
-        full_err = max(full_err, max_abs_err(k, p))
-    # The full render timed on the first card's stack (the whole frame with
-    # one card).
+        require(torch.equal(k, unbanded[b0 * rows : b1 * rows].to(dv)),
+                "composite_full_banded differs from composite_full")
+        err = max(err, max_abs_err(k, p))
     dv, b0, b1 = mesh.groups[0]
     s, i = (torch.from_numpy(a[b0:b1]).to(dv) for a in (starts, idxs))
     gbg, atlas = bg.parts[0], banded.data[0]
+    us, ui, ubg, uatlas = (x.to(dv) for x in (g_starts, g_idxs, view.background, ts.atlas()))
     dscrub = scrub if scrub.device == torch.device(dv) else torch.empty_like(scrub, device=dv)
     with torch.cuda.device(dv):
-        full_ms = event_ms(torch, lambda: T.composite_full_banded(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
-        full_plain_ms = event_ms(
-            torch, lambda: T.composite_full_banded_torch(s, i, gbg, atlas, band_ty, ts.ntx), dscrub)
+        row = in_turns(torch, lambda: T.composite_full_banded(s, i, gbg, atlas, band_ty, ts.ntx), dscrub,
+                       unbanded=lambda: T.composite_full(us, ui, ubg, uatlas, ts.nty, ts.ntx))
+        row["plain_ms"] = event_ms(torch, lambda: T.composite_full_banded_torch(s, i, gbg, atlas, band_ty, ts.ntx),
+                                   dscrub)
     del dscrub
-    full_walk = bound([walked_depths(torch, atlas[k], i[k], full_spans(torch, s[k])) for k in range(atlas.shape[0])])
-    unbanded_full_ms = event_ms(
-        torch, lambda: T.composite_full(g_starts, g_idxs, view.background, ts.atlas(), ts.nty, ts.ntx), scrub)
+    walk = bound([walked_depths(torch, atlas[k], i[k], full_spans(torch, s[k])) for k in range(atlas.shape[0])])
+    return {"max_abs_err": err, "bands": mesh.size, "band_tiles": band_ty * ts.ntx,
+            "listed_pieces": int(starts[:, -1].sum()), "local_cap": banded.local_cap,
+            "global_slots": int(ts.atlas().shape[0]), "timed_device": str(dv), "timed_stack_bands": b1 - b0,
+            **row, **walk}
+
+
+def mesh_kernels(torch, scrub, mesh, udisp, ukey):
+    """Phase 9: composite_full_banded and composite_dirty_banded on config
+    5's 2-band lists (the 1x scene of phase 8's unsharded view, blob
+    moved), each against its plain version and timed in turns with its
+    unbanded kernel.  Returns {kernel: row}."""
+    full = full_banded_row(torch, udisp.view, mesh, scrub)
     # The dirty tiles of the next animated step, those of its first band
     # only, so that another band is idle.
-    dirty = dirty_banded_row(torch, view, mesh, first_band_dirty_tiles(udisp, ukey, delta4(0), mesh), scrub, 2)
+    dirty = dirty_banded_row(torch, udisp.view, mesh, first_band_dirty_tiles(udisp, ukey, delta4(0), mesh), scrub, 2)
     emit({"phase": "mesh_kernels", "tolerance": 0, "bands": mesh.size, "devices": [str(d) for d in mesh.devices],
-          "full_timed_device": str(dv), "full_timed_stack_bands": b1 - b0,
-          "composite_full_banded": {"equal_plain": True, "equal_composite_full": True,
-                                    "band_tiles": band_ty * ts.ntx, "listed_pieces": int(starts[:, -1].sum()),
-                                    "local_cap": banded.local_cap, "global_slots": int(ts.atlas().shape[0]),
-                                    "ms": full_ms, "plain_ms": full_plain_ms,
-                                    "unbanded_composite_full_ms": unbanded_full_ms, **full_walk},
+          "composite_full_banded": {"equal_plain": True, "equal_composite_full": True, **full},
           "composite_dirty_banded": {"equal_plain": True, "equal_composite_dirty": True, **dirty}})
-    return {"composite_full_banded": {"max_abs_err": full_err, "ms": full_ms, "plain_ms": full_plain_ms,
-                                      **full_walk},
-            "composite_dirty_banded": dirty}
+    return {"composite_full_banded": full, "composite_dirty_banded": dirty}
 
 
 def mesh_lion_path(torch, dev, kernels, scrub):
@@ -934,7 +965,9 @@ def mesh_lion_path(torch, dev, kernels, scrub):
     and N_CHECK filtered frames against the unsharded lion, counted from
     zero; then composite_dirty_banded on the 17-band lists of the next
     step's dirty tiles in one band (16 idle bands) against composite_dirty
-    on the same tiles.  Returns (the launch counts, that row)."""
+    on the same tiles, and composite_full_banded on the 17-band full-frame
+    lists against composite_full.  Returns (the launch counts, the
+    composite_dirty_banded row, the composite_full_banded row)."""
     from coherence_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(17, mesh_devices(torch, 17))
@@ -958,12 +991,14 @@ def mesh_lion_path(torch, dev, kernels, scrub):
             f"composite_full_banded launched {counts['composite_full_banded']} times on the 17-band lion")
     band_rows = {t // mview.ts.ntx for t, _ in mview.ts.pieces[mkey]}
     dirty = dirty_banded_row(torch, uview, mesh, first_band_dirty_tiles(udisp, ukey, delta(N_CHECK), mesh), scrub, 3)
+    full = full_banded_row(torch, uview, mesh, scrub)
     emit({"phase": "mesh_lion", "width": W, "height": H, "bands": mesh.size, "devices": sorted({str(d) for d in
                                                                                           mesh.devices}),
           "frames": N_CHECK, "display_equal": True, "full_render_equal": True,
           "bands_under_the_blob_at_end": sorted(band_rows), "launches": counts,
-          "composite_dirty_banded": {"tolerance": 0, "equal_plain": True, "equal_composite_dirty": True, **dirty}})
-    return counts, dirty
+          "composite_dirty_banded": {"tolerance": 0, "equal_plain": True, "equal_composite_dirty": True, **dirty},
+          "composite_full_banded": {"tolerance": 0, "equal_plain": True, "equal_composite_full": True, **full}})
+    return counts, dirty, full
 
 
 def play_path(torch, dev):
@@ -1032,9 +1067,9 @@ def main() -> int:
     counts4, timed["composite_runs"], full_4k = interactive_path(torch, dev, kernels, scrub)
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
-    timed.update(mesh_kernels(torch, dev, scrub, mesh, udisp, ukey))
+    timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
     del udisp
-    counts_lion17, dirty17 = mesh_lion_path(torch, dev, kernels, scrub)
+    counts_lion17, dirty17, full17 = mesh_lion_path(torch, dev, kernels, scrub)
     play_path(torch, dev)
     from coherence_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -1062,21 +1097,22 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
                      # No one PyTorch call composites a front-to-back piece list with an early stop.
                      "library_ms": None, "bytes": t["bytes"], "share": t["bound_ms"] / t["ms"],
-                     "depth": t["depth"]})
-        for extra in ("prev_design_ms", "banded_one_band_ms", "unbanded_ms"):
+                     "stripe_count_bytes": t["stripe_count_bytes"], "depth": t["depth"]})
+        for extra in ("banded_one_band_ms", "composite_full_ms", "unbanded_ms"):
             if extra in t:
                 line[-1][extra] = t[extra]
     line[1]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:143"
-    line[1].update({"ms_4k": full_4k["ms"], "prev_design_ms_4k": full_4k["prev_design_ms"],
+    line[1].update({"ms_4k": full_4k["ms"], "banded_one_band_ms_4k": full_4k["banded_one_band_ms"],
                     "bytes_4k": full_4k["bytes"], "bound_ms_4k": full_4k["bound_ms"],
                     "share_4k": full_4k["bound_ms"] / full_4k["ms"], "depth_4k": full_4k["depth"]})
     line[4]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:1385"
     for row in line[4:]:
         row["launches_4k"] = counts_mesh[row["name"]]
         row["launches_lion_17_bands"] = counts_lion17[row["name"]]
-    line[5].update({"ms_lion_17_bands": dirty17["ms"], "unbanded_ms_lion_17_bands": dirty17["unbanded_ms"],
-                    "bytes_lion_17_bands": dirty17["bytes"], "bound_ms_lion_17_bands": dirty17["bound_ms"],
-                    "share_lion_17_bands": dirty17["bound_ms"] / dirty17["ms"]})
+    for row, t in ((line[4], full17), (line[5], dirty17)):
+        row.update({"ms_lion_17_bands": t["ms"], "unbanded_ms_lion_17_bands": t["unbanded_ms"],
+                    "bytes_lion_17_bands": t["bytes"], "bound_ms_lion_17_bands": t["bound_ms"],
+                    "share_lion_17_bands": t["bound_ms"] / t["ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

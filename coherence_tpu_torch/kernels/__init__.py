@@ -179,9 +179,9 @@ def composite_full(starts, idxs, background, atlas, nty: int, ntx: int) -> torch
 
 
 def composite_runs(starts, background, runs, nty: int, ntx: int) -> torch.Tensor:
-    """Launch ``composite_runs``: one block per tile over the tile-major
-    piece runs (tile t's pieces are runs[starts[t]:starts[t+1]]), into a
-    new frame."""
+    """Launch ``composite_runs``: one block per 4-row stripe of each tile
+    over the tile-major piece runs (tile t's pieces are
+    runs[starts[t]:starts[t+1]]), into a new frame."""
     device, ph, pw = _check_planes(background, runs)
     if (ph, pw) != (nty * 64, ntx * 128):
         raise ValueError(f"plane {ph}x{pw} does not match the {nty}x{ntx} tile grid")
@@ -236,9 +236,10 @@ def _check_banded(background, atlas):
 
 
 def composite_full_banded(starts, idxs, background, atlas, band_ty: int, ntx: int) -> torch.Tensor:
-    """Launch ``composite_full_banded``: block (t, b) composites tile t of
-    band b of the stack from starts[b], idxs[b] and atlas[b], one launch
-    for every band, into new rows."""
+    """Launch ``composite_full_banded``: block (x, b) composites stripe
+    x % 16 of band-local tile x // 16 of band b of the stack from
+    starts[b], idxs[b] and atlas[b], one launch for every band, into new
+    rows."""
     device, n_bands, band_rows, pw = _check_banded(background, atlas)
     if (band_rows, pw) != (band_ty * 64, ntx * 128):
         raise ValueError(f"band {band_rows}x{pw} does not match the {band_ty}x{ntx} tile grid")

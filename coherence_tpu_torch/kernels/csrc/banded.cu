@@ -20,37 +20,35 @@
 // Tile coordinates and atlas slots in the lists are band-local.
 //
 // What bounds the work: HBM bytes, as for composite_full and
-// composite_dirty.  composite_dirty_banded walks as composite_dirty does,
-// on stripe_ring.cuh's striped TMA ring: block (x, b) composites stripe
-// x % 16 of slot x / 16 of band b from that band's lists and local atlas,
-// so an idle band's blocks (its slots all passthrough) and padding slots
-// (repeating a band's last real slot) return at once.
-// composite_full_banded still keeps the simple one-piece-in-flight walk
-// (tile_math.cuh composite_tile), which is bound by latency instead: one
-// 256-thread block per tile, 32 pixels per thread in registers, coalesced
-// 16-byte loads, a block vote after each piece for the early stop, nothing
-// shared between blocks.
+// composite_dirty.  Both walk as their unbanded kernels do, on
+// stripe_ring.cuh's striped TMA ring with its list source, the band as the
+// grid's y index.  composite_full_banded: block (x, b) composites stripe
+// x % 16 of band-local tile x / 16 of band b from that band's lists and
+// local atlas; an empty tile (a band whose lists are empty included)
+// writes its background unchanged.  composite_dirty_banded: block (x, b)
+// composites stripe x % 16 of slot x / 16 of band b, so an idle band's
+// blocks (its slots all passthrough) and padding slots (repeating a band's
+// last real slot) return at once.
 
 #include "stripe_ring.cuh"
 
 namespace {
 
-using namespace tile;
 using namespace ring;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStripeThreads)
 composite_full_banded_kernel(const int* __restrict__ starts, const int* __restrict__ idxs,
                              const uint32_t* __restrict__ bg, uint32_t* __restrict__ out,
                              const uint32_t* __restrict__ atlas, int band_tiles, int ntx,
                              int idx_stride, long atlas_stride) {
-  int t = blockIdx.x;
-  int b = blockIdx.y;
-  long pw = static_cast<long>(ntx) * kTileW;
+  const int t = blockIdx.x / kStripes;
+  const int b = blockIdx.y;
+  const long pw = static_cast<long>(ntx) * kTileW;
   const int* s = starts + static_cast<long>(b) * (band_tiles + 1);
-  long off = (static_cast<long>(b) * (band_tiles / ntx) + t / ntx) * kTileH * pw +
-             static_cast<long>(t % ntx) * kTileW;
-  composite_tile(idxs + static_cast<long>(b) * idx_stride, s[t], s[t + 1],
-                 atlas + b * atlas_stride, bg + off, out + off, pw);
+  const long off = (static_cast<long>(b) * (band_tiles / ntx) + t / ntx) * kTileH * pw +
+                   static_cast<long>(t % ntx) * kTileW;
+  composite_list_stripe(idxs + static_cast<long>(b) * idx_stride, s[t], s[t + 1], atlas + b * atlas_stride,
+                        bg + off, out + off, pw, blockIdx.x % kStripes);
 }
 
 __global__ void __launch_bounds__(kStripeThreads)
@@ -72,8 +70,8 @@ composite_dirty_banded_kernel(const int* __restrict__ coords, const int* __restr
 extern "C" int composite_full_banded(const void* starts, const void* idxs, const void* bg, void* out,
                                      const void* atlas, int n_bands, int band_tiles, int ntx,
                                      int idx_stride, int local_cap, void* stream) {
-  dim3 grid(band_tiles, n_bands);
-  composite_full_banded_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(band_tiles * kStripes, n_bands);
+  composite_full_banded_kernel<<<grid, kStripeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(idxs),
       static_cast<const uint32_t*>(bg), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(atlas), band_tiles, ntx, idx_stride,

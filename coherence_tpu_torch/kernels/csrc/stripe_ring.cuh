@@ -1,15 +1,17 @@
-// The striped TMA ring walk shared by the Hopper compositors (sm_90a):
-// K1 composite_dirty and K2 composite_full (tile_composite.cu), K7
-// composite_dirty_banded (banded.cu) and K5 composite_layers
-// (composite_layers.cu).
+// The striped TMA ring walk of every Hopper compositor (sm_90a): K1
+// composite_dirty and K2 composite_full (tile_composite.cu), K4
+// composite_runs (composite_runs.cu), K5 composite_layers
+// (composite_layers.cu), K6 composite_full_banded and K7
+// composite_dirty_banded (banded.cu).
 //
 // What bounds these kernels: HBM bytes.  Per pixel the work reads 4 B of
 // every layer until that pixel turns opaque, 4 B of background where it
 // stays translucent, and writes 4 B once; the integer math is a few dozen
-// ALU ops per pixel.  A walk that keeps one layer in flight
-// (tile_math.cuh composite_tile) is bound instead by latency: a tile takes
-// its depth times one round trip to memory, whatever its bytes, and a dirty
-// list of 9-24 tiles fills at most 24 of the 132 SMs.
+// ALU ops per pixel.  A walk that keeps one layer in flight per tile (one
+// block a tile: a dependent index load, the layer's loads, then a vote) is
+// bound instead by latency: a tile takes its depth times one round trip to
+// memory, whatever its bytes, and a dirty list of 9-24 tiles fills at most
+// 24 of the 132 SMs.
 //
 // Design (what it does about that):
 //  * Row stripes.  One 128-thread block per 4-row stripe of a 64x128 tile,
@@ -30,9 +32,11 @@
 //    stripe `stripe` of atlas piece idxs[lo + k], one contiguous 2 KiB run,
 //    with the span's indices staged in shared memory first (up to kIdxCap;
 //    a longer span reads the rest from global memory), so no step waits on
-//    a dependent idxs load.  LayerSource copies the stripe's four 512-byte
-//    rows of layer k of a (K, H, W) stack, `pitch` words apart, as four
-//    copies on one barrier that expects all 2048 bytes.
+//    a dependent idxs load.  RunSource copies the stripe of piece lo + k of
+//    a tile-major run buffer, where a tile's pieces lie consecutive, so it
+//    stages nothing.  LayerSource copies the stripe's four 512-byte rows of
+//    layer k of a (K, H, W) stack, `pitch` words apart, as four copies on
+//    one barrier that expects all 2048 bytes.
 //  * Safe exits.  A block that stops early, or whose span is shorter than
 //    the ring, waits on every stage it filled before it returns, so no bulk
 //    copy into its shared memory is left pending.
@@ -117,6 +121,17 @@ struct ListSource {
     int p = k < kIdxCap ? sidx[k] : __ldg(idxs + lo + k);
     mbar_expect(bar, kStripeBytes);
     bulk_copy(dst, stripe_base + static_cast<long>(p) * (kTileH * kTileW), kStripeBytes, bar);
+  }
+};
+
+// Stage k: the stripe of run piece lo + k.
+struct RunSource {
+  const uint32_t* base;  // the stripe's first word in run piece lo
+
+  __device__ __forceinline__ void stage() const {}
+  __device__ __forceinline__ void fill(int k, uint4* dst, uint64_t* bar) const {
+    mbar_expect(bar, kStripeBytes);
+    bulk_copy(dst, base + static_cast<long>(k) * (kTileH * kTileW), kStripeBytes, bar);
   }
 };
 

@@ -75,8 +75,9 @@ def composite_full_torch(starts, idxs, background, atlas, nty: int, ntx: int) ->
     return out
 
 
-# Pieces per chunk of the run walk (the JAX package's _RUN_CHUNK): the runs
-# end in _RUN_CHUNK - 1 zero pieces, as the reference pads them.
+# Pieces per chunk of the JAX package's run walk (its _RUN_CHUNK): the runs
+# end in _RUN_CHUNK - 1 zero pieces, the reference's layout; the port's
+# kernel walks piece by piece and never reads past a tile's run.
 _RUN_CHUNK = 4
 
 

@@ -8,8 +8,9 @@ a machine with a card and no JAX, run it without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-The random compositor cases below are shared with the CPU comparison
-against the JAX package (tests/test_torch_tiled_scene.py).  Every
+The random compositor cases and the striped walk's edge cases below are
+shared with the CPU comparisons against the JAX package
+(tests/test_torch_tiled_scene.py, tests/test_torch_runs.py).  Every
 comparison is bit for bit (tolerance 0): the compositor is integer math.
 """
 
@@ -246,6 +247,75 @@ def stripe_slots(lists):
     coords[2 * ntx :: 2], coords[2 * ntx + 1 :: 2] = coords[real - 2], coords[real - 1]
     spans[2 * ntx :: 2], spans[2 * ntx + 1 :: 2] = spans[real - 2], spans[real - 1]
     return starts, idxs, coords, spans, n_slots, len(lists)
+
+
+def banded_stripe_stack(name: str):
+    """A stack of three one-row bands at the edges of the striped ring walk:
+    band 0 lists the case's tiles (stripe_slots: the last tile empty), band
+    1 lists nothing, band 2 lists the case's tiles in reverse order.
+    Returns (atlas (3, cap, TILE_H, TILE_W), background (3 * TILE_H, ntx *
+    TILE_W), starts (3, ntx + 1), idxs (3, width)), each band's idxs
+    zero-padded to the widest."""
+    atlas, lists = stripe_case(name)
+    ntx = len(lists) + 1
+    (s0, i0), (s2, i2) = stripe_slots(lists)[:2], stripe_slots(lists[::-1])[:2]
+    idxs = np.zeros((3, max(i0.shape[0], i2.shape[0])), np.int32)
+    idxs[0, : i0.shape[0]], idxs[2, : i2.shape[0]] = i0, i2
+    starts = np.stack([s0, np.zeros(ntx + 1, np.int32), s2])
+    rng = np.random.default_rng(4)
+    atlases = np.stack([atlas, random_atlas(rng, atlas.shape[0]), atlas])
+    return atlases, random_plane(rng, 3 * TILE_H, ntx * TILE_W), starts, idxs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_runs_match_plain(cuda_device, name):
+    """composite_runs at the edges of the striped ring walk, over the runs
+    gathered from the case's lists: against its plain version and against
+    composite_full on the same lists."""
+    atlas, lists = stripe_case(name)
+    starts, idxs = stripe_slots(lists)[:2]
+    ntx = len(lists) + 1
+    a = convert.packed(atlas, cuda_device)
+    b = convert.packed(random_plane(np.random.default_rng(1), TILE_H, ntx * TILE_W), cuda_device)
+    s, i = _ints((starts, idxs), cuda_device)
+    runs = T.gather_runs(a, i)
+    before = kernels.launches["composite_runs"]
+    got = T.composite_runs(s, b, runs, 1, ntx)
+    assert kernels.launches["composite_runs"] == before + 1
+    want = T.composite_runs_torch(s, b, runs, 1, ntx)
+    full = T.composite_full(s, i, b, a, 1, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [1, 3])
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_banded_full_matches_plain(cuda_device, name, n_bands):
+    """composite_full_banded at the edges of the striped ring walk, over
+    the first `n_bands` bands of banded_stripe_stack: against its plain
+    version and against composite_full on each band's lists; every empty
+    tile, and so the empty band 1 whole, keeps its background unchanged."""
+    atlas, bg, starts, idxs = banded_stripe_stack(name)
+    ntx = starts.shape[1] - 1
+    a = convert.packed(atlas[:n_bands], cuda_device)
+    b = convert.packed(bg[: n_bands * TILE_H], cuda_device)
+    s, i = _ints((starts[:n_bands], idxs[:n_bands]), cuda_device)
+    before = kernels.launches["composite_full_banded"]
+    got = T.composite_full_banded(s, i, b, a, 1, ntx)
+    assert kernels.launches["composite_full_banded"] == before + 1
+    want = T.composite_full_banded_torch(s, i, b, a, 1, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in range(n_bands):
+        rows = slice(k * TILE_H, (k + 1) * TILE_H)
+        one = T.composite_full(s[k].clone(), i[k].clone(), b[rows].clone(), a[k].clone(), 1, ntx)
+        assert torch.equal(got[rows], one), k
+        for t in np.flatnonzero(starts[k, :-1] == starts[k, 1:]).tolist():
+            cols = slice(t * TILE_W, (t + 1) * TILE_W)
+            assert torch.equal(got[rows, cols], b[rows, cols]), f"empty tile {t} of band {k} changed"
 
 
 @pytest.mark.cuda

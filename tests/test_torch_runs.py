@@ -4,9 +4,13 @@ in interpret mode), bit for bit.
 
 ``gather_runs`` against the JAX gather; ``render_runs`` against the JAX
 ``TiledScene.render_runs`` and the port's own ``render_full`` on the scene
-of tests/test_tiled_scene.py:551; and stacks whose tile depths run 1..9,
+of tests/test_tiled_scene.py:551; stacks whose tile depths run 1..9,
 so the last chunk of four holds every count from 1 to 4, with and without
-an opaque top piece (the early stop between chunks).  Tolerance 0.
+an opaque top piece (the early stop between chunks); and the lists whose
+edges the card tests walk with the striped kernels (tests/test_torch_cuda.py
+STRIPE_CASES but the deep ones), through composite_runs and, as a stack of
+three bands with one band empty, through composite_full_banded_torch
+against the JAX package's full-frame kernel per band.  Tolerance 0.
 """
 
 import numpy as np
@@ -31,7 +35,7 @@ from coherence_tpu_torch.scene import render as TR
 from _torch_hosts import JAX, PORT
 from _torch_threads import one_torch_thread  # noqa: F401
 
-from test_torch_cuda import random_atlas, random_plane
+from test_torch_cuda import STRIPE_CASES, banded_stripe_stack, random_atlas, random_plane, stripe_case, stripe_slots
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -128,3 +132,47 @@ def test_composite_runs_depths_match_jax(seed, opaque_top):
             scrambled[slot] = random_atlas(np.random.default_rng(slot), 1)[0]
         again = T.composite_runs(s, b, T.gather_runs(convert.packed(scrambled, "cpu"), i), 3, 3)
         assert torch.equal(again, got)
+
+
+# The striped walk's edge cases; the deep ones (300 and 1100 pieces) are
+# too slow for the reference kernels in interpret mode.
+SHALLOW_STRIPE_CASES = [n for n in STRIPE_CASES if not n.startswith("deep")]
+
+
+@pytest.mark.parametrize("name", SHALLOW_STRIPE_CASES)
+def test_composite_runs_stripe_cases_match_jax(name):
+    """Empty tiles, one piece, the ring plus one, an opaque first piece and
+    partial coverage across stripe borders, through the run walk both
+    ways."""
+    atlas, lists = stripe_case(name)
+    starts, idxs = stripe_slots(lists)[:2]
+    ntx = len(lists) + 1
+    bg = random_plane(np.random.default_rng(1), 64, ntx * 128)
+    runs = JTS._gather_runs_kernel(jnp.asarray(atlas), jnp.asarray(idxs))
+    want = np.asarray(
+        JTS._render_tiles_runs(jnp.asarray(starts), jnp.asarray(bg), runs, nty=1, ntx=ntx, interpret=True)
+    )
+    s, i = torch.from_numpy(starts), torch.from_numpy(idxs)
+    a, b = convert.packed(atlas, "cpu"), convert.packed(bg, "cpu")
+    got = T.composite_runs(s, b, T.gather_runs(a, i), 1, ntx)
+    assert np.array_equal(_u32(got), want)
+    assert torch.equal(got, T.composite_full(s, i, b, a, 1, ntx))
+
+
+@pytest.mark.parametrize("name", SHALLOW_STRIPE_CASES)
+def test_composite_full_banded_stripe_cases_match_jax(name):
+    """The three-band stack of the same lists (band 1 empty, band 2
+    reversed): each band against the JAX package's _render_tiles_atlas on
+    its lists, local atlas and rows; the empty band keeps its background."""
+    atlas, bg, starts, idxs = banded_stripe_stack(name)
+    ntx = starts.shape[1] - 1
+    s, i = torch.from_numpy(starts), torch.from_numpy(idxs)
+    a, b = convert.packed(atlas, "cpu"), convert.packed(bg, "cpu")
+    got = T.composite_full_banded_torch(s, i, b, a, 1, ntx)
+    for k in range(3):
+        rows = slice(k * 64, (k + 1) * 64)
+        want = JTS._render_tiles_atlas(jnp.asarray(starts[k]), jnp.asarray(idxs[k]), jnp.asarray(bg[rows]),
+                                       jnp.asarray(atlas[k]), nty=1, ntx=ntx, interpret=True)
+        assert np.array_equal(_u32(got[rows]), np.asarray(want)), k
+    assert np.array_equal(_u32(got[64:128]), bg[64:128])
+    assert torch.equal(T.composite_full_banded(s, i, b, a, 1, ntx), got)
