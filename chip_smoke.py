@@ -6,8 +6,9 @@ and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Five paths run, each with the launch counters zeroed just before it and
-read just after:
+Five paths of the tile route run, each with the launch counters zeroed just
+before it and read just after; then the general renderer, which launches
+none of the hand-written kernels (it is torch operations on the card):
 
   * the lion (bench.py) at 1920x1080: the lion's 132 paths rasterized into
     a 1024-slot tile atlas, a translucent crimson blob (r=60) reserved for
@@ -29,7 +30,16 @@ read just after:
     each against the unsharded view on the same card;
   * the lion on a 17-band mesh (one tile row per band, so most bands are
     idle every frame): a full render and 20 filtered frames against the
-    unsharded lion.
+    unsharded lion;
+  * the general renderer (render_simple_scene, render_scene, the coherence
+    cache, the filters) at 1920x1080: the lion as one group fitted to 1024
+    pixels (benchmarks/run.py config 1 at full size), cold, rebuilt and
+    warm; the bench.py scene under a radius-5 filters.blur lens with the
+    blob dragged beneath it for 20 frames, each frame the dirty region
+    rendered over the last and the whole window rendered again; one render
+    of each other filter demo; the 1088x1920 Gaussian blur
+    (benchmarks/run.py config 4, 30 chained calls); assets/zoom.pdf (two
+    stroked paths) through the tile route, and the five icon PDFs.
 
 Phases, one JSON line each:
 
@@ -76,7 +86,20 @@ Phases, one JSON line each:
      lists, bit for bit, each timed in turns with its unbanded kernel;
  11. play_animated: the lion's play_animated over 400 deltas against 400
      step_animated calls, with its time per frame;
- 12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card.
+ 12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card;
+ 13. general_lion: the three renders equal, and equal to the CPU's render
+     of the same scene; per render the host and CUDA-event time, the
+     objects the fold visited, its early exits, the host syncs counted in
+     raster/region.py, the cache's bytes; the peak device memory;
+ 14. general_filters: every incremental frame equal to the whole-window
+     render and to a render with the cache off, frames 0-2 equal to the
+     CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
+     affine, wireframe, smear and the CPG demo over the lion, each equal to
+     the CPU's and each changing the lion;
+ 15. convolve_1080p: ms per call beside its bound (the frame read and
+     written once at 3.35 TB/s); the first call equal to the CPU's;
+ 16. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
+     each icon equal to the CPU's.
 
 Then the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
@@ -1032,6 +1055,290 @@ def play_path(torch, dev):
           "sequential_ms_per_frame": times["steps"]})
 
 
+# ---------------------------------------------------------------------------
+# The general renderer (render_simple_scene, render_scene, the coherence
+# cache, the filters): torch ops on the device, no hand-written kernel.
+# ---------------------------------------------------------------------------
+
+WINDOW = (1, 1, W, H)
+GENERAL_FIT = 1024  # benchmarks/run.py config 1 fits the lion to 512; its full size is 1024
+GENERAL_CACHE_BYTES = 4 * 2**30
+N_GENERAL_FRAMES = 20
+N_GENERAL_CPU_FRAMES = 3
+CONV_H, CONV_W, CONV_CALLS = 1088, 1920, 30  # benchmarks/run.py config 4
+
+
+def same_sprite(torch, a, b) -> bool:
+    """Two sprites, on any devices: equal in box, mask and colours."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.box == b.box and torch.equal(a.mask.cpu(), b.mask.cpu())
+            and torch.equal(a.rgba.cpu(), b.rgba.cpu()))
+
+
+def measured(torch, device, fn):
+    """fn() with the renderer's counters zeroed before and read after:
+    (result, {host ms after a synchronize, CUDA-event ms, objects visited,
+    early exits, host syncs counted in raster/region.py, cache bytes})."""
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.utils import profiling
+
+    on_card = str(device) != "cpu"
+    profiling.reset()
+    region.syncs = 0
+    if on_card:
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        e1.record()
+        torch.cuda.synchronize()
+    stats = {"host_ms": (time.perf_counter() - t0) * 1e3,
+             "objects_visited": profiling.counters["render.objects_visited"],
+             "early_exit": profiling.counters["render.early_exit"],
+             "syncs": region.syncs, "cache_bytes": cache.properties.cachesize}
+    if on_card:
+        stats["event_ms"] = e0.elapsed_time(e1)
+    return out, stats
+
+
+def fitted_lion():
+    """Config 1's scene: the lion as one Group, fitted to GENERAL_FIT
+    pixels and flipped upright, as benchmarks/run.py fits it to 512."""
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import examples
+    from coherence_tpu_torch.scene import render as R
+
+    lion = examples.smalllion()
+    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(lion)
+    scale = float(GENERAL_FIT) / max(xmax - xmin, ymax - ymin)
+    return R.transform_renderobject_many(
+        [tr.Translate(0.0, float(GENERAL_FIT)), tr.Scale((0.0, 0.0), 1.0, -1.0),
+         tr.Scale((0.0, 0.0), scale, scale), tr.Translate(-xmin, -ymin)], lion)
+
+
+def fresh_cache():
+    from coherence_tpu_torch.scene import cache
+
+    cache.clear()
+    cache.usecache = True
+    cache.setsize(GENERAL_CACHE_BYTES)
+
+
+def general_lion(torch, dev):
+    """Config 1 at full size: cold render, rebuild after cache.clear(), warm
+    render, all equal and equal to the CPU's render of the same scene."""
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    fresh_cache()
+    obj = fitted_lion()
+    shape = region.shape_of_box(WINDOW, dev)
+    render = lambda: R.render_simple_scene([obj], shape, dev)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_stats = measured(torch, dev, render)
+    cache.clear()
+    rebuilt, rebuild_stats = measured(torch, dev, render)
+    warm, warm_stats = measured(torch, dev, render)
+    peak = torch.cuda.max_memory_allocated()
+    require(cold is not None and cold.box[2] <= W and cold.box[3] <= H, "the lion rendered outside the window")
+    require(same_sprite(torch, cold, rebuilt), "general_lion: the rebuilt render differs from the cold one")
+    require(same_sprite(torch, cold, warm), "general_lion: the warm render differs from the cold one")
+    require(bool((cold.rgba[..., 3] == 255).sum() > GENERAL_FIT * GENERAL_FIT // 10), "general_lion: the lion is not there")
+    require(rebuild_stats["objects_visited"] == len(obj.geometry.objects) + 1,
+            "general_lion: the rebuild did not visit the group and each of its objects once")
+    require(warm_stats["objects_visited"] == 1, "general_lion: the warm render did not come from the group's cached sprite")
+    cache.clear()
+    on_cpu, cpu_stats = measured(torch, "cpu", lambda: R.render_simple_scene([obj], region.shape_of_box(WINDOW, "cpu"), "cpu"))
+    require(same_sprite(torch, cold, on_cpu), "general_lion: the card's render differs from the CPU's")
+    require(cpu_stats["syncs"] == rebuild_stats["syncs"], "general_lion: the CPU render took other branches")
+    cache.clear()
+    emit({"phase": "general_lion", "window": list(WINDOW), "fit": GENERAL_FIT, "objects": len(obj.geometry.objects),
+          "box": list(cold.box), "cold": cold_stats, "rebuild": rebuild_stats, "warm": warm_stats, "cpu": cpu_stats,
+          "cache_max_bytes": GENERAL_CACHE_BYTES, "peak_device_bytes": peak,
+          "equal": {"tolerance": 0, "cold_rebuild_warm": True, "cpu": True}})
+
+
+def filter_scene():
+    """The bench.py scene for the general renderer: a radius-5 blur lens
+    over F_BOX on top, the translucent blob beneath it, then the lion's
+    objects.  Returns (lens, blob, lion objects)."""
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.raster import convolve
+    from coherence_tpu_torch.scene import examples, filters
+    from coherence_tpu_torch.scene import render as R
+
+    objs, blob, f_geom = examples.bench_scene(W, H, blob_radius=60, blob_at=(120, 400), f_box=F_BOX)
+    lens = R.Obj(ident.new_ids(), filters.blur(f_geom.geometry, convolve.mkgaussian(BLUR_RADIUS)), (), R.OVER)
+    return lens, blob, objs
+
+
+def filter_frames(torch, device, lens, blob, objs, n: int, scratch: bool):
+    """n frames of the blob dragged under the lens on `device`.  Each frame
+    renders the dirty region (dirty_region carried up through the lens by
+    dirty_filter) over the previous frame, and the whole window; with
+    `scratch` also the whole window with the cache off, held equal to both.
+    Returns (frames, per-frame stats)."""
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    fresh_cache()
+    master = region.shape_of_box(WINDOW, device)
+    frame = R.render_simple_scene([lens, blob] + objs, master, device)
+    frames, stats = [], []
+    for k in range(n):
+        moved = R.translate_renderobject(*delta(k * 40), blob)  # (7, 3) for 5 frames, then back
+        scene = [lens, moved] + objs
+
+        def incremental():
+            d = R.dirty_filter(moved.idset, R.dirty_region(blob, moved, device)(master), scene, device)
+            patch, _, _ = R.render_scene(moved.idset, False, (d, None), scene, scene, master, device)
+            return region.caf("over", "opaque", patch, region.portion(frame, region.shape_difference(master, d)))[0]
+
+        frame, inc = measured(torch, device, incremental)
+        whole, full = measured(torch, device, lambda: R.render_simple_scene(scene, master, device))
+        require(same_sprite(torch, frame, whole), f"general_filters: frame {k} differs from the whole-window render")
+        if scratch:
+            cache.usecache = False
+            try:
+                off = R.render_simple_scene(scene, master, device)
+            finally:
+                cache.usecache = True
+            require(same_sprite(torch, frame, off), f"general_filters: frame {k} differs from the cache-off render")
+        frames.append(frame)
+        stats.append({"incremental": inc, "whole": full})
+        blob = moved
+    return frames, stats
+
+
+def general_filters(torch, dev):
+    """The lion under a blur lens with the blob dragged beneath it, then one
+    render of each other filter demo and of the CPG demo, against the CPU."""
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache, examples
+    from coherence_tpu_torch.scene import render as R
+
+    lens, blob, objs = filter_scene()
+    frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=True)
+    cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=False)
+    for k, (a, b) in enumerate(zip(frames, cpu_frames)):
+        require(same_sprite(torch, a, b), f"general_filters: frame {k} differs from the CPU's")
+    emit({"phase": "general_filters", "frames": N_GENERAL_FRAMES, "f_box": list(F_BOX), "blur_radius": BLUR_RADIUS,
+          "incremental": frame_stats([s["incremental"]["event_ms"] for s in stats]),
+          "whole_window": frame_stats([s["whole"]["event_ms"] for s in stats]),
+          "incremental_host_ms": frame_stats([s["incremental"]["host_ms"] for s in stats]),
+          "syncs_per_incremental_frame": statistics.median(s["incremental"]["syncs"] for s in stats),
+          "syncs_per_whole_render": statistics.median(s["whole"]["syncs"] for s in stats),
+          "objects_visited_per_incremental_frame": statistics.median(s["incremental"]["objects_visited"] for s in stats),
+          "equal": {"tolerance": 0, "whole_window": True, "cache_off": True, "cpu_frames": N_GENERAL_CPU_FRAMES}})
+
+    # One render of each other filter and of the CPG demo, each moved over
+    # the lion's middle; the lion's sprites stay cached from demo to demo.
+    names = ("monofilter", "hole", "rgbfilter", "affinefilter", "wireframe", "smear", "cpg_example")
+    placed = [R.position_anchor(R.Centre, (float(W * 3 // 16), float(H // 2)), getattr(examples, name)()) for name in names]
+    rendered, demos = {}, {}
+    for device in (dev, "cpu"):
+        fresh_cache()
+        shape = region.shape_of_box(WINDOW, device)
+        bare = R.render_simple_scene(objs, shape, device)
+        for name, demo in zip(names, placed):
+            rendered[name, device], st = measured(torch, device, lambda: R.render_simple_scene([demo] + objs, shape, device))
+            if device == dev:
+                demos[name] = {"host_ms": st["host_ms"], "event_ms": st["event_ms"], "syncs": st["syncs"]}
+    for name in names:
+        require(rendered[name, dev] is not None and same_sprite(torch, rendered[name, dev], rendered[name, "cpu"]),
+                f"general_filters: {name} differs from the CPU's")
+        require(not same_sprite(torch, rendered[name, "cpu"], bare), f"general_filters: {name} changed no pixel of the lion")
+    cache.clear()
+    emit({"phase": "general_filter_demos", "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
+
+
+def convolve_1080p(torch, dev):
+    """Config 4 as benchmarks/run.py defines it: a random premultiplied
+    1088 x 1920 frame, mkgaussian(5) over the whole frame, 30 chained
+    calls; the first call against the CPU's."""
+    import numpy as np
+
+    from coherence_tpu_torch.raster import convolve
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 256, (CONV_H, CONV_W, 1))
+    rgb = (rng.integers(0, 256, (CONV_H, CONV_W, 3)) * a) // 255
+    frame_np = np.concatenate([rgb, a], -1).astype(np.int32)
+    kernel = convolve.mkgaussian(BLUR_RADIUS)
+    frame = torch.from_numpy(frame_np).to(dev)
+    mask = torch.ones((CONV_H, CONV_W), dtype=torch.bool, device=dev)
+    first = convolve.convolve_canvas(kernel, frame, mask)
+    want = convolve.convolve_canvas(kernel, torch.from_numpy(frame_np), torch.ones((CONV_H, CONV_W), dtype=torch.bool))
+    require(torch.equal(first.cpu(), want), "convolve_1080p: the card's blur differs from the CPU's")
+    state = {"x": frame}
+
+    def call(_k):
+        state["x"] = convolve.convolve_canvas(kernel, state["x"], mask)
+
+    ms, host_s = timed_frames(torch, call, CONV_CALLS)
+    require(bool(((state["x"] >= 0) & (state["x"] <= 255)).all()), "convolve_1080p: a channel left 0..255")
+    # Each input read once, the output written once: the int32 frame twice and the mask.
+    nbytes = 2 * frame.numel() * 4 + mask.numel()
+    emit({"phase": "convolve_1080p", "shape": [CONV_H, CONV_W], "radius": BLUR_RADIUS, "calls": CONV_CALLS,
+          **frame_stats(ms), "host_ms_per_call": host_s / CONV_CALLS * 1e3, "bytes": nbytes,
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "equal": {"tolerance": 0, "cpu_first_call": True}})
+
+
+def stroked_tiles(torch, dev, kernels):
+    """assets/zoom.pdf (3 paths, 2 of them stroked) scaled to fill the
+    frame, through pdfscene and the tile route; and the five icon PDFs
+    through the general renderer.  Both against the CPU."""
+    import os
+
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import examples, fastframe, icons
+    from coherence_tpu_torch.scene import render as R
+
+    page = examples.load_text("zoom.pdf")
+    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(page)
+    scale = min((W - 40) / (xmax - xmin), (H - 40) / (ymax - ymin))
+    page = R.transform_renderobject_many(
+        [tr.Translate(20.0, float(H - 20)), tr.Scale((0.0, 0.0), 1.0, -1.0), tr.Scale((0.0, 0.0), scale, scale),
+         tr.Translate(-xmin, -ymin)], page)
+    objs = list(page.geometry.objects)
+    n_stroked = sum(isinstance(o.geometry.shape, R.StrokedPathShape) for o in objs)
+    require(n_stroked == 2 and len(objs) == 3, f"zoom.pdf gave {len(objs)} paths, {n_stroked} stroked")
+    zero_counts(torch, kernels)
+    shown = {}
+    for device in (dev, "cpu"):
+        view = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=device)
+        view.set_scene(objs)
+        view.render(full=True)
+        shown[device] = (view.frame.cpu(), view.ts.atlas().cpu(), [list(view.ts.pieces[k]) for k in view.order])
+    launches = dict(kernels.launches)
+    require(launches["composite_full"] >= 1, "stroked_tiles: composite_full was not launched")
+    require(torch.equal(shown[dev][0], shown["cpu"][0]), "stroked_tiles: the card's frame differs from the CPU's")
+    require(torch.equal(shown[dev][1], shown["cpu"][1]) and shown[dev][2] == shown["cpu"][2],
+            "stroked_tiles: the card's atlas or piece lists differ from the CPU's")
+    require(bool((shown[dev][0] != shown[dev][0][0, 0]).any()), "stroked_tiles: nothing was drawn")
+    names = ["down", "up", "pointer", "zoom", "brushcurve"]
+    t0 = time.perf_counter()
+    for name in names:
+        fname = os.path.join(examples.path, name + ".pdf")
+        fresh_cache()
+        on_card = icons.icon_of_pdf(fname, dev)
+        fresh_cache()
+        on_cpu = icons.icon_of_pdf(fname, "cpu")
+        require(tuple(on_card.rgba.shape) == (32, 32, 4) and bool((on_card.rgba[..., 3] > 0).any()),
+                f"stroked_tiles: icon {name} is empty")
+        require(torch.equal(on_card.rgba.cpu(), on_cpu.rgba), f"stroked_tiles: icon {name} differs from the CPU's")
+    fresh_cache()
+    emit({"phase": "stroked_tiles", "pdf": "assets/zoom.pdf", "paths": len(objs), "stroked": n_stroked,
+          "pieces": sum(len(p) for p in shown[dev][2]), "launches": launches, "icons": names,
+          "icons_seconds": time.perf_counter() - t0, "equal": {"tolerance": 0, "cpu_frame": True, "cpu_icons": True}})
+
+
 def main() -> int:
     import torch
 
@@ -1076,6 +1383,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dry = dryrun_multichip(2, mesh_devices(torch, 2))
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
+    del mesh, scrub
+    general_lion(torch, dev)
+    general_filters(torch, dev)
+    convolve_1080p(torch, dev)
+    stroked_tiles(torch, dev, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu."))

@@ -120,7 +120,41 @@ def colour_of_rgba_float(r: float, g: float, b: float, a: float) -> int:
     return colour_of_rgba(int(r * 255.0), int(g * 255.0), int(b * 255.0), int(a * 255.0))
 
 
+def alpha_of_colour(c: int) -> int:
+    return rgba_of_colour(c)[3]
+
+
+class Nocover(Exception):
+    """Poison compositor exception (ref colour.ml:21-24)."""
+
+
+def nocover(_a, _b):
+    raise Nocover
+
+
 clear = colour_of_rgba(0, 0, 0, 0)
+
+
+def red_channel(c: int) -> int:
+    r, _, _, a = rgba_of_colour(c)
+    return colour_of_rgba(r, 0, 0, a)
+
+
+def green_channel(c: int) -> int:
+    _, g, _, a = rgba_of_colour(c)
+    return colour_of_rgba(0, g, 0, a)
+
+
+def blue_channel(c: int) -> int:
+    _, _, b, a = rgba_of_colour(c)
+    return colour_of_rgba(0, 0, b, a)
+
+
+def monochrome(c: int) -> int:
+    """Average r,g,b; alpha unaltered (ref colour.ml:277-280)."""
+    r, g, b, a = rgba_of_colour(c)
+    av = (r + g + b) // 3
+    return colour_of_rgba(av, av, av, a)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +179,94 @@ def dissolve(col: int, *, delta: int) -> int:
     return colour_of_rgba(
         div255(r * delta), div255(g * delta), div255(b * delta), div255(a * delta)
     )
+
+
+def prelerp(p: int, q: int, a: int) -> int:
+    """Linear interpolation on 0..255 (Alvy Ray Smith; ref colour.ml:310-311)."""
+    t = a * p + 128
+    return p + q - (((t >> 8) + t) >> 8)
+
+
+def over(a: int, b: int) -> int:
+    """Porter/Duff `over` (ref colour.ml:314-328)."""
+    ra, ga, ba, aa = rgba_of_colour(a)
+    if aa == 0:
+        return b
+    if aa == 255:
+        return a
+    rb, gb, bb, ab = rgba_of_colour(b)
+    return colour_of_rgba(
+        prelerp(rb, ra, aa), prelerp(gb, ga, aa), prelerp(bb, ba, aa), prelerp(ab, aa, aa)
+    )
+
+
+def alpha_over(a: int, b: int) -> int:
+    """`over` on the alpha channel only (ref colour.ml:332-336)."""
+    aa = alpha_of_colour(a)
+    if aa == 0:
+        return b
+    if aa == 255:
+        return a
+    ab = alpha_of_colour(b)
+    return colour_of_rgba(0, 0, 0, prelerp(ab, aa, aa))
+
+
+def pd_plus(a: int, b: int) -> int:
+    """Porter/Duff `plus` (ref colour.ml:339-352)."""
+    ar, ag, ab_, aa = rgba_of_colour(a)
+    br, bg, bb, ba = rgba_of_colour(b)
+    if ar + br > 255 or ag + bg > 255 or ab_ + bb > 255 or aa + ba > 255:
+        raise ValueError("pd_plus: channel sum above 255")
+    return colour_of_rgba(ar + br, ag + bg, ab_ + bb, aa + ba)
+
+
+def dissolve_between(*, a: int, b: int, alpha: int) -> int:
+    """Dissolve between a and b by alpha (ref colour.ml:355-361)."""
+    if not 0 <= alpha <= 255:
+        raise ValueError(f"dissolve_between: alpha {alpha} outside 0..255")
+    if alpha == 0:
+        return b
+    if alpha == 255:
+        return a
+    return pd_plus(dissolve(a, delta=alpha), dissolve(b, delta=255 - alpha))
+
+
+def opaque(col: int) -> bool:
+    return alpha_of_colour(col) == 255
+
+
+def transparent(col: int) -> bool:
+    return alpha_of_colour(col) == 0
+
+
+def int_mult(a: int, b: int) -> int:
+    """a * (b/255) on 0..255 (ref colour.ml:372-375)."""
+    if b == 255:
+        return a
+    t = a * b
+    return ((t << 8) + t) >> 16
+
+
+def unpremul_rgb(c: int) -> tuple[int, int, int]:
+    r, g, b, a = rgba_of_colour(c)
+    if a == 0:
+        return 0, 0, 0
+    if a == 255:
+        return r, g, b
+    return (r * 255) // a, (g * 255) // a, (b * 255) // a
+
+
+def unpremul_components(c: int) -> tuple[int, int, int, int]:
+    r, g, b, a = rgba_of_colour(c)
+    if a == 0:
+        return 0, 0, 0, 0
+    if a == 255:
+        return r, g, b, 255
+    return (r * 255) // a, (g * 255) // a, (b * 255) // a, a
+
+
+def premul(r: int, g: int, b: int, a: int) -> tuple[int, int, int, int]:
+    return int_mult(r, a), int_mult(g, a), int_mult(b, a), a
 
 
 def mkcol(r: int, g: int, b: int) -> int:
@@ -184,6 +306,42 @@ def dissolve_rgba(col: torch.Tensor, delta) -> torch.Tensor:
         d = d[..., None]
     scaled = div255_arr(col * d)
     return torch.where(d == 0, 0, torch.where(d == 255, col, scaled))
+
+
+def alpha_over_rgba(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Alpha-channel-only over (ref colour.ml:332-336): r, g, b of the
+    blended branch are 0, as ``alpha_over`` builds ``colour_of_rgba 0 0 0``."""
+    aa = a[..., 3:4]
+    blended_alpha = prelerp_arr(b[..., 3:4], aa, aa)
+    zeros = torch.zeros_like(blended_alpha)
+    blend = torch.cat([zeros, zeros, zeros, blended_alpha], dim=-1)
+    return torch.where(aa == 0, b, torch.where(aa == 255, a, blend))
+
+
+def pd_plus_rgba(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Porter/Duff plus (no overflow check on tensors)."""
+    return a + b
+
+
+def dissolve_between_rgba(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
+    """dissolve_between on tensors (ref colour.ml:355-361).  `alpha` is a
+    scalar or has a trailing axis of size 1."""
+    al = torch.as_tensor(alpha, dtype=torch.int32, device=a.device)
+    while al.ndim < a.ndim:
+        al = al[..., None]
+    mixed = dissolve_rgba(a, al) + dissolve_rgba(b, 255 - al)
+    return torch.where(al == 0, b, torch.where(al == 255, a, mixed))
+
+
+def monochrome_rgba(c: torch.Tensor) -> torch.Tensor:
+    """monochrome on tensors (ref colour.ml:277-280)."""
+    av = (c[..., 0] + c[..., 1] + c[..., 2]) // 3
+    return torch.stack([av, av, av, c[..., 3]], dim=-1)
+
+
+def rgba_array_of_colour(c: int, device) -> torch.Tensor:
+    """Scalar packed colour -> (4,) int32 tensor."""
+    return torch.tensor(rgba_of_colour(c), dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------

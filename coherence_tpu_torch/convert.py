@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .parallel.mesh import Mesh
-from .raster.region import Sprite
+from .raster.region import Canvas, Shape, Sprite
 from .raster.tiled_scene import BandedAtlas, TiledScene
 from .scene.fastframe import DeviceView, FilteredDisplay
 
@@ -48,11 +48,32 @@ def plane(values: np.ndarray, device) -> torch.Tensor:
 
 
 def sprite(box, mask: np.ndarray, rgba: np.ndarray, device) -> Sprite:
+    """A Sprite from a JAX Sprite's box and its mask and colour plane,
+    both cropped to the box's extent."""
     return Sprite(
         tuple(int(v) for v in box),
         torch.from_numpy(np.array(mask, dtype=bool)).to(device),
         plane(rgba, device),
     )
+
+
+def shape(box, mask: np.ndarray, full_box: bool, device) -> Shape:
+    """A Shape from a JAX Shape's state: its box, its mask cropped to the
+    box's extent (``Shape.mask_np()`` there) and its ``full_box`` flag.
+    Emptiness is left unknown, as after a device operation."""
+    box = tuple(int(v) for v in box)
+    mask = np.array(mask, dtype=bool)
+    if mask.shape != (box[3] - box[1] + 1, box[2] - box[0] + 1):
+        raise ValueError(f"mask of shape {mask.shape} over box {box}")
+    return Shape(box, torch.from_numpy(mask).to(device), full_box=bool(full_box))
+
+
+def canvas(rgba: np.ndarray, origin, device) -> Canvas:
+    """A Canvas from a JAX Canvas's (H, W, 4) int32 plane and origin."""
+    rgba = np.asarray(rgba)
+    if rgba.ndim != 3 or rgba.shape[2] != 4:
+        raise ValueError(f"a canvas is (H, W, 4), got shape {rgba.shape}")
+    return Canvas(plane(rgba, device), (int(origin[0]), int(origin[1])))
 
 
 def tiled_scene(width: int, height: int, *, atlas: np.ndarray,

@@ -46,3 +46,9 @@ def sub_of_float_np(f: np.ndarray) -> np.ndarray:
     return np.ceil(np.asarray(f, dtype=np.float64) * ipspacing_fl - halfips_fl).astype(
         np.int64
     )
+
+
+def pix_of_sub_np(n: np.ndarray) -> np.ndarray:
+    v = np.asarray(n, dtype=np.int64) + (ipspacing - 1)
+    # OCaml division truncates toward zero.
+    return (np.sign(v) * (np.abs(v) // ipspacing)).astype(np.int64)

@@ -1,2 +1,4 @@
-"""Paths and shapes: the port's copies of ``coherence_tpu.geometry.path``
-and ``coherence_tpu.geometry.shapes``, trimmed to what the port uses."""
+"""Paths, shapes, the stroker and dash splitting: the port's copies of
+``coherence_tpu.geometry.path`` (trimmed to what the port uses), and of
+``coherence_tpu.geometry.shapes`` and ``coherence_tpu.geometry.dash``
+(whole)."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -70,6 +70,18 @@ class Path:
         return iter((self.winding, self.subpaths))
 
 
+def mkpath(winding: str, subpaths) -> Path:
+    return Path(
+        winding,
+        tuple(
+            sp
+            if isinstance(sp, Subpath)
+            else Subpath(bool(sp[0]), bool(sp[1]), tuple(sp[2]))
+            for sp in subpaths
+        ),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Transforming paths (polygon.ml:51-64)
 # ---------------------------------------------------------------------------
@@ -93,8 +105,17 @@ def transform_path(t, path: Path) -> Path:
     )
 
 
+def path_of_pointlist(winding: str, points: Sequence[Point]) -> Path:
+    """Closed path of straight segments through points (polygon.ml:68-76)."""
+    if len(points) < 2:
+        raise ValueError("path_of_pointlist: not enough points")
+    pts = list(points) + [points[0]]
+    segs = tuple(Straight(pts[k], pts[k + 1]) for k in range(len(pts) - 1))
+    return Path(winding, (Subpath(False, True, segs),))
+
+
 # ---------------------------------------------------------------------------
-# Bezier subdivision (polygon.ml:83-127)
+# Bezier subdivision (polygon.ml:83-141)
 # ---------------------------------------------------------------------------
 
 
@@ -155,6 +176,25 @@ def bezier_subdivide(flat, p1, p2, p3, p4) -> List[Tuple[Point, Point]]:
             stack.append((l4, r2, r3, d))  # right pushed first → left popped first
             stack.append((a, l2, l3, l4))
     return out
+
+
+def _partway(t: float, a: Point, b: Point) -> Point:
+    if not 0.0 <= t <= 1.0:
+        raise ValueError(f"_partway: proportion {t} outside [0, 1]")
+    t2 = 1.0 - t
+    return (t2 * a[0] + t * b[0], t2 * a[1] + t * b[1])
+
+
+def bezier_split(t: float, seg: Bezier) -> Tuple[Bezier, Bezier]:
+    """Split a bezier at proportion t (polygon.ml:131-141)."""
+    if not isinstance(seg, Bezier):
+        raise ValueError("bezier_split: unrecognised segment")
+    d = lambda a, b: _partway(t, a, b)
+    l2, h = d(seg.p1, seg.p2), d(seg.p2, seg.p3)
+    l3, r3 = d(l2, h), d(seg.p3, seg.p4)
+    r2 = d(h, r3)
+    l4 = d(l3, r2)
+    return Bezier(seg.p1, l2, l3, l4), Bezier(l4, r2, r3, seg.p4)
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +258,30 @@ def points_on_path(sep: float, path: Path) -> List[Point]:
 # ---------------------------------------------------------------------------
 # Edge lists (polygon.ml:220-304)
 # ---------------------------------------------------------------------------
+
+
+def edgelist_from_subpath_float(sp: Subpath) -> List[Tuple[Point, Point]]:
+    """Float chord list of a subpath; holes ignored (polygon.ml:222-228)."""
+    out: List[Tuple[Point, Point]] = []
+    for seg in sp.segments:
+        if isinstance(seg, Straight):
+            out.append((seg.a, seg.b))
+        else:
+            out.extend(bezier_subdivide(f_accuracy, seg.p1, seg.p2, seg.p3, seg.p4))
+    return out
+
+
+def path_proper_bounds(path: Path) -> Tuple[float, float, float, float]:
+    """Float bounding rect (xmin, xmax, ymin, ymax) (polygon.ml:290-304)."""
+    xs: List[float] = []
+    ys: List[float] = []
+    for sp in path.subpaths:
+        for a, b in edgelist_from_subpath_float(sp):
+            xs += [a[0], b[0]]
+            ys += [a[1], b[1]]
+    if not xs:
+        raise ValueError("path_proper_bounds: zero edges")
+    return min(xs), max(xs), min(ys), max(ys)
 
 
 def _chords(segs) -> np.ndarray:

@@ -22,6 +22,10 @@ import math
 import numpy as np
 import torch
 
+from .. import colour as C
+from . import scanline
+from .region import NULL_SPRITE, Sprite
+
 res = 32
 softness = 2.0
 _H = res // 2  # 16: the scale factor of the AA mask (polygon.ml:676)
@@ -132,3 +136,27 @@ def coverage_opacity(box, scaled, device) -> torch.Tensor:
         t_mask = mask_of_spans(1, _H * bh + _H, tw, np.zeros_like(r), r, cs, ce, device)
         out[by : by + bh] = coverage_counts(t_mask, bh, w)[0]
     return out
+
+
+def polygon_sprite_edgelist(fill, shp, edges: np.ndarray, winding: str):
+    """AA sprite of an edge list within shape `shp` (polygon.ml:729-746),
+    on the shape's device.
+
+    Every pixel of `shp` gets ``dissolve(fill(x, y), opacity)`` where opacity
+    is the Gaussian-filtered coverage of the 16x-scaled polygon.
+    """
+    if shp is None:
+        return NULL_SPRITE
+    scaled = scanline.scaled_spans_of_edgelist(edges, winding, _H)
+    h, w = shp.mask.shape
+    dev = shp.mask.device
+    opacity = coverage_opacity(shp.box, scaled, dev)
+    dissolved = C.dissolve_rgba(fill.image_device(shp.box, h, w, dev), opacity)
+    return Sprite(shp.box, shp.mask, torch.where(shp.mask[..., None], dissolved, 0))
+
+
+def polygon_sprite(fill, shp, path):
+    """AA sprite of a path (polygon.ml:748-750)."""
+    from ..geometry.path import edgelist_of_path
+
+    return polygon_sprite_edgelist(fill, shp, edgelist_of_path(path), path.winding)

@@ -1,12 +1,17 @@
-"""Brushes and brushstrokes: the host math of ``coherence_tpu.raster.brush``
-(parity: reference ``brush.ml``).
+"""Brushes, brushstrokes and smearing (parity: reference ``brush.ml``).
 
-A brush is (opacity, kind) with kind (GAUSSIAN, radius) or (DUMMY, rx,
-ry); a brushstroke pairs a brush with a path.  Strokes stamp the brush at
-points spaced width/20 along the path.  Everything here is host Python and
-numpy; the stamping itself runs batched in ``raster/brush_tiles``.  The
-scalar ``sprite_of_brushstroke`` and ``smear`` belong to the general
-renderer and are not ported yet.
+The PyTorch counterpart of ``coherence_tpu.raster.brush``, whole.  A brush
+is (opacity, kind) with kind (GAUSSIAN, radius) or (DUMMY, rx, ry)
+(brush.ml:14-19); a brushstroke pairs a brush with a path.  Strokes stamp
+the brush at points spaced width/20 along the path (brush.ml:126-131),
+compositing alphas with ``alpha_over``; the fill is applied afterwards by
+dissolving the fill colour by the accumulated alpha (brush.ml:176-222).
+
+The stamps run one after another, in the reference's order and rounding,
+as tensor operations on a device canvas (``_stamp_alpha``, which the
+batched ``raster/brush_tiles`` build shares); the JAX package runs the same
+walk as a ``lax.scan``.  Its pow2 padding of canvas, brush and stamp count
+bounds compiled programs and is not kept.
 """
 
 from __future__ import annotations
@@ -15,10 +20,13 @@ import math
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from .. import colour as C
 from .. import transform as tr
 from ..geometry import path as gpath
+from . import region
+from .region import NULL_SHAPE, NULL_SPRITE, Canvas, Sprite
 
 GAUSSIAN = "gaussian"
 DUMMY = "dummy"
@@ -27,6 +35,13 @@ DUMMY = "dummy"
 def mkround(radius: float, opacity: float):
     """Round Gaussian brush (brush.ml:66-67)."""
     return (opacity, (GAUSSIAN, radius))
+
+
+def mkdummy(brushstroke):
+    """Dummy shadow of a brushstroke (brush.ml:70-72)."""
+    brush, path = brushstroke
+    w, h = sizeof_brush(brush)
+    return ((1.0, (DUMMY, (w - 1) // 2, (h - 1) // 2)), path)
 
 
 def sizeof_brush(brush) -> Tuple[int, int]:
@@ -94,6 +109,24 @@ def drawround_alpha(radius: float, opacity: float) -> np.ndarray:
     return out
 
 
+def drawbrush_rgba(brush, colour: int) -> np.ndarray:
+    """Brush canvas as (h, w, 4) int32 colours (brush.ml:94-99)."""
+    opacity, kind = brush
+    if kind[0] != GAUSSIAN:
+        raise ValueError("cannot draw a dummy brush")
+    radius = kind[1]
+    intop = int(opacity * 255.0)
+    intr = int(math.ceil(radius))
+    size = intr * 2 + 1
+    out = np.zeros((size, size, 4), dtype=np.int32)
+    base = C.dissolve(colour, delta=intop)
+    for yy in range(size):
+        for xx in range(size):
+            v = int(_g(float(xx - intr), float(yy - intr), radius))
+            out[yy, xx] = C.rgba_of_colour(C.dissolve(base, delta=v))
+    return out
+
+
 def points_of_brushstroke(brushstroke) -> List[Tuple[float, float]]:
     """Stamp points at spacing width/20 (brush.ml:126-131)."""
     brush, path = brushstroke
@@ -105,6 +138,25 @@ def _int_points(points):
     return [(int(math.floor(x + 0.5)), int(math.floor(y + 0.5))) for (x, y) in points]
 
 
+def shape_of_brushstroke(brushstroke, device):
+    """Shape of a brushstroke: stamp-point mask bloated by the brush radius;
+    minshape is Null (brush.ml:135-173)."""
+    brush, _ = brushstroke
+    points = _int_points(points_of_brushstroke(brushstroke))
+    if not points:
+        return NULL_SHAPE, NULL_SHAPE
+    w, h = sizeof_brush(brush)
+    wr, hr = (w - 1) // 2, (h - 1) // 2
+    xs = np.array([p[0] for p in points])
+    ys = np.array([p[1] for p in points])
+    x0, x1 = int(xs.min()), int(xs.max())
+    y0, y1 = int(ys.min()), int(ys.max())
+    mask = np.zeros((y1 - y0 + 1, x1 - x0 + 1), dtype=bool)
+    mask[ys - y0, xs - x0] = True
+    base = region.shape_of_mask((x0, y0, x1, y1), mask, device)
+    return region.bloat(wr, hr, base), NULL_SHAPE
+
+
 def bounds_brushstroke(brushstroke):
     """Integer bounds (brush.ml:225-232)."""
     brush, path = brushstroke
@@ -112,3 +164,189 @@ def bounds_brushstroke(brushstroke):
     w, h = w // 2, h // 2
     minx, maxx, miny, maxy = gpath.bounds_polygon(path)
     return minx - w, maxx + w, miny - h, maxy + h
+
+
+# ---------------------------------------------------------------------------
+# Device stamping
+# ---------------------------------------------------------------------------
+
+
+def _stamp_alpha(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
+    """(s, hp, wp) int32 alpha planes: each stroke's valid stamps
+    alpha_over its (bhb, bwb) brush patch at offsets[s, i] (top-left
+    corner), in stamp order.  Strokes are independent, so stamp i of every
+    stroke runs in one batched step; an invalid stamp leaves its patch as
+    it is, and a step with no valid stamp is skipped on the host."""
+    s, bhb, bwb = brushes.shape
+    canvas = torch.zeros((s, hp, wp), dtype=torch.int32, device=device)
+    aa = torch.from_numpy(brushes).to(device)
+    offs = torch.from_numpy(offsets).to(device).long()
+    live = torch.from_numpy(valid).to(device)[:, :, None, None]
+    si = torch.arange(s, device=device)[:, None, None]
+    ar, ac = torch.arange(bhb, device=device), torch.arange(bwb, device=device)
+    for i in np.nonzero(valid.any(axis=0))[0]:
+        rows = (offs[:, i, 0, None] + ar)[:, :, None]
+        cols = (offs[:, i, 1, None] + ac)[:, None, :]
+        patch = canvas[si, rows, cols]
+        stamped = torch.where(aa == 255, aa, C.prelerp_arr(patch, aa, aa))
+        canvas[si, rows, cols] = torch.where((aa == 0) | ~live[:, i], patch, stamped)
+    return canvas
+
+
+def sprite_of_brushstroke(brushstroke, fill, shp, device):
+    """Rasterize a brushstroke within shape `shp` (brush.ml:176-222)."""
+    brush, path = brushstroke
+    opacity, kind = brush
+    if kind[0] == DUMMY:
+        base, _ = shape_of_brushstroke(brushstroke, device)
+        from . import fills as _fills
+
+        return region.fillshape(base, _fills.plain(C.white))
+    if shp is None:
+        return NULL_SPRITE
+    bw, bh = sizeof_brush(brush)
+    bwr, bhr = (bw - 1) // 2, (bh - 1) // 2
+    bloated = region.bloat(bwr, bhr, shp)
+    points = _int_points(points_of_brushstroke(brushstroke))
+    # Filter stamp points to the bloated shape with ONE mask readback:
+    # per-point region.point_in_shape would cost one device sync per stamp.
+    if points:
+        parr = np.asarray(points, np.int64)
+        bx0, by0, bx1, by1 = bloated.box
+        inb = (
+            (parr[:, 0] >= bx0)
+            & (parr[:, 0] <= bx1)
+            & (parr[:, 1] >= by0)
+            & (parr[:, 1] <= by1)
+        )
+        m = bloated.mask_np()
+        keep = np.zeros(len(points), dtype=bool)
+        sel = np.nonzero(inb)[0]
+        keep[sel] = m[parr[sel, 1] - by0, parr[sel, 0] - bx0]
+        points = [points[i] for i in np.nonzero(keep)[0]]
+    # Every kept stamp's patch lies inside the twice-bloated box.
+    x0, y0, x1, y1 = region.bloat(bwr, bhr, bloated).box
+    hc, wc = y1 - y0 + 1, x1 - x0 + 1
+    dev = shp.mask.device
+    if points:
+        offs = np.array([[py - y0 - bhr, px - x0 - bwr] for (px, py) in points], dtype=np.int32)
+        canvas_a = _stamp_alpha(
+            drawround_alpha(kind[1], opacity)[None], offs[None],
+            np.ones((1, len(points)), dtype=bool), hc, wc, dev,
+        )[0]
+    else:
+        canvas_a = torch.zeros((hc, wc), dtype=torch.int32, device=dev)
+    # Apply the fill: dissolve fill colour by the accumulated alpha, within shp.
+    w, h = shp.wh
+    sx0, sy0 = shp.box[0], shp.box[1]
+    alpha = canvas_a[sy0 - y0 : sy0 - y0 + h, sx0 - x0 : sx0 - x0 + w]
+    fill_rgba = fill.image_device(shp.box, h, w, dev)
+    rgba = torch.where(shp.mask[..., None], C.dissolve_rgba(fill_rgba, alpha), 0)
+    return Sprite(shp.box, shp.mask, rgba)
+
+
+# ---------------------------------------------------------------------------
+# Smearing (brush.ml:236-331)
+# ---------------------------------------------------------------------------
+
+
+def points_of_brushstroke_smear(brushstroke):
+    """Subdivide to points on adjacent pixels (brush.ml:239-254)."""
+    _, path = brushstroke
+
+    def adjacent(p1, p2, p3, p4):
+        return math.dist(p1, p4) <= 2.0
+
+    pts = []
+    for sp in path.subpaths:
+        for seg in sp.segments:
+            if isinstance(seg, gpath.Straight):
+                p = ((seg.a[0] + seg.b[0]) / 2.0, (seg.a[1] + seg.b[1]) / 2.0)
+                edges = gpath.bezier_subdivide(adjacent, seg.a, p, p, seg.b)
+            else:
+                edges = gpath.bezier_subdivide(adjacent, seg.p1, seg.p2, seg.p3, seg.p4)
+            pts.extend(a for a, _ in edges)
+    return pts
+
+
+def find_smear_directions(points):
+    """Direction (toward previous point) per deduped int point
+    (brush.ml:263-278)."""
+    if not points:
+        return []
+    ipts = [(int(x), int(y)) for (x, y) in points]
+    dedup = [ipts[0]]
+    for p in ipts[1:]:
+        if p != dedup[-1]:
+            dedup.append(p)
+
+    def sgn(v):
+        return -1 if v > 0 else (1 if v < 0 else 0)
+
+    prevs = [dedup[0]] + dedup[:-1]
+    return [
+        ((x, y), (sgn(x - px), sgn(y - py)))
+        for (x, y), (px, py) in zip(dedup, prevs)
+    ]
+
+
+def _smear_walk(cv: torch.Tensor, opac_a: torch.Tensor, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
+    """One smear pass over the int32 (H, W, 4) canvas, in place: for each
+    point, read a brush-sized patch shifted by -dir, then dissolve it under
+    the patch at the point, weighted by the opacity brush (brush.ml:308-328).
+    At alpha 0 the smear writes the shifted patch (dissolve_between)."""
+    al = opac_a[..., None]
+    for (r, c), (dx, dy) in zip(offsets, dirs):
+        src = cv[r - dy : r - dy + bh, c - dx : c - dx + bw]
+        dst = cv[r : r + bh, c : c + bw]
+        # dissolve_between ~a:dst src ~alpha:opacbrush_alpha
+        mixed = C.dissolve_rgba(dst, al) + C.dissolve_rgba(src, 255 - al)
+        cv[r : r + bh, c : c + bw] = torch.where(al == 0, src, torch.where(al == 255, dst, mixed))
+    return cv
+
+
+def smear(spr, brushstroke, device):
+    """Smear a sprite along a brushstroke (brush.ml:281-331)."""
+    from . import fills as _fills
+
+    brush, path = brushstroke
+    # 0. Flesh the sprite out to the brushstroke's shape.
+    shp, _ = shape_of_brushstroke(brushstroke, device)
+    filler = region.fillshape(shp, _fills.plain(C.clear)) if shp is not None else None
+    if filler is not None:
+        spr, _ = region.caf("over", "opaque", spr, filler)
+    if spr is None:
+        return spr
+    bw, bh = sizeof_brush(brush)
+    radx, rady = (bw - 1) // 2, (bh - 1) // 2
+    points = points_of_brushstroke_smear(brushstroke)
+    if not points:
+        return spr
+    pwd = find_smear_directions(points)
+    canvas = region.flatten_sprite(max(radx, rady) * 2 + 2, spr, C.clear)
+    ox, oy = canvas.origin
+    offsets = []
+    dirs = []
+    for (x, y), (dx, dy) in pwd:
+        # Top-left corner of the brush patch centred at (x+1, y+1) in the
+        # reference's shifted coordinates; clip stamps falling outside.
+        row = (y - oy) - rady + 1
+        col = (x - ox) - radx + 1
+        if (
+            0 <= row - 1 - abs(dy)
+            and 0 <= col - 1 - abs(dx)
+            and row + bh + 1 <= canvas.height
+            and col + bw + 1 <= canvas.width
+        ):
+            offsets.append((row, col))
+            dirs.append((dx, dy))
+    if not offsets:
+        return spr
+    opac = drawround_alpha(brush[1][1], 1.0) if brush[1][0] == GAUSSIAN else np.full(
+        (bh, bw), 255, np.int32
+    )
+    opac_a = torch.from_numpy(opac).to(canvas.rgba.device)
+    cv = canvas.rgba.clone()
+    for _ in range(2):  # the reference smears twice (brush.ml:308)
+        cv = _smear_walk(cv, opac_a, offsets, dirs, bh, bw)
+    return region.pickup(region.shape_of_sprite(spr), Canvas(cv, canvas.origin))

@@ -31,34 +31,19 @@ import torch
 from .. import colour as C
 from . import aa as raa
 from . import region
-from .brush import GAUSSIAN, _int_points, drawround_alpha, points_of_brushstroke, sizeof_brush
+from .brush import (
+    GAUSSIAN,
+    _int_points,
+    _stamp_alpha,
+    drawround_alpha,
+    points_of_brushstroke,
+    sizeof_brush,
+)
 from .compositor import TILE_H, TILE_W, pack_rgba
 
 # Stamp-point coordinates the JAX scatter drops (its mode="drop"); the
 # host filters them out before the scatter here.
 _FAR = 32767
-
-
-def _stamp_alpha(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
-    """(s, hp, wp) int32 alpha planes: each stroke's valid stamps
-    alpha_over its (bhb, bwb) brush patch at offsets[s, i] (top-left
-    corner), in stamp order.  Strokes are independent, so stamp i of every
-    stroke runs in one batched step; an invalid stamp leaves its patch as
-    it is, and a step with no valid stamp is skipped on the host."""
-    s, bhb, bwb = brushes.shape
-    canvas = torch.zeros((s, hp, wp), dtype=torch.int32, device=device)
-    aa = torch.from_numpy(brushes).to(device)
-    offs = torch.from_numpy(offsets).to(device).long()
-    live = torch.from_numpy(valid).to(device)[:, :, None, None]
-    si = torch.arange(s, device=device)[:, None, None]
-    ar, ac = torch.arange(bhb, device=device), torch.arange(bwb, device=device)
-    for i in np.nonzero(valid.any(axis=0))[0]:
-        rows = (offs[:, i, 0, None] + ar)[:, :, None]
-        cols = (offs[:, i, 1, None] + ac)[:, None, :]
-        patch = canvas[si, rows, cols]
-        stamped = torch.where(aa == 255, aa, C.prelerp_arr(patch, aa, aa))
-        canvas[si, rows, cols] = torch.where((aa == 0) | ~live[:, i], patch, stamped)
-    return canvas
 
 
 class BrushTileBuild:

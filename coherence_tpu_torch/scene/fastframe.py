@@ -37,6 +37,7 @@ import torch
 from .. import colour as C
 from .. import transform as tr
 from ..geometry import path as gpath
+from ..geometry import shapes as gshapes
 from ..parallel.mesh import Mesh, RowSharded
 from ..raster import aa as raa
 from ..raster import brush as rbrush
@@ -72,12 +73,18 @@ def _plain_shapekind(o: R.Obj):
 
 def _batch_extract(o: R.Obj):
     """(edges, shape_winding, aa_winding, fill_rgba4) for a plain-filled
-    path, the objects the tile rasterizer takes; else None."""
+    path or stroked path, the objects the tile rasterizer takes; else
+    None."""
     got = _plain_shapekind(o)
-    if got is None or not isinstance(got[0], R.PathShape):
+    if got is None:
         return None
     sk, f = got
-    return gpath.edgelist_of_path(sk.path), sk.path.winding, sk.path.winding, f._rgba
+    if isinstance(sk, R.PathShape):
+        return gpath.edgelist_of_path(sk.path), sk.path.winding, sk.path.winding, f._rgba
+    if isinstance(sk, R.StrokedPathShape):
+        # Shape uses nonzero, the AA matte even-odd (render.ml:1002-1008).
+        return gshapes.strokepath(sk.spec, sk.path), gpath.NONZERO, gpath.EVEN_ODD, f._rgba
+    return None
 
 
 def _brush_extract(o: R.Obj):
@@ -96,7 +103,7 @@ def _tile_extract(o: R.Obj):
     ext = _batch_extract(o)
     if ext is None:
         raise NotImplementedError(
-            f"{type(o.geometry).__name__} objects need the scalar raster path, which is not ported"
+            f"{type(o.geometry).__name__} objects need the scalar fallback of the tiled build, which is not ported"
         )
     return ext
 
@@ -104,7 +111,7 @@ def _tile_extract(o: R.Obj):
 def _scalar_path_error(o: R.Obj) -> NotImplementedError:
     return NotImplementedError(
         f"object {o.idset}: {type(o.geometry).__name__} of "
-        f"{type(getattr(o.geometry, 'shape', None)).__name__} needs the scalar raster path, which is not ported"
+        f"{type(getattr(o.geometry, 'shape', None)).__name__} needs the scalar fallback of the tiled build, which is not ported"
     )
 
 
@@ -163,8 +170,9 @@ def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, d
     Returns (tb, bb, handled, culled, digest): the tile and brush builds,
     the keys the tile rasterizer takes, the keys culled as wholly off the
     grid, and a content digest of the staged scene (the scene-build cache
-    key).  An object neither build takes raises NotImplementedError: the
-    scalar raster path is not ported."""
+    key).  An object neither build takes (a fancy fill, a CPG, a group, a
+    filter) raises NotImplementedError: the build's scalar fallback through
+    the general renderer (``scene/render.spriteof``) is not ported."""
     tb = TileBuild(nty, ntx, device)
     bb = BrushTileBuild(nty, ntx, device)
     handled, culled = [], []
@@ -263,7 +271,7 @@ def tiled_sprite_of_object(o: R.Obj, width: int, height: int, device) -> Optiona
     nty, ntx = height // TILE_H, width // TILE_W
     tb = TileBuild(nty, ntx, device)
     if not tb.add_object("k", *_tile_extract(o)):
-        raise NotImplementedError("an object beyond every tile span class needs the scalar path")
+        raise NotImplementedError("an object beyond every tile span class needs the scalar fallback, which is not ported")
     blocks, registry = tb.flush()
     pieces = registry.get("k", [])
     if not pieces:
@@ -300,7 +308,9 @@ def alpha_plane_of_object(o: R.Obj, width: int, height: int, device) -> torch.Te
         raise NotImplementedError(f"{type(g).__name__} filter geometry is not ported")
     plane = torch.zeros((height, width), dtype=torch.int32, device=device)
     path = R.transform_shapekind(o.transform, g.shape).path
-    got = scanline.shapeminshape_polygon(path)
+    got = scanline._rasterize_edges(
+        np.asarray(gpath.edgelist_of_path(path), dtype=np.int64), path.winding, scanline._HALF
+    )
     if got is None:
         return plane
     x0, y0, shape_mask, _ = got

@@ -1,7 +1,7 @@
 """Affine transforms (parity: camlpdf's ``Pdftransform`` as used by the reference).
 
-The port's copy of ``coherence_tpu.transform``, trimmed to the ops the port
-builds (translate, scale, and the rotations of the circle's quarters).
+The port's copy of ``coherence_tpu.transform``, without the unused
+identity list ``i``.
 
 A *transform* is a list of transform ops, with the **first element applied
 last** (outermost), matching camlpdf: ``compose op t`` prepends, ``append``
@@ -38,7 +38,19 @@ class Rotate:
     angle: float  # radians, counterclockwise in y-up coordinates
 
 
-TransformOp = Union[Translate, Scale, Rotate]
+@dataclass(frozen=True)
+class ShearX:
+    centre: Point
+    a: float
+
+
+@dataclass(frozen=True)
+class ShearY:
+    centre: Point
+    a: float
+
+
+TransformOp = Union[Translate, Scale, Rotate, ShearX, ShearY]
 Transform = List[TransformOp]
 
 IDENTITY_MATRIX: Matrix = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
@@ -72,11 +84,17 @@ def matrix_of_op(op: TransformOp) -> Matrix:
         cx, cy = op.centre
         ca, sa = math.cos(op.angle), math.sin(op.angle)
         return _about(cx, cy, (ca, sa, -sa, ca, 0.0, 0.0))
+    if isinstance(op, ShearX):
+        cx, cy = op.centre
+        return _about(cx, cy, (1.0, 0.0, op.a, 1.0, 0.0, 0.0))
+    if isinstance(op, ShearY):
+        cx, cy = op.centre
+        return _about(cx, cy, (1.0, op.a, 0.0, 1.0, 0.0, 0.0))
     raise TypeError(f"not a transform op: {op!r}")
 
 
 def _as_oplist(t) -> Transform:
-    if isinstance(t, (Translate, Scale, Rotate)):
+    if isinstance(t, (Translate, Scale, Rotate, ShearX, ShearY)):
         return [t]
     return list(t)
 
@@ -108,3 +126,30 @@ def compose(op, t) -> Transform:
 def append(t, t2) -> Transform:
     """t applied after t2 (camlpdf ``append``)."""
     return _as_oplist(t) + _as_oplist(t2)
+
+
+def decompose(m: Matrix) -> Tuple[float, float, float, float, float, float]:
+    """Decompose into (scale, aspect, rotation, shear, tx, ty).
+
+    Only ``scale`` is consumed by the reference (``render.ml:191-195``, to
+    scale stroke linewidths); computed as sqrt(|det|)."""
+    a, b, c, d, e, f = m
+    det = a * d - b * c
+    scale = math.sqrt(abs(det))
+    aspect = math.sqrt(abs(a / d)) if d not in (0, 0.0) and a * d > 0 else 1.0
+    rotation = math.atan2(b, a)
+    shear = 0.0
+    return scale, aspect, rotation, shear, e, f
+
+
+def invert_matrix(m: Matrix) -> Matrix:
+    a, b, c, d, e, f = m
+    det = a * d - b * c
+    if det == 0:
+        raise ZeroDivisionError("singular transform")
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    return (ia, ib, ic, id_, -(ia * e + ic * f), -(ib * e + id_ * f))
+
+
+def mktranslate(dx: float, dy: float) -> Transform:
+    return [Translate(dx, dy)]

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""Profile the port's general renderer on one CUDA card.
+
+Run from the root of a checkout, on a machine with an NVIDIA Hopper card:
+
+    python3 profile_general.py [--out build/profile_general]
+
+The general renderer (``render_simple_scene`` down through ``render_scene``,
+the coherence cache, ``region.caf`` and the anti-aliased polygon sprite)
+launches no hand-written kernel: it is eager torch operations.  This script
+says what they cost.  It builds ``chip_smoke.py``'s ``general_lion`` scene
+(the lion fitted to 1024 pixels in a 1920 x 1080 window) and writes, under
+--out:
+
+  * rebuild_profile.txt: a ``torch.profiler`` window of one render after
+    ``cache.clear()``: device time, device operations (device rows only:
+    the ``aten::`` rows repeat their kernels' time), and the table;
+  * rebuild_cprofile.txt: cProfile of one more such render;
+  * programs.txt: for each device program the JAX package jits on this path
+    (``_caf_kernel``, ``_dilate``, ``_erode_k``, ``_convolve_canvas_jit``,
+    ``_stamp_scan_alpha``, ``_smear_scan``, the coverage product, ...), the
+    port's counterpart called five times under the profiler at a stated
+    shape: per call its device operations (the card's rows), the launches
+    and copies the host issued (the runtime's rows), and its device time.
+
+It prints, last, one JSON line with those totals, the unprofiled host and
+CUDA-event milliseconds of a rebuild and of a warm render, the host syncs
+``raster/region.py`` counted, and the card's name and power limit.  The
+profiler slows the host several times over, so read its window for counts
+and shares, and the unprofiled lines for times.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def device_rows(prof):
+    """The profile's device rows: kernels and copies.  The aten:: rows
+    repeat their kernels' time; the runtime rows are host calls."""
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and not e.key.startswith(("aten::", "cuda", "Activity Buffer"))]
+
+
+def launch_calls(prof) -> int:
+    """Launches and copies as the host issued them (the runtime's rows).  A
+    window of a few microseconds can close before the card's own records
+    arrive, so a short window is counted from these."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")))
+
+
+def profiled(torch, fn, reps: int = 1):
+    """(result, profile, device operations, device ms, host seconds, issued
+    launches and copies) of fn() under the profiler, each per call over
+    `reps` calls in one window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / reps
+    rows = device_rows(prof)
+    return (out, prof, sum(e.count for e in rows) / reps, sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+            seconds, launch_calls(prof) / reps)
+
+
+def programs(torch, dev):
+    """name -> (the JAX package's jitted program, the shape, a thunk of the
+    port's counterpart)."""
+    import numpy as np
+
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.geometry import path as gpath
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import aa, brush, convolve, fills, region, scanline
+
+    rng = np.random.default_rng(0)
+    n = 512
+
+    def shape_at(x0, y0, seed):
+        return region.shape_of_mask((x0, y0, x0 + n - 1, y0 + n - 1), np.random.default_rng(seed).random((n, n)) < 0.5, dev)
+
+    a, b = shape_at(1, 1, 1), shape_at(200, 100, 2)
+    grad = fills.gradient((0.0, 0.0), (700.0, 600.0), True, True, C.red, C.dissolve(C.blue, delta=120))
+    sa, sb = region.fillshape(a, grad), region.fillshape(b, fills.plain(C.dissolve(C.gold, delta=200)))
+    circle = gshapes.circle(300.0, 300.0, 250.0)
+    edges = gpath.edgelist_of_path(circle)
+    cshape, cmin = scanline.shapeminshape_of_edgelist(edges, circle.winding, dev)
+    fringe = region.boxshape(region.shape_difference(cshape, cmin))
+    stroke = (brush.mkround(15.0, 0.5), circle)
+    bshape, _ = brush.shape_of_brushstroke(stroke, dev)
+    frame = torch.from_numpy(rng.integers(0, 256, (1088, 1920, 4)).astype(np.int32)).to(dev)
+    whole = torch.ones((1088, 1920), dtype=torch.bool, device=dev)
+    k5 = convolve.mkgaussian(5)
+    return {
+        "caf over": ("region._caf_kernel", "two 512x512 sprites, union box 711x611",
+                     lambda: region.caf("over", "opaque", sa, sb)),
+        "shape_union": ("region._shift_mask + _or", "two 512x512 masks", lambda: region.shape_union(a, b)),
+        "shape_difference": ("region._shift_mask + _andnot", "two 512x512 masks", lambda: region.shape_difference(a, b)),
+        "shape_intersection": ("region._extract_mask + _and", "two 512x512 masks", lambda: region.shape_intersection(a, b)),
+        "is_null_shape": ("region._any", "512x512 mask, one sync",
+                          lambda: region.is_null_shape(region.Shape(a.box, a.mask))),
+        "boxshape": ("region._tight_bounds + _extract_mask", "711x611 mask, one sync",
+                     lambda: region.boxshape(region.shape_union(a, b))),
+        "portion": ("region._extract_* + _and + _masked_rgba", "512x512 sprite by a 512x512 shape",
+                    lambda: region.portion(sa, b)),
+        "fillshape plain": ("region._masked_rgba", "512x512", lambda: region.fillshape(a, fills.plain(C.red))),
+        "fillshape gradient": ("region._masked_rgba after a host plane", "512x512, 4 MiB uploaded",
+                               lambda: region.fillshape(a, grad)),
+        "bloat": ("region._dilate", "512x512 by (5, 5)", lambda: region.bloat(5, 5, a)),
+        "erode": ("region._erode_k", "512x512 by (5, 5)", lambda: region.erode(5, 5, a)),
+        "polygon_sprite fringe": ("aa._coverage_counts_jit + _aa_sprite_rgba", "the fringe of a circle of radius 250",
+                                  lambda: aa.polygon_sprite_edgelist(fills.plain(C.red), fringe, edges, circle.winding)),
+        "convolve_canvas xy": ("convolve._convolve_canvas_jit", "1088x1920, mkgaussian(5)",
+                               lambda: convolve.convolve_canvas(k5, frame, whole)),
+        "convolve_sprite": ("convolve._convolve_canvas_jit + flatten + pickup", "512x512 sprite, mkgaussian(5)",
+                            lambda: convolve.convolve_sprite(k5, sa)),
+        "sprite_of_brushstroke": ("brush._stamp_scan_alpha", f"{len(brush.points_of_brushstroke(stroke))} stamps of a 31x31 brush",
+                                  lambda: brush.sprite_of_brushstroke(stroke, fills.plain(C.darkorange), bshape, dev)),
+        "smear": ("brush._smear_scan", f"{len(brush.points_of_brushstroke_smear(stroke))} steps over a 711x611 sprite",
+                  lambda: brush.smear(region.caf("over", "opaque", sa, sb)[0], stroke, dev)),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_general", help="directory for the profile files")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_general: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from profile_interactive import cprofile_to
+
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    os.makedirs(args.out, exist_ok=True)
+    dev = "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    cs.fresh_cache()
+    obj = cs.fitted_lion()
+    shape = region.shape_of_box(cs.WINDOW, dev)
+    render = lambda: R.render_simple_scene([obj], shape, dev)
+    render()  # first-use set-up
+    cache.clear()
+    _, rebuild = cs.measured(torch, dev, render)
+    _, warm = cs.measured(torch, dev, render)
+
+    cache.clear()
+    _, prof, ops, device_ms, seconds, issued = profiled(torch, render)
+    with open(os.path.join(args.out, "rebuild_profile.txt"), "w") as f:
+        f.write(f"{smi}\nprofiled_s {seconds} device_ms {device_ms} device_ops {ops} issued {issued}\n")
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    cache.clear()
+    cprofile_s = cprofile_to(os.path.join(args.out, "rebuild_cprofile.txt"),
+                             lambda: (render(), torch.cuda.synchronize()))
+
+    table = {}
+    lines = [smi]
+    for name, (program, at, fn) in programs(torch, dev).items():
+        fn()  # warm
+        _, _, n_ops, ms, _, n_issued = profiled(torch, fn, reps=5)
+        table[name] = {"jax_program": program, "shape": at, "device_ops": n_ops, "issued": n_issued, "device_ms": ms}
+        lines.append(f"{name:24s} {n_ops:9.1f} device rows {n_issued:9.1f} issued {ms:9.4f} ms  {program}  [{at}]")
+    with open(os.path.join(args.out, "programs.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cache.clear()
+    print(json.dumps({"nvidia_smi": smi, "rebuild_unprofiled": rebuild, "warm_unprofiled": warm,
+                      "rebuild_profiled": {"device_ops": ops, "issued": issued, "device_ms": device_ms, "host_s": seconds,
+                                           "device_share_of_unprofiled_host": device_ms / rebuild["host_ms"]},
+                      "rebuild_cprofile_s": cprofile_s, "programs": table}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -106,3 +106,67 @@ def test_named_colours_match_jax():
     assert TC.white == JC.white and TC.black == JC.black and TC.clear == JC.clear
     with pytest.raises(AttributeError):
         TC.no_such_colour
+
+
+_ARRAY_OPS = {
+    "alpha_over": lambda C, a, b, al: C.alpha_over_rgba(a, b),
+    "pd_plus": lambda C, a, b, al: C.pd_plus_rgba(a, b),
+    "dissolve_between": lambda C, a, b, al: C.dissolve_between_rgba(a, b, al),
+    "dissolve_between_scalar": lambda C, a, b, al: C.dissolve_between_rgba(a, b, 77),
+    "monochrome": lambda C, a, b, al: C.monochrome_rgba(a),
+}
+
+
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("op", list(_ARRAY_OPS))
+def test_array_ops_match_jax(op, order):
+    a, b = _pair_rgba(order[0]), _pair_rgba(order[1])
+    # Per-pixel alpha over every byte, with the 0 and 255 early outs.
+    al = ((_X * 3 + _Y) & 255)[:, None]
+    want = _ARRAY_OPS[op](JC, jnp.asarray(a), jnp.asarray(b), jnp.asarray(al))
+    got = _ARRAY_OPS[op](TC, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(al))
+    assert got.dtype == torch.int32
+    assert _same(want, got)
+
+
+def test_rgba_array_of_colour_matches_jax():
+    for name in ("red", "teal", "clear", "white"):
+        c = getattr(JC, name)
+        assert _same(JC.rgba_array_of_colour(c), TC.rgba_array_of_colour(c, "cpu"))
+    half = JC.dissolve(JC.gold, delta=128)
+    assert _same(JC.rgba_array_of_colour(half), TC.rgba_array_of_colour(half, "cpu"))
+
+
+_SCALAR_OPS = ["over", "alpha_over", "monochrome", "opaque", "transparent", "red_channel", "green_channel",
+               "blue_channel", "unpremul_rgb", "unpremul_components", "alpha_of_colour"]
+
+
+@pytest.mark.parametrize("op", _SCALAR_OPS)
+def test_scalar_ops_match_jax(op):
+    rng = np.random.default_rng(1)
+    cols = []
+    for r, g, b, a in rng.integers(0, 256, (600, 4)):
+        a = int(rng.choice([0, 255, int(a)]))
+        cols.append(JC.colour_of_rgba(min(int(r), a), min(int(g), a), min(int(b), a), a))
+    binary = op in ("over", "alpha_over")
+    for k, c in enumerate(cols):
+        args = (c, cols[(k * 7 + 3) % len(cols)]) if binary else (c,)
+        assert getattr(TC, op)(*args) == getattr(JC, op)(*args), (op, args)
+
+
+def test_scalar_plus_dissolve_between_premul_match_jax():
+    rng = np.random.default_rng(2)
+    for r, g, b, a in rng.integers(0, 256, (600, 4)):
+        r, g, b, a = int(r), int(g), int(b), int(a)
+        assert TC.premul(r, g, b, a) == JC.premul(r, g, b, a)
+        assert TC.int_mult(r, a) == JC.int_mult(r, a)
+        assert TC.prelerp(r, g, a) == JC.prelerp(r, g, a)
+        x = JC.colour_of_rgba(*JC.premul(r, g, b, a))
+        y = JC.colour_of_rgba(*JC.premul(b, r, g, 255 - a))
+        assert TC.pd_plus(x, y) == JC.pd_plus(x, y)
+        al = int(rng.choice([0, 255, g]))
+        assert TC.dissolve_between(a=x, b=y, alpha=al) == JC.dissolve_between(a=x, b=y, alpha=al)
+    with pytest.raises(TC.Nocover):
+        TC.nocover(0, 0)
+    with pytest.raises(JC.Nocover):
+        JC.nocover(0, 0)

@@ -1,7 +1,8 @@
 """The port runs without JAX: importing every module of coherence_tpu_torch
 and driving a small animated blur-filtered scene with a brush stroke on the
 CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
-dense layer stack, and an animated filtered step on a 2-band mesh) loads no
+dense layer stack, an animated filtered step on a 2-band mesh, and the
+general renderer's ``render_simple_scene`` under two filters) loads no
 JAX module and no module of the JAX package ``coherence_tpu``: the port's
 host modules (geometry, io, transform, ident, coord, native_lib) are its
 own copies, and its native sweep library builds into build/native/.
@@ -31,7 +32,7 @@ from coherence_tpu_torch import kernels
 from coherence_tpu_torch import parallel
 from coherence_tpu_torch.parallel import dryrun
 from coherence_tpu_torch.raster import brush, compositor, convolve, fills, region
-from coherence_tpu_torch.scene import examples, fastframe
+from coherence_tpu_torch.scene import cache, examples, fastframe, filters
 from coherence_tpu_torch.scene import render as R
 
 for m in pkgutil.walk_packages(coherence_tpu_torch.__path__, "coherence_tpu_torch."):
@@ -88,7 +89,20 @@ for mesh in (parallel.make_mesh(2, ["cpu"] * 2), None):
     d.full_refresh()
     d.step_animated(blob.idset, 9, 40)
     shown.append(d.read())
+# The general renderer: the same scene under a blur lens and a wireframe
+# lens, with the coherence cache on and off.
+lenses = [R.Obj(ident.new_ids(), filters.blur(R.Basic(fills.plain(C.white), R.PathShape(gshapes.circle(120.0, 64.0, 40.0))),
+                                              convolve.mkgaussian(2)), (), R.OVER),
+          R.Obj(ident.new_ids(), filters.monochrome(R.Basic(fills.plain(C.white), R.rectangle(150.0, 20.0, 60.0, 80.0))), (), R.OVER)]
+window = region.shape_of_box((1, 1, W, H), "cpu")
+general = R.render_simple_scene(lenses + scene, window, "cpu")
+cache.usecache = False
+uncached = R.render_simple_scene(lenses + scene, window, "cpu")
+cache.usecache = True
 print(json.dumps({
+    "general_box": list(general.box),
+    "general_cache_equal": bool(torch.equal(general.rgba, uncached.rgba) and torch.equal(general.mask, uncached.mask)),
+    "general_opaque": int((general.rgba[..., 3] == 255).sum()),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "coherence_tpu": sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu.")),
     "native_library": native_lib.LIBRARY,
@@ -141,6 +155,11 @@ def test_small_slice_runs_on_cpu(report):
     assert report["launches"] == {"composite_dirty": 0, "composite_full": 0, "composite_runs": 0,
                                   "composite_layers": 0, "composite_full_banded": 0,
                                   "composite_dirty_banded": 0}
+
+
+def test_general_renderer_runs_on_cpu(report):
+    assert report["general_box"][2] <= 256 and report["general_box"][3] <= 128
+    assert report["general_cache_equal"] and report["general_opaque"] > 1000
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
