@@ -8,7 +8,9 @@ and the CUDA toolkit:
 
 Five paths of the tile route run, each with the launch counters zeroed just
 before it and read just after; then the general renderer, which launches
-none of the hand-written kernels (it is torch operations on the card):
+none of the hand-written kernels (it is torch operations on the card); then
+the serving surface, a server in a thread and a display client on a real
+localhost TCP socket, as a user of the system runs it:
 
   * the lion (bench.py) at 1920x1080: the lion's 132 paths rasterized into
     a 1024-slot tile atlas, a translucent crimson blob (r=60) reserved for
@@ -37,9 +39,15 @@ none of the hand-written kernels (it is torch operations on the card):
     warm; the bench.py scene under a radius-5 filters.blur lens with the
     blob dragged beneath it for 20 frames, each frame the dirty region
     rendered over the last and the whole window rendered again; one render
-    of each other filter demo; the 1088x1920 Gaussian blur
+    of each other filter demo over every fourth path of the lion; the 1088x1920 Gaussian blur
     (benchmarks/run.py config 4, 30 chained calls); assets/zoom.pdf (two
-    stroked paths) through the tile route, and the five icon PDFs.
+    stroked paths) through the tile route, and the five icon PDFs;
+  * the serving surface at 1920x1080 (benchmarks/session.py's two
+    sessions): a FastSession (the lion, a blob dragged under a radius-3
+    blur lens, 8 + 100 drags, 11 small paints, a blur-slider sweep) and
+    an Engine (first paint, a click that picks the blob, 8 + 40 drags, the
+    slider over the selection, a rubberband zoom in and a right-click zoom
+    out), each answering the port's HeadlessClient over the wire protocol.
 
 Phases, one JSON line each:
 
@@ -92,16 +100,32 @@ Phases, one JSON line each:
      objects the fold visited, its early exits, the host syncs counted in
      raster/region.py, the cache's bytes; the peak device memory;
  14. general_filters: every incremental frame equal to the whole-window
-     render and to a render with the cache off, frames 0-2 equal to the
+     render, frames 0-2 also to a render with the cache off and to the
      CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
      affine, wireframe, smear and the CPG demo over the lion, each equal to
      the CPU's and each changing the lion;
  15. convolve_1080p: ms per call beside its bound (the frame read and
      written once at 3.35 TB/s); the first call equal to the CPU's;
  16. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
-     each icon equal to the CPU's.
+     each icon equal to the CPU's;
+ 17. serve_fast: what the client saw: seconds to the first paint, the drag
+     latency (event sent to pixels landed; median and p95), the wire floor
+     (a 2x2 paint's round trip), the slider latency, the bytes shipped and
+     the host syncs per drag; one RefreshWindow and one composite_dirty
+     launch per drag; the client's image equal to the server's display plane
+     after the drags and after the slider, and equal to the client's image
+     of the same session served from the CPU after 10 drags (the
+     scene-build cache is emptied between the two, so the card rasterizes
+     the scene itself); after the session, a full-frame render of its view
+     (composite_full, which the session never launches) equal to its content;
+ 18. serve_engine: first paint, drag latency, slider latency, zoom in and
+     out seconds, objects visited and host syncs per drag; the client's
+     image equal to the engine's framebuffer after every stage, and equal
+     to the client's image of an Engine on the CPU after the first paint,
+     the pick and each of the first 3 drags.  The loop runs with
+     containment off: a handler's exception ends the phase.
 
-Then the kernels line (per kernel: its launches on the main path, its
+Then the script's seconds from the first phase to here, the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
 TB/s, counted per 32-byte sector: the pieces each sector reads until its
 pixels are opaque, its background where it stays translucent, its write;
@@ -115,9 +139,11 @@ package.
 """
 
 import json
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 W, H = 1920, 1080
@@ -153,7 +179,14 @@ STRIPES = 16  # 4-row stripes of a tile, stripe_ring.cuh's kStripes
 SLEEP_CYCLES = 400_000
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (at_s, seconds
+    since the script started), so that each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_IMPORT, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1065,6 +1098,8 @@ GENERAL_FIT = 1024  # benchmarks/run.py config 1 fits the lion to 512; its full 
 GENERAL_CACHE_BYTES = 4 * 2**30
 N_GENERAL_FRAMES = 20
 N_GENERAL_CPU_FRAMES = 3
+N_GENERAL_SCRATCH_FRAMES = 3  # frames also rendered with the cache off
+DEMO_LION_STRIDE = 4  # the filter demos lie over every fourth path of the lion, on the card and on the CPU
 CONV_H, CONV_W, CONV_CALLS = 1088, 1920, 30  # benchmarks/run.py config 4
 
 
@@ -1177,12 +1212,13 @@ def filter_scene():
     return lens, blob, objs
 
 
-def filter_frames(torch, device, lens, blob, objs, n: int, scratch: bool):
+def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int):
     """n frames of the blob dragged under the lens on `device`.  Each frame
     renders the dirty region (dirty_region carried up through the lens by
-    dirty_filter) over the previous frame, and the whole window; with
-    `scratch` also the whole window with the cache off, held equal to both.
-    Returns (frames, per-frame stats)."""
+    dirty_filter) over the previous frame, and the whole window; the first
+    `scratch` frames also the whole window with the cache off (a rebuild of
+    every object each), held equal to both.  Returns (frames, per-frame
+    stats)."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
@@ -1203,7 +1239,7 @@ def filter_frames(torch, device, lens, blob, objs, n: int, scratch: bool):
         frame, inc = measured(torch, device, incremental)
         whole, full = measured(torch, device, lambda: R.render_simple_scene(scene, master, device))
         require(same_sprite(torch, frame, whole), f"general_filters: frame {k} differs from the whole-window render")
-        if scratch:
+        if k < scratch:
             cache.usecache = False
             try:
                 off = R.render_simple_scene(scene, master, device)
@@ -1224,8 +1260,11 @@ def general_filters(torch, dev):
     from coherence_tpu_torch.scene import render as R
 
     lens, blob, objs = filter_scene()
-    frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=True)
-    cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=False)
+    t0 = time.perf_counter()
+    frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=N_GENERAL_SCRATCH_FRAMES)
+    t1 = time.perf_counter()
+    cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=0)
+    t2 = time.perf_counter()
     for k, (a, b) in enumerate(zip(frames, cpu_frames)):
         require(same_sprite(torch, a, b), f"general_filters: frame {k} differs from the CPU's")
     emit({"phase": "general_filters", "frames": N_GENERAL_FRAMES, "f_box": list(F_BOX), "blur_radius": BLUR_RADIUS,
@@ -1235,10 +1274,15 @@ def general_filters(torch, dev):
           "syncs_per_incremental_frame": statistics.median(s["incremental"]["syncs"] for s in stats),
           "syncs_per_whole_render": statistics.median(s["whole"]["syncs"] for s in stats),
           "objects_visited_per_incremental_frame": statistics.median(s["incremental"]["objects_visited"] for s in stats),
-          "equal": {"tolerance": 0, "whole_window": True, "cache_off": True, "cpu_frames": N_GENERAL_CPU_FRAMES}})
+          "seconds": {"card": t1 - t0, "cpu_reference": t2 - t1},
+          "equal": {"tolerance": 0, "whole_window": True, "cache_off_frames": N_GENERAL_SCRATCH_FRAMES,
+                    "cpu_frames": N_GENERAL_CPU_FRAMES}})
 
     # One render of each other filter and of the CPG demo, each moved over
     # the lion's middle; the lion's sprites stay cached from demo to demo.
+    # The lion is thinned to every DEMO_LION_STRIDE-th path here (the whole
+    # lion lies under the lens above): the CPU's renders are this phase's time.
+    objs = objs[::DEMO_LION_STRIDE]
     names = ("monofilter", "hole", "rgbfilter", "affinefilter", "wireframe", "smear", "cpg_example")
     placed = [R.position_anchor(R.Centre, (float(W * 3 // 16), float(H // 2)), getattr(examples, name)()) for name in names]
     rendered, demos = {}, {}
@@ -1255,7 +1299,7 @@ def general_filters(torch, dev):
                 f"general_filters: {name} differs from the CPU's")
         require(not same_sprite(torch, rendered[name, "cpu"], bare), f"general_filters: {name} changed no pixel of the lion")
     cache.clear()
-    emit({"phase": "general_filter_demos", "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
+    emit({"phase": "general_filter_demos", "lion_paths": len(objs), "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
 
 
 def convolve_1080p(torch, dev):
@@ -1339,6 +1383,457 @@ def stroked_tiles(torch, dev, kernels):
           "icons_seconds": time.perf_counter() - t0, "equal": {"tolerance": 0, "cpu_frame": True, "cpu_icons": True}})
 
 
+# The serving surface (benchmarks/session.py): both sessions at W x H.
+SERVE_BLUR = 3
+SERVE_WARM = 8
+SERVE_FAST_DRAGS = 100
+# session.py drags 100 times through the Engine too; 40 here, since an
+# incremental frame of the general renderer takes tens of ms on this path
+# and the script's time is limited.  The warm-up and the other stages are whole.
+SERVE_ENGINE_DRAGS = 40
+SERVE_FLOOR_PAINTS = 11
+SERVE_BLUR_STEPS = [1, 2, 3, 4, 5, 6, 5, 4, 3, 2]
+SERVE_CPU_FAST_DRAGS = 10
+SERVE_CPU_ENGINE_DRAGS = 3
+SERVE_DEADLINE_S = 300.0  # no wait on a socket outlasts this
+
+
+def serve_blob(w: int, h: int):
+    return int(w * 0.22), int(h * 0.25), max(24, h // 18)
+
+
+def serve_drag(k: int):
+    return (5, 3) if (k // 40) % 2 == 0 else (-5, -3)
+
+
+def serve_lion(w: int, h: int):
+    """The lion scaled to 0.9 of the window's height, as one Group."""
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import examples
+    from coherence_tpu_torch.scene import render as R
+
+    lion = examples.smalllion()
+    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(lion)
+    scale = (h * 0.9) / max(xmax - xmin, ymax - ymin)
+    return R.transform_renderobject_many(
+        [tr.Translate(w * 0.05, h * 0.95), tr.Scale((0.0, 0.0), 1.0, -1.0), tr.Scale((0.0, 0.0), scale, scale),
+         tr.Translate(-xmin, -ymin)], lion)
+
+
+def fast_scene(w: int, h: int):
+    """session.py's fast_scene: the lion's paths, the draggable blob, the
+    lens rectangle."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import fills as rfills
+    from coherence_tpu_torch.scene import render as R
+
+    bx, by, br = serve_blob(w, h)
+    blob = R.Obj(ident.new_ids(), R.Basic(rfills.plain(C.dissolve(C.red, delta=160)),
+                                          R.PathShape(gshapes.circle(0.0, 0.0, float(br)))),
+                 (tr.Translate(float(bx), float(by)),), R.OVER)
+    f_geom = R.Obj(ident.new_ids(), R.Basic(rfills.plain(C.white), R.rectangle(w * 0.30, h * 0.45, w * 0.40, h * 0.25)),
+                   (), R.OVER)
+    return list(serve_lion(w, h).geometry.objects), blob, f_geom
+
+
+def engine_scene(w: int, h: int):
+    """session.py's build_scene: the blob over a blur filter band over the
+    lion."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import convolve, fills as rfills
+    from coherence_tpu_torch.scene import filters
+    from coherence_tpu_torch.scene import render as R
+
+    bx, by, br = serve_blob(w, h)
+    filt = R.Obj(ident.new_ids(), filters.blur(R.Basic(rfills.plain(C.white),
+                                                       R.rectangle(w * 0.30, h * 0.45, w * 0.40, h * 0.25)),
+                                               convolve.mkgaussian(SERVE_BLUR)), (), R.OVER)
+    blob = R.Obj(ident.new_ids(), R.Basic(rfills.plain(C.dissolve(C.red, delta=160)),
+                                          R.PathShape(gshapes.circle(float(bx), float(by), float(br)))), (), R.OVER)
+    return [blob, filt, serve_lion(w, h)]
+
+
+class Served:
+    """A server function in a thread and the port's HeadlessClient in the
+    caller's, joined by a localhost TCP socket.  The server function gets
+    (connection, ready): it leaves its session in `ready`.  If it raises,
+    its socket is closed, so the client's next wait fails instead of
+    hanging; a watchdog shuts both sockets at the deadline."""
+
+    def __init__(self, server_fn):
+        from coherence_tpu_torch.gui import client, talk
+
+        listener = socket.socket()
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(1)
+        listener.settimeout(SERVE_DEADLINE_S)
+        conn = talk.connect(listener.getsockname()[1])
+        server_sock, _ = listener.accept()
+        listener.close()
+        self.ready, self.fail = {}, []
+        outer = self
+
+        class _Client(client.HeadlessClient):
+            def _on_refresh(self, w):
+                outer.refreshes += 1
+                outer.last_refresh = time.perf_counter()
+
+        self.refreshes, self.last_refresh = 0, 0.0
+        self.c = _Client(conn)
+        self._socks = [server_sock, conn.sock]
+        self._watchdog = threading.Timer(SERVE_DEADLINE_S, self._cut)
+        self._watchdog.daemon = True
+        self._watchdog.start()
+
+        def body():
+            sconn = talk.Connection(server_sock)
+            try:
+                server_fn(sconn, self.ready)
+            except BaseException as e:  # noqa: BLE001 — raised again by the client's thread
+                self.fail.append(e)
+            finally:
+                sconn.close()
+
+        self.thread = threading.Thread(target=body, daemon=True)
+        self.thread.start()
+
+    def _cut(self):
+        for s in self._socks:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def check(self):
+        if self.fail:
+            raise self.fail[0]
+
+    def await_refresh(self, n: int = 1) -> float:
+        """Serve the server's calls until n more RefreshWindow frames have
+        landed in the window image; the arrival time of the last."""
+        target = self.refreshes + n
+        try:
+            while self.refreshes < target:
+                if not self.c.handle_one():
+                    raise RuntimeError("chip_smoke: the server closed the session early")
+        except (ConnectionError, OSError, RuntimeError):
+            self.thread.join(10)
+            self.check()
+            raise
+        return self.last_refresh
+
+    def drain(self):
+        self.c.pump()
+
+    def barrier(self, win):
+        """A 2x2 paint (a 1-wide rect is never shipped): when it lands,
+        every earlier event has been handled."""
+        self.c.paint(win, 0, 0, 2, 2)
+        self.await_refresh()
+        self.drain()
+
+    def timed(self, send) -> float:
+        """Seconds from an event sent to its pixels landed."""
+        t0 = time.perf_counter()
+        send()
+        t1 = self.await_refresh()
+        self.drain()
+        return t1 - t0
+
+    def close(self):
+        """AppClose, serve until the server has said so too, join it."""
+        try:
+            self.c.send_event("AppClose")
+            while self.c.running and self.c.handle_one():
+                pass
+        except (ConnectionError, OSError):
+            pass
+        self.thread.join(SERVE_DEADLINE_S)
+        self._watchdog.cancel()
+        self.c.conn.close()
+        self.check()
+        require(not self.thread.is_alive(), "the server thread did not end")
+
+
+def latency(seconds):
+    xs = sorted(seconds)
+    return {"median_ms": xs[len(xs) // 2] * 1e3, "p95_ms": xs[min(len(xs) - 1, int(len(xs) * 0.95))] * 1e3}
+
+
+def fast_session(torch, device, kernels, n_drags: int, whole: bool):
+    """One FastSession on `device` and its client.  n_drags drags (the first
+    SERVE_WARM untimed when whole); when whole also the wire-floor paints
+    and the slider sweep, with the client's image held to the server's
+    display plane after the drags and after the slider.  Returns the
+    client's image after SERVE_CPU_FAST_DRAGS drags and what was measured."""
+    from coherence_tpu_torch.gui import fastserver
+    from coherence_tpu_torch.raster import region
+
+    objs, blob, f_geom = fast_scene(W, H)
+
+    def server(conn, ready):
+        sess = fastserver.FastSession(conn, W, H, objs, blob, f_geom, blur_radius=SERVE_BLUR, device=device)
+        ready["sess"] = sess
+        sess.run()
+
+    t_start = time.perf_counter()
+    sv = Served(server)
+    c = sv.c
+    c.app_start()  # FastSession waits for this handshake
+    first_paint_s = sv.await_refresh() - t_start
+    sv.drain()
+    win = next(iter(c.windows))
+    while "sess" not in sv.ready:  # the constructor returns once its first frame has landed
+        sv.check()
+        time.sleep(0.001)
+    sess = sv.ready["sess"]
+    shipped = []
+    real_refresh = sess.wx.display.refresh_window
+
+    def counting_refresh(w, x, y, width, height, data):
+        shipped.append(len(data))
+        real_refresh(w, x, y, width, height, data)
+
+    sess.wx.display.refresh_window = counting_refresh
+
+    def same_as_server(when):
+        plane = sess.disp.rgba[..., :3].to(torch.uint8).cpu().numpy()
+        require(bool((c.windows[win].image[:H, :W] == plane).all()),
+                f"serve_fast: the client's image differs from the server's display plane {when}")
+
+    same_as_server("after the first paint")
+    bx, by, _ = serve_blob(W, H)
+    c.mouse = (bx, by)
+    c.send_event("LeftDown", win, bx, by)
+    x, y = bx, by
+    drag_s, at_check = [], None
+    timed_from = SERVE_WARM if whole else 0
+    for k in range(n_drags):
+        if k == timed_from:
+            syncs0, launches0, refreshes0, shipped0 = region.syncs, dict(kernels.launches), sv.refreshes, len(shipped)
+        dx, dy = serve_drag(k)
+        x, y = x + dx, y + dy
+
+        def send():
+            c.mouse = (x, y)
+            c.send_event("LeftDragging", win, x, y)
+
+        dt = sv.timed(send)
+        if k >= timed_from:
+            drag_s.append(dt)
+        if k + 1 == SERVE_CPU_FAST_DRAGS:
+            at_check = c.windows[win].image[:H, :W].copy()
+            same_as_server(f"after {k + 1} drags")
+    n_timed = n_drags - timed_from
+    per_drag = {
+        "refreshes": (sv.refreshes - refreshes0) / n_timed,
+        "composite_dirty": (kernels.launches["composite_dirty"] - launches0["composite_dirty"]) / n_timed,
+        "syncs": (region.syncs - syncs0) / n_timed,
+        "bytes": sum(shipped[shipped0:]) / n_timed,
+    }
+    c.send_event("LeftUp", win, x, y)
+    same_as_server("after the drags")
+    out = {"first_paint_s": first_paint_s, "drag": latency(drag_s), "per_drag": per_drag, "drags_timed": n_timed}
+    if whole:
+        out["wire_floor_ms"] = latency([sv.timed(lambda: c.paint(win, 0, 0, 2, 2)) for _ in range(SERVE_FLOOR_PAINTS)])["median_ms"]
+        out["slider"] = latency([sv.timed(lambda v=v: c.send_event("BlurSlider", win, v)) for v in SERVE_BLUR_STEPS])
+        same_as_server("after the slider")
+        out["lens_box"] = list(sess.lens_box)
+    sv.close()
+    return at_check, out, sess
+
+
+def serve_fast(torch, dev, kernels):
+    """FastSession at 1920x1080 over TCP, counted from zero: returns the
+    session's launch counts, and composite_full's launches in the closing
+    full-frame render of the session's view (the session itself makes none)."""
+    from coherence_tpu_torch.scene import cache, fastframe
+
+    cache.clear()
+    fastframe.scene_build_cache_clear()
+    cpu_image, cpu_stats, _ = fast_session(torch, "cpu", kernels, SERVE_CPU_FAST_DRAGS, whole=False)
+    # The scene-build cache's digest names no device: cleared, so that the card rasterizes the scene itself.
+    cache.clear()
+    fastframe.scene_build_cache_clear()
+    builds0 = fastframe.scene_build_cache_stats()
+    zero_counts(torch, kernels)
+    n_drags = SERVE_WARM + SERVE_FAST_DRAGS
+    image, stats, sess = fast_session(torch, dev, kernels, n_drags, whole=True)
+    require(bool((image == cpu_image).all()),
+            f"serve_fast: after {SERVE_CPU_FAST_DRAGS} drags the client's image differs from the CPU session's")
+    require(stats["per_drag"]["refreshes"] == 1.0, f"serve_fast: {stats['per_drag']['refreshes']} RefreshWindow frames per drag")
+    require(stats["per_drag"]["composite_dirty"] == 1.0,
+            f"serve_fast: {stats['per_drag']['composite_dirty']} composite_dirty launches per drag")
+    session_counts = dict(kernels.launches)
+    builds = fastframe.scene_build_cache_stats()
+    require(builds["hits"] == builds0["hits"] and builds["misses"] > builds0["misses"],
+            "serve_fast: the card's session took its atlas from the scene-build cache")
+    # The first frame, each drag and each slider step composite through the dirty kernel, as in the JAX package.
+    require(session_counts["composite_dirty"] == 1 + n_drags + len(SERVE_BLUR_STEPS),
+            f"serve_fast: composite_dirty launched {session_counts['composite_dirty']} times")
+    require(session_counts["composite_full"] == 0, "serve_fast: the session launched composite_full")
+    # The session's content against one full-frame render of its view.
+    view = sess.view
+    dirty_content = view.frame.clone()
+    view.render(full=True)
+    torch.cuda.synchronize()
+    require(torch.equal(view.frame, dirty_content), "serve_fast: render(full=True) differs from the session's content")
+    check_full = kernels.launches["composite_full"] - session_counts["composite_full"]
+    require(check_full == 1, f"serve_fast: the closing render launched composite_full {check_full} times")
+    cache.clear()
+    fastframe.scene_build_cache_clear()
+    emit({"phase": "serve_fast", "size": [W, H], "blur_radius": SERVE_BLUR, "drags": n_drags, **stats,
+          "cpu_first_paint_s": cpu_stats["first_paint_s"], "launches": session_counts,
+          "full_render_check_launches": check_full,
+          "equal": {"tolerance": 0, "server_plane": True, "cpu_session_after_drags": SERVE_CPU_FAST_DRAGS,
+                    "full_render_equal_content": True}})
+    return session_counts, check_full
+
+
+def engine_session(torch, device, n_drags: int, whole: bool):
+    """One Engine on `device` behind a RemoteDisplay and its client: first
+    paint, a click that picks the blob, n_drags drags; when whole also the
+    slider over the selection and the zoom in and out, with the client's
+    image held to the engine's framebuffer after every stage.  Returns the
+    client's images after the first paint, the pick and each of the first
+    SERVE_CPU_ENGINE_DRAGS drags, and what was measured."""
+    from coherence_tpu_torch.gui import app
+    from coherence_tpu_torch.gui.window import RemoteDisplay
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import profiling
+
+    def server(conn, ready):
+        eng = app.Engine(display=RemoteDisplay(conn), device=device)
+        view = R.View(device=eng.device, scene=engine_scene(W, H), pages=[], background=[app.background_obj()],
+                      master_update=region.shape_of_box((0, 0, W, H), eng.device))
+        eng.views.append(view)
+        view.window = eng.wx.make_window("session", W, H, 0, 0, 0, 0)
+        ready["eng"], ready["view"] = eng, view
+        eng.force_update_whole(view)
+        eng.run(resilient=False)
+
+    t_start = time.perf_counter()
+    sv = Served(server)
+    c = sv.c
+    first_paint_s = sv.await_refresh() - t_start
+    sv.drain()
+    win = next(iter(c.windows))
+    eng = sv.ready["eng"]
+    images = []
+
+    def stage(name, keep=False):
+        """The server is idle (a barrier or an awaited frame came back)."""
+        sv.check()
+        img = c.windows[win].image[:H, :W]
+        require(bool((img == eng.wx.framebuffers[win][:H, :W]).all()),
+                f"serve_engine: the client's image differs from the engine's framebuffer after {name}")
+        if keep:
+            images.append(img.copy())
+
+    stage("the first paint", keep=True)
+    bx, by, _ = serve_blob(W, H)
+    c.mouse = (bx, by)
+    c.send_event("LeftDown", win, bx, by)
+    sv.barrier(win)  # a first click repaints nothing of its own
+    require(len(sv.ready["view"].selections[1][0]) == 1, "serve_engine: the click picked no object")
+    stage("the pick", keep=True)
+    x, y = bx, by
+    drag_s = []
+    timed_from = SERVE_WARM if whole else 0
+    for k in range(n_drags):
+        if k == timed_from:
+            syncs0, visited0 = region.syncs, profiling.counters["render.objects_visited"]
+        dx, dy = serve_drag(k)
+        x, y = x + dx, y + dy
+
+        def send():
+            c.mouse = (x, y)
+            c.send_event("LeftDragging", win, x, y)
+
+        dt = sv.timed(send)
+        if k >= timed_from:
+            drag_s.append(dt)
+        if k < SERVE_CPU_ENGINE_DRAGS:
+            stage(f"drag {k + 1}", keep=True)
+    n_timed = n_drags - timed_from
+    out = {"first_paint_s": first_paint_s, "drag": latency(drag_s), "drags_timed": n_timed,
+           "per_drag": {"syncs": (region.syncs - syncs0) / n_timed,
+                        "objects_visited": (profiling.counters["render.objects_visited"] - visited0) / n_timed}}
+    c.send_event("LeftUp", win, x, y)
+    sv.barrier(win)
+    stage("the drags")
+    if whole:
+        out["wire_floor_ms"] = latency([sv.timed(lambda: c.paint(win, 0, 0, 2, 2)) for _ in range(SERVE_FLOOR_PAINTS)])["median_ms"]
+        out["slider"] = latency([sv.timed(lambda v=v: c.send_event("BlurSlider", win, v)) for v in SERVE_BLUR_STEPS])
+        c.send_event("BlurSlider", win, 0)
+        sv.await_refresh()
+        sv.barrier(win)
+        stage("the slider")
+        c.send_event("Button", 2, win)  # wire order: (button, window)
+        sv.barrier(win)
+        zx0, zy0, zx1, zy1 = int(W * 0.3), int(H * 0.3), int(W * 0.7), int(H * 0.7)
+        c.mouse = (zx0, zy0)
+        c.send_event("LeftDown", win, zx0, zy0)
+        sv.barrier(win)  # the 1-pixel rubberband seed is never shipped
+        for f in (0.4, 0.55, 0.7):
+            c.mouse = (int(W * f), int(H * f))
+            c.send_event("LeftDragging", win, *c.mouse)
+            sv.await_refresh()
+        sv.drain()
+
+        def release():
+            c.mouse = (zx1, zy1)
+            c.send_event("LeftUp", win, zx1, zy1)
+
+        out["zoom_in_s"] = sv.timed(release)
+        sv.barrier(win)
+        stage("the zoom in")
+
+        def right_click():
+            c.mouse = (W // 2, H // 2)
+            c.send_event("RightDown", win, W // 2, H // 2)
+            c.send_event("RightUp", win, W // 2, H // 2)
+
+        out["zoom_out_s"] = sv.timed(right_click)
+        sv.barrier(win)
+        stage("the zoom out")
+        out["event_errors"] = profiling.counters["engine.event_errors"]
+    sv.close()
+    return images, out
+
+
+def serve_engine(torch, dev, kernels):
+    """The Engine at 1920x1080 over TCP, against an Engine on the CPU."""
+    from coherence_tpu_torch.scene import cache
+
+    cache.clear()
+    cpu_images, cpu_stats = engine_session(torch, "cpu", SERVE_CPU_ENGINE_DRAGS, whole=False)
+    cache.clear()
+    zero_counts(torch, kernels)
+    torch.cuda.reset_peak_memory_stats()
+    images, stats = engine_session(torch, dev, SERVE_WARM + SERVE_ENGINE_DRAGS, whole=True)
+    require(len(images) == len(cpu_images) == 2 + SERVE_CPU_ENGINE_DRAGS, "serve_engine: stages missing")
+    for name, a, b in zip(["the first paint", "the pick"] + [f"drag {k + 1}" for k in range(SERVE_CPU_ENGINE_DRAGS)],
+                          images, cpu_images):
+        require(bool((a == b).all()), f"serve_engine: after {name} the client's image differs from the CPU engine's client's")
+    require(not (images[1] == images[2]).all(), "serve_engine: the first drag changed no pixel")
+    require(stats["event_errors"] == 0, "serve_engine: a handler's error was contained")
+    counts = dict(kernels.launches)
+    require(not any(counts.values()), f"serve_engine: the general renderer launched a tile kernel: {counts}")
+    cache.clear()
+    emit({"phase": "serve_engine", "size": [W, H], "blur_radius": SERVE_BLUR, "drags": SERVE_WARM + SERVE_ENGINE_DRAGS,
+          **stats, "cpu_first_paint_s": cpu_stats["first_paint_s"], "cpu_drag_ms_median": cpu_stats["drag"]["median_ms"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "equal": {"tolerance": 0, "engine_framebuffer_after_every_stage": True,
+                    "cpu_engine_stages": 2 + SERVE_CPU_ENGINE_DRAGS}})
+
+
 def main() -> int:
     import torch
 
@@ -1350,6 +1845,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    t_start = time.perf_counter()
 
     # 1. Device.
     name = torch.cuda.get_device_name(0)
@@ -1388,6 +1884,8 @@ def main() -> int:
     general_filters(torch, dev)
     convolve_1080p(torch, dev)
     stroked_tiles(torch, dev, kernels)
+    counts_serve, serve_check_full = serve_fast(torch, dev, kernels)
+    serve_engine(torch, dev, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu."))
@@ -1414,6 +1912,9 @@ def main() -> int:
             if extra in t:
                 line[-1][extra] = t[extra]
     line[1]["also_replaces"] = "coherence_tpu/raster/tiled_scene.py:143"
+    for row in line[:2]:
+        row["launches_serve_fast"] = counts_serve[row["name"]]
+    line[1]["full_render_check_launches"] = serve_check_full  # after the session, on its view
     line[1].update({"ms_4k": full_4k["ms"], "banded_one_band_ms_4k": full_4k["banded_one_band_ms"],
                     "bytes_4k": full_4k["bytes"], "bound_ms_4k": full_4k["bound_ms"],
                     "share_4k": full_4k["bound_ms"] / full_4k["ms"], "depth_4k": full_4k["depth"]})
@@ -1425,6 +1926,7 @@ def main() -> int:
         row.update({"ms_lion_17_bands": t["ms"], "unbanded_ms_lion_17_bands": t["unbanded_ms"],
                     "bytes_lion_17_bands": t["bytes"], "bound_ms_lion_17_bands": t["bound_ms"],
                     "share_lion_17_bands": t["bound_ms"] / t["ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

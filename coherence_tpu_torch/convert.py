@@ -7,6 +7,11 @@ arrays and plain Python containers, so both sides can run from one
 identical atlas and set of lists.  Packed uint32 words (atlas, frame,
 background, layer stacks) keep their bits as int32.
 
+A scene as objects (paths, fills, filters, transforms) is carried the other
+way, as text: ``scene/checkpoint.py`` writes the same JSON in both packages,
+so a scene saved by the JAX package's ``scene_to_json`` is read by the
+port's ``scene_from_json`` and the reverse, with fresh ids on load.
+
 Keys stay whatever hashable objects the JAX side used.  A converted view
 carries no source objects (``DeviceView.objs``), so it cannot re-rasterize
 a tiled-built object that has no materialized sprite.

@@ -1,7 +1,8 @@
-// Native host library of coherence_tpu_torch: the port's copy of the four
+// Native host library of coherence_tpu_torch: the port's copy of the five
 // entry-point families of coherence_tpu/native/coherence_native.cpp that
-// the port calls (bezier_subdivide_batch, edge_spans_*, expand_1x_*,
-// expand_aa_*), unchanged.
+// the port calls (blit_masked_rgb, bezier_subdivide_batch, edge_spans_*,
+// expand_1x_*, expand_aa_*): the last four unchanged, the blit taking its
+// sprite as one uint8 plane.
 //
 // The bezier subdivision and the scanline sweep are the per-scene host
 // geometry stage (polygon.ml:107-127 subdivision, polygon.ml:306-512 sweep):
@@ -19,6 +20,31 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Masked RGB blit (gui/window.py plot_sprite; wxgui.ml:370-424): fb (FH, FW,
+// 3) u8 target; src (h, w, 4) u8 holds r, g, b and, in its fourth channel,
+// the mask.  Writes src rgb where the mask is set, at (ox, oy), clipped.
+// The JAX package's entry point takes (h, w, 4) i32 colours and a separate
+// u8 mask; here a sprite comes off the device in one copy as one u8 plane.
+// ---------------------------------------------------------------------------
+
+void blit_masked_rgb(uint8_t* fb, int32_t FH, int32_t FW, const uint8_t* src,
+                     int32_t h, int32_t w, int32_t oy, int32_t ox) {
+  int32_t y_lo = std::max(0, -oy), y_hi = std::min(h, FH - oy);
+  int32_t x_lo = std::max(0, -ox), x_hi = std::min(w, FW - ox);
+  for (int32_t y = y_lo; y < y_hi; ++y) {
+    uint8_t* frow = fb + ((int64_t)(oy + y) * FW + ox) * 3;
+    const uint8_t* srow = src + (int64_t)y * w * 4;
+    for (int32_t x = x_lo; x < x_hi; ++x) {
+      if (srow[x * 4 + 3]) {
+        frow[x * 3] = srow[x * 4];
+        frow[x * 3 + 1] = srow[x * 4 + 1];
+        frow[x * 3 + 2] = srow[x * 4 + 2];
+      }
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Bezier subdivision (geometry/path.py bezier_subdivide; polygon.ml:107-127).

@@ -1,9 +1,9 @@
 """ctypes loader for the port's native host library
 (``native/coherence_native.cpp``).
 
-The port's copy of ``coherence_tpu.native_lib``, trimmed to the four entry
-points the port calls: ``bezier_subdivide_batch``, ``edge_spans``,
-``expand_1x_grouped`` and ``expand_aa_grouped``.  The library is compiled
+The port's copy of ``coherence_tpu.native_lib``, trimmed to the five entry
+points the port calls: ``blit_masked_rgb``, ``bezier_subdivide_batch``,
+``edge_spans``, ``expand_1x_grouped`` and ``expand_aa_grouped``.  The library is compiled
 by g++ on first use, and again whenever the source is newer, into
 ``build/native/`` at the root of the checkout.  It is built with
 ``-march=native``, so its file name carries a hash of the flags and of the
@@ -88,6 +88,11 @@ def _load() -> ctypes.CDLL:
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i64 = ctypes.c_int64
+        i32 = ctypes.c_int32
+        lib.blit_masked_rgb.restype = None
+        lib.blit_masked_rgb.argtypes = [
+            np.ctypeslib.ndpointer(np.uint8, flags=("C_CONTIGUOUS", "WRITEABLE")), i32, i32, u8p, i32, i32, i32, i32,
+        ]
         lib.bezier_subdivide_batch.restype = i64
         lib.bezier_subdivide_batch.argtypes = [f64p, i64, ctypes.c_double, f64p, i64, i64p]
         lib.edge_spans_count.restype = i64
@@ -104,6 +109,16 @@ def _load() -> ctypes.CDLL:
         lib.expand_aa_grouped.argtypes = [i64p, i64p, i64p] + [i64] * 7 + [u8p] + [i64p] * 5
         _lib = lib
         return _lib
+
+
+def blit_masked_rgb(fb: np.ndarray, rgbm: np.ndarray, oy: int, ox: int) -> None:
+    """Write a sprite into fb (H, W, 3) uint8 where its mask is set, with
+    the sprite's row 0, column 0 landing at fb[oy, ox]; clipped to fb.
+    rgbm is (h, w, 4) uint8: r, g, b and, in its fourth channel, the mask
+    (the JAX package's entry point takes int32 colours and the mask apart)."""
+    lib = _load()
+    h, w = rgbm.shape[:2]
+    lib.blit_masked_rgb(fb, fb.shape[0], fb.shape[1], np.ascontiguousarray(rgbm, dtype=np.uint8), h, w, oy, ox)
 
 
 def bezier_subdivide_batch(ctrl: np.ndarray, eps: float):

@@ -39,10 +39,9 @@ from .. import transform as tr
 from ..geometry import path as gpath
 from ..geometry import shapes as gshapes
 from ..parallel.mesh import Mesh, RowSharded
-from ..raster import aa as raa
 from ..raster import brush as rbrush
 from ..raster import fills as rfills
-from ..raster import region, scanline
+from ..raster import region
 from ..raster.compositor import TILE_H, TILE_W, pack_rgba, unpack_rgba
 from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window
 from ..raster.brush_tiles import BrushTileBuild
@@ -236,7 +235,8 @@ def build_tiled_scene(ts: TiledScene, keyed_objs, staged=None) -> None:
             _SCENE_BUILD_CACHE.move_to_end(digest)
             _SCENE_BUILD_CACHE_STATS["hits"] += 1
             if ts._data is None:
-                ts._data = snap.clone()
+                # The snapshot may come from a build on another device.
+                ts._data = snap.to(ts.device, copy=True)
             else:
                 ts._data.copy_(snap)
             ts._n_pieces = snap_n
@@ -299,32 +299,22 @@ def alpha_plane_of_object(o: R.Obj, width: int, height: int, device) -> torch.Te
     """(height, width) int32 alpha plane of an object's raster: the filter
     geometry alpha that the blur blend weights by (render.ml:1248-1265).
 
-    It is pure AA coverage over the object's whole shape, with no minshape
-    shortcut (the general renderer's sprite_of_basicshape, render.ml:1097):
+    It is the general renderer's sprite_of_basicshape (render.ml:1097) over
+    the object's whole shape: pure AA coverage with no minshape shortcut, so
     pixels just inside an edge keep alpha < 255.  The tile rasterizer's
-    interior = fill rule is wrong here by design."""
-    g = o.geometry
-    if not isinstance(g, R.Basic):
-        raise NotImplementedError(f"{type(g).__name__} filter geometry is not ported")
+    interior = fill rule is wrong here by design.  Any geometry the general
+    renderer draws serves as a lens: a path, a stroked path, a CPG."""
     plane = torch.zeros((height, width), dtype=torch.int32, device=device)
-    path = R.transform_shapekind(o.transform, g.shape).path
-    got = scanline._rasterize_edges(
-        np.asarray(gpath.edgelist_of_path(path), dtype=np.int64), path.winding, scanline._HALF
-    )
-    if got is None:
+    shp = R.shapeonly_of_basicshape(o, device)
+    spr = R.sprite_of_basicshape(o, shp, [o], device)
+    if spr is None:
         return plane
-    x0, y0, shape_mask, _ = got
-    h, w = shape_mask.shape
-    box = region.box_intersect((x0, y0, x0 + w - 1, y0 + h - 1), (1, 1, width, height))
+    box = region.box_intersect(spr.box, (1, 1, width, height))
     if box is None:
         return plane
+    alpha = torch.where(spr.mask, spr.rgba[..., 3], 0)
     bx0, by0, bx1, by1 = box
-    scaled = scanline.scaled_spans_of_edgelist(gpath.edgelist_of_path(path), path.winding, raa._H)
-    opacity = raa.coverage_opacity(box, scaled, device)
-    colour = torch.as_tensor(g.fill.transform(list(o.transform))._rgba, device=device).view(1, 1, 4)
-    alpha = C.dissolve_rgba(colour, opacity)[..., 3]
-    mask = torch.from_numpy(shape_mask[by0 - y0 : by1 - y0 + 1, bx0 - x0 : bx1 - x0 + 1]).to(device)
-    plane[by0 - 1 : by1, bx0 - 1 : bx1] = torch.where(mask, alpha, 0)
+    plane[by0 - 1 : by1, bx0 - 1 : bx1] = region._window(alpha, spr.box, box)
     return plane
 
 
@@ -376,11 +366,13 @@ class DeviceView:
     def _tiles_of(self, key) -> Set[int]:
         return {tile for tile, _ in self.ts.pieces.get(key, ())}
 
-    def set_scene(self, scene: List[R.Obj]) -> None:
+    def set_scene(self, scene: List[R.Obj], staged=None) -> None:
         """(Re)build from a front-to-back scene list through the tile
         rasterizer.  No per-object Sprite is materialized: the first
-        translate_object of such an object re-rasterizes it."""
-        build_tiled_scene(self.ts, [(o.idset, o) for o in scene])
+        translate_object of such an object re-rasterizes it.  `staged` is a
+        stage_tiled_scene result for `scene`, where the host sweep already
+        ran."""
+        build_tiled_scene(self.ts, [(o.idset, o) for o in scene], staged=staged)
         self.order = []
         for o in scene:
             self.sprites[o.idset] = None

@@ -662,3 +662,111 @@ def test_meshed_scene_on_one_card_matches_unmeshed(cuda_device):
     assert kernels.launches["composite_dirty_banded"] == before["composite_dirty_banded"] + 2
     assert torch.equal(frame.gather(cuda_device), plain)
     assert isinstance(frame, RowSharded) and len(frame.parts) == 1
+
+
+def _small_session_scene():
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import fills
+    from coherence_tpu_torch.scene import render as R
+
+    def obj(shape, col, t=()):
+        return R.Obj(ident.new_ids(), R.Basic(fills.plain(col), shape), t, R.OVER)
+
+    objs = [obj(R.rectangle(20.0, 30.0, 180.0, 120.0), C.dissolve(C.teal, delta=200)),
+            obj(R.PathShape(gshapes.circle(220.0, 120.0, 45.0)), C.gold)]
+    blob = obj(R.PathShape(gshapes.circle(0.0, 0.0, 22.0)), C.dissolve(C.crimson, delta=170), (tr.Translate(80.0, 100.0),))
+    return objs, blob, obj(R.rectangle(120.0, 60.0, 120.0, 80.0), C.white)
+
+
+def _serve_small_session(device, scene):
+    """A FastSession on `device` behind a localhost socket, a drag and a
+    slider step; the client's final image."""
+    from types import SimpleNamespace
+
+    from _torch_sockets import DEADLINE, ServedClient, in_thread, socket_pair
+
+    from coherence_tpu_torch.gui import client, fastserver, talk
+
+    port = SimpleNamespace(talk=talk, client=client)
+    sconn, cconn = socket_pair(port, port)
+
+    def serve():
+        try:
+            fastserver.FastSession(sconn, 320, 200, *scene, blur_radius=3, device=device).run()
+        finally:
+            sconn.close()  # a failed server ends the client's wait
+
+    t, fail = in_thread(serve)
+    sc = ServedClient(port, cconn)
+    c = sc.c
+    c.app_start()
+    c.send_event("LeftDown", 1, 80, 100)
+    c.send_event("LeftDragging", 1, 95, 108)
+    c.send_event("LeftUp", 1, 95, 108)
+    c.send_event("BlurSlider", 1, 5)
+    try:
+        sc.finish()
+    except (ConnectionError, OSError):
+        pass
+    t.join(DEADLINE)
+    cconn.close()
+    if fail:
+        raise fail[0]
+    return c.windows[1].image
+
+
+@pytest.mark.cuda
+def test_fast_session_on_the_card_matches_the_cpu(cuda_device):
+    """The same scene objects served from the CPU, then from the card: the
+    second build hits the scene-build cache with a snapshot made on the
+    other device, and the client's pixels are equal."""
+    from coherence_tpu_torch.scene import cache, fastframe
+
+    fastframe.scene_build_cache_clear()
+    scene = _small_session_scene()
+    cache.clear()
+    want = _serve_small_session("cpu", scene)
+    cache.clear()
+    before = dict(kernels.launches)
+    hits = fastframe.scene_build_cache_stats()["hits"]
+    got = _serve_small_session(cuda_device, scene)
+    cache.clear()
+    assert fastframe.scene_build_cache_stats()["hits"] == hits + 1
+    assert np.array_equal(got, want) and (got != got[0, 0]).any()
+    # The first frame, the drag and the slider step each composite through the dirty kernel.
+    assert kernels.launches["composite_dirty"] == before["composite_dirty"] + 3
+    fastframe.scene_build_cache_clear()
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu(cuda_device):
+    from coherence_tpu_torch.gui import app
+    from coherence_tpu_torch.gui import window as W
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    objs, blob, lens = _small_session_scene()
+    shown = []
+    for device in ("cpu", cuda_device):
+        cache.clear()
+        eng = app.Engine(device=device)
+        view = R.View(device=eng.device, scene=[blob] + objs, pages=[], background=[app.background_obj()],
+                      master_update=region.shape_of_box((0, 0, 320, 200), eng.device))
+        eng.views.append(view)
+        view.window = eng.wx.make_window("w", 320, 200, 0, 0, 0, 0)
+        eng.wx.display.post(W.PAINT_RECT, view.window, 0, 0, 320, 200)
+        for kind, x, y in ((W.LEFT_DOWN, 80, 100), (W.LEFT_DRAGGING, 95, 108), (W.LEFT_UP, 95, 108)):
+            eng.wx.display.mouse = (x, y)
+            eng.wx.display.post(kind, view.window, x, y)
+            eng.run(max_events=2 if kind == W.LEFT_DOWN else 1, resilient=False)
+        eng.wx.display.post(W.BLUR_SLIDER, view.window, 2)
+        eng.run(max_events=1, resilient=False)
+        assert eng.device.type == torch.device(device).type
+        shown.append((eng.wx.framebuffers[view.window].copy(), list(eng.wx.display.refreshed)))
+    cache.clear()
+    (a, ra), (b, rb) = shown
+    assert np.array_equal(a, b) and ra == rb and len(rb) >= 4

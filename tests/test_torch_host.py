@@ -219,3 +219,17 @@ def test_coord_matches_jax(f):
 def test_ident_draws_fresh_ids():
     a, b = PORT.ident.new_ids(), PORT.ident.new_ids()
     assert a != b and a[1] == hash(a[0]) and b[0][0] == a[0][0] + 1
+
+
+@pytest.mark.parametrize("oy,ox", [(0, 0), (-3, 5), (90, 95), (-200, 0), (5, -4), (99, 109)])
+def test_native_blit_matches_jax_package(oy, ox):
+    """The port's blit takes the sprite as one uint8 plane (r, g, b, mask);
+    the JAX package's takes int32 colours and the mask apart."""
+    rng = np.random.default_rng(abs(oy) * 31 + abs(ox))
+    fb = rng.integers(0, 256, (100, 110, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (20, 30, 4)).astype(np.int32)
+    mask = rng.random((20, 30)) < 0.5
+    want, got = fb.copy(), fb.copy()
+    j_native.blit_masked_rgb(want, rgba, mask, oy, ox)
+    t_native.blit_masked_rgb(got, np.concatenate([rgba[..., :3], mask[..., None]], -1).astype(np.uint8), oy, ox)
+    assert np.array_equal(got, want)

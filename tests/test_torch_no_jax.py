@@ -1,9 +1,10 @@
 """The port runs without JAX: importing every module of coherence_tpu_torch
 and driving a small animated blur-filtered scene with a brush stroke on the
 CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
-dense layer stack, an animated filtered step on a 2-band mesh, and the
-general renderer's ``render_simple_scene`` under two filters) loads no
-JAX module and no module of the JAX package ``coherence_tpu``: the port's
+dense layer stack, an animated filtered step on a 2-band mesh, the
+general renderer's ``render_simple_scene`` under two filters, and one
+FastSession and one Engine each serving a client over a localhost socket)
+loads no JAX module and no module of the JAX package ``coherence_tpu``: the port's
 host modules (geometry, io, transform, ident, coord, native_lib) are its
 own copies, and its native sweep library builds into build/native/.
 
@@ -22,6 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROGRAM = r"""
 import importlib, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tests")  # _torch_sockets: imports neither package
 import torch
 import coherence_tpu_torch
 from coherence_tpu_torch import colour as C
@@ -99,7 +101,64 @@ general = R.render_simple_scene(lenses + scene, window, "cpu")
 cache.usecache = False
 uncached = R.render_simple_scene(lenses + scene, window, "cpu")
 cache.usecache = True
+
+# The serving surface: a FastSession, then an Engine, each behind a
+# RemoteDisplay on a localhost socket with a HeadlessClient in a thread.
+from coherence_tpu_torch.gui import app, client, fastserver, talk
+from coherence_tpu_torch.gui import window as GW
+
+from types import SimpleNamespace
+from _torch_sockets import ServedClient, in_thread, socket_pair
+PORT_SIDE = SimpleNamespace(talk=talk, client=client)
+
+def served(make_server):
+    sconn, cconn = socket_pair(PORT_SIDE, PORT_SIDE)
+    sc = ServedClient(PORT_SIDE, cconn)
+    images = {}
+    def client_thread():
+        c = sc.c
+        # An engine closes its windows as it leaves: keep each image.
+        c._on_refresh = lambda w: images.__setitem__(w, c.windows[w].image)
+        c.app_start()
+        c.mouse = (40, 40)
+        for ev in make_server.events:
+            c.send_event(*ev)
+        sc.finish()
+        cconn.close()
+    t, fail = in_thread(client_thread)
+    truth = make_server(sconn)
+    t.join(300)
+    assert not t.is_alive() and not fail, fail
+    return images, truth
+
+def fast(conn):
+    sess = fastserver.FastSession(conn, W, H, scene, blob, obj(R.rectangle(20.0, 20.0, 200.0, 90.0), C.white),
+                                  blur_radius=2, device="cpu")
+    sess.run()
+    return sess.win, sess.disp.rgba[..., :3].to(torch.uint8).numpy()
+fast.events = [("LeftDown", 1, 40, 40), ("LeftDragging", 1, 49, 44), ("LeftUp", 1, 49, 44), ("BlurSlider", 1, 3)]
+
+def engine(conn):
+    eng = app.Engine(display=GW.RemoteDisplay(conn), device="cpu")
+    view = R.View(device="cpu", scene=list(scene), pages=[], background=[app.background_obj()],
+                  master_update=region.shape_of_box((0, 0, W, H), "cpu"))
+    eng.views.append(view)
+    eng.wx.poll()
+    view.window = eng.wx.make_window("engine", W, H, 0, 0, 0, 0)
+    eng.force_update_whole(view)
+    eng.run(max_events=len(engine.events), resilient=False)
+    shown = eng.wx.framebuffers[view.window][:H, :W].copy()
+    eng.run(resilient=False)  # AppClose closes the windows
+    return view.window, shown
+engine.events = [("LeftDown", 1, 40, 40), ("LeftDragging", 1, 52, 47), ("LeftUp", 1, 52, 47)]
+
+cache.clear()
+serving = {}
+for name, server in (("fast", fast), ("engine", engine)):
+    images, (win, truth) = served(server)
+    serving[name] = bool((images[win][:H, :W] == truth).all()) and bool((truth != truth[0, 0]).any())
 print(json.dumps({
+    "serving": serving,
     "general_box": list(general.box),
     "general_cache_equal": bool(torch.equal(general.rgba, uncached.rgba) and torch.equal(general.mask, uncached.mask)),
     "general_opaque": int((general.rgba[..., 3] == 255).sum()),
@@ -160,6 +219,11 @@ def test_small_slice_runs_on_cpu(report):
 def test_general_renderer_runs_on_cpu(report):
     assert report["general_box"][2] <= 256 and report["general_box"][3] <= 128
     assert report["general_cache_equal"] and report["general_opaque"] > 1000
+
+
+def test_serving_surface_runs_on_cpu(report):
+    # Each client's image equals its server's pixels after the events.
+    assert report["serving"] == {"fast": True, "engine": True}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
