@@ -7,8 +7,9 @@ and the CUDA toolkit:
     python3 chip_smoke.py
 
 Five paths of the tile route run, each with the launch counters zeroed just
-before it and read just after; then the general renderer, which launches
-none of the hand-written kernels (it is torch operations on the card); then
+before it and read just after; then the general renderer (torch operations
+on the card, each group folded by the fold_layers kernel); then the sprite
+route, the scene edits and the device window path; then
 the serving surface, a server in a thread and a display client on a real
 localhost TCP socket, as a user of the system runs it:
 
@@ -37,11 +38,20 @@ localhost TCP socket, as a user of the system runs it:
     cache, the filters) at 1920x1080: the lion as one group fitted to 1024
     pixels (benchmarks/run.py config 1 at full size), cold, rebuilt and
     warm; the bench.py scene under a radius-5 filters.blur lens with the
-    blob dragged beneath it for 20 frames, each frame the dirty region
+    blob dragged beneath it for 10 frames, each frame the dirty region
     rendered over the last and the whole window rendered again; one render
     of each other filter demo over every fourth path of the lion; the 1088x1920 Gaussian blur
     (benchmarks/run.py config 4, 30 chained calls); assets/zoom.pdf (two
     stroked paths) through the tile route, and the five icon PDFs;
+  * the sprite route and the scene edits at 1920x1080: the bench.py lion
+    and blob rasterized by the batched raster into a DeviceView (its full
+    render against the tile route's), then a circle added, a path
+    recoloured, a path removed, a restack, the blob removed and re-added 50
+    times and 500 boxes added, each frame against a fresh view of the
+    edited scene; the tile build's scalar fallback; the fold_layers kernel
+    on the lion's 132 sprites over the whole window; a FrameBuffer
+    compositing them under the radius-5 blur with the blob dragged 20
+    frames (recomposite_blur);
   * the serving surface at 1920x1080 (benchmarks/session.py's two
     sessions): a FastSession (the lion, a blob dragged under a radius-3
     blur lens, 8 + 100 drags, 11 small paints, a blur-slider sweep) and
@@ -95,12 +105,16 @@ Phases, one JSON line each:
  11. play_animated: the lion's play_animated over 400 deltas against 400
      step_animated calls, with its time per frame;
  12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card;
- 13. general_lion: the three renders equal, and equal to the CPU's render
-     of the same scene; per render the host and CUDA-event time, the
+ 13. general_lion: the cold, rebuilt and warm renders (the lion group
+     through the batched raster and one fold_layers launch) and one more
+     rebuild through the per-member fold, all equal, and equal to the CPU's
+     render of the same scene; per render the host and CUDA-event time, the
      objects the fold visited, its early exits, the host syncs counted in
-     raster/region.py, the cache's bytes; the peak device memory;
+     raster/region.py, the cache's bytes; per route of the rebuild the
+     launches and copies issued (profile_general.py's count) and the
+     fold_layers launches; the peak device memory;
  14. general_filters: every incremental frame equal to the whole-window
-     render, frames 0-2 also to a render with the cache off and to the
+     render, frame 0 also to a render with the cache off, frames 0-1 to the
      CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
      affine, wireframe, smear and the CPG demo over the lion, each equal to
      the CPU's and each changing the lion;
@@ -108,7 +122,20 @@ Phases, one JSON line each:
      written once at 3.35 TB/s); the first call equal to the CPU's;
  16. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
      each icon equal to the CPU's;
- 17. serve_fast: what the client saw: seconds to the first paint, the drag
+ 17. scene_edits: the sprite route's full render (composite_full) equal to
+     the tile route's and to the CPU's; after each edit the dirty render
+     (composite_dirty) equal to a fresh view's full render of the edited
+     scene, the first two also to the CPU's; the churn keeps the atlas's
+     capacity and piece count; add_boxes equal to add_object of the same
+     boxes; the fallback tile build equal to the sprite route; the edit
+     times;
+ 18. fold_kernel: fold_layers against fold_layers_carry_torch on the lion's
+     132 sprites over the 1920x1080 window, in one call and in two with the
+     carry, bit for bit; the two timed in turns; the bytes it must move;
+ 19. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
+     the CPU's and to the general renderer's render of the same filtered
+     scene; the last equal to a whole-window recomposite plus apply_blur;
+ 20. serve_fast: what the client saw: seconds to the first paint, the drag
      latency (event sent to pixels landed; median and p95), the wire floor
      (a 2x2 paint's round trip), the slider latency, the bytes shipped and
      the host syncs per drag; one RefreshWindow and one composite_dirty
@@ -118,7 +145,7 @@ Phases, one JSON line each:
      scene-build cache is emptied between the two, so the card rasterizes
      the scene itself); after the session, a full-frame render of its view
      (composite_full, which the session never launches) equal to its content;
- 18. serve_engine: first paint, drag latency, slider latency, zoom in and
+ 21. serve_engine: first paint, drag latency, slider latency, zoom in and
      out seconds, objects visited and host syncs per drag; the client's
      image equal to the engine's framebuffer after every stage, and equal
      to the client's image of an Engine on the CPU after the first paint,
@@ -132,7 +159,9 @@ pixels are opaque, its background where it stays translucent, its write;
 and the share of that bound, beside the per-stripe count; the time of
 each comparison timed in turns: composite_full's and composite_dirty's
 banded_one_band, composite_runs's composite_full on the same lists, the
-banded kernels' unbanded ones, also on the 17-band lion) and, last,
+banded kernels' unbanded ones, also on the 17-band lion; for fold_layers
+the mask and RGBA sectors each open pixel reads until it closes, and its
+carry in and out) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -203,7 +232,7 @@ def build_scene(device, mesh=None):
 
     objs, blob, f_geom = examples.bench_scene(W, H, blob_radius=60, blob_at=(120, 400), f_box=F_BOX)
     view = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=device)
-    view.set_scene(objs)
+    view.set_scene(objs, tiled=True)
     view.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, view.pw, view.ph, device)
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)
@@ -228,7 +257,7 @@ def build_interactive(device, mesh=None):
 
     objs, blob, f_geom = examples.interactive_4k_scene(W4, H4)
     view = fastframe.DeviceView(W4, H4, atlas_cap=ATLAS_CAP4, device=device)
-    view.set_scene(objs)
+    view.set_scene(objs, tiled=True)
     view.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, view.pw, view.ph, device)
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)
@@ -683,7 +712,7 @@ def interactive_path(torch, dev, kernels, scrub):
         f = 2.0 if rep % 2 == 0 else 0.5
         cur = zoomed(cur, f)
         t0 = time.perf_counter()
-        view.reset_scene(cur)
+        view.reset_scene(cur, tiled=True)
         view.render(full=True)
         torch.cuda.synchronize()
         zooms.append({"factor": f, "seconds": time.perf_counter() - t0, "pieces": view.ts._n_pieces,
@@ -695,7 +724,7 @@ def interactive_path(torch, dev, kernels, scrub):
     prefetch_s = time.perf_counter() - t0
     half = zoomed(cur, 0.5)
     t0 = time.perf_counter()
-    view.reset_scene(half)
+    view.reset_scene(half, tiled=True)
     view.render(full=True)
     torch.cuda.synchronize()
     half_s = time.perf_counter() - t0
@@ -851,14 +880,14 @@ def mesh_4k_path(torch, dev, kernels):
     # One zoom step under the mesh against a fresh unsharded view.
     cur = zoomed(objs, 2.0)
     t0 = time.perf_counter()
-    mview.reset_scene(cur)
+    mview.reset_scene(cur, tiled=True)
     mview.render(full=True)
     torch.cuda.synchronize()
     zoom_s = time.perf_counter() - t0
     counts = dict(kernels.launches)
     fastframe.scene_build_cache_clear()
     fresh = fastframe.DeviceView(W4, H4, atlas_cap=ATLAS_CAP4, device=dev)
-    fresh.set_scene(cur)
+    fresh.set_scene(cur, tiled=True)
     fresh.render(full=True)
     torch.cuda.synchronize()
     require(torch.equal(mview.content(dev), fresh.frame), "4K zoom step under the mesh differs from a fresh view")
@@ -1096,9 +1125,9 @@ def play_path(torch, dev):
 WINDOW = (1, 1, W, H)
 GENERAL_FIT = 1024  # benchmarks/run.py config 1 fits the lion to 512; its full size is 1024
 GENERAL_CACHE_BYTES = 4 * 2**30
-N_GENERAL_FRAMES = 20
-N_GENERAL_CPU_FRAMES = 3
-N_GENERAL_SCRATCH_FRAMES = 3  # frames also rendered with the cache off
+N_GENERAL_FRAMES = 10
+N_GENERAL_CPU_FRAMES = 2
+N_GENERAL_SCRATCH_FRAMES = 1  # frames also rendered with the cache off
 DEMO_LION_STRIDE = 4  # the filter demos lie over every fourth path of the lion, on the card and on the CPU
 CONV_H, CONV_W, CONV_CALLS = 1088, 1920, 30  # benchmarks/run.py config 4
 
@@ -1163,39 +1192,76 @@ def fresh_cache():
     cache.setsize(GENERAL_CACHE_BYTES)
 
 
-def general_lion(torch, dev):
+def issued_rebuild(torch, render):
+    """The launches and copies the host issues for one render after
+    cache.clear(), counted under the profiler as profile_general.py counts
+    them (the runtime's rows)."""
+    from coherence_tpu_torch.scene import cache
+    from profile_general import issued
+
+    cache.clear()
+    return issued(torch, render)
+
+
+def general_lion(torch, dev, kernels):
     """Config 1 at full size: cold render, rebuild after cache.clear(), warm
-    render, all equal and equal to the CPU's render of the same scene."""
+    render, on the default route (each group's members through the batched
+    raster and one fold_layers launch), then one more rebuild on the
+    per-member fold route; all equal, and equal to the CPU's render of the
+    same scene.  Returns the fold_layers launches of the cold, rebuilt and
+    warm renders."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import flags
 
+    require(flags.get("batch_group_raster"), "general_lion: the batched group route is not the default")
     fresh_cache()
     obj = fitted_lion()
+    n_objs = len(obj.geometry.objects)
     shape = region.shape_of_box(WINDOW, dev)
     render = lambda: R.render_simple_scene([obj], shape, dev)
     torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch, kernels)
     cold, cold_stats = measured(torch, dev, render)
     cache.clear()
+    before = kernels.launches["fold_layers"]
     rebuilt, rebuild_stats = measured(torch, dev, render)
+    rebuild_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before
     warm, warm_stats = measured(torch, dev, render)
+    counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
+    rebuild_stats["issued"] = issued_rebuild(torch, render)
+    flags.set_flag("batch_group_raster", False)
+    try:
+        cache.clear()
+        before = kernels.launches["fold_layers"]
+        folded, fold_stats = measured(torch, dev, render)
+        fold_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before
+        fold_stats["issued"] = issued_rebuild(torch, render)
+    finally:
+        flags.set_flag("batch_group_raster", True)
     require(cold is not None and cold.box[2] <= W and cold.box[3] <= H, "the lion rendered outside the window")
     require(same_sprite(torch, cold, rebuilt), "general_lion: the rebuilt render differs from the cold one")
     require(same_sprite(torch, cold, warm), "general_lion: the warm render differs from the cold one")
+    require(same_sprite(torch, cold, folded), "general_lion: the per-member fold route differs from the batched route")
     require(bool((cold.rgba[..., 3] == 255).sum() > GENERAL_FIT * GENERAL_FIT // 10), "general_lion: the lion is not there")
-    require(rebuild_stats["objects_visited"] == len(obj.geometry.objects) + 1,
-            "general_lion: the rebuild did not visit the group and each of its objects once")
+    require(rebuild_stats["objects_visited"] == 1 and rebuild_stats["fold_layers_launches"] == 1,
+            "general_lion: the rebuild did not render the group through the batched raster and one fold")
+    require(fold_stats["objects_visited"] == n_objs + 1 and fold_stats["fold_layers_launches"] == 0,
+            "general_lion: the fold route did not visit the group and each of its objects once")
     require(warm_stats["objects_visited"] == 1, "general_lion: the warm render did not come from the group's cached sprite")
     cache.clear()
     on_cpu, cpu_stats = measured(torch, "cpu", lambda: R.render_simple_scene([obj], region.shape_of_box(WINDOW, "cpu"), "cpu"))
     require(same_sprite(torch, cold, on_cpu), "general_lion: the card's render differs from the CPU's")
     require(cpu_stats["syncs"] == rebuild_stats["syncs"], "general_lion: the CPU render took other branches")
     cache.clear()
-    emit({"phase": "general_lion", "window": list(WINDOW), "fit": GENERAL_FIT, "objects": len(obj.geometry.objects),
-          "box": list(cold.box), "cold": cold_stats, "rebuild": rebuild_stats, "warm": warm_stats, "cpu": cpu_stats,
+    emit({"phase": "general_lion", "window": list(WINDOW), "fit": GENERAL_FIT, "objects": n_objs,
+          "box": list(cold.box), "cold": cold_stats, "rebuild": rebuild_stats, "warm": warm_stats,
+          "rebuild_fold_route": fold_stats, "cpu": cpu_stats, "launches": counts,
           "cache_max_bytes": GENERAL_CACHE_BYTES, "peak_device_bytes": peak,
-          "equal": {"tolerance": 0, "cold_rebuild_warm": True, "cpu": True}})
+          "equal": {"tolerance": 0, "cold_rebuild_warm": True, "fold_route": True, "cpu": True}})
+    return counts
 
 
 def filter_scene():
@@ -1212,13 +1278,13 @@ def filter_scene():
     return lens, blob, objs
 
 
-def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int):
+def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: bool = True):
     """n frames of the blob dragged under the lens on `device`.  Each frame
     renders the dirty region (dirty_region carried up through the lens by
-    dirty_filter) over the previous frame, and the whole window; the first
-    `scratch` frames also the whole window with the cache off (a rebuild of
-    every object each), held equal to both.  Returns (frames, per-frame
-    stats)."""
+    dirty_filter) over the previous frame, and (if `whole`) the whole
+    window; the first `scratch` frames also the whole window with the cache
+    off (a rebuild of every object each), held equal to both.  Returns
+    (frames, per-frame stats)."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
@@ -1237,8 +1303,10 @@ def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int):
             return region.caf("over", "opaque", patch, region.portion(frame, region.shape_difference(master, d)))[0]
 
         frame, inc = measured(torch, device, incremental)
-        whole, full = measured(torch, device, lambda: R.render_simple_scene(scene, master, device))
-        require(same_sprite(torch, frame, whole), f"general_filters: frame {k} differs from the whole-window render")
+        full = None
+        if whole:
+            rendered, full = measured(torch, device, lambda: R.render_simple_scene(scene, master, device))
+            require(same_sprite(torch, frame, rendered), f"general_filters: frame {k} differs from the whole-window render")
         if k < scratch:
             cache.usecache = False
             try:
@@ -1263,7 +1331,7 @@ def general_filters(torch, dev):
     t0 = time.perf_counter()
     frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=N_GENERAL_SCRATCH_FRAMES)
     t1 = time.perf_counter()
-    cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=0)
+    cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=0, whole=False)
     t2 = time.perf_counter()
     for k, (a, b) in enumerate(zip(frames, cpu_frames)):
         require(same_sprite(torch, a, b), f"general_filters: frame {k} differs from the CPU's")
@@ -1357,7 +1425,7 @@ def stroked_tiles(torch, dev, kernels):
     shown = {}
     for device in (dev, "cpu"):
         view = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=device)
-        view.set_scene(objs)
+        view.set_scene(objs, tiled=True)
         view.render(full=True)
         shown[device] = (view.frame.cpu(), view.ts.atlas().cpu(), [list(view.ts.pieces[k]) for k in view.order])
     launches = dict(kernels.launches)
@@ -1381,6 +1449,375 @@ def stroked_tiles(torch, dev, kernels):
     emit({"phase": "stroked_tiles", "pdf": "assets/zoom.pdf", "paths": len(objs), "stroked": n_stroked,
           "pieces": sum(len(p) for p in shown[dev][2]), "launches": launches, "icons": names,
           "icons_seconds": time.perf_counter() - t0, "equal": {"tolerance": 0, "cpu_frame": True, "cpu_icons": True}})
+
+
+# ---------------------------------------------------------------------------
+# The sprite route, the scene edits and the device window path: full
+# sprites by the batched raster; FrameBuffer's windows and each group
+# folded by the fold_layers kernel.
+# ---------------------------------------------------------------------------
+
+N_CHURN = 50  # remove and re-add the blob this many times
+N_BOXES = 500
+N_FRAME_PATH = 20
+N_CHECKED_FRAMES = 3  # scene_edits and frame_path frames held against the CPU (frame_path: also the general renderer)
+FOLD_CHUNK = 66  # the lion's 132 layers folded in two calls with the carry
+
+
+def plain_obj(shape, colour, t=()):
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.raster import fills
+    from coherence_tpu_torch.scene import render as R
+
+    return R.Obj(ident.new_ids(), R.Basic(fills.plain(colour), shape), tuple(t), R.OVER)
+
+
+def lion_edits(objs):
+    """The edits of scene_edits on the bench.py lion, as (name, edit of a
+    view): a translucent circle added on top over the middle of the lion, a
+    lion path recoloured in place, a path removed, and the circle swapped in
+    the order with a path under its centre."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.scene import render as R
+
+    bounds = [R.bounds_of_basicshape(o) for o in objs]
+    cx = int((min(b[0] for b in bounds) + max(b[1] for b in bounds)) / 2)
+    cy = int((min(b[2] for b in bounds) + max(b[3] for b in bounds)) / 2)
+    circle = plain_obj(R.PathShape(gshapes.circle(float(cx), float(cy), 120.0)), C.dissolve(C.steelblue, delta=160))
+    src = objs[10]
+    recoloured = plain_obj(src.geometry.shape, C.dissolve(C.gold, delta=230), src.transform)
+
+    def covers(spr, x: int, y: int) -> bool:
+        x0, y0, x1, y1 = spr.box
+        return x0 <= x <= x1 and y0 <= y <= y1 and bool(spr.mask[y - y0, x - x0])
+
+    def swap(view):
+        order = list(view.order)
+        top = order.index(circle.idset)
+        j = next(j for j in range(top + 1, len(order))
+                 if view.sprites.get(order[j]) is not None and covers(view.sprites[order[j]], cx, cy))
+        order[top], order[j] = order[j], order[top]
+        view.restack(order)
+
+    return [("add_object", lambda v: v.add_object(circle, 0)),
+            ("replace_object", lambda v: v.replace_object(src.idset, recoloured)),
+            ("remove_object", lambda v: v.remove_object(objs[20].idset)),
+            ("restack", swap)]
+
+
+def fresh_full(dev, scene):
+    """A fresh view of `scene` built by the tile route, rendered whole."""
+    from coherence_tpu_torch.scene import fastframe
+
+    view = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=dev)
+    view.set_scene(scene, tiled=True)
+    view.render(full=True)
+    return view
+
+
+def seeded_boxes(n: int):
+    """n boxes of seeded sizes, places and colours in the frame, as
+    add_boxes takes them: [(key, (x0, y0, x1, y1), (r, g, b, a))]."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    items = []
+    for k in range(n):
+        x0, y0 = int(rng.integers(1, W - 20)), int(rng.integers(1, H - 20))
+        w, h = int(rng.integers(4, 160)), int(rng.integers(4, 120))
+        a = int(rng.choice([255, 200, 120]))
+        rgb = [int(v) * a // 255 for v in rng.integers(0, 256, 3)]
+        items.append((("box", k), (x0, y0, min(W, x0 + w - 1), min(H, y0 + h - 1)), (*rgb, a)))
+    return items
+
+
+def fallback_scene(objs):
+    """The lion with a gradient-filled circle, a CPG and a group on top:
+    objects the tile rasterizer does not take."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import fills
+    from coherence_tpu_torch.scene import render as R
+
+    grad = R.Obj(ident.new_ids(), R.Basic(fills.gradient((0.68 * W, 0.28 * H), (0.88 * W, 0.65 * H), True, True, C.red,
+                                                         C.dissolve(C.gold, delta=150)),
+                                          R.PathShape(gshapes.circle(0.78 * W, 0.46 * H, 0.17 * H))), (), R.OVER)
+    cpg = plain_obj(R.CPG(R.SUBTRACTION, R.PathShape(gshapes.circle(0.78 * W, 0.79 * H, 0.14 * H)),
+                          R.PathShape(gshapes.circle(0.81 * W, 0.79 * H, 0.08 * H))), C.navy)
+    group = R.mkgroup([plain_obj(R.PathShape(gshapes.circle(0.62 * W, 0.83 * H, 0.09 * H)), C.dissolve(C.teal, delta=180)),
+                       plain_obj(R.PathShape(gshapes.circle(0.67 * W, 0.80 * H, 0.065 * H)), C.crimson)])
+    return [grad, cpg, group] + objs
+
+
+def scene_edits(torch, dev, kernels):
+    """The bench.py lion and blob through the sprite route
+    (set_scene(objs)), its full render (composite_full) against the tile
+    route's, then the scene edits, each followed by a dirty render
+    (composite_dirty) held against a fresh view's full render of the edited
+    scene: add_object, replace_object, remove_object, restack, remove and
+    re-add of the blob N_CHURN times (the atlas's capacity and piece count
+    stay put), add_boxes of N_BOXES boxes against add_object of the same
+    boxes as sprites.  The first three frames are also held against the
+    CPU.  Last, the tile build of the lion with a gradient circle, a CPG and
+    a group (the scalar fallback) against the sprite route.  Returns the
+    launch counts, and the lion's sprites on the card and on the CPU (the
+    blob first) for fold_kernel and frame_path."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.raster import fills, region
+    from coherence_tpu_torch.scene import cache, examples, fastframe
+
+    objs, blob, f_geom = examples.bench_scene(W, H, blob_radius=60, blob_at=(120, 400), f_box=F_BOX)
+    scene = [blob] + objs
+    edits = lion_edits(objs)
+    fresh_cache()
+    fastframe.scene_build_cache_clear()
+    t0 = time.perf_counter()
+    cview = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device="cpu")
+    cview.set_scene(scene)
+    cpu_sprites = [cview.sprites[o.idset] for o in scene]
+    cview.render(full=True)
+    cpu_frames = [cview.frame.clone()]
+    for _, edit in edits[: N_CHECKED_FRAMES - 1]:
+        edit(cview)
+        cview.render()
+        cpu_frames.append(cview.frame.clone())
+    cpu_s = time.perf_counter() - t0
+    del cview
+    fresh_cache()
+
+    zero_counts(torch, kernels)
+    t0 = time.perf_counter()
+    view = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=dev)
+    view.set_scene(scene)
+    view.render(full=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sprites = [view.sprites[o.idset] for o in scene]
+    require(all(s is not None for s in sprites), "scene_edits: the sprite route kept no sprite of an object")
+    tiled = fresh_full(dev, scene)
+    require(torch.equal(view.frame, tiled.frame), "scene_edits: the sprite route's full render differs from the tile route's")
+    require(torch.equal(view.frame.cpu(), cpu_frames[0]), "scene_edits: the card's sprite route differs from the CPU's")
+    checked, ms = [], {}
+    for k, (name, edit) in enumerate(edits):
+        before = view.frame.clone()
+        t0 = time.perf_counter()
+        edit(view)
+        view.render()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        require(not torch.equal(view.frame, before), f"scene_edits: {name} changed no pixel")
+        fresh = fresh_full(dev, [view.objs[key] for key in view.order])
+        require(torch.equal(view.frame, fresh.frame), f"scene_edits: after {name} the frame differs from a fresh view's")
+        if k + 1 < len(cpu_frames):
+            require(torch.equal(view.frame.cpu(), cpu_frames[k + 1]), f"scene_edits: after {name} the card differs from the CPU")
+        checked.append(name)
+    cap, n_pieces = int(view.ts.atlas().shape[0]), view.ts._n_pieces
+    t0 = time.perf_counter()
+    for _ in range(N_CHURN):
+        view.remove_object(blob.idset)
+        view.render()
+        view.add_object(blob, 0)
+        view.render()
+        require((int(view.ts.atlas().shape[0]), view.ts._n_pieces) == (cap, n_pieces),
+                "scene_edits: remove and re-add of the blob moved the atlas's capacity or piece count")
+    torch.cuda.synchronize()
+    ms["churn_cycle"] = (time.perf_counter() - t0) * 1e3 / N_CHURN
+    require(torch.equal(view.frame, fresh_full(dev, [view.objs[key] for key in view.order]).frame),
+            "scene_edits: after the churn the frame differs from a fresh view's")
+
+    items = seeded_boxes(N_BOXES)
+    keys = [key for key, _, _ in items]
+    as_sprites = fresh_full(dev, [view.objs[key] for key in view.order])
+    t0 = time.perf_counter()
+    view.ts.add_boxes(items)
+    view.order = keys + view.order
+    for key in keys:
+        view.dirty |= view._tiles_of(key)
+    view.render()
+    torch.cuda.synchronize()
+    ms["add_boxes"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for key, box, rgba in items:
+        col = C.colour_of_rgba(*rgba)
+        as_sprites.ts.add_object(key, region.fillshape(region.shape_of_box(box, dev), fills.plain(col)))
+    as_sprites.order = keys + as_sprites.order
+    as_sprites.render(full=True)
+    torch.cuda.synchronize()
+    ms["add_object_of_the_boxes"] = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(view.frame, as_sprites.frame), "scene_edits: add_boxes differs from add_object of the same boxes")
+    dirty_content = view.frame.clone()
+    view.render(full=True)
+    require(torch.equal(view.frame, dirty_content), "scene_edits: the dirty render after add_boxes differs from a full one")
+
+    mixed = fallback_scene(objs)
+    staged = fastframe.stage_tiled_scene(view.ts.nty, view.ts.ntx, W, H, [(o.idset, o) for o in mixed], dev)
+    require(staged[5] is None and len(staged[3]) == 3, "scene_edits: the fallback objects were not staged for the scalar route")
+    tiled_mixed = fresh_full(dev, mixed)
+    sprite_mixed = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device=dev)
+    sprite_mixed.set_scene(mixed)
+    sprite_mixed.render(full=True)
+    require(torch.equal(tiled_mixed.frame, sprite_mixed.frame), "scene_edits: the tile build's fallback differs from the sprite route")
+    require(not torch.equal(tiled_mixed.frame, tiled.frame), "scene_edits: the fallback objects drew nothing")
+    counts = dict(kernels.launches)
+    require(counts["composite_dirty"] >= len(edits) + 2 * N_CHURN + 1, "scene_edits: the edits did not render through composite_dirty")
+    require(counts["composite_full"] >= 1, "scene_edits: composite_full never launched")
+    require(counts["fold_layers"] >= 1, "scene_edits: the fallback group did not fold through fold_layers")
+    cache.clear()
+    emit({"phase": "scene_edits", "size": [W, H], "objects": len(scene), "build_s": build_s,
+          "cpu_reference_s": cpu_s, "edit_ms": ms, "churn": N_CHURN, "boxes": N_BOXES,
+          "atlas_slots": cap, "pieces": n_pieces, "launches": counts,
+          "equal": {"tolerance": 0, "tiled_route": True, "fresh_view_after": checked + ["churn"],
+                    "add_boxes_vs_add_object": True, "cpu_frames": len(cpu_frames), "fallback_vs_sprite_route": True}})
+    return counts, {"scene": scene, "f_geom": f_geom, "card": sprites, "cpu": cpu_sprites}
+
+
+def fold_bound(torch, offs, layers, hb: int, wb: int) -> dict:
+    """The bytes fold_layers must move for this run's layers, per 32-byte
+    sector: each open pixel reads the mask byte of every layer over it until
+    it closes, and 16 bytes of RGBA where that mask is set; the carry (acc,
+    open, covered: 18 bytes a pixel) is read once and written once; the
+    layer table (48 bytes a layer) read once.  The pixels close as the plain
+    fold closes them."""
+    dev = layers[0][0].device
+    open_mask = torch.ones((hb, wb), dtype=torch.bool, device=dev)
+    alpha = torch.zeros((hb, wb), dtype=torch.int32, device=dev)
+    mask_sectors = rgba_sectors = 0
+    for (dy, dx), (rgba, mask) in zip(offs, layers):
+        hs, ws = mask.shape
+        y0, y1, x0, x1 = max(0, dy), min(hb, dy + hs), max(0, dx), min(wb, dx + ws)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        rows = torch.arange(y0 - dy, y1 - dy, device=dev)[:, None]
+        cols = torch.arange(x0 - dx, x1 - dx, device=dev)[None, :]
+        q = rows * ws + cols
+        o = open_mask[y0:y1, x0:x1]
+        m = mask[y0 - dy : y1 - dy, x0 - dx : x1 - dx] & o
+        mask_sectors += int(torch.unique(q[o] // 32).numel())
+        rgba_sectors += int(torch.unique(q[m] // 2).numel())
+        a = alpha[y0:y1, x0:x1]
+        la = rgba[y0 - dy : y1 - dy, x0 - dx : x1 - dx, 3]
+        t = la * a + 128
+        blended = torch.where(a == 0, la, torch.where(a == 255, a, la + a - (((t >> 8) + t) >> 8)))
+        a.copy_(torch.where(m, blended, a))
+        open_mask[y0:y1, x0:x1] &= ~(m & (a == 255))
+    n_bytes = (mask_sectors + rgba_sectors) * SECTOR_BYTES + 2 * 18 * hb * wb + 48 * len(layers)
+    return {"bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "mask_sectors": mask_sectors,
+            "rgba_sectors": rgba_sectors, "open_after": int(open_mask.sum())}
+
+
+def fold_kernel(torch, dev, scrub, sprites):
+    """fold_layers against fold_layers_carry_torch on the lion's 132 sprites
+    (the sprite route's, from full_sprites_of_objects) folded into the
+    whole 1920x1080 window, and in two calls with the carry; bit for bit,
+    carry and all; the two timed in turns.  Returns the kernels line's row."""
+    from coherence_tpu_torch.raster import framepath as FP
+
+    lion = sprites[1:]
+    offs = [(s.box[1] - 1, s.box[0] - 1) for s in lion]
+    layers = [(s.rgba.contiguous(), s.mask.contiguous()) for s in lion]
+
+    def carry():
+        return (torch.zeros((H, W, 4), dtype=torch.int32, device=dev), torch.ones((H, W), dtype=torch.bool, device=dev),
+                torch.zeros((H, W), dtype=torch.bool, device=dev))
+
+    c0 = carry()
+    got = FP.fold_layers_carry(offs, layers, *c0)
+    want = FP.fold_layers_carry_torch(offs, layers, *c0)
+    first = FP.fold_layers_carry(offs[:FOLD_CHUNK], layers[:FOLD_CHUNK], *c0)
+    chunked = FP.fold_layers_carry(offs[FOLD_CHUNK:], layers[FOLD_CHUNK:], *first)
+    torch.cuda.synchronize()
+    for name, g, w, c in zip(("acc", "open", "covered"), got, want, chunked):
+        require(torch.equal(g, w), f"fold_layers differs from fold_layers_carry_torch in {name}")
+        require(torch.equal(c, w), f"fold_layers in two calls with the carry differs in {name}")
+    require(bool(want[2].any()) and not bool(want[1].all()), "fold_kernel: the lion covered or closed nothing")
+    row = {"max_abs_err": max_abs_err(got[0], want[0]), "layers": len(layers), "window": [H, W],
+           **fold_bound(torch, offs, layers, H, W)}
+    row.update(in_turns(torch, lambda: FP.fold_layers_carry(offs, layers, *c0), scrub,
+                        plain=lambda: FP.fold_layers_carry_torch(offs, layers, *c0)))
+    emit({"phase": "fold_kernel", "tolerance": 0, "equal_plain": True, "equal_chunked": True, "chunk": FOLD_CHUNK,
+          **row})
+    return row
+
+
+def frame_path(torch, dev, kernels, lion):
+    """A FrameBuffer at 1920x1080 composites the lion's sprites (the blob
+    on top, an opaque white backdrop under the lion), applies the radius-5
+    blur over F_BOX, then recomposites N_FRAME_PATH frames of the blob
+    dragged under the lens (recomposite_blur, each window one fold_layers
+    launch).  Frames 0-2 are held against the same frames on the CPU and
+    against the general renderer's render of the same filtered scene; the
+    last against a whole-window recomposite plus apply_blur.  Returns the
+    launch counts."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.raster import convolve, fills, framepath, region
+    from coherence_tpu_torch.scene import cache, fastframe, filters
+    from coherence_tpu_torch.scene import render as R
+
+    f_geom, (blob, *objs) = lion["f_geom"], lion["scene"]
+    kernel = convolve.mkgaussian(BLUR_RADIUS)
+    backdrop = plain_obj(R.rectangle(1.0, 1.0, float(W), float(H)), C.white)
+
+    def layer_stack(device, sprs):
+        return list(sprs) + [fastframe.full_sprite_of_object(backdrop, device)]
+
+    def run(device, stack, n, timed):
+        alpha = fastframe.alpha_plane_of_object(f_geom, W, H, device)
+        fb = framepath.FrameBuffer(W, H, C.white, device=device)
+        fb.composite(WINDOW, stack)
+        fb.apply_blur(alpha, kernel)
+        shown, state = [fb.rgba.clone()], {"blob": stack[0]}
+
+        def frame(k):
+            spr = state["blob"]
+            moved = region.translate_sprite(*delta(k * 20), spr)
+            fb.recomposite_blur(region.box_union(spr.box, moved.box), [moved] + stack[1:], alpha, kernel)
+            state["blob"] = moved
+            if k + 1 < N_CHECKED_FRAMES:
+                shown.append(fb.rgba.clone())
+
+        if timed:
+            ms, _ = timed_frames(torch, frame, n)
+        else:
+            ms = [frame(k) for k in range(n)]
+        return fb, shown, state["blob"], alpha, ms
+
+    fresh_cache()
+    _, cpu_shown, _, _, _ = run("cpu", layer_stack("cpu", lion["cpu"]), N_CHECKED_FRAMES - 1, False)
+    fresh_cache()  # the backdrop's and the lens's shapes are cached per device (H23)
+    zero_counts(torch, kernels)
+    stack = layer_stack(dev, lion["card"])
+    fb, shown, last_blob, alpha, ms = run(dev, stack, N_FRAME_PATH, True)
+    counts = dict(kernels.launches)
+    require(counts["fold_layers"] == N_FRAME_PATH + 1, f"frame_path: fold_layers launched {counts['fold_layers']} times")
+    for k, (a, b) in enumerate(zip(shown, cpu_shown)):
+        require(torch.equal(a.cpu(), b), f"frame_path: frame {k} differs from the CPU's")
+    whole = framepath.FrameBuffer(W, H, C.white, device=dev)
+    whole.recomposite(WINDOW, [last_blob] + stack[1:])
+    whole.apply_blur(alpha, kernel)
+    require(torch.equal(whole.rgba, fb.rgba), "frame_path: the last frame differs from a whole-window recomposite and blur")
+
+    # The general renderer's frames of the same filtered scene, over white.
+    fresh_cache()
+    lens = R.Obj(ident.new_ids(), filters.blur(f_geom.geometry, kernel), (), R.OVER)
+    master = region.shape_of_box(WINDOW, dev)
+    white = region.fillshape(master, fills.plain(C.white))
+    t0 = time.perf_counter()
+    for k in range(N_CHECKED_FRAMES):
+        spr = R.render_simple_scene([lens, blob] + objs + [backdrop], master, dev)
+        out, _ = region.caf("over", "opaque", spr, white)
+        require(out.box == WINDOW and torch.equal(out.rgba, shown[k]),
+                f"frame_path: frame {k} differs from the general renderer's render of the scene")
+        blob = R.translate_renderobject(*delta(k * 20), blob)
+    general_s = time.perf_counter() - t0
+    cache.clear()
+    emit({"phase": "frame_path", "size": [W, H], "layers": len(stack), "frames": N_FRAME_PATH,
+          "blur_radius": BLUR_RADIUS, **frame_stats(ms), "general_renderer_s": general_s, "launches": counts,
+          "equal": {"tolerance": 0, "cpu_frames": N_CHECKED_FRAMES, "general_renderer_frames": N_CHECKED_FRAMES,
+                    "last_frame_whole_window": True}})
+    return counts
 
 
 # The serving surface (benchmarks/session.py): both sessions at W x H.
@@ -1809,7 +2246,8 @@ def engine_session(torch, device, n_drags: int, whole: bool):
 
 
 def serve_engine(torch, dev, kernels):
-    """The Engine at 1920x1080 over TCP, against an Engine on the CPU."""
+    """The Engine at 1920x1080 over TCP, against an Engine on the CPU.
+    Returns the launch counts: fold_layers alone (the lion group's fold)."""
     from coherence_tpu_torch.scene import cache
 
     cache.clear()
@@ -1825,13 +2263,16 @@ def serve_engine(torch, dev, kernels):
     require(not (images[1] == images[2]).all(), "serve_engine: the first drag changed no pixel")
     require(stats["event_errors"] == 0, "serve_engine: a handler's error was contained")
     counts = dict(kernels.launches)
-    require(not any(counts.values()), f"serve_engine: the general renderer launched a tile kernel: {counts}")
+    tile_counts = {k: n for k, n in counts.items() if k != "fold_layers"}
+    require(not any(tile_counts.values()), f"serve_engine: the general renderer launched a tile kernel: {counts}")
+    require(counts["fold_layers"] >= 1, "serve_engine: the lion group did not fold through fold_layers")
     cache.clear()
     emit({"phase": "serve_engine", "size": [W, H], "blur_radius": SERVE_BLUR, "drags": SERVE_WARM + SERVE_ENGINE_DRAGS,
-          **stats, "cpu_first_paint_s": cpu_stats["first_paint_s"], "cpu_drag_ms_median": cpu_stats["drag"]["median_ms"],
+          **stats, "launches": counts, "cpu_first_paint_s": cpu_stats["first_paint_s"], "cpu_drag_ms_median": cpu_stats["drag"]["median_ms"],
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "equal": {"tolerance": 0, "engine_framebuffer_after_every_stage": True,
                     "cpu_engine_stages": 2 + SERVE_CPU_ENGINE_DRAGS}})
+    return counts
 
 
 def main() -> int:
@@ -1879,13 +2320,18 @@ def main() -> int:
     t0 = time.perf_counter()
     dry = dryrun_multichip(2, mesh_devices(torch, 2))
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
-    del mesh, scrub
-    general_lion(torch, dev)
+    del mesh
+    counts_general = general_lion(torch, dev, kernels)
     general_filters(torch, dev)
     convolve_1080p(torch, dev)
     stroked_tiles(torch, dev, kernels)
+    counts_edits, lion_sprites = scene_edits(torch, dev, kernels)
+    timed["fold_layers"] = fold_kernel(torch, dev, scrub, lion_sprites["card"])
+    del scrub
+    counts_frame = frame_path(torch, dev, kernels, lion_sprites)
+    del lion_sprites
     counts_serve, serve_check_full = serve_fast(torch, dev, kernels)
-    serve_engine(torch, dev, kernels)
+    counts_engine = serve_engine(torch, dev, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu."))
@@ -1926,6 +2372,15 @@ def main() -> int:
         row.update({"ms_lion_17_bands": t["ms"], "unbanded_ms_lion_17_bands": t["unbanded_ms"],
                     "bytes_lion_17_bands": t["bytes"], "bound_ms_lion_17_bands": t["bound_ms"],
                     "share_lion_17_bands": t["bound_ms"] / t["ms"]})
+    fold = timed["fold_layers"]
+    line.append({"name": "fold_layers", "route": "cuda", "source": CSRC + "fold_layers.cu",
+                 "replaces": "coherence_tpu/raster/framepath.py:371", "pallas": False,
+                 "launches": counts_frame["fold_layers"], "launches_general_lion": counts_general["fold_layers"],
+                 "launches_scene_edits": counts_edits["fold_layers"], "launches_serve_engine": counts_engine["fold_layers"],
+                 "max_abs_err": fold["max_abs_err"], "ms": fold["ms"], "plain_ms": fold["plain_ms"],
+                 "bound_ms": fold["bound_ms"], "bound_by": "bytes",
+                 # No one PyTorch call folds masked, offset layers front to back with an early stop.
+                 "library_ms": None, "bytes": fold["bytes"], "share": fold["bound_ms"] / fold["ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -77,7 +77,7 @@ class FastSession:
 
         view = DeviceView(width, height, device=self.device, atlas_cap=atlas_cap)
         f_alpha = alpha_plane_of_object(f_geom, width, height, self.device)
-        view.set_scene(list(scene_objs), staged=staged)
+        view.set_scene(list(scene_objs), tiled=True, staged=staged)
         blob_spr = tiled_sprite_of_object(blob, view.pw, view.ph, self.device)
         self.blob_key = blob.idset
         view.sprites[self.blob_key] = blob_spr

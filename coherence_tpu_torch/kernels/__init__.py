@@ -46,6 +46,7 @@ _ENTRY_POINTS = {
     "composite_layers": [_ptr] * 3 + [_i32] * 3 + [_ptr],
     "composite_full_banded": [_ptr] * 5 + [_i32] * 5 + [_ptr],
     "composite_dirty_banded": [_ptr] * 6 + [_i32] * 6 + [_ptr],
+    "fold_layers": [_ptr] * 7 + [_i32] * 3 + [_ptr],
 }
 
 launches = {name: 0 for name in _ENTRY_POINTS}
@@ -275,3 +276,47 @@ def composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slot
     _raise_on("composite_dirty_banded", rc)
     launches["composite_dirty_banded"] += 1
     return frame
+
+
+def _check_mask(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+    if t.device != device or t.dtype != torch.bool or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous bool tensor on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def fold_layers(offs, layers, acc, open_mask, covered):
+    """Launch ``fold_layers``: one thread per pixel of the (hb, wb) window
+    folds the layers front to back into the carry (int32 (hb, wb, 4) acc,
+    bool (hb, wb) open_mask and covered).  `layers` is a sequence of
+    (rgba, mask) pairs, contiguous int32 (hs, ws, 4) and bool (hs, ws) on
+    the carry's device; `offs` their (dy, dx) origins in window
+    coordinates.  The layers pass as one small device table of records,
+    not one launch each.  Returns the new (acc, open_mask, covered)."""
+    device = acc.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA fold needs tensors on a CUDA device, got {device}")
+    if open_mask.dim() != 2 or open_mask.numel() == 0:
+        raise ValueError(f"open_mask: need a non-empty (hb, wb) window, got shape {tuple(open_mask.shape)}")
+    hb, wb = open_mask.shape
+    _check("acc", acc, device, (hb, wb, 4))
+    _check_mask("open_mask", open_mask, device, (hb, wb))
+    _check_mask("covered", covered, device, (hb, wb))
+    if len(offs) != len(layers):
+        raise ValueError(f"{len(offs)} offsets for {len(layers)} layers")
+    records = []
+    for (dy, dx), (rgba, mask) in zip(offs, layers):
+        hs, ws = mask.shape
+        _check("layer rgba", rgba, device, (hs, ws, 4))
+        _check_mask("layer mask", mask, device, (hs, ws))
+        records.append((rgba.data_ptr(), mask.data_ptr(), hs, ws, int(dy), int(dx)))
+    table = torch.tensor(records, dtype=torch.int64).reshape(-1, 6).to(device)
+    out = (torch.empty_like(acc), torch.empty_like(open_mask), torch.empty_like(covered))
+    with torch.cuda.device(device):
+        rc = load()["fold_layers"](
+            table.data_ptr(), acc.data_ptr(), open_mask.data_ptr(), covered.data_ptr(),
+            *(t.data_ptr() for t in out), len(records), hb, wb, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("fold_layers", rc)
+    launches["fold_layers"] += 1
+    return out

@@ -37,7 +37,7 @@ from ..raster.convolve import mkgaussian
 from ..raster.region import Sprite
 from ..raster.tiled_scene import BandedAtlas, TiledScene, render_sharded
 from ..scene import render as R
-from ..scene.fastframe import DeviceView, FilteredDisplay, alpha_plane_of_object, tiled_sprite_of_object
+from ..scene.fastframe import DeviceView, FilteredDisplay, alpha_plane_of_object
 from .mesh import blur_pass, make_mesh, sharded_blur, sharded_render_step
 
 
@@ -106,7 +106,6 @@ def dryrun_multichip(n_bands: int, devices=None) -> dict:
     rect = R.Obj(ident.new_ids(), R.Basic(rfills.plain(C.steelblue), R.rectangle(10.0, 10.0, 90.0, 100.0)),
                  (), R.OVER)
     view.set_scene([blob, rect])
-    view.sprites[blob.idset] = tiled_sprite_of_object(blob, view.pw, view.ph, dev)
     view.use_mesh(mesh)
     view.render(full=True)
     view.make_animated(blob.idset)

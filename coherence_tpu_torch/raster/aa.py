@@ -110,16 +110,18 @@ def coverage_counts(t_mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return (counts * 256 + volume // 2) // volume
 
 
-# Pixel rows per band of coverage_opacity: bounds the scaled plane of a
-# frame-wide shape to ~16 x 26k samples per band at 1080p.
-_BAND_H = 16
+# Scaled samples per band of coverage_opacity (its int32 difference plane
+# and float32 product are 64 MiB each at this count): a band takes as many
+# pixel rows as fit, 33 for a shape as wide as a 1080p frame.
+_BAND_SAMPLES = 1 << 24
 
 
 def coverage_opacity(box, scaled, device) -> torch.Tensor:
     """Per-pixel AA opacity, int32 (h, w), over the pixel box `box`, from
     scaled spans (rows, s, e) in absolute scaled-pixel coordinates (or None
-    for an empty mask).  Computed in row bands; every pixel's value depends
-    only on its own 32x32 footprint, so the bands do not change it."""
+    for an empty mask).  Computed in row bands of about _BAND_SAMPLES
+    samples; every pixel's value depends only on its own 32x32 footprint,
+    so the bands do not change it."""
     x0, y0, x1, y1 = box
     w, h = x1 - x0 + 1, y1 - y0 + 1
     out = torch.zeros((h, w), dtype=torch.int32, device=device)
@@ -130,8 +132,9 @@ def coverage_opacity(box, scaled, device) -> torch.Tensor:
     tw = _H * w + _H
     cs = np.clip(ss - tc0, 0, tw)
     ce = np.clip(ee + 1 - tc0, 0, tw)
-    for by in range(0, h, _BAND_H):
-        bh = min(_BAND_H, h - by)
+    band_h = max(1, _BAND_SAMPLES // (_H * (tw + 1)) - 1)
+    for by in range(0, h, band_h):
+        bh = min(band_h, h - by)
         r = rows - (_H * (y0 + by) - 2 * _H)
         t_mask = mask_of_spans(1, _H * bh + _H, tw, np.zeros_like(r), r, cs, ce, device)
         out[by : by + bh] = coverage_counts(t_mask, bh, w)[0]

@@ -1,19 +1,191 @@
-"""The blur filter's window geometry and blend (parity: render.ml:1248-1265).
+"""The device window path: a framebuffer recomposited window by window
+(parity: ``coherence_tpu.raster.framepath``).
 
-The subset of ``coherence_tpu.raster.framepath`` that the tiled frame path
-uses: the dirty-window arithmetic shared by every blur path, the windowed
-convolve-and-blend, and the full-frame blend applied once after the first
-composite.
+Per frame the host does box arithmetic only: the layers whose boxes meet
+the dirty window, front to back, and each one's offset in the window.  One
+fold (``fold_layers_carry``) composites them with an occupancy plane, the
+caf-over and newly-opaque semantics of render.ml:1291-1308, and the window
+is written back into the framebuffer.  The same fold serves the batched
+group compositor (``scene/fastframe.group_sprite_batched``).
+
+``fold_layers_carry`` picks by device: on the CPU the plain version beside
+it here, on a CUDA device the hand-written kernel ``fold_layers``
+(``coherence_tpu_torch.kernels``) or an error.  Where the JAX package
+donates the frame to a program that returns it, ``FrameBuffer`` updates
+its window in place.
+
+Also here: the blur filter's window geometry and blend, shared by every
+blur path (render.ml:1248-1265).
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 from .convolve import _conv1d_exact, _setcanvas_xy
-from .region import Box, box_intersect, box_wh, bucket_hw
+from .region import Box, Sprite, box_intersect, box_wh, bucket_hw
+
+
+def fold_layers_carry_torch(offs, layers, acc, open_mask, covered):
+    """Plain version of ``fold_layers``: the front-to-back caf-over fold of
+    `layers` ((rgba, mask) pairs, int32 (hs, ws, 4) and bool (hs, ws)),
+    layer k's origin at offs[k] = (dy, dx) in window coordinates, into the
+    carry (int32 (hb, wb, 4) acc, bool (hb, wb) open_mask and covered).  A
+    pixel takes a layer where the layer's mask is set and the pixel is
+    open, and closes once its alpha is 255.  Returns the new carry; the
+    inputs are left as they were."""
+    acc, open_mask, covered = acc.clone(), open_mask.clone(), covered.clone()
+    hb, wb = open_mask.shape
+    for (dy, dx), (rgba, mask) in zip(offs, layers):
+        dy, dx = int(dy), int(dx)
+        hs, ws = mask.shape
+        y0, y1 = max(0, dy), min(hb, dy + hs)
+        x0, x1 = max(0, dx), min(wb, dx + ws)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        a = acc[y0:y1, x0:x1]
+        paint = mask[y0 - dy : y1 - dy, x0 - dx : x1 - dx] & open_mask[y0:y1, x0:x1]
+        a.copy_(torch.where(paint[..., None], C.over_rgba(a, rgba[y0 - dy : y1 - dy, x0 - dx : x1 - dx]), a))
+        covered[y0:y1, x0:x1] |= paint
+        open_mask[y0:y1, x0:x1] &= ~(paint & (a[..., 3] == 255))
+    return acc, open_mask, covered
+
+
+def fold_layers_carry(offs, layers, acc, open_mask, covered):
+    """The one fold body shared by the window recomposites and the batched
+    group compositor; chunking with this carry is the identity for a left
+    fold.  Returns (acc, open_mask, covered)."""
+    if acc.device.type == "cpu":
+        return fold_layers_carry_torch(offs, layers, acc, open_mask, covered)
+    return kernels.fold_layers(offs, [(r.contiguous(), m.contiguous()) for r, m in layers], acc.contiguous(),
+                               open_mask.contiguous(), covered.contiguous())
+
+
+def _window_mask(hb: int, wb: int, ry0: int, rx0: int, h: int, w: int, device):
+    """(rows, cols, inwin): the logical window [ry0, ry0+h) x [rx0, rx0+w)
+    of a bucketed (hb, wb) block."""
+    rows = torch.arange(hb, device=device)[:, None]
+    cols = torch.arange(wb, device=device)[None, :]
+    return rows, cols, (rows >= ry0) & (rows < ry0 + h) & (cols >= rx0) & (cols < rx0 + w)
+
+
+def _fold_fresh(offs, layers: Sequence[Sprite], inwin):
+    """A fresh fold of sprites clipped to the logical window."""
+    hb, wb = inwin.shape
+    acc = torch.zeros((hb, wb, 4), dtype=torch.int32, device=inwin.device)
+    covered = torch.zeros((hb, wb), dtype=torch.bool, device=inwin.device)
+    return fold_layers_carry(offs, [(s.rgba, s.mask) for s in layers], acc, inwin, covered)[0]
+
+
+class FrameBuffer:
+    """A framebuffer of (height, width, 4) int32 RGBA on `device`, with
+    incremental window compositing."""
+
+    def __init__(self, width: int, height: int, bg_colour: int, *, device):
+        self.device = torch.device(device)
+        self.width, self.height = width, height
+        self.bg = torch.tensor(C.rgba_of_colour(bg_colour), dtype=torch.int32, device=self.device)
+        self.rgba = self.bg.expand(height, width, 4).clone()
+        # The framebuffer's box in scene coordinates (1-based, as the reference's).
+        self.box: Box = (1, 1, width, height)
+
+    def clear_window(self, box: Box) -> None:
+        ib = box_intersect(box, self.box)
+        if ib is None:
+            return
+        self.rgba[ib[1] - 1 : ib[3], ib[0] - 1 : ib[2]] = self.bg
+
+    def _window(self, box: Box):
+        """The bucketed window covering `box`, clamped to the framebuffer:
+        (oy, ox, ry0, rx0, h, w, hb, wb)."""
+        w, h = box_wh(box)
+        hb, wb = bucket_hw(h, w)
+        hb, wb = min(hb, self.height), min(wb, self.width)
+        oy, ox = min(box[1] - 1, self.height - hb), min(box[0] - 1, self.width - wb)
+        return oy, ox, box[1] - 1 - oy, box[0] - 1 - ox, h, w, hb, wb
+
+    def composite(self, box: Box, layers: Sequence[Sprite]) -> None:
+        """Composite sprites (front to back) over the window `box`, one fold
+        for the whole list.  Painting is clipped to `box`, so sprites that
+        reach into the bucket's padding never blend twice over content that
+        already holds them."""
+        ib = box_intersect(box, self.box)
+        if ib is None or not layers:
+            return
+        oy, ox, ry0, rx0, h, w, hb, wb = self._window(ib)
+        offs = [(s.box[1] - (oy + 1), s.box[0] - (ox + 1)) for s in layers]
+        _, _, inwin = _window_mask(hb, wb, ry0, rx0, h, w, self.device)
+        acc = _fold_fresh(offs, layers, inwin)
+        win = self.rgba[oy : oy + hb, ox : ox + wb]
+        win.copy_(C.over_rgba(acc, win))
+
+    def read(self) -> np.ndarray:
+        """(height, width, 4) int32 RGBA, a host copy."""
+        return self.rgba.to("cpu", copy=True).numpy()
+
+    def _layer_pack(self, layers: Sequence[Sprite], win: Box, oy: int, ox: int, prefilter: bool):
+        """(offsets, sprites): the front-to-back layers meeting `win` (every
+        layer with prefilter=False; one outside the window adds nothing)."""
+        keep = [s for s in layers if s is not None and (not prefilter or box_intersect(s.box, win))]
+        return [(s.box[1] - (oy + 1), s.box[0] - (ox + 1)) for s in keep], keep
+
+    def _recomposited(self, box: Box, layers, prefilter: bool, oy, ox, ry0, rx0, h, w, hb, wb):
+        """(window view, rows, cols, inwin, content): the window's content
+        recomposited from the layer stack over the background colour inside
+        the logical window, the framebuffer's pixels outside it."""
+        offs, keep = self._layer_pack(layers, box, oy, ox, prefilter)
+        rows, cols, inwin = _window_mask(hb, wb, ry0, rx0, h, w, self.device)
+        acc = _fold_fresh(offs, keep, inwin)
+        win = self.rgba[oy : oy + hb, ox : ox + wb]
+        base = torch.where(inwin[..., None], self.bg, win)
+        return win, rows, cols, inwin, C.over_rgba(acc, base)
+
+    def recomposite(self, box: Box, layers: Sequence[Sprite], prefilter: bool = True) -> None:
+        """Replace the window `box` with the front-to-back fold of `layers`
+        over the background colour: the incremental re-render of a dirty
+        region.  `layers` is the scene's whole front-to-back list (or any
+        superset of those meeting the box).
+
+        Integer `over` is not associative, so painting a moved sprite over a
+        composited snapshot would differ by one wherever two translucent
+        layers stack; the window is folded from the layer stack instead, as
+        render_scene folds (render.ml:1310-1335)."""
+        ib = box_intersect(box, self.box)
+        if ib is None:
+            return
+        oy, ox, ry0, rx0, h, w, hb, wb = self._window(ib)
+        win, _, _, _, content = self._recomposited(ib, layers, prefilter, oy, ox, ry0, rx0, h, w, hb, wb)
+        win.copy_(content)
+
+    def apply_blur(self, f_alpha: torch.Tensor, kernel) -> None:
+        """Blend the blur of the whole frame into the filter geometry's
+        alpha plane (the blur filter's first application, filters.ml:247-261
+        and the blend' of render.ml:1248-1265)."""
+        self.rgba = apply_blur_rect(self.rgba, f_alpha, tuple(kernel.values), kernel.total)
+
+    def recomposite_blur(self, dirty: Box, layers: Sequence[Sprite], f_alpha: torch.Tensor, kernel,
+                         prefilter: bool = True) -> None:
+        """An animated frame under a live blur filter: the window (the dirty
+        box bloated by 2 * radius) recomposited from the layer stack as in
+        `recomposite`, the changed part re-blurred and blended by the filter
+        geometry's alpha plane (f_alpha: (height, width) int32, the
+        geometry's pure-AA alpha, fastframe.alpha_plane_of_object)."""
+        got = blur_window(dirty, self.box, kernel.radius, self.height, self.width)
+        if got is None:
+            return
+        _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = got
+        logical = (ox + 1 + rx0, oy + 1 + ry0, ox + rx0 + w, oy + ry0 + h)
+        win, rows, cols, inwin, content = self._recomposited(logical, layers, prefilter, oy, ox, ry0, rx0, h, w,
+                                                             hb, wb)
+        fa = f_alpha[oy : oy + hb, ox : ox + wb]
+        changed, blended = conv_blend_window(content, fa, inwin, rows, cols, d_box, tuple(kernel.values),
+                                             kernel.total)
+        win.copy_(torch.where(changed[..., None], blended, win))
 
 
 def blur_window(dirty: Box, logical: Box, radius: int, height: int, width: int):

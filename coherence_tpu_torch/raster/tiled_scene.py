@@ -353,6 +353,12 @@ class TiledScene:
             if old:
                 self._free_entries(old)
 
+    def remove_object(self, key) -> None:
+        """Delete an object: its slots (its whole reserved run, for an
+        animated one) return to the free pool for later adds.  The caller
+        dirties its tiles and drops it from the compositing order."""
+        self._free_object(key)
+
     def set_empty(self, key) -> None:
         """Install an empty piece list for `key`, freeing its slots."""
         self._free_object(key)
@@ -390,6 +396,46 @@ class TiledScene:
         base = self._alloc(len(coords))
         shatter_into(self._data, spr.rgba, oys, oxs, base)
         self.pieces[key] = [(ty * self.ntx + tx, base + j) for j, (ty, tx) in enumerate(coords)]
+
+    def add_boxes(self, items) -> None:
+        """Add plain-colour rectangles in bulk: ``items = [(key, (x0, y0,
+        x1, y1), (r, g, b, a)), ...]`` (1-based inclusive boxes,
+        premultiplied channels).  Every piece of every box is made straight
+        into the atlas by a few torch operations for the whole call, with no
+        sprite, pack or shatter per box.  The piece count is padded to a
+        power of two (at least 8) with empty pieces, as in the JAX package,
+        so the atlas layout matches it slot for slot."""
+        metas: List[List[int]] = []
+        regs = []
+        for key, box, rgba in items:
+            if key not in self._reserved and self.pieces.get(key):
+                self._free_entries(self.pieces[key])
+                self.pieces[key] = []
+            x0, y0, x1, y1 = box
+            r, g, b, a = (int(v) for v in rgba)
+            col = int(np.asarray(r | (g << 8) | (b << 16) | (a << 24), np.uint32).view(np.int32))
+            entries = []
+            for ty, tx in self._coords_of_box(box):
+                entries.append((ty * self.ntx + tx, len(metas)))
+                metas.append([(x0 - 1) - tx * TILE_W, (y0 - 1) - ty * TILE_H, x1 - x0 + 1, y1 - y0 + 1, col])
+            regs.append((key, entries))
+        if not metas:
+            for key, entries in regs:
+                self.pieces[key] = entries
+            return
+        nb = 8
+        while nb < len(metas):
+            nb *= 2
+        meta = np.zeros((nb, 5), np.int64)  # padding pieces are 0 x 0 boxes: zero pieces
+        meta[: len(metas)] = metas
+        base = self._alloc(nb)
+        ox, oy, w, h, col = torch.from_numpy(meta).to(self.device)[:, :, None, None].unbind(1)
+        rows = torch.arange(TILE_H, device=self.device)[:, None]
+        cols = torch.arange(TILE_W, device=self.device)[None, :]
+        inside = (rows >= oy) & (rows < oy + h) & (cols >= ox) & (cols < ox + w)
+        self._data[base : base + nb] = torch.where(inside, col.to(torch.int32), 0)
+        for key, entries in regs:
+            self.pieces[key] = [(tile, base + e) for tile, e in entries]
 
     def add_rastered(self, registry, blocks) -> None:
         """Ingest tile_raster pieces: `blocks` is a list of (n, TILE_H,
@@ -451,16 +497,19 @@ class TiledScene:
             self._ensure(0)
         return self._data
 
-    def build_lists(self, order: List[object]):
+    def build_lists(self, order: List[object], dirty_tiles=None):
         """(starts, idxs) int32 tensors on the scene's device: tile t's
-        front-to-back atlas slots are idxs[starts[t]:starts[t+1]].  idxs is
-        zero-padded to a pow2 no smaller than the atlas capacity, as in the
-        JAX package."""
+        front-to-back atlas slots are idxs[starts[t]:starts[t+1]].  With
+        `dirty_tiles`, only those tiles list pieces (the others render the
+        background alone).  idxs is zero-padded to a pow2 no smaller than
+        the atlas capacity, as in the JAX package."""
         n_tiles = self.ntx * self.nty
         per_tile: List[List[int]] = [[] for _ in range(n_tiles)]
+        allowed = None if dirty_tiles is None else set(dirty_tiles)
         for key in order:
             for tile, entry in self.pieces.get(key, ()):
-                per_tile[tile].append(entry)
+                if allowed is None or tile in allowed:
+                    per_tile[tile].append(entry)
         starts = np.zeros(n_tiles + 1, dtype=np.int32)
         starts[1:] = np.cumsum([len(p) for p in per_tile])
         n_idx = 8

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, NamedTuple, Optional, Set
 
 import numpy as np
 import torch
@@ -39,11 +39,12 @@ from .. import transform as tr
 from ..geometry import path as gpath
 from ..geometry import shapes as gshapes
 from ..parallel.mesh import Mesh, RowSharded
+from ..raster import aa as raa
 from ..raster import brush as rbrush
 from ..raster import fills as rfills
-from ..raster import region
+from ..raster import region, scanline
 from ..raster.compositor import TILE_H, TILE_W, pack_rgba, unpack_rgba
-from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window
+from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window, fold_layers_carry
 from ..raster.brush_tiles import BrushTileBuild
 from ..raster.region import Box, Sprite, translate_sprite
 from ..raster.tile_raster import TileBuild
@@ -55,6 +56,7 @@ from ..raster.tiled_scene import (
     render_sharded,
     shatter_into,
 )
+from . import cache
 from . import render as R
 
 
@@ -98,20 +100,206 @@ def _brush_extract(o: R.Obj):
     return sk.brushstroke, f._rgba
 
 
-def _tile_extract(o: R.Obj):
-    ext = _batch_extract(o)
-    if ext is None:
-        raise NotImplementedError(
-            f"{type(o.geometry).__name__} objects need the scalar fallback of the tiled build, which is not ported"
-        )
-    return ext
+# The AA coverage plane of one batched member is at most this many scaled
+# samples at its bucket's size (the JAX package's aa._MAX_T_ELEMS): a larger
+# member takes the scalar route, whose coverage runs in row bands.
+_MAX_T_ELEMS = 48 * 1024 * 1024
+# A bucket group rasterizes in runs of members whose coverage planes hold
+# at most this many samples together (an int32 difference plane and a
+# float32 product of this size, ~0.2 GB each); one member always fits.
+_SUB_BATCH_SAMPLES = _MAX_T_ELEMS
+_SPAN_BUCKET_MIN = 512  # the JAX package's span bucket floor (aa._SPAN_BUCKET_MIN)
 
 
-def _scalar_path_error(o: R.Obj) -> NotImplementedError:
-    return NotImplementedError(
-        f"object {o.idset}: {type(o.geometry).__name__} of "
-        f"{type(getattr(o.geometry, 'shape', None)).__name__} needs the scalar fallback of the tiled build, which is not ported"
-    )
+def full_sprite_of_object(o: R.Obj, device, whole_scene=None) -> Optional[Sprite]:
+    """An object's complete raster on `device`: the directly filled
+    interior and the AA fringe, composed with one caf (the spriteof
+    pipeline of render.ml:1198-1213 without the update-shape restriction)."""
+    shp, minshp = R.shape_of_basicshape(o, device)
+    if shp is None:
+        return region.NULL_SPRITE
+    maxshape = region.shape_difference(shp, minshp)
+    fill = R.fillin_obj(o).transform(list(o.transform))
+    fringe = R.sprite_of_basicshape(o, maxshape, whole_scene or [o], device) if maxshape is not None else None
+    interior = region.fillshape(minshp, fill) if minshp is not None else None
+    spr, _ = region.caf("nocover", "opaque", interior, fringe)
+    return spr
+
+
+def _minshape_empty(rows, cov_s, cov_e, x_rows, x_s, x_e, h: int, w: int) -> bool:
+    """True iff (crossings - coverage) is empty: the minshape rule of
+    polygon.ml:520-528 on the host at 1x.  Inputs are box-relative."""
+
+    def dense(rr, ss, ee):
+        diff = np.zeros((h, w + 1), dtype=np.int32)
+        np.add.at(diff, (rr, np.clip(ss, 0, w)), 1)
+        np.add.at(diff, (rr, np.clip(ee + 1, 0, w)), -1)
+        return np.cumsum(diff, axis=1)[:, :-1] > 0
+
+    if x_rows.size == 0:
+        return True
+    cov = dense(rows, cov_s, cov_e)
+    cross = dense(x_rows, x_s, x_e)
+    return not bool((cross & ~cov).any())
+
+
+class _Member(NamedTuple):
+    """One member of a bucket group: its index in the scene, its 1x
+    coverage and crossing spans and its 16x AA spans (absolute
+    coordinates), box origin and size, fill, box and minshape emptiness."""
+
+    index: int
+    cov: tuple
+    cross: tuple
+    aa: Optional[tuple]
+    x0: int
+    y0: int
+    w: int
+    h: int
+    fill: tuple
+    box: Box
+    min_empty: bool
+
+
+def _spans_in(spans, origin_r: int, origin_c: int, h: int, w: int):
+    """(rows, starts, stops) of inclusive spans relative to an origin, rows
+    outside 0..h-1 dropped and columns clipped to 0..w (the JAX package's
+    scatter drops out-of-range rows and clips columns to the logical
+    extent)."""
+    rows, ss, ee = (np.asarray(a, np.int64) for a in spans)
+    r = rows - origin_r
+    keep = (r >= 0) & (r < h)
+    return r[keep], np.clip(ss[keep] - origin_c, 0, w), np.clip(ee[keep] + 1 - origin_c, 0, w)
+
+
+def _batch_masks(n: int, hp: int, wp: int, parts, device) -> torch.Tensor:
+    """bool (n, hp, wp) masks of per-member (rows, starts, stops) spans."""
+    item = np.concatenate([np.full(len(p[0]), j, np.int64) for j, p in enumerate(parts)])
+    rows, starts, stops = (np.concatenate([p[i] for p in parts]) for i in range(3))
+    return raa.mask_of_spans(n, hp, wp, item, rows, starts, stops, device)
+
+
+def _raster_members(members: List[_Member], device):
+    """(shape masks, minshape masks, rgba) of a sub-batch of one bucket
+    group, each member's planes exactly its box's size: the JAX package's
+    _build_group_kernel, as batched torch: one mask_of_spans per span
+    family, the coverage product, then the fill dissolved by the opacity.
+    The batch runs at the members' largest box; a pixel's value depends only
+    on its own footprint, so the others' padding changes no value."""
+    hp, wp = max(m.h for m in members), max(m.w for m in members)
+    n = len(members)
+    covm = _batch_masks(n, hp, wp, [_spans_in(m.cov, m.y0, m.x0, m.h, m.w) for m in members], device)
+    crossm = _batch_masks(n, hp, wp, [_spans_in(m.cross, m.y0, m.x0, m.h, m.w) for m in members], device)
+    sc = raa._H
+    aa_parts = [
+        _spans_in(m.aa, sc * m.y0 - 2 * sc, sc * m.x0 - 2 * sc, sc * m.h + sc, sc * m.w + sc)
+        if m.aa is not None else (np.zeros(0, np.int64),) * 3
+        for m in members
+    ]
+    opacity = raa.coverage_counts(_batch_masks(n, sc * hp + sc, sc * wp + sc, aa_parts, device), hp, wp)
+    smask = covm | crossm  # shape = coverage | crossings
+    mmask = crossm & ~covm  # minshape = crossings - coverage
+    fringe = smask & ~mmask
+    colour = torch.tensor([m.fill for m in members], dtype=torch.int32, device=device)[:, None, None, :]
+    rgba = torch.where(mmask[..., None], colour, torch.where(fringe[..., None], C.dissolve_rgba(colour, opacity), 0))
+    crop = [(m.h, m.w) for m in members]
+    return ([smask[j, :h, :w].contiguous() for j, (h, w) in enumerate(crop)],
+            [mmask[j, :h, :w].contiguous() for j, (h, w) in enumerate(crop)],
+            [rgba[j, :h, :w].contiguous() for j, (h, w) in enumerate(crop)])
+
+
+def _sub_batches(members: List[_Member]):
+    """Consecutive runs of a group's members whose coverage planes, at the
+    run's largest box, hold at most _SUB_BATCH_SAMPLES samples together."""
+    sc = raa._H
+    run: List[_Member] = []
+    for m in members:
+        cand = run + [m]
+        hp, wp = max(c.h for c in cand), max(c.w for c in cand)
+        if run and len(cand) * (sc * hp + sc) * (sc * wp + sc) > _SUB_BATCH_SAMPLES:
+            yield run
+            run = [m]
+        else:
+            run = cand
+    if run:
+        yield run
+
+
+def full_sprites_of_objects(objs, device) -> List[Optional[Sprite]]:
+    """Batched ``full_sprite_of_object`` over a scene, on `device`:
+    plain-filled paths and stroked paths are rasterized together per
+    (bucket, span-capacity) group; any other object takes the scalar
+    pipeline.  A sprite (or None, for an empty object) per object, in
+    order; the coherence cache is seeded with each batched member's shape
+    and minshape, in the JAX package's order."""
+    out: List[Optional[Sprite]] = [None] * len(objs)
+    groups: Dict[tuple, List[_Member]] = {}
+    for i, o in enumerate(objs):
+        ext = _batch_extract(o)
+        if ext is None:
+            out[i] = full_sprite_of_object(o, device)
+            continue
+        edges, shape_w, aa_w, f4 = ext
+        spans = scanline._edge_spans(np.asarray(edges, dtype=np.int64), shape_w, scanline._HALF)
+        if spans is None:
+            continue
+        rows, cov_s, cov_e, x_rows, x_s, x_e = spans
+        if rows.size == 0:
+            continue
+        x0 = int(min(cov_s.min(), x_s.min() if x_s.size else cov_s.min()))
+        x1 = int(max(cov_e.max(), x_e.max() if x_e.size else cov_e.max()))
+        y0, y1 = int(rows.min()), int(rows.max())
+        w, h = x1 - x0 + 1, y1 - y0 + 1
+        min_empty = _minshape_empty(rows - y0, cov_s - x0, cov_e - x0, x_rows - y0, x_s - x0, x_e - x0, h, w)
+        hb, wb = region.bucket_hw(h, w)
+        if (raa._H * hb + raa._H) * (raa._H * wb + raa._H) > _MAX_T_ELEMS:
+            out[i] = full_sprite_of_object(o, device)
+            continue
+        aa = scanline.scaled_spans_of_edgelist(edges, aa_w, raa._H)
+        key = (hb, wb, raa.span_bucket(2 * rows.size, _SPAN_BUCKET_MIN),
+               raa.span_bucket(2 * x_rows.size, _SPAN_BUCKET_MIN),
+               raa.span_bucket(2 * (aa[0].shape[0] if aa is not None else 0), _SPAN_BUCKET_MIN))
+        groups.setdefault(key, []).append(_Member(i, (rows, cov_s, cov_e), (x_rows, x_s, x_e), aa, x0, y0, w, h,
+                                                  tuple(int(v) for v in f4), (x0, y0, x1, y1), min_empty))
+
+    for members in groups.values():
+        for run in _sub_batches(members):
+            masks, minmasks, rgbas = _raster_members(run, device)
+            for m, mask, minmask, rgba in zip(run, masks, minmasks, rgbas):
+                out[m.index] = Sprite(m.box, mask, rgba)
+                # Seed the shape cache as the scalar path would have: an
+                # empty minshape as NULL_SHAPE, else the untightened shape
+                # with its emptiness left unknown.
+                idset = objs[m.index].idset
+                if cache.usecache and cache.getshape(idset) is None:
+                    minshp = region.NULL_SHAPE if m.min_empty else region.Shape(m.box, minmask, empty_known=False)
+                    cache.addshape(idset, region.Shape(m.box, mask, empty_known=False), minshp)
+    return out
+
+
+def group_sprite_batched(objs, shp, device):
+    """A Group's rendered sprite through the batched raster: every member
+    rasterized by full_sprites_of_objects, then all of them folded front to
+    back over `shp` in one fold_layers_carry call (the JAX package folds in
+    chunks of 16 with the carry: the same left fold), replacing the
+    per-member render_scene fold (render.ml:1310-1335).  NotImplemented when
+    a member is not a plain-filled path or stroked path composited with
+    `over`: the caller folds then."""
+    if shp is None:
+        return region.NULL_SPRITE
+    for o in objs:
+        if o.compop != R.OVER or _batch_extract(o) is None:
+            return NotImplemented
+    layers = [s for s in full_sprites_of_objects(objs, device) if s is not None]
+    if not layers:
+        return region.NULL_SPRITE
+    box = shp.box
+    h, w = shp.mask.shape
+    offs = [(s.box[1] - box[1], s.box[0] - box[0]) for s in layers]
+    acc, _, covered = fold_layers_carry(
+        offs, [(s.rgba, s.mask) for s in layers], torch.zeros((h, w, 4), dtype=torch.int32, device=shp.mask.device),
+        shp.mask, torch.zeros((h, w), dtype=torch.bool, device=shp.mask.device))
+    return Sprite(box, covered, torch.where(covered[..., None], acc, 0))
 
 
 # Scene-build cache (build_tiled_scene): content digest -> (atlas snapshot,
@@ -166,15 +354,15 @@ def _scene_digest_update(h, tag: bytes, *parts) -> None:
 def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, device):
     """The host half of build_tiled_scene: sweep every object and stage it
     into tile work items (paths) or brush groups (Gaussian brush strokes).
-    Returns (tb, bb, handled, culled, digest): the tile and brush builds,
-    the keys the tile rasterizer takes, the keys culled as wholly off the
-    grid, and a content digest of the staged scene (the scene-build cache
-    key).  An object neither build takes (a fancy fill, a CPG, a group, a
-    filter) raises NotImplementedError: the build's scalar fallback through
-    the general renderer (``scene/render.spriteof``) is not ported."""
+    Returns (tb, bb, handled, fallback, culled, digest): the tile and brush
+    builds, the keys the tile rasterizer takes, the [(key, object)] that
+    need the scalar pipeline (a fancy fill, a CPG, a group, a filter, a
+    path beyond every span class), the keys culled as wholly off the grid,
+    and a content digest of the staged scene (the scene-build cache key),
+    None when any object falls back: its content is not digested."""
     tb = TileBuild(nty, ntx, device)
     bb = BrushTileBuild(nty, ntx, device)
-    handled, culled = [], []
+    handled, fallback, culled = [], [], []
     h = hashlib.blake2b(digest_size=16)
     _scene_digest_update(h, b"grid", nty, ntx, width, height)
     for key, o in keyed_objs:
@@ -187,11 +375,12 @@ def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, d
                 _scene_digest_update(h, b"cull")
                 continue
             bext = _brush_extract(o)
-            if bext is None or not bb.add_stroke(key, *bext):
-                raise _scalar_path_error(o)
-            # The brushstroke's structure (exact float reprs) determines
-            # its staged stamps.
-            _scene_digest_update(h, b"brush", *bext)
+            if bext is not None and bb.add_stroke(key, *bext):
+                # The brushstroke's structure (exact float reprs) determines
+                # its staged stamps.
+                _scene_digest_update(h, b"brush", *bext)
+            else:
+                fallback.append((key, o))
             continue
         edges, sw, aw, fill4 = ext
         if len(edges):
@@ -208,26 +397,29 @@ def stage_tiled_scene(nty: int, ntx: int, width: int, height: int, keyed_objs, d
                 _scene_digest_update(h, b"cull")
                 continue
         if not tb.add_object(key, *ext):
-            raise _scalar_path_error(o)
+            fallback.append((key, o))
+            continue
         handled.append(key)
         _scene_digest_update(h, b"tile", np.asarray(edges, np.int64), sw, aw, fill4)
-    return tb, bb, handled, culled, h.digest()
+    return tb, bb, handled, fallback, culled, (None if fallback else h.digest())
 
 
 def build_tiled_scene(ts: TiledScene, keyed_objs, staged=None) -> None:
     """Rasterize `keyed_objs` ([(key, R.Obj)]) into `ts`: paths through the
-    tile rasterizer, Gaussian brush strokes through the brush-tile build.
-    `staged`: a stage_tiled_scene result for these objects, if the host
-    sweep already ran.
+    tile rasterizer, Gaussian brush strokes through the brush-tile build,
+    every other object through the scalar pipeline (full_sprite_of_object)
+    and a shatter.  `staged`: a stage_tiled_scene result for these objects,
+    if the host sweep already ran.
 
-    A build into an empty scene is cacheable: a scene whose staged content
-    was built before (with any object ids, as the zoom tool mints fresh
-    ones every step) restores from the snapshot of that build, an atlas
-    copy plus the piece lists, provided the atlas capacity matches."""
+    A build into an empty scene with no fallback object is cacheable: a
+    scene whose staged content was built before (with any object ids, as
+    the zoom tool mints fresh ones every step) restores from the snapshot
+    of that build, an atlas copy plus the piece lists, provided the atlas
+    capacity matches."""
     if staged is None:
         staged = stage_tiled_scene(ts.nty, ts.ntx, ts.width, ts.height, keyed_objs, ts.device)
-    tb, bb, handled, culled, digest = staged
-    cacheable = ts._n_pieces == 0 and not ts.pieces
+    tb, bb, handled, fallback, culled, digest = staged
+    cacheable = digest is not None and ts._n_pieces == 0 and not ts.pieces
     if cacheable:
         hit = _SCENE_BUILD_CACHE.get(digest)
         if hit is not None and (ts._data is None or hit[0].shape == ts._data.shape):
@@ -254,6 +446,12 @@ def build_tiled_scene(ts: TiledScene, keyed_objs, staged=None) -> None:
     ts.add_rastered(bregistry, bblocks)
     for key in handled:
         ts.pieces.setdefault(key, [])  # swept-empty objects have no pieces
+    for key, o in fallback:
+        spr = full_sprite_of_object(o, ts.device)
+        if spr is not None:
+            ts.add_object(key, spr)
+        else:
+            ts.pieces[key] = []
 
     if cacheable:
         # Snapshot after the whole build; the clone keeps it apart from the
@@ -267,11 +465,15 @@ def build_tiled_scene(ts: TiledScene, keyed_objs, staged=None) -> None:
 def tiled_sprite_of_object(o: R.Obj, width: int, height: int, device) -> Optional[Sprite]:
     """One object's Sprite assembled from tile pieces, aligned to the frame
     grid (`width`/`height` are tile multiples; parts outside fall away).
-    The mask is alpha > 0, which is bit-neutral under `over`."""
+    The mask is alpha > 0, which is bit-neutral under `over`.  An object
+    the tile rasterizer does not take comes from the scalar pipeline."""
+    ext = _batch_extract(o)
+    if ext is None:
+        return full_sprite_of_object(o, device)
     nty, ntx = height // TILE_H, width // TILE_W
     tb = TileBuild(nty, ntx, device)
-    if not tb.add_object("k", *_tile_extract(o)):
-        raise NotImplementedError("an object beyond every tile span class needs the scalar fallback, which is not ported")
+    if not tb.add_object("k", *ext):
+        return full_sprite_of_object(o, device)
     blocks, registry = tb.flush()
     pieces = registry.get("k", [])
     if not pieces:
@@ -293,6 +495,20 @@ def _sprite_from_tile_pieces(pieces, blocks, ntx: int) -> Sprite:
     rgba = unpack_rgba(packed)
     box = (tx0 * TILE_W + 1, ty0 * TILE_H + 1, (tx0 + tw) * TILE_W, (ty0 + th) * TILE_H)
     return Sprite(box, rgba[..., 3] > 0, rgba)
+
+
+def sprites_of_keys(ts: TiledScene, keys) -> List[Optional[Sprite]]:
+    """Per-object Sprites of a built TiledScene, assembled from its atlas
+    pieces (None for a key with none): a scene built by the tile route also
+    yields the per-layer sprites that FrameBuffer's window folds take.
+    Boxes are tile-aligned; the mask is alpha > 0, which is bit-neutral
+    under `over`."""
+    atlas = [ts.atlas()]
+    out = []
+    for key in keys:
+        pieces = ts.pieces.get(key)
+        out.append(_sprite_from_tile_pieces([(t, 0, e) for t, e in pieces], atlas, ts.ntx) if pieces else None)
+    return out
 
 
 def alpha_plane_of_object(o: R.Obj, width: int, height: int, device) -> torch.Tensor:
@@ -366,44 +582,52 @@ class DeviceView:
     def _tiles_of(self, key) -> Set[int]:
         return {tile for tile, _ in self.ts.pieces.get(key, ())}
 
-    def set_scene(self, scene: List[R.Obj], staged=None) -> None:
-        """(Re)build from a front-to-back scene list through the tile
-        rasterizer.  No per-object Sprite is materialized: the first
-        translate_object of such an object re-rasterizes it.  `staged` is a
-        stage_tiled_scene result for `scene`, where the host sweep already
-        ran."""
-        build_tiled_scene(self.ts, [(o.idset, o) for o in scene], staged=staged)
+    def set_scene(self, scene: List[R.Obj], tiled: bool = False, staged=None) -> None:
+        """(Re)build from a front-to-back scene list.  By default every
+        object's full sprite is made by the batched raster
+        (full_sprites_of_objects) and shattered into the atlas: the sprites
+        stay, so an object can be made animated.  tiled=True rasterizes
+        through the tile rasterizer instead (the fast cold start) and
+        materializes no Sprite: the first translate_object of such an
+        object re-rasterizes it.  `staged` is a stage_tiled_scene result for
+        `scene`, where the host sweep already ran (tile route only)."""
         self.order = []
-        for o in scene:
-            self.sprites[o.idset] = None
-            self.objs[o.idset] = o
-            self.order.append(o.idset)
-            self.dirty |= self._tiles_of(o.idset)
+        if tiled:
+            build_tiled_scene(self.ts, [(o.idset, o) for o in scene], staged=staged)
+            for o in scene:
+                self.sprites[o.idset] = None
+                self.objs[o.idset] = o
+                self.order.append(o.idset)
+                self.dirty |= self._tiles_of(o.idset)
+            return
+        for o, spr in zip(scene, full_sprites_of_objects(list(scene), self.device)):
+            self._install(o, spr, None)
 
-    def reset_scene(self, scene: List[R.Obj]) -> None:
+    def reset_scene(self, scene: List[R.Obj], tiled: bool = False, staged=None) -> None:
         """Replace the whole scene in place, as an interactive zoom or pan
         does (the reference transforms the scene and redraws,
         engine.ml:1015-1057): the atlas keeps its allocation and capacity,
-        so a build of the same content restores from the scene-build
+        so a tiled build of the same content restores from the scene-build
         cache."""
         self.ts.reset()
         self.sprites = {}
         self.dirty = set(range(self.ts.nty * self.ts.ntx))
-        self.set_scene(scene)
+        self.set_scene(scene, tiled=tiled, staged=staged)
 
     def prefetch_scene(self, scene: List[R.Obj]) -> None:
         """Build `scene` into the scene-build cache ahead of a reset_scene
         whose staged content will match (the digest is content-addressed,
         so fresh object ids still hit).  The live view is untouched: the
         build runs into a scratch TiledScene of the live atlas's capacity,
-        since a restore needs equal capacities.  A scene already cached is
-        not built again."""
+        since a restore needs equal capacities.  A scene already cached, or
+        one with an object that takes the scalar pipeline (its content has
+        no digest), is not built."""
         keyed = [(o.idset, o) for o in scene]
         ts = TiledScene(self.pw, self.ph, self.device)
         if self.ts._data is not None:
             ts._ensure(int(self.ts._data.shape[0]))
         staged = stage_tiled_scene(ts.nty, ts.ntx, ts.width, ts.height, keyed, self.device)
-        if staged[4] in _SCENE_BUILD_CACHE:
+        if staged[5] is None or staged[5] in _SCENE_BUILD_CACHE:
             return
         build_tiled_scene(ts, keyed, staged=staged)
 
@@ -418,6 +642,25 @@ class DeviceView:
             tmat = zoom_transform(self.width / 2.0, self.height / 2.0, f)
             self.prefetch_scene([R.transform_renderobject_many(tmat, o) for o in scene])
 
+    def add_object(self, o: R.Obj, index: Optional[int] = None) -> None:
+        """Add an object at `index` of the front-to-back order (at the back
+        by default), rasterized by the scalar pipeline."""
+        self._install(o, full_sprite_of_object(o, self.device), index)
+
+    def _install(self, o: R.Obj, spr: Optional[Sprite], index: Optional[int]) -> None:
+        key = o.idset
+        self.objs[key] = o
+        self.sprites[key] = spr
+        if spr is not None:
+            self.ts.add_object(key, spr)
+        else:
+            self.ts.pieces[key] = []
+        if index is None:
+            self.order.append(key)
+        else:
+            self.order.insert(index, key)
+        self.dirty |= self._tiles_of(key)
+
     def make_animated(self, key) -> None:
         """Reserve atlas slots for an object that moves every frame; its
         moves then rewrite those slots in place."""
@@ -429,6 +672,43 @@ class DeviceView:
         self.ts.reserve_slots(key, cap)
         self.ts.update_object_inplace(key, spr)
         self.dirty |= self._tiles_of(key)
+
+    def replace_object(self, key, o: R.Obj) -> None:
+        """Re-rasterize an edited object in place of `key` (the edit may
+        mint a new id): its old tiles and its new ones go dirty, and the
+        old key's atlas slots return to the free pool."""
+        old_tiles = self._tiles_of(key)
+        spr = full_sprite_of_object(o, self.device)
+        self.sprites[o.idset] = spr
+        self.objs[o.idset] = o
+        if spr is not None:
+            self.ts.add_object(o.idset, spr)
+        else:
+            self.ts.pieces[o.idset] = []
+        self.order = [o.idset if k == key else k for k in self.order]
+        if key != o.idset:
+            self.sprites.pop(key, None)
+            self.objs.pop(key, None)
+            self.ts.remove_object(key)
+        self.dirty |= old_tiles | self._tiles_of(o.idset)
+
+    def remove_object(self, key) -> None:
+        """Delete an object: its tiles go dirty and its atlas slots (the
+        whole reserved run of an animated object) return to the free pool,
+        so delete and re-add churn never grows the atlas."""
+        self.dirty |= self._tiles_of(key)
+        self.ts.remove_object(key)
+        self.order = [k for k in self.order if k != key]
+        self.sprites.pop(key, None)
+        self.objs.pop(key, None)
+
+    def restack(self, new_order: List[object]) -> None:
+        """A depth change: the tiles of every object whose place in the
+        order changed go dirty."""
+        for k, (a, b) in enumerate(zip(self.order, new_order)):
+            if a != b:
+                self.dirty |= self._tiles_of(a) | self._tiles_of(b)
+        self.order = list(new_order)
 
     def translate_object(self, key, dx: int, dy: int) -> None:
         """Move an object by whole pixels, reusing its raster."""

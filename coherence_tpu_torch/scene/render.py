@@ -818,10 +818,11 @@ def sprite_of_basicshape(o: Obj, shp, whole_scene, device, force_fancy: bool = F
             for x in g.objects
         ]
         if flags.get("batch_group_raster"):
-            raise NotImplementedError(
-                "the batched group raster (fastframe.group_sprite_batched) is not ported; "
-                "leave the batch_group_raster flag off"
-            )
+            from . import fastframe  # fastframe imports this module
+
+            got = fastframe.group_sprite_batched(objs, shp, device)
+            if got is not NotImplemented:
+                return got
         a, _, _ = render_scene(
             ident.new_ids(), False, (shp, NULL_SPRITE), objs, whole_scene, NULL_SHAPE, device
         )

@@ -43,11 +43,9 @@ debug_spritecheck = define(
     "debug_spritecheck", False, "verify raster invariants on every major op"
 )
 cachemaxsize = define("cachemaxsize", 100 * 1024 * 1024, "coherence cache bytes")
-# False until the batched group route (fastframe.group_sprite_batched) is
-# ported: a Group renders through the front-to-back fold, which gives the
-# same pixels.
 batch_group_raster = define(
     "batch_group_raster",
-    False,
-    "pre-rasterize group members with one fused dispatch per bucket group",
+    True,
+    "rasterize a group's members together per bucket group, then fold them in one call "
+    "(fastframe.group_sprite_batched), instead of the per-member render_scene fold",
 )

@@ -45,12 +45,28 @@ def device_rows(prof):
             and not e.key.startswith(("aten::", "cuda", "Activity Buffer"))]
 
 
+RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def launch_calls(prof) -> int:
     """Launches and copies as the host issued them (the runtime's rows).  A
     window of a few microseconds can close before the card's own records
     arrive, so a short window is counted from these."""
-    return sum(e.count for e in prof.key_averages()
-               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")))
+    return sum(e.count for e in prof.key_averages() if e.key.startswith(RUNTIME_CALLS))
+
+
+def issued(torch, fn) -> int:
+    """launch_calls of fn() under a profiler that records the CUDA runtime
+    alone (no operator rows), read from its raw records instead of its
+    table: a window of tens of thousands of calls is counted in seconds,
+    where building the table takes about a minute."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.name().startswith(RUNTIME_CALLS))
 
 
 def profiled(torch, fn, reps: int = 1):

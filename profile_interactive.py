@@ -111,7 +111,7 @@ def main() -> int:
     host_ms = (time.perf_counter() - t0) / 100 * 1e3
 
     def zoom():
-        view.reset_scene(cs.zoomed(objs, 2.0))
+        view.reset_scene(cs.zoomed(objs, 2.0), tiled=True)
         view.render(full=True)
         torch.cuda.synchronize()
 

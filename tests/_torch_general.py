@@ -10,8 +10,8 @@ buckets, the port does not.
 Each side has its own coherence cache, flags, counters and id counter: a
 scenario builds its objects from the side it is given (hazard: no object of
 one package reaches the other), and the ``both_sides`` fixture clears both
-caches around every test and takes the JAX side off its batched group route,
-which the port does not have yet.
+caches around every test.  Both sides run at their default flags: a group
+renders through the batched raster on each.
 """
 
 from types import SimpleNamespace
@@ -178,17 +178,18 @@ def dense(side, spr, box) -> np.ndarray:
 
 @pytest.fixture
 def both_sides():
-    """Fresh caches and counters on both sides; the JAX side's groups render
-    through the fold, as the port's do."""
-    was = j_flags.get("batch_group_raster")
-    j_flags.set_flag("batch_group_raster", False)
+    """Fresh caches and counters on both sides, and each side's flags as
+    they were after the test."""
     sizes = (j_cache.properties.cachemaxsize, t_cache.properties.cachemaxsize)
+    flags = (j_flags.all_flags(), t_flags.all_flags())
     for side in SIDES:
         side.cache.clear()
         side.cache.usecache = True
         side.profiling.reset()
     yield SIDES
-    j_flags.set_flag("batch_group_raster", was)
+    for side, was in zip(SIDES, flags):
+        for name, value in was.items():
+            side.flags.set_flag(name, value)
     for side, size in zip(SIDES, sizes):
         side.cache.usecache = True
         side.cache.setsize(size)

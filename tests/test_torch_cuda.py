@@ -770,3 +770,100 @@ def test_engine_on_the_card_matches_the_cpu(cuda_device):
     cache.clear()
     (a, ra), (b, rb) = shown
     assert np.array_equal(a, b) and ra == rb and len(rb) >= 4
+
+
+def fold_case(seed: int, k: int, hb: int, wb: int):
+    """Seeded layers for the window fold: translucent (some pixels opaque,
+    so pixels close part way down), masks with holes, each hanging off an
+    edge of the (hb, wb) window or inside it; and an open mask with a
+    closed band.  Returns (offsets (k, 2) int32, [(rgba, mask)], open)."""
+    rng = np.random.default_rng(seed)
+    layers, offs = [], []
+    for _ in range(k):
+        hs, ws = int(rng.integers(3, hb + 8)), int(rng.integers(3, wb + 8))
+        alpha = rng.integers(0, 256, (hs, ws))
+        alpha[rng.random((hs, ws)) < 0.2] = 255
+        rgb = (rng.integers(0, 256, (hs, ws, 3)) * alpha[..., None]) // 255
+        mask = rng.random((hs, ws)) < 0.85
+        rgba = np.where(mask[..., None], np.concatenate([rgb, alpha[..., None]], -1), 0).astype(np.int32)
+        layers.append((rgba, mask))
+        offs.append((int(rng.integers(-hs + 1, hb)), int(rng.integers(-ws + 1, wb))))
+    open_mask = np.ones((hb, wb), bool)
+    open_mask[:, wb // 3 : wb // 3 + 2] = False
+    return np.asarray(offs, np.int32), layers, open_mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,hb,wb", [(0, 7, 24, 40), (1, 7, 61, 300), (2, 200, 33, 130)])
+def test_fold_layers_kernel_matches_plain(cuda_device, seed, k, hb, wb):
+    """fold_layers against fold_layers_carry_torch, carry and all, on a
+    translucent stack with closing pixels and offsets off every edge; over
+    128 layers the records come in two chunks.  Then the same fold in two
+    calls with the carry."""
+    from coherence_tpu_torch.raster import framepath as FP
+
+    offs, layers, open_mask = fold_case(seed, k, hb, wb)
+    acc = np.random.default_rng(seed).integers(0, 3, (hb, wb, 4)).astype(np.int32)
+    carry = [torch.from_numpy(acc), torch.from_numpy(open_mask), torch.from_numpy(open_mask[::-1].copy())]
+    cpu_layers = [(torch.from_numpy(r), torch.from_numpy(m)) for r, m in layers]
+    want = FP.fold_layers_carry_torch(offs.tolist(), cpu_layers, *carry)
+    card = [(r.to(cuda_device), m.to(cuda_device)) for r, m in cpu_layers]
+    before = kernels.launches["fold_layers"]
+    got = FP.fold_layers_carry(offs.tolist(), card, *(t.to(cuda_device) for t in carry))
+    cut = k // 2
+    first = FP.fold_layers_carry(offs[:cut].tolist(), card[:cut], *(t.to(cuda_device) for t in carry))
+    chunked = FP.fold_layers_carry(offs[cut:].tolist(), card[cut:], *first)
+    torch.cuda.synchronize()
+    assert kernels.launches["fold_layers"] == before + 3
+    for w, g, c in zip(want, got, chunked):
+        assert torch.equal(g.cpu(), w) and torch.equal(c.cpu(), w)
+    assert bool(want[2].any()) and not bool(want[1].all())
+
+
+def _edited_frames(device):
+    """The scene edits on a small view on `device`: the sprite route's
+    build, add, replace, remove, restack, then a group (its members through
+    the batched raster and the fold) added on top; the frame after each."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import fills
+    from coherence_tpu_torch.scene import fastframe
+    from coherence_tpu_torch.scene import render as R
+
+    def circle(x, y, r, col, alpha=255):
+        return R.Obj(ident.new_ids(), R.Basic(fills.plain(C.dissolve(col, delta=alpha)),
+                                              R.PathShape(gshapes.circle(float(x), float(y), float(r)))), (), R.OVER)
+
+    base = [circle(100, 64, 40, C.green), circle(150, 50, 30, C.blue, 150), circle(60, 70, 25, C.red, 200)]
+    v = fastframe.DeviceView(2 * TILE_W, 2 * TILE_H, device=device)
+    v.set_scene(base)
+    v.render(full=True)
+    frames = [v.read()]
+    edits = [lambda: v.add_object(circle(120, 50, 20, C.gold, 180), 0),
+             lambda: v.replace_object(base[0].idset, circle(100, 64, 40, C.purple, 230)),
+             lambda: v.remove_object(base[2].idset),
+             lambda: v.restack([v.order[0], v.order[2], v.order[1]]),
+             lambda: v.add_object(R.mkgroup([circle(200, 90, 20, C.teal, 160), circle(215, 80, 15, C.red)]), 0)]
+    for edit in edits:
+        edit()
+        v.render()
+        frames.append(v.read())
+    return frames
+
+
+@pytest.mark.cuda
+def test_scene_edits_on_the_card_match_the_cpu(cuda_device):
+    from coherence_tpu_torch.scene import cache
+
+    cache.clear()
+    want = _edited_frames("cpu")
+    cache.clear()
+    before = dict(kernels.launches)
+    got = _edited_frames(cuda_device)
+    cache.clear()
+    for k, (a, b) in enumerate(zip(want, got)):
+        assert np.array_equal(a, b), f"frame {k}"
+    assert kernels.launches["composite_full"] == before["composite_full"] + 1
+    assert kernels.launches["composite_dirty"] == before["composite_dirty"] + 5
+    assert kernels.launches["fold_layers"] == before["fold_layers"] + 1

@@ -176,7 +176,7 @@ class Side:
     def zoom(self, f):
         with self.active():
             self.objs = [self.R.transform_renderobject_many(_zoom(f, self.jax_side), o) for o in self.objs]
-            self.view.reset_scene(self.objs, **({} if self.cache is not None else {"tiled": True}))
+            self.view.reset_scene(self.objs, tiled=True)
             self.view.render(full=True)
 
     def prefetch_and_half(self):
@@ -206,7 +206,7 @@ def _port_side():
     objs, blob, f_geom = port_scene()
     with side.active():
         view = TF.DeviceView(W, H, atlas_cap=ATLAS_CAP, device="cpu")
-        view.set_scene(objs)
+        view.set_scene(objs, tiled=True)
     view.sprites[blob.idset] = TF.tiled_sprite_of_object(blob, view.pw, view.ph, "cpu")
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)

@@ -324,7 +324,7 @@ def _view_run(side, mesh):
         v.set_scene(scene, tiled=True)
         v.sprites[scene[0].idset] = F.tiled_sprite_of_object(scene[0], v.pw, v.ph)
     else:
-        v.set_scene(scene)
+        v.set_scene(scene, tiled=True)
         v.sprites[scene[0].idset] = F.tiled_sprite_of_object(scene[0], v.pw, v.ph, "cpu")
     if mesh is not None:
         if jax_side:
@@ -389,7 +389,7 @@ def _animated(side, mesh):
         f_alpha = F.alpha_plane_of_object(f_geom, W, H)
     else:
         v = F.DeviceView(W, H, device="cpu")
-        v.set_scene(scene)
+        v.set_scene(scene, tiled=True)
         v.sprites[blob.idset] = F.tiled_sprite_of_object(blob, v.pw, v.ph, "cpu")
         f_alpha = F.alpha_plane_of_object(f_geom, W, H, "cpu")
     v.make_animated(blob.idset)
@@ -472,16 +472,16 @@ def test_reset_scene_under_mesh_matches_fresh_view(jax_runs, mesh_id):
 
     want = _once(jax_runs, "scene_b", jax_fresh)
     v = TF.DeviceView(W, H, device="cpu")
-    v.set_scene(_objs(TR, TFL, TC, VIEW_SCENE))
+    v.set_scene(_objs(TR, TFL, TC, VIEW_SCENE), tiled=True)
     v.use_mesh(mesh)
     v.render(full=True)
     old = v.ts._banded
-    v.reset_scene(_objs(TR, TFL, TC, SCENE_B))
+    v.reset_scene(_objs(TR, TFL, TC, SCENE_B), tiled=True)
     v.render(full=True)
     assert v.ts._banded is not old
     assert np.array_equal(v.read(), want)
     fresh = TF.DeviceView(W, H, device="cpu")
-    fresh.set_scene(_objs(TR, TFL, TC, SCENE_B))
+    fresh.set_scene(_objs(TR, TFL, TC, SCENE_B), tiled=True)
     fresh.render(full=True)
     assert np.array_equal(v.read(), fresh.read())
 

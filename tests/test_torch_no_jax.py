@@ -2,8 +2,10 @@
 and driving a small animated blur-filtered scene with a brush stroke on the
 CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
 dense layer stack, an animated filtered step on a 2-band mesh, the
-general renderer's ``render_simple_scene`` under two filters, and one
-FastSession and one Engine each serving a client over a localhost socket)
+general renderer's ``render_simple_scene`` under two filters, the scene
+edits on the sprite route, a FrameBuffer window composite and a group
+through the batched raster, and one FastSession and one Engine each serving
+a client over a localhost socket)
 loads no JAX module and no module of the JAX package ``coherence_tpu``: the port's
 host modules (geometry, io, transform, ident, coord, native_lib) are its
 own copies, and its native sweep library builds into build/native/.
@@ -49,7 +51,7 @@ scene = [obj(R.rectangle(10.5, 8.0, 120.0, 90.0), C.dissolve(C.teal, delta=200))
          obj(R.BrushStroke((brush.mkround(6.0, 0.5), gshapes.circle(120.0, 64.0, 40.0))), C.darkorange)]
 blob = obj(R.PathShape(gshapes.circle(0.0, 0.0, 12.0)), C.dissolve(C.crimson, delta=170), (tr.Translate(40.0, 40.0),))
 view = fastframe.DeviceView(W, H, atlas_cap=64, device="cpu")
-view.set_scene(scene)
+view.set_scene(scene, tiled=True)
 view.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, view.pw, view.ph, "cpu")
 view.order.insert(0, blob.idset)
 view.make_animated(blob.idset)
@@ -71,7 +73,7 @@ runs_equal_full = bool(torch.equal(view.ts.render_runs(view.background, starts, 
 before_zoom = view.frame.clone()
 zoom = fastframe.zoom_transform(W / 2.0, H / 2.0, 2.0)
 view.prefetch_zoom_candidates(scene)
-view.reset_scene([R.transform_renderobject_many(zoom, o) for o in scene])
+view.reset_scene([R.transform_renderobject_many(zoom, o) for o in scene], tiled=True)
 view.render(full=True)
 zoom_cache = fastframe.scene_build_cache_stats()
 stack = examples.hsr_layers(4, H, W, device="cpu")
@@ -81,7 +83,7 @@ layered = compositor.composite_layers(view.background, stack)
 shown = []
 for mesh in (parallel.make_mesh(2, ["cpu"] * 2), None):
     v = fastframe.DeviceView(W, H, device="cpu")
-    v.set_scene(scene)
+    v.set_scene(scene, tiled=True)
     v.sprites[blob.idset] = fastframe.tiled_sprite_of_object(blob, v.pw, v.ph, "cpu")
     v.order.insert(0, blob.idset)
     v.make_animated(blob.idset)
@@ -101,6 +103,26 @@ general = R.render_simple_scene(lenses + scene, window, "cpu")
 cache.usecache = False
 uncached = R.render_simple_scene(lenses + scene, window, "cpu")
 cache.usecache = True
+
+# The sprite route with the scene edits, against a fresh view of the edited
+# scene; the window path over the edited scene's sprites; a group through
+# the batched raster.
+from coherence_tpu_torch.raster import framepath
+from coherence_tpu_torch.utils import flags
+ev = fastframe.DeviceView(W, H, device="cpu")
+ev.set_scene(scene)
+ev.render(full=True)
+ev.add_object(obj(R.PathShape(gshapes.circle(60.0, 90.0, 20.0)), C.navy), 0)
+ev.replace_object(scene[1].idset, obj(R.PathShape(gshapes.circle(0.0, 0.0, 30.0)), C.teal, (tr.Translate(170.0, 60.0),)))
+ev.remove_object(scene[0].idset)
+ev.restack(list(reversed(ev.order)))
+ev.render()
+fresh = fastframe.DeviceView(W, H, device="cpu")
+fresh.set_scene([ev.objs[k] for k in ev.order])
+fresh.render(full=True)
+fb = framepath.FrameBuffer(W, H, C.white, device="cpu")
+fb.composite((1, 1, W, H), [s for s in fastframe.sprites_of_keys(fresh.ts, fresh.order) if s is not None])
+group = R.render_simple_scene([R.mkgroup(scene[:2])], window, "cpu")
 
 # The serving surface: a FastSession, then an Engine, each behind a
 # RemoteDisplay on a localhost socket with a HeadlessClient in a thread.
@@ -176,6 +198,10 @@ print(json.dumps({
     "meshed_step_equal": bool((shown[0] == shown[1]).all()),
     "meshed_step_moved": bool((shown[0] != first).any()),
     "launches": dict(kernels.launches),
+    "edits_equal_fresh": bool(torch.equal(ev.frame, fresh.frame)),
+    "edits_changed": bool(not torch.equal(ev.frame, fresh.background)),
+    "window_path_equal_view": bool((fb.read() == fresh.read()).all()),
+    "group_batched": flags.get("batch_group_raster") and group is not None,
 }))
 """
 
@@ -213,7 +239,16 @@ def test_small_slice_runs_on_cpu(report):
     # CPU tensors take the plain versions: no kernel was launched.
     assert report["launches"] == {"composite_dirty": 0, "composite_full": 0, "composite_runs": 0,
                                   "composite_layers": 0, "composite_full_banded": 0,
-                                  "composite_dirty_banded": 0}
+                                  "composite_dirty_banded": 0, "fold_layers": 0}
+
+
+def test_scene_edits_and_window_path_run_on_cpu(report):
+    # add, replace, remove and restack on the sprite route equal a fresh
+    # view of the edited scene; a FrameBuffer over the view's sprites equals
+    # the view; a group renders through the batched raster.
+    assert report["edits_equal_fresh"] and report["edits_changed"]
+    assert report["window_path_equal_view"]
+    assert report["group_batched"]
 
 
 def test_general_renderer_runs_on_cpu(report):
@@ -246,4 +281,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.composite_dirty_banded(ints.view(1, 16), ints.view(1, 16), ints.view(1, 16), bg, bg.clone(),
                                        z.view(1, 8, 64, 128), 8)
+    mask = torch.zeros((64, 128), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        kernels.fold_layers([(0, 0)], [(torch.zeros((64, 128, 4), dtype=torch.int32), mask)],
+                            torch.zeros((64, 128, 4), dtype=torch.int32), mask, mask.clone())
     assert kernels.launches == before

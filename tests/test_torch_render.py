@@ -163,22 +163,28 @@ def test_group_render_and_bounds(both_sides):
     assert got[0][2][1] is None and got[1][2][1] is None
 
 
-def test_group_batched_route_gives_the_fold_its_pixels(both_sides):
-    """The JAX package's default sends a group through its batched raster;
-    the port folds.  Same pixels."""
-    JAX.flags.set_flag("batch_group_raster", True)
+@pytest.mark.parametrize("batched", [True, False])
+def test_group_batched_route_gives_the_fold_its_pixels(batched, both_sides):
+    """A group renders through the batched raster (the default) or through
+    the per-member fold: in each, the port equals the JAX package in the
+    sprite, the group's shape and the cache's byte count, and the two routes
+    give the same pixels."""
     got = []
     for side in SIDES:
-        g = side.R.mkgroup([circle_obj(side, 30, 30, 10, "red"), circle_obj(side, 40, 38, 14, "blue", 140)])
-        got.append(side.render_simple_scene([g], side.shape_of_box(BOX)))
-    assert np.array_equal(dense(JAX, got[0], BOX), dense(PORT, got[1], BOX))
-    PORT.flags.set_flag("batch_group_raster", True)
-    try:
-        g = PORT.R.mkgroup([circle_obj(PORT, 30, 30, 10, "red")])
-        with pytest.raises(NotImplementedError):
-            PORT.render_simple_scene([g], PORT.shape_of_box(BOX))
-    finally:
-        PORT.flags.set_flag("batch_group_raster", False)
+        side.flags.set_flag("batch_group_raster", batched)
+        g = side.R.mkgroup([circle_obj(side, 30, 30, 10, "red"), circle_obj(side, 40, 38, 14, "blue", 140),
+                            rect_obj(side, 52.5, 20.25, 20, 30, "gold", 200)])
+        spr = side.render_simple_scene([g, rect_obj(side, 5, 5, 80, 80, "teal", 120)], side.shape_of_box(BOX))
+        got.append((spr, side.shape_of_basicshape(g)[0], side.cache.properties.cachesize))
+    assert_same_sprite(got[0][0], got[1][0], f"batched={batched}")
+    assert_same_shape(got[0][1], got[1][1], "group shape")
+    assert got[0][2] == got[1][2]
+    PORT.flags.set_flag("batch_group_raster", not batched)
+    PORT.cache.clear()
+    g = PORT.R.mkgroup([circle_obj(PORT, 30, 30, 10, "red"), circle_obj(PORT, 40, 38, 14, "blue", 140),
+                        rect_obj(PORT, 52.5, 20.25, 20, 30, "gold", 200)])
+    other = PORT.render_simple_scene([g, rect_obj(PORT, 5, 5, 80, 80, "teal", 120)], PORT.shape_of_box(BOX))
+    assert np.array_equal(dense(PORT, got[1][0], BOX), dense(PORT, other, BOX))
 
 
 @pytest.mark.parametrize("fill", ["plain", "gradient"])

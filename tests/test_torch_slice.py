@@ -97,7 +97,7 @@ def _jax_run():
 def _port_run():
     objs, blob, f_geom = port_scene()
     view = TF.DeviceView(W, H, atlas_cap=ATLAS_CAP, device="cpu")
-    view.set_scene(objs)
+    view.set_scene(objs, tiled=True)
     view.sprites[blob.idset] = TF.tiled_sprite_of_object(blob, view.pw, view.ph, "cpu")
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)

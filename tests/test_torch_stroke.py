@@ -104,11 +104,16 @@ def test_scaled_mask_of_edgelist_matches_jax():
     assert (jx, jy) == (tx, ty) and np.array_equal(jm, tm)
 
 
+@pytest.mark.parametrize("bands", ["budget", "one_row"])
 @pytest.mark.parametrize("fill", ["plain", "gradient"])
 @pytest.mark.parametrize("path", ["circle", "closed_zig", "open_zig", "curve"])
-def test_polygon_sprite_edgelist_matches_jax(path, fill, both_sides):
+def test_polygon_sprite_edgelist_matches_jax(path, fill, bands, both_sides, monkeypatch):
     """The AA sprite of a stroked outline (even-odd matte) over its whole
-    shape, over its fringe only, and over a shape that sticks out of it."""
+    shape, over its fringe only, and over a shape that sticks out of it;
+    the port's coverage in bands of its sample budget and in bands of one
+    pixel row (a pixel's value depends on its own footprint alone)."""
+    if bands == "one_row":
+        monkeypatch.setattr(PORT.aa, "_BAND_SAMPLES", 1)
     got = []
     for side in SIDES:
         C, F = side.C, side.fills
@@ -150,7 +155,7 @@ def test_stroked_paths_through_the_tile_build_match_jax(both_sides):
     jv.render(full=True)
     pscene = _stroked_scene(PORT)
     pv = TF.DeviceView(W, H, atlas_cap=128, device="cpu")
-    pv.set_scene(pscene)
+    pv.set_scene(pscene, tiled=True)
     pv.render(full=True)
     assert [list(pv.ts.pieces[k]) for k in pv.order] == [list(jv.ts.pieces[k]) for k in jv.order]
     assert pv.ts._n_pieces == jv.ts._n_pieces
