@@ -48,10 +48,12 @@ localhost TCP socket, as a user of the system runs it:
     render against the tile route's), then a circle added, a path
     recoloured, a path removed, a restack, the blob removed and re-added 50
     times and 500 boxes added, each frame against a fresh view of the
-    edited scene; the tile build's scalar fallback; the fold_layers kernel
-    on the lion's 132 sprites over the whole window; a FrameBuffer
+    edited scene; the tile build's scalar fallback; a FrameBuffer
     compositing them under the radius-5 blur with the blob dragged 20
-    frames (recomposite_blur);
+    frames (recomposite_blur); the fold_layers kernel at the three shapes
+    the program gives it: the lion's 132 sprites over the whole window,
+    the lion group's fold over its update shape, one recomposite_blur
+    window;
   * the serving surface at 1920x1080 (benchmarks/session.py's two
     sessions): a FastSession (the lion, a blob dragged under a radius-3
     blur lens, 8 + 100 drags, 11 small paints, a blur-slider sweep) and
@@ -129,12 +131,16 @@ Phases, one JSON line each:
      capacity and piece count; add_boxes equal to add_object of the same
      boxes; the fallback tile build equal to the sprite route; the edit
      times;
- 18. fold_kernel: fold_layers against fold_layers_carry_torch on the lion's
-     132 sprites over the 1920x1080 window, in one call and in two with the
-     carry, bit for bit; the two timed in turns; the bytes it must move;
- 19. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
+ 18. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
      the CPU's and to the general renderer's render of the same filtered
      scene; the last equal to a whole-window recomposite plus apply_blur;
+ 19. fold_kernel: fold_layers against fold_layers_carry_torch at three
+     shapes, in one call and in two with the carry, bit for bit, the two
+     timed in turns: the lion's 132 sprites over the 1920x1080 window (all
+     open); the lion group's fold as general_lion's render calls it (the
+     update shape's mask open); the last recomposite_blur window of
+     frame_path (its prefiltered layer pack, inwin open); per shape the
+     bytes it must move and the record visits its tile lists imply;
  20. serve_fast: what the client saw: seconds to the first paint, the drag
      latency (event sent to pixels landed; median and p95), the wire floor
      (a 2x2 paint's round trip), the slider latency, the bytes shipped and
@@ -161,12 +167,15 @@ each comparison timed in turns: composite_full's and composite_dirty's
 banded_one_band, composite_runs's composite_full on the same lists, the
 banded kernels' unbanded ones, also on the 17-band lion; for fold_layers
 the mask and RGBA sectors each open pixel reads until it closes, and its
-carry in and out) and, last,
+carry in and out, with the record visits its tile lists imply, at the
+whole window and beside it at its other two shapes) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
 """
 
+import contextlib
+import gc
 import json
 import socket
 import statistics
@@ -204,7 +213,9 @@ SECTOR_BYTES = 32
 STRIPES = 16  # 4-row stripes of a tile, stripe_ring.cuh's kStripes
 # The device-side wait queued before each timed launch: about 0.2 ms at the
 # H100's 1.98 GHz boost clock, longer than a wrapper takes to queue its
-# launch, so the timed window opens on a launch already queued.
+# launch, so the timed window opens on a launch already queued.  A wrapper
+# with more host work (the fold's packs every layer) is timed behind a wait
+# made from its measured host time instead (event_ms's wait_ms).
 SLEEP_CYCLES = 400_000
 
 
@@ -321,35 +332,82 @@ def scene_state(view):
     return view.ts.atlas().cpu().clone(), [list(view.ts.pieces[k]) for k in view.order]
 
 
-def event_ms(torch, fn, scrub, reps: int = N_TIMED):
+_CYCLES_PER_MS = {}
+# Readings that event_ms took again because the call outlasted half its wait on the host.
+RETAKEN = [0]
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """torch.cuda._sleep's cycles per millisecond on the current card: waits
+    of SLEEP_CYCLES timed with CUDA events, median of 5 (once a run)."""
+    if "rate" not in _CYCLES_PER_MS:
+        ms = []
+        for _ in range(5):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        _CYCLES_PER_MS["rate"] = SLEEP_CYCLES / statistics.median(ms)
+    return _CYCLES_PER_MS["rate"]
+
+
+def event_ms(torch, fn, scrub, reps: int = N_TIMED, wait_ms=None, queued: bool = False):
     """Median CUDA-event time (ms) of `reps` calls of fn, each after
     `scrub` (a buffer larger than the 50 MB L2) is overwritten, so every
     call starts with a cold L2 as a once-per-frame caller would.  A
-    device-side wait sits between the scrub and the start event, so fn's
+    device-side wait sits between the scrub and the start event
+    (SLEEP_CYCLES, or `wait_ms` at sleep_cycles_per_ms's rate), so fn's
     launches are queued before the window opens and the window holds the
-    device work alone (a plain version that synchronizes inside still
-    shows its host time)."""
-    times = []
-    for _ in range(reps):
-        scrub.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+    device work alone (a plain version that synchronizes inside still shows
+    its host time).  With `queued` a call of fn that does not return on the
+    host within half the wait is timed again (its host time would be in the
+    window; counted in RETAKEN), and more than reps // 5 such calls raise
+    RuntimeError: the wait is too short for this host.  The collector is off
+    meanwhile, so that a collection is not such a call."""
+    cycles = SLEEP_CYCLES if wait_ms is None else int(wait_ms * sleep_cycles_per_ms(torch))
+    limit_ms = cycles / sleep_cycles_per_ms(torch) / 2 if queued else None
+    times, slow = [], 0
+    collecting = gc.isenabled()
+    if queued:
+        gc.collect()
+        gc.disable()
+    try:
+        while len(times) < reps:
+            scrub.zero_()
+            torch.cuda._sleep(cycles)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            e1.synchronize()
+            if limit_ms is not None and host_ms >= limit_ms:
+                slow += 1
+                RETAKEN[0] += 1
+                require(slow <= reps // 5, f"{slow} calls outlasted half of their {2 * limit_ms:.3f} ms wait on the "
+                        f"host (the last {host_ms:.3f} ms)")
+                continue
+            times.append(e0.elapsed_time(e1))
+    finally:
+        if collecting:
+            gc.enable()
     return statistics.median(times)
 
 
-def in_turns(torch, new, scrub, **others):
+def in_turns(torch, new, scrub, wait_ms=None, **others):
     """{"ms", name + "_ms" for each of `others`, "readings"}: `new` and the
     functions of `others` (name -> fn) timed with event_ms in turns: the
     others in order, new twice, the others in reverse (old, new, new, old
     for one other); each time the mean of its two readings, "readings"
-    every reading in that order."""
+    every reading in that order.  With `wait_ms` every call waits that
+    long, and each of new's calls must be queued within half of it."""
     order = [*others, None, None, *reversed(others)]
-    readings = [event_ms(torch, new if name is None else others[name], scrub) for name in order]
+    readings = [event_ms(torch, new if name is None else others[name], scrub, wait_ms=wait_ms,
+                         queued=wait_ms is not None and name is None)
+                for name in order]
     mean = {name: statistics.mean(r for n, r in zip(order, readings) if n == name) for name in order}
     return {"ms": mean[None], **{f"{name}_ms": mean[name] for name in others}, "readings": readings}
 
@@ -1209,7 +1267,8 @@ def general_lion(torch, dev, kernels):
     raster and one fold_layers launch), then one more rebuild on the
     per-member fold route; all equal, and equal to the CPU's render of the
     same scene.  Returns the fold_layers launches of the cold, rebuilt and
-    warm renders."""
+    warm renders, and the group's fold in the CPU's render (its arguments,
+    for fold_kernel)."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
@@ -1252,7 +1311,9 @@ def general_lion(torch, dev, kernels):
             "general_lion: the fold route did not visit the group and each of its objects once")
     require(warm_stats["objects_visited"] == 1, "general_lion: the warm render did not come from the group's cached sprite")
     cache.clear()
-    on_cpu, cpu_stats = measured(torch, "cpu", lambda: R.render_simple_scene([obj], region.shape_of_box(WINDOW, "cpu"), "cpu"))
+    with recorded_folds() as folds:
+        on_cpu, cpu_stats = measured(torch, "cpu", lambda: R.render_simple_scene([obj], region.shape_of_box(WINDOW, "cpu"), "cpu"))
+    require(len(folds) == 1, f"general_lion: the CPU's render folded {len(folds)} times, not once for the group")
     require(same_sprite(torch, cold, on_cpu), "general_lion: the card's render differs from the CPU's")
     require(cpu_stats["syncs"] == rebuild_stats["syncs"], "general_lion: the CPU render took other branches")
     cache.clear()
@@ -1261,7 +1322,7 @@ def general_lion(torch, dev, kernels):
           "rebuild_fold_route": fold_stats, "cpu": cpu_stats, "launches": counts,
           "cache_max_bytes": GENERAL_CACHE_BYTES, "peak_device_bytes": peak,
           "equal": {"tolerance": 0, "cold_rebuild_warm": True, "fold_route": True, "cpu": True}})
-    return counts
+    return counts, folds[0]
 
 
 def filter_scene():
@@ -1461,7 +1522,6 @@ N_CHURN = 50  # remove and re-add the blob this many times
 N_BOXES = 500
 N_FRAME_PATH = 20
 N_CHECKED_FRAMES = 3  # scene_edits and frame_path frames held against the CPU (frame_path: also the general renderer)
-FOLD_CHUNK = 66  # the lion's 132 layers folded in two calls with the carry
 
 
 def plain_obj(shape, colour, t=()):
@@ -1673,16 +1733,17 @@ def scene_edits(torch, dev, kernels):
     return counts, {"scene": scene, "f_geom": f_geom, "card": sprites, "cpu": cpu_sprites}
 
 
-def fold_bound(torch, offs, layers, hb: int, wb: int) -> dict:
-    """The bytes fold_layers must move for this run's layers, per 32-byte
-    sector: each open pixel reads the mask byte of every layer over it until
-    it closes, and 16 bytes of RGBA where that mask is set; the carry (acc,
-    open, covered: 18 bytes a pixel) is read once and written once; the
-    layer table (48 bytes a layer) read once.  The pixels close as the plain
-    fold closes them."""
-    dev = layers[0][0].device
-    open_mask = torch.ones((hb, wb), dtype=torch.bool, device=dev)
-    alpha = torch.zeros((hb, wb), dtype=torch.int32, device=dev)
+def fold_bound(torch, offs, layers, acc, open_mask) -> dict:
+    """The bytes fold_layers must move for this run's layers and carry, per
+    32-byte sector: each pixel open in the carry reads the mask byte of
+    every layer over it until it closes, and 16 bytes of RGBA where that
+    mask is set; the carry (acc, open, covered: 18 bytes a pixel) is read
+    once and written once; the layer table (32 bytes a layer) read once.
+    The pixels close as the plain fold closes them, from the carry's alpha."""
+    hb, wb = open_mask.shape
+    dev = open_mask.device
+    open_mask = open_mask.clone()
+    alpha = acc[..., 3].clone()
     mask_sectors = rgba_sectors = 0
     for (dy, dx), (rgba, mask) in zip(offs, layers):
         hs, ws = mask.shape
@@ -1702,43 +1763,137 @@ def fold_bound(torch, offs, layers, hb: int, wb: int) -> dict:
         blended = torch.where(a == 0, la, torch.where(a == 255, a, la + a - (((t >> 8) + t) >> 8)))
         a.copy_(torch.where(m, blended, a))
         open_mask[y0:y1, x0:x1] &= ~(m & (a == 255))
-    n_bytes = (mask_sectors + rgba_sectors) * SECTOR_BYTES + 2 * 18 * hb * wb + 48 * len(layers)
+    n_bytes = (mask_sectors + rgba_sectors) * SECTOR_BYTES + 2 * 18 * hb * wb + 32 * len(layers)
     return {"bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "mask_sectors": mask_sectors,
             "rgba_sectors": rgba_sectors, "open_after": int(open_mask.sum())}
 
 
-def fold_kernel(torch, dev, scrub, sprites):
-    """fold_layers against fold_layers_carry_torch on the lion's 132 sprites
-    (the sprite route's, from full_sprites_of_objects) folded into the
-    whole 1920x1080 window, and in two calls with the carry; bit for bit,
-    carry and all; the two timed in turns.  Returns the kernels line's row."""
+def fold_visits(offs, shapes, open_mask, tile) -> dict:
+    """A model of the tiled fold's walk, computed on the host from the
+    layers' boxes ((hs, ws) each at its (dy, dx)), not counted by the
+    kernel: a tile of (th, tw) pixels with no pixel open in the carry lists
+    no layer; any other lists every layer whose box meets its part of the
+    window.  listed_visits_upper_bound: each of a tile's pixels visits each
+    listed layer (a warp stops earlier once its pixels are closed).  Beside
+    it the visits of a fold in which every pixel tests every layer
+    (all_pairs, K x pixels)."""
+    import numpy as np
+
+    th, tw = tile
+    hb, wb = open_mask.shape
+    nty, ntx = -(-hb // th), -(-wb // tw)
+    inside = np.zeros((nty * th, ntx * tw), bool)
+    inside[:hb, :wb] = True
+    opened = np.zeros_like(inside)
+    opened[:hb, :wb] = open_mask.cpu().numpy()
+    pixels = inside.reshape(nty, th, ntx, tw).sum((1, 3))
+    open_tiles = opened.reshape(nty, th, ntx, tw).any((1, 3))
+    lists = np.zeros((nty, ntx), np.int64)
+    for (dy, dx), (hs, ws) in zip(offs, shapes):
+        y0, y1, x0, x1 = max(0, dy), min(hb, dy + hs), max(0, dx), min(wb, dx + ws)
+        if y0 < y1 and x0 < x1:
+            lists[y0 // th : (y1 - 1) // th + 1, x0 // tw : (x1 - 1) // tw + 1] += 1
+    lists *= open_tiles
+    return {"tile": [th, tw], "tiles": nty * ntx, "open_tiles": int(open_tiles.sum()),
+            "tile_list_entries": int(lists.sum()), "deepest_list": int(lists.max()),
+            "listed_visits_upper_bound": int((lists * pixels).sum()), "all_pairs": len(offs) * hb * wb}
+
+
+@contextlib.contextmanager
+def recorded_folds():
+    """Inside, every fold_layers_carry call (framepath's, and the name
+    fastframe imported) appends its arguments (offs, layers, acc,
+    open_mask, covered) to the yielded list, then runs as before."""
+    from coherence_tpu_torch.raster import framepath
+    from coherence_tpu_torch.scene import fastframe
+
+    calls, real = [], framepath.fold_layers_carry
+
+    def recording(offs, layers, acc, open_mask, covered):
+        calls.append(([tuple(int(v) for v in o) for o in offs], list(layers), acc, open_mask, covered))
+        return real(offs, layers, acc, open_mask, covered)
+
+    framepath.fold_layers_carry = fastframe.fold_layers_carry = recording
+    try:
+        yield calls
+    finally:
+        framepath.fold_layers_carry = fastframe.fold_layers_carry = real
+
+
+def fold_host_ms(torch, call) -> dict:
+    """The host's side of a fold, `call()`: the wrapper's checks, packing,
+    upload and launch, queued and not waited for; milliseconds per call of
+    N_TIMED calls, the median (host_ms) and the most (host_ms_max)."""
+    host = []
+    for _ in range(N_TIMED):
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {"host_ms": statistics.median(host), "host_ms_max": max(host)}
+
+
+def fold_shape(torch, dev, scrub, fold) -> dict:
+    """One fold of fold_kernel: fold_layers against fold_layers_carry_torch
+    on `fold` = (offs, layers, acc, open_mask, covered), moved to `dev`, in
+    one call and in two with the carry (the first half of the layers, then
+    the rest); bit for bit, carry and all; fold_host_ms; then the two timed
+    in turns behind a device-side wait of 4 x host_ms_max (wait_ms), a timed
+    call of the kernel that outlasts half of it on the host timed again
+    (retaken)."""
     from coherence_tpu_torch.raster import framepath as FP
 
-    lion = sprites[1:]
-    offs = [(s.box[1] - 1, s.box[0] - 1) for s in lion]
-    layers = [(s.rgba.contiguous(), s.mask.contiguous()) for s in lion]
-
-    def carry():
-        return (torch.zeros((H, W, 4), dtype=torch.int32, device=dev), torch.ones((H, W), dtype=torch.bool, device=dev),
-                torch.zeros((H, W), dtype=torch.bool, device=dev))
-
-    c0 = carry()
-    got = FP.fold_layers_carry(offs, layers, *c0)
-    want = FP.fold_layers_carry_torch(offs, layers, *c0)
-    first = FP.fold_layers_carry(offs[:FOLD_CHUNK], layers[:FOLD_CHUNK], *c0)
-    chunked = FP.fold_layers_carry(offs[FOLD_CHUNK:], layers[FOLD_CHUNK:], *first)
+    offs, layers, *carry = fold
+    layers = [(r.to(dev).contiguous(), m.to(dev).contiguous()) for r, m in layers]
+    carry = [t.to(dev).contiguous() for t in carry]
+    cut = len(layers) // 2
+    got = FP.fold_layers_carry(offs, layers, *carry)
+    want = FP.fold_layers_carry_torch(offs, layers, *carry)
+    first = FP.fold_layers_carry(offs[:cut], layers[:cut], *carry)
+    chunked = FP.fold_layers_carry(offs[cut:], layers[cut:], *first)
     torch.cuda.synchronize()
     for name, g, w, c in zip(("acc", "open", "covered"), got, want, chunked):
         require(torch.equal(g, w), f"fold_layers differs from fold_layers_carry_torch in {name}")
         require(torch.equal(c, w), f"fold_layers in two calls with the carry differs in {name}")
-    require(bool(want[2].any()) and not bool(want[1].all()), "fold_kernel: the lion covered or closed nothing")
-    row = {"max_abs_err": max_abs_err(got[0], want[0]), "layers": len(layers), "window": [H, W],
-           **fold_bound(torch, offs, layers, H, W)}
-    row.update(in_turns(torch, lambda: FP.fold_layers_carry(offs, layers, *c0), scrub,
-                        plain=lambda: FP.fold_layers_carry_torch(offs, layers, *c0)))
-    emit({"phase": "fold_kernel", "tolerance": 0, "equal_plain": True, "equal_chunked": True, "chunk": FOLD_CHUNK,
-          **row})
+    require(bool((want[2] & ~carry[2]).any()) and not torch.equal(want[1], carry[1]),
+            "fold_kernel: the fold covered or closed nothing")
+    row = {"max_abs_err": max_abs_err(got[0], want[0]), "layers": len(layers), "window": list(carry[1].shape),
+           "open_before": int(carry[1].sum()), "chunk": cut, **fold_bound(torch, offs, layers, carry[0], carry[1])}
+    row.update(fold_host_ms(torch, lambda: FP.fold_layers_carry(offs, layers, *carry)))
+    row["wait_ms"] = 4 * row["host_ms_max"]
+    retaken = RETAKEN[0]
+    row.update(in_turns(torch, lambda: FP.fold_layers_carry(offs, layers, *carry), scrub, wait_ms=row["wait_ms"],
+                        plain=lambda: FP.fold_layers_carry_torch(offs, layers, *carry)))
+    row["share"] = row["bound_ms"] / row["ms"]
+    row["retaken"] = RETAKEN[0] - retaken
     return row
+
+
+def fold_shapes(torch, dev, sprites, group_fold, blur_fold) -> dict:
+    """The three folds the program gives fold_layers, by name, as
+    (offs, layers, acc, open_mask, covered): the lion's 132 sprites (the
+    sprite route's, from full_sprites_of_objects) over the whole 1920x1080
+    window, every pixel open; the lion group's fold as general_lion's render
+    called it, the update shape's mask open; the last recomposite_blur
+    window of frame_path, its prefiltered layer pack and inwin open."""
+    lion = sprites[1:]
+    window = ([(s.box[1] - 1, s.box[0] - 1) for s in lion], [(s.rgba, s.mask) for s in lion],
+              torch.zeros((H, W, 4), dtype=torch.int32, device=dev), torch.ones((H, W), dtype=torch.bool, device=dev),
+              torch.zeros((H, W), dtype=torch.bool, device=dev))
+    return {"lion_window": window, "lion_group": group_fold, "blur_window": blur_fold}
+
+
+def fold_kernel(torch, dev, scrub, kernels, folds):
+    """fold_layers at each of fold_shapes' folds (fold_shape each), with
+    fold_visits' model of each fold's tile lists at the kernel's tile in the
+    phase's line.  Returns the kernels line's row: the whole-window fold's
+    numbers, each shape's beside them."""
+    shapes = {name: fold_shape(torch, dev, scrub, fold) for name, fold in folds.items()}
+    visits = {name: fold_visits(offs, [m.shape for _, m in layers], open_mask, kernels.fold_tile())
+              for name, (offs, layers, _, open_mask, _) in folds.items()}
+    emit({"phase": "fold_kernel", "tolerance": 0, "equal_plain": True, "equal_chunked": True,
+          "shapes": {name: {**row, "host_model": visits[name]} for name, row in shapes.items()}})
+    return {**shapes["lion_window"], "shapes": shapes}
 
 
 def frame_path(torch, dev, kernels, lion):
@@ -1749,7 +1904,8 @@ def frame_path(torch, dev, kernels, lion):
     launch).  Frames 0-2 are held against the same frames on the CPU and
     against the general renderer's render of the same filtered scene; the
     last against a whole-window recomposite plus apply_blur.  Returns the
-    launch counts."""
+    launch counts, and the last blur window's fold in the CPU's frames
+    (its arguments, for fold_kernel)."""
     from coherence_tpu_torch import colour as C
     from coherence_tpu_torch import ident
     from coherence_tpu_torch.raster import convolve, fills, framepath, region
@@ -1785,7 +1941,10 @@ def frame_path(torch, dev, kernels, lion):
         return fb, shown, state["blob"], alpha, ms
 
     fresh_cache()
-    _, cpu_shown, _, _, _ = run("cpu", layer_stack("cpu", lion["cpu"]), N_CHECKED_FRAMES - 1, False)
+    with recorded_folds() as folds:
+        _, cpu_shown, _, _, _ = run("cpu", layer_stack("cpu", lion["cpu"]), N_CHECKED_FRAMES - 1, False)
+    require(len(folds) == N_CHECKED_FRAMES and folds[-1][3].numel() < H * W,
+            "frame_path: the CPU's frames did not fold the whole window, then one blur window each")
     fresh_cache()  # the backdrop's and the lens's shapes are cached per device (H23)
     zero_counts(torch, kernels)
     stack = layer_stack(dev, lion["card"])
@@ -1817,7 +1976,7 @@ def frame_path(torch, dev, kernels, lion):
           "blur_radius": BLUR_RADIUS, **frame_stats(ms), "general_renderer_s": general_s, "launches": counts,
           "equal": {"tolerance": 0, "cpu_frames": N_CHECKED_FRAMES, "general_renderer_frames": N_CHECKED_FRAMES,
                     "last_frame_whole_window": True}})
-    return counts
+    return counts, folds[-1]
 
 
 # The serving surface (benchmarks/session.py): both sessions at W x H.
@@ -2321,15 +2480,15 @@ def main() -> int:
     dry = dryrun_multichip(2, mesh_devices(torch, 2))
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
     del mesh
-    counts_general = general_lion(torch, dev, kernels)
+    counts_general, group_fold = general_lion(torch, dev, kernels)
     general_filters(torch, dev)
     convolve_1080p(torch, dev)
     stroked_tiles(torch, dev, kernels)
     counts_edits, lion_sprites = scene_edits(torch, dev, kernels)
-    timed["fold_layers"] = fold_kernel(torch, dev, scrub, lion_sprites["card"])
-    del scrub
-    counts_frame = frame_path(torch, dev, kernels, lion_sprites)
-    del lion_sprites
+    counts_frame, blur_fold = frame_path(torch, dev, kernels, lion_sprites)
+    timed["fold_layers"] = fold_kernel(torch, dev, scrub, kernels,
+                                       fold_shapes(torch, dev, lion_sprites["card"], group_fold, blur_fold))
+    del scrub, lion_sprites, group_fold, blur_fold
     counts_serve, serve_check_full = serve_fast(torch, dev, kernels)
     counts_engine = serve_engine(torch, dev, kernels)
 
@@ -2380,7 +2539,10 @@ def main() -> int:
                  "max_abs_err": fold["max_abs_err"], "ms": fold["ms"], "plain_ms": fold["plain_ms"],
                  "bound_ms": fold["bound_ms"], "bound_by": "bytes",
                  # No one PyTorch call folds masked, offset layers front to back with an early stop.
-                 "library_ms": None, "bytes": fold["bytes"], "share": fold["bound_ms"] / fold["ms"]})
+                 "library_ms": None, "bytes": fold["bytes"], "share": fold["share"],
+                 "shapes": {name: {key: row[key] for key in ("window", "layers", "open_before", "ms", "plain_ms",
+                                                             "bound_ms", "share")}
+                            for name, row in fold["shapes"].items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

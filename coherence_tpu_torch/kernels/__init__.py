@@ -19,6 +19,7 @@ with no CUDA toolkit and no card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -26,6 +27,7 @@ import subprocess
 import threading
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,7 +51,13 @@ _ENTRY_POINTS = {
     "fold_layers": [_ptr] * 7 + [_i32] * 3 + [_ptr],
 }
 
+# entry point -> argument types, of those that launch nothing
+_QUERIES = {"fold_layers_tile": [_i32]}
+
 launches = {name: 0 for name in _ENTRY_POINTS}
+
+# fold_layers.cu's LayerRecord: two 64-bit pointers, then int32 hs, ws, dy, dx.
+LAYER_RECORD = np.dtype([("rgba", "<u8"), ("mask", "<u8"), ("hs", "<i4"), ("ws", "<i4"), ("dy", "<i4"), ("dx", "<i4")])
 
 _lock = threading.Lock()
 _fns: Optional[Dict[str, ctypes._CFuncPtr]] = None
@@ -105,7 +113,7 @@ def load() -> Dict[str, ctypes._CFuncPtr]:
             build()
             lib = ctypes.CDLL(LIBRARY)
             fns = {}
-            for entry, argtypes in _ENTRY_POINTS.items():
+            for entry, argtypes in {**_ENTRY_POINTS, **_QUERIES}.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = _i32
@@ -285,20 +293,71 @@ def _check_mask(name: str, t: torch.Tensor, device: torch.device, shape) -> None
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _layer_fault(rgba: int, mask: int, hs: int, ws: int, dy: int, dx: int) -> Optional[str]:
+    """What keeps one record out of fold_layers' table, or None."""
+    if not (0 <= rgba < 2**64 and 0 <= mask < 2**64):
+        return "a pointer outside [0, 2^64)"
+    if not (0 <= hs < 2**31 and 0 <= ws < 2**31) or hs * ws >= 2**31:
+        return f"{hs}x{ws} is not a layer of fewer than 2^31 pixels"
+    if not all(-(2**31) <= v < 2**31 for v in (dy, dx, dy + hs, dx + ws)):
+        return f"its box at ({dy}, {dx}) does not fit in int32"
+    return None
+
+
+def pack_layer_records(records) -> np.ndarray:
+    """fold_layers' layer table: one LAYER_RECORD (32 bytes) per (rgba
+    pointer, mask pointer, hs, ws, dy, dx), in the given order.  Raises
+    ValueError, naming the first layer at fault, where a value does not fit:
+    a pointer outside [0, 2^64); hs or ws outside [0, 2^31), or hs * ws of
+    2^31 or more (the kernel indexes a layer's pixels in int32); dy, dx,
+    dy + hs or dx + ws outside int32 (its box tests).  The checks run on
+    whole columns; only a table at fault is scanned layer by layer."""
+    table = np.zeros(len(records), LAYER_RECORD)
+    if not len(records):
+        return table
+    rgba, mask, *geometry = zip(*records)
+    ptrs = rgba + mask
+    try:
+        geom = np.array(geometry, np.int64)
+    except OverflowError:  # beyond int64: the scan below names the layer
+        geom = None
+    if geom is not None and min(ptrs) >= 0 and max(ptrs) < 2**64 and geom.min() >= -(2**31) and geom.max() < 2**31:
+        sizes, origins = geom[:2], geom[2:]  # every value in int32: the sums and products are exact
+        if sizes.min() >= 0 and (sizes[0] * sizes[1]).max() < 2**31 and (origins + sizes).max() < 2**31:
+            table["rgba"], table["mask"] = rgba, mask
+            for name, column in zip(("hs", "ws", "dy", "dx"), geom):
+                table[name] = column
+            return table
+    k, what = next((k, what) for k, r in enumerate(records) if (what := _layer_fault(*(int(v) for v in r))))
+    raise ValueError(f"layer {k}: {what}")
+
+
+@functools.lru_cache(maxsize=None)
+def fold_tile() -> tuple:
+    """fold_layers.cu's tile, (rows, columns) of the window per block, as
+    the built library gives it."""
+    query = load()["fold_layers_tile"]
+    return query(0), query(1)
+
+
 def fold_layers(offs, layers, acc, open_mask, covered):
-    """Launch ``fold_layers``: one thread per pixel of the (hb, wb) window
-    folds the layers front to back into the carry (int32 (hb, wb, 4) acc,
-    bool (hb, wb) open_mask and covered).  `layers` is a sequence of
-    (rgba, mask) pairs, contiguous int32 (hs, ws, 4) and bool (hs, ws) on
-    the carry's device; `offs` their (dy, dx) origins in window
-    coordinates.  The layers pass as one small device table of records,
-    not one launch each.  Returns the new (acc, open_mask, covered)."""
+    """Launch ``fold_layers``: one block per 8x32 tile of the (hb, wb)
+    window folds the layers front to back into the carry (int32 (hb, wb, 4)
+    acc, bool (hb, wb) open_mask and covered), each tile walking only the
+    layers whose boxes meet it.  `layers` is a sequence of (rgba, mask)
+    pairs, contiguous int32 (hs, ws, 4) and bool (hs, ws) on the carry's
+    device; `offs` their (dy, dx) origins in window coordinates.  The
+    layers pass as one small device table of records
+    (pack_layer_records), not one launch each.  Returns the new (acc,
+    open_mask, covered)."""
     device = acc.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA fold needs tensors on a CUDA device, got {device}")
     if open_mask.dim() != 2 or open_mask.numel() == 0:
         raise ValueError(f"open_mask: need a non-empty (hb, wb) window, got shape {tuple(open_mask.shape)}")
     hb, wb = open_mask.shape
+    if -(-hb // fold_tile()[0]) > 65535 or wb >= 2**31:
+        raise ValueError(f"open_mask: a {hb}x{wb} window is beyond the kernel's grid")
     _check("acc", acc, device, (hb, wb, 4))
     _check_mask("open_mask", open_mask, device, (hb, wb))
     _check_mask("covered", covered, device, (hb, wb))
@@ -307,10 +366,18 @@ def fold_layers(offs, layers, acc, open_mask, covered):
     records = []
     for (dy, dx), (rgba, mask) in zip(offs, layers):
         hs, ws = mask.shape
-        _check("layer rgba", rgba, device, (hs, ws, 4))
-        _check_mask("layer mask", mask, device, (hs, ws))
-        records.append((rgba.data_ptr(), mask.data_ptr(), hs, ws, int(dy), int(dx)))
-    table = torch.tensor(records, dtype=torch.int64).reshape(-1, 6).to(device)
+        rgba_ptr = rgba.data_ptr()
+        # One test for the usual case; the checks name what is wrong.
+        if not (rgba.dtype is torch.int32 and mask.dtype is torch.bool and rgba.device == device
+                and mask.device == device and rgba.shape == (hs, ws, 4) and rgba_ptr % 16 == 0
+                and rgba.is_contiguous() and mask.is_contiguous()):
+            _check("layer rgba", rgba, device, (hs, ws, 4))
+            _check_mask("layer mask", mask, device, (hs, ws))
+        records.append((rgba_ptr, mask.data_ptr(), hs, ws, dy, dx))
+    # From pinned memory the upload is queued on the stream like the
+    # launch: the host does not wait for the card (the pinned block is held
+    # until the copy has run).
+    table = torch.from_numpy(pack_layer_records(records).view(np.uint8)).pin_memory().to(device, non_blocking=True)
     out = (torch.empty_like(acc), torch.empty_like(open_mask), torch.empty_like(covered))
     with torch.cuda.device(device):
         rc = load()["fold_layers"](

@@ -1,13 +1,15 @@
 """chip_smoke.py's byte counts against a brute-force count.
 
-Every share of the bound that chip_smoke.py prints rests on three
+Every share of the bound that chip_smoke.py prints rests on these
 functions: walked_depths (the pieces each 32-byte sector of a tile walks
-through an atlas list), layer_walk (the same for a dense layer stack) and
-bound (the bytes those walks must move).  Here each is held, on small random
-atlases and stacks made from a seed with numpy, to a count written out pixel
-by pixel: a sector reads a layer while any of its 8 pixels is still
-translucent, reads its background if one still is after the walk, and is
-written once.
+through an atlas list), layer_walk (the same for a dense layer stack),
+bound (the bytes those walks must move) and, for the layer fold,
+fold_bound (the sectors each open pixel reads until it closes) and
+fold_visits (the host's model of a tiled fold's layer lists).  Here
+each is held, on small random atlases, stacks and layer packs made from a
+seed with numpy, to a count written out pixel by pixel: a sector reads a
+layer while any of its 8 pixels is still translucent, reads its background
+if one still is after the walk, and is written once.
 """
 
 import os
@@ -19,6 +21,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_cuda import fold_case  # noqa: E402
 
 TILE_H, TILE_W, SECTOR = 64, 128, 8
 
@@ -134,3 +137,89 @@ def test_bound_counts_each_sector_once(seed):
     # A 4-row stripe is 64 sectors of a tile's 1024.
     stripe_pieces = sum(int(r.reshape(r.shape[0], 16, 64).max(2).sum()) for r, _ in brute)
     assert got["stripe_count_bytes"] == (stripe_pieces + 2 * 4 * 16) * 4 * TILE_W * 4
+
+
+def _brute_fold_bytes(offs, layers, acc, open_mask) -> int:
+    """fold_bound's bytes, pixel by pixel: for each layer front to back, the
+    mask sector (32 one-byte pixels of the layer) of every pixel over it
+    that is still open, and the RGBA sector (2 pixels) of each of those
+    where the mask is set; the alpha blended as over_rgba blends it and the
+    pixel closed at 255; the carry read and written, 32 bytes a record."""
+    hb, wb = open_mask.shape
+    alpha = acc[..., 3].astype(np.int64).copy()
+    still = open_mask.copy()
+    sectors = 0
+    for (dy, dx), (rgba, mask) in zip(offs, layers):
+        hs, ws = mask.shape
+        mask_sectors, rgba_sectors = set(), set()
+        for y in range(hb):
+            for x in range(wb):
+                iy, ix = y - dy, x - dx
+                if not (0 <= iy < hs and 0 <= ix < ws and still[y, x]):
+                    continue
+                q = iy * ws + ix
+                mask_sectors.add(q // 32)
+                if not mask[iy, ix]:
+                    continue
+                rgba_sectors.add(q // 2)
+                a, la = int(alpha[y, x]), int(rgba[iy, ix, 3])
+                t = la * a + 128
+                alpha[y, x] = la if a == 0 else a if a == 255 else la + a - (((t >> 8) + t) >> 8)
+                still[y, x] = alpha[y, x] != 255
+        sectors += len(mask_sectors) + len(rgba_sectors)
+    return sectors * 32 + 2 * 18 * hb * wb + 32 * len(layers)
+
+
+@pytest.mark.parametrize("seed,k,hb,wb,case", [(0, 7, 24, 40, "random"), (5, 9, 65, 57, "random"),
+                                               (7, 6, 40, 90, "larger"), (9, 10, 65, 77, "ragged_open"),
+                                               (10, 8, 33, 60, "opaque_front"), (11, 8, 30, 70, "clear_mask")])
+def test_fold_bound_counts_from_the_carry(seed, k, hb, wb, case):
+    """fold_bound starts from the carry: only the pixels it holds open read
+    layers, and their alpha starts from its acc (some pixels already
+    opaque), so a window that opens only part of itself costs less."""
+    offs, layers, open_mask = fold_case(seed, k, hb, wb, case)
+    acc = np.random.default_rng(seed).integers(0, 256, (hb, wb, 4)).astype(np.int32)
+    acc[::5, ::3, 3] = 255
+    tl = [(torch.from_numpy(r), torch.from_numpy(m)) for r, m in layers]
+    got = chip_smoke.fold_bound(torch, offs.tolist(), tl, torch.from_numpy(acc), torch.from_numpy(open_mask))
+    n_bytes = _brute_fold_bytes(offs.tolist(), layers, acc, open_mask)
+    assert got["bytes"] == n_bytes
+    assert got["bound_ms"] == pytest.approx(n_bytes / 3.35e12 * 1e3, rel=1e-12)
+    everything = chip_smoke.fold_bound(torch, offs.tolist(), tl, torch.zeros((hb, wb, 4), dtype=torch.int32),
+                                       torch.ones((hb, wb), dtype=torch.bool))
+    assert everything["bytes"] == _brute_fold_bytes(offs.tolist(), layers, np.zeros((hb, wb, 4), np.int32),
+                                                    np.ones((hb, wb), bool))
+    assert got["bytes"] <= everything["bytes"]
+
+
+@pytest.mark.parametrize("seed,k,hb,wb,case,tile", [(0, 7, 24, 40, "random", (8, 32)),
+                                                    (4, 9, 17, 129, "random", (8, 32)),
+                                                    (6, 8, 33, 70, "outside", (8, 32)),
+                                                    (8, 30, 40, 70, "one_tile", (8, 32)),
+                                                    (9, 10, 65, 257, "ragged_open", (16, 32)),
+                                                    (9, 10, 65, 257, "ragged_open", (8, 64)),
+                                                    (3, 12, 1, 1, "random", (8, 32))])
+def test_fold_visits_counts_each_open_tile_s_list(seed, k, hb, wb, case, tile):
+    """fold_visits tile by tile: a tile with an open pixel lists each layer
+    whose box meets the tile's part of the window, and each of the tile's
+    pixels in the window visits each listed layer."""
+    offs, layers, open_mask = fold_case(seed, k, hb, wb, case)
+    th, tw = tile
+    want = {"tiles": 0, "open_tiles": 0, "tile_list_entries": 0, "deepest_list": 0,
+            "listed_visits_upper_bound": 0}
+    for ty in range(0, hb, th):
+        for tx in range(0, wb, tw):
+            want["tiles"] += 1
+            y1, x1 = min(hb, ty + th), min(wb, tx + tw)
+            if not open_mask[ty:y1, tx:x1].any():
+                continue
+            want["open_tiles"] += 1
+            listed = sum(1 for (dy, dx), (_, m) in zip(offs.tolist(), layers)
+                         if max(dy, ty) < min(dy + m.shape[0], y1) and max(dx, tx) < min(dx + m.shape[1], x1))
+            want["tile_list_entries"] += listed
+            want["deepest_list"] = max(want["deepest_list"], listed)
+            want["listed_visits_upper_bound"] += listed * (y1 - ty) * (x1 - tx)
+    got = chip_smoke.fold_visits(offs.tolist(), [m.shape for _, m in layers], torch.from_numpy(open_mask), tile)
+    assert {key: got[key] for key in want} == want
+    assert got["tile"] == [th, tw] and got["all_pairs"] == k * hb * wb
+    assert got["listed_visits_upper_bound"] <= got["all_pairs"]

@@ -772,37 +772,107 @@ def test_engine_on_the_card_matches_the_cpu(cuda_device):
     assert np.array_equal(a, b) and ra == rb and len(rb) >= 4
 
 
-def fold_case(seed: int, k: int, hb: int, wb: int):
+def _fold_layer(rng, hs: int, ws: int, opaque: float = 0.2, density: float = 0.85, alpha_max: int = 256):
+    """One premultiplied (rgba, mask) layer: alpha below alpha_max, 255 on
+    an `opaque` share of the pixels, the mask set on a `density` share."""
+    alpha = rng.integers(0, alpha_max, (hs, ws))
+    alpha[rng.random((hs, ws)) < opaque] = 255
+    rgb = (rng.integers(0, 256, (hs, ws, 3)) * alpha[..., None]) // 255
+    mask = rng.random((hs, ws)) < density
+    rgba = np.where(mask[..., None], np.concatenate([rgb, alpha[..., None]], -1), 0).astype(np.int32)
+    return rgba, mask
+
+
+def fold_case(seed: int, k: int, hb: int, wb: int, case: str = "random"):
     """Seeded layers for the window fold: translucent (some pixels opaque,
     so pixels close part way down), masks with holes, each hanging off an
     edge of the (hb, wb) window or inside it; and an open mask with a
-    closed band.  Returns (offsets (k, 2) int32, [(rgba, mask)], open)."""
+    closed band (on windows at least 3 wide).  Returns (offsets (k, 2)
+    int32, [(rgba, mask)], open).  `case` alters the random case at the
+    edges that a tiled fold can get wrong:
+
+      outside       layer 0 wholly above the window, layer 1 wholly right
+                    of it, each touching its edge;
+      larger        layer k // 2 larger than the window on every side;
+      one_tile      every layer inside the window's first 8x32 pixels (one
+                    tile of the kernel's), faint and sparse with a few
+                    opaque pixels, so that pixels close at many depths and
+                    most stay open to the end (K = 300: the tile's list
+                    spans several cull chunks; nine layer shapes, so that
+                    the JAX side compiles few);
+      ragged_open   the open mask a rectangle that closes whole tiles and
+                    leaves a ragged region open, as a window's inwin does;
+      opaque_front  layer 0 opaque over the whole window: every open pixel
+                    closes at k = 0;
+      clear_mask    masks set where the layer's alpha is 0.
+    """
     rng = np.random.default_rng(seed)
     layers, offs = [], []
     for _ in range(k):
+        if case == "one_tile":
+            hs, ws = int(rng.choice([1, 4, 8])), int(rng.choice([1, 8, 32]))
+            layers.append(_fold_layer(rng, hs, ws, opaque=0.01, density=0.15, alpha_max=40))
+            offs.append((int(rng.integers(0, 9 - hs)), int(rng.integers(0, 33 - ws))))
+            continue
         hs, ws = int(rng.integers(3, hb + 8)), int(rng.integers(3, wb + 8))
-        alpha = rng.integers(0, 256, (hs, ws))
-        alpha[rng.random((hs, ws)) < 0.2] = 255
-        rgb = (rng.integers(0, 256, (hs, ws, 3)) * alpha[..., None]) // 255
-        mask = rng.random((hs, ws)) < 0.85
-        rgba = np.where(mask[..., None], np.concatenate([rgb, alpha[..., None]], -1), 0).astype(np.int32)
-        layers.append((rgba, mask))
+        layers.append(_fold_layer(rng, hs, ws))
         offs.append((int(rng.integers(-hs + 1, hb)), int(rng.integers(-ws + 1, wb))))
     open_mask = np.ones((hb, wb), bool)
-    open_mask[:, wb // 3 : wb // 3 + 2] = False
+    if wb >= 3:
+        open_mask[:, wb // 3 : wb // 3 + 2] = False
+    if case == "outside":
+        offs[0] = (-layers[0][1].shape[0], offs[0][1])
+        offs[1] = (offs[1][0], wb)
+    elif case == "larger":
+        layers[k // 2] = _fold_layer(rng, hb + 9, wb + 11)
+        offs[k // 2] = (-4, -5)
+    elif case == "ragged_open":
+        open_mask[:] = False
+        open_mask[17 : hb - 5, 37 : wb - 9] = True
+    elif case == "opaque_front":
+        layers[0] = _fold_layer(rng, hb, wb, opaque=1.0, density=1.0)
+        offs[0] = (0, 0)
+    elif case == "clear_mask":
+        for rgba, mask in layers:
+            clear = rng.random(mask.shape) < 0.3
+            mask |= clear
+            rgba[clear] = 0
     return np.asarray(offs, np.int32), layers, open_mask
 
 
+# (seed, k, hb, wb, case): windows that are not a multiple of the kernel's
+# tile, then each of fold_case's edge cases; shared with the CPU
+# comparison against the JAX package (tests/test_torch_framepath.py).
+FOLD_EDGE_CASES = [
+    (3, 12, 1, 1, "random"),
+    (4, 9, 17, 129, "random"),
+    (5, 9, 65, 257, "random"),
+    (6, 8, 33, 70, "outside"),
+    (7, 6, 40, 90, "larger"),
+    (8, 300, 40, 70, "one_tile"),
+    (9, 10, 65, 257, "ragged_open"),
+    (10, 8, 33, 100, "opaque_front"),
+    (11, 8, 30, 70, "clear_mask"),
+]
+
+
+def fold_params(*cases):
+    """The (seed, k, hb, wb) cases as parameters of a random fold_case, with
+    pytest's own ids, then FOLD_EDGE_CASES."""
+    return ([pytest.param(*c, "random", id="-".join(map(str, c))) for c in cases]
+            + [pytest.param(*c, id="-".join(map(str, c))) for c in FOLD_EDGE_CASES])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,k,hb,wb", [(0, 7, 24, 40), (1, 7, 61, 300), (2, 200, 33, 130)])
-def test_fold_layers_kernel_matches_plain(cuda_device, seed, k, hb, wb):
+@pytest.mark.parametrize("seed,k,hb,wb,case", fold_params((0, 7, 24, 40), (1, 7, 61, 300), (2, 200, 33, 130)))
+def test_fold_layers_kernel_matches_plain(cuda_device, seed, k, hb, wb, case):
     """fold_layers against fold_layers_carry_torch, carry and all, on a
     translucent stack with closing pixels and offsets off every edge; over
-    128 layers the records come in two chunks.  Then the same fold in two
-    calls with the carry."""
+    128 layers the records come in two chunks; then the edge cases.  Then
+    the same fold in two calls with the carry."""
     from coherence_tpu_torch.raster import framepath as FP
 
-    offs, layers, open_mask = fold_case(seed, k, hb, wb)
+    offs, layers, open_mask = fold_case(seed, k, hb, wb, case)
     acc = np.random.default_rng(seed).integers(0, 3, (hb, wb, 4)).astype(np.int32)
     carry = [torch.from_numpy(acc), torch.from_numpy(open_mask), torch.from_numpy(open_mask[::-1].copy())]
     cpu_layers = [(torch.from_numpy(r), torch.from_numpy(m)) for r, m in layers]

@@ -23,7 +23,7 @@ from coherence_tpu_torch.scene import fastframe as TF
 
 from _torch_general import JAX, SIDES, both_sides  # noqa: F401
 from _torch_threads import one_torch_thread  # noqa: F401
-from test_torch_cuda import fold_case
+from test_torch_cuda import fold_case, fold_params
 
 
 def frame_buffer(side, w, h, colour):
@@ -196,9 +196,9 @@ def test_blit_blur_frames(positions, both_sides):
         assert np.array_equal(a, b), f"frame {k}: port differs from JAX"
 
 
-@pytest.mark.parametrize("seed,k,hb,wb", [(0, 7, 24, 40), (1, 12, 16, 128)])
-def test_fold_layers_carry_matches_jax_and_chunks(seed, k, hb, wb):
-    offs, layers, open_mask = fold_case(seed, k, hb, wb)
+@pytest.mark.parametrize("seed,k,hb,wb,case", fold_params((0, 7, 24, 40), (1, 12, 16, 128)))
+def test_fold_layers_carry_matches_jax_and_chunks(seed, k, hb, wb, case):
+    offs, layers, open_mask = fold_case(seed, k, hb, wb, case)
     flat = [jnp.asarray(a) for rgba, mask in layers for a in (rgba, mask)]
     want = JFP.fold_layers_carry(jnp.asarray(offs), flat, jnp.zeros((hb, wb, 4), jnp.int32), jnp.asarray(open_mask),
                                  jnp.zeros((hb, wb), bool))
