@@ -59,7 +59,15 @@ localhost TCP socket, as a user of the system runs it:
     blur lens, 8 + 100 drags, 11 small paints, a blur-slider sweep) and
     an Engine (first paint, a click that picks the blob, 8 + 40 drags, the
     slider over the selection, a rubberband zoom in and a right-click zoom
-    out), each answering the port's HeadlessClient over the wire protocol.
+    out), each answering the port's HeadlessClient over the wire protocol;
+  * a PDF document opened through the served Engine (OpenFile, then
+    PageDown): a two-page file this script writes itself (pdf_document,
+    pdf_file_bytes; the port has no writer), MediaBox 1920x1080, page 1
+    every graphics construct of the port's reader (colour spaces, shadings,
+    meshes, patterns, soft masks, transparency groups, blend modes, an
+    annotation, optional content), page 2 images (a 1024x768 Flate RGB
+    image, an Indexed image with an /SMask, a stencil, an inline and a
+    CCITT G4 image).
 
 Phases, one JSON line each:
 
@@ -156,7 +164,15 @@ Phases, one JSON line each:
      image equal to the engine's framebuffer after every stage, and equal
      to the client's image of an Engine on the CPU after the first paint,
      the pick and each of the first 3 drags.  The loop runs with
-     containment off: a handler's exception ends the phase.
+     containment off: a handler's exception ends the phase;
+ 22. pdf_pages: the document opened and its page turned on the CPU, then on
+     the card (both caches emptied between): the client's image and the
+     engine's 1280x1024 framebuffer of each page equal, bit for bit; first
+     paint and page turn seconds at the client, host syncs, objects
+     visited, the launches and copies issued for both pages painted cold
+     (profile_general.py's count), the fold_layers launches (at least one:
+     the transparency groups), no tile kernel; the phase's share of the
+     run.  A NotImplementedError (a branch the port lacks) ends the run.
 
 Then the script's seconds from the first phase to here, the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
@@ -168,7 +184,8 @@ banded_one_band, composite_runs's composite_full on the same lists, the
 banded kernels' unbanded ones, also on the 17-band lion; for fold_layers
 the mask and RGBA sectors each open pixel reads until it closes, and its
 carry in and out, with the record visits its tile lists imply, at the
-whole window and beside it at its other two shapes) and, last,
+whole window and beside it at its other two shapes; its launches per
+phase, pdf_pages's among them) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -2434,6 +2451,402 @@ def serve_engine(torch, dev, kernels):
     return counts
 
 
+# --- PDF pages: graphics and images through Engine.openfile --------------------
+
+PDF_IMAGE = (1024, 768)  # the Flate RGB image's samples on page 2
+PDF_CANVAS = (1280, 1024)  # the Engine's framebuffer (the reference's fixed canvas)
+
+
+def pdf_file_bytes(objects, trailer) -> bytes:
+    """A classic PDF file: numbered objects, an xref table and a trailer.
+    The objects are built with either package's Name, Ref and Stream (the
+    port has no writer yet); a stream nested in another object is written
+    as an object of its own, since PDF allows streams only there."""
+    queue = list(sorted(objects.items()))
+    next_num = [max(objects) + 1]
+
+    def ser(o, top=False) -> bytes:
+        kind = type(o).__name__
+        if kind == "Stream":
+            if not top:
+                queue.append((next_num[0], o))
+                next_num[0] += 1
+                return f"{next_num[0] - 1} 0 R".encode()
+            return ser(dict(o.dict, Length=len(o.raw))) + b"\nstream\n" + o.raw + b"\nendstream"
+        if isinstance(o, dict):
+            return b"<< " + b" ".join(b"/" + k.encode("latin1") + b" " + ser(v) for k, v in o.items()) + b" >>"
+        if isinstance(o, (list, tuple)):
+            return b"[ " + b" ".join(ser(v) for v in o) + b" ]"
+        if kind == "Name":
+            return b"/" + o.v.encode("latin1")
+        if kind == "Ref":
+            return f"{o.num} {o.gen} R".encode()
+        if isinstance(o, bool):
+            return b"true" if o else b"false"
+        if o is None:
+            return b"null"
+        if isinstance(o, bytes):
+            return b"<" + o.hex().encode() + b">"
+        if isinstance(o, float):
+            return (f"{o:.6f}".rstrip("0").rstrip(".") or "0").encode()
+        return str(int(o)).encode()
+
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = {}
+    while queue:
+        num, obj = queue.pop(0)
+        body = ser(obj, top=True)
+        offsets[num] = len(out)
+        out += f"{num} 0 obj\n".encode() + body + b"\nendobj\n"
+    xref = len(out)
+    size = max(offsets) + 1
+    out += f"xref\n0 {size}\n".encode() + b"0000000000 65535 f \n"
+    for num in range(1, size):
+        out += f"{offsets[num]:010d} 00000 n \n".encode() if num in offsets else b"0000000000 65535 f \n"
+    out += b"trailer\n" + ser(dict(trailer, Size=size)) + f"\nstartxref\n{xref}\n%%EOF\n".encode()
+    return bytes(out)
+
+
+def _cell(i: int):
+    """Bottom-left corner of the i-th 130x130 cell of page 1, in the
+    1920x1080 design space: 8 cells a row from the top left."""
+    return 20 + 140 * (i % 8), 930 - 140 * (i // 8)
+
+
+def _circle(cx: float, cy: float, r: float) -> bytes:
+    k = 0.5523 * r
+    return (f"{cx + r} {cy} m {cx + r} {cy + k} {cx + k} {cy + r} {cx} {cy + r} c "
+            f"{cx - k} {cy + r} {cx - r} {cy + k} {cx - r} {cy} c {cx - r} {cy - k} {cx - k} {cy - r} {cx} {cy - r} c "
+            f"{cx + k} {cy - r} {cx + r} {cy - k} {cx + r} {cy} c h").encode()
+
+
+def _mesh_bits(fields) -> bytes:
+    acc, n = 0, 0
+    for v, bits in fields:
+        acc = (acc << bits) | (int(v) & ((1 << bits) - 1))
+        n += bits
+    pad = (-n) % 8
+    return (acc << pad).to_bytes((n + pad) // 8, "big")
+
+
+def _mesh_xy(x: float, y: float):
+    return [(round(x / 1920 * 65535), 16), (round(y / 1080 * 65535), 16)]
+
+
+def _mesh_rgb(r: float, g: float, b: float):
+    return [(round(r * 255), 8), (round(g * 255), 8), (round(b * 255), 8)]
+
+
+def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0):
+    """(objects, trailer) of a two-page document built with the pdf module
+    `P` (its Name, Ref and Stream), each page's MediaBox w x h; the content
+    is laid out in a 1920x1080 design space and scaled to the page.
+
+    Page 1 holds every graphics construct of the port's PDF reader: fills in
+    Indexed, Separation (a type 2 function), DeviceN (a type 4 PostScript
+    function) and Lab; an axial and a radial sh under a clip and the same
+    two as shading patterns; a type 1 function shading; a type 4 mesh and
+    a type 6 Coons mesh; a coloured and an uncoloured tiling pattern; a
+    Luminosity and an Alpha soft mask; a transparency group at ca 0.5 and
+    one under Multiply; paths under Multiply, Screen, Overlay and
+    Difference; an annotation's /AP /N stream; a form hidden by an
+    optional-content group beside a visible one.  Page 2 holds images: a
+    Flate RGB image of image_wh samples, an Indexed image with an /SMask, an
+    /ImageMask stencil, an inline image and a CCITT G4 image made with the
+    port's ccitt_encode_g4."""
+    import zlib
+
+    import numpy as np
+
+    from coherence_tpu_torch.io.ccitt import ccitt_encode_g4
+
+    N, R, S = P.Name, P.Ref, P.Stream
+    sx, sy = w / 1920, h / 1080
+    scale = f"{sx} 0 0 {sy} 0 0 cm ".encode()
+    pat_m = [sx, 0.0, 0.0, sy, 0.0, 0.0]  # pattern space -> the page's default space
+    rng = np.random.default_rng(seed)
+
+    def fn2(c0, c1, n=1.0):
+        return {"FunctionType": 2, "Domain": [0, 1], "C0": list(c0), "C1": list(c1), "N": n}
+
+    def fn4(program: bytes, domain, rng_):
+        return S({"FunctionType": 4, "Domain": list(domain), "Range": list(rng_)}, program)
+
+    def form(content: bytes, bbox, group=False, **extra):
+        d = {"Type": N("XObject"), "Subtype": N("Form"), "BBox": list(bbox), "Resources": {}}
+        if group:
+            d["Group"] = {"Type": N("Group"), "S": N("Transparency")}
+        d.update(extra)
+        return S(d, content)
+
+    def cellbox(i):
+        x, y = _cell(i)
+        return [x, y, x + 130, y + 130]
+
+    # --- page 1 --------------------------------------------------------------
+    c = [b"q " + scale + b"0.93 0.95 0.98 rg 0 0 1920 1080 re f "]
+    cs = {
+        "Ix": [N("Indexed"), N("DeviceRGB"), 3, bytes([230, 40, 40, 40, 160, 60, 30, 60, 220, 250, 200, 30])],
+        "Sep": [N("Separation"), N("Spot"), N("DeviceCMYK"), fn2((0, 0, 0, 0), (0.1, 0.7, 0.2, 0.05))],
+        "DN": [N("DeviceN"), [N("A"), N("B")], N("DeviceRGB"),
+               fn4(b"{ 2 copy add 2 div }", (0, 1, 0, 1), (0, 1, 0, 1, 0, 1))],
+        "Lab": [N("Lab"), {"WhitePoint": [0.9505, 1.0, 1.089], "Range": [-100, 100, -100, 100]}],
+        "PU": [N("Pattern"), N("DeviceRGB")],
+    }
+    for i, op in enumerate((b"/Ix cs 2 scn", b"/Sep cs 0.7 scn", b"/DN cs 0.3 0.9 scn", b"/Lab cs 55 60 -40 scn")):
+        x, y = _cell(i)
+        c.append(op + b" %d %d 130 130 re f " % (x, y))
+    (ax, ay), (rx, ry) = _cell(4), _cell(5)
+    shadings = {
+        "ShA": {"ShadingType": 2, "ColorSpace": N("DeviceRGB"), "Coords": [ax, ay, ax + 130, ay + 130],
+                "Function": fn2((0.9, 0.1, 0.1), (0.1, 0.2, 0.9)), "Extend": [True, True]},
+        "ShR": {"ShadingType": 3, "ColorSpace": N("DeviceRGB"), "Coords": [rx + 45, ry + 80, 5, rx + 65, ry + 65, 70],
+                "Function": fn2((1, 1, 0.6), (0.6, 0, 0.3)), "Extend": [True, True]},
+    }
+    c.append(b"q %s W n /ShA sh Q q %d %d 130 130 re W n /ShR sh Q " % (_circle(ax + 65, ay + 65, 62), rx, ry))
+    (px, py), (qx, qy) = _cell(6), _cell(7)
+    patterns = {"PA": {"PatternType": 2, "Shading": dict(shadings["ShA"], Coords=[px, py, px + 130, py]), "Matrix": pat_m},
+                "PR": {"PatternType": 2, "Matrix": pat_m,
+                       "Shading": dict(shadings["ShR"], Coords=[qx + 65, qy + 65, 0, qx + 65, qy + 65, 65])}}
+    c.append(b"/Pattern cs /PA scn %s f /PR scn %d %d 130 130 re f " % (_circle(px + 65, py + 65, 60), qx, qy))
+    # Row 2: groups, soft masks, the function and mesh shadings, a tiling pattern.
+    overlap = b"%d %d 80 80 re f %d %d 80 80 re f"
+    gx, gy = _cell(8)
+    mx, my = _cell(9)
+    xobjects = {
+        "GrpH": form(b"0.8 0.1 0.1 rg " + overlap % (gx, gy, gx + 50, gy + 50), cellbox(8), group=True),
+        "GrpM": form(b"0.2 0.7 0.9 rg " + overlap % (mx, my, mx + 50, my + 50) + b" 0.9 0.8 0.1 rg %d %d 60 60 re f"
+                     % (mx + 35, my + 5), cellbox(9), group=True),
+    }
+    c.append(b"q /Half gs /GrpH Do Q 0.5 0.9 0.4 rg %d %d 130 40 re f q /Mul gs /GrpM Do Q " % (mx, my + 45))
+    lx, ly = _cell(10)
+    kx, ky = _cell(11)
+    ext = {
+        "Half": {"ca": 0.5}, "Mul": {"BM": N("Multiply")}, "Scr": {"BM": N("Screen")}, "Ovl": {"BM": N("Overlay")},
+        "Dif": {"BM": N("Difference")},
+        "SmL": {"SMask": {"Type": N("Mask"), "S": N("Luminosity"),
+                          "G": form(b"1 g %d %d 65 130 re f 0.4 g %d %d 65 65 re f" % (lx, ly, lx + 65, ly),
+                                    cellbox(10), group=True)}},
+        "SmA": {"SMask": {"Type": N("Mask"), "S": N("Alpha"),
+                          "G": form(b"/Q gs 0 0 1 rg " + _circle(kx + 65, ky + 65, 55) + b" f", cellbox(11), group=True,
+                                    Resources={"ExtGState": {"Q": {"ca": 0.6}}})}},
+        "None": {"SMask": N("None")},
+    }
+    c.append(b"q /SmL gs 0.9 0.3 0.1 rg %d %d 130 130 re f Q q /SmA gs 0.1 0.6 0.2 rg %d %d 130 130 re f Q /None gs "
+             % (lx, ly, kx, ky))
+    fx, fy = _cell(12)
+    shadings["ShF"] = {"ShadingType": 1, "ColorSpace": N("DeviceRGB"), "Domain": [0, 1, 0, 1],
+                       "Matrix": [130, 0, 0, 130, fx, fy], "Function": fn4(b"{ 2 copy add 2 div }", (0, 1, 0, 1), (0, 1) * 3)}
+    tx, ty = _cell(13)
+    tri = [((tx + 5, ty + 5), (1, 0, 0)), ((tx + 125, ty + 20), (0, 1, 0)), ((tx + 40, ty + 125), (0, 0, 1))]
+    free = b"".join(_mesh_bits([(0, 8)] + _mesh_xy(*p) + _mesh_rgb(*col)) for p, col in tri)
+    free += _mesh_bits([(1, 8)] + _mesh_xy(tx + 125, ty + 125) + _mesh_rgb(1, 1, 0))
+    mesh_d = {"ColorSpace": N("DeviceRGB"), "BitsPerCoordinate": 16, "BitsPerComponent": 8, "BitsPerFlag": 8,
+              "Decode": [0, 1920, 0, 1080, 0, 1, 0, 1, 0, 1]}
+    shadings["ShM"] = S(dict(mesh_d, ShadingType=4), free)
+    cx0, cy0 = _cell(14)
+    b = 12.0
+    pts = [(cx0, cy0), (cx0 - b, cy0 + 43), (cx0 + b, cy0 + 87), (cx0, cy0 + 130), (cx0 + 43, cy0 + 130 + b),
+           (cx0 + 87, cy0 + 130 - b), (cx0 + 130, cy0 + 130), (cx0 + 130 + b, cy0 + 87), (cx0 + 130 - b, cy0 + 43),
+           (cx0 + 130, cy0), (cx0 + 87, cy0 + b), (cx0 + 43, cy0 - b)]
+    shadings["ShC"] = S(dict(mesh_d, ShadingType=6), _mesh_bits(
+        [(0, 8)] + [f for q in pts for f in _mesh_xy(*q)]
+        + _mesh_rgb(1, 0, 0) + _mesh_rgb(0, 1, 0) + _mesh_rgb(0, 0, 1) + _mesh_rgb(1, 1, 0)))
+    c.append(b"/ShF sh /ShM sh /ShC sh ")
+    cx1, cy1 = _cell(15)
+    cx2, cy2 = _cell(16)
+    patterns["TC"] = S({"Type": N("Pattern"), "PatternType": 1, "PaintType": 1, "TilingType": 1, "BBox": [0, 0, 20, 20],
+                        "XStep": 20, "YStep": 20, "Matrix": pat_m, "Resources": {}},
+                       b"0.9 0.5 0.1 rg 0 0 10 10 re f 0.1 0.3 0.8 rg 10 10 10 10 re f")
+    patterns["TU"] = S({"Type": N("Pattern"), "PatternType": 1, "PaintType": 2, "TilingType": 1, "BBox": [0, 0, 16, 16],
+                        "XStep": 16, "YStep": 16, "Matrix": pat_m, "Resources": {}}, _circle(8, 8, 5) + b" f")
+    c.append(b"/Pattern cs /TC scn %d %d 130 130 re f /PU cs 0.7 0.1 0.5 /TU scn %s f " % (cx1, cy1, _circle(cx2 + 65, cy2 + 65, 64)))
+    # Row 3: blend modes over a two-colour backdrop, the annotation, optional content.
+    for i, gs in zip(range(17, 21), (b"Mul", b"Scr", b"Ovl", b"Dif")):
+        x, y = _cell(i)
+        c.append(b"1 0.6 0.2 rg %d %d 130 65 re f 0.2 0.5 0.9 rg %d %d 130 65 re f q /%s gs 0.3 0.8 0.5 rg %s f Q "
+                 % (x, y, x, y + 65, gs, _circle(x + 65, y + 65, 50)))
+    hx, hy = _cell(22)
+    vx, vy = _cell(23)
+    xobjects["Hid"] = form(b"0 0 0 rg %d %d 130 130 re f" % (hx, hy), cellbox(22), OC=R(9))
+    xobjects["Vis"] = form(b"0.4 0.2 0.6 rg %d %d 130 130 re f" % (vx, vy), cellbox(23), OC=R(8))
+    c.append(b"/Hid Do /Vis Do Q")
+    ann_x, ann_y = _cell(21)
+    annot = {"Type": N("Annot"), "Subtype": N("Stamp"),
+             "Rect": [ann_x * sx, ann_y * sy, (ann_x + 130) * sx, (ann_y + 130) * sy],
+             "AP": {"N": form(b"0.9 0.9 0.2 rg 0 0 100 100 re f 0.8 0 0 RG 6 w 10 10 m 90 90 l S", (0, 0, 100, 100))}}
+    res1 = {"ColorSpace": cs, "Shading": shadings, "Pattern": patterns, "ExtGState": ext, "XObject": xobjects}
+
+    # --- page 2 --------------------------------------------------------------
+    iw, ih = image_wh
+    yy, xx = np.mgrid[0:ih, 0:iw]
+    rgb = np.stack([xx * 255 // max(1, iw - 1), yy * 255 // max(1, ih - 1), (xx // 8 + yy // 8) % 2 * 200], -1)
+    rgb = np.clip(rgb + rng.integers(-12, 12, rgb.shape), 0, 255).astype(np.uint8)
+    im0 = S({"Type": N("XObject"), "Subtype": N("Image"), "Width": iw, "Height": ih, "ColorSpace": N("DeviceRGB"),
+             "BitsPerComponent": 8, "Filter": N("FlateDecode")}, zlib.compress(rgb.tobytes()))
+    lut = rng.integers(0, 256, 16 * 3).astype(np.uint8).tobytes()
+    idx = rng.integers(0, 16, (64, 64)).astype(np.uint8)
+    packed = ((idx[:, 0::2] << 4) | idx[:, 1::2]).tobytes()
+    alpha = (np.add.outer(np.arange(64), np.arange(64)) * 2).clip(0, 255).astype(np.uint8)
+    smask = S({"Type": N("XObject"), "Subtype": N("Image"), "Width": 64, "Height": 64, "ColorSpace": N("DeviceGray"),
+               "BitsPerComponent": 8}, alpha.tobytes())
+    im_ix = S({"Type": N("XObject"), "Subtype": N("Image"), "Width": 64, "Height": 64, "BitsPerComponent": 4,
+               "ColorSpace": [N("Indexed"), N("DeviceRGB"), 15, lut], "SMask": smask}, packed)
+    stencil = (np.add.outer(np.arange(96) // 12, np.arange(96) // 12) % 2).astype(np.uint8)
+    im_m = S({"Type": N("XObject"), "Subtype": N("Image"), "Width": 96, "Height": 96, "ImageMask": True,
+              "BitsPerComponent": 1}, np.packbits(stencil, axis=1).tobytes())
+    fax = np.zeros((90, 120), dtype=int)
+    for _ in range(12):
+        r0, c0 = rng.integers(0, 80), rng.integers(0, 100)
+        fax[r0: r0 + rng.integers(3, 20), c0: c0 + rng.integers(3, 30)] = 1
+    im_g4 = S({"Type": N("XObject"), "Subtype": N("Image"), "Width": 120, "Height": 90, "ColorSpace": N("DeviceGray"),
+               "BitsPerComponent": 1, "Filter": N("CCITTFaxDecode"),
+               "DecodeParms": {"K": -1, "Columns": 120, "Rows": 90}}, ccitt_encode_g4([list(r) for r in fax], 120))
+    inline = rng.integers(0, 256, (6, 8, 3)).astype(np.uint8).tobytes().hex().encode()
+    c2 = (b"q " + scale + b"0.97 0.97 0.97 rg 0 0 1920 1080 re f q 1024 0 0 768 10 292 cm /Im0 Do Q "
+          b"q 120 0 0 120 1045 930 cm /ImIx Do Q 0.8 0.1 0.3 rg q 120 0 0 120 1045 790 cm /ImM Do Q "
+          b"q 120 0 0 90 1045 670 cm /ImG4 Do Q "
+          b"q 120 0 0 90 1045 560 cm BI /W 8 /H 6 /BPC 8 /CS /RGB /F /AHx ID " + inline + b"> EI Q Q")
+    res2 = {"XObject": {"Im0": im0, "ImIx": im_ix, "ImM": im_m, "ImG4": im_g4}}
+
+    flate = {"Filter": N("FlateDecode")}
+    objects = {
+        1: {"Type": N("Catalog"), "Pages": R(2),
+            "OCProperties": {"OCGs": [R(8), R(9)], "D": {"BaseState": N("ON"), "OFF": [R(9)]}}},
+        2: {"Type": N("Pages"), "Kids": [R(3), R(5)], "Count": 2, "MediaBox": [0, 0, w, h]},
+        3: {"Type": N("Page"), "Parent": R(2), "Contents": R(4), "Resources": res1, "Annots": [R(7)]},
+        4: S(dict(flate), zlib.compress(b"".join(c))),
+        5: {"Type": N("Page"), "Parent": R(2), "Contents": R(6), "Resources": res2},
+        6: S(dict(flate), zlib.compress(c2)),
+        7: annot,
+        8: {"Type": N("OCG"), "Name": b"shown"},
+        9: {"Type": N("OCG"), "Name": b"hidden"},
+    }
+    return objects, {"Root": R(1)}
+
+
+def pdf_session(torch, device, path: str):
+    """An Engine on `device` behind a RemoteDisplay and the port's client:
+    OpenFile, a paint of the whole canvas, PageDown, a paint of the whole
+    canvas.  Returns (the client's images and the engine's framebuffer
+    after each page, what was measured)."""
+    from coherence_tpu_torch.gui import app
+    from coherence_tpu_torch.gui.window import RemoteDisplay
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.utils import profiling
+
+    def server(conn, ready):
+        eng = app.Engine(display=RemoteDisplay(conn), device=device)
+        ready["eng"] = eng
+        eng.run(resilient=False)
+
+    cw, ch = PDF_CANVAS
+    region.syncs = 0
+    visited0 = profiling.counters["render.objects_visited"]
+    sv = Served(server)
+    c = sv.c
+    shots = []
+    t0 = time.perf_counter()
+    c.send_event("OpenFile", path)
+    try:
+        while not c.windows and c.handle_one():
+            pass
+    except (ConnectionError, OSError):
+        sv.thread.join(10)
+        sv.check()
+        raise
+    require(bool(c.windows), "pdf_pages: the server closed the session before opening its window")
+    win = next(iter(c.windows))
+    c.paint(win, 0, 0, cw, ch)
+    first_paint_s = sv.await_refresh() - t0
+    sv.barrier(win)
+
+    def shot(name):
+        sv.check()
+        eng = sv.ready["eng"]
+        img = c.windows[win].image
+        fb = eng.wx.framebuffers[win]
+        require(bool((img == fb[: img.shape[0], : img.shape[1]]).all()),
+                f"pdf_pages: the client's image differs from the engine's framebuffer on {name}")
+        shots.append((img.copy(), fb.copy()))
+
+    shot("page 1")
+    t1 = time.perf_counter()
+    c.send_event("KeyDown", win, 367)  # PageDown
+    turn_s = sv.await_refresh() - t1
+    sv.drain()
+    c.paint(win, 0, 0, cw, ch)
+    sv.await_refresh()
+    sv.barrier(win)
+    require(sv.ready["eng"].docs[win][1] == 1, "pdf_pages: PageDown did not turn to page 2")
+    shot("page 2")
+    stats = {"first_paint_s": first_paint_s, "page_turn_s": turn_s, "syncs": region.syncs,
+             "objects_visited": profiling.counters["render.objects_visited"] - visited0,
+             "window": list(c.windows[win].image.shape[1::-1])}
+    sv.close()
+    return shots, stats
+
+
+def pdf_pages(torch, dev, kernels):
+    """The two-page document opened through a served Engine, on the CPU and
+    then on the card, with both caches emptied between the two; the client's
+    images and the engine's framebuffer of each page equal, bit for bit.
+    Returns the launch counts of the card's session."""
+    import os
+    import tempfile
+
+    from coherence_tpu_torch.io import pdf as P
+    from coherence_tpu_torch.scene import cache, fastframe
+    from profile_general import issued
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pdf_pages.pdf")
+        with open(path, "wb") as f:
+            f.write(pdf_file_bytes(*pdf_document(P, W, H)))
+        size = os.path.getsize(path)
+        cache.clear()
+        fastframe.scene_build_cache_clear()
+        cpu_shots, cpu_stats = pdf_session(torch, "cpu", path)
+        cache.clear()
+        fastframe.scene_build_cache_clear()
+        zero_counts(torch, kernels)
+        shots, stats = pdf_session(torch, dev, path)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        for page, (a, b) in enumerate(zip(shots, cpu_shots), start=1):
+            require(bool((a[0] == b[0]).all()), f"pdf_pages: page {page}: the client's image differs from the CPU run's")
+            require(bool((a[1] == b[1]).all()), f"pdf_pages: page {page}: the framebuffer differs from the CPU run's")
+            require(bool((a[1] != a[1][0, 0]).any()), f"pdf_pages: page {page} painted nothing")
+        require(not (shots[0][1] == shots[1][1]).all(), "pdf_pages: page 2 looks like page 1")
+        require(counts["fold_layers"] >= 1, "pdf_pages: no transparency group folded through fold_layers")
+        tile_counts = {k: n for k, n in counts.items() if k != "fold_layers"}
+        require(not any(tile_counts.values()), f"pdf_pages: the general renderer launched a tile kernel: {counts}")
+
+        def both_pages():
+            from coherence_tpu_torch.gui import app
+            from coherence_tpu_torch.gui import window as Wn
+
+            eng = app.Engine(device=dev)
+            eng.event_handler((Wn.OPEN_FILE, path))
+            view = eng.views[0]
+            eng.render_rect(view.window, 0, 0, *PDF_CANVAS)
+            eng.goto_page(view, 1)
+            eng.render_rect(view.window, 0, 0, *PDF_CANVAS)
+
+        cache.clear()
+        n_issued = issued(torch, both_pages)
+        cache.clear()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "pdf_pages", "page": [W, H], "canvas": list(PDF_CANVAS), "file_bytes": size,
+          "image_samples": list(PDF_IMAGE), **stats, "issued_launches_and_copies": n_issued,
+          "launches": counts, "fold_layers_launches": counts["fold_layers"],
+          "cpu_first_paint_s": cpu_stats["first_paint_s"], "cpu_page_turn_s": cpu_stats["page_turn_s"],
+          "seconds": seconds, "share_of_run": seconds / (time.perf_counter() - T_IMPORT),
+          "equal": {"tolerance": 0, "client_images": 2, "framebuffers": 2}})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2491,6 +2904,7 @@ def main() -> int:
     del scrub, lion_sprites, group_fold, blur_fold
     counts_serve, serve_check_full = serve_fast(torch, dev, kernels)
     counts_engine = serve_engine(torch, dev, kernels)
+    counts_pdf = pdf_pages(torch, dev, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m == "coherence_tpu" or m.startswith("coherence_tpu."))
@@ -2536,6 +2950,7 @@ def main() -> int:
                  "replaces": "coherence_tpu/raster/framepath.py:371", "pallas": False,
                  "launches": counts_frame["fold_layers"], "launches_general_lion": counts_general["fold_layers"],
                  "launches_scene_edits": counts_edits["fold_layers"], "launches_serve_engine": counts_engine["fold_layers"],
+                 "launches_pdf_pages": counts_pdf["fold_layers"],
                  "max_abs_err": fold["max_abs_err"], "ms": fold["ms"], "plain_ms": fold["plain_ms"],
                  "bound_ms": fold["bound_ms"], "bound_by": "bytes",
                  # No one PyTorch call folds masked, offset layers front to back with an early stop.

@@ -794,7 +794,7 @@ class Engine:
         mb = pdf.resolve(pg.get("MediaBox", [0, 0, 612, 792]))
         page_w = abs(float(mb[2]) - float(mb[0]))
         page_h = abs(float(mb[3]) - float(mb[1]))
-        objs = pdfscene.scene_of_graphic(pdf, graphic)
+        objs = pdfscene.scene_of_graphic(pdf, graphic, self.device)
         # Page /Rotate (inheritable, PDF 7.7.3.3): rotate the content into
         # display orientation and swap the page box for 90/270.  BEYOND
         # REFERENCE: engine.ml:1200-1229 ignores the attribute.

@@ -21,7 +21,9 @@ object under a live filter.
 
 Not carried over from the JAX package: ``_warm_blur`` and its
 ``warm_blur_radii`` argument (they pre-load one compiled program per blur
-radius; eager PyTorch has none to load).  A meshed session is not ported.
+radius; eager PyTorch has none to load).  Over a meshed view
+(``DeviceView.use_mesh``) ``ship_window`` reads the window's rows from the
+display plane's bands.
 """
 
 from __future__ import annotations
@@ -110,8 +112,6 @@ class FastSession:
         """Read [x0..x1] x [y0..y1] (1-based inclusive box) of the display
         plane and RefreshWindow it to the client (synchronous: returns
         when the client has the pixels, the latency the user feels)."""
-        if self.view.mesh is not None:
-            raise NotImplementedError("a session over a meshed view (a RowSharded display plane) is not ported")
         x0 = max(1, x0); y0 = max(1, y0)
         x1 = min(self.width, x1); y1 = min(self.height, y1)
         if x0 > x1 or y0 > y1:
@@ -125,9 +125,14 @@ class FastSession:
         # bucket (its extra rows and columns re-ship unchanged pixels).
         r0 = min(y0 - 1, self.height - hb)
         c0 = min(x0 - 1, self.width - wb)
-        # Slice and cast on the device; one copy of hb x wb x 3 bytes.
+        # Slice and cast on the device; one copy of hb x wb x 3 bytes.  Under
+        # a mesh the window's rows come from the bands that hold them.
+        if self.view.mesh is None:
+            win = self.disp.rgba[r0 : r0 + hb, c0 : c0 + wb]
+        else:
+            win = self.disp.rgba.window(r0, r0 + hb, c0, c0 + wb, self.device)
         region._sync()
-        rgb = self.disp.rgba[r0 : r0 + hb, c0 : c0 + wb, :3].to(torch.uint8).cpu().numpy()
+        rgb = win[..., :3].to(torch.uint8).cpu().numpy()
         fb = self.wx.framebuffers[self.win]
         fb[r0 : r0 + hb, c0 : c0 + wb] = rgb
         self.wx.refresh_window(self.win, (c0, r0, c0 + wb - 1, r0 + hb - 1))

@@ -1,10 +1,12 @@
 """PDF reader.
 
-The port's copy of ``coherence_tpu.io.pdf``, trimmed to what the port's
-scenes read: classic cross-reference tables and xref-stream / object-stream
-(ObjStm) files, FlateDecode streams (with PNG/TIFF predictors), and the page
-tree with inheritable attributes.  Other stream filters raise ValueError and
-encrypted files raise NotImplementedError; the writer is not ported.
+The port's copy of ``coherence_tpu.io.pdf``, without the writer and
+encryption: classic cross-reference tables and xref-stream / object-stream
+(ObjStm) files, the stream filters (Flate and LZW with PNG/TIFF predictors,
+ASCIIHex, ASCII85, RunLength, CCITTFax G3/G4), the page tree with
+inheritable attributes, and ``mkpage``, a one-page PDF in memory.  Other
+stream filters raise ValueError.  Encrypted files raise NotImplementedError
+until ``pdfcrypt`` and the writer are ported (ROADMAP.md Queue 1, item 1d).
 
 Object model: Python natives —
   dict          -> PDF dictionary (keys without the leading '/')
@@ -36,6 +38,101 @@ class Name:
 class Ref:
     num: int
     gen: int = 0
+
+
+def _ascii85_decode(data: bytes) -> bytes:
+    """ASCII85Decode (PDF 7.4.3): whitespace ignored, `z` = four zero
+    bytes, terminated by `~>` (optional)."""
+    end = data.find(b"~>")
+    if end != -1:
+        data = data[:end]
+    out = bytearray()
+    group = []
+    for c in data:
+        if c in _WS:
+            continue
+        if c == 0x7A:  # 'z'
+            if group:
+                raise ValueError("ASCII85: z inside group")
+            out += b"\x00\x00\x00\x00"
+            continue
+        if not (0x21 <= c <= 0x75):
+            raise ValueError(f"ASCII85: bad byte {c}")
+        group.append(c - 0x21)
+        if len(group) == 5:
+            v = 0
+            for g in group:
+                v = v * 85 + g
+            out += v.to_bytes(4, "big")
+            group = []
+    if group:
+        n = len(group)
+        group += [84] * (5 - n)
+        v = 0
+        for g in group:
+            v = v * 85 + g
+        out += v.to_bytes(4, "big")[: n - 1]
+    return bytes(out)
+
+
+def _runlength_decode(data: bytes) -> bytes:
+    """RunLengthDecode (PDF 7.4.5)."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        n = data[i]
+        if n == 128:
+            break
+        if n < 128:
+            out += data[i + 1 : i + 2 + n]
+            i += 2 + n
+        else:
+            out += data[i + 1 : i + 2] * (257 - n)
+            i += 2
+    return bytes(out)
+
+
+def _lzw_decode(data: bytes, early_change: int = 1) -> bytes:
+    """LZWDecode (PDF 7.4.4; TIFF-style LZW with 9..12-bit variable codes,
+    clear code 256, EOD 257, EarlyChange per /DecodeParms)."""
+    out = bytearray()
+    table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
+    width = 9
+    prev: Optional[bytes] = None
+    acc = 0
+    nbits = 0
+    for byte in data:
+        acc = (acc << 8) | byte
+        nbits += 8
+        while nbits >= width:
+            code = (acc >> (nbits - width)) & ((1 << width) - 1)
+            nbits -= width
+            if code == 256:
+                table = table[:258]
+                width = 9
+                prev = None
+                continue
+            if code == 257:
+                return bytes(out)
+            if prev is None:
+                entry = table[code]
+            elif code < len(table):
+                entry = table[code]
+                table.append(prev + entry[:1])
+            else:
+                entry = prev + prev[:1]
+                table.append(entry)
+            out += entry
+            prev = entry
+            # The encoder bumps its code width as soon as the NEXT code it
+            # could emit (== next table index, i.e. len(table); one earlier
+            # with EarlyChange=1) no longer fits — the decoder must follow
+            # at exactly the same point (verified against a TIFF-LZW
+            # encoder: bumping one entry late diverges at the first 9->10
+            # transition).
+            if len(table) + early_change >= (1 << width) and width < 12:
+                width += 1
+    return bytes(out)
 
 
 def _apply_predictor(data: bytes, parms: dict) -> bytes:
@@ -119,6 +216,29 @@ class Stream:
                 if f in ("FlateDecode", "Fl"):
                     data = zlib.decompress(data)
                     data = _apply_predictor(data, p)
+                elif f in ("LZWDecode", "LZW"):
+                    data = _lzw_decode(data, int(p.get("EarlyChange", 1)))
+                    data = _apply_predictor(data, p)
+                elif f in ("ASCIIHexDecode", "AHx"):
+                    hexstr = re.sub(rb"[^0-9A-Fa-f]", b"", data.split(b">")[0])
+                    if len(hexstr) % 2:
+                        hexstr += b"0"
+                    data = bytes.fromhex(hexstr.decode())
+                elif f in ("ASCII85Decode", "A85"):
+                    data = _ascii85_decode(data)
+                elif f in ("RunLengthDecode", "RL"):
+                    data = _runlength_decode(data)
+                elif f in ("CCITTFaxDecode", "CCF"):
+                    from .ccitt import ccitt_decode
+
+                    data = ccitt_decode(
+                        data,
+                        k=int(p.get("K", 0)),
+                        columns=int(p.get("Columns", 1728)),
+                        rows=int(p.get("Rows", 0)),
+                        black_is_1=p.get("BlackIs1", False) is True,
+                        byte_align=p.get("EncodedByteAlign", False) is True,
+                    )
                 else:
                     raise ValueError(f"unsupported stream filter {f}")
             self._decoded = data
@@ -472,7 +592,7 @@ def pdf_of_bytes(data: bytes) -> Pdf:
         except Exception:
             pass
     if "Encrypt" in trailer:
-        raise NotImplementedError("encrypted PDF files")
+        raise NotImplementedError("encrypted PDF files (ROADMAP.md Queue 1, item 1d)")
     if "Root" not in trailer:
         # Some linearized files only have the Root in an xref-stream dict;
         # fall back: find an object with /Type /Catalog.
@@ -492,3 +612,22 @@ def pdf_of_bytes(data: bytes) -> Pdf:
 def pdf_of_file(path: str) -> Pdf:
     with open(path, "rb") as f:
         return pdf_of_bytes(f.read())
+
+
+def mkpage(content: bytes, mediabox=(0, 0, 612, 792), resources=None) -> Pdf:
+    """A one-page PDF around a content stream."""
+    stream = Stream({}, zlib.compress(content))
+    stream.dict["Filter"] = Name("FlateDecode")
+    objects = {
+        1: {"Type": Name("Catalog"), "Pages": Ref(2)},
+        2: {"Type": Name("Pages"), "Kids": [Ref(3)], "Count": 1},
+        3: {
+            "Type": Name("Page"),
+            "Parent": Ref(2),
+            "MediaBox": list(mediabox),
+            "Resources": resources or {},
+            "Contents": Ref(4),
+        },
+        4: stream,
+    }
+    return Pdf(objects, {"Root": Ref(1)})

@@ -2,28 +2,31 @@
 ``pdfgraphics.ml``: ``graphic_of_page`` and the ``process_op`` state
 machine).
 
-The port's copy of ``coherence_tpu.io.pdfgraphics``, trimmed to what the
-port's scenes read: filled and stroked path elements with their colour,
-winding rule, line attributes and transparency, ``Clip`` elements scoping
-everything up to the matching ``Q`` (pdfgraphics.ml:1124-1139 semantics),
-marked-content sections (with optional-content visibility) and form
-XObjects.  The port's ``scene_of_graphic`` consumes only these.  Text,
-images (XObject and inline), shadings, patterns, transparency groups with
-their own alpha or blend, non-device colour spaces (Indexed, Separation,
-DeviceN, Lab) and annotation appearance streams raise NotImplementedError
-where the JAX package would build their elements.  ``page_of_graphic`` and
-``transform_graphic`` are not ported.
+The port's copy of ``coherence_tpu.io.pdfgraphics``, without text and the
+writer.  It produces the reference's graphic-element tree
+(pdfgraphics.mli:132-141): path elements with fill/stroke colour, winding
+rule, line caps/joins/width and transparency; ``Clip`` elements scoping
+everything up to the matching ``Q`` (pdfgraphics.ml:1124-1139 semantics);
+marked-content sections with optional-content visibility; shadings
+(``GShading``), shading and tiling patterns, the Indexed, Separation,
+DeviceN and Lab colour spaces, transparency groups (``FormGroup``),
+``Image``/``GraphicInlineImage`` elements with their placement transform
+and alpha, and annotation appearance streams.  ``BT`` raises
+NotImplementedError until text is ported (ROADMAP.md Queue 1, item 1c);
+``transform_graphic`` and ``page_of_graphic`` come with the writer (item
+1d).
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 from ..geometry import path as gpath
-from .pdf import Name, Pdf, Ref, Stream, _Lexer, _NUM_RE, _Parser
+from .pdf import Name, Pdf, Ref, Stream, _Lexer, _NUM_RE, _Parser, _WS
 
 # Colour spaces (Pdfspace parity — only the device spaces + ICC alternate).
 DEVICE_RGB = "DeviceRGB"
@@ -88,6 +91,465 @@ class Clip:
 
 
 @dataclass
+class FormGroup:
+    """A Form XObject with /Group /S /Transparency whose gstate carries a
+    group-level constant alpha or blend mode (PDF 11.6.6) — BEYOND
+    REFERENCE: the group's children composite to ONE sprite first, then
+    alpha/blend apply once to the result (per-element application
+    double-darkens self-overlapping groups, e.g. any Inkscape object with
+    opacity < 100%)."""
+
+    elements: list
+    ca: float = 1.0  # group constant alpha (nonstroke ca at the Do op)
+    blend: str = "Normal"  # group blend mode
+
+
+@dataclass
+class ImageAttributes:
+    """image_attributes (pdfgraphics.mli:104-107)."""
+
+    image_transform: "Matrix"
+    image_transparency: float = 1.0
+    image_softmask: object = None  # resolved /SMask value from ExtGState
+    # BEYOND REFERENCE (mli stops at the three above): the nonstroke colour
+    # current at the Do op, painted through stencil masks (/ImageMask).
+    image_fill: object = None  # (colourspace, components) or None
+    image_blend: str = "Normal"  # ExtGState /BM at the Do op
+
+
+@dataclass
+class Image:
+    """Image XObject use (pdfgraphics.mli:139): placement + object number."""
+
+    attributes: ImageAttributes
+    objnum: int
+    name: str = ""
+    # BEYOND REFERENCE: the resolved Stream when the XObject resource was
+    # embedded directly rather than by indirect reference (objnum -1).
+    stream: object = None
+
+
+@dataclass
+class GraphicInlineImage:
+    """BI..ID..EI inline image (pdfgraphics.mli:140)."""
+
+    dict: dict
+    data: bytes
+    transform: "Matrix" = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+    # BEYOND REFERENCE: nonstroke colour at BI time, for /ImageMask paint.
+    fill: object = None  # (colourspace, components) or None
+    blend: str = "Normal"  # ExtGState /BM at the BI op
+
+
+@dataclass
+class PdfFunction:
+    """Pdffun parity (reference Pdffun.parse_function / Pdffun.eval_function,
+    pdfgraphics.mli:37-49): all four function kinds — Type 0 (sampled),
+    Type 2 (exponential interpolation), Type 3 (stitching), Type 4
+    (PostScript calculator)."""
+
+    kind: int
+    domain: tuple
+    c0: tuple = (0.0,)
+    c1: tuple = (1.0,)
+    n: float = 1.0
+    functions: tuple = ()  # type 3 subfunctions
+    bounds: tuple = ()
+    encode: tuple = ()
+    range: tuple = ()  # /Range pairs (lo0, hi0, lo1, hi1, ...), may be empty
+    size: tuple = ()  # type 0: /Size (samples per input dimension)
+    bps: int = 8  # type 0: /BitsPerSample
+    decode: tuple = ()  # type 0: /Decode (defaults to /Range)
+    samples: object = None  # type 0: numpy (prod(size), n_out) float array
+    program: tuple = ()  # type 4: parsed calculator program
+    raw: object = None  # unsupported kinds: the resolved dict
+
+
+def _interp(x, x0, x1, y0, y1):
+    return y0 if x1 == x0 else y0 + (x - x0) * (y1 - y0) / (x1 - x0)
+
+
+def _eval_sampled(f: PdfFunction, ts):
+    """Type 0 (PDF 7.10.2): encode inputs into sample-grid coordinates,
+    multilinear-interpolate over the 2^m surrounding corners, decode."""
+    m = len(f.size)
+    nout = max(1, len(f.range) // 2)
+    coords = []
+    for i in range(m):
+        x = ts[i] if i < len(ts) else 0.0
+        d0, d1 = f.domain[2 * i], f.domain[2 * i + 1]
+        x = min(max(x, d0), d1)
+        if len(f.encode) >= 2 * i + 2:
+            e0, e1 = f.encode[2 * i], f.encode[2 * i + 1]
+        else:
+            e0, e1 = 0.0, float(f.size[i] - 1)
+        e = _interp(x, d0, d1, e0, e1)
+        coords.append(min(max(e, 0.0), float(f.size[i] - 1)))
+    # Strides: first input dimension varies fastest in the sample stream.
+    strides = []
+    acc = 1
+    for i in range(m):
+        strides.append(acc)
+        acc *= f.size[i]
+    out = [0.0] * nout
+    for corner in range(1 << m):
+        weight = 1.0
+        base = 0
+        for i in range(m):
+            lo = int(math.floor(coords[i]))
+            lo = min(lo, f.size[i] - 1)
+            hi = min(lo + 1, f.size[i] - 1)
+            frac = coords[i] - lo
+            if corner >> i & 1:
+                weight *= frac
+                base += hi * strides[i]
+            else:
+                weight *= 1.0 - frac
+                base += lo * strides[i]
+        if weight == 0.0:
+            continue
+        for j in range(nout):
+            out[j] += weight * f.samples[base * nout + j]
+    maxv = float((1 << f.bps) - 1)
+    dec = f.decode or f.range
+    res = []
+    for j in range(nout):
+        if len(dec) >= 2 * j + 2:
+            res.append(_interp(out[j], 0.0, maxv, dec[2 * j], dec[2 * j + 1]))
+        else:
+            res.append(out[j] / maxv)
+    return res
+
+
+# --- Type 4: PostScript calculator (PDF 7.10.5) ----------------------------
+
+
+def _ps_tokenize(src: bytes):
+    for tok in re.findall(rb"\{|\}|[^\s{}]+", src):
+        yield tok
+
+
+def parse_calculator(src: bytes) -> tuple:
+    """Parse a Type-4 program into nested tuples of numbers/operator
+    strings (procedure literals become nested tuples)."""
+    toks = list(_ps_tokenize(src))
+    pos = 0
+
+    def block():
+        nonlocal pos
+        out = []
+        while pos < len(toks):
+            t = toks[pos]
+            pos += 1
+            if t == b"{":
+                out.append(block())
+            elif t == b"}":
+                return tuple(out)
+            elif _NUM_RE.match(t):
+                out.append(float(t) if b"." in t else int(t))
+            else:
+                out.append(t.decode("latin1"))
+        return tuple(out)
+
+    # The whole program is wrapped in one outer { }.
+    while pos < len(toks) and toks[pos] != b"{":
+        pos += 1
+    if pos < len(toks):
+        pos += 1
+        return block()
+    return ()
+
+
+def _ps_exec(prog: tuple, stack: list):
+    """Execute a parsed calculator procedure against `stack` in place."""
+
+    def popn(k):
+        vals = stack[-k:]
+        del stack[-k:]
+        return vals
+
+    for op in prog:
+        if isinstance(op, (int, float, tuple)):
+            stack.append(op)
+            continue
+        if op == "true":
+            stack.append(True)
+        elif op == "false":
+            stack.append(False)
+        elif op == "if":
+            proc, = popn(1)
+            cond, = popn(1)
+            if cond:
+                _ps_exec(proc, stack)
+        elif op == "ifelse":
+            p2, = popn(1)
+            p1, = popn(1)
+            cond, = popn(1)
+            _ps_exec(p1 if cond else p2, stack)
+        elif op in ("add", "sub", "mul", "div", "idiv", "mod", "exp", "atan",
+                    "and", "or", "xor", "bitshift",
+                    "eq", "ne", "gt", "ge", "lt", "le"):
+            b = stack.pop()
+            a = stack.pop()
+            if op == "add":
+                stack.append(a + b)
+            elif op == "sub":
+                stack.append(a - b)
+            elif op == "mul":
+                stack.append(a * b)
+            elif op == "div":
+                stack.append(a / b if b != 0 else 0.0)
+            elif op == "idiv":
+                # PostScript idiv truncates toward ZERO (-7 idiv 2 = -3);
+                # Python // floors (-4).
+                ia, ib = int(a), int(b)
+                if not ib:
+                    stack.append(0)
+                elif (ia < 0) != (ib < 0):
+                    stack.append(-(-ia // ib))
+                else:
+                    stack.append(ia // ib)
+            elif op == "mod":
+                stack.append(int(math.fmod(int(a), int(b))) if int(b) else 0)
+            elif op == "exp":
+                stack.append(float(a) ** float(b))
+            elif op == "atan":
+                ang = math.degrees(math.atan2(float(a), float(b)))
+                stack.append(ang + 360.0 if ang < 0 else ang)
+            elif op == "and":
+                stack.append((a and b) if isinstance(a, bool) else int(a) & int(b))
+            elif op == "or":
+                stack.append((a or b) if isinstance(a, bool) else int(a) | int(b))
+            elif op == "xor":
+                stack.append((a != b) if isinstance(a, bool) else int(a) ^ int(b))
+            elif op == "bitshift":
+                s = int(b)
+                stack.append(int(a) << s if s >= 0 else int(a) >> -s)
+            elif op == "eq":
+                stack.append(a == b)
+            elif op == "ne":
+                stack.append(a != b)
+            elif op == "gt":
+                stack.append(a > b)
+            elif op == "ge":
+                stack.append(a >= b)
+            elif op == "lt":
+                stack.append(a < b)
+            elif op == "le":
+                stack.append(a <= b)
+        elif op == "neg":
+            stack.append(-stack.pop())
+        elif op == "abs":
+            stack.append(abs(stack.pop()))
+        elif op == "sqrt":
+            stack.append(math.sqrt(max(0.0, float(stack.pop()))))
+        elif op == "sin":
+            stack.append(math.sin(math.radians(float(stack.pop()))))
+        elif op == "cos":
+            stack.append(math.cos(math.radians(float(stack.pop()))))
+        elif op == "ln":
+            v = float(stack.pop())
+            stack.append(math.log(v) if v > 0 else 0.0)
+        elif op == "log":
+            v = float(stack.pop())
+            stack.append(math.log10(v) if v > 0 else 0.0)
+        elif op == "ceiling":
+            stack.append(float(math.ceil(stack.pop())))
+        elif op == "floor":
+            stack.append(float(math.floor(stack.pop())))
+        elif op == "round":
+            v = stack.pop()
+            stack.append(float(math.floor(v + 0.5)) if not isinstance(v, int) else v)
+        elif op == "truncate":
+            v = stack.pop()
+            stack.append(float(math.trunc(v)) if not isinstance(v, int) else v)
+        elif op == "cvi":
+            stack.append(int(stack.pop()))
+        elif op == "cvr":
+            stack.append(float(stack.pop()))
+        elif op == "not":
+            v = stack.pop()
+            stack.append((not v) if isinstance(v, bool) else ~int(v))
+        elif op == "dup":
+            stack.append(stack[-1])
+        elif op == "pop":
+            stack.pop()
+        elif op == "exch":
+            stack[-1], stack[-2] = stack[-2], stack[-1]
+        elif op == "copy":
+            k = int(stack.pop())
+            if k > 0:
+                stack.extend(stack[-k:])
+        elif op == "index":
+            k = int(stack.pop())
+            stack.append(stack[-1 - k])
+        elif op == "roll":
+            j = int(stack.pop())
+            k = int(stack.pop())
+            if k > 0:
+                j %= k
+                if j:
+                    part = stack[-k:]
+                    del stack[-k:]
+                    stack.extend(part[-j:] + part[:-j])
+        else:
+            raise ValueError(f"calculator: unknown operator {op!r}")
+
+
+def eval_function(f: PdfFunction, t):
+    """Evaluate at input(s) `t` — a scalar for 1-in functions or a sequence
+    for multi-input (Type 0/4) ones — clamped to the domain.  All four
+    kinds per the PDF spec (Pdffun.eval_function parity); outputs clamp to
+    /Range when present.  A tuple of functions (the /Function-array form:
+    n separate 1-out functions, one per colour component) evaluates each
+    and concatenates the outputs."""
+    if isinstance(f, tuple):
+        out = []
+        for sub in f:
+            out.extend(eval_function(sub, t))
+        return tuple(out)
+    ts = [float(v) for v in t] if isinstance(t, (tuple, list)) else [float(t)]
+    t = min(max(ts[0], f.domain[0]), f.domain[1])
+    if f.kind == 2:
+        # A fractional exponent of a negative base would go complex; the
+        # spec restricts Type-2 domains to t >= 0 when N is non-integral.
+        base = t if (t >= 0.0 or float(f.n).is_integer()) else 0.0
+        out = [c0 + (base ** f.n) * (c1 - c0) for c0, c1 in zip(f.c0, f.c1)]
+    elif f.kind == 3:
+        d0, d1 = f.domain[0], f.domain[1]
+        k = 0
+        while k < len(f.bounds) and t >= f.bounds[k]:
+            k += 1
+        lo = d0 if k == 0 else f.bounds[k - 1]
+        hi = d1 if k == len(f.bounds) else f.bounds[k]
+        if len(f.encode) >= 2 * k + 2:
+            e0, e1 = f.encode[2 * k], f.encode[2 * k + 1]
+        else:  # missing/short /Encode defaults to [0 1] per subfunction
+            e0, e1 = 0.0, 1.0
+        tt = e0 if hi == lo else e0 + (t - lo) * (e1 - e0) / (hi - lo)
+        out = eval_function(f.functions[k], tt)
+    elif f.kind == 0 and f.samples is not None:
+        out = _eval_sampled(f, ts)
+    elif f.kind == 4 and f.program:
+        stack: list = []
+        for i in range(len(f.domain) // 2):
+            x = ts[i] if i < len(ts) else 0.0
+            stack.append(min(max(x, f.domain[2 * i]), f.domain[2 * i + 1]))
+        _ps_exec(f.program, stack)
+        nout = max(1, len(f.range) // 2)
+        out = [float(v) for v in stack[-nout:]]
+    else:
+        out = list(f.c0)
+    if f.range:
+        out = [
+            min(max(v, f.range[2 * i]), f.range[2 * i + 1])
+            if len(f.range) >= 2 * i + 2
+            else v
+            for i, v in enumerate(out)
+        ]
+    return out
+
+
+@dataclass
+class FunctionShadingK:
+    """function_shading (pdfgraphics.mli:36-39)."""
+
+    domain: tuple  # (x0, x1, y0, y1)
+    matrix: "Matrix"
+    function: PdfFunction
+
+
+@dataclass
+class AxialShadingK:
+    """axial_shading (pdfgraphics.mli:47-51)."""
+
+    coords: tuple  # (x0, y0, x1, y1)
+    domain: tuple  # (t0, t1)
+    functions: tuple  # PdfFunction list
+    extend: tuple  # (bool, bool)
+
+
+@dataclass
+class RadialShadingK:
+    """radial_shading (pdfgraphics.mli:41-45)."""
+
+    coords: tuple  # (x0, y0, r0, x1, y1, r1)
+    domain: tuple
+    functions: tuple
+    extend: tuple
+
+
+@dataclass
+class MeshShadingK:
+    """Mesh shadings (PDF shading types 4-7) reduced to Gouraud triangles.
+
+    BEYOND REFERENCE: camlpdf parses these stream types but the reference
+    drops every shading at render time.  Vertices are in the shading's
+    target space; each triangle is (p0, p1, p2, c0, c1, c2) with colours as
+    component tuples in the shading's colourspace (already mapped through
+    /Function when present).  Coons/tensor patches (types 6/7) arrive
+    pre-subdivided on a surface grid."""
+
+    shading_type: int
+    triangles: tuple
+
+
+@dataclass
+class Shading:
+    """shading (pdfgraphics.mli:62-69)."""
+
+    colourspace: object
+    background: object
+    bbox: object
+    antialias: bool
+    matrix: "Matrix"
+    extgstate: object
+    kind: object  # one of the *ShadingK dataclasses or a placeholder str
+    # ("cs", kind, payload, n_in) for Indexed/Separation/DeviceN/Lab spaces
+    # (deep-resolved at read time); None for device spaces.  The writer
+    # round-trips `colourspace` raw and ignores this.
+    cs_conv: object = None
+
+
+@dataclass
+class ShadingPattern:
+    """pattern = ShadingPattern (pdfgraphics.mli:71-74)."""
+
+    shading: Shading
+    name: str = ""  # resource name, kept for round-trip
+
+
+@dataclass
+class TilingPattern:
+    """Tiling pattern (PDF 8.7.3).  BEYOND REFERENCE: the reference only
+    tags these (pdfgraphics.ml:598 ``read_tiling_pattern`` returns the stub
+    constructor ``Tiling``); here the cell's content stream is parsed into
+    graphic elements so the scene layer can rasterize one cell and paint it
+    as a repeating texture fill (scene/pdfscene.fill_of_tiling_pattern)."""
+
+    coloured: bool = True  # /PaintType 1; PaintType 2 tints with `colour`
+    bbox: tuple = ()  # pattern-space /BBox (x0, y0, x1, y1)
+    xstep: float = 0.0  # /XStep (0 -> bbox width)
+    ystep: float = 0.0  # /YStep (0 -> bbox height)
+    matrix: tuple = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)  # pattern -> page space
+    elements: tuple = ()  # parsed cell graphic elements
+    colour: object = None  # PaintType 2: (colourspace, comps) set at scn
+    name: str = ""  # resource name, kept for round-trip
+
+
+@dataclass
+class GShading:
+    """`sh` operator element (pdfgraphics.mli:158: Shading of path option *
+    shading * matrix): paint the shading through the active clip."""
+
+    clip: object  # Optional[gpath.Path]
+    shading: Shading
+    transform: "Matrix"
+    name: str = ""  # resource name, kept for round-trip
+    blend: str = "Normal"  # ExtGState /BM at the sh op
+
+
+@dataclass
 class Graphic:
     elements: list
     resources: dict = field(default_factory=dict)
@@ -116,10 +578,13 @@ def _apply(m: Matrix, p):
     return (a * x + c * y + e, b * x + d * y + f)
 
 
-def _scale_of(m: Matrix) -> float:
-    a, b, c, d, _, _ = m
-    det = abs(a * d - b * c)
-    return math.sqrt(det)
+def _mat_inv(m: Matrix):
+    a, b, c, d, e, f = m
+    det = a * d - b * c
+    if abs(det) < 1e-12:
+        return None
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    return (ia, ib, ic, id_, -(e * ia + f * ic), -(e * ib + f * id_))
 
 
 @dataclass
@@ -136,6 +601,491 @@ class _GState:
     CA: float = 1.0  # stroke alpha
     softmask: object = None  # ExtGState /SMask (None when /None)
     blend: str = "Normal"  # ExtGState /BM (BEYOND REFERENCE)
+
+
+def _inline_image_bytes(d: dict) -> Optional[int]:
+    """Exact unfiltered inline-image data length, or None if unknown
+    (filtered, or missing dimensions).  Row bytes are padded to whole bytes
+    per the PDF imaging model."""
+    if d.get("F") is not None or d.get("Filter") is not None:
+        return None
+    w = d.get("W", d.get("Width"))
+    h = d.get("H", d.get("Height"))
+    bpc = d.get("BPC", d.get("BitsPerComponent", 8))
+    cs = d.get("CS", d.get("ColorSpace"))
+    if d.get("IM", d.get("ImageMask")) is True:
+        channels = 1
+        bpc = 1
+    elif isinstance(cs, Name):
+        channels = {
+            "G": 1, "DeviceGray": 1, "I": 1, "Indexed": 1, "CalGray": 1,
+            "RGB": 3, "DeviceRGB": 3, "CalRGB": 3,
+            "CMYK": 4, "DeviceCMYK": 4,
+        }.get(cs.v)
+    elif isinstance(cs, list):  # e.g. [/Indexed ...]
+        channels = 1
+    else:
+        channels = None
+    if not isinstance(w, int) or not isinstance(h, int) or channels is None:
+        return None
+    row = (w * channels * int(bpc) + 7) // 8
+    return row * h
+
+
+def _unpack_bits(data: bytes, bps: int, count: int):
+    """First `count` big-endian `bps`-bit unsigned samples of `data`."""
+    if bps == 8:
+        return list(data[:count])
+    if bps in (16, 24, 32):
+        nb = bps // 8
+        return [
+            int.from_bytes(data[i * nb : (i + 1) * nb], "big")
+            for i in range(min(count, len(data) // nb))
+        ]
+    out = []
+    acc = 0
+    nbits = 0
+    for byte in data:
+        acc = (acc << 8) | byte
+        nbits += 8
+        while nbits >= bps:
+            out.append((acc >> (nbits - bps)) & ((1 << bps) - 1))
+            nbits -= bps
+            if len(out) >= count:
+                return out
+    return out
+
+
+def parse_function(pdf: Pdf, obj) -> PdfFunction:
+    """Pdffun.parse_function parity: all four kinds (0 sampled, 2
+    exponential, 3 stitching, 4 calculator)."""
+    d = pdf.resolve(obj)
+    dd = d.dict if isinstance(d, Stream) else d
+    if not isinstance(dd, dict):
+        return PdfFunction(0, (0.0, 1.0), raw=dd)
+    ft = int(pdf.resolve(dd.get("FunctionType", 2)))
+    dom = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Domain", [0, 1])))
+    rng = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Range", [])))
+    if ft == 2:
+        c0 = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("C0", [0.0])))
+        c1 = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("C1", [1.0])))
+        n = float(pdf.resolve(dd.get("N", 1)))
+        return PdfFunction(2, dom, c0, c1, n, range=rng)
+    if ft == 3:
+        fns = tuple(parse_function(pdf, f) for f in pdf.resolve(dd.get("Functions", [])))
+        bounds = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Bounds", [])))
+        enc = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Encode", [])))
+        return PdfFunction(3, dom, functions=fns, bounds=bounds, encode=enc, range=rng)
+    if ft == 0 and isinstance(d, Stream):
+        size = tuple(
+            int(pdf.resolve(v)) for v in pdf.resolve(dd.get("Size", []))
+        )
+        bps = int(pdf.resolve(dd.get("BitsPerSample", 8)))
+        enc = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Encode", [])))
+        dec = tuple(float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Decode", [])))
+        if size and rng:
+            total = max(1, len(rng) // 2)
+            for s in size:
+                total *= max(1, s)
+            samples = _unpack_bits(d.decode(), bps, total)
+            if len(samples) >= total:
+                return PdfFunction(
+                    0, dom, encode=enc, decode=dec, size=size, bps=bps,
+                    samples=samples, range=rng, raw=dd,
+                )
+        return PdfFunction(0, dom, range=rng, raw=dd)
+    if ft == 4 and isinstance(d, Stream):
+        try:
+            prog = parse_calculator(d.decode())
+        except Exception:
+            prog = ()
+        return PdfFunction(4, dom, program=prog, range=rng, raw=dd)
+    return PdfFunction(ft, dom, range=rng, raw=dd)
+
+
+def _matrix_entry(pdf: Pdf, dd: dict, key: str = "Matrix") -> Matrix:
+    m = pdf.resolve(dd.get(key)) if isinstance(dd, dict) else None
+    if isinstance(m, list) and len(m) == 6:
+        return tuple(float(pdf.resolve(v)) for v in m)
+    return _ID
+
+
+class _BitReader:
+    """MSB-first bit stream over mesh shading data (PDF 8.7.4.5.5)."""
+
+    def __init__(self, data: bytes):
+        self.d = data
+        self.pos = 0  # bit offset
+
+    def eof(self, nbits: int = 1) -> bool:
+        return self.pos + nbits > len(self.d) * 8
+
+    def read(self, n: int) -> int:
+        if self.eof(n):
+            raise EOFError
+        v = 0
+        p = self.pos
+        left = n
+        while left:
+            byte = self.d[p >> 3]
+            avail = 8 - (p & 7)
+            take = min(avail, left)
+            shift = avail - take
+            v = (v << take) | ((byte >> shift) & ((1 << take) - 1))
+            p += take
+            left -= take
+        self.pos = p
+        return v
+
+
+def _bezier1(c0, c1, c2, c3, t):
+    s = 1.0 - t
+    return (
+        s * s * s * c0 + 3 * s * s * t * c1 + 3 * s * t * t * c2 + t * t * t * c3
+    )
+
+
+def _surf_point(P, u, v):
+    """Bicubic tensor point: rows indexed by u, columns by v."""
+    row = [
+        _bezier1(P[i][0][k], P[i][1][k], P[i][2][k], P[i][3][k], v)
+        for i in range(4)
+        for k in (0, 1)
+    ]
+    # row = [x0,y0,x1,y1,x2,y2,x3,y3] along u
+    return (
+        _bezier1(row[0], row[2], row[4], row[6], u),
+        _bezier1(row[1], row[3], row[5], row[7], u),
+    )
+
+
+def _coons_internal(P):
+    """Fill P[1][1], P[1][2], P[2][1], P[2][2] from the boundary (PDF
+    8.7.4.5.7 Coons-to-tensor formulas)."""
+
+    def pt(f):
+        return (f(0), f(1))
+
+    def mix(coef):
+        def f(k):
+            return sum(c * P[i][j][k] for c, i, j in coef) / 9.0
+
+        return pt(f)
+
+    P[1][1] = mix([(-4, 0, 0), (6, 0, 1), (6, 1, 0), (-2, 0, 3), (-2, 3, 0),
+                   (3, 3, 1), (3, 1, 3), (-1, 3, 3)])
+    P[1][2] = mix([(-4, 0, 3), (6, 0, 2), (6, 1, 3), (-2, 0, 0), (-2, 3, 3),
+                   (3, 1, 0), (3, 3, 2), (-1, 3, 0)])
+    P[2][1] = mix([(-4, 3, 0), (6, 3, 1), (6, 2, 0), (-2, 3, 3), (-2, 0, 0),
+                   (3, 0, 1), (3, 2, 3), (-1, 0, 3)])
+    P[2][2] = mix([(-4, 3, 3), (6, 3, 2), (6, 2, 3), (-2, 3, 0), (-2, 0, 3),
+                   (3, 2, 0), (3, 0, 2), (-1, 0, 0)])
+
+
+_PATCH_GRID = 6  # (n+1)^2 surface samples per Coons/tensor patch
+
+
+def _patch_triangles(P, c00, c03, c33, c30, out):
+    """Subdivide a tensor patch into Gouraud triangles with bilinear
+    corner-colour interpolation (colour c_uv at grid corners: c00 at
+    (u=0,v=0)=P[0][0], c03 at P[0][3], c33 at P[3][3], c30 at P[3][0])."""
+    n = _PATCH_GRID
+    c00 = tuple(c00)
+    c03 = tuple(c03)
+    c33 = tuple(c33)
+    c30 = tuple(c30)
+    nc = len(c00)
+
+    def col(u, v):
+        return tuple(
+            (1 - u) * (1 - v) * c00[k]
+            + (1 - u) * v * c03[k]
+            + u * v * c33[k]
+            + u * (1 - v) * c30[k]
+            for k in range(nc)
+        )
+
+    grid = [
+        [(_surf_point(P, i / n, j / n), col(i / n, j / n)) for j in range(n + 1)]
+        for i in range(n + 1)
+    ]
+    for i in range(n):
+        for j in range(n):
+            (pa, ca), (pb, cb) = grid[i][j], grid[i][j + 1]
+            (pc, cc), (pd, cd) = grid[i + 1][j + 1], grid[i + 1][j]
+            out.append((pa, pb, pc, ca, cb, cc))
+            out.append((pa, pc, pd, ca, cc, cd))
+
+
+def _parse_mesh(pdf: Pdf, d: "Stream", dd: dict, st: int):
+    """Shading types 4-7 -> MeshShadingK (Gouraud triangles), or a
+    placeholder string when the stream is unreadable."""
+    try:
+        data = d.decode()
+        bpc = int(pdf.resolve(dd.get("BitsPerCoordinate")))
+        bpcomp = int(pdf.resolve(dd.get("BitsPerComponent")))
+        decode = [float(pdf.resolve(v)) for v in pdf.resolve(dd.get("Decode"))]
+        fn = pdf.resolve(dd.get("Function"))
+        funcs = None
+        if fn is not None:
+            fns = fn if isinstance(fn, list) else [fn]
+            funcs = tuple(parse_function(pdf, x) for x in fns)
+        ncomp = (len(decode) - 4) // 2
+
+        def map_colour(comps):
+            if funcs is None:
+                return tuple(comps)
+            t = comps[0]
+            out = []
+            for f in funcs:
+                v = eval_function(f, t)
+                out.extend(v if isinstance(v, (list, tuple)) else [v])
+            return tuple(out)
+
+        br = _BitReader(data)
+
+        def dec(raw, bits, lo, hi):
+            return lo + raw * (hi - lo) / float((1 << bits) - 1)
+
+        def vertex():
+            x = dec(br.read(bpc), bpc, decode[0], decode[1])
+            y = dec(br.read(bpc), bpc, decode[2], decode[3])
+            comps = [
+                dec(br.read(bpcomp), bpcomp, decode[4 + 2 * k], decode[5 + 2 * k])
+                for k in range(ncomp)
+            ]
+            return (x, y), map_colour(comps)
+
+        tris: list = []
+        if st == 4:
+            bpf = int(pdf.resolve(dd.get("BitsPerFlag", 8)))
+            va = vb = vc = None
+            while not br.eof(bpf + 2 * bpc + ncomp * bpcomp):
+                f = br.read(bpf)
+                v = vertex()
+                if f == 0:
+                    if br.eof(2 * (bpf + 2 * bpc + ncomp * bpcomp)):
+                        break
+                    br.read(bpf)
+                    v2 = vertex()
+                    br.read(bpf)
+                    v3 = vertex()
+                    va, vb, vc = v, v2, v3
+                elif f == 1 and vc is not None:
+                    va, vb, vc = vb, vc, v
+                elif f == 2 and vc is not None:
+                    va, vb, vc = va, vc, v
+                else:
+                    continue
+                tris.append((va[0], vb[0], vc[0], va[1], vb[1], vc[1]))
+        elif st == 5:
+            k = int(pdf.resolve(dd.get("VerticesPerRow", 2)))
+            rows = []
+            per_vertex = 2 * bpc + ncomp * bpcomp
+            while not br.eof(k * per_vertex):
+                rows.append([vertex() for _ in range(k)])
+            for r0, r1 in zip(rows, rows[1:]):
+                for i in range(k - 1):
+                    (pa, ca), (pb, cb) = r0[i], r0[i + 1]
+                    (pc, cc), (pd, cd) = r1[i], r1[i + 1]
+                    tris.append((pa, pb, pc, ca, cb, cc))
+                    tris.append((pb, pd, pc, cb, cd, cc))
+        elif st in (6, 7):
+            bpf = int(pdf.resolve(dd.get("BitsPerFlag", 8)))
+            npts_new = 12 if st == 6 else 16
+            npts_shared = npts_new - 4
+            prev_pts = prev_cols = None
+
+            def point():
+                x = dec(br.read(bpc), bpc, decode[0], decode[1])
+                y = dec(br.read(bpc), bpc, decode[2], decode[3])
+                return (x, y)
+
+            def colour():
+                return map_colour(
+                    [
+                        dec(
+                            br.read(bpcomp), bpcomp,
+                            decode[4 + 2 * k], decode[5 + 2 * k],
+                        )
+                        for k in range(ncomp)
+                    ]
+                )
+
+            while not br.eof(bpf + 2 * bpc):
+                f = br.read(bpf)
+                if f == 0:
+                    pts = [point() for _ in range(npts_new)]
+                    cols = [colour() for _ in range(4)]
+                else:
+                    if prev_pts is None:
+                        break
+                    # Shared edge (PDF Table 85): new p1-p4 + c1,c2 reuse
+                    # the previous patch's edge by flag.
+                    src = {
+                        1: (prev_pts[3:7], prev_cols[1:3]),
+                        2: (prev_pts[6:10], prev_cols[2:4]),
+                        3: (prev_pts[9:12] + [prev_pts[0]],
+                            [prev_cols[3], prev_cols[0]]),
+                    }.get(f)
+                    if src is None:
+                        break
+                    pts = list(src[0]) + [point() for _ in range(npts_shared)]
+                    cols = list(src[1]) + [colour(), colour()]
+                prev_pts, prev_cols = pts, cols
+                # Boundary points onto the 4x4 tensor grid.
+                P = [[None] * 4 for _ in range(4)]
+                (P[0][0], P[0][1], P[0][2], P[0][3]) = pts[0:4]
+                (P[1][3], P[2][3], P[3][3]) = pts[4:7]
+                (P[3][2], P[3][1], P[3][0]) = pts[7:10]
+                (P[2][0], P[1][0]) = pts[10:12]
+                if st == 7:
+                    (P[1][1], P[1][2], P[2][2], P[2][1]) = pts[12:16]
+                else:
+                    _coons_internal(P)
+                _patch_triangles(P, cols[0], cols[1], cols[2], cols[3], tris)
+        if not tris:
+            return f"ShadingType{st}"
+        return MeshShadingK(st, tuple(tris))
+    except Exception:
+        return f"ShadingType{st}"
+
+
+def cs_converter(pdf, cs):
+    """("cs", kind, payload, n_in) for colourspaces whose components need
+    non-trivial mapping to RGB (Indexed/Separation/DeviceN/Lab), else None.
+    Deep-resolves refs, so the result is usable detached from the Pdf."""
+    cs = pdf.resolve(cs) if pdf is not None else cs
+    if isinstance(cs, list) and cs:
+        head = pdf.resolve(cs[0]) if pdf is not None else cs[0]
+        if isinstance(head, Name) and head.v in ("Indexed", "I", "Separation", "DeviceN", "Lab"):
+            from . import pdfimages as PI
+
+            try:
+                return ("cs",) + tuple(PI._cs_struct(pdf, cs))
+            except Exception:
+                return None
+    return None
+
+
+def rgb_of_converted(conv, comps):
+    """(r, g, b) floats in [0,1] from a cs_converter result + components."""
+    import numpy as np
+
+    from . import pdfimages as PI
+
+    _, kind, payload, n_in = conv
+    vals = (list(comps) + [0.0] * n_in)[:n_in]
+    rgb = PI._rgb_of_components(
+        None, kind, payload, np.asarray(vals, dtype=np.float64).reshape(1, 1, -1)
+    )[0, 0]
+    return tuple(float(min(max(v, 0.0), 1.0)) for v in rgb)
+
+
+def read_shading(pdf: Pdf, matrix: Matrix, extgstate, sh) -> Shading:
+    """read_shading (pdfgraphics.ml:668-700)."""
+    d = pdf.resolve(sh)
+    dd = d.dict if isinstance(d, Stream) else d
+    cs = pdf.resolve(dd.get("ColorSpace"))
+    bg = pdf.resolve(dd.get("Background"))
+    bbox = pdf.resolve(dd.get("BBox"))
+    aa = pdf.resolve(dd.get("AntiAlias", False)) is True
+    st = int(pdf.resolve(dd.get("ShadingType", 0)))
+
+    def funcs():
+        f = pdf.resolve(dd.get("Function"))
+        if isinstance(f, list):
+            return tuple(parse_function(pdf, x) for x in f)
+        return (parse_function(pdf, f),)
+
+    def floats(key, n, default=None):
+        v = pdf.resolve(dd.get(key))
+        if isinstance(v, list) and len(v) == n:
+            return tuple(float(pdf.resolve(x)) for x in v)
+        if default is None:
+            raise ValueError(f"read_shading: missing /{key}")
+        return default
+
+    def extend():
+        v = pdf.resolve(dd.get("Extend"))
+        if isinstance(v, list) and len(v) == 2:
+            return (pdf.resolve(v[0]) is True, pdf.resolve(v[1]) is True)
+        return (False, False)
+
+    if st == 1:
+        fn1 = pdf.resolve(dd.get("Function"))
+        if isinstance(fn1, list):
+            # /Function array: n 1-out functions, one per component.
+            parsed1 = (tuple(parse_function(pdf, x) for x in fn1)
+                       if fn1 else None)
+            if parsed1 is not None and len(parsed1) == 1:
+                parsed1 = parsed1[0]
+        else:
+            parsed1 = parse_function(pdf, fn1) if fn1 is not None else None
+        kind = FunctionShadingK(
+            floats("Domain", 4, (0.0, 1.0, 0.0, 1.0)),
+            _matrix_entry(pdf, dd),
+            parsed1,
+        )
+    elif st == 2:
+        kind = AxialShadingK(
+            floats("Coords", 4), floats("Domain", 2, (0.0, 1.0)), funcs(), extend()
+        )
+    elif st == 3:
+        kind = RadialShadingK(
+            floats("Coords", 6), floats("Domain", 2, (0.0, 1.0)), funcs(), extend()
+        )
+    elif st in (4, 5, 6, 7) and isinstance(d, Stream):
+        kind = _parse_mesh(pdf, d, dd, st)
+    else:
+        kind = f"ShadingType{st}"
+    return Shading(cs, bg, bbox, aa, matrix, extgstate, kind, cs_converter(pdf, cs))
+
+
+def read_pattern(pdf: Pdf, obj):
+    """read_shading_pattern / read_tiling_pattern (pdfgraphics.ml:598,700+)."""
+    d = pdf.resolve(obj)
+    dd = d.dict if isinstance(d, Stream) else d
+    if not isinstance(dd, dict):
+        return None
+    pt = int(pdf.resolve(dd.get("PatternType", 1)))
+    if pt == 2:
+        mtx = _matrix_entry(pdf, dd)
+        egs = pdf.resolve(dd.get("ExtGState")) or {}
+        return ShadingPattern(read_shading(pdf, mtx, egs, dd.get("Shading")))
+    paint = int(pdf.resolve(dd.get("PaintType", 1)))
+    tp = TilingPattern(coloured=paint == 1)
+    try:
+        bb = pdf.resolve(dd.get("BBox"))
+        if isinstance(bb, list) and len(bb) == 4:
+            tp.bbox = tuple(float(pdf.resolve(v)) for v in bb)
+        xs = pdf.resolve(dd.get("XStep"))
+        ys = pdf.resolve(dd.get("YStep"))
+        if isinstance(xs, (int, float)):
+            tp.xstep = float(xs)
+        if isinstance(ys, (int, float)):
+            tp.ystep = float(ys)
+        tp.matrix = _matrix_entry(pdf, dd)
+        res = pdf.resolve(dd.get("Resources")) or {}
+        content = d.decode() if isinstance(d, Stream) else b""
+        if content:
+            tp.elements = tuple(_process(pdf, content, res, _GState()))
+    except NotImplementedError:
+        raise
+    except Exception:
+        pass  # malformed cell: paint falls back to the gray stub
+    return tp
+
+
+def _tokenize(content: bytes):
+    """Content stream token/operand stream."""
+    lex = _Lexer(content)
+    while True:
+        save = lex.p
+        tok = lex.next_token()
+        if not tok:
+            return
+        yield tok, save
 
 
 def _hidden_ocgs(pdf: Pdf) -> frozenset:
@@ -204,22 +1154,82 @@ def oc_visible(pdf: Pdf, raw) -> bool:
 
 
 def graphic_of_page(pdf: Pdf, page: dict) -> Graphic:
-    """Interpret a page's content streams (pdfgraphics.ml:1229).  The JAX
-    package also paints annotation appearance streams; the port raises on a
-    page with a visible one."""
+    """Interpret a page's content streams (pdfgraphics.ml:1229), then any
+    annotation appearance streams (BEYOND REFERENCE: PDF 12.5.5 — stamps,
+    markup and form-field widgets paint; the reference reads content
+    streams only)."""
     content = pdf.page_content(page)
     resources = pdf.resolve(page.get("Resources")) or {}
     elements = _process(pdf, content, resources, _GState())
-    for a in pdf.resolve(page.get("Annots")) or []:
-        a = pdf.resolve(a)
-        if not isinstance(a, dict):
-            continue
-        sub = pdf.resolve(a.get("Subtype"))
-        if isinstance(sub, Name) and sub.v in ("Popup", "Link"):
-            continue
-        if isinstance(pdf.resolve(a.get("AP")), dict):
-            raise NotImplementedError("annotation appearance streams")
+    elements.extend(_annotation_elements(pdf, page, resources))
     return Graphic(elements, resources)
+
+
+def _annotation_elements(pdf: Pdf, page: dict, page_res: dict) -> list:
+    """Elements from each visible annotation's /AP /N appearance stream,
+    mapped BBox-through-Matrix onto /Rect (PDF 12.5.5 algorithm 8.1)."""
+    out: list = []
+    annots = pdf.resolve(page.get("Annots"))
+    if not isinstance(annots, list):
+        return out
+    for a in annots:
+        try:
+            a = pdf.resolve(a)
+            if not isinstance(a, dict):
+                continue
+            sub = pdf.resolve(a.get("Subtype"))
+            if isinstance(sub, Name) and sub.v in ("Popup", "Link"):
+                continue
+            flags = int(pdf.resolve(a.get("F", 0)) or 0)
+            if flags & 2 or flags & 32:  # Hidden / NoView
+                continue
+            if "OC" in a and not oc_visible(pdf, a["OC"]):
+                continue  # optional content OFF (PDF 8.11.2.3)
+            ap = pdf.resolve(a.get("AP"))
+            n = pdf.resolve(ap.get("N")) if isinstance(ap, dict) else None
+            if isinstance(n, dict):  # appearance states: select by /AS
+                state = pdf.resolve(a.get("AS"))
+                key = state.v if isinstance(state, Name) else None
+                n = pdf.resolve(n.get(key)) if key in n else (
+                    pdf.resolve(next(iter(n.values()))) if n else None
+                )
+            if not isinstance(n, Stream):
+                continue
+            rect = [float(pdf.resolve(v)) for v in pdf.resolve(a.get("Rect"))]
+            rx0, rx1 = sorted((rect[0], rect[2]))
+            ry0, ry1 = sorted((rect[1], rect[3]))
+            bbox = pdf.resolve(n.dict.get("BBox")) or [0, 0, 1, 1]
+            bbox = [float(pdf.resolve(v)) for v in bbox]
+            mtx = _matrix_entry(pdf, n.dict)
+            # Transformed-bbox corners -> bounds; A maps them onto Rect.
+            corners = [
+                _apply(mtx, (x, y))
+                for x, y in (
+                    (bbox[0], bbox[1]), (bbox[2], bbox[1]),
+                    (bbox[2], bbox[3]), (bbox[0], bbox[3]),
+                )
+            ]
+            tx0 = min(p[0] for p in corners)
+            tx1 = max(p[0] for p in corners)
+            ty0 = min(p[1] for p in corners)
+            ty1 = max(p[1] for p in corners)
+            sx = (rx1 - rx0) / (tx1 - tx0) if tx1 > tx0 else 1.0
+            sy = (ry1 - ry0) / (ty1 - ty0) if ty1 > ty0 else 1.0
+            A = (sx, 0.0, 0.0, sy, rx0 - tx0 * sx, ry0 - ty0 * sy)
+            gs = _GState(ctm=_mat_mul(A, mtx))
+            res = pdf.resolve(n.dict.get("Resources")) or page_res
+            out.extend(_process(pdf, n.decode(), res, gs))
+        except NotImplementedError:
+            raise
+        except Exception:
+            continue  # malformed annotation: skip, keep the rest
+    return out
+
+
+def _scale_of(m: Matrix) -> float:
+    a, b, c, d, _, _ = m
+    det = abs(a * d - b * c)
+    return math.sqrt(det)
 
 
 def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
@@ -322,8 +1332,11 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
             sinks[-1].append(GPath(p, attrs))
 
     def resolve_cs(name_or_obj, resources):
-        """Device space name or "Pattern"; ICC-based and calibrated spaces
-        collapse to the device space with their number of components."""
+        """Device space name, "Pattern", or a ("cs", kind, payload, n_in)
+        converter (Indexed/Separation/DeviceN/Lab) whose sc/scn operands
+        need mapping to RGB before they enter the graphic tree.  The
+        reference routes these through camlpdf's Pdfspace; here the
+        conversion shares pdfimages' colourspace machinery."""
         obj = name_or_obj
         if isinstance(obj, Name):
             n = obj.v
@@ -355,8 +1368,30 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
                 # components of uncoloured-pattern scn operands.
                 return resolve_cs(pdf.resolve(obj[1]), resources) if len(obj) > 1 else "Pattern"
             if head in ("Indexed", "I", "Separation", "DeviceN", "Lab"):
-                raise NotImplementedError(f"colour space {head}")
+                from . import pdfimages as PI
+
+                try:
+                    kind, payload, n_in = PI._cs_struct(pdf, obj)
+                except Exception:
+                    return DEVICE_RGB
+                return ("cs", kind, payload, n_in)
         return DEVICE_RGB
+
+    def device_colour(cs, vals):
+        """Collapse a (colourspace, components) pair to a device space,
+        converting through a resolve_cs converter when present."""
+        if not (isinstance(cs, tuple) and cs and cs[0] == "cs"):
+            return (cs, vals)
+        import numpy as np
+
+        from . import pdfimages as PI
+
+        _, kind, payload, n_in = cs
+        comps = (list(vals) + [0.0] * n_in)[:n_in]
+        rgb = PI._rgb_of_components(
+            pdf, kind, payload, np.asarray(comps, dtype=np.float64).reshape(1, 1, -1)
+        )[0, 0]
+        return (DEVICE_RGB, [float(min(max(v, 0.0), 1.0)) for v in rgb])
 
     fill_cs = DEVICE_GRAY
     stroke_cs = DEVICE_GRAY
@@ -487,19 +1522,49 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
                 fill_cs = resolve_cs(stack.pop(), resources)
             elif op == "CS":
                 stroke_cs = resolve_cs(stack.pop(), resources)
-            elif op in ("sc", "scn", "SC", "SCN"):
-                if stack and isinstance(stack[-1], Name):
-                    raise NotImplementedError("pattern colours")
+            elif op in ("sc", "scn"):
+                pat_name = stack.pop() if stack and isinstance(stack[-1], Name) else None
                 vals = []
                 while stack and isinstance(stack[-1], (int, float)):
                     vals.append(num(stack.pop()))
                 vals.reverse()
-                if vals and op in ("sc", "scn"):
-                    gs.fill = (fill_cs, vals)
+                if pat_name is not None:
+                    pats = pdf.resolve(resources.get("Pattern", {}))
+                    pobj = pats.get(pat_name.v) if isinstance(pats, dict) else None
+                    pat = read_pattern(pdf, pobj) if pobj is not None else None
+                    if pat is not None:
+                        pat.name = pat_name.v
+                        if isinstance(pat, TilingPattern) and not pat.coloured and vals:
+                            pat.colour = device_colour(fill_cs, vals)
+                        gs.fill = ("Pattern", pat)
                 elif vals:
-                    gs.stroke = (stroke_cs, vals)
+                    gs.fill = device_colour(fill_cs, vals)
+            elif op in ("SC", "SCN"):
+                pat_name = stack.pop() if stack and isinstance(stack[-1], Name) else None
+                vals = []
+                while stack and isinstance(stack[-1], (int, float)):
+                    vals.append(num(stack.pop()))
+                vals.reverse()
+                if pat_name is not None:
+                    pats = pdf.resolve(resources.get("Pattern", {}))
+                    pobj = pats.get(pat_name.v) if isinstance(pats, dict) else None
+                    pat = read_pattern(pdf, pobj) if pobj is not None else None
+                    if pat is not None:
+                        pat.name = pat_name.v
+                        if isinstance(pat, TilingPattern) and not pat.coloured and vals:
+                            pat.colour = device_colour(stroke_cs, vals)
+                        gs.stroke = ("Pattern", pat)
+                elif vals:
+                    gs.stroke = device_colour(stroke_cs, vals)
             elif op == "sh":
-                raise NotImplementedError("shadings")
+                name = stack.pop()
+                shd = pdf.resolve(resources.get("Shading", {}))
+                sobj = shd.get(name.v) if isinstance(shd, dict) else None
+                if sobj is not None:
+                    shading = read_shading(pdf, gs.ctm, {}, sobj)
+                    sinks[-1].append(
+                        GShading(None, shading, gs.ctm, name=name.v, blend=gs.blend)
+                    )
             elif op == "w":
                 gs.linewidth = num(stack.pop())
             elif op == "d":
@@ -569,14 +1634,103 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
                         if transparency_group and (
                             sub_gs.ca < 1.0 or sub_gs.blend != "Normal"
                         ):
-                            raise NotImplementedError("transparency groups with their own alpha or blend")
-                        sinks[-1].extend(_process(pdf, xo.decode(), sub_res, sub_gs))
+                            # Group-level alpha/blend: children render at
+                            # full alpha / Normal and the group result gets
+                            # the gstate applied ONCE (PDF 11.6.6).
+                            ca, blend = sub_gs.ca, sub_gs.blend
+                            sub_gs.ca = 1.0
+                            sub_gs.CA = 1.0
+                            sub_gs.blend = "Normal"
+                            sinks[-1].append(
+                                FormGroup(
+                                    _process(pdf, xo.decode(), sub_res, sub_gs),
+                                    ca, blend,
+                                )
+                            )
+                        else:
+                            sinks[-1].extend(_process(pdf, xo.decode(), sub_res, sub_gs))
                     elif isinstance(st, Name) and st.v == "Image":
-                        raise NotImplementedError("image XObjects")
+                        # pdfgraphics.ml:1036-1045: placement transform,
+                        # nonstroke alpha, softmask, object number.
+                        objnum = raw_ref.num if isinstance(raw_ref, Ref) else -1
+                        sinks[-1].append(
+                            Image(
+                                ImageAttributes(
+                                gs.ctm, gs.ca, gs.softmask, gs.fill, gs.blend
+                            ),
+                                objnum,
+                                name.v,
+                                xo if objnum < 0 else None,
+                            )
+                        )
             elif op == "BI":
-                raise NotImplementedError("inline images")
+                # Inline image: dict entries to ID, then raw bytes to EI.
+                d: dict = {}
+                while True:
+                    k = lex.next_token()
+                    if not k or k == b"ID":
+                        break
+                    key = (
+                        k[1:].decode("latin1")
+                        if k.startswith(b"/")
+                        else k.decode("latin1")
+                    )
+                    p = _Parser(b"", 0)
+                    p.lex = lex
+                    d[key] = p._obj(lex.next_token())
+                data_start = lex.p
+                if data_start < len(lex.d) and lex.d[data_start] in _WS:
+                    # Exactly one whitespace after ID; tolerate CRLF.
+                    crlf = lex.d[data_start : data_start + 2] == b"\r\n"
+                    data_start += 2 if crlf else 1
+                n_bytes = _inline_image_bytes(d)
+                if n_bytes is not None and data_start + n_bytes <= len(lex.d):
+                    # Unfiltered image: the exact data length is computable,
+                    # so binary data may contain 'EI' and the terminator may
+                    # directly abut the data.
+                    data = lex.d[data_start : data_start + n_bytes]
+                    lex.p = data_start + n_bytes
+                    if lex.peek_token() == b"EI":
+                        lex.next_token()
+                else:
+                    # Filtered/unknown: scan for the terminator, preferring
+                    # whitespace-delimited EI, falling back to a bare EI
+                    # (whitespace before EI is not required by the spec).
+                    tail = lex.d[data_start:]
+                    m = re.search(
+                        rb"[\x00\t\n\x0c\r ]EI(?=[\x00\t\n\x0c\r ]|$)", tail
+                    ) or re.search(rb"EI(?=[\x00\t\n\x0c\r ]|$)", tail)
+                    if m:
+                        data = tail[: m.start()]
+                        lex.p = data_start + m.end()
+                    else:
+                        data = tail
+                        lex.p = len(lex.d)
+                cs = d.get("CS", d.get("ColorSpace"))
+                if isinstance(cs, Name) and cs.v not in (
+                    "G", "RGB", "CMYK", "I",
+                    "DeviceGray", "DeviceRGB", "DeviceCMYK", "Indexed",
+                ):
+                    # Named colourspace from the page resources (legal and
+                    # required for inline Indexed/ICC): inline the resolved
+                    # object so downstream decoding needs no resources.
+                    csd = (
+                        pdf.resolve(resources.get("ColorSpace", {}))
+                        if isinstance(resources, dict)
+                        else {}
+                    )
+                    got = (
+                        pdf.resolve(csd.get(cs.v))
+                        if isinstance(csd, dict)
+                        else None
+                    )
+                    if got is not None:
+                        d["CS" if "CS" in d else "ColorSpace"] = got
+                sinks[-1].append(
+                    GraphicInlineImage(d, bytes(data), gs.ctm, gs.fill, gs.blend)
+                )
             elif op == "BT":
-                raise NotImplementedError("text")
+                raise NotImplementedError("text (ROADMAP.md Queue 1, item 1c)")
             elif op in ("BMC", "BDC"):
                 # Marked-content section: wrap elements until the matching
                 # EMC (pdfgraphics.ml getuntil_matching_emc).

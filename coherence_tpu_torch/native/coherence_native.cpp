@@ -1,8 +1,8 @@
-// Native host library of coherence_tpu_torch: the port's copy of the five
+// Native host library of coherence_tpu_torch: the port's copy of the six
 // entry-point families of coherence_tpu/native/coherence_native.cpp that
 // the port calls (blit_masked_rgb, bezier_subdivide_batch, edge_spans_*,
-// expand_1x_*, expand_aa_*): the last four unchanged, the blit taking its
-// sprite as one uint8 plane.
+// expand_1x_*, expand_aa_*, jbig2_generic_region): the last five
+// unchanged, the blit taking its sprite as one uint8 plane.
 //
 // The bezier subdivision and the scanline sweep are the per-scene host
 // geometry stage (polygon.ml:107-127 subdivision, polygon.ml:306-512 sweep):
@@ -14,6 +14,7 @@
 // Exposed with a plain C ABI for ctypes; built by native_lib.py.
 
 #include <cstdint>
+#include <cstring>
 #include <cmath>
 #include <algorithm>
 #include <array>
@@ -385,6 +386,162 @@ int64_t expand_aa_grouped(const int64_t* rows, const int64_t* ss,
   }
   *n_groups = ng;
   return total;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JBIG2 generic-region decoding (T.88 Annex E MQ decoder + 6.2.5.7).
+// The per-pixel sequential arithmetic decode of scanned pages (megapixels)
+// is JBIG2's one hot loop; this is a transcription of io/jbig2.py's
+// MQDecoder/decode_generic (kept bit-identical — tests/test_jbig2.py fuzzes
+// native vs Python).  Standalone regions only: symbol dictionaries share MQ
+// state across symbols and stay in Python (their bitmaps are tiny).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct MQQe { uint16_t qe; uint8_t nmps, nlps, sw; };
+static const MQQe kQe[47] = {
+  {0x5601,1,1,1},{0x3401,2,6,0},{0x1801,3,9,0},{0x0AC1,4,12,0},
+  {0x0521,5,29,0},{0x0221,38,33,0},{0x5601,7,6,1},{0x5401,8,14,0},
+  {0x4801,9,14,0},{0x3801,10,14,0},{0x3001,11,17,0},{0x2401,12,18,0},
+  {0x1C01,13,20,0},{0x1601,29,21,0},{0x5601,15,14,1},{0x5401,16,14,0},
+  {0x5101,17,15,0},{0x4801,18,16,0},{0x3801,19,17,0},{0x3401,20,18,0},
+  {0x3001,21,19,0},{0x2801,22,19,0},{0x2401,23,20,0},{0x2201,24,21,0},
+  {0x1C01,25,22,0},{0x1801,26,23,0},{0x1601,27,24,0},{0x1401,28,25,0},
+  {0x1201,29,26,0},{0x1101,30,27,0},{0x0AC1,31,28,0},{0x09C1,32,29,0},
+  {0x08A1,33,30,0},{0x0521,34,31,0},{0x0441,35,32,0},{0x02A1,36,33,0},
+  {0x0221,37,34,0},{0x0141,38,35,0},{0x0111,39,36,0},{0x0085,40,37,0},
+  {0x0049,41,38,0},{0x0025,42,39,0},{0x0015,43,40,0},{0x0009,44,41,0},
+  {0x0005,45,42,0},{0x0001,45,43,0},{0x5601,46,46,0},
+};
+
+struct MQDec {
+  const uint8_t* data;
+  int64_t len, bp;
+  uint32_t c, a;
+  int32_t ct;
+
+  void bytein() {
+    uint8_t b = bp < len ? data[bp] : 0xFF;
+    if (b == 0xFF) {
+      uint8_t b1 = bp + 1 < len ? data[bp + 1] : 0xFF;
+      if (b1 > 0x8F) { c += 0xFF00; ct = 8; }
+      else { ++bp; c += (uint32_t)b1 << 9; ct = 7; }
+    } else {
+      ++bp;
+      uint8_t b1 = bp < len ? data[bp] : 0xFF;
+      c += (uint32_t)b1 << 8; ct = 8;
+    }
+  }
+
+  void init(const uint8_t* d, int64_t n) {
+    data = d; len = n; bp = 0;
+    c = (uint32_t)(n > 0 ? d[0] : 0xFF) << 16;
+    bytein();
+    c <<= 7; ct -= 7; a = 0x8000;
+  }
+
+  int decode(uint8_t* cx_i, uint8_t* cx_mps, uint32_t label) {
+    uint8_t i = cx_i[label], mps = cx_mps[label];
+    const MQQe& q = kQe[i];
+    int d;
+    a -= q.qe;
+    if (((c >> 16) & 0xFFFF) < q.qe) {
+      if (a < q.qe) { d = mps; cx_i[label] = q.nmps; }
+      else {
+        d = 1 - mps;
+        if (q.sw) cx_mps[label] = 1 - mps;
+        cx_i[label] = q.nlps;
+      }
+      a = q.qe;
+    } else {
+      c -= (uint32_t)q.qe << 16;
+      if (a & 0x8000) return mps;
+      if (a < q.qe) {
+        d = 1 - mps;
+        if (q.sw) cx_mps[label] = 1 - mps;
+        cx_i[label] = q.nlps;
+      } else { d = mps; cx_i[label] = q.nmps; }
+    }
+    do {
+      if (ct == 0) bytein();
+      a <<= 1; c <<= 1; --ct;
+    } while (!(a & 0x8000));
+    a &= 0xFFFF;
+    return d;
+  }
+};
+
+static const int8_t kGenTemplates[4][12][2] = {
+  {{-1,-2},{0,-2},{1,-2},{-2,-1},{-1,-1},{0,-1},{1,-1},{2,-1},{-4,0},{-3,0},{-2,0},{-1,0}},
+  {{-1,-2},{0,-2},{1,-2},{2,-2},{-2,-1},{-1,-1},{0,-1},{1,-1},{2,-1},{-3,0},{-2,0},{-1,0}},
+  {{-1,-2},{0,-2},{1,-2},{-2,-1},{-1,-1},{0,-1},{1,-1},{-2,0},{-1,0},{0,0},{0,0},{0,0}},
+  {{-3,-1},{-2,-1},{-1,-1},{0,-1},{1,-1},{-4,0},{-3,0},{-2,0},{-1,0},{0,0},{0,0},{0,0}},
+};
+static const int kGenTemplateN[4] = {12, 12, 9, 9};
+static const uint32_t kTpgdCtx[4] = {0x9B25, 0x0795, 0x00E5, 0x0195};
+
+}  // namespace
+
+extern "C" {
+
+// Decode one arithmetic generic region from fresh MQ/context state.
+// at: atn pairs of (dx, dy) int8.  out: h*w bytes (0/1).  Returns 0 on
+// success, negative on bad arguments.
+int32_t jbig2_generic_region(const uint8_t* data, int64_t len,
+                             int32_t w, int32_t h, int32_t tmpl,
+                             const int8_t* at, int32_t atn,
+                             int32_t tpgdon, uint8_t* out) {
+  if (tmpl < 0 || tmpl > 3 || w <= 0 || h <= 0 || atn < 0 || atn > 4)
+    return -1;
+  // Assemble template + AT pixels and sort by (dy, dx) — the context order
+  // of io/jbig2.py:_context_pixels.
+  int n = kGenTemplateN[tmpl];
+  std::array<std::array<int, 2>, 16> pts{};
+  for (int k = 0; k < n; ++k) {
+    pts[(size_t)k][0] = kGenTemplates[tmpl][k][0];
+    pts[(size_t)k][1] = kGenTemplates[tmpl][k][1];
+  }
+  for (int k = 0; k < atn; ++k) {
+    pts[(size_t)(n + k)][0] = at[2 * k];
+    pts[(size_t)(n + k)][1] = at[2 * k + 1];
+  }
+  n += atn;
+  std::sort(pts.begin(), pts.begin() + n,
+            [](const std::array<int, 2>& p, const std::array<int, 2>& q) {
+              return p[1] != q[1] ? p[1] < q[1] : p[0] < q[0];
+            });
+  std::vector<uint8_t> cx_i((size_t)1 << 16, 0), cx_mps((size_t)1 << 16, 0);
+  MQDec mq;
+  mq.init(data, len);
+  std::memset(out, 0, (size_t)w * (size_t)h);
+  int ltp = 0;
+  for (int32_t y = 0; y < h; ++y) {
+    if (tpgdon) {
+      if (mq.decode(cx_i.data(), cx_mps.data(), kTpgdCtx[tmpl])) ltp ^= 1;
+      if (ltp) {
+        if (y > 0)
+          std::memcpy(out + (size_t)y * w, out + (size_t)(y - 1) * w, (size_t)w);
+        continue;
+      }
+    }
+    for (int32_t x = 0; x < w; ++x) {
+      uint32_t ctxv = 0;
+      for (int k = 0; k < n; ++k) {
+        int xx = x + pts[(size_t)k][0], yy = y + pts[(size_t)k][1];
+        uint32_t bit = 0;
+        if (yy >= 0 && yy < h && xx >= 0 && xx < w &&
+            (yy < y || (yy == y && xx < x)))
+          bit = out[(size_t)yy * w + xx];
+        ctxv = (ctxv << 1) | bit;
+      }
+      out[(size_t)y * w + x] =
+          (uint8_t)mq.decode(cx_i.data(), cx_mps.data(), ctxv);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """ctypes loader for the port's native host library
 (``native/coherence_native.cpp``).
 
-The port's copy of ``coherence_tpu.native_lib``, trimmed to the five entry
+The port's copy of ``coherence_tpu.native_lib``, trimmed to the six entry
 points the port calls: ``blit_masked_rgb``, ``bezier_subdivide_batch``,
-``edge_spans``, ``expand_1x_grouped`` and ``expand_aa_grouped``.  The library is compiled
+``edge_spans``, ``expand_1x_grouped``, ``expand_aa_grouped`` and
+``jbig2_generic_region``.  The library is compiled
 by g++ on first use, and again whenever the source is newer, into
 ``build/native/`` at the root of the checkout.  It is built with
 ``-march=native``, so its file name carries a hash of the flags and of the
@@ -107,6 +108,9 @@ def _load() -> ctypes.CDLL:
         lib.expand_aa_count.argtypes = [i64p, i64p, i64p] + [i64] * 6 + [u8p]
         lib.expand_aa_grouped.restype = i64
         lib.expand_aa_grouped.argtypes = [i64p, i64p, i64p] + [i64] * 7 + [u8p] + [i64p] * 5
+        i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        lib.jbig2_generic_region.restype = i32
+        lib.jbig2_generic_region.argtypes = [u8p, i64, i32, i32, i32, i8p, i32, i32, u8p]
         _lib = lib
         return _lib
 
@@ -219,3 +223,20 @@ def expand_aa_grouped(rows, ss, ee, nty: int, ntx: int, hstep: int, wstep: int,
     lib.expand_aa_grouped(rows, ss, ee, T, nty, ntx, hstep, wstep, hpad, ttw, et,
                           out_r, out_s, out_e, groups, ng)
     return _groups(ng, groups, out_r, out_s, out_e)
+
+
+def jbig2_generic_region(data: bytes, w: int, h: int, template: int, at, tpgdon: bool):
+    """Native arithmetic generic-region decode (io/jbig2.py's hot loop) ->
+    (h, w) uint8, or NotImplemented when the decoder refuses the data
+    (the caller then runs the Python decoder, as the JAX package does)."""
+    lib = _load()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    at_arr = np.asarray([c for p in at for c in p], dtype=np.int8)
+    out = np.zeros((h, w), dtype=np.uint8)
+    rc = lib.jbig2_generic_region(
+        buf, buf.size, int(w), int(h), int(template),
+        at_arr, len(at), 1 if tpgdon else 0, out,
+    )
+    if rc != 0:
+        return NotImplemented
+    return out

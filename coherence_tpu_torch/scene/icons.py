@@ -57,6 +57,6 @@ def icon_of_pdf(fname: str, device):
     if not pages:
         raise ValueError("Icon file has no pages")
     graphic = PG.graphic_of_page(pdf, pages[0])
-    objs = pdfscene.scene_of_graphic(pdf, graphic)
+    objs = pdfscene.scene_of_graphic(pdf, graphic, device)
     scene = [R.mkgroup(objs)]
     return render_icon(fit_icon_scene(scene), device)

@@ -681,8 +681,9 @@ def _small_session_scene():
     return objs, blob, obj(R.rectangle(120.0, 60.0, 120.0, 80.0), C.white)
 
 
-def _serve_small_session(device, scene):
-    """A FastSession on `device` behind a localhost socket, a drag and a
+def _serve_small_session(device, scene, mesh=None):
+    """A FastSession on `device` behind a localhost socket (its view split
+    over `mesh` after the first frame when one is given), a drag and a
     slider step; the client's final image."""
     from types import SimpleNamespace
 
@@ -695,7 +696,12 @@ def _serve_small_session(device, scene):
 
     def serve():
         try:
-            fastserver.FastSession(sconn, 320, 200, *scene, blur_radius=3, device=device).run()
+            sess = fastserver.FastSession(sconn, 320, 200, *scene, blur_radius=3, device=device)
+            if mesh is not None:
+                sess.view.use_mesh(mesh)
+                sess.disp.full_refresh()
+                sess.ship_full()
+            sess.run()
         finally:
             sconn.close()  # a failed server ends the client's wait
 
@@ -739,6 +745,60 @@ def test_fast_session_on_the_card_matches_the_cpu(cuda_device):
     # The first frame, the drag and the slider step each composite through the dirty kernel.
     assert kernels.launches["composite_dirty"] == before["composite_dirty"] + 3
     fastframe.scene_build_cache_clear()
+
+
+@pytest.mark.cuda
+def test_meshed_fast_session_on_the_card_matches_unsharded(cuda_device):
+    """A FastSession whose view is split over a 2-band mesh on one card
+    ships its windows from the bands: the client's pixels equal those of
+    the same session unsharded."""
+    from coherence_tpu_torch.parallel import mesh as TM
+    from coherence_tpu_torch.scene import cache
+
+    scene = _small_session_scene()
+    cache.clear()
+    want = _serve_small_session(cuda_device, scene)
+    cache.clear()
+    got = _serve_small_session(cuda_device, scene, TM.make_mesh(2, [cuda_device] * 2))
+    cache.clear()
+    assert np.array_equal(got, want) and (got != got[0, 0]).any()
+
+
+@pytest.mark.cuda
+def test_pdf_pages_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """chip_smoke.py's two-page document (graphics on page 1, images on page
+    2) through Engine.openfile and goto_page on the CPU and on the card:
+    equal framebuffers, and the transparency groups fold through
+    fold_layers on the card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from coherence_tpu_torch.gui import app
+    from coherence_tpu_torch.gui import window as W
+    from coherence_tpu_torch.io import pdf as P
+    from coherence_tpu_torch.scene import cache
+
+    path = str(tmp_path / "pages.pdf")
+    with open(path, "wb") as f:
+        f.write(chip_smoke.pdf_file_bytes(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))))
+    shown = []
+    for device in ("cpu", cuda_device):
+        cache.clear()
+        before = kernels.launches["fold_layers"]
+        eng = app.Engine(device=device)
+        eng.event_handler((W.OPEN_FILE, path))
+        view = eng.views[0]
+        eng.event_handler((W.PAINT_RECT, view.window, 0, 0, 600, 400))
+        page1 = eng.wx.framebuffers[view.window].copy()
+        eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
+        torch.cuda.synchronize()
+        shown.append((page1, eng.wx.framebuffers[view.window].copy(), kernels.launches["fold_layers"] - before))
+    cache.clear()
+    (a1, a2, _), (b1, b2, folds) = shown
+    assert np.array_equal(a1, b1) and np.array_equal(a2, b2) and not np.array_equal(b1, b2)
+    assert folds >= 1
 
 
 @pytest.mark.cuda

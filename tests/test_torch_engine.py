@@ -9,9 +9,13 @@ scene's structure (as checkpoint JSON, which holds no id).  One scenario
 runs over TCP and compares the two clients' images.  Tolerance 0."""
 
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from _torch_general import both_sides  # noqa: F401
 from _torch_serving import DEADLINE, JAX_S, PORT_S, SERVING_SIDES, ServedClient, crc, in_thread, socket_pair
@@ -355,6 +359,41 @@ def test_closing_windows_ends_the_loop(both_sides):
         assert eng.views == [] and len(eng.wx.display.events) == 1
         with pytest.raises(KeyError):
             eng.pickview(view.window)
+
+
+def pdf_pages_file(tmp_path) -> str:
+    """chip_smoke.py's two-page document (every graphics construct on page
+    1, images on page 2) at 480x270, written by the JAX package's writer."""
+    import chip_smoke
+    from coherence_tpu.io import pdf as JP
+
+    path = str(tmp_path / "pages.pdf")
+    JP.pdf_to_file(JP.Pdf(*chip_smoke.pdf_document(JP, 480, 270, image_wh=(64, 48))), path)
+    return path
+
+
+def test_open_pdf_pages_and_turn_the_page(both_sides, tmp_path):
+    """Shadings, patterns, soft masks, groups, blend modes, an annotation
+    and images through Engine.openfile and goto_page on both sides: the
+    framebuffers of page 1 and of page 2 after PageDown, the rects shipped
+    and the status bar are equal."""
+    path = pdf_pages_file(tmp_path)
+    got = []
+    for side in SERVING_SIDES:
+        W = side.window
+        eng = side.Engine()
+        eng.event_handler((W.OPEN_FILE, path))
+        view = eng.views[0]
+        eng.event_handler((W.PAINT_RECT, view.window, 0, 0, 600, 400))
+        page1 = eng.wx.framebuffers[view.window].copy()
+        eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
+        page2 = eng.wx.framebuffers[view.window].copy()
+        got.append((page1, page2, eng.docs[view.window][1:], list(eng.wx.display.refreshed),
+                    eng.wx.display.windows[view.window].status))
+    (a1, a2, *a_rest), (b1, b2, *b_rest) = got
+    assert np.array_equal(a1, b1) and np.array_equal(a2, b2) and a_rest == b_rest
+    assert b_rest[0] == [1, 2] and not np.array_equal(b1, b2)
+    assert len(np.unique(b1[100:370, 100:580].reshape(-1, 3), axis=0)) > 100
 
 
 def test_port_loop_contains_errors_but_never_a_missing_branch():

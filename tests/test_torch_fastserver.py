@@ -35,19 +35,27 @@ DRAGS = [(9, 4), (-5, 7), (12, -6), (40, 30), (-40, -30), (-16, -5)]  # out and 
 SLIDER = [1, 2, 5, 3]
 
 
-def serve(side, conn, holder):
+def serve(side, conn, holder, setup=None):
     objs, blob, f_geom = session_scene(side)
     sess = side.FastSession(conn, W_, H_, objs, blob, f_geom, blur_radius=3, name="session")
     holder["sess"] = sess
+    if setup is not None:
+        setup(sess)
     sess.run()
 
 
-def run_session(side):
+def display_np(side, sess):
+    rgba = sess.disp.rgba
+    return side.plane_np(rgba if isinstance(rgba, torch.Tensor) or side is JAX_S else rgba.gather("cpu"))
+
+
+def run_session(side, setup=None):
     """Returns (client images after each stage, server planes at the same
-    moments, refresh counts per stage, bytes the server wrote)."""
+    moments, refresh counts per stage, bytes the server wrote).  `setup`
+    runs on the session after its first frame and before its loop."""
     sconn, cconn = socket_pair(side, side, record=True)
     holder = {}
-    t, fail = in_thread(serve, side, sconn, holder)
+    t, fail = in_thread(serve, side, sconn, holder, setup)
     sc = ServedClient(side, cconn)
     c = sc.c
     images, planes, counts = [], [], []
@@ -56,11 +64,11 @@ def run_session(side):
         assert not fail, fail
         sess = wait_for(holder, "sess", fail)
         images.append(c.windows[win].image.copy())
-        planes.append(side.plane_np(sess.disp.rgba)[..., :3].astype(np.uint8))
+        planes.append(display_np(side, sess)[..., :3].astype(np.uint8))
         counts.append(sc.refreshes)
 
     c.app_start()
-    sc.await_refresh()  # the first full frame
+    sc.await_refresh(1 if setup is None else 2)  # the first full frame, and setup's
     sc.drain()
     win = next(iter(c.windows))
     snap()
@@ -109,6 +117,38 @@ def sessions():
     j_cache.clear()
     t_cache.clear()
     return out
+
+
+def reship(mesh=None):
+    """A setup for run_session: split the view over `mesh` when given, then
+    blur-blend and ship the whole display again."""
+
+    def setup(sess):
+        if mesh is not None:
+            sess.view.use_mesh(mesh)
+        sess.disp.full_refresh()
+        sess.ship_full()
+
+    return setup
+
+
+def test_meshed_session_ships_what_an_unsharded_one_ships(both_sides):
+    """A FastSession over a 2-band mesh on one CPU device: ship_window reads
+    each window's rows from their bands.  The client's images, the server's
+    planes, the refresh counts and every byte on the socket equal those of
+    the same session unsharded."""
+    from coherence_tpu_torch.parallel import mesh as TM
+
+    plain = run_session(PORT_S, reship())
+    PORT_S.cache.clear()
+    meshed = run_session(PORT_S, reship(TM.make_mesh(2, ["cpu"] * 2)))
+    assert len(meshed[0]) == len(plain[0]) == 1 + len(DRAGS) + 1 + len(SLIDER) + 1
+    for i, (a, b) in enumerate(zip(plain[0], meshed[0])):
+        assert np.array_equal(a, b), f"client image, stage {i}"
+    for i, (a, b) in enumerate(zip(plain[1], meshed[1])):
+        assert np.array_equal(a, b), f"server plane, stage {i}"
+    assert plain[2] == meshed[2] and plain[4] == meshed[4]
+    assert plain[3] == meshed[3] and plain[3].count(b"RefreshWindow") == plain[2][-1]
 
 
 @pytest.mark.parametrize("side", ["jax", "port"])

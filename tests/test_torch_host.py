@@ -3,7 +3,11 @@ originals, on the same inputs: equal results, bit for bit.
 
   * ``io.pdf`` + ``io.pdfgraphics``: every PDF in assets/ (the lion is the
     one the port's scenes load) parsed to the same page content and the
-    same graphic element tree;
+    same graphic element tree; text, the one content the port's reader
+    refuses, refused wherever a page holds it; the decoders and
+    ``io.pdfimages``, copied whole (their behaviour is held by
+    tests/test_torch_pdf_images.py, the graphics by
+    tests/test_torch_pdf_graphics.py);
   * ``native_lib``: ``bezier_subdivide_batch``, ``edge_spans``,
     ``expand_1x_grouped`` and ``expand_aa_grouped`` on seeded numpy inputs
     (and the batch subdivider against the JAX package's Python
@@ -56,19 +60,69 @@ def test_pdf_asset_parses_equal(asset):
         assert tg.elements and repr(tg.elements) == repr(jg.elements)
 
 
-@pytest.mark.parametrize("content,what", [
-    (b"BT /F1 12 Tf (x) Tj ET", "text"),
-    (b"q 10 0 0 10 0 0 cm BI /W 1 /H 1 /BPC 8 /CS /G ID \x80 EI Q", "inline images"),
-    (b"/Sh0 sh", "shadings"),
-    (b"/P0 scn 0 0 10 10 re f", "pattern colours"),
+def _text_page(P, where):
+    """A page whose only text sits in `where`: the page's content, a form
+    XObject, an annotation's appearance stream or a tiling-pattern cell."""
+    text = P.Stream({}, b"BT /F1 12 Tf (x) Tj ET")
+    page = {"Contents": text, "Resources": {}}
+    if where != "content":
+        page["Contents"] = P.Stream({}, b"/Fm0 Do" if where == "form" else b"/Pattern cs /T0 scn 0 0 10 10 re f")
+    if where == "form":
+        page["Resources"] = {"XObject": {"Fm0": P.Stream({"Subtype": P.Name("Form"), "BBox": [0, 0, 9, 9]}, text.raw)}}
+    elif where == "tiling cell":
+        page["Resources"] = {"Pattern": {"T0": P.Stream({"PatternType": 1, "BBox": [0, 0, 5, 5]}, text.raw)}}
+    elif where == "annotation":
+        page["Contents"] = P.Stream({}, b"")
+        page["Annots"] = [{"Subtype": P.Name("Stamp"), "Rect": [0, 0, 9, 9],
+                           "AP": {"N": P.Stream({"BBox": [0, 0, 9, 9]}, text.raw)}}]
+    return P.Pdf({1: {"Type": P.Name("Page")}}, {}), page
+
+
+@pytest.mark.parametrize("where,what", [
+    ("content", "text"), ("form", "text"), ("annotation", "text"), ("tiling cell", "text"),
 ])
-def test_pdf_content_outside_the_port_raises(content, what):
-    """What the JAX package carries as text, image, shading or pattern
-    elements, the port's reader refuses by name."""
-    pdf = TP.Pdf({1: {"Type": TP.Name("Page")}}, {})
-    page = {"Contents": TP.Stream({}, content), "Resources": {}}
+def test_pdf_content_outside_the_port_raises(where, what):
+    """Text, wherever a page holds it, is the one thing the port's reader
+    refuses by name (ROADMAP.md Queue 1, item 1c); the fallbacks for
+    malformed annotations and tiling cells do not swallow the refusal."""
+    pdf, page = _text_page(TP, where)
     with pytest.raises(NotImplementedError, match=what):
         TPG.graphic_of_page(pdf, page)
+
+
+@pytest.mark.parametrize("content", [
+    b"q 10 0 0 10 0 0 cm BI /W 1 /H 1 /BPC 8 /CS /G ID \x80 EI Q",
+    b"/Sh0 sh",
+    b"/P0 scn 0 0 10 10 re f",
+])
+def test_formerly_refused_content_parses_as_the_jax_package(content):
+    """An inline image, a shading and a pattern colour, which the port's
+    reader refused before images and graphics were ported, give the JAX
+    package's element tree."""
+    trees = []
+    for P, PG in ((JP, JPG), (TP, TPG)):
+        sh = {"ShadingType": 2, "ColorSpace": P.Name("DeviceRGB"), "Coords": [0, 0, 10, 0],
+              "Function": {"FunctionType": 2, "Domain": [0, 1], "C0": [1, 0, 0], "C1": [0, 0, 1], "N": 1}}
+        pdf = P.Pdf({1: {"Type": P.Name("Page")}}, {})
+        page = {"Contents": P.Stream({}, content),
+                "Resources": {"Shading": {"Sh0": sh}, "Pattern": {"P0": {"PatternType": 2, "Shading": sh}}}}
+        trees.append(repr(PG.graphic_of_page(pdf, page).elements))
+    assert trees[0] == trees[1] and trees[1] != "[]"
+
+
+@pytest.mark.parametrize("name", ["ccitt", "jbig2", "jpeg", "jp2", "pdfimages"])
+def test_whole_copies_match_their_modules(name):
+    """The decoders and the image module are the JAX package's, whole: past
+    the module docstring, which names the module it copies, the port's
+    file is the original, character for character."""
+    def body(path):
+        with open(path) as f:
+            src = f.read()
+        return src[:src.index('"""', 3)], src[src.index('"""', 3):]
+
+    doc, code = body(os.path.join(ROOT, "coherence_tpu_torch", "io", f"{name}.py"))
+    assert f"The port's copy of ``coherence_tpu.io.{name}``, whole." in doc
+    assert code == body(os.path.join(ROOT, "coherence_tpu", "io", f"{name}.py"))[1]
 
 
 def _circle_ctrl(rng, n):

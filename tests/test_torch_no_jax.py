@@ -4,8 +4,9 @@ CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
 dense layer stack, an animated filtered step on a 2-band mesh, the
 general renderer's ``render_simple_scene`` under two filters, the scene
 edits on the sprite route, a FrameBuffer window composite and a group
-through the batched raster, and one FastSession and one Engine each serving
-a client over a localhost socket)
+through the batched raster, a two-page PDF of graphics and images opened
+in an Engine, and one FastSession and one Engine each serving a client
+over a localhost socket)
 loads no JAX module and no module of the JAX package ``coherence_tpu``: the port's
 host modules (geometry, io, transform, ident, coord, native_lib) are its
 own copies, and its native sweep library builds into build/native/.
@@ -174,6 +175,25 @@ def engine(conn):
     return view.window, shown
 engine.events = [("LeftDown", 1, 40, 40), ("LeftDragging", 1, 52, 47), ("LeftUp", 1, 52, 47)]
 
+# A PDF's graphics and images: chip_smoke.py's two-page document through
+# Engine.openfile and goto_page (every graphics construct on page 1, images
+# on page 2, among them a CCITT G4 one).
+import os, tempfile
+import chip_smoke
+from coherence_tpu_torch.io import pdf as P
+pdf_path = os.path.join(tempfile.mkdtemp(), "pages.pdf")
+with open(pdf_path, "wb") as f:
+    f.write(chip_smoke.pdf_file_bytes(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))))
+cache.clear()
+peng = app.Engine(device="cpu")
+peng.event_handler((GW.OPEN_FILE, pdf_path))
+pview = peng.views[0]
+peng.event_handler((GW.PAINT_RECT, pview.window, 0, 0, 600, 400))
+pdf_pages = [peng.wx.framebuffers[pview.window].copy()]
+peng.event_handler((GW.KEY_DOWN, pview.window, GW.PageDown))
+pdf_pages.append(peng.wx.framebuffers[pview.window].copy())
+pdf_colours = [len({tuple(px) for px in page[100:370, 100:580].reshape(-1, 3)}) for page in pdf_pages]
+
 cache.clear()
 serving = {}
 for name, server in (("fast", fast), ("engine", engine)):
@@ -202,6 +222,8 @@ print(json.dumps({
     "edits_changed": bool(not torch.equal(ev.frame, fresh.background)),
     "window_path_equal_view": bool((fb.read() == fresh.read()).all()),
     "group_batched": flags.get("batch_group_raster") and group is not None,
+    "pdf_pages": {"page": peng.docs[pview.window][1], "colours": pdf_colours,
+                  "pages_differ": bool((pdf_pages[0] != pdf_pages[1]).any())},
 }))
 """
 
@@ -259,6 +281,14 @@ def test_general_renderer_runs_on_cpu(report):
 def test_serving_surface_runs_on_cpu(report):
     # Each client's image equals its server's pixels after the events.
     assert report["serving"] == {"fast": True, "engine": True}
+
+
+def test_pdf_pages_run_on_cpu(report):
+    # The PDF reader, the image decoders and the scene builder of the port
+    # open a document of every graphics construct and of images, and turn
+    # its page.
+    got = report["pdf_pages"]
+    assert got["page"] == 1 and got["pages_differ"] and min(got["colours"]) > 100
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
