@@ -61,13 +61,17 @@ localhost TCP socket, as a user of the system runs it:
     slider over the selection, a rubberband zoom in and a right-click zoom
     out), each answering the port's HeadlessClient over the wire protocol;
   * a PDF document opened through the served Engine (OpenFile, then
-    PageDown): a two-page file this script writes itself (pdf_document,
-    pdf_file_bytes; the port has no writer), MediaBox 1920x1080, page 1
-    every graphics construct of the port's reader (colour spaces, shadings,
+    PageDown twice): a three-page file this script builds (pdf_document)
+    and writes with the port's writer, MediaBox 1920x1080, page 1 every
+    graphics construct of the port's reader (colour spaces, shadings,
     meshes, patterns, soft masks, transparency groups, blend modes, an
     annotation, optional content), page 2 images (a 1024x768 Flate RGB
     image, an Indexed image with an /SMask, a stencil, an inline and a
-    CCITT G4 image).
+    CCITT G4 image), page 3 over 2,000 glyphs of text (text_page: a
+    TrueType, a bare CFF and a Type 1 program the script writes itself,
+    Type0 Identity-H and -V, a Type 3 font and Helvetica, render modes 0-3
+    and 7, the spacing operators, a transparency group, a soft mask and a
+    tiling cell holding text); the same file encrypted (AES-256, R6).
 
 Phases, one JSON line each:
 
@@ -165,14 +169,20 @@ Phases, one JSON line each:
      to the client's image of an Engine on the CPU after the first paint,
      the pick and each of the first 3 drags.  The loop runs with
      containment off: a handler's exception ends the phase;
- 22. pdf_pages: the document opened and its page turned on the CPU, then on
-     the card (both caches emptied between): the client's image and the
-     engine's 1280x1024 framebuffer of each page equal, bit for bit; first
-     paint and page turn seconds at the client, host syncs, objects
-     visited, the launches and copies issued for both pages painted cold
-     (profile_general.py's count), the fold_layers launches (at least one:
-     the transparency groups), no tile kernel; the phase's share of the
-     run.  A NotImplementedError (a branch the port lacks) ends the run.
+ 22. pdf_pages: the document opened and its pages turned on the CPU, then
+     on the card (both caches emptied between): the client's image and the
+     engine's 1280x1024 framebuffer of each page equal, bit for bit, page 3
+     unlike pages 1 and 2; first paint and the two page turns' seconds at
+     the client, host syncs, objects visited, the launches and copies
+     issued for the three pages painted cold (profile_general.py's count),
+     the fold_layers launches per page (at least one on page 3: its group
+     of text), no tile kernel; the encrypted file through a second served
+     Engine on the card, its three framebuffers equal to the plain file's,
+     and its open-to-first-paint seconds; page 3 rendered once with
+     render.pdf_debug_active on the CPU and on the card, the two debug
+     PDFs equal byte for byte and one of their pages imaging a fragment;
+     the glyphs painted, both files' bytes, the fallback face for
+     Helvetica (or null); the phase's share of the run.
 
 Then the script's seconds from the first phase to here, the kernels line (per kernel: its launches on the main path, its
 time, its plain version's, its bound from the bytes it must move at 3.35
@@ -2457,56 +2467,6 @@ PDF_IMAGE = (1024, 768)  # the Flate RGB image's samples on page 2
 PDF_CANVAS = (1280, 1024)  # the Engine's framebuffer (the reference's fixed canvas)
 
 
-def pdf_file_bytes(objects, trailer) -> bytes:
-    """A classic PDF file: numbered objects, an xref table and a trailer.
-    The objects are built with either package's Name, Ref and Stream (the
-    port has no writer yet); a stream nested in another object is written
-    as an object of its own, since PDF allows streams only there."""
-    queue = list(sorted(objects.items()))
-    next_num = [max(objects) + 1]
-
-    def ser(o, top=False) -> bytes:
-        kind = type(o).__name__
-        if kind == "Stream":
-            if not top:
-                queue.append((next_num[0], o))
-                next_num[0] += 1
-                return f"{next_num[0] - 1} 0 R".encode()
-            return ser(dict(o.dict, Length=len(o.raw))) + b"\nstream\n" + o.raw + b"\nendstream"
-        if isinstance(o, dict):
-            return b"<< " + b" ".join(b"/" + k.encode("latin1") + b" " + ser(v) for k, v in o.items()) + b" >>"
-        if isinstance(o, (list, tuple)):
-            return b"[ " + b" ".join(ser(v) for v in o) + b" ]"
-        if kind == "Name":
-            return b"/" + o.v.encode("latin1")
-        if kind == "Ref":
-            return f"{o.num} {o.gen} R".encode()
-        if isinstance(o, bool):
-            return b"true" if o else b"false"
-        if o is None:
-            return b"null"
-        if isinstance(o, bytes):
-            return b"<" + o.hex().encode() + b">"
-        if isinstance(o, float):
-            return (f"{o:.6f}".rstrip("0").rstrip(".") or "0").encode()
-        return str(int(o)).encode()
-
-    out = bytearray(b"%PDF-1.4\n")
-    offsets = {}
-    while queue:
-        num, obj = queue.pop(0)
-        body = ser(obj, top=True)
-        offsets[num] = len(out)
-        out += f"{num} 0 obj\n".encode() + body + b"\nendobj\n"
-    xref = len(out)
-    size = max(offsets) + 1
-    out += f"xref\n0 {size}\n".encode() + b"0000000000 65535 f \n"
-    for num in range(1, size):
-        out += f"{offsets[num]:010d} 00000 n \n".encode() if num in offsets else b"0000000000 65535 f \n"
-    out += b"trailer\n" + ser(dict(trailer, Size=size)) + f"\nstartxref\n{xref}\n%%EOF\n".encode()
-    return bytes(out)
-
-
 def _cell(i: int):
     """Bottom-left corner of the i-th 130x130 cell of page 1, in the
     1920x1080 design space: 8 cells a row from the top left."""
@@ -2537,10 +2497,305 @@ def _mesh_rgb(r: float, g: float, b: float):
     return [(round(r * 255), 8), (round(g * 255), 8), (round(b * 255), 8)]
 
 
-def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0):
-    """(objects, trailer) of a two-page document built with the pdf module
+# --- page 3's font programs, written here so that nothing is downloaded ------
+#
+# Each is a few glyphs in a 1000-unit em: a TrueType program with quadratic
+# contours, a bare CFF program (Type 2 charstrings) and a Type 1 program
+# (eexec-encrypted Type 1 charstrings).
+
+# TrueType glyphs (gid 1-4; 5 is the space): contours of (x, y, on-curve).
+TT_GLYPHS = [
+    [[(500, 0, 1), (900, 0, 0), (900, 400, 1), (900, 800, 0), (500, 800, 1), (100, 800, 0), (100, 400, 1),
+      (100, 0, 0)],
+     [(500, 200, 1), (300, 200, 0), (300, 400, 1), (300, 600, 0), (500, 600, 1), (700, 600, 0), (700, 400, 1),
+      (700, 200, 0)]],
+    [[(100, 0, 1), (500, -120, 0), (900, 0, 1), (500, 800, 1)]],
+    [[(100, 0, 1), (300, 0, 1), (300, 650, 1), (200, 820, 0), (100, 650, 1)]],
+    [[(450, 0, 1), (800, 50, 0), (800, 400, 1), (450, 800, 1), (100, 400, 1), (100, 50, 0)]],
+]
+TT_ADVANCES = [500, 1000, 1000, 400, 900, 300]  # .notdef, A, B, C, D, space
+
+
+def truetype_program() -> bytes:
+    """A TrueType font (head, hhea, maxp, loca, glyf, cmap, hmtx): codes A-D
+    show gids 1-4, the space gid 5."""
+    import struct
+
+    glyphs = [[]] + TT_GLYPHS + [[]]
+    glyf, loca = b"", [0]
+    for contours in glyphs:
+        g = b""
+        if contours:
+            pts = [p for c in contours for p in c]
+            xs, ys = [p[0] for p in pts], [p[1] for p in pts]
+            ends, n = [], 0
+            for c in contours:
+                n += len(c)
+                ends.append(n - 1)
+            g = struct.pack(">hhhhh", len(contours), min(xs), min(ys), max(xs), max(ys))
+            g += struct.pack(f">{len(ends)}H", *ends) + struct.pack(">H", 0)
+            g += bytes(p[2] for p in pts)  # flags: on-curve bit, 16-bit deltas
+            for coords in (xs, ys):
+                g += struct.pack(f">{len(coords)}h", *(v - u for v, u in zip(coords, [0] + coords[:-1])))
+            g += b"\0" * (-len(g) % 4)
+        glyf += g
+        loca.append(len(glyf))
+    n = len(glyphs)
+    first, codes = 0x20, {0x20: 5, 0x41: 1, 0x42: 2, 0x43: 3, 0x44: 4}
+    ids = [codes.get(c, 0) for c in range(first, 0x45)]
+    sub = struct.pack(">HHHHH", 6, 10 + 2 * len(ids), 0, first, len(ids)) + struct.pack(f">{len(ids)}H", *ids)
+    tables = {
+        b"cmap": struct.pack(">HHHHI", 0, 1, 3, 1, 12) + sub,
+        b"glyf": glyf,
+        b"head": struct.pack(">IIIIHHqqhhhhHHhhh", 0x10000, 0x10000, 0, 0x5F0F3CF5, 0, 1000, 0, 0,
+                             100, -120, 900, 820, 0, 8, 2, 1, 0),
+        b"hhea": struct.pack(">IhhhHhhhhhhhhhhhH", 0x10000, 800, -200, 0, max(TT_ADVANCES), 0, 0, 900, 1, 0, 0,
+                             0, 0, 0, 0, 0, n),
+        b"hmtx": b"".join(struct.pack(">Hh", a, 0) for a in TT_ADVANCES),
+        b"loca": struct.pack(f">{len(loca)}I", *loca),
+        b"maxp": struct.pack(">IH", 0x00005000, n),
+    }
+    out = struct.pack(">IHHHH", 0x10000, len(tables), 0, 0, 0)
+    offset = len(out) + 16 * len(tables)
+    body = b""
+    for tag, data in tables.items():
+        out += struct.pack(">4sIII", tag, 0, offset + len(body), len(data))
+        body += data + b"\0" * (-len(data) % 4)
+    return out + body
+
+
+def _t2_num(v: int) -> bytes:
+    """A Type 2 charstring operand."""
+    import struct
+
+    return bytes([v + 139]) if -107 <= v <= 107 else b"\x1c" + struct.pack(">h", v)
+
+
+def cff_program() -> bytes:
+    """A bare CFF font (FontFile3 /Type1C) in the ISOAdobe charset: gid 1
+    is the space, gids 2-4 (exclam, quotedbl, numbersign) a square, a
+    curved triangle and a cross."""
+    import struct
+
+    def cs(width, *ops):
+        out = _t2_num(width)
+        for args, op in ops:
+            out += b"".join(_t2_num(a) for a in args) + bytes([op])
+        return out + b"\x0e"  # endchar
+
+    rmove, rline, rcurve = 21, 5, 8
+    charstrings = [
+        b"\x0e",
+        _t2_num(250) + b"\x0e",
+        cs(600, ((100, 0), rmove), ((400, 0), rline), ((0, 400), rline), ((-400, 0), rline)),
+        cs(700, ((80, 0), rmove), ((540, 0), rline), ((-60, 300, -200, 400, -270, 450), rcurve)),
+        cs(650, ((250, 0), rmove), ((150, 0), rline), ((0, 250), rline), ((200, 0), rline), ((0, 150), rline),
+           ((-200, 0), rline), ((0, 250), rline), ((-150, 0), rline), ((0, -250), rline), ((-200, 0), rline),
+           ((0, -150), rline), ((200, 0), rline)),
+    ]
+
+    def index(items):
+        offs = [1]
+        for it in items:
+            offs.append(offs[-1] + len(it))
+        return struct.pack(">HB", len(items), 4) + struct.pack(f">{len(offs)}I", *offs) + b"".join(items)
+
+    def int5(v):
+        return b"\x1d" + struct.pack(">i", v)
+
+    header, name_idx, strings, gsubrs = b"\x01\x00\x04\x04", index([b"Mini"]), b"\x00\x00", b"\x00\x00"
+    top_len = len(index([int5(0) + int5(0) + b"\x12" + int5(0) + b"\x11"]))
+    cs_off = len(header) + len(name_idx) + top_len + len(strings) + len(gsubrs)
+    top = index([int5(0) + int5(cs_off) + b"\x12" + int5(cs_off) + b"\x11"])  # empty Private, CharStrings
+    return header + name_idx + top + strings + gsubrs + index(charstrings)
+
+
+def _t1_encrypt(plain: bytes, r: int) -> bytes:
+    out = bytearray()
+    for p in plain:
+        c = p ^ (r >> 8)
+        out.append(c)
+        r = ((c + r) * 52845 + 22719) & 0xFFFF
+    return bytes(out)
+
+
+def _t1_charstring(*tokens) -> bytes:
+    """Type 1 charstring bytes from small integers and operator codes
+    (given as one-element tuples)."""
+    out = bytearray()
+    for t in tokens:
+        if isinstance(t, tuple):
+            out += bytes(t)
+        elif -107 <= t <= 107:
+            out.append(t + 139)
+        elif 108 <= t <= 1131:
+            out += bytes([247 + ((t - 108) >> 8), (t - 108) & 255])
+        else:
+            out += bytes([251 + ((-t - 108) >> 8), (-t - 108) & 255])
+    return bytes(out)
+
+
+def type1_program() -> bytes:
+    """A Type 1 font program (PFA with a binary eexec section): its builtin
+    /Encoding shows codes a, b, c as a square, a curved wedge and a bar."""
+    hsbw, rmove, rline, rcurve, close, end = (13,), (21,), (5,), (8,), (9,), (14,)
+    glyphs = [
+        (".notdef", _t1_charstring(0, 500, hsbw, end)),
+        ("sq", _t1_charstring(50, 600, hsbw, 50, 0, rmove, 500, 0, rline, 0, 500, rline, -500, 0, rline, close,
+                              end)),
+        ("wedge", _t1_charstring(40, 700, hsbw, 40, 0, rmove, 600, 0, rline, -100, 350, -300, 450, -450, 500,
+                                 rcurve, close, end)),
+        ("bar", _t1_charstring(100, 400, hsbw, 100, 0, rmove, 200, 0, rline, 0, 700, rline, -200, 0, rline, close,
+                               end)),
+    ]
+    clear = (b"%!FontType1-1.0: SmokeType1 001.001\n/FontName /SmokeType1 def\n"
+             b"/FontMatrix [0.001 0 0 0.001 0 0] readonly def\n/Encoding 256 array\n"
+             b"0 1 255 {1 index exch /.notdef put} for\n"
+             b"dup 97 /sq put\ndup 98 /wedge put\ndup 99 /bar put\n"
+             b"readonly def\ncurrentdict end\ncurrentfile eexec\n")
+    priv = b"/lenIV 4 def\n/CharStrings %d dict dup begin\n" % len(glyphs)
+    for name, plain in glyphs:
+        enc = _t1_encrypt(b"XXXX" + plain, 4330)
+        priv += b"/%s %d RD %s ND\n" % (name.encode(), len(enc), enc)
+    priv += b"end\nmark currentfile closefile\n"
+    return clear + _t1_encrypt(b"YYYY" + priv, 55665)
+
+
+def text_page(P, scale: bytes, pat_m, form, fn2, first_obj: int):
+    """Page 3 of pdf_document: (content, resources, extra objects numbered
+    from first_obj, glyphs painted).  Rows of text in every font kind of
+    the port's reader (an embedded TrueType program as a simple font and as
+    Type0 Identity-H, a bare CFF FontFile3, a Type 1 FontFile, a Type 3
+    font with a d1 stencil and a d0 coloured glyph, Helvetica with no
+    /Widths), render modes 0-3, kerning and the spacing operators, a
+    rotated Tm, a vertical Identity-V column, mode 7 clipping an axial
+    shading, a run under ca 0.5 and Multiply, and text inside a
+    transparency group at ca 0.5, a soft-mask group and a tiling cell.
+    Helvetica's glyphs count as painted only where a fallback face
+    exists."""
+    import zlib
+
+    from coherence_tpu_torch.io.truetype import fallback_font_path
+
+    N, R, S = P.Name, P.Ref, P.Stream
+    tt = S({"Length1": 0, "Filter": N("FlateDecode")}, zlib.compress(truetype_program()))
+    t1 = S({"Length1": 0, "Length2": 0, "Length3": 0}, type1_program())
+    cff = S({"Subtype": N("Type1C")}, cff_program())
+    codes = {0x20: 5, 0x41: 1, 0x42: 2, 0x43: 3, 0x44: 4}
+
+    def descriptor(name, **program):
+        return {"Type": N("FontDescriptor"), "FontName": N(name), "Flags": 4, "FontBBox": [0, -200, 1000, 900],
+                "ItalicAngle": 0, "Ascent": 900, "Descent": -200, "CapHeight": 800, "StemV": 80, **program}
+
+    def cid_font(vertical: bool):
+        child = {"Type": N("Font"), "Subtype": N("CIDFontType2"), "BaseFont": N("SmokeTT"), "DW": 1000,
+                 "W": [1, [1000, 1000, 400, 900, 300]],
+                 "CIDSystemInfo": {"Registry": b"Adobe", "Ordering": b"Identity", "Supplement": 0},
+                 "FontDescriptor": descriptor("SmokeTT", FontFile2=tt)}
+        if vertical:
+            child["W2"] = [1, [-1000, 500, 880, -1000, 500, 880, -450, 200, 880, -950, 450, 880, -300, 150, 880]]
+        return {"Type": N("Font"), "Subtype": N("Type0"), "BaseFont": N("SmokeTT"),
+                "Encoding": N("Identity-V" if vertical else "Identity-H"), "DescendantFonts": [child]}
+
+    stencil = S({}, b"1000 0 0 0 800 800 d1 0 1 0 rg 0 0 800 800 re f")
+    coloured = S({}, b"900 0 d0 1 0 0 rg 0 0 400 800 re f 0 0 1 rg 450 0 400 800 re f")
+    font_objs = {
+        "TT": {"Type": N("Font"), "Subtype": N("TrueType"), "BaseFont": N("SmokeTT"), "FirstChar": 32,
+               "LastChar": 68, "Widths": [TT_ADVANCES[codes.get(c, 0)] for c in range(32, 69)],
+               "FontDescriptor": descriptor("SmokeTT", FontFile2=tt)},
+        "T0H": cid_font(False),
+        "T0V": cid_font(True),
+        "CF": {"Type": N("Font"), "Subtype": N("Type1"), "BaseFont": N("Mini"),
+               "Encoding": {"Type": N("Encoding"), "Differences": [65, N("exclam"), N("quotedbl"), N("numbersign")]},
+               "FontDescriptor": descriptor("Mini", FontFile3=cff)},
+        "T1": {"Type": N("Font"), "Subtype": N("Type1"), "BaseFont": N("SmokeType1"), "FirstChar": 97,
+               "LastChar": 99, "Widths": [600, 700, 400], "FontDescriptor": descriptor("SmokeType1", FontFile=t1)},
+        "T3": {"Type": N("Font"), "Subtype": N("Type3"), "FontBBox": [0, 0, 1000, 1000],
+               "FontMatrix": [0.001, 0, 0, 0.001, 0, 0], "CharProcs": {"st": stencil, "co": coloured},
+               "Encoding": {"Type": N("Encoding"), "Differences": [97, N("st"), N("co")]},
+               "FirstChar": 97, "LastChar": 98, "Widths": [1000, 900], "Resources": {}},
+        "HV": {"Type": N("Font"), "Subtype": N("Type1"), "BaseFont": N("Helvetica")},
+    }
+    objects = {first_obj + i: fd for i, fd in enumerate(font_objs.values())}
+    fonts = {name: R(first_obj + i) for i, name in enumerate(font_objs)}
+    helvetica_paints = fallback_font_path("Helvetica") is not None
+    painted = [0]
+
+    def run(font: str, s: bytes, paints: bool = True) -> bytes:
+        """A string operand of `font`, counting its painted glyphs."""
+        if paints and (font != "HV" or helvetica_paints):
+            if font in ("T0H", "T0V"):
+                painted[0] += sum(1 for i in range(0, len(s), 2) if s[i + 1] != 5)
+            else:
+                painted[0] += sum(1 for c in s if c != 0x20)
+        if font in ("T0H", "T0V"):
+            return b"<" + s.hex().encode() + b">"
+        return b"(" + s + b")"
+
+    rows = {"TT": b"ABCD DCBA ", "T0H": bytes([0, 1, 0, 2, 0, 5, 0, 3, 0, 4, 0, 5]), "CF": b"ABC CBA ",
+            "T1": b"abc cab ", "T3": b"abab ", "HV": b"Hello, text! "}
+    colours = {"TT": b"0.1 0.1 0.5", "T0H": b"0.5 0.1 0.1", "CF": b"0.1 0.45 0.1", "T1": b"0.4 0.1 0.5",
+               "T3": b"0.8 0.4 0.0", "HV": b"0.1 0.1 0.1"}
+    c = [b"q " + scale + b"1 1 0.96 rg 0 0 1920 1080 re f BT 26 TL 40 1066 Td "]
+    for k in range(30):
+        font = list(rows)[k % 6]
+        mode = (0, 0, 1, 2, 0)[k // 6]
+        unit = rows[font]
+        # A Type 3 glyph is a scene of its own: its rows are short.
+        reps = 4 if font == "T3" else (272 if font == "T0H" else 136) // len(unit)
+        line = unit * reps
+        c.append(b"/%s 18 Tf %d Tr %s rg %s RG " % (font.encode(), mode, colours[font], colours[font]))
+        if font == "TT":
+            half = len(line) // 2
+            c.append(b"T* [%s -250 %s 400 %s] TJ " % (run(font, line[:half]), run(font, line[half:-10]),
+                                                       run(font, line[-10:])))
+        elif font == "CF":
+            c.append(b"1.5 Tc %s ' 0 Tc " % run(font, line))  # ' and " move to the next line
+        elif font == "T1":
+            c.append(b"4 0.5 %s \" 0 Tw 0 Tc " % run(font, line))
+        elif font == "T3":
+            c.append(b"T* 80 Tz %s Tj 100 Tz " % run(font, line))
+        elif font == "HV":
+            c.append(b"T* 3 Ts %s Tj 0 Ts " % run(font, line))
+        else:
+            c.append(b"T* %s Tj " % run(font, line))
+    c.append(b"0 Tr ET ")
+    # Mode 3 advances without painting; a rotated Tm; a vertical column.
+    c.append(b"BT /TT 28 Tf 0 0 0 rg 40 170 Td 3 Tr %s Tj 0 Tr %s Tj ET "
+             % (run("TT", b"ABCD", paints=False), run("TT", b"ABCDABCD")))
+    c.append(b"BT /T1 30 Tf 0.2 0.5 0.7 rg 0.866 0.5 -0.5 0.866 420 60 Tm %s Tj ET " % run("T1", b"abcabcab"))
+    c.append(b"BT /T0V 24 Tf 0.3 0.3 0.3 rg 1880 1050 Td %s Tj ET "
+             % run("T0V", bytes([0, 1, 0, 2, 0, 3, 0, 4, 0, 5]) * 4))
+    # Mode 7: the glyphs clip an axial shading until the Q.
+    shading = {"ShadingType": 2, "ColorSpace": N("DeviceRGB"), "Coords": [700, 0, 1100, 0],
+               "Function": fn2((0.9, 0.1, 0.1), (0.1, 0.2, 0.9)), "Extend": [True, True]}
+    c.append(b"q BT /TT 110 Tf 700 40 Td 7 Tr %s Tj ET /ShT sh Q " % run("TT", b"ABDC", paints=False))
+    # ca 0.5 under Multiply over a backdrop.
+    c.append(b"0.3 0.8 0.5 rg 1150 150 500 60 re f q /TxA gs BT /CF 44 Tf 0.9 0.2 0.2 rg 1160 160 Td %s Tj ET Q "
+             % run("CF", b"ABCABCABC"))
+    # A transparency group at ca 0.5 (folded as one layer list on the card).
+    grp = form(b"0.95 0.85 0.3 rg 1150 240 560 120 re f BT /TT 36 Tf 0.1 0.1 0.6 rg 1160 280 Td %s Tj ET"
+               % run("TT", b"ABCD ABCD ABCD"), [1150, 240, 1710, 360], group=True, Resources={"Font": fonts})
+    c.append(b"q /Half gs /GrpT Do Q ")
+    # A Luminosity soft mask drawn by text, and a tiling cell holding text.
+    mask = form(b"1 g BT /T1 60 Tf 1160 400 Td %s Tj ET" % run("T1", b"abcabc", paints=False),
+                [1150, 380, 1710, 480], group=True, Resources={"Font": fonts})
+    c.append(b"q /SmT gs 0.1 0.3 0.8 rg 1150 380 560 100 re f Q ")
+    cell = S({"Type": N("Pattern"), "PatternType": 1, "PaintType": 1, "TilingType": 1, "BBox": [0, 0, 60, 24],
+              "XStep": 60, "YStep": 24, "Matrix": pat_m, "Resources": {"Font": fonts}},
+             b"0.9 0.9 0.8 rg 0 0 60 24 re f BT /T1 12 Tf 0.5 0.1 0.1 rg 3 6 Td (abc) Tj ET")
+    c.append(b"/Pattern cs /PT scn 1150 500 560 120 re f Q")
+    res = {"Font": fonts, "Shading": {"ShT": shading}, "Pattern": {"PT": cell}, "XObject": {"GrpT": grp},
+           "ExtGState": {"TxA": {"ca": 0.5, "BM": N("Multiply")}, "Half": {"ca": 0.5},
+                         "SmT": {"SMask": {"Type": N("Mask"), "S": N("Luminosity"), "G": mask}}}}
+    return b"".join(c), res, objects, painted[0]
+
+
+def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0, stats=None):
+    """(objects, trailer) of a three-page document built with the pdf module
     `P` (its Name, Ref and Stream), each page's MediaBox w x h; the content
-    is laid out in a 1920x1080 design space and scaled to the page.
+    is laid out in a 1920x1080 design space and scaled to the page.  When
+    `stats` is a dict, it receives the glyphs page 3 paints ("glyphs").
 
     Page 1 holds every graphics construct of the port's PDF reader: fills in
     Indexed, Separation (a type 2 function), DeviceN (a type 4 PostScript
@@ -2553,7 +2808,7 @@ def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0):
     optional-content group beside a visible one.  Page 2 holds images: a
     Flate RGB image of image_wh samples, an Indexed image with an /SMask, an
     /ImageMask stencil, an inline image and a CCITT G4 image made with the
-    port's ccitt_encode_g4."""
+    port's ccitt_encode_g4.  Page 3 holds text (text_page)."""
     import zlib
 
     import numpy as np
@@ -2709,11 +2964,16 @@ def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0):
           b"q 120 0 0 90 1045 560 cm BI /W 8 /H 6 /BPC 8 /CS /RGB /F /AHx ID " + inline + b"> EI Q Q")
     res2 = {"XObject": {"Im0": im0, "ImIx": im_ix, "ImM": im_m, "ImG4": im_g4}}
 
+    # --- page 3 --------------------------------------------------------------
+    c3, res3, font_objects, glyphs = text_page(P, scale, pat_m, form, fn2, 12)
+    if stats is not None:
+        stats["glyphs"] = glyphs
+
     flate = {"Filter": N("FlateDecode")}
     objects = {
         1: {"Type": N("Catalog"), "Pages": R(2),
             "OCProperties": {"OCGs": [R(8), R(9)], "D": {"BaseState": N("ON"), "OFF": [R(9)]}}},
-        2: {"Type": N("Pages"), "Kids": [R(3), R(5)], "Count": 2, "MediaBox": [0, 0, w, h]},
+        2: {"Type": N("Pages"), "Kids": [R(3), R(5), R(10)], "Count": 3, "MediaBox": [0, 0, w, h]},
         3: {"Type": N("Page"), "Parent": R(2), "Contents": R(4), "Resources": res1, "Annots": [R(7)]},
         4: S(dict(flate), zlib.compress(b"".join(c))),
         5: {"Type": N("Page"), "Parent": R(2), "Contents": R(6), "Resources": res2},
@@ -2721,15 +2981,19 @@ def pdf_document(P, w: int, h: int, image_wh=PDF_IMAGE, seed: int = 0):
         7: annot,
         8: {"Type": N("OCG"), "Name": b"shown"},
         9: {"Type": N("OCG"), "Name": b"hidden"},
+        10: {"Type": N("Page"), "Parent": R(2), "Contents": R(11), "Resources": res3},
+        11: S(dict(flate), zlib.compress(c3)),
+        **font_objects,
     }
     return objects, {"Root": R(1)}
 
 
-def pdf_session(torch, device, path: str):
+def pdf_session(torch, device, path: str, kernels=None):
     """An Engine on `device` behind a RemoteDisplay and the port's client:
-    OpenFile, a paint of the whole canvas, PageDown, a paint of the whole
-    canvas.  Returns (the client's images and the engine's framebuffer
-    after each page, what was measured)."""
+    OpenFile and a paint of the whole canvas, then for each further page
+    PageDown and a paint of the whole canvas.  Returns (the client's image
+    and the engine's framebuffer of each page, what was measured: with
+    `kernels`, the fold_layers launches of each page)."""
     from coherence_tpu_torch.gui import app
     from coherence_tpu_torch.gui.window import RemoteDisplay
     from coherence_tpu_torch.raster import region
@@ -2743,6 +3007,8 @@ def pdf_session(torch, device, path: str):
     cw, ch = PDF_CANVAS
     region.syncs = 0
     visited0 = profiling.counters["render.objects_visited"]
+    folds = []
+    folds_before = kernels.launches["fold_layers"] if kernels is not None else 0
     sv = Served(server)
     c = sv.c
     shots = []
@@ -2769,49 +3035,95 @@ def pdf_session(torch, device, path: str):
         require(bool((img == fb[: img.shape[0], : img.shape[1]]).all()),
                 f"pdf_pages: the client's image differs from the engine's framebuffer on {name}")
         shots.append((img.copy(), fb.copy()))
+        if kernels is not None:
+            folds.append(kernels.launches["fold_layers"] - folds_before - sum(folds))
 
     shot("page 1")
-    t1 = time.perf_counter()
-    c.send_event("KeyDown", win, 367)  # PageDown
-    turn_s = sv.await_refresh() - t1
-    sv.drain()
-    c.paint(win, 0, 0, cw, ch)
-    sv.await_refresh()
-    sv.barrier(win)
-    require(sv.ready["eng"].docs[win][1] == 1, "pdf_pages: PageDown did not turn to page 2")
-    shot("page 2")
-    stats = {"first_paint_s": first_paint_s, "page_turn_s": turn_s, "syncs": region.syncs,
+    turns = []
+    for page in range(2, 4):
+        t1 = time.perf_counter()
+        c.send_event("KeyDown", win, 367)  # PageDown
+        turns.append(sv.await_refresh() - t1)
+        sv.drain()
+        c.paint(win, 0, 0, cw, ch)
+        sv.await_refresh()
+        sv.barrier(win)
+        require(sv.ready["eng"].docs[win][1] == page - 1, f"pdf_pages: PageDown did not turn to page {page}")
+        shot(f"page {page}")
+    stats = {"first_paint_s": first_paint_s, "page_turn_s": turns, "syncs": region.syncs,
              "objects_visited": profiling.counters["render.objects_visited"] - visited0,
              "window": list(c.windows[win].image.shape[1::-1])}
+    if kernels is not None:
+        stats["fold_layers_per_page"] = folds
     sv.close()
     return shots, stats
 
 
+def debug_page(torch, device, path: str, out: str):
+    """Page 3 of the file at `path` rendered once on `device` with
+    render.pdf_debug_active set, its debug pages written to `out` by
+    debugpdf.write_debug_pdf: (the file's bytes, the readbacks counted)."""
+    from coherence_tpu_torch.io import pdf as P
+    from coherence_tpu_torch.io import pdfgraphics as PG
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache, pdfscene
+    from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import debugpdf
+
+    pdf = P.pdf_of_file(path)
+    scene = pdfscene.scene_of_graphic(pdf, PG.graphic_of_page(pdf, pdf.pages()[2]), device)
+    cache.clear()
+    debugpdf.clear_debug()
+    syncs0 = region.syncs
+    R.pdf_debug_active = True
+    try:
+        R.render_simple_scene(list(reversed(scene)), region.shape_of_box((1, 1, W, H), device), device)
+    finally:
+        R.pdf_debug_active = False
+    syncs = region.syncs - syncs0
+    debugpdf.write_debug_pdf(out)
+    cache.clear()
+    with open(out, "rb") as f:
+        return f.read(), syncs
+
+
 def pdf_pages(torch, dev, kernels):
-    """The two-page document opened through a served Engine, on the CPU and
-    then on the card, with both caches emptied between the two; the client's
-    images and the engine's framebuffer of each page equal, bit for bit.
-    Returns the launch counts of the card's session."""
+    """The three-page document written by the port's writer, opened through
+    a served Engine on the CPU and then on the card, with both caches
+    emptied between; the client's images and the engine's framebuffer of
+    each page equal, bit for bit.  Then the same document written again
+    with AES-256 (R6, modern xref, an owner password) through a second
+    served Engine on the card, equal to the plain file's pages; and page 3's
+    debug pages, the card's file equal to the CPU's.  Returns the launch
+    counts of the card's session of the plain file."""
     import os
     import tempfile
 
     from coherence_tpu_torch.io import pdf as P
+    from coherence_tpu_torch.io.truetype import fallback_font_path
     from coherence_tpu_torch.scene import cache, fastframe
     from profile_general import issued
 
     t_phase = time.perf_counter()
+    doc = {}
+    pdf = P.Pdf(*pdf_document(P, W, H, stats=doc))
+    plain = P.pdf_to_bytes(pdf)
+    t0 = time.perf_counter()
+    sealed = P.pdf_to_bytes(pdf, modern=True, encrypt={"revision": 6, "user_pw": b"", "owner_pw": b"pdf-pages"})
+    encrypt_s = time.perf_counter() - t0
+    require(b"/Encrypt" in sealed and b"/Encrypt" not in plain, "pdf_pages: the sealed file has no /Encrypt")
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "pdf_pages.pdf")
-        with open(path, "wb") as f:
-            f.write(pdf_file_bytes(*pdf_document(P, W, H)))
-        size = os.path.getsize(path)
+        path, sealed_path = os.path.join(tmp, "pdf_pages.pdf"), os.path.join(tmp, "pdf_pages_aes256.pdf")
+        for name, data in ((path, plain), (sealed_path, sealed)):
+            with open(name, "wb") as f:
+                f.write(data)
         cache.clear()
         fastframe.scene_build_cache_clear()
         cpu_shots, cpu_stats = pdf_session(torch, "cpu", path)
         cache.clear()
         fastframe.scene_build_cache_clear()
         zero_counts(torch, kernels)
-        shots, stats = pdf_session(torch, dev, path)
+        shots, stats = pdf_session(torch, dev, path, kernels)
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
         for page, (a, b) in enumerate(zip(shots, cpu_shots), start=1):
@@ -2819,11 +3131,28 @@ def pdf_pages(torch, dev, kernels):
             require(bool((a[1] == b[1]).all()), f"pdf_pages: page {page}: the framebuffer differs from the CPU run's")
             require(bool((a[1] != a[1][0, 0]).any()), f"pdf_pages: page {page} painted nothing")
         require(not (shots[0][1] == shots[1][1]).all(), "pdf_pages: page 2 looks like page 1")
-        require(counts["fold_layers"] >= 1, "pdf_pages: no transparency group folded through fold_layers")
+        for other in (0, 1):
+            require(not (shots[2][1] == shots[other][1]).all(), f"pdf_pages: page 3 looks like page {other + 1}")
+        require(stats["fold_layers_per_page"][2] >= 1, "pdf_pages: no fold_layers launch on page 3 (the text group)")
         tile_counts = {k: n for k, n in counts.items() if k != "fold_layers"}
         require(not any(tile_counts.values()), f"pdf_pages: the general renderer launched a tile kernel: {counts}")
 
-        def both_pages():
+        cache.clear()
+        fastframe.scene_build_cache_clear()
+        sealed_shots, sealed_stats = pdf_session(torch, dev, sealed_path)
+        torch.cuda.synchronize()
+        for page, (a, b) in enumerate(zip(sealed_shots, shots), start=1):
+            require(bool((a[0] == b[0]).all() and (a[1] == b[1]).all()),
+                    f"pdf_pages: page {page} of the encrypted file differs from the plain file's")
+
+        cpu_debug, _ = debug_page(torch, "cpu", path, os.path.join(tmp, "debug_cpu.pdf"))
+        card_debug, debug_syncs = debug_page(torch, dev, path, os.path.join(tmp, "debug_card.pdf"))
+        require(card_debug == cpu_debug, "pdf_pages: the card's debug PDF differs from the CPU's")
+        debug_pdf = P.pdf_of_bytes(card_debug)
+        debug_pages = debug_pdf.pages()
+        require(any(b"Do" in debug_pdf.page_content(p) for p in debug_pages), "pdf_pages: no debug page images a fragment")
+
+        def all_pages():
             from coherence_tpu_torch.gui import app
             from coherence_tpu_torch.gui import window as Wn
 
@@ -2831,19 +3160,26 @@ def pdf_pages(torch, dev, kernels):
             eng.event_handler((Wn.OPEN_FILE, path))
             view = eng.views[0]
             eng.render_rect(view.window, 0, 0, *PDF_CANVAS)
-            eng.goto_page(view, 1)
-            eng.render_rect(view.window, 0, 0, *PDF_CANVAS)
+            for page in (1, 2):
+                eng.goto_page(view, page)
+                eng.render_rect(view.window, 0, 0, *PDF_CANVAS)
 
         cache.clear()
-        n_issued = issued(torch, both_pages)
+        n_issued = issued(torch, all_pages)
         cache.clear()
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "pdf_pages", "page": [W, H], "canvas": list(PDF_CANVAS), "file_bytes": size,
-          "image_samples": list(PDF_IMAGE), **stats, "issued_launches_and_copies": n_issued,
-          "launches": counts, "fold_layers_launches": counts["fold_layers"],
+    emit({"phase": "pdf_pages", "page": [W, H], "canvas": list(PDF_CANVAS), "pages": 3, "file_bytes": len(plain),
+          "encrypted_file_bytes": len(sealed), "encrypt": "AES-256 R6, modern xref", "encrypt_s": encrypt_s,
+          "image_samples": list(PDF_IMAGE), "glyphs_painted": doc["glyphs"],
+          "fallback_face": fallback_font_path("Helvetica"), **stats,
+          "encrypted_first_paint_s": sealed_stats["first_paint_s"],
+          "encrypted_page_turn_s": sealed_stats["page_turn_s"],
+          "issued_launches_and_copies": n_issued, "launches": counts, "fold_layers_launches": counts["fold_layers"],
           "cpu_first_paint_s": cpu_stats["first_paint_s"], "cpu_page_turn_s": cpu_stats["page_turn_s"],
+          "debug_pdf": {"bytes": len(card_debug), "pages": len(debug_pages), "syncs": debug_syncs},
           "seconds": seconds, "share_of_run": seconds / (time.perf_counter() - T_IMPORT),
-          "equal": {"tolerance": 0, "client_images": 2, "framebuffers": 2}})
+          "equal": {"tolerance": 0, "client_images": 3, "framebuffers": 3, "encrypted_framebuffers": 3,
+                    "debug_pdf_bytes": True}})
     return counts
 
 

@@ -9,8 +9,9 @@ Pallas TPU kernel on the ported path is a hand-written Hopper kernel under
 Ported so far: the animated blur-filtered tiled frame path with brush
 strokes, zoom, the dense layer-stack compositor and the banded multi-device
 path; the general renderer with its coherence cache, every fill, stroke,
-filter and demo scene; and the serving surface (the wire protocol, the
-window system, the Engine, FastSession, undo, checkpoint):
+filter and demo scene; the serving surface (the wire protocol, the window
+system, the Engine, FastSession, undo, checkpoint); and the PDF stack
+(reader, writer, encryption, graphics, images, text):
   colour                         — packed colours, exact tensor compositing,
                                    the scalar and array colour operations
   raster/compositor              — packed-pixel format, `over`, layer stacks
@@ -26,7 +27,8 @@ window system, the Engine, FastSession, undo, checkpoint):
   scene/render, cache, filters   — scene model, the hidden-surface renderer,
                                    dirty regions, picking, the coherence cache,
                                    the filters
-  scene/pdfscene, examples, icons — PDF scenes, demo and benchmark scenes, icons
+  scene/pdfscene, pdftext, examples, icons — PDF scenes and text, demo and
+                                   benchmark scenes, icons
   scene/fastframe                — scene build and its cache, DeviceView
                                    (zoom, prefetch, use_mesh), FilteredDisplay
                                    (play_animated)
@@ -39,9 +41,13 @@ window system, the Engine, FastSession, undo, checkpoint):
   parallel/mesh, dryrun          — row-band meshes of one process, halo
                                    exchange, the multi-band dry run
   coord, transform, ident        — copies of the JAX package's host modules
-  geometry/, io/, native_lib     — paths, shapes, strokes, dashes, PDF input,
-                                   the native sweep and blit
-  utils/flags, profiling, png, persist — flags, counters, PNG and .npz files
+  geometry/, io/, native_lib     — paths, shapes, strokes, dashes, the PDF
+                                   reader and writer, encryption, the image
+                                   decoders and font programs, the native
+                                   sweep and blit
+  utils/flags, profiling, png, persist, debugpdf — flags, counters and the
+                                   profiler trace, PNG and .npz files, the
+                                   debug pages
   kernels/                       — CUDA build, binding, launch counters
   convert                        — JAX-side state (as numpy) -> port objects
 

@@ -1,2 +1,3 @@
-"""PDF input: the port's copies of ``coherence_tpu.io.pdf`` and
-``coherence_tpu.io.pdfgraphics``, trimmed to what the port's scenes read."""
+"""PDF import and export: the port's copies of the JAX package's ``io``
+modules (the reader and writer, encryption, the content-stream interpreter,
+the image decoders and the font programs)."""

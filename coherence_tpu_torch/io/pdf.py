@@ -1,12 +1,14 @@
-"""PDF reader.
+"""PDF reader/writer.
 
-The port's copy of ``coherence_tpu.io.pdf``, without the writer and
-encryption: classic cross-reference tables and xref-stream / object-stream
-(ObjStm) files, the stream filters (Flate and LZW with PNG/TIFF predictors,
-ASCIIHex, ASCII85, RunLength, CCITTFax G3/G4), the page tree with
-inheritable attributes, and ``mkpage``, a one-page PDF in memory.  Other
-stream filters raise ValueError.  Encrypted files raise NotImplementedError
-until ``pdfcrypt`` and the writer are ported (ROADMAP.md Queue 1, item 1d).
+The port's copy of ``coherence_tpu.io.pdf``, whole.
+
+Replaces the reference's camlpdf object layer (Pdfread/Pdfwrite/Pdf/Pdfpage)
+for what the renderer needs: classic cross-reference tables AND xref-stream /
+object-stream (ObjStm) files, the stream codecs camlpdf's Pdfcodec supports
+that appear in page content (Flate incl. PNG/TIFF predictors, ASCIIHex,
+ASCII85, RunLength, LZW, CCITTFax G3/G4), the page tree with inheritable
+attributes, and a
+small writer for debug output.
 
 Object model: Python natives —
   dict          -> PDF dictionary (keys without the leading '/')
@@ -20,10 +22,12 @@ Object model: Python natives —
 
 from __future__ import annotations
 
+import hashlib
 import re
+import struct
 import zlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -480,6 +484,90 @@ class Pdf:
         return b"\n".join(self.resolve(c).decode() for c in contents)
 
 
+def _decrypt_objects(objects: Dict[int, PdfObj], gens: Dict[int, int], data: bytes):
+    """Decrypt every string and stream in place when the file carries a
+    standard /Encrypt dictionary (PDF 7.6) — camlpdf `Pdfcrypt` parity.
+    XRef streams are never encrypted; /Metadata honours EncryptMetadata;
+    strings inside object streams are covered by the ObjStm's own stream
+    decryption (they are not re-encrypted individually)."""
+    enc_ref = None
+    id0 = b""
+    dicts: list = []
+    for m in re.finditer(rb"trailer", data):
+        try:
+            t = _Parser(data, m.end()).parse()
+            if isinstance(t, dict):
+                dicts.append(t)
+        except Exception:
+            pass
+    for obj in objects.values():
+        if isinstance(obj, Stream):
+            t = obj.dict.get("Type")
+            if isinstance(t, Name) and t.v == "XRef":
+                dicts.append(obj.dict)
+    for t in dicts:
+        if enc_ref is None and "Encrypt" in t:
+            enc_ref = t["Encrypt"]
+        ids = t.get("ID")
+        if not id0 and isinstance(ids, list) and ids and isinstance(ids[0], bytes):
+            id0 = ids[0]
+    if enc_ref is None:
+        return
+    enc_num = enc_ref.num if isinstance(enc_ref, Ref) else None
+    enc = objects.get(enc_num) if enc_num is not None else enc_ref
+    if not isinstance(enc, dict):
+        return
+    filt = enc.get("Filter")
+    if isinstance(filt, Name) and filt.v != "Standard":
+        return  # unsupported security handler: leave bytes as-is
+    try:
+        from .pdfcrypt import StandardSecurityHandler
+
+        handler = StandardSecurityHandler(enc, id0)
+    except Exception:
+        return
+
+    def walk_strings(o, num, gen):
+        if isinstance(o, dict):
+            for k, v in o.items():
+                if isinstance(v, bytes):
+                    o[k] = handler.decrypt_string(v, num, gen)
+                else:
+                    walk_strings(v, num, gen)
+        elif isinstance(o, list):
+            for i, v in enumerate(o):
+                if isinstance(v, bytes):
+                    o[i] = handler.decrypt_string(v, num, gen)
+                else:
+                    walk_strings(v, num, gen)
+
+    for num, obj in objects.items():
+        if num == enc_num:
+            continue
+        gen = gens.get(num, 0)
+        if isinstance(obj, Stream):
+            t = obj.dict.get("Type")
+            tname = t.v if isinstance(t, Name) else ""
+            skip = tname == "XRef" or (
+                tname == "Metadata" and not handler.encrypt_metadata
+            )
+            if not skip:
+                obj.raw = handler.decrypt_stream(obj.raw, num, gen)
+            if tname == "XRef":
+                # The xref stream doubles as the trailer; its /ID strings
+                # are never encrypted (PDF 7.5.8.2).
+                saved_id = obj.dict.pop("ID", None)
+                walk_strings(obj.dict, num, gen)
+                if saved_id is not None:
+                    obj.dict["ID"] = saved_id
+            else:
+                walk_strings(obj.dict, num, gen)
+        else:
+            walk_strings(obj, num, gen)
+            if isinstance(obj, bytes):
+                objects[num] = handler.decrypt_string(obj, num, gen)
+
+
 def pdf_of_bytes(data: bytes) -> Pdf:
     """Parse by scanning every `N G obj` (robust to broken/linearized xref),
     then unpack object streams (ObjStm) and read xref-stream trailers.
@@ -489,6 +577,7 @@ def pdf_of_bytes(data: bytes) -> Pdf:
     discovers every direct object and ObjStm unpacking the compressed ones.
     """
     objects: Dict[int, PdfObj] = {}
+    gens: Dict[int, int] = {}
     # File offset of each object number's winning definition: incremental
     # updates append, so LATER byte offset = newer definition, whether the
     # definition is a direct `N G obj` or lives inside a later ObjStm.
@@ -497,6 +586,7 @@ def pdf_of_bytes(data: bytes) -> Pdf:
         # Reject matches inside streams by attempting a parse; later
         # definitions override earlier ones (incremental updates).
         num = int(m.group(1))
+        gens[num] = int(m.group(2))
         p = _Parser(data, m.end())
         try:
             obj = p.parse()
@@ -536,6 +626,7 @@ def pdf_of_bytes(data: bytes) -> Pdf:
             length = obj.dict.get("Length")
             if isinstance(length, Ref) and isinstance(objects.get(length.num), int):
                 obj.raw = obj.raw[: objects[length.num]]
+    _decrypt_objects(objects, gens, data)
     # Unpack object streams (PDF 7.5.7): decode each /Type /ObjStm, parse
     # the (objnum, offset) header pairs, then each contained object.
     # Precedence is by FILE OFFSET of the defining container: a compressed
@@ -591,8 +682,6 @@ def pdf_of_bytes(data: bytes) -> Pdf:
                 trailer.update(t)
         except Exception:
             pass
-    if "Encrypt" in trailer:
-        raise NotImplementedError("encrypted PDF files (ROADMAP.md Queue 1, item 1d)")
     if "Root" not in trailer:
         # Some linearized files only have the Root in an xref-stream dict;
         # fall back: find an object with /Type /Catalog.
@@ -612,6 +701,252 @@ def pdf_of_bytes(data: bytes) -> Pdf:
 def pdf_of_file(path: str) -> Pdf:
     with open(path, "rb") as f:
         return pdf_of_bytes(f.read())
+
+
+# ---------------------------------------------------------------------------
+# Writer (for debug PDFs and page_of_graphic round-trips)
+# ---------------------------------------------------------------------------
+
+
+def _ser(o: PdfObj) -> bytes:
+    if isinstance(o, Stream):
+        d = dict(o.dict)
+        d["Length"] = len(o.raw)
+        return _ser(d) + b"\nstream\n" + o.raw + b"\nendstream"
+    if isinstance(o, dict):
+        inner = b" ".join(b"/" + k.encode("latin1") + b" " + _ser(v) for k, v in o.items())
+        return b"<< " + inner + b" >>"
+    if isinstance(o, list):
+        return b"[ " + b" ".join(_ser(v) for v in o) + b" ]"
+    if isinstance(o, Name):
+        return b"/" + o.v.encode("latin1")
+    if isinstance(o, Ref):
+        return f"{o.num} {o.gen} R".encode()
+    if isinstance(o, bool):
+        return b"true" if o else b"false"
+    if o is None:
+        return b"null"
+    if isinstance(o, bytes):
+        return b"(" + o.replace(b"\\", b"\\\\").replace(b"(", b"\\(").replace(b")", b"\\)") + b")"
+    if isinstance(o, float):
+        return f"{o:.6f}".rstrip("0").rstrip(".").encode() or b"0"
+    return str(o).encode()
+
+
+def pdf_to_bytes(pdf: Pdf, modern: bool = False, encrypt: Optional[dict] = None) -> bytes:
+    """Serialize.  ``modern=False`` writes a classic PDF 1.4 file with an
+    uncompressed xref table; ``modern=True`` writes PDF 1.5 compressed
+    cross-reference: non-stream objects packed into /Type /ObjStm object
+    streams and a /Type /XRef cross-reference stream instead of a trailer
+    (camlpdf Pdfwrite parity via the reference's Makefile:20; PDF 7.5.7,
+    7.5.8).
+
+    ``encrypt`` turns on the standard security handler (camlpdf Pdfwrite
+    encryption parity): a kwargs dict for `pdfcrypt.build_encryption`,
+    e.g. ``{"revision": 4, "user_pw": b"", "owner_pw": b"secret"}``.
+    Every string and stream is encrypted per PDF 7.6.2 (streams inside
+    object streams via the ObjStm's own key; the /Encrypt dictionary,
+    /ID strings and the xref stream stay clear)."""
+    # Streams are only legal as indirect objects: hoist any Stream nested
+    # inside a dict/list (e.g. a tiling-pattern stream placed directly in a
+    # page's /Resources by page_of_graphic) into its own object.
+    objects = dict(pdf.objects)
+    next_num = [max(objects) + 1 if objects else 1]
+
+    def hoist(o, top=False):
+        if isinstance(o, Stream) and not top:
+            num = next_num[0]
+            next_num[0] += 1
+            objects[num] = Stream(hoist(o.dict), o.raw, o._pdf)
+            return Ref(num)
+        if isinstance(o, Stream):
+            return Stream(hoist(o.dict), o.raw, o._pdf)
+        if isinstance(o, dict):
+            return {k: hoist(v) for k, v in o.items()}
+        if isinstance(o, list):
+            return [hoist(v) for v in o]
+        return o
+
+    for num in sorted(list(objects)):
+        objects[num] = hoist(objects[num], top=True)
+    trailer_src = dict(pdf.trailer)
+    # In-memory objects are plaintext (the reader decrypts on load): a stale
+    # /Encrypt from a previously-read encrypted file must not survive a
+    # re-write, or readers would "decrypt" the plaintext.  Drop the orphaned
+    # encryption dictionary too.
+    stale_enc = trailer_src.pop("Encrypt", None)
+    if isinstance(stale_enc, Ref):
+        objects.pop(stale_enc.num, None)
+
+    handler = None
+    enc_num = None
+    if encrypt is not None:
+        from .pdfcrypt import build_encryption
+
+        ids = trailer_src.get("ID")
+        if isinstance(ids, list) and ids and isinstance(ids[0], bytes):
+            id0 = ids[0]
+        else:
+            digest = hashlib.md5()
+            for num in sorted(objects):
+                digest.update(_ser(objects[num]))
+            id0 = digest.digest()
+            trailer_src["ID"] = [id0, id0]
+        enc_dict, handler = build_encryption(id0=id0, **encrypt)
+        enc_num = (max(objects) + 1) if objects else 1
+        objects[enc_num] = enc_dict
+        trailer_src["Encrypt"] = Ref(enc_num)
+    pdf = Pdf(objects, trailer_src)
+
+    if modern:
+        return _pdf_to_bytes_modern(pdf, handler, enc_num)
+    if handler is not None:
+        for num in sorted(objects):
+            if num != enc_num:
+                objects[num] = _encrypt_object(objects[num], num, 0, handler)
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = {}
+    for num in sorted(pdf.objects):
+        offsets[num] = len(out)
+        out += f"{num} 0 obj\n".encode()
+        out += _ser(pdf.objects[num])
+        out += b"\nendobj\n"
+    xref_pos = len(out)
+    maxnum = max(pdf.objects) if pdf.objects else 0
+    out += f"xref\n0 {maxnum + 1}\n".encode()
+    out += b"0000000000 65535 f \n"
+    for num in range(1, maxnum + 1):
+        if num in offsets:
+            out += f"{offsets[num]:010d} 00000 n \n".encode()
+        else:
+            out += b"0000000000 65535 f \n"
+    trailer = dict(pdf.trailer)
+    trailer["Size"] = maxnum + 1
+    out += b"trailer\n" + _ser(trailer) + b"\n"
+    out += f"startxref\n{xref_pos}\n%%EOF\n".encode()
+    return bytes(out)
+
+
+def _encrypt_object(o: PdfObj, num: int, gen: int, handler) -> PdfObj:
+    """Writer-side counterpart of `_decrypt_objects`' walk: encrypt every
+    string (and a Stream's raw bytes) with the object's key.  XRef streams
+    and (when /EncryptMetadata is false) /Metadata streams stay clear, per
+    PDF 7.5.8.2 / 7.6.2."""
+    if isinstance(o, Stream):
+        t = o.dict.get("Type")
+        tname = t.v if isinstance(t, Name) else ""
+        skip = tname == "XRef" or (
+            tname == "Metadata" and not handler.encrypt_metadata
+        )
+        raw = o.raw if skip else handler.encrypt_stream(o.raw, num, gen)
+        return Stream(_encrypt_object(o.dict, num, gen, handler), raw, o._pdf)
+    if isinstance(o, dict):
+        return {k: _encrypt_object(v, num, gen, handler) for k, v in o.items()}
+    if isinstance(o, list):
+        return [_encrypt_object(v, num, gen, handler) for v in o]
+    if isinstance(o, bytes):
+        return handler.encrypt_string(o, num, gen)
+    return o
+
+
+_OBJSTM_CHUNK = 100  # objects per object stream (Acrobat uses ~200)
+
+
+def _pdf_to_bytes_modern(pdf: Pdf, handler=None, enc_num: Optional[int] = None) -> bytes:
+    """PDF 1.5 output: object streams + an xref stream.  Objects must
+    already be hoisted (every Stream is a top-level object).
+
+    Layout: all non-stream objects are packed into /Type /ObjStm streams
+    (their xref entries are type 2: stream number + index); stream objects
+    and the ObjStms themselves are written directly (type 1: byte offset);
+    the file ends with a /Type /XRef stream carrying the trailer entries
+    and the packed [type, field2, field3] table (PDF 7.5.8.2), and a
+    plain ``startxref`` pointing at it."""
+    nums = sorted(pdf.objects)
+    # The /Encrypt dictionary must stay directly accessible (and clear) —
+    # it cannot live in an ObjStm whose decryption needs it.
+    packable = [
+        n for n in nums if not isinstance(pdf.objects[n], Stream) and n != enc_num
+    ]
+    direct = [n for n in nums if isinstance(pdf.objects[n], Stream)]
+    next_num = max(nums) + 1 if nums else 1
+
+    in_stm: Dict[int, Tuple[int, int]] = {}  # num -> (objstm num, index)
+    objstms: List[Tuple[int, "Stream"]] = []
+    for start in range(0, len(packable), _OBJSTM_CHUNK):
+        chunk = packable[start : start + _OBJSTM_CHUNK]
+        header = bytearray()
+        body = bytearray()
+        for i, n in enumerate(chunk):
+            header += f"{n} {len(body)} ".encode()
+            # Strings inside an ObjStm are covered by the stream's own
+            # encryption — never re-encrypted individually (PDF 7.5.7).
+            body += _ser(pdf.objects[n]) + b"\n"
+            in_stm[n] = (next_num, i)
+        raw = zlib.compress(bytes(header) + bytes(body))
+        if handler is not None:
+            raw = handler.encrypt_stream(raw, next_num, 0)
+        stm = Stream(
+            {
+                "Type": Name("ObjStm"),
+                "N": len(chunk),
+                "First": len(header),
+                "Filter": Name("FlateDecode"),
+            },
+            raw,
+        )
+        objstms.append((next_num, stm))
+        next_num += 1
+
+    out = bytearray(b"%PDF-1.5\n%\xe2\xe3\xcf\xd3\n")
+    offsets: Dict[int, int] = {}
+    if enc_num is not None:
+        offsets[enc_num] = len(out)
+        out += f"{enc_num} 0 obj\n".encode() + _ser(pdf.objects[enc_num]) + b"\nendobj\n"
+    for n in direct:
+        offsets[n] = len(out)
+        obj = pdf.objects[n]
+        if handler is not None:
+            obj = _encrypt_object(obj, n, 0, handler)
+        out += f"{n} 0 obj\n".encode() + _ser(obj) + b"\nendobj\n"
+    for n, stm in objstms:
+        offsets[n] = len(out)
+        out += f"{n} 0 obj\n".encode() + _ser(stm) + b"\nendobj\n"
+
+    xref_num = next_num
+    xref_pos = len(out)
+    offsets[xref_num] = xref_pos
+    size = xref_num + 1
+    # W = [1 4 2]: 1-byte type, 4-byte offset/stream-number, 2-byte
+    # gen/index.  Entry 0 is the head of the (empty) free list.
+    rows = bytearray()
+    for num in range(size):
+        if num in offsets:
+            rows += struct.pack(">BIH", 1, offsets[num], 0)
+        elif num in in_stm:
+            s, i = in_stm[num]
+            rows += struct.pack(">BIH", 2, s, i)
+        else:
+            rows += struct.pack(">BIH", 0, 0, 0xFFFF)
+    xd: dict = {
+        "Type": Name("XRef"),
+        "Size": size,
+        "W": [1, 4, 2],
+        "Filter": Name("FlateDecode"),
+    }
+    for k in ("Root", "Info", "ID", "Encrypt"):
+        if k in pdf.trailer:
+            xd[k] = pdf.trailer[k]
+    out += f"{xref_num} 0 obj\n".encode()
+    out += _ser(Stream(xd, zlib.compress(bytes(rows))))
+    out += b"\nendobj\n"
+    out += f"startxref\n{xref_pos}\n%%EOF\n".encode()
+    return bytes(out)
+
+
+def pdf_to_file(pdf: Pdf, path: str, modern: bool = False):
+    with open(path, "wb") as f:
+        f.write(pdf_to_bytes(pdf, modern=modern))
 
 
 def mkpage(content: bytes, mediabox=(0, 0, 612, 792), resources=None) -> Pdf:

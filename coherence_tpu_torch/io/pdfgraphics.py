@@ -1,32 +1,31 @@
 """PDF content stream -> structured graphic (parity: vendored
 ``pdfgraphics.ml``: ``graphic_of_page`` and the ``process_op`` state
-machine).
+machine, plus the inverse ``page_of_graphic``).
 
-The port's copy of ``coherence_tpu.io.pdfgraphics``, without text and the
-writer.  It produces the reference's graphic-element tree
-(pdfgraphics.mli:132-141): path elements with fill/stroke colour, winding
-rule, line caps/joins/width and transparency; ``Clip`` elements scoping
-everything up to the matching ``Q`` (pdfgraphics.ml:1124-1139 semantics);
-marked-content sections with optional-content visibility; shadings
-(``GShading``), shading and tiling patterns, the Indexed, Separation,
-DeviceN and Lab colour spaces, transparency groups (``FormGroup``),
-``Image``/``GraphicInlineImage`` elements with their placement transform
-and alpha, and annotation appearance streams.  ``BT`` raises
-NotImplementedError until text is ported (ROADMAP.md Queue 1, item 1c);
-``transform_graphic`` and ``page_of_graphic`` come with the writer (item
-1d).
+Produces the reference's graphic-element tree (pdfgraphics.mli:132-141):
+path elements with fill/stroke colour, winding rule, line caps/joins/width,
+and transparency; ``Clip`` elements scoping everything up to the matching
+``Q`` (pdfgraphics.ml:1124-1139 semantics); ``TextBlock`` elements capturing
+BT..ET op runs with per-op text state (pdfgraphics.ml:1159-1183);
+``Image``/``GraphicInlineImage`` elements with their placement transform and
+alpha. As in the reference, the renderer's ``scene_of_graphic``
+(render.ml:1524-1565) consumes only paths and recurses through
+clips/marked-content; text and image elements are carried structurally.
+
+The port's copy of ``coherence_tpu.io.pdfgraphics``, whole.
 """
 
 from __future__ import annotations
 
-import copy
 import math
 import re
+import struct
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from .. import transform as ctr
 from ..geometry import path as gpath
-from .pdf import Name, Pdf, Ref, Stream, _Lexer, _NUM_RE, _Parser, _WS
+from .pdf import Name, Pdf, Ref, Stream, _Lexer, _NUM_RE, _Parser, _WS, mkpage
 
 # Colour spaces (Pdfspace parity — only the device spaces + ICC alternate).
 DEVICE_RGB = "DeviceRGB"
@@ -91,6 +90,33 @@ class Clip:
 
 
 @dataclass
+class TextAttributes:
+    """text_attributes (pdfgraphics.mli:101-102): the render mode in force."""
+
+    textmode: int = 0
+    # BEYOND REFERENCE (the mli stops at textmode): nonstroke/stroke colour
+    # and constant alpha in force at the op, so scene/pdftext can paint
+    # glyph outlines with the right colour and transparency.
+    fill: object = None  # (colourspace, components) or None
+    stroke: object = None
+    fill_alpha: float = 1.0
+    stroke_alpha: float = 1.0
+    blend: str = "Normal"  # ExtGState /BM at the show op
+
+
+@dataclass
+class TextBlock:
+    """Text graphic element (pdfgraphics.mli:134): a BT..ET run captured as
+    raw (state, op) pairs plus the CTM at capture time."""
+
+    blocks: list  # [(TextAttributes, (opname, [operands...])), ...]
+    transform: "Matrix" = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+    # BEYOND REFERENCE: the resource dict in scope at BT, so scene/pdftext
+    # can resolve /Font programs when painting the run.
+    resources: object = None
+
+
+@dataclass
 class FormGroup:
     """A Form XObject with /Group /S /Transparency whose gstate carries a
     group-level constant alpha or blend mode (PDF 11.6.6) — BEYOND
@@ -102,6 +128,18 @@ class FormGroup:
     elements: list
     ca: float = 1.0  # group constant alpha (nonstroke ca at the Do op)
     blend: str = "Normal"  # group blend mode
+
+
+@dataclass
+class TextClip:
+    """Text clipping (PDF 9.3.5, Tr modes 4-7) — BEYOND REFERENCE: after a
+    BT..ET block with a clip render mode, subsequent paint until the next
+    grestore is clipped by the union of the block's glyph outlines.  The
+    glyphs themselves need fonts, so the outlines are derived at scene
+    conversion (scene/pdftext.clip_path_of_block) from the wrapped block."""
+
+    block: "TextBlock"  # the source block (also painted as a sibling)
+    elements: list
 
 
 @dataclass
@@ -599,8 +637,19 @@ class _GState:
     dash: Tuple[tuple, float] = ((), 0.0)  # d operator (user-space units)
     ca: float = 1.0  # fill alpha
     CA: float = 1.0  # stroke alpha
+    textmode: int = 0  # Tr render mode (text_attributes)
     softmask: object = None  # ExtGState /SMask (None when /None)
     blend: str = "Normal"  # ExtGState /BM (BEYOND REFERENCE)
+
+
+# Text-state/show operators captured into TextBlock runs
+# (the Pdfops group at pdfgraphics.ml:1058-1075).
+_TEXT_OPS = frozenset(
+    ["Tc", "Tw", "Tz", "TL", "Tf", "Tr", "Ts", "Td", "TD", "Tm",
+     "T*", "Tj", "TJ", "'", '"', "d0", "d1"]
+)
+# The graphics-state-resident subset: persists across BT..ET blocks.
+_STICKY_TEXT_OPS = frozenset(["Tc", "Tw", "Tz", "TL", "Tf", "Ts", "Tr"])
 
 
 def _inline_image_bytes(d: dict) -> Optional[int]:
@@ -1070,8 +1119,6 @@ def read_pattern(pdf: Pdf, obj):
         content = d.decode() if isinstance(d, Stream) else b""
         if content:
             tp.elements = tuple(_process(pdf, content, res, _GState()))
-    except NotImplementedError:
-        raise
     except Exception:
         pass  # malformed cell: paint falls back to the gray stub
     return tp
@@ -1219,8 +1266,6 @@ def _annotation_elements(pdf: Pdf, page: dict, page_res: dict) -> list:
             gs = _GState(ctm=_mat_mul(A, mtx))
             res = pdf.resolve(n.dict.get("Resources")) or page_res
             out.extend(_process(pdf, n.decode(), res, gs))
-        except NotImplementedError:
-            raise
         except Exception:
             continue  # malformed annotation: skip, keep the rest
     return out
@@ -1246,12 +1291,20 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
     # NOT part of the q/Q-saved state (path construction cannot straddle
     # q/Q), so it must not be resurrected by Q.
     pending_clip: Optional[gpath.Path] = None
+    in_text = False
+    text_ops: List[object] = []
+    # Sticky text-state parameters (PDF 9.3.1): legal outside BT..ET and
+    # persistent across blocks; replayed at each BT (latest setting wins).
+    text_state: Dict[str, list] = {}
+    text_tf: Matrix = _ID
     stack: List[object] = []  # operand stack
     gstack: List[_GState] = []
     subpaths: List[list] = []  # list of segment lists (float, post-CTM)
     current: List[object] = []
     start: Optional[Tuple[float, float]] = None
     cur: Optional[Tuple[float, float]] = None
+
+    import copy
 
     def num(v):
         return float(v)
@@ -1730,7 +1783,53 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
                     GraphicInlineImage(d, bytes(data), gs.ctm, gs.fill, gs.blend)
                 )
             elif op == "BT":
-                raise NotImplementedError("text (ROADMAP.md Queue 1, item 1c)")
+                in_text = True
+                # Sticky text-state parameters (PDF 9.3.1 lives in the
+                # graphics state): set at page-description level or in a
+                # previous BT..ET block, they stay in force — seed the new
+                # block with them so pdftext's per-block replay sees them.
+                text_ops = [
+                    (
+                        TextAttributes(
+                            gs.textmode, gs.fill, gs.stroke, gs.ca, gs.CA, gs.blend
+                        ),
+                        (sop, sops),
+                    )
+                    for sop, sops in text_state.items()
+                ]
+                text_tf = gs.ctm
+                stack.clear()
+            elif op == "ET":
+                if in_text and text_ops:
+                    tb = TextBlock(text_ops, text_tf, resources)
+                    sinks[-1].append(tb)
+                    if any(
+                        attrs.textmode >= 4 and opn in ("Tj", "TJ", "'", '"')
+                        for attrs, (opn, _) in text_ops
+                    ):
+                        # Clip render mode: wrap subsequent elements until
+                        # the enclosing grestore (PDF 9.3.5).
+                        tc = TextClip(tb, [])
+                        sinks[-1].append(tc)
+                        sinks.append(tc.elements)
+                        sink_levels.append(qlevel)
+                in_text = False
+            elif op in _TEXT_OPS:
+                operands = list(stack)
+                stack.clear()
+                if op == "Tr" and operands and isinstance(operands[-1], (int, float)):
+                    gs.textmode = int(operands[-1])
+                if op in _STICKY_TEXT_OPS:
+                    text_state[op] = operands
+                if in_text:
+                    text_ops.append(
+                        (
+                            TextAttributes(
+                                gs.textmode, gs.fill, gs.stroke, gs.ca, gs.CA
+                            ),
+                            (op, operands),
+                        )
+                    )
             elif op in ("BMC", "BDC"):
                 # Marked-content section: wrap elements until the matching
                 # EMC (pdfgraphics.ml getuntil_matching_emc).
@@ -1773,3 +1872,573 @@ def _process(pdf: Pdf, content: bytes, resources: dict, gs: _GState) -> list:
     if current:
         subpaths.append(current)
     return elements
+
+
+def transform_graphic(t, graphic: Graphic) -> Graphic:
+    """Transform every element of a graphic (pdfgraphics.ml
+    transform_graphic): paths pointwise; text/image placement matrices by
+    composition."""
+    tmat = ctr.matrix_of_transform(t)
+
+    def walk(elements):
+        out = []
+        for el in elements:
+            if isinstance(el, GPath):
+                out.append(GPath(gpath.transform_path(list(t), el.path), el.attributes))
+            elif isinstance(el, MCSection):
+                out.append(MCSection(el.name, walk(el.elements)))
+            elif isinstance(el, MCSectionProperties):
+                out.append(
+                    MCSectionProperties(el.name, el.properties, walk(el.elements))
+                )
+            elif isinstance(el, Clip):
+                out.append(Clip(gpath.transform_path(list(t), el.path), walk(el.elements)))
+            elif isinstance(el, TextBlock):
+                out.append(
+                    TextBlock(el.blocks, ctr.matmul(tmat, el.transform), el.resources)
+                )
+            elif isinstance(el, TextClip):
+                b = el.block
+                out.append(
+                    TextClip(
+                        TextBlock(b.blocks, ctr.matmul(tmat, b.transform), b.resources),
+                        walk(el.elements),
+                    )
+                )
+            elif isinstance(el, FormGroup):
+                out.append(FormGroup(walk(el.elements), el.ca, el.blend))
+            elif isinstance(el, Image):
+                a = el.attributes
+                out.append(
+                    Image(
+                        ImageAttributes(
+                            ctr.matmul(tmat, a.image_transform),
+                            a.image_transparency,
+                            a.image_softmask,
+                            a.image_fill,
+                            a.image_blend,
+                        ),
+                        el.objnum,
+                        el.name,
+                        el.stream,
+                    )
+                )
+            elif isinstance(el, GraphicInlineImage):
+                out.append(
+                    GraphicInlineImage(
+                        el.dict, el.data, ctr.matmul(tmat, el.transform),
+                        el.fill, el.blend,
+                    )
+                )
+            elif isinstance(el, GShading):
+                # Compose the transform into the shading's matrix and
+                # element ctm, and move its clip path pointwise, so the
+                # gradient stays registered with its clip geometry (the
+                # reference drops shadings at render time so its
+                # transform_graphic gap is invisible; here they render).
+                sh = el.shading
+                out.append(
+                    GShading(
+                        gpath.transform_path(list(t), el.clip)
+                        if el.clip is not None
+                        else None,
+                        Shading(
+                            sh.colourspace,
+                            sh.background,
+                            sh.bbox,
+                            sh.antialias,
+                            ctr.matmul(tmat, sh.matrix),
+                            sh.extgstate,
+                            sh.kind,
+                            sh.cs_conv,
+                        ),
+                        ctr.matmul(tmat, el.transform),
+                        el.name,
+                        el.blend,
+                    )
+                )
+            else:
+                out.append(el)
+        return out
+
+    return Graphic(walk(graphic.elements), graphic.resources)
+
+
+# ---------------------------------------------------------------------------
+# Inverse: structured graphic -> PDF page (pdfgraphics.ml page_of_graphic)
+# ---------------------------------------------------------------------------
+
+
+def _fmt(v: float) -> str:
+    s = f"{v:.4f}".rstrip("0").rstrip(".")
+    return s or "0"
+
+
+def _ser_operand(v) -> str:
+    """Serialize a captured content-stream operand."""
+    if isinstance(v, Name):
+        return f"/{v.v}"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return _fmt(float(v))
+    if isinstance(v, bytes):
+        body = (
+            v.decode("latin1")
+            .replace("\\", "\\\\")
+            .replace("(", "\\(")
+            .replace(")", "\\)")
+        )
+        return f"({body})"
+    if isinstance(v, list):
+        return "[" + " ".join(_ser_operand(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return (
+            "<< "
+            + " ".join(f"/{k} {_ser_operand(x)}" for k, x in v.items())
+            + " >>"
+        )
+    return "null"
+
+
+def _function_dict(f: PdfFunction):
+    if f.kind == 2:
+        d = {
+            "FunctionType": 2,
+            "Domain": list(f.domain),
+            "C0": list(f.c0),
+            "C1": list(f.c1),
+            "N": f.n,
+        }
+    elif f.kind == 3:
+        d = {
+            "FunctionType": 3,
+            "Domain": list(f.domain),
+            "Functions": [_function_dict(x) for x in f.functions],
+            "Bounds": list(f.bounds),
+            "Encode": list(f.encode),
+        }
+    else:
+        return f.raw if isinstance(f.raw, dict) else {"FunctionType": f.kind}
+    if f.range:
+        d["Range"] = list(f.range)
+    return d
+
+
+def _shading_dict(s: Shading):
+    d = {}
+    if s.colourspace is not None:
+        d["ColorSpace"] = s.colourspace
+    if s.background is not None:
+        d["Background"] = s.background
+    if s.bbox is not None:
+        d["BBox"] = s.bbox
+    if s.antialias:
+        d["AntiAlias"] = True
+    k = s.kind
+    if isinstance(k, AxialShadingK):
+        d["ShadingType"] = 2
+        d["Coords"] = list(k.coords)
+        d["Domain"] = list(k.domain)
+        d["Extend"] = list(k.extend)
+        fns = [_function_dict(f) for f in k.functions]
+        d["Function"] = fns[0] if len(fns) == 1 else fns
+    elif isinstance(k, RadialShadingK):
+        d["ShadingType"] = 3
+        d["Coords"] = list(k.coords)
+        d["Domain"] = list(k.domain)
+        d["Extend"] = list(k.extend)
+        fns = [_function_dict(f) for f in k.functions]
+        d["Function"] = fns[0] if len(fns) == 1 else fns
+    elif isinstance(k, FunctionShadingK):
+        d["ShadingType"] = 1
+        d["Domain"] = list(k.domain)
+        if k.matrix != _ID:
+            d["Matrix"] = list(k.matrix)
+        if isinstance(k.function, tuple):
+            d["Function"] = [_function_dict(f) for f in k.function]
+        elif k.function is not None:
+            d["Function"] = _function_dict(k.function)
+    elif isinstance(k, MeshShadingK) and k.triangles:
+        # Any mesh kind re-serializes as free-form Gouraud triangles
+        # (type 4): patches were already subdivided at read time.
+        return _mesh_stream_obj(d, k)
+    return d
+
+
+def _mesh_stream_obj(d: dict, k: MeshShadingK) -> "Stream":
+    tris = k.triangles
+    xs = [p[0] for t in tris for p in t[:3]]
+    ys = [p[1] for t in tris for p in t[:3]]
+    x0, x1 = min(xs), max(xs)
+    y0, y1 = min(ys), max(ys)
+    if x1 <= x0:
+        x1 = x0 + 1.0
+    if y1 <= y0:
+        y1 = y0 + 1.0
+    ncomp = len(tris[0][3])
+    acc = bytearray()
+
+    def c32(v, lo, hi):
+        return round((v - lo) / (hi - lo) * 0xFFFFFFFF)
+
+    for (p0, p1, p2, c0, c1, c2) in tris:
+        for p, c in ((p0, c0), (p1, c1), (p2, c2)):
+            acc.append(0)  # flag: every triangle standalone
+            acc += struct.pack(">II", c32(p[0], x0, x1), c32(p[1], y0, y1))
+            for v in c:
+                acc += struct.pack(
+                    ">H", round(min(max(float(v), 0.0), 1.0) * 0xFFFF)
+                )
+    d = dict(d)
+    d.update(
+        {
+            "ShadingType": 4,
+            "BitsPerCoordinate": 32,
+            "BitsPerComponent": 16,
+            "BitsPerFlag": 8,
+            "Decode": [x0, x1, y0, y1] + [0.0, 1.0] * ncomp,
+        }
+    )
+    return Stream(d, bytes(acc))
+
+
+def _pattern_dict(p: ShadingPattern):
+    d = {"PatternType": 2, "Shading": _shading_dict(p.shading)}
+    if p.shading.matrix != _ID:
+        d["Matrix"] = list(p.shading.matrix)
+    return d
+
+
+def _tiling_stream_obj(p: TilingPattern):
+    """TilingPattern -> pattern stream object: the inverse of read_pattern's
+    PatternType-1 branch (BEYOND REFERENCE — the reference's writer drops
+    tiling paint entirely).  The cell elements re-serialize through
+    page_of_graphic; its content stream and resources embed in the pattern."""
+    inner = page_of_graphic(Graphic(list(p.elements)))
+    pages = inner.resolve(inner.resolve(inner.trailer["Root"])["Pages"])
+    kid = inner.resolve(pages["Kids"][0])
+    content = inner.resolve(kid["Contents"])
+    bbox = list(p.bbox) if len(p.bbox) == 4 else [0.0, 0.0, 1.0, 1.0]
+    d = {
+        "Type": Name("Pattern"),
+        "PatternType": 1,
+        "PaintType": 1 if p.coloured else 2,
+        "TilingType": 1,
+        "BBox": bbox,
+        "XStep": p.xstep or (bbox[2] - bbox[0]),
+        "YStep": p.ystep or (bbox[3] - bbox[1]),
+        "Resources": kid.get("Resources", {}),
+    }
+    if p.matrix != _ID:
+        d["Matrix"] = list(p.matrix)
+    d.update(content.dict)
+    return Stream(d, content.raw)
+
+
+def _copy_object(src: Pdf, obj, objects: dict, memo: dict):
+    """Deep-copy a source-document object graph into ``objects`` (the
+    output Pdf's object table), rewriting Refs to freshly allocated
+    numbers.  Shared refs copy once (memo)."""
+    if isinstance(obj, Ref):
+        if obj.num in memo:
+            return Ref(memo[obj.num])
+        n = (max(objects) + 1) if objects else 1
+        memo[obj.num] = n
+        objects[n] = None  # reserve before recursing (cycles)
+        objects[n] = _copy_object(src, src.resolve(obj), objects, memo)
+        return Ref(n)
+    if isinstance(obj, Stream):
+        return Stream(
+            {k: _copy_object(src, v, objects, memo) for k, v in obj.dict.items()},
+            obj.raw,
+        )
+    if isinstance(obj, dict):
+        return {k: _copy_object(src, v, objects, memo) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_copy_object(src, v, objects, memo) for v in obj]
+    return obj
+
+
+def page_of_graphic(
+    graphic: Graphic, mediabox=(0, 0, 612, 792), pdf: Pdf = None
+) -> Pdf:
+    """Serialize path elements back to a one-page PDF.
+
+    ``pdf`` is the optional SOURCE document: image XObject uses
+    (pdfgraphics.mli:139) referencing it by object number are copied
+    across — stream bytes untouched, their dependency graph (colourspace
+    arrays, /SMask, /DecodeParms) rewritten to fresh object numbers —
+    matching the reference's camlpdf object-copying writer.  Without it,
+    directly-embedded streams (objnum -1) still round-trip."""
+    ops: List[str] = []
+    shading_res: dict = {}
+    pattern_res: dict = {}
+    colourspace_res: dict = {}
+    egs_res: dict = {}
+    _egs_names: dict = {}
+    image_res: List[object] = []  # source Streams to copy, by emit order
+    # Emitted-gstate tracking: (blend, ca, CA) per q-nesting level, so a gs
+    # is written only when the needed state differs from the one in force
+    # (and Q correctly reverts the tracked state).
+    _gs_cur = [("Normal", 1.0, 1.0)]
+
+    def res_name(d: dict, prefix: str, payload) -> str:
+        nm = f"{prefix}{len(d)}"
+        d[nm] = payload
+        return nm
+
+    def push_q():
+        ops.append("q")
+        _gs_cur.append(_gs_cur[-1])
+
+    def pop_q():
+        ops.append("Q")
+        _gs_cur.pop()
+
+    def set_gstate(blend="Normal", ca=1.0, CA=1.0):
+        """Ensure /BM + alphas via an ExtGState resource (BEYOND REFERENCE:
+        the reference never writes transparency state)."""
+        want = (str(blend), float(ca), float(CA))
+        if want == _gs_cur[-1]:
+            return
+        _gs_cur[-1] = want
+        nm = _egs_names.get(want)
+        if nm is None:
+            nm = res_name(
+                egs_res, "Gs",
+                {"Type": Name("ExtGState"), "BM": Name(want[0]),
+                 "ca": want[1], "CA": want[2]},
+            )
+            _egs_names[want] = nm
+        ops.append(f"/{nm} gs")
+
+    def emit_tiling_cs(p: TilingPattern, nm: str, upper: bool) -> str:
+        """The cs/scn (or CS/SCN) pair selecting tiling pattern `nm`;
+        uncoloured patterns carry their tint components through a
+        [/Pattern /DeviceX] colourspace resource."""
+        cs_op, scn_op = ("CS", "SCN") if upper else ("cs", "scn")
+        if p.coloured or p.colour is None:
+            return f"/Pattern {cs_op} /{nm} {scn_op}"
+        under, comps = p.colour
+        csnm = res_name(
+            colourspace_res, "CSp", [Name("Pattern"), Name(str(under))]
+        )
+        comps_s = " ".join(_fmt(v) for v in comps)
+        return f"/{csnm} {cs_op} {comps_s} /{nm} {scn_op}"
+
+    def emit_path(p: gpath.Path):
+        for sp in p.subpaths:
+            first = True
+            for seg in sp.segments:
+                if isinstance(seg, gpath.Straight):
+                    if first:
+                        ops.append(f"{_fmt(seg.a[0])} {_fmt(seg.a[1])} m")
+                        first = False
+                    ops.append(f"{_fmt(seg.b[0])} {_fmt(seg.b[1])} l")
+                else:
+                    if first:
+                        ops.append(f"{_fmt(seg.p1[0])} {_fmt(seg.p1[1])} m")
+                        first = False
+                    ops.append(
+                        f"{_fmt(seg.p2[0])} {_fmt(seg.p2[1])} "
+                        f"{_fmt(seg.p3[0])} {_fmt(seg.p3[1])} "
+                        f"{_fmt(seg.p4[0])} {_fmt(seg.p4[1])} c"
+                    )
+            if sp.closed:
+                ops.append("h")
+
+    def walk(elements):
+        for i, el in enumerate(elements):
+            if (
+                isinstance(el, TextBlock)
+                and i + 1 < len(elements)
+                and isinstance(elements[i + 1], TextClip)
+                and elements[i + 1].block.blocks is el.blocks
+            ):
+                continue  # painted by the adjacent TextClip's combined form
+            if isinstance(el, GPath):
+                a = el.attributes
+                set_gstate(
+                    a.path_blend,
+                    a.path_transparency.fill_transparency,
+                    a.path_transparency.line_transparency,
+                )
+                if a.path_line is not None:
+                    ops.append(f"{_fmt(a.path_linewidth)} w")
+                    ops.append(f"{a.path_capstyle} J {a.path_joinstyle} j")
+                    if a.path_dash[0]:
+                        arr = " ".join(_fmt(v) for v in a.path_dash[0])
+                        ops.append(f"[{arr}] {_fmt(a.path_dash[1])} d")
+                if a.path_fill is not None:
+                    cs, vals = a.path_fill
+                    if isinstance(vals, ShadingPattern):
+                        nm = vals.name or res_name(pattern_res, "P", None)
+                        pattern_res[nm] = _pattern_dict(vals)
+                        ops.append(f"/Pattern cs /{nm} scn")
+                    elif isinstance(vals, TilingPattern):
+                        nm = vals.name or res_name(pattern_res, "P", None)
+                        pattern_res[nm] = _tiling_stream_obj(vals)
+                        ops.append(emit_tiling_cs(vals, nm, upper=False))
+                    elif cs == DEVICE_RGB:
+                        ops.append(" ".join(map(_fmt, vals)) + " rg")
+                    elif cs == DEVICE_GRAY:
+                        ops.append(f"{_fmt(vals[0])} g")
+                    else:
+                        ops.append(" ".join(map(_fmt, vals)) + " k")
+                if a.path_line is not None:
+                    cs, vals = a.path_line
+                    if isinstance(vals, ShadingPattern):
+                        nm = vals.name or res_name(pattern_res, "P", None)
+                        pattern_res[nm] = _pattern_dict(vals)
+                        ops.append(f"/Pattern CS /{nm} SCN")
+                    elif isinstance(vals, TilingPattern):
+                        nm = vals.name or res_name(pattern_res, "P", None)
+                        pattern_res[nm] = _tiling_stream_obj(vals)
+                        ops.append(emit_tiling_cs(vals, nm, upper=True))
+                    elif cs == DEVICE_RGB:
+                        ops.append(" ".join(map(_fmt, vals)) + " RG")
+                    elif cs == DEVICE_GRAY:
+                        ops.append(f"{_fmt(vals[0])} G")
+                    else:
+                        ops.append(" ".join(map(_fmt, vals)) + " K")
+                emit_path(el.path)
+                if el.attributes.path_fill is not None and el.attributes.path_line is not None:
+                    ops.append("B" if el.path.winding == gpath.NONZERO else "B*")
+                elif el.attributes.path_fill is not None:
+                    ops.append("f" if el.path.winding == gpath.NONZERO else "f*")
+                elif el.attributes.path_line is not None:
+                    ops.append("S")
+                else:
+                    ops.append("n")
+            elif isinstance(el, Clip):
+                # q <path> W/W* n <contents> Q (pdfgraphics.ml:1648-1657).
+                push_q()
+                emit_path(el.path)
+                ops.append("W n" if el.path.winding == gpath.NONZERO else "W* n")
+                walk(el.elements)
+                pop_q()
+            elif isinstance(el, MCSection):
+                ops.append(f"/{el.name} BMC")
+                walk(el.elements)
+                ops.append("EMC")
+            elif isinstance(el, MCSectionProperties):
+                ops.append(f"/{el.name} {_ser_operand(el.properties)} BDC")
+                walk(el.elements)
+                ops.append("EMC")
+            elif isinstance(el, TextBlock):
+                # q cm BT <text ops> ET Q (pdfgraphics.ml:1487).
+                push_q()
+                if el.blocks and el.blocks[0][0].blend != "Normal":
+                    set_gstate(el.blocks[0][0].blend)
+                ops.append(" ".join(map(_fmt, el.transform)) + " cm")
+                ops.append("BT")
+                for _st, (opname, operands) in el.blocks:
+                    line = " ".join(_ser_operand(v) for v in operands)
+                    ops.append((line + " " + opname).strip())
+                ops.append("ET")
+                pop_q()
+            elif isinstance(el, TextClip):
+                # One shared q scope: the block's clip modes re-derive the
+                # TextClip on read; the inverse cm restores the children's
+                # coordinate space while the clip stays in force.
+                b = el.block
+                inv = _mat_inv(b.transform)
+                push_q()
+                ops.append(" ".join(map(_fmt, b.transform)) + " cm")
+                ops.append("BT")
+                for _st, (opname, operands) in b.blocks:
+                    line = " ".join(_ser_operand(v) for v in operands)
+                    ops.append((line + " " + opname).strip())
+                ops.append("ET")
+                if inv is not None:
+                    ops.append(" ".join(map(_fmt, inv)) + " cm")
+                walk(el.elements)
+                pop_q()
+            elif isinstance(el, FormGroup):
+                # Content-only writer: the group alpha/blend is set for the
+                # children in one q scope (a reread applies them per
+                # element — the grouped composite needs a real Form
+                # XObject, which this writer does not emit).
+                push_q()
+                set_gstate(el.blend, el.ca, el.ca)
+                walk(el.elements)
+                pop_q()
+            elif isinstance(el, GraphicInlineImage):
+                push_q()
+                set_gstate(el.blend)
+                ops.append(" ".join(map(_fmt, el.transform)) + " cm")
+                body = " ".join(
+                    f"/{k} {_ser_operand(v)}" for k, v in el.dict.items()
+                )
+                ops.append(
+                    "BI " + body + " ID\n" + el.data.decode("latin1") + "\nEI"
+                )
+                pop_q()
+            elif isinstance(el, GShading):
+                nm = el.name or res_name(shading_res, "Sh", None)
+                shading_res[nm] = _shading_dict(el.shading)
+                push_q()
+                set_gstate(el.blend)
+                if el.transform != _ID:
+                    ops.append(" ".join(map(_fmt, el.transform)) + " cm")
+                ops.append(f"/{nm} sh")
+                pop_q()
+            elif isinstance(el, Image):
+                a = el.attributes
+                st = el.stream
+                if st is None and pdf is not None and el.objnum >= 0:
+                    st = pdf.resolve(Ref(el.objnum))
+                if not isinstance(st, Stream):
+                    continue  # no source document to copy from
+                nm = f"Im{len(image_res)}"
+                image_res.append(st)
+                push_q()
+                set_gstate(a.image_blend, a.image_transparency,
+                           a.image_transparency)
+                if a.image_fill is not None:
+                    # Stencil masks paint the nonstroke colour at the Do.
+                    _cs, comps = a.image_fill
+                    op = {1: "g", 3: "rg", 4: "k"}.get(len(comps))
+                    if op:
+                        ops.append(
+                            " ".join(_fmt(v) for v in comps) + " " + op
+                        )
+                if a.image_transform != _ID:
+                    ops.append(
+                        " ".join(map(_fmt, a.image_transform)) + " cm"
+                    )
+                ops.append(f"/{nm} Do")
+                pop_q()
+
+    walk(graphic.elements)
+    resources = {}
+    if shading_res:
+        resources["Shading"] = shading_res
+    if pattern_res:
+        resources["Pattern"] = pattern_res
+    if colourspace_res:
+        resources["ColorSpace"] = colourspace_res
+    if egs_res:
+        resources["ExtGState"] = egs_res
+    if image_res:
+        resources["XObject"] = {}  # filled with Refs below
+    # latin1 inverts the latin1 decode used when capturing binary operands
+    # (inline-image data, non-ASCII string bytes); utf-8 would widen them.
+    out = mkpage(
+        "\n".join(ops).encode("latin1"), mediabox=mediabox, resources=resources
+    )
+    if image_res:
+        memo: dict = {}
+        page = out.resolve(out.resolve(out.objects[1]["Pages"])["Kids"][0])
+        xobjs = page["Resources"]["XObject"]
+        for i, st in enumerate(image_res):
+            n = max(out.objects) + 1
+            out.objects[n] = None  # reserve before the copy allocates more
+            out.objects[n] = (
+                _copy_object(pdf, st, out.objects, memo)
+                if pdf is not None
+                else st
+            )
+            xobjs[f"Im{i}"] = Ref(n)
+    return out

@@ -1,20 +1,21 @@
 """PDF graphic -> scene conversion (parity: render.ml:1476-1565).
 
-The port's copy of ``coherence_tpu.scene.pdfscene``, without text (the
-reader raises on ``BT`` until ROADMAP.md Queue 1, item 1c).  Each path
-element becomes a filled object (nonzero/even-odd path) and/or a stroked
-object with the PDF cap/join/linewidth; CMYK/Gray collapse to RGB exactly
-as the reference's ``rgb_of_cmyk`` (render.ml:1476-1479).  Shadings,
-patterns, images, soft masks, blend modes and transparency groups become
-the general renderer's fills, filters and groups.
+The port's copy of ``coherence_tpu.scene.pdfscene``.  Each path element
+becomes a filled object (nonzero/even-odd path) and/or a stroked object
+with the PDF cap/join/linewidth; CMYK/Gray collapse to RGB exactly as the
+reference's ``rgb_of_cmyk`` (render.ml:1476-1479).  Shadings, patterns,
+images, soft masks, blend modes and transparency groups become the general
+renderer's fills, filters and groups; text becomes glyph outlines
+(``pdftext``).
 
 Soft masks and tiling-pattern cells render a sub-scene through
-``render_simple_scene`` on the ``device`` the caller names (the Engine
-passes its own), and read the result back to the host once (one counted
+``sub_render`` on the ``device`` the caller names (the Engine passes its
+own), and read the result back to the host once (one counted
 ``region.syncs``).  Malformed PDF input falls back as in the JAX package
-(the unmasked fill, nothing, or the gray placeholder), but only the
-parsing and the host maths stand inside those ``try`` blocks: a fault of
-the sub-render or of its readback is raised."""
+(the unmasked fill, nothing, the gray placeholder, a skipped text run),
+whatever part of the host work fails.  A fault of a sub-render or of its
+readback comes out as ``SubRenderError``, which every one of those
+fallbacks raises again: no fallback hides the device."""
 
 from __future__ import annotations
 
@@ -282,9 +283,36 @@ def fill_of_mesh(sh: PG.Shading, transparency: float):
 _SMASK_MAX_DIM = 2048  # soft-mask raster cap per side
 
 
+class SubRenderError(RuntimeError):
+    """A sub-scene's render on the device, or its readback, failed.  The
+    host fallbacks for malformed input (soft mask, Type 3 glyph, text run,
+    text clip) raise it again."""
+
+
+class NoDeviceError(SubRenderError, ValueError):
+    """A sub-scene must render, and scene_of_graphic was given no device."""
+
+
 def _require_device(device, what: str) -> None:
     if device is None:
-        raise ValueError(f"{what} renders a sub-scene: scene_of_graphic needs a device")
+        raise NoDeviceError(f"{what} renders a sub-scene: scene_of_graphic needs a device")
+
+
+def _host(t) -> np.ndarray:
+    """One counted readback of a raster tensor."""
+    region._sync()
+    return t.cpu().numpy()
+
+
+def sub_render(scene, box, device, read):
+    """``read(sprite)`` of ``render_simple_scene(scene)`` over `box` on
+    `device` (the render and its one readback), or None when nothing
+    painted.  Any failure of either raises SubRenderError."""
+    try:
+        spr = R.render_simple_scene(scene, region.shape_of_box(box, device), device)
+        return None if spr is None else read(spr)
+    except Exception as e:
+        raise SubRenderError(f"a sub-scene's render on {device} failed: {e!r}") from e
 
 
 def _softmask_group(pdf, sm_ctm):
@@ -326,46 +354,45 @@ def softmask_fill(pdf, sm_ctm, base_fill, device):
     pipeline on `device` at device resolution over its transformed /BBox;
     /S /Luminosity takes the over-black luminosity (709-ish integer
     weights), /S /Alpha the coverage.  BEYOND REFERENCE: the reference
-    ignores gstate soft masks entirely.  A malformed group returns the
-    unmasked fill (paint-everything, the /None behaviour); the render and
-    its one readback are not guarded."""
+    ignores gstate soft masks entirely.  A group that cannot be read or
+    converted returns the unmasked fill (paint-everything, the /None
+    behaviour); a failed sub-render raises SubRenderError."""
     try:
         got = _softmask_group(pdf, sm_ctm)
-    except NotImplementedError:
+        if got is None:
+            return base_fill
+        alpha_kind, (ix0, iy0, ix1, iy1), elements, res = got
+        _require_device(device, "a soft mask")
+        scene = scene_of_graphic(pdf, PG.Graphic(elements, res), device)
+        H = iy1 - iy0 + 1
+        W = ix1 - ix0 + 1
+        mask = np.zeros((H, W), dtype=np.int64)
+        got = sub_render(
+            list(reversed(scene)), (ix0, iy0, ix1, iy1), device, lambda spr: (spr.box, _host(spr.rgba))
+        )
+        if got is not None:
+            (sx0, sy0, sx1, sy1), r4 = got
+            r4 = r4.astype(np.int64)
+            if alpha_kind:
+                vals = r4[..., 3]
+            else:
+                # Premultiplied channels ARE the over-black composite.
+                vals = (
+                    77 * r4[..., 0] + 150 * r4[..., 1] + 29 * r4[..., 2]
+                ) >> 8
+            oy, ox = sy0 - iy0, sx0 - ix0
+            h = min(vals.shape[0], H - oy)
+            w = min(vals.shape[1], W - ox)
+            if h > 0 and w > 0 and oy >= 0 and ox >= 0:
+                mask[oy : oy + h, ox : ox + w] = vals[:h, :w]
+        # MaskedFill row 0 = TOP (largest y): flip the render's row order.
+        m = (float(ix1 - ix0 + 1), 0.0, 0.0, float(iy1 - iy0 + 1),
+             float(ix0), float(iy0))
+        return rfills.MaskedFill(base_fill, np.flipud(mask), m)
+    except SubRenderError:
         raise
     except Exception:
         return base_fill
-    if got is None:
-        return base_fill
-    alpha_kind, (ix0, iy0, ix1, iy1), elements, res = got
-    _require_device(device, "a soft mask")
-    scene = scene_of_graphic(pdf, PG.Graphic(elements, res), device)
-    H = iy1 - iy0 + 1
-    W = ix1 - ix0 + 1
-    mask = np.zeros((H, W), dtype=np.int64)
-    spr = R.render_simple_scene(
-        list(reversed(scene)), region.shape_of_box((ix0, iy0, ix1, iy1), device), device
-    )
-    if spr is not None:
-        sx0, sy0, sx1, sy1 = spr.box
-        region._sync()
-        r4 = spr.rgba.cpu().numpy().astype(np.int64)
-        if alpha_kind:
-            vals = r4[..., 3]
-        else:
-            # Premultiplied channels ARE the over-black composite.
-            vals = (
-                77 * r4[..., 0] + 150 * r4[..., 1] + 29 * r4[..., 2]
-            ) >> 8
-        oy, ox = sy0 - iy0, sx0 - ix0
-        h = min(vals.shape[0], H - oy)
-        w = min(vals.shape[1], W - ox)
-        if h > 0 and w > 0 and oy >= 0 and ox >= 0:
-            mask[oy : oy + h, ox : ox + w] = vals[:h, :w]
-    # MaskedFill row 0 = TOP (largest y): flip the render's row order.
-    m = (float(ix1 - ix0 + 1), 0.0, 0.0, float(iy1 - iy0 + 1),
-         float(ix0), float(iy0))
-    return rfills.MaskedFill(base_fill, np.flipud(mask), m)
 
 
 _FUNC_SHADING_SAMPLES = 128  # function-shading sample grid per side
@@ -477,7 +504,8 @@ def fill_of_tiling_pattern(pat: PG.TilingPattern, transparency: float, device):
     (PDF 8.7.3).  BEYOND REFERENCE: the reference's ``read_tiling_pattern``
     is the stub ``Tiling`` (pdfgraphics.ml:598) and painting with one falls
     back to nothing; here the cell's parsed graphic renders through the real
-    renderer on `device` into a premultiplied texture, read back once.
+    renderer on `device` into a premultiplied texture, read back once
+    (``sub_render``).
     Uncoloured patterns (PaintType 2) tint the cell's coverage with the
     colour given at ``scn`` time.
 
@@ -507,13 +535,15 @@ def fill_of_tiling_pattern(pat: PG.TilingPattern, transparency: float, device):
         tr.Translate(-bx0, -by0),
     ]
     scene = [R.transform_renderobject_many(cell_t, o) for o in objs]
-    spr = R.render_simple_scene(scene, region.shape_of_box((1, 1, tw, th), device), device)
-    tex = np.zeros((th, tw, 4), dtype=np.int64)
-    if spr is not None:
+
+    def read(spr):
         canvas = region.flatten_sprite(0, spr, C.clear)
-        region._sync()
-        arr = canvas.rgba.cpu().numpy()
-        ox, oy = canvas.origin  # 1-based scene coords of arr[0, 0]
+        return canvas.origin, _host(canvas.rgba)
+
+    got = sub_render(scene, (1, 1, tw, th), device, read)
+    tex = np.zeros((th, tw, 4), dtype=np.int64)
+    if got is not None:
+        (ox, oy), arr = got  # 1-based scene coords of arr[0, 0]
         r0, c0 = oy - 1, ox - 1
         ra, ca = max(0, r0), max(0, c0)
         rb = min(th, r0 + arr.shape[0])
@@ -721,6 +751,17 @@ def scene_of_graphic(pdf, graphic: PG.Graphic, device=None):
                             getattr(a, "path_blend", "Normal"),
                         )
                     )
+            elif isinstance(el, PG.TextBlock):
+                # BEYOND REFERENCE: text paints via glyph outlines
+                # (scene/pdftext.py); the reference drops TextBlocks here.
+                from . import pdftext
+
+                try:
+                    out.extend(pdftext.text_objects_of_block(pdf, el, clips=clips, device=device))
+                except SubRenderError:
+                    raise
+                except Exception:
+                    pass  # unreadable font program: skip the run
             elif isinstance(el, PG.Clip):
                 out.extend(convert(el.elements, clips + (el.path,)))
             elif isinstance(el, (PG.MCSection, PG.MCSectionProperties)):
@@ -787,6 +828,21 @@ def scene_of_graphic(pdf, graphic: PG.Graphic, device=None):
                             grp = R.Obj(ident.new_ids(), R.Group(objs), (), R.OVER)
                         grp = blend_wrap(grp, mode)
                     out.append(grp)
+            elif isinstance(el, PG.TextClip):
+                # Tr 4-7 (PDF 9.3.5): glyph outlines clip subsequent paint
+                # until the enclosing grestore.  The block itself painted as
+                # the preceding sibling.
+                from . import pdftext
+
+                try:
+                    cp = pdftext.clip_path_of_block(pdf, el.block, device)
+                except SubRenderError:
+                    raise
+                except Exception:
+                    cp = None
+                out.extend(
+                    convert(el.elements, clips + ((cp,) if cp is not None else ()))
+                )
             elif isinstance(el, PG.GShading):
                 # `sh` paints the shading through the active clip (or its
                 # /BBox).  The reference's scene_of_graphic drops these

@@ -1,8 +1,8 @@
 """Scene model and hidden-surface-removal renderer (parity: ``render.ml``).
 
-The PyTorch counterpart of ``coherence_tpu.scene.render``, whole but for the
-two ``pdf_*_debug`` page dumps and the batched group raster
-(``fastframe.group_sprite_batched``): a Group renders through the fold.
+The PyTorch counterpart of ``coherence_tpu.scene.render``, whole, with the
+two debug-page dumps (``pdf_debug_active``, ``pdf_filter_debug_active``:
+``utils.debugpdf``, one readback per fragment).
 
 Scenes are front-to-back lists of renderobjects (element 0 topmost).  The
 renderer folds over the scene carrying an *update shape* (pixels still
@@ -56,6 +56,9 @@ from ..raster.region import (
 )
 from ..utils import flags, profiling
 from . import cache
+
+pdf_debug_active = False
+pdf_filter_debug_active = False
 
 # ---------------------------------------------------------------------------
 # Types (render.ml:19-75)
@@ -884,6 +887,21 @@ def spriteof_filter(lmo, lower, whole_scene, obj, idset, objects_below, shptoren
         )
         r = blend_prime(scenerendered, filtered, alpha_in_update)
         e = shapeonly_of_basicshape(obj, device)
+        if pdf_filter_debug_active:
+            # The filter debug page layout of render.ml:1117-1130.
+            from ..utils import debugpdf as D
+
+            D.add_debug_shape(shptorender)
+            D.add_debug_shape(scene_torender, dx=300)
+            D.add_debug_sprite(scene_rendered, dx=600)
+            D.add_debug_sprite(filtered, dx=900)
+            D.add_debug_sprite(alpha_in_update, dx=1200)
+            D.add_debug_shape(pixels_finished, dy=300)
+            D.add_debug_shape(pixels_for_normal, dx=300, dy=300)
+            D.add_debug_sprite(scenerendered, dx=600, dy=300)
+            D.add_debug_sprite(r, dx=900, dy=300)
+            D.add_debug_shape(e, dx=1200, dy=300)
+            D.write_debug_page("Filter")
         return r, e
     finally:
         if setanyfilter:
@@ -1007,11 +1025,21 @@ def render_scene(lmo, lower, ua, objlist, whole_scene, master_update, device):
     for k, obj in enumerate(objlist):
         if region.is_null_shape(u):
             profiling.counter("render.early_exit")
+            if pdf_debug_active and not underanyfilter:
+                from ..utils import debugpdf as D
+
+                D.add_debug_sprite(a)
+                D.write_debug_page("Final result of render_scene")
             return a, lower, u
         profiling.counter("render.objects_visited")
         u, a, lower = renderobj(
             lmo, lower, obj, list(objlist[k + 1 :]), whole_scene, (u, a), master_update, device
         )
+    if pdf_debug_active and not underanyfilter:
+        from ..utils import debugpdf as D
+
+        D.add_debug_sprite(a)
+        D.write_debug_page("Final result of render_scene")
     return a, lower, u
 
 

@@ -1,14 +1,14 @@
-"""Named counters and wall-clock timers: the port's copy of the host half
-of ``coherence_tpu.utils.profiling`` (its profiler hook wraps the JAX
-profiler and is not kept; ``torch.profiler`` is used directly where a
-device trace is wanted)."""
+"""Named counters, wall-clock timers and a device trace: the port's copy of
+``coherence_tpu.utils.profiling``, whose ``trace`` wraps the JAX profiler;
+here it records a ``torch.profiler`` trace (CPU and, where a card is
+present, CUDA activities) into the same ``log_dir``."""
 
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 counters: Dict[str, int] = defaultdict(int)
 timers: Dict[str, list] = defaultdict(lambda: [0, 0.0])  # name -> [calls, secs]
@@ -27,6 +27,27 @@ def time_block(name: str):
         rec = timers[name]
         rec[0] += 1
         rec[1] += time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Capture a device-level profile viewable in TensorBoard/Perfetto: one
+    Chrome trace file written into `log_dir` (by default ``coherence_trace``
+    in the temporary directory) when the block ends."""
+    import os
+    import tempfile
+
+    import torch
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "coherence_trace")
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)
+    ):
+        yield
 
 
 def report() -> str:

@@ -1,6 +1,7 @@
 """Helpers of the PDF parity tests: a canonical form of a graphic element
-tree, a signature of a scene, and the per-page results of one page builder
-on one side.
+tree, a signature of a scene, the per-page results of one page builder on
+one side, and ``parity``, which holds the port's results to the JAX
+package's.
 
 The two packages' element classes keep their names and fields, but a
 ``Stream`` has no value ``repr`` and numpy arrays print abridged, so trees
@@ -76,3 +77,24 @@ def page_results(side, P, PG, PS, build):
         spr = side.render_simple_scene(list(reversed(scene)), side.shape_of_box(box)) if scene else None
         out.append((canon(g.elements), tuple(scene_sig(o) for o in scene), side.np_sprite(spr)))
     return out
+
+
+def parity(build):
+    """Both sides' results for every page of build(P); asserts they are
+    equal (tree, scene and render, tolerance 0) and returns the port's."""
+    from coherence_tpu.io import pdf as JP
+    from coherence_tpu.io import pdfgraphics as JPG
+    from coherence_tpu.scene import pdfscene as JS
+    from coherence_tpu_torch.io import pdf as TP
+    from coherence_tpu_torch.io import pdfgraphics as TPG
+    from coherence_tpu_torch.scene import pdfscene as TS
+
+    from _torch_general import JAX, PORT, describe, same_raster
+
+    a, b = page_results(JAX, JP, JPG, JS, build), page_results(PORT, TP, TPG, TS, build)
+    assert len(a) == len(b) and a
+    for i, (pa, pb) in enumerate(zip(a, b)):
+        assert pb[0] == pa[0], f"page {i}: graphic trees differ"
+        assert pb[1] == pa[1], f"page {i}: scenes differ"
+        assert same_raster(pa[2], pb[2]), f"page {i}: {describe(pa[2], pb[2])}"
+    return b

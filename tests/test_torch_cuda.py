@@ -766,10 +766,10 @@ def test_meshed_fast_session_on_the_card_matches_unsharded(cuda_device):
 
 @pytest.mark.cuda
 def test_pdf_pages_on_the_card_match_the_cpu(cuda_device, tmp_path):
-    """chip_smoke.py's two-page document (graphics on page 1, images on page
-    2) through Engine.openfile and goto_page on the CPU and on the card:
-    equal framebuffers, and the transparency groups fold through
-    fold_layers on the card."""
+    """chip_smoke.py's three-page document (graphics on page 1, images on
+    page 2, text on page 3) through Engine.openfile and goto_page on the CPU
+    and on the card: equal framebuffers, and the transparency groups, among
+    them page 3's group of text, fold through fold_layers on the card."""
     import os
     import sys
 
@@ -781,24 +781,27 @@ def test_pdf_pages_on_the_card_match_the_cpu(cuda_device, tmp_path):
     from coherence_tpu_torch.scene import cache
 
     path = str(tmp_path / "pages.pdf")
-    with open(path, "wb") as f:
-        f.write(chip_smoke.pdf_file_bytes(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))))
+    P.pdf_to_file(P.Pdf(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))), path)
     shown = []
     for device in ("cpu", cuda_device):
         cache.clear()
-        before = kernels.launches["fold_layers"]
         eng = app.Engine(device=device)
         eng.event_handler((W.OPEN_FILE, path))
         view = eng.views[0]
         eng.event_handler((W.PAINT_RECT, view.window, 0, 0, 600, 400))
-        page1 = eng.wx.framebuffers[view.window].copy()
-        eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
-        torch.cuda.synchronize()
-        shown.append((page1, eng.wx.framebuffers[view.window].copy(), kernels.launches["fold_layers"] - before))
+        pages, folds = [eng.wx.framebuffers[view.window].copy()], []
+        for _ in range(2):
+            before = kernels.launches["fold_layers"]
+            eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
+            torch.cuda.synchronize()
+            pages.append(eng.wx.framebuffers[view.window].copy())
+            folds.append(kernels.launches["fold_layers"] - before)
+        shown.append((pages, folds))
     cache.clear()
-    (a1, a2, _), (b1, b2, folds) = shown
-    assert np.array_equal(a1, b1) and np.array_equal(a2, b2) and not np.array_equal(b1, b2)
-    assert folds >= 1
+    (a, _), (b, folds) = shown
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert not np.array_equal(b[0], b[1]) and not np.array_equal(b[2], b[0]) and not np.array_equal(b[2], b[1])
+    assert folds[1] >= 1
 
 
 @pytest.mark.cuda
@@ -997,3 +1000,22 @@ def test_scene_edits_on_the_card_match_the_cpu(cuda_device):
     assert kernels.launches["composite_full"] == before["composite_full"] + 1
     assert kernels.launches["composite_dirty"] == before["composite_dirty"] + 5
     assert kernels.launches["fold_layers"] == before["fold_layers"] + 1
+
+
+@pytest.mark.cuda
+def test_trace_records_the_card(cuda_device, tmp_path):
+    """utils.trace, the counterpart of the JAX package's profiler hook,
+    writes one Chrome trace of CPU and CUDA activity into log_dir."""
+    import glob
+    import json
+
+    from coherence_tpu_torch import utils
+
+    with utils.trace(str(tmp_path)):
+        x = torch.ones(1 << 20, device=cuda_device)
+        (x * 2).sum().item()
+    files = glob.glob(str(tmp_path / "*.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cuda_runtime" or e.get("cat") == "kernel" for e in events)

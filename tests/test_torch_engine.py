@@ -17,6 +17,9 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from coherence_tpu.io import pdf as JP
+from coherence_tpu_torch.io import pdf as TP
+
 from _torch_general import both_sides  # noqa: F401
 from _torch_serving import DEADLINE, JAX_S, PORT_S, SERVING_SIDES, ServedClient, crc, in_thread, socket_pair
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -361,38 +364,66 @@ def test_closing_windows_ends_the_loop(both_sides):
             eng.pickview(view.window)
 
 
-def pdf_pages_file(tmp_path) -> str:
-    """chip_smoke.py's two-page document (every graphics construct on page
-    1, images on page 2) at 480x270, written by the JAX package's writer."""
-    import chip_smoke
-    from coherence_tpu.io import pdf as JP
+def pdf_pages_files(side, tmp_path):
+    """chip_smoke.py's three-page document (every graphics construct on
+    page 1, images on page 2, text on page 3) at 480x270, written by the
+    side's own writer plain and sealed with AES (modern xref, an owner
+    password; the random bytes from a seed): (paths, the files' bytes).
+    The seal is AES-128 (R4): chip_smoke.py seals with AES-256 (R6), whose
+    pure-Python key derivation takes seconds at every open, and
+    tests/test_torch_pdf_writer.py holds R6's bytes."""
+    import random
 
-    path = str(tmp_path / "pages.pdf")
-    JP.pdf_to_file(JP.Pdf(*chip_smoke.pdf_document(JP, 480, 270, image_wh=(64, 48))), path)
-    return path
+    import chip_smoke
+
+    P = {"jax": JP, "port": TP}[side.name]
+    pdf = P.Pdf(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48)))
+    rng = random.Random(6)
+    files = (P.pdf_to_bytes(pdf),
+             P.pdf_to_bytes(pdf, modern=True, encrypt={"revision": 4, "user_pw": b"", "owner_pw": b"pdf-pages",
+                                                      "rand": lambda n: bytes(rng.randrange(256) for _ in range(n))}))
+    paths = []
+    for name, data in zip(("pages", "pages_aes"), files):
+        paths.append(str(tmp_path / f"{side.name}_{name}.pdf"))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    return paths, files
 
 
 def test_open_pdf_pages_and_turn_the_page(both_sides, tmp_path):
-    """Shadings, patterns, soft masks, groups, blend modes, an annotation
-    and images through Engine.openfile and goto_page on both sides: the
-    framebuffers of page 1 and of page 2 after PageDown, the rects shipped
-    and the status bar are equal."""
-    path = pdf_pages_file(tmp_path)
-    got = []
+    """Shadings, patterns, soft masks, groups, blend modes, an annotation,
+    images and text through Engine.openfile and goto_page on both sides,
+    from each side's own file, plain and encrypted (the files equal): the
+    framebuffers of pages 1-3 after each PageDown, the rects shipped and
+    the status bar are equal, and the encrypted file shows the plain
+    file's pages."""
+    got, written = [], []
     for side in SERVING_SIDES:
+        paths, files = pdf_pages_files(side, tmp_path)
+        written.append(files)
         W = side.window
-        eng = side.Engine()
-        eng.event_handler((W.OPEN_FILE, path))
-        view = eng.views[0]
-        eng.event_handler((W.PAINT_RECT, view.window, 0, 0, 600, 400))
-        page1 = eng.wx.framebuffers[view.window].copy()
-        eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
-        page2 = eng.wx.framebuffers[view.window].copy()
-        got.append((page1, page2, eng.docs[view.window][1:], list(eng.wx.display.refreshed),
-                    eng.wx.display.windows[view.window].status))
-    (a1, a2, *a_rest), (b1, b2, *b_rest) = got
-    assert np.array_equal(a1, b1) and np.array_equal(a2, b2) and a_rest == b_rest
-    assert b_rest[0] == [1, 2] and not np.array_equal(b1, b2)
+        shown = []
+        for path in paths:
+            side.cache.clear()
+            eng = side.Engine()
+            eng.event_handler((W.OPEN_FILE, path))
+            view = eng.views[0]
+            eng.event_handler((W.PAINT_RECT, view.window, 0, 0, 600, 400))
+            pages = [eng.wx.framebuffers[view.window].copy()]
+            for _ in range(2):
+                eng.event_handler((W.KEY_DOWN, view.window, W.PageDown))
+                pages.append(eng.wx.framebuffers[view.window].copy())
+            shown.append((pages, eng.docs[view.window][1:], list(eng.wx.display.refreshed),
+                          eng.wx.display.windows[view.window].status))
+        got.append(shown)
+    assert written[0] == written[1]
+    (a_plain, a_sealed), (b_plain, b_sealed) = got
+    for a, b in ((a_plain, b_plain), (a_sealed, b_sealed)):
+        assert all(np.array_equal(x, y) for x, y in zip(a[0], b[0])) and a[1:] == b[1:]
+    assert all(np.array_equal(x, y) for x, y in zip(b_sealed[0], b_plain[0]))
+    b1, b2, b3 = b_plain[0]
+    assert b_plain[1] == [2, 3] and not np.array_equal(b1, b2) and not np.array_equal(b3, b1)
+    assert not np.array_equal(b3, b2)
     assert len(np.unique(b1[100:370, 100:580].reshape(-1, 3), axis=0)) > 100
 
 

@@ -3,11 +3,12 @@ originals, on the same inputs: equal results, bit for bit.
 
   * ``io.pdf`` + ``io.pdfgraphics``: every PDF in assets/ (the lion is the
     one the port's scenes load) parsed to the same page content and the
-    same graphic element tree; text, the one content the port's reader
-    refuses, refused wherever a page holds it; the decoders and
-    ``io.pdfimages``, copied whole (their behaviour is held by
-    tests/test_torch_pdf_images.py, the graphics by
-    tests/test_torch_pdf_graphics.py);
+    same graphic element tree; text wherever a page holds it painted as the
+    JAX package paints it; the modules the port copies whole (the reader
+    and writer, the graphics, encryption, the font programs, the decoders
+    and ``io.pdfimages``) and the widths table, byte for byte (their
+    behaviour is held by tests/test_torch_pdf_{graphics,images,text,
+    writer}.py);
   * ``native_lib``: ``bezier_subdivide_batch``, ``edge_spans``,
     ``expand_1x_grouped`` and ``expand_aa_grouped`` on seeded numpy inputs
     (and the batch subdivider against the JAX package's Python
@@ -24,6 +25,7 @@ from the same numbers, and the results are compared as arrays or as their
 import glob
 import math
 import os
+import re
 
 import numpy as np
 import pytest
@@ -32,13 +34,17 @@ from coherence_tpu import native_lib as j_native
 from coherence_tpu.io import pdf as JP
 from coherence_tpu.io import pdfgraphics as JPG
 from coherence_tpu.raster import tile_raster as JTR
+from coherence_tpu.scene import pdfscene as JS
 
 from coherence_tpu_torch import coord as t_coord
 from coherence_tpu_torch import native_lib as t_native
 from coherence_tpu_torch.io import pdf as TP
 from coherence_tpu_torch.io import pdfgraphics as TPG
+from coherence_tpu_torch.scene import pdfscene as TS
 
+from _torch_general import JAX as GENERAL_JAX, PORT as GENERAL_PORT, both_sides, same_raster  # noqa: F401
 from _torch_hosts import JAX, PORT, ops
+from _torch_pdf import canon, scene_sig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "assets", "*.pdf")))
@@ -78,16 +84,28 @@ def _text_page(P, where):
     return P.Pdf({1: {"Type": P.Name("Page")}}, {}), page
 
 
+def _painted(side, P, PG, PS, where):
+    """(canon tree, scene signature, np_sprite) of _text_page on a side,
+    rendered on the CPU over 1..40 x 1..30."""
+    pdf, page = _text_page(P, where)
+    g = PG.graphic_of_page(pdf, page)
+    scene = PS.scene_of_graphic(pdf, g, "cpu") if side.name == "port" else PS.scene_of_graphic(pdf, g)
+    spr = side.render_simple_scene(list(reversed(scene)), side.shape_of_box((1, 1, 40, 30))) if scene else None
+    return canon(g.elements), tuple(scene_sig(o) for o in scene), side.np_sprite(spr)
+
+
 @pytest.mark.parametrize("where,what", [
     ("content", "text"), ("form", "text"), ("annotation", "text"), ("tiling cell", "text"),
 ])
-def test_pdf_content_outside_the_port_raises(where, what):
-    """Text, wherever a page holds it, is the one thing the port's reader
-    refuses by name (ROADMAP.md Queue 1, item 1c); the fallbacks for
-    malformed annotations and tiling cells do not swallow the refusal."""
-    pdf, page = _text_page(TP, where)
-    with pytest.raises(NotImplementedError, match=what):
-        TPG.graphic_of_page(pdf, page)
+def test_pdf_content_outside_the_port_raises(where, what, both_sides):
+    """Text wherever a page holds it (the page's content, a form, an
+    annotation's appearance, a tiling cell), which the port's reader once
+    refused, gives the JAX package's element tree, scene and pixels.  (The
+    test keeps the name it had while the port refused text.)"""
+    a = _painted(GENERAL_JAX, JP, JPG, JS, where)
+    b = _painted(GENERAL_PORT, TP, TPG, TS, where)
+    assert b[0] == a[0] and b[1] == a[1] and same_raster(a[2], b[2])
+    assert "TextBlock" in repr(b[0])
 
 
 @pytest.mark.parametrize("content", [
@@ -110,11 +128,15 @@ def test_formerly_refused_content_parses_as_the_jax_package(content):
     assert trees[0] == trees[1] and trees[1] != "[]"
 
 
-@pytest.mark.parametrize("name", ["ccitt", "jbig2", "jpeg", "jp2", "pdfimages"])
+@pytest.mark.parametrize("name", ["ccitt", "jbig2", "jpeg", "jp2", "pdfimages", "pdf", "pdfgraphics", "pdfcrypt",
+                                  "afm", "cff", "cmap", "truetype", "type1"])
 def test_whole_copies_match_their_modules(name):
-    """The decoders and the image module are the JAX package's, whole: past
+    """The decoders, the image module, the reader and writer, the graphics,
+    encryption and the font programs are the JAX package's, whole: past
     the module docstring, which names the module it copies, the port's
-    file is the original, character for character."""
+    file is the original, character for character, except that two
+    docstrings cite the reference's Makefile by name where the original
+    gives a path on the machine it was written on."""
     def body(path):
         with open(path) as f:
             src = f.read()
@@ -122,7 +144,17 @@ def test_whole_copies_match_their_modules(name):
 
     doc, code = body(os.path.join(ROOT, "coherence_tpu_torch", "io", f"{name}.py"))
     assert f"The port's copy of ``coherence_tpu.io.{name}``, whole." in doc
-    assert code == body(os.path.join(ROOT, "coherence_tpu", "io", f"{name}.py"))[1]
+    original = body(os.path.join(ROOT, "coherence_tpu", "io", f"{name}.py"))[1]
+    assert code == re.sub(r"/\S*/reference/Makefile:20", "the reference's Makefile:20", original)
+
+
+def test_widths_table_is_the_jax_packages():
+    """The bundled standard-14 widths table, byte for byte."""
+    def read(package):
+        with open(os.path.join(ROOT, package, "io", "data", "std14_widths.txt.gz"), "rb") as f:
+            return f.read()
+
+    assert read("coherence_tpu_torch") == read("coherence_tpu")
 
 
 def _circle_ctrl(rng, n):

@@ -4,8 +4,9 @@ CPU (frames, the full-frame and run-contiguous renders, a zoom step, a
 dense layer stack, an animated filtered step on a 2-band mesh, the
 general renderer's ``render_simple_scene`` under two filters, the scene
 edits on the sprite route, a FrameBuffer window composite and a group
-through the batched raster, a two-page PDF of graphics and images opened
-in an Engine, and one FastSession and one Engine each serving a client
+through the batched raster, a three-page PDF of graphics, images and text,
+written by the port, plain and encrypted, opened in an Engine, and one
+FastSession and one Engine each serving a client
 over a localhost socket)
 loads no JAX module and no module of the JAX package ``coherence_tpu``: the port's
 host modules (geometry, io, transform, ident, coord, native_lib) are its
@@ -175,23 +176,31 @@ def engine(conn):
     return view.window, shown
 engine.events = [("LeftDown", 1, 40, 40), ("LeftDragging", 1, 52, 47), ("LeftUp", 1, 52, 47)]
 
-# A PDF's graphics and images: chip_smoke.py's two-page document through
+# A PDF's graphics, images and text: chip_smoke.py's three-page document
+# written by the port's writer, plain and sealed with AES (R4), through
 # Engine.openfile and goto_page (every graphics construct on page 1, images
-# on page 2, among them a CCITT G4 one).
+# on page 2, among them a CCITT G4 one, text in every font kind on page 3).
 import os, tempfile
 import chip_smoke
 from coherence_tpu_torch.io import pdf as P
-pdf_path = os.path.join(tempfile.mkdtemp(), "pages.pdf")
-with open(pdf_path, "wb") as f:
-    f.write(chip_smoke.pdf_file_bytes(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))))
-cache.clear()
-peng = app.Engine(device="cpu")
-peng.event_handler((GW.OPEN_FILE, pdf_path))
-pview = peng.views[0]
-peng.event_handler((GW.PAINT_RECT, pview.window, 0, 0, 600, 400))
-pdf_pages = [peng.wx.framebuffers[pview.window].copy()]
-peng.event_handler((GW.KEY_DOWN, pview.window, GW.PageDown))
-pdf_pages.append(peng.wx.framebuffers[pview.window].copy())
+pdf_dir = tempfile.mkdtemp()
+pdf_doc = P.Pdf(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48)))
+pdf_shown = {}
+for name, data in (("plain", P.pdf_to_bytes(pdf_doc)),
+                   ("sealed", P.pdf_to_bytes(pdf_doc, modern=True, encrypt={"revision": 4, "owner_pw": b"o"}))):
+    pdf_path = os.path.join(pdf_dir, name + ".pdf")
+    with open(pdf_path, "wb") as f:
+        f.write(data)
+    cache.clear()
+    peng = app.Engine(device="cpu")
+    peng.event_handler((GW.OPEN_FILE, pdf_path))
+    pview = peng.views[0]
+    peng.event_handler((GW.PAINT_RECT, pview.window, 0, 0, 600, 400))
+    pdf_shown[name] = [peng.wx.framebuffers[pview.window].copy()]
+    for _ in range(2):
+        peng.event_handler((GW.KEY_DOWN, pview.window, GW.PageDown))
+        pdf_shown[name].append(peng.wx.framebuffers[pview.window].copy())
+pdf_pages = pdf_shown["plain"]
 pdf_colours = [len({tuple(px) for px in page[100:370, 100:580].reshape(-1, 3)}) for page in pdf_pages]
 
 cache.clear()
@@ -223,7 +232,8 @@ print(json.dumps({
     "window_path_equal_view": bool((fb.read() == fresh.read()).all()),
     "group_batched": flags.get("batch_group_raster") and group is not None,
     "pdf_pages": {"page": peng.docs[pview.window][1], "colours": pdf_colours,
-                  "pages_differ": bool((pdf_pages[0] != pdf_pages[1]).any())},
+                  "pages_differ": [bool((pdf_pages[i] != pdf_pages[j]).any()) for i, j in ((0, 1), (0, 2), (1, 2))],
+                  "sealed_equal": all(bool((a == b).all()) for a, b in zip(pdf_shown["sealed"], pdf_pages))},
 }))
 """
 
@@ -284,11 +294,13 @@ def test_serving_surface_runs_on_cpu(report):
 
 
 def test_pdf_pages_run_on_cpu(report):
-    # The PDF reader, the image decoders and the scene builder of the port
-    # open a document of every graphics construct and of images, and turn
-    # its page.
+    # The PDF reader and writer, encryption, the image decoders, the font
+    # programs and the scene builder of the port open a document of every
+    # graphics construct, of images and of text, plain and sealed, and turn
+    # its pages.
     got = report["pdf_pages"]
-    assert got["page"] == 1 and got["pages_differ"] and min(got["colours"]) > 100
+    assert got["page"] == 2 and all(got["pages_differ"]) and got["sealed_equal"]
+    assert min(got["colours"][:2]) > 100 and got["colours"][2] > 20
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

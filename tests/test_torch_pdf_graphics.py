@@ -4,15 +4,16 @@ against the JAX package's, page by page: the same graphic element tree
 of the page (box, mask and colours; tolerance 0).
 
 Each fixture builds its pages from the same numbers with a side's own
-``mkpage``, ``Name``, ``Stream`` and ``Ref`` (the modern-file fixture
-writes its bytes once with the JAX package's writer, which the port does
-not have, and both readers read them).  One fixture family per JAX test
-module of the PDF graphics stack: colour spaces, soft masks, mesh
-shadings, axial/radial/function shadings, tiling and shading patterns,
-transparency groups, optional content, annotations, element kinds, clips,
-xref streams, rotated and multi-page documents, blend modes and corrupted
-files; then the fallbacks for malformed input, and text, which the port
-still refuses.
+``mkpage``, ``Name``, ``Stream`` and ``Ref`` (the modern-file fixture is
+written by each side's own writer, and chip_smoke.py's three-page document
+too).  One fixture family per JAX test module of the PDF graphics stack:
+colour spaces, soft masks, mesh shadings, axial/radial/function shadings,
+tiling and shading patterns, transparency groups, optional content,
+annotations, element kinds, clips, xref streams, rotated and multi-page
+documents, blend modes and corrupted files; then the fallbacks for
+malformed input, among them a mask group whose conversion fails, text in a
+mask group, and the one divergence kept on purpose: a failed sub-render
+(soft mask, tiling cell, Type 3 glyph) is raised, not hidden.
 """
 
 import os
@@ -28,28 +29,18 @@ from coherence_tpu.scene import pdfscene as JS
 
 from coherence_tpu_torch.io import pdf as TP
 from coherence_tpu_torch.io import pdfgraphics as TPG
+from coherence_tpu_torch.io.truetype import fallback_font_path
 from coherence_tpu_torch.raster import region as t_region
 from coherence_tpu_torch.scene import pdfscene as TS
 
 from _torch_general import JAX, PORT, both_sides, describe, same_raster  # noqa: F401
-from _torch_pdf import page_results
+from _torch_pdf import page_results, parity
 from _torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BOX = (0, 0, 100, 100)
-
-
-def parity(build):
-    """Both sides' results for every page of build(P); asserts they are
-    equal and returns the port's."""
-    a, b = page_results(JAX, JP, JPG, JS, build), page_results(PORT, TP, TPG, TS, build)
-    assert len(a) == len(b) and a
-    for i, (pa, pb) in enumerate(zip(a, b)):
-        assert pb[0] == pa[0], f"page {i}: graphic trees differ"
-        assert pb[1] == pa[1], f"page {i}: scenes differ"
-        assert same_raster(pa[2], pb[2]), f"page {i}: {describe(pa[2], pb[2])}"
-    return b
+TS_FALLBACK_FACE = fallback_font_path("Helvetica")
 
 
 def _form(P, content, group=None, bbox=(0, 0, 100, 100), **extra):
@@ -320,17 +311,17 @@ def pdf_clipping(P):
 
 
 def pdf_modern(P):
-    """An xref-stream file with object streams, written once with the JAX
-    package's writer."""
-    N = JP.Name
-    img = JP.Stream({"Type": N("XObject"), "Subtype": N("Image"), "Width": 2, "Height": 2,
+    """An xref-stream file with object streams, written by the side's own
+    writer."""
+    N = P.Name
+    img = P.Stream({"Type": N("XObject"), "Subtype": N("Image"), "Width": 2, "Height": 2,
                      "ColorSpace": N("DeviceRGB"), "BitsPerComponent": 8, "Filter": N("FlateDecode")},
                     zlib.compress(bytes(range(0, 240, 20))))
     sh = {"ShadingType": 3, "ColorSpace": N("DeviceRGB"), "Coords": [50, 50, 0, 50, 50, 40],
           "Function": _fn2((1, 1, 1), (0, 0, 0.5))}
-    pdf = JP.mkpage(b"q /Sh0 sh Q 1 0 0 rg 10 10 30 30 re f q 30 0 0 30 60 10 cm /Im0 Do Q",
-                    mediabox=BOX, resources={"XObject": {"Im0": img}, "Shading": {"Sh0": sh}})
-    return JP.pdf_to_bytes(pdf, modern=True)
+    pdf = P.mkpage(b"q /Sh0 sh Q 1 0 0 rg 10 10 30 30 re f q 30 0 0 30 60 10 cm /Im0 Do Q",
+                   mediabox=BOX, resources={"XObject": {"Im0": img}, "Shading": {"Sh0": sh}})
+    return P.pdf_to_bytes(pdf, modern=True)
 
 
 def _pages(P, contents, page_extra, pages_extra):
@@ -425,11 +416,11 @@ def pdf_fuzz(P):
 
 
 def chip_smoke_document(P):
-    """chip_smoke.py's two-page document at 480x270, written by its own
-    serializer from each side's objects."""
+    """chip_smoke.py's three-page document (graphics, images, text) at
+    480x270, written by each side's own writer."""
     import chip_smoke
 
-    return chip_smoke.pdf_file_bytes(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48)))
+    return P.pdf_to_bytes(P.Pdf(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48))))
 
 
 FAMILIES = {f.__name__: f for f in (
@@ -542,12 +533,68 @@ def test_sub_render_needs_a_device():
         TS.scene_of_graphic(pdf, g)
 
 
+def _mask_page(P, group_content: bytes, **group_resources):
+    """A fill under a Luminosity soft mask whose group draws
+    `group_content`."""
+    g = _form(P, group_content, group="Transparency", Resources=group_resources)
+    ext = {"M": {"SMask": {"Type": P.Name("Mask"), "S": P.Name("Luminosity"), "G": g}}}
+    return P.mkpage(b"q /M gs 0.2 0.4 0.9 rg 5 5 90 90 re f Q", mediabox=BOX, resources={"ExtGState": ext})
+
+
 def test_text_in_a_soft_mask_group_is_refused(both_sides):
-    """Text anywhere, also inside a mask group (read while the scene is
-    built), raises NotImplementedError rather than falling back."""
-    g = _form(TP, b"BT /F1 9 Tf (x) Tj ET", group="Transparency")
-    ext = {"M": {"SMask": {"Type": TP.Name("Mask"), "S": TP.Name("Luminosity"), "G": g}}}
-    pdf = TP.mkpage(b"/M gs 0 0 10 10 re f", mediabox=BOX, resources={"ExtGState": ext})
+    """Text inside a mask group (read while the scene is built) masks the
+    fill as in the JAX package.  (The test keeps the name it had while the
+    port refused text.)"""
+    def text_mask(P):
+        font = {"Type": P.Name("Font"), "Subtype": P.Name("Type1"), "BaseFont": P.Name("Helvetica")}
+        return _mask_page(P, b"1 g BT /F1 60 Tf 5 30 Td (Wx) Tj ET", Font={"F1": font})
+
+    got = parity(text_mask)
+    plain = parity(lambda P: P.mkpage(b"0.2 0.4 0.9 rg 5 5 90 90 re f", mediabox=BOX))
+    assert got[0][1][0][0][1][0] == "MaskedFill"
+    if TS_FALLBACK_FACE is not None:
+        assert not same_raster(got[0][2], plain[0][2])
+
+
+def test_a_mask_group_that_fails_to_convert_paints_the_unmasked_fill(both_sides):
+    """A mask group holding a stroke with a line cap outside 0-2 fails in
+    scene conversion: both packages paint the fill unmasked, as the same
+    page without the mask."""
+    got = parity(lambda P: _mask_page(P, b"1 g 9 J 4 w 10 10 m 90 90 l S 0 0 50 100 re f"))
+    plain = parity(lambda P: P.mkpage(b"q 0.2 0.4 0.9 rg 5 5 90 90 re f Q", mediabox=BOX))
+    assert got[0][1] == plain[0][1] and same_raster(got[0][2], plain[0][2])
+
+
+def _sub_render_pages():
+    """A soft mask, a tiling cell, and a Type 3 glyph whose content holds a
+    soft mask: each renders a sub-scene."""
+    N = TP.Name
+    tiling = TP.mkpage(b"/Pattern cs /T0 scn 0 0 45 45 re f", mediabox=BOX,
+                       resources={"Pattern": {"T0": _tiling(TP, b"1 0 0 rg 0 0 5 5 re f")}})
+    glyph = TP.Stream({}, b"1000 0 d0 /M gs 0 0 1 rg 0 0 750 750 re f")
+    group = _form(TP, b"1 g 0 0 500 1000 re f", group="Transparency", bbox=(0, 0, 1000, 1000))
+    font = {"Type": N("Font"), "Subtype": N("Type3"), "FontBBox": [0, 0, 1000, 1000],
+            "FontMatrix": [0.001, 0, 0, 0.001, 0, 0], "CharProcs": {"sq": glyph},
+            "Encoding": {"Type": N("Encoding"), "Differences": [97, N("sq")]}, "FirstChar": 97, "LastChar": 97,
+            "Widths": [1000], "Resources": {"ExtGState": {"M": {"SMask": {"Type": N("Mask"), "S": N("Luminosity"),
+                                                                           "G": group}}}}}
+    type3 = TP.mkpage(b"BT /F1 50 Tf 20 20 Td (a) Tj ET", mediabox=BOX, resources={"Font": {"F1": font}})
+    return {"soft mask": softmask(TP), "tiling cell": tiling, "Type 3 glyph": type3}
+
+
+@pytest.mark.parametrize("where", ["soft mask", "tiling cell", "Type 3 glyph"])
+def test_a_failing_sub_render_is_raised(where, both_sides, monkeypatch):
+    """The one deliberate divergence: where the JAX package falls back on
+    any exception, a failure of the port's sub-render on its device comes
+    out of scene_of_graphic as SubRenderError (no fallback hides the
+    device), while the same page converts when the sub-render works."""
+    pdf = _sub_render_pages()[where]
     graphic = TPG.graphic_of_page(pdf, pdf.pages()[0])
-    with pytest.raises(NotImplementedError, match="text"):
+    assert TS.scene_of_graphic(pdf, graphic, "cpu")
+
+    def fails(*args):
+        raise RuntimeError("the card went away")
+
+    monkeypatch.setattr(TS.R, "render_simple_scene", fails)
+    with pytest.raises(TS.SubRenderError, match="the card went away"):
         TS.scene_of_graphic(pdf, graphic, "cpu")
