@@ -86,11 +86,19 @@ Phases, one JSON line each:
      composite_full_banded and composite_dirty, whose deep tile times one
      step of the first three in turns; the times (CUDA events, cold L2,
      the launch queued behind a device-side wait), each comparison's in
-     turns with the kernel's, and the bytes each must move;
+     turns with the kernel's, and the bytes each must move; then
+     blur_blend (window mode, at the lion's blur window; rect mode, the
+     whole frame) and shatter_into (the blob's pieces) against their plain
+     versions on the inputs of one animated step, the display and the
+     reserved slots starting from noise, each timed beside its plain
+     version and its bound;
   4. main_path: the lion, built and run 400 frames; per-frame times; the
      display after 20 frames held bit for bit against the same 20 frames
      run on the CPU through the plain versions; one full-frame render held
-     against the dirty-path content;
+     against the dirty-path content; three more frames, each required to
+     issue exactly one copy and three launches (shatter_into,
+     composite_dirty, blur_blend: the JAX package's one program),
+     counted by profile_general.issued;
   5. interactive_4k: config 5 on the card; its atlas, piece lists and
      display after 3 filtered frames held bit for bit against the same run
      on the CPU; frame times, build and zoom seconds, cache hits; the full
@@ -98,7 +106,8 @@ Phases, one JSON line each:
   6. kernels_4k: composite_runs against composite_runs_torch and against
      composite_full, and composite_full against composite_full_banded over
      one band, on config 5's full-frame lists, bit for bit; the three timed
-     in turns;
+     in turns; blur_blend and shatter_into on config 5's animated step, as
+     in phase 3;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -117,7 +126,9 @@ Phases, one JSON line each:
      (16 idle bands) and composite_full_banded on its 17-band full-frame
      lists, bit for bit, each timed in turns with its unbanded kernel;
  11. play_animated: the lion's play_animated over 400 deltas against 400
-     step_animated calls, with its time per frame;
+     step_animated calls, with its time per frame; one play launches
+     shatter_into, composite_dirty and blur_blend 400 times each and
+     nothing else;
  12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card;
  13. general_lion: the cold, rebuilt and warm renders (the lion group
      through the batched raster and one fold_layers launch) and one more
@@ -146,6 +157,7 @@ Phases, one JSON line each:
  18. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
      the CPU's and to the general renderer's render of the same filtered
      scene; the last equal to a whole-window recomposite plus apply_blur;
+     one blur_blend launch a frame and one for apply_blur;
  19. fold_kernel: fold_layers against fold_layers_carry_torch at three
      shapes, in one call and in two with the carry, bit for bit, the two
      timed in turns: the lion's 132 sprites over the 1920x1080 window (all
@@ -195,7 +207,9 @@ banded kernels' unbanded ones, also on the 17-band lion; for fold_layers
 the mask and RGBA sectors each open pixel reads until it closes, and its
 carry in and out, with the record visits its tile lists imply, at the
 whole window and beside it at its other two shapes; its launches per
-phase, pdf_pages's among them) and, last,
+phase, pdf_pages's among them; for blur_blend and shatter_into the bytes
+they must move per 32-byte sector and their multiply-adds, at the lion's
+step and at config 5's, blur_blend's rect mode beside) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -244,6 +258,17 @@ STRIPES = 16  # 4-row stripes of a tile, stripe_ring.cuh's kStripes
 # with more host work (the fold's packs every layer) is timed behind a wait
 # made from its measured host time instead (event_ms's wait_ms).
 SLEEP_CYCLES = 400_000
+# The blur's and the shatter's bound counts their integer multiply-adds too
+# (two operations each) at the guide's CUDA-core float32 peak of the H100
+# SXM, 67 T/s: the card's int32 multiply-add rate is no higher, so the
+# bound it gives is a floor.
+CORE_OPS_PER_S = 67e12
+# The device-side wait before each timed blur_blend or shatter_into call:
+# longer than twice either wrapper's host time (H42).
+ANIMATED_WAIT_MS = 1.0
+# A steady animated frame on the card: the staged copy of its lists, then
+# shatter_into, composite_dirty and blur_blend (profile_general.issued's count).
+STEADY_FRAME_OPS = 4
 
 
 T_IMPORT = time.perf_counter()
@@ -545,6 +570,15 @@ def with_passthrough(coords, spans, n_real: int, tile):
     return c, s, n_slots
 
 
+def uncounted(kernels, fn):
+    """fn(), its launches taken off the counts again: a comparison of a
+    kernel with its plain version is not a launch of the path."""
+    before = dict(kernels.launches)
+    out = fn()
+    kernels.launches.update(before)
+    return out
+
+
 def zero_counts(torch, kernels) -> None:
     for k in kernels.launches:
         kernels.launches[k] = 0
@@ -621,11 +655,183 @@ def deep_case(torch, dev, scrub):
             "composite_runs_step_us": turns["composite_runs_ms"] / 301 * 1e3}
 
 
+def pixel_sectors(torch, mask, row0: int, col0: int, row_pixels: int, pixel_bytes: int) -> int:
+    """32-byte sectors holding the pixels of `mask` (a 2D bool block at
+    (row0, col0) of a row-major plane)."""
+    ys, xs = mask.nonzero(as_tuple=True)
+    flat = ((ys + row0) * row_pixels + xs + col0) * pixel_bytes // SECTOR_BYTES
+    return int(torch.unique(flat).numel())
+
+
+def dilated(torch, mask, ry: int, rx: int):
+    """`mask` grown by ry rows and rx columns (a box window)."""
+    pooled = torch.nn.functional.max_pool2d(mask[None, None].float(), (2 * ry + 1, 2 * rx + 1), stride=1,
+                                            padding=(ry, rx))
+    return pooled[0, 0] > 0
+
+
+def blur_bound(torch, f_alpha, content_cols: int, oy, ox, ry0, rx0, h, w, d_box, hb, wb, radius: int,
+               rect: bool = False) -> dict:
+    """What blur_blend must do for one window (or, with `rect`, the whole
+    frame): the bytes (per 32-byte sector) of the packed content it reads
+    (the 2r + 1 square around each written pixel), of the alpha plane it
+    must test (bloat(in_d, r) inside the window; the whole frame in rect
+    mode), and of the 16-byte pixels it writes (the changed ones; every
+    pixel in rect mode, the others copied); and its multiply-adds: 4
+    channels x (2r + 1) taps for each x-pass value the y pass reads and for
+    each written pixel.  The bound is the larger of bytes at the HBM rate
+    and operations at CORE_OPS_PER_S."""
+    dev = f_alpha.device
+    rows = torch.arange(hb, device=dev)[:, None]
+    cols = torch.arange(wb, device=dev)[None, :]
+    fa = f_alpha[oy : oy + hb, ox : ox + wb]
+    if rect:
+        changed = fa > 0
+        tested = torch.ones_like(changed)
+    else:
+        d0, d1, d2, d3 = (int(v) for v in d_box)
+        inwin = (rows >= ry0) & (rows < ry0 + h) & (cols >= rx0) & (cols < rx0 + w)
+        in_blur = (rows >= d0 - radius) & (rows <= d2 + radius) & (cols >= d1 - radius) & (cols <= d3 + radius)
+        in_d = (rows >= d0) & (rows <= d2) & (cols >= d1) & (cols <= d3)
+        changed = (in_d | (in_blur & (fa > 0))) & inwin
+        tested = in_blur & inwin
+    x_values = dilated(torch, changed, radius, 0)
+    read = dilated(torch, x_values, 0, radius) | (tested if rect else changed)
+    alpha_w = f_alpha.shape[1]
+    written = tested if rect else changed
+    sectors = (pixel_sectors(torch, read, oy, ox, content_cols, 4) + pixel_sectors(torch, tested, oy, ox, alpha_w, 4)
+               + pixel_sectors(torch, written, oy, ox, alpha_w, 16))
+    n_bytes = sectors * SECTOR_BYTES
+    ops = 2 * 4 * (2 * radius + 1) * (int(x_values.sum()) + int(changed.sum()))
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    return {"window": [hb, wb], "radius": radius, "changed_pixels": int(changed.sum()), "bytes": n_bytes,
+            "operations": ops, "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def shatter_bound(torch, rgba, oys, oxs) -> dict:
+    """What shatter_into must move: every listed piece written whole (the
+    padding repeats too), and each raster pixel under a piece read once (16
+    bytes, per 32-byte sector)."""
+    hs, ws = rgba.shape[:2]
+    covered = torch.zeros((hs, ws), dtype=torch.bool)
+    for oy, ox in zip(oys.reshape(-1).tolist(), oxs.reshape(-1).tolist()):
+        covered[max(0, oy) : max(0, oy + 64), max(0, ox) : max(0, ox + 128)] = True
+    n = int(oys.size)
+    n_bytes = n * PIECE_BYTES + pixel_sectors(torch, covered, 0, 0, ws, 16) * SECTOR_BYTES
+    return {"pieces": n, "raster": [hs, ws], "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def animated_kernels(torch, dev, view, disp, key, step, scrub) -> dict:
+    """blur_blend (window mode) and shatter_into against their plain
+    versions, bit for bit, on the inputs of one animated step of `key` by
+    `step` (its blur window over the view's content, packed as
+    FilteredDisplay blurs it and, as unpacked_ms, unpacked as FrameBuffer
+    does; its moved raster into a copy of the atlas), each timed with the
+    launch queued behind a
+    device-side wait (ANIMATED_WAIT_MS, each call required to be queued
+    within half of it), beside its plain version's time and its bound.
+    The display and the reserved slots start from noise, so that every
+    written value is checked.  Returns {name: row}."""
+    from coherence_tpu_torch.raster import framepath, staging
+    from coherence_tpu_torch.raster import tiled_scene as T
+    from coherence_tpu_torch.raster.compositor import unpack_rgba
+    from coherence_tpu_torch.scene import fastframe
+
+    moved, (oys, oxs, base), _, win, _ = disp.stage_animated(key, *step)
+    require(win is not None, "the animated step has no blur window")
+    _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = win
+    k = disp.kernel
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise = torch.randint(0, 256, tuple(disp.rgba.shape), generator=gen, device=dev, dtype=torch.int32)
+    dk, dp = noise.clone(), noise.clone()
+
+    def blur_kernel():
+        fastframe.blur_blend_window(dk, view.frame, disp.f_alpha, oy, ox, ry0, rx0, h, w, d_box, hb, wb, k.values,
+                                    k.total)
+
+    def blur_plain():
+        framepath.blur_blend_into_torch(dp, view.frame, (oy, ox), disp.f_alpha, (oy, ox), hb, wb, ry0, rx0, h, w,
+                                        d_box, k.values, k.total)
+
+    # FrameBuffer's form: the same window's content unpacked (16 bytes a pixel, not 4).
+    window = unpack_rgba(view.frame[oy : oy + hb, ox : ox + wb])
+    du = noise.clone()
+
+    def blur_unpacked():
+        framepath.blur_blend_into(du, window, (0, 0), disp.f_alpha, (oy, ox), hb, wb, ry0, rx0, h, w, d_box, k.values,
+                                  k.total)
+
+    atlas = view.ts.atlas()
+    n = len(oys)
+    ak, ap = atlas.clone(), atlas.clone()
+    slot_noise = torch.randint(-(2**31), 2**31 - 1, (n, 64, 128), generator=gen, device=dev, dtype=torch.int32)
+    ak[base : base + n] = slot_noise
+    ap[base : base + n] = slot_noise
+    oys_d, oxs_d = staging.stage(dev, oys, oxs)
+
+    def shatter_kernel():
+        T.shatter_into(ak, moved.rgba, oys_d, oxs_d, base)
+
+    def shatter_plain():
+        T.shatter_into_torch(ap, moved.rgba, oys_d, oxs_d, base)
+
+    for fn in (blur_kernel, blur_plain, blur_unpacked, shatter_kernel, shatter_plain):
+        fn()
+    torch.cuda.synchronize()
+    require(torch.equal(dk, dp), "blur_blend differs from blur_blend_into_torch")
+    require(torch.equal(du, dp), "blur_blend over the unpacked window differs from blur_blend_into_torch")
+    require(not torch.equal(dk, noise), "blur_blend wrote no pixel")
+    require(torch.equal(ak, ap), "shatter_into differs from shatter_into_torch")
+    require(not torch.equal(ak[base : base + n], slot_noise), "shatter_into wrote no piece")
+    blur = {"max_abs_err": max_abs_err(dk, dp), **blur_bound(torch, disp.f_alpha, view.frame.shape[1], oy, ox, ry0,
+                                                              rx0, h, w, d_box, hb, wb, k.radius),
+            "ms": event_ms(torch, blur_kernel, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True),
+            "plain_ms": event_ms(torch, blur_plain, scrub),
+            "unpacked_ms": event_ms(torch, blur_unpacked, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True)}
+    shatter = {"max_abs_err": max_abs_err(ak, ap), "base": base,
+               **shatter_bound(torch, moved.rgba, oys, oxs),
+               "ms": event_ms(torch, shatter_kernel, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True),
+               "plain_ms": event_ms(torch, shatter_plain, scrub)}
+    for row in (blur, shatter):
+        row["share"] = row["bound_ms"] / row["ms"]
+    return {"blur_blend": blur, "shatter_into": shatter}
+
+
+def blur_rect_row(torch, dev, view, disp, scrub) -> dict:
+    """blur_blend in rect mode (the full refresh) against its plain version
+    over the whole frame, bit for bit, each timed, with its bound."""
+    from coherence_tpu_torch.raster import framepath
+    from coherence_tpu_torch.raster.compositor import unpack_rgba
+
+    k, content, fa = disp.kernel, view.frame, disp.f_alpha
+    height, width = fa.shape
+
+    def kernel():
+        return framepath.blur_blend_rect(content, fa, k.values, k.total)
+
+    def plain():
+        return framepath.apply_blur_rect(unpack_rgba(content[:height, :width]), fa, k.values, k.total)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "blur_blend's rect mode differs from apply_blur_rect")
+    row = {"max_abs_err": max_abs_err(got, want),
+           **blur_bound(torch, fa, content.shape[1], 0, 0, 0, 0, height, width, None, height, width, k.radius,
+                        rect=True),
+           "ms": event_ms(torch, kernel, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True),
+           "plain_ms": event_ms(torch, plain, scrub)}
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
 def lion_kernels(torch, dev, scrub):
     """Phase 3: composite_full and composite_dirty against their plain
     versions on the lion's lists, and against composite_full_banded and
-    composite_dirty_banded over one band, then the deep case.  Returns
-    {kernel: row}."""
+    composite_dirty_banded over one band, then the deep case, then
+    blur_blend (both modes) and shatter_into on the lion's first animated
+    step.  Returns {kernel: row}."""
+    from coherence_tpu_torch.raster import staging
     from coherence_tpu_torch.raster import tiled_scene as T
 
     view, disp, key = build_scene(dev)
@@ -659,7 +865,7 @@ def lion_kernels(torch, dev, scrub):
     spare = next(t for t in range(ts.nty * ts.ntx) if t not in dirty_tiles)
     coords, spans, n_slots = with_passthrough(coords, spans, n_real, (spare // ts.ntx, spare % ts.ntx))
     datlas = T.shatter_into(atlas.clone(), moved.rgba, oys, oxs, base)
-    args = ts.upload(coords, spans, didx)
+    args = staging.stage(dev, coords, spans, didx)
     noise = torch.randint(-(2**31), 2**31 - 1, view.frame.shape, dtype=torch.int32,
                           generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     frame_k, frame_p, frame_b = noise.clone(), noise.clone(), noise.clone()
@@ -684,6 +890,8 @@ def lion_kernels(torch, dev, scrub):
     dirty_row["plain_ms"] = event_ms(
         torch, lambda: T.composite_dirty_torch(*args, view.background, frame_p, datlas, n_slots), scrub)
     deep = deep_case(torch, dev, scrub)
+    animated = animated_kernels(torch, dev, view, disp, key, delta(0), scrub)
+    animated["blur_blend"]["rect"] = blur_rect_row(torch, dev, view, disp, scrub)
     emit({"phase": "kernels", "tolerance": 0,
           "composite_full": {"equal_plain": True, "equal_banded_one_band": True, "tiles": ts.nty * ts.ntx,
                              "listed_pieces": n_listed, **full},
@@ -691,8 +899,9 @@ def lion_kernels(torch, dev, scrub):
                               "real_slots": n_real + 1, "passthrough_tile": spare,
                               "listed_pieces": int(spans[2 * n_real + 1]), **dirty_row},
           "banded_one_band": "composite_full_banded and composite_dirty_banded over one band (the same striped ring)",
-          "deep": deep})
-    return {"composite_full": full, "composite_dirty": dirty_row}
+          "deep": deep, "blur_blend": {"equal_plain": True, **animated["blur_blend"]},
+          "shatter_into": {"equal_plain": True, **animated["shatter_into"]}})
+    return {"composite_full": full, "composite_dirty": dirty_row, **animated}
 
 
 def lion_path(torch, dev, kernels):
@@ -738,12 +947,22 @@ def lion_path(torch, dev, kernels):
     counts = dict(kernels.launches)
     require(counts["composite_dirty"] >= N_FRAMES + 1, f"composite_dirty launched {counts['composite_dirty']} times")
     require(counts["composite_full"] >= 1, "composite_full never launched on the main path")
+    # Each frame: one shatter, one window blend; the full refresh: the rect blend.
+    require(counts["shatter_into"] >= N_FRAMES, f"shatter_into launched {counts['shatter_into']} times")
+    require(counts["blur_blend"] >= N_FRAMES + 1, f"blur_blend launched {counts['blur_blend']} times")
+    # A steady frame is the JAX package's one program: one copy and three launches.
+    from profile_general import issued
+
+    steady_ops = [issued(torch, lambda k=k: disp.step_animated(key, *delta(k))) for k in range(N_FRAMES, N_FRAMES + 3)]
+    require(steady_ops == [STEADY_FRAME_OPS] * 3,
+            f"steady frames issued {steady_ops} launches and copies, not {STEADY_FRAME_OPS} each")
     stats = frame_stats(frame_ms)
     emit({"phase": "main_path", "frames": N_FRAMES, "build_s": build_s, "cpu_reference_build_s": cpu_build_s,
           "first_frame_ms": stats["first_ms"], "frame_ms_median": stats["median_ms"],
           "frame_ms_p95": stats["p95_ms"], "host_ms_per_frame": loop_s / N_FRAMES * 1e3,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
-          "display_equal_cpu_after_frames": N_CHECK, "full_render_equal_dirty": True})
+          "ops_per_steady_frame": steady_ops, "display_equal_cpu_after_frames": N_CHECK,
+          "full_render_equal_dirty": True})
     return counts
 
 
@@ -751,8 +970,10 @@ def interactive_path(torch, dev, kernels, scrub):
     """Phases 5 and 6: config 5 on the card, counted from zero, then
     composite_runs against its plain version and composite_full, and
     composite_full against composite_full_banded over one band, on the 1x
-    scene's full-frame lists, the three timed in turns.  Returns (launch
-    counts, composite_runs's row, composite_full's row on these lists)."""
+    scene's full-frame lists, the three timed in turns; blur_blend and
+    shatter_into on the inputs of one of its animated steps.  Returns
+    (launch counts, composite_runs's row, composite_full's row on these
+    lists, blur_blend's and shatter_into's rows)."""
     from coherence_tpu_torch.raster import tiled_scene as T
     from coherence_tpu_torch.scene import fastframe
 
@@ -780,12 +1001,16 @@ def interactive_path(torch, dev, kernels, scrub):
     require(pieces == cpu_pieces, "4K piece lists differ from the CPU run")
     require(torch.equal(atlas, cpu_atlas), "4K atlas differs from the CPU run")
     require(torch.equal(disp.rgba.cpu(), cpu_display), "4K display after 3 filtered frames differs from the CPU run")
+    counts_checked = dict(kernels.launches)
+    require(counts_checked["shatter_into"] >= 3 and counts_checked["blur_blend"] >= 4,
+            f"config 5's filtered frames did not reach shatter_into and blur_blend: {counts_checked}")
     filtered_ms, filtered_s = timed_frames(torch, lambda k: filtered_frame(view, disp, key, k), N_FRAMES4)
     plain_ms, plain_s = timed_frames(torch, lambda k: plain_frame(view, key, k), N_FRAMES4)
     dirty_content = view.frame.clone()
     view.render(full=True)
     starts, idxs = view.ts.build_lists(view.order)
     runs_frame = view.ts.render_runs(view.background, starts, idxs)
+    animated = uncounted(kernels, lambda: animated_kernels(torch, dev, view, disp, key, delta4(0), scrub))
     torch.cuda.synchronize()
     require(torch.equal(view.frame, dirty_content), "4K render(full=True) differs from the dirty-path content")
     require(torch.equal(runs_frame, view.frame), "4K render_runs differs from render(full=True)")
@@ -858,8 +1083,10 @@ def interactive_path(torch, dev, kernels, scrub):
           "composite_runs": {"equal_plain": True, "equal_composite_full": True, "runs_pieces": int(runs.shape[0]),
                              "gather_runs_ms": event_ms(torch, lambda: T.gather_runs(atlas_1x, idxs), scrub),
                              **runs_row},
-          "composite_full": {"equal_banded_one_band": True, **full_row}})
-    return counts, runs_row, full_row
+          "composite_full": {"equal_banded_one_band": True, **full_row},
+          "blur_blend": {"equal_plain": True, **animated["blur_blend"]},
+          "shatter_into": {"equal_plain": True, **animated["shatter_into"]}})
+    return counts, runs_row, full_row, animated
 
 
 def layers_path(torch, dev, kernels, scrub):
@@ -979,6 +1206,8 @@ def mesh_4k_path(torch, dev, kernels):
     require(counts["composite_full_banded"] >= 2, f"composite_full_banded launched {counts['composite_full_banded']}")
     require(counts["composite_dirty_banded"] >= N_FRAMES4 + 1,
             f"composite_dirty_banded launched {counts['composite_dirty_banded']}")
+    require(counts["shatter_into"] >= N_FRAMES4 and counts["blur_blend"] >= N_FRAMES4,
+            f"the meshed frames did not reach shatter_into and blur_blend: {counts}")
     emit({"phase": "mesh_4k", "width": W4, "height": H4, "bands": mesh.size,
           "devices": [str(d) for d in mesh.devices], "cards": torch.cuda.device_count(),
           "build_s": mesh_build_s, "banded_build_s": banded_build_s, "local_cap": banded.local_cap,
@@ -1013,6 +1242,7 @@ def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
     onto the dirty band's card), and its plain version's time.  Returns the
     row: its times, unbanded_ms, the walk's bytes and bound."""
     from coherence_tpu_torch.parallel import RowSharded
+    from coherence_tpu_torch.raster import staging
     from coherence_tpu_torch.raster import tiled_scene as T
 
     ts = view.ts
@@ -1030,7 +1260,7 @@ def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
                           device=view.frame.device)
     gc, gs, gi, g_slots = ts._dirty_args(view.order, tiles)
     unbanded = noise.clone()
-    T.composite_dirty(*ts.upload(gc, gs, gi), view.background, unbanded, ts.atlas(), g_slots)
+    T.composite_dirty(*staging.stage(ts.device, gc, gs, gi), view.background, unbanded, ts.atlas(), g_slots)
     err = 0
     for g, (dv, b0, b1) in enumerate(mesh.groups):
         cc, ss, ii = (torch.from_numpy(a[b0:b1]).to(dv) for a in (c, sp, di))
@@ -1054,7 +1284,7 @@ def dirty_banded_row(torch, view, mesh, tiles, scrub, seed: int) -> dict:
     # with one card), with that card's events and its L2 scrubbed.
     g, dv, cc, ss, ii, gbg, atlas, fk, fp = timed
     dscrub = scrub if scrub.device == torch.device(dv) else torch.empty_like(scrub, device=dv)
-    uargs = [a.to(dv) for a in ts.upload(gc, gs, gi)]
+    uargs = [a.to(dv) for a in staging.stage(ts.device, gc, gs, gi)]
     ubg, uatlas, uframe = view.background.to(dv), ts.atlas().to(dv), noise.to(dv, copy=True)
     with torch.cuda.device(dv):
         row = in_turns(torch, lambda: T.composite_dirty_banded(cc, ss, ii, gbg, fk, atlas, n_slots), dscrub,
@@ -1159,6 +1389,8 @@ def mesh_lion_path(torch, dev, kernels, scrub):
             f"composite_dirty_banded launched {counts['composite_dirty_banded']} times on the 17-band lion")
     require(counts["composite_full_banded"] >= 1,
             f"composite_full_banded launched {counts['composite_full_banded']} times on the 17-band lion")
+    require(counts["shatter_into"] >= N_CHECK and counts["blur_blend"] >= N_CHECK,
+            f"the 17-band lion's frames did not reach shatter_into and blur_blend: {counts}")
     band_rows = {t // mview.ts.ntx for t, _ in mview.ts.pieces[mkey]}
     dirty = dirty_banded_row(torch, uview, mesh, first_band_dirty_tiles(udisp, ukey, delta(N_CHECK), mesh), scrub, 3)
     full = full_banded_row(torch, uview, mesh, scrub)
@@ -1171,11 +1403,13 @@ def mesh_lion_path(torch, dev, kernels, scrub):
     return counts, dirty, full
 
 
-def play_path(torch, dev):
+def play_path(torch, dev, kernels):
     """Phase 11: the lion's play_animated over N_FRAMES deltas (staged on
-    the host first, then launched back to back) against N_FRAMES
-    step_animated calls on a second view, in turns (steps, play, play,
-    steps; the deltas return the blob to its start), each timed."""
+    the host first, then three launches a step: shatter_into,
+    composite_dirty, blur_blend) against N_FRAMES step_animated calls on a
+    second view, in turns (steps, play, play, steps; the deltas return the
+    blob to its start), each timed.  Returns the launches of one
+    play_animated call."""
     deltas = [delta(k) for k in range(N_FRAMES)]
     pview, pdisp, pkey = build_scene(dev)
     sview, sdisp, skey = build_scene(dev)
@@ -1184,8 +1418,12 @@ def play_path(torch, dev):
         for d in deltas:
             sdisp.step_animated(skey, *d)
 
+    play_counts = {}
+
     def play():
+        before = dict(kernels.launches)
         pdisp.play_animated(pkey, deltas, require_scan=True)
+        play_counts.update({k: n - before[k] for k, n in kernels.launches.items() if n != before[k]})
 
     times = {"play": [], "steps": []}
     for name, fn in (("steps", steps), ("play", play), ("play", play), ("steps", steps)):
@@ -1197,9 +1435,12 @@ def play_path(torch, dev):
         if len(times["play"]) == len(times["steps"]):
             require(torch.equal(pdisp.rgba, sdisp.rgba), f"play_animated differs from {N_FRAMES} step_animated calls")
             require(torch.equal(pview.frame, sview.frame), "play_animated content differs from step_animated's")
+    want = {"shatter_into": N_FRAMES, "composite_dirty": N_FRAMES, "blur_blend": N_FRAMES}
+    require(play_counts == want, f"play_animated launched {play_counts}, not {want}")
     emit({"phase": "play_animated", "frames": N_FRAMES, "require_scan": True, "equal_sequential": True,
           "order": "steps, play, play, steps", "ms_per_frame": times["play"],
-          "sequential_ms_per_frame": times["steps"]})
+          "sequential_ms_per_frame": times["steps"], "launches_per_play": play_counts})
+    return play_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1978,6 +2219,8 @@ def frame_path(torch, dev, kernels, lion):
     fb, shown, last_blob, alpha, ms = run(dev, stack, N_FRAME_PATH, True)
     counts = dict(kernels.launches)
     require(counts["fold_layers"] == N_FRAME_PATH + 1, f"frame_path: fold_layers launched {counts['fold_layers']} times")
+    # apply_blur's rect blend, then one window blend a frame.
+    require(counts["blur_blend"] == N_FRAME_PATH + 1, f"frame_path: blur_blend launched {counts['blur_blend']} times")
     for k, (a, b) in enumerate(zip(shown, cpu_shown)):
         require(torch.equal(a.cpu(), b), f"frame_path: frame {k} differs from the CPU's")
     whole = framepath.FrameBuffer(W, H, C.white, device=dev)
@@ -2300,6 +2543,8 @@ def serve_fast(torch, dev, kernels):
     require(session_counts["composite_dirty"] == 1 + n_drags + len(SERVE_BLUR_STEPS),
             f"serve_fast: composite_dirty launched {session_counts['composite_dirty']} times")
     require(session_counts["composite_full"] == 0, "serve_fast: the session launched composite_full")
+    require(session_counts["shatter_into"] >= n_drags and session_counts["blur_blend"] >= n_drags,
+            f"serve_fast: the drags did not reach shatter_into and blur_blend: {session_counts}")
     # The session's content against one full-frame render of its view.
     view = sess.view
     dirty_content = view.frame.clone()
@@ -3216,13 +3461,13 @@ def main() -> int:
     scrub = torch.empty(32 * 2**20, dtype=torch.int32, device=dev)  # 128 MiB
     timed = lion_kernels(torch, dev, scrub)
     lion = lion_path(torch, dev, kernels)
-    counts4, timed["composite_runs"], full_4k = interactive_path(torch, dev, kernels, scrub)
+    counts4, timed["composite_runs"], full_4k, animated_4k = interactive_path(torch, dev, kernels, scrub)
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
     del udisp
     counts_lion17, dirty17, full17 = mesh_lion_path(torch, dev, kernels, scrub)
-    play_path(torch, dev)
+    counts_play = play_path(torch, dev, kernels)
     from coherence_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -3294,6 +3539,29 @@ def main() -> int:
                  "shapes": {name: {key: row[key] for key in ("window", "layers", "open_before", "ms", "plain_ms",
                                                              "bound_ms", "share")}
                             for name, row in fold["shapes"].items()}})
+    animated_rows = (
+        # No one PyTorch call computes an exact integer separable blur with a divide and a clamp after each pass.
+        ("blur_blend", CSRC + "blur_blend.cu", "coherence_tpu/scene/fastframe.py:1158",
+         ["coherence_tpu/raster/framepath.py:310", "coherence_tpu/raster/framepath.py:475",
+          "coherence_tpu/raster/framepath.py:429"]),
+        # No one PyTorch call packs a raster and cuts it into pieces at atlas slots.
+        ("shatter_into", CSRC + "shatter.cu", "coherence_tpu/raster/tiled_scene.py:62",
+         ["coherence_tpu/raster/tiled_scene.py:45"]),
+    )
+    for kname, source, replaces, also in animated_rows:
+        t, t4 = timed[kname], animated_4k[kname]
+        line.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces, "also_replaces": also,
+                     "pallas": False, "launches": lion[kname], "launches_4k": counts4[kname],
+                     "launches_mesh_4k": counts_mesh[kname], "launches_lion_17_bands": counts_lion17[kname],
+                     "launches_play_animated": counts_play[kname], "launches_frame_path": counts_frame[kname],
+                     "launches_serve_fast": counts_serve[kname],
+                     "max_abs_err": max(t["max_abs_err"], t4["max_abs_err"]), "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None, "bytes": t["bytes"],
+                     "share": t["share"], "ms_4k": t4["ms"], "plain_ms_4k": t4["plain_ms"],
+                     "bound_ms_4k": t4["bound_ms"], "bytes_4k": t4["bytes"], "share_4k": t4["share"]})
+    rect = timed["blur_blend"]["rect"]
+    line[-2]["rect_1080p"] = {key: rect[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share")}
+    line[-2]["unpacked_ms"] = timed["blur_blend"]["unpacked_ms"]  # the same window over FrameBuffer's unpacked content
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -49,6 +49,8 @@ _ENTRY_POINTS = {
     "composite_full_banded": [_ptr] * 5 + [_i32] * 5 + [_ptr],
     "composite_dirty_banded": [_ptr] * 6 + [_i32] * 6 + [_ptr],
     "fold_layers": [_ptr] * 7 + [_i32] * 3 + [_ptr],
+    "blur_blend": [_ptr] + [_i32] * 4 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 13 + [_ptr],
+    "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
@@ -387,3 +389,114 @@ def fold_layers(offs, layers, acc, open_mask, covered):
     _raise_on("fold_layers", rc)
     launches["fold_layers"] += 1
     return out
+
+
+# The blur's weights on each device, uploaded once per (device, weights).
+_weights: Dict[tuple, torch.Tensor] = {}
+
+
+def _weights_on(device: torch.device, weights, total: int) -> torch.Tensor:
+    key = (device, tuple(int(v) for v in weights))
+    t = _weights.get(key)
+    if t is None:
+        if len(key[1]) % 2 == 0 or not all(0 <= v < 2**31 for v in key[1]):
+            raise ValueError("blur weights: need an odd count of values in [0, 2^31)")
+        if not 0 < total < 2**31:
+            raise ValueError(f"blur total {total} is outside (0, 2^31)")
+        t = _weights[key] = torch.tensor(key[1], dtype=torch.int32, device=device)
+    return t
+
+
+def _check_plane_at(name: str, t: torch.Tensor, device, at, hb: int, wb: int, channels: bool) -> None:
+    """`t` a contiguous aligned int32 plane, (rows, cols) or (rows, cols, 4)
+    with `channels`, holding the hb x wb window at `at` = (row, col)."""
+    if t.dim() != (3 if channels else 2) or (channels and t.shape[2] != 4):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} is not a {'(rows, cols, 4)' if channels else '(rows, cols)'} plane")
+    _check(name, t, device)
+    y, x = at
+    if y < 0 or x < 0 or y + hb > t.shape[0] or x + wb > t.shape[1] or t.shape[1] >= 2**31:
+        raise ValueError(f"{name}: the {hb}x{wb} window at {tuple(at)} is outside its {t.shape[0]}x{t.shape[1]} plane")
+
+
+def _blur_blend(content, content_at, f_alpha, dst, at, hb, wb, weights, total, rect, geometry) -> None:
+    device = f_alpha.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA blur needs tensors on a CUDA device, got {device}")
+    if hb <= 0 or wb <= 0 or -(-hb // 32) > 65535:  # blur_blend.cu's 32-row tiles
+        raise ValueError(f"a {hb}x{wb} window is beyond the kernel's grid")
+    _check_plane_at("content", content, device, content_at, hb, wb, content.dim() == 3)
+    _check_plane_at("f_alpha", f_alpha, device, at, hb, wb, False)
+    _check_plane_at("display", dst, device, at, hb, wb, True)
+    w = _weights_on(device, weights, total)
+    with torch.cuda.device(device):
+        rc = load()["blur_blend"](
+            content.data_ptr(), int(content.dim() == 2), content.shape[1], *content_at,
+            f_alpha.data_ptr(), f_alpha.shape[1], *at, dst.data_ptr(), dst.shape[1], *at,
+            w.data_ptr(), len(weights) // 2, total, hb, wb, int(rect), *geometry,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("blur_blend", rc)
+    launches["blur_blend"] += 1
+
+
+def blur_blend_window(content, content_at, f_alpha, display, at, hb: int, wb: int, ry0: int, rx0: int, h: int,
+                      w: int, d_box, weights, total: int) -> torch.Tensor:
+    """Launch ``blur_blend`` in window mode: the hb x wb window of `display`
+    ((H, W, 4) int32) at `at` = (oy, ox) takes, where it changes, the blend
+    of the exact blur of the content window (a packed (rows, cols) int32
+    plane or unpacked (rows, cols, 4), its window at `content_at`) by
+    `f_alpha` ((H, W) int32, read at `at`), in place.  The logical window is
+    [ry0, ry0 + h) x [rx0, rx0 + w) and d_box the dirty rect (row0, col0,
+    row1, col1 inclusive), both in window coordinates."""
+    if tuple(f_alpha.shape) != tuple(display.shape[:2]):
+        raise ValueError(f"f_alpha {tuple(f_alpha.shape)} and display {tuple(display.shape)} differ in size")
+    d0, d1, d2, d3 = (int(v) for v in d_box)
+    _blur_blend(content, tuple(content_at), f_alpha, display, tuple(at), hb, wb, weights, total, False,
+                (ry0, rx0, h, w, d0, d1, d2, d3))
+    return display
+
+
+def blur_blend_rect(content, f_alpha, weights, total: int) -> torch.Tensor:
+    """Launch ``blur_blend`` in rect mode: the whole (H, W) frame (the top
+    left of `content`, packed (rows, cols) or unpacked (rows, cols, 4) int32)
+    blurred and blended by `f_alpha` ((H, W) int32) where it is positive,
+    the content elsewhere, into a new (H, W, 4) plane."""
+    hb, wb = f_alpha.shape
+    out = torch.empty((hb, wb, 4), dtype=torch.int32, device=f_alpha.device)
+    _blur_blend(content, (0, 0), f_alpha, out, (0, 0), hb, wb, weights, total, True, (0,) * 8)
+    return out
+
+
+def shatter_into(atlas, rgba, oys, oxs, base: int) -> torch.Tensor:
+    """Launch ``shatter_into``: the packed (hs, ws, 4) int32 raster `rgba`
+    cut into n 64x128 pieces written in place at slots [base, base + n) of
+    `atlas`: piece j at (oys[j], oxs[j]) in the raster, zero outside it.
+    (n,) int32 offsets write a (cap, 64, 128) atlas; (n_bands, n) offsets a
+    stack of band atlases (n_bands, cap, 64, 128), band b from row b."""
+    device = atlas.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA shatter needs tensors on a CUDA device, got {device}")
+    banded = atlas.dim() == 4
+    if atlas.dim() not in (3, 4) or tuple(atlas.shape[-2:]) != (64, 128):
+        raise ValueError(f"atlas: need a (cap, 64, 128) atlas or an (n_bands, cap, 64, 128) stack, got {tuple(atlas.shape)}")
+    _check("atlas", atlas, device)
+    n_bands, cap = (atlas.shape[0], atlas.shape[1]) if banded else (1, atlas.shape[0])
+    if rgba.dim() != 3 or rgba.shape[2] != 4:
+        raise ValueError(f"rgba: need an (hs, ws, 4) raster, got shape {tuple(rgba.shape)}")
+    _check("rgba", rgba, device)
+    n = oys.shape[-1]
+    shape = (n_bands, n) if banded else (n,)
+    _check("oys", oys, device, shape)
+    _check("oxs", oxs, device, shape)
+    if base < 0 or base + n > cap or n_bands > 65535:
+        raise ValueError(f"slots [{base}, {base + n}) of {n_bands} band(s) do not fit an atlas of {cap}")
+    if n == 0:
+        return atlas
+    with torch.cuda.device(device):
+        rc = load()["shatter_into"](
+            rgba.data_ptr(), rgba.shape[0], rgba.shape[1], oys.data_ptr(), oxs.data_ptr(), n, n_bands,
+            atlas.data_ptr(), cap, base, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("shatter_into", rc)
+    launches["shatter_into"] += 1
+    return atlas

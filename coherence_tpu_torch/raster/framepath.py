@@ -15,7 +15,11 @@ donates the frame to a program that returns it, ``FrameBuffer`` updates
 its window in place.
 
 Also here: the blur filter's window geometry and blend, shared by every
-blur path (render.ml:1248-1265).
+blur path (render.ml:1248-1265).  ``blur_blend_into`` (a window, in place)
+and ``blur_blend_rect`` (the whole frame) pick by device as the fold does:
+the plain versions here (``blur``, ``conv_blend_window``,
+``apply_blur_rect``) on the CPU, the hand-written kernel ``blur_blend`` on
+a CUDA device or an error.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from .. import colour as C
 from .. import kernels
+from .compositor import unpack_rgba
 from .convolve import _conv1d_exact, _setcanvas_xy
 from .region import Box, Sprite, box_intersect, box_wh, bucket_hw
 
@@ -166,7 +171,7 @@ class FrameBuffer:
         """Blend the blur of the whole frame into the filter geometry's
         alpha plane (the blur filter's first application, filters.ml:247-261
         and the blend' of render.ml:1248-1265)."""
-        self.rgba = apply_blur_rect(self.rgba, f_alpha, tuple(kernel.values), kernel.total)
+        self.rgba = blur_blend_rect(self.rgba, f_alpha, tuple(kernel.values), kernel.total)
 
     def recomposite_blur(self, dirty: Box, layers: Sequence[Sprite], f_alpha: torch.Tensor, kernel,
                          prefilter: bool = True) -> None:
@@ -180,12 +185,9 @@ class FrameBuffer:
             return
         _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = got
         logical = (ox + 1 + rx0, oy + 1 + ry0, ox + rx0 + w, oy + ry0 + h)
-        win, rows, cols, inwin, content = self._recomposited(logical, layers, prefilter, oy, ox, ry0, rx0, h, w,
-                                                             hb, wb)
-        fa = f_alpha[oy : oy + hb, ox : ox + wb]
-        changed, blended = conv_blend_window(content, fa, inwin, rows, cols, d_box, tuple(kernel.values),
-                                             kernel.total)
-        win.copy_(torch.where(changed[..., None], blended, win))
+        content = self._recomposited(logical, layers, prefilter, oy, ox, ry0, rx0, h, w, hb, wb)[4]
+        blur_blend_into(self.rgba, content, (0, 0), f_alpha, (oy, ox), hb, wb, ry0, rx0, h, w, d_box,
+                        tuple(kernel.values), kernel.total)
 
 
 def blur_window(dirty: Box, logical: Box, radius: int, height: int, width: int):
@@ -244,3 +246,47 @@ def apply_blur_rect(frame: torch.Tensor, f_alpha: torch.Tensor, weights: tuple, 
     cy = blur(frame, weights, total)
     blended = C.dissolve_rgba(frame, 255 - f_alpha) + C.dissolve_rgba(cy, f_alpha)
     return torch.where(f_alpha[..., None] > 0, blended, frame)
+
+
+def blur_blend_into_torch(display, content, content_at, f_alpha, at, hb, wb, ry0, rx0, h, w, d_box, weights,
+                          total):
+    """Plain version of ``blur_blend`` in window mode: the hb x wb window of
+    `display` ((H, W, 4) int32) at `at` = (oy, ox) takes conv_blend_window's
+    blend where it changes, in place.  The content window is read at
+    `content_at` from a packed (rows, cols) int32 plane or unpacked (rows,
+    cols, 4) RGBA; `f_alpha` ((H, W) int32) at `at`."""
+    (cy, cx), (oy, ox) = content_at, at
+    win_c = content[cy : cy + hb, cx : cx + wb]
+    if content.dim() == 2:
+        win_c = unpack_rgba(win_c)
+    rows, cols, inwin = _window_mask(hb, wb, ry0, rx0, h, w, display.device)
+    changed, blended = conv_blend_window(win_c, f_alpha[oy : oy + hb, ox : ox + wb], inwin, rows, cols, d_box,
+                                         weights, total)
+    win = display[oy : oy + hb, ox : ox + wb]
+    win.copy_(torch.where(changed[..., None], blended, win))
+    return display
+
+
+def blur_blend_into(display, content, content_at, f_alpha, at, hb, wb, ry0, rx0, h, w, d_box, weights, total):
+    """The blur filter's window pass, in place in `display`
+    (blur_blend_into_torch's function): the window [ry0, ry0 + h) x [rx0,
+    rx0 + w) of the hb x wb block, d_box the dirty rect, both in window
+    coordinates."""
+    if display.device.type == "cpu":
+        return blur_blend_into_torch(display, content, content_at, f_alpha, at, hb, wb, ry0, rx0, h, w, d_box,
+                                     weights, total)
+    return kernels.blur_blend_window(content, content_at, f_alpha, display, at, hb, wb, ry0, rx0, h, w, d_box,
+                                     weights, total)
+
+
+def blur_blend_rect(content, f_alpha, weights: tuple, total: int) -> torch.Tensor:
+    """apply_blur_rect of the frame at the top left of `content` (a packed
+    (rows, cols) int32 plane or unpacked (rows, cols, 4) RGBA) of f_alpha's
+    (H, W) size, into a new (H, W, 4) plane."""
+    if f_alpha.device.type == "cpu":
+        height, width = f_alpha.shape
+        frame = content[:height, :width]
+        if content.dim() == 2:
+            frame = unpack_rgba(frame)
+        return apply_blur_rect(frame, f_alpha, weights, total)
+    return kernels.blur_blend_rect(content, f_alpha, weights, total)

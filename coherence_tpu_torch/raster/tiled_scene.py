@@ -19,9 +19,14 @@ with box arithmetic, and one kernel launch composites the listed pieces:
     from its own local atlas (``BandedAtlas``; they replace the Pallas calls
     of ``render_sharded`` and ``render_dirty_sharded``).
 
+  * ``shatter_into``, a moved sprite packed and cut into its reserved
+    slots (the hand-written ``shatter_into`` kernel; it replaces the JAX
+    package's ``_shatter_into_kernel``, an XLA program).
+
 Each wrapper picks by the tensors' device: on the CPU it runs the plain
 PyTorch version beside it here; on a CUDA device it launches the hand
-written Hopper kernel (``coherence_tpu_torch.kernels``) or raises.
+written Hopper kernel (``coherence_tpu_torch.kernels``) or raises.  The
+host lists a launch reads cross in one copy (``staging.stage``).
 
 Where the JAX package donates a buffer to a program that returns its
 update, the port updates the tensor in place: the atlas in ``shatter_into``
@@ -39,6 +44,7 @@ from .. import kernels
 from ..parallel.mesh import Mesh, RowSharded
 from .compositor import TILE_H, TILE_W, _over_packed, pack_rgba
 from .region import Sprite
+from .staging import stage
 
 
 def _tiles(plane: torch.Tensor) -> torch.Tensor:
@@ -179,13 +185,14 @@ def composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slot
     return kernels.composite_dirty_banded(coords, spans, idxs, background, frame, atlas, n_slots)
 
 
-def shatter_into(atlas: torch.Tensor, rgba: torch.Tensor, oys, oxs, base: int) -> torch.Tensor:
-    """Pack `rgba` and shatter it into pieces written in place at atlas
-    slots [base, base + n): piece[j][r, c] = packed[r + oys[j], c + oxs[j]],
-    zero outside the raster.  (n,) offsets write into a (cap, TILE_H,
-    TILE_W) atlas; (n_bands, n) offsets into a stack of band atlases
-    (n_bands, cap, TILE_H, TILE_W), band b from row b of the offsets.
-    Offsets may be host arrays or tensors on the atlas's device."""
+def shatter_into_torch(atlas: torch.Tensor, rgba: torch.Tensor, oys, oxs, base: int) -> torch.Tensor:
+    """Plain version of ``shatter_into``: pack `rgba` and shatter it into
+    pieces written in place at atlas slots [base, base + n): piece[j][r, c]
+    = packed[r + oys[j], c + oxs[j]], zero outside the raster.  (n,) offsets
+    write into a (cap, TILE_H, TILE_W) atlas; (n_bands, n) offsets into a
+    stack of band atlases (n_bands, cap, TILE_H, TILE_W), band b from row b
+    of the offsets.  Offsets may be host arrays or tensors on the atlas's
+    device."""
     packed = pack_rgba(rgba)
     hs, ws = packed.shape
     dev = atlas.device
@@ -195,6 +202,17 @@ def shatter_into(atlas: torch.Tensor, rgba: torch.Tensor, oys, oxs, base: int) -
     g = packed[iy.clamp(0, hs - 1)[..., :, None], ix.clamp(0, ws - 1)[..., None, :]]
     atlas[..., base : base + iy.shape[-2], :, :] = torch.where(valid, g, 0)
     return atlas
+
+
+def shatter_into(atlas: torch.Tensor, rgba: torch.Tensor, oys, oxs, base: int) -> torch.Tensor:
+    """The moved sprite's pieces written in place at atlas slots [base, base
+    + n) (shatter_into_torch's function).  On a CUDA device host offsets
+    cross in one staged copy, or come as int32 tensors on the card."""
+    if atlas.device.type == "cpu":
+        return shatter_into_torch(atlas, rgba, oys, oxs, base)
+    if not isinstance(oys, torch.Tensor):
+        oys, oxs = stage(atlas.device, oys, oxs)
+    return kernels.shatter_into(atlas, rgba.contiguous(), oys, oxs, base)
 
 
 class PieceMap(dict):
@@ -518,7 +536,7 @@ class TiledScene:
         n_idx = max(n_idx, int(self.atlas().shape[0]))
         idxs = np.zeros(n_idx, dtype=np.int32)
         idxs[: starts[-1]] = [e for p in per_tile for e in p]
-        return torch.from_numpy(starts).to(self.device), torch.from_numpy(idxs).to(self.device)
+        return tuple(stage(self.device, starts, idxs))
 
     def render_full(self, background, starts, idxs) -> torch.Tensor:
         """Every listed piece over `background`, into a new frame."""
@@ -579,11 +597,7 @@ class TiledScene:
         if got is None:
             return frame
         coords, spans, idxs, n_slots = got
-        return composite_dirty(*self.upload(coords, spans, idxs), background, frame, self.atlas(), n_slots)
-
-    def upload(self, *arrays) -> List[torch.Tensor]:
-        """Host int32 arrays as tensors on the scene's device."""
-        return [torch.from_numpy(a).to(self.device) for a in arrays]
+        return composite_dirty(*stage(self.device, coords, spans, idxs), background, frame, self.atlas(), n_slots)
 
 
 class BandedAtlas:
@@ -785,7 +799,7 @@ def render_sharded(ts: TiledScene, background, order, mesh: Mesh) -> RowSharded:
     bg = _band_rows(background, mesh, band_ty * TILE_H)
     parts = []
     for g, (dev, b0, b1) in enumerate(mesh.groups):
-        s, i = (torch.from_numpy(a[b0:b1]).to(dev) for a in (starts, idxs))
+        s, i = stage(dev, starts[b0:b1], idxs[b0:b1])
         parts.append(composite_full_banded(s, i, bg.parts[g], banded.data[g], band_ty, ts.ntx))
     return RowSharded(mesh, band_ty * TILE_H, parts)
 
@@ -803,6 +817,6 @@ def render_dirty_sharded(ts: TiledScene, frame, background, order, dirty_tiles, 
     coords, spans, idxs, n_slots = sharded_dirty_lists(ts, order, dirty_tiles, banded)
     frame, bg = _band_rows(frame, mesh, band_h), _band_rows(background, mesh, band_h)
     for g, (dev, b0, b1) in enumerate(mesh.groups):
-        c, s, i = (torch.from_numpy(a[b0:b1]).to(dev) for a in (coords, spans, idxs))
+        c, s, i = stage(dev, coords[b0:b1], spans[b0:b1], idxs[b0:b1])
         composite_dirty_banded(c, s, i, bg.parts[g], frame.parts[g], banded.data[g], n_slots)
     return frame

@@ -44,9 +44,10 @@ from ..raster import brush as rbrush
 from ..raster import fills as rfills
 from ..raster import region, scanline
 from ..raster.compositor import TILE_H, TILE_W, pack_rgba, unpack_rgba
-from ..raster.framepath import apply_blur_rect, blur_window, conv_blend_window, fold_layers_carry
+from ..raster.framepath import blur_blend_into, blur_blend_rect, blur_window, fold_layers_carry
 from ..raster.brush_tiles import BrushTileBuild
 from ..raster.region import Box, Sprite, translate_sprite
+from ..raster.staging import stage
 from ..raster.tile_raster import TileBuild
 from ..raster.tiled_scene import (
     TiledScene,
@@ -767,17 +768,11 @@ class DeviceView:
 def blur_blend_window(display, content_packed, f_alpha, oy, ox, ry0, rx0, h, w, d_box,
                       hb, wb, weights, total) -> torch.Tensor:
     """Blend the blur of the content plane into the display window, in
-    place: the per-frame filter pass.  The window must be the dirty box
-    bloated by 2*radius, with the content tiles covering it fresh."""
-    content = unpack_rgba(content_packed[oy : oy + hb, ox : ox + wb])
-    rows = torch.arange(hb, device=display.device)[:, None]
-    cols = torch.arange(wb, device=display.device)[None, :]
-    inwin = (rows >= ry0) & (rows < ry0 + h) & (cols >= rx0) & (cols < rx0 + w)
-    fa = f_alpha[oy : oy + hb, ox : ox + wb]
-    changed, blended = conv_blend_window(content, fa, inwin, rows, cols, d_box, weights, total)
-    win = display[oy : oy + hb, ox : ox + wb]
-    win.copy_(torch.where(changed[..., None], blended, win))
-    return display
+    place: the per-frame filter pass (one ``blur_blend`` launch on a CUDA
+    device).  The window must be the dirty box bloated by 2*radius, with
+    the content tiles covering it fresh."""
+    return blur_blend_into(display, content_packed, (oy, ox), f_alpha, (oy, ox), hb, wb, ry0, rx0, h, w, d_box,
+                           weights, total)
 
 
 def blur_blend_window_sharded(display: RowSharded, content: RowSharded, f_alpha, oy, ox, ry0, rx0, h, w,
@@ -786,12 +781,13 @@ def blur_blend_window_sharded(display: RowSharded, content: RowSharded, f_alpha,
     are copied from the bands it crosses onto f_alpha's device, blended
     there by the same blur_blend_window, and the display rows written back
     to their bands.  The window lies inside the frame, so its blur reads the
-    same pixels as the unsharded pass."""
+    same pixels as the unsharded pass.  Each window is a fresh tensor (the
+    kernel wrappers refuse a band's row views, H14)."""
     dev = f_alpha.device
     content_win = content.window(oy, oy + hb, ox, ox + wb, dev)
     display_win = display.window(oy, oy + hb, ox, ox + wb, dev)
-    blur_blend_window(display_win, content_win, f_alpha[oy : oy + hb, ox : ox + wb], 0, 0, ry0, rx0, h, w,
-                      d_box, hb, wb, weights, total)
+    alpha_win = f_alpha[oy : oy + hb, ox : ox + wb].clone(memory_format=torch.contiguous_format)
+    blur_blend_window(display_win, content_win, alpha_win, 0, 0, ry0, rx0, h, w, d_box, hb, wb, weights, total)
     display.write_window(oy, ox, display_win)
     return display
 
@@ -817,8 +813,8 @@ class FilteredDisplay:
         then split into bands."""
         view = self.view
         view.render()
-        content = unpack_rgba(view.content(self.f_alpha.device)[: view.height, : view.width])
-        self.rgba = apply_blur_rect(content, self.f_alpha, self.kernel.values, self.kernel.total)
+        self.rgba = blur_blend_rect(view.content(self.f_alpha.device), self.f_alpha, self.kernel.values,
+                                    self.kernel.total)
         if view.mesh is not None:
             self.rgba = RowSharded.scatter(self.rgba, view.mesh, view.ph // view.mesh.size)
 
@@ -892,8 +888,12 @@ class FilteredDisplay:
     def step_animated(self, key, dx: int, dy: int) -> None:
         """Move one animated object and refresh the filtered display: shatter
         into its reserved slots, recomposite the dirty tiles, blur-blend the
-        window.  Identical to translate_object + step.  Under a mesh the
-        same three stages run per band (_step_animated_sharded)."""
+        window.  Identical to translate_object + step.  On a CUDA device a
+        steady frame is the JAX package's one program
+        (_animated_blur_frame_kernel) as one staged copy of the frame's
+        lists and three launches: shatter_into, composite_dirty, blur_blend.
+        Under a mesh the same three stages run per band
+        (_step_animated_sharded)."""
         view, ts = self.view, self.view.ts
         spr = view.sprites.get(key)
         if spr is None:
@@ -912,8 +912,9 @@ class FilteredDisplay:
             ts.update_object_inplace(key, moved)
             return
         coords, spans, idxs, n_slots = dirty
+        oys, oxs, coords, spans, idxs = stage(view.device, oys, oxs, coords, spans, idxs)
         shatter_into(ts.atlas(), moved.rgba, oys, oxs, base)
-        composite_dirty(*ts.upload(coords, spans, idxs), view.background, view.frame, ts.atlas(), n_slots)
+        composite_dirty(coords, spans, idxs, view.background, view.frame, ts.atlas(), n_slots)
         self._blend(win)
         ts.pieces[key] = entries
         view.sprites[key] = moved
@@ -959,8 +960,9 @@ class FilteredDisplay:
         calling step_animated per delta.  The JAX package runs it as one
         device program (a lax.scan of the fused frame); here every step's
         host work (offsets, dirty lists, blur windows) is staged and
-        uploaded first, then the steps' launches run back to back with no
-        host work between them.  Returns the display planes after every
+        uploaded first, in one copy, then each step's three launches
+        (shatter_into, composite_dirty, blur_blend on a CUDA device) run
+        back to back with no host work between them.  Returns the display planes after every
         capture_every-th step as (len(deltas) // capture_every, H, W, 4)
         uint8 when capture_every > 0 (it must divide len(deltas)), else
         None.
@@ -1016,10 +1018,8 @@ class FilteredDisplay:
 
         # Every step's offsets and lists in one upload.
         flat = [a for oys, oxs, (coords, spans, idxs, _), _ in steps for a in (oys, oxs, coords, spans, idxs)]
-        sizes = [len(a) for a in flat]
-        uploaded = torch.from_numpy(np.concatenate([np.asarray(a, np.int64) for a in flat])).to(view.device)
-        parts = iter(uploaded.split(sizes))
-        staged = [(next(parts), next(parts), next(parts).int(), next(parts).int(), next(parts).int()) for _ in steps]
+        parts = iter(stage(view.device, *flat))
+        staged = [tuple(next(parts) for _ in range(5)) for _ in steps]
 
         atlas, rgba, base = ts.atlas(), spr.rgba, statics[0]
         frames = []

@@ -5,7 +5,9 @@ functions: walked_depths (the pieces each 32-byte sector of a tile walks
 through an atlas list), layer_walk (the same for a dense layer stack),
 bound (the bytes those walks must move) and, for the layer fold,
 fold_bound (the sectors each open pixel reads until it closes) and
-fold_visits (the host's model of a tiled fold's layer lists).  Here
+fold_visits (the host's model of a tiled fold's layer lists); and, for
+the animated frame's kernels, pixel_sectors, blur_bound and shatter_bound
+(the sectors and multiply-adds of blur_blend and shatter_into).  Here
 each is held, on small random atlases, stacks and layer packs made from a
 seed with numpy, to a count written out pixel by pixel: a sector reads a
 layer while any of its 8 pixels is still translucent, reads its background
@@ -223,3 +225,74 @@ def test_fold_visits_counts_each_open_tile_s_list(seed, k, hb, wb, case, tile):
     assert {key: got[key] for key in want} == want
     assert got["tile"] == [th, tw] and got["all_pairs"] == k * hb * wb
     assert got["listed_visits_upper_bound"] <= got["all_pairs"]
+
+
+def _sectors(pixels, row_pixels: int, pixel_bytes: int) -> int:
+    """32-byte sectors holding the (row, col) pixels, one by one."""
+    return len({((y * row_pixels + x) * pixel_bytes) // 32 for y, x in pixels})
+
+
+@pytest.mark.parametrize("row0,col0,rows,cols,row_pixels,pixel_bytes", [
+    (0, 0, 5, 7, 9, 4), (3, 5, 4, 13, 21, 4), (1, 3, 6, 5, 11, 16), (2, 1, 7, 30, 33, 16)])
+def test_pixel_sectors_match_a_brute_count(row0, col0, rows, cols, row_pixels, pixel_bytes):
+    """pixel_sectors (the blur's and the shatter's byte counts) against the
+    sectors of each pixel, one by one, for a whole block and a sparse one,
+    on rows whose starts fall anywhere in a sector (and share sectors)."""
+    block = [(row0 + y, col0 + x) for y in range(rows) for x in range(cols)]
+    want = _sectors(block, row_pixels, pixel_bytes)
+    mask = torch.ones((rows, cols), dtype=torch.bool)
+    assert chip_smoke.pixel_sectors(torch, mask, row0, col0, row_pixels, pixel_bytes) == want
+    mask = torch.from_numpy(np.random.default_rng(rows * cols).random((rows, cols)) < 0.3)
+    some = [(row0 + int(y), col0 + int(x)) for y, x in mask.nonzero().tolist()]
+    assert chip_smoke.pixel_sectors(torch, mask, row0, col0, row_pixels, pixel_bytes) == _sectors(some, row_pixels,
+                                                                                                    pixel_bytes)
+
+
+@pytest.mark.parametrize("place", ["centre", "bottom_right"])
+def test_blur_bound_matches_a_brute_count(place):
+    """blur_bound's changed pixels equal the plain window pass's changed
+    mask, and its bytes and multiply-adds a count written out pixel by
+    pixel: the content within r of a written pixel, the alpha the changed
+    test reads, the written pixels; 4 x (2r + 1) multiply-adds for each
+    x-pass value within r rows of a written pixel and for each written
+    pixel."""
+    from coherence_tpu_torch.raster import convolve as V
+    from coherence_tpu_torch.raster import framepath as FP
+    from test_torch_cuda import BLUR_FW, blur_case, unpacked_rgba
+
+    r = 3
+    packed, _, alpha, win = blur_case(r, place, "mixed")
+    _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = win
+    fa = torch.from_numpy(alpha)
+    got = chip_smoke.blur_bound(torch, fa, packed.shape[1], oy, ox, ry0, rx0, h, w, d_box, hb, wb, r)
+    rows, cols, inwin = FP._window_mask(hb, wb, ry0, rx0, h, w, "cpu")
+    k = V.mkgaussian(r)
+    content = torch.from_numpy(unpacked_rgba(packed)[oy : oy + hb, ox : ox + wb].copy())
+    changed, _ = FP.conv_blend_window(content, fa[oy : oy + hb, ox : ox + wb], inwin, rows, cols, d_box, k.values,
+                                      k.total)
+    ch = {(int(y), int(x)) for y, x in changed.nonzero().tolist()}
+    assert got["changed_pixels"] == len(ch)
+    x_values = {(y + dy, x) for y, x in ch for dy in range(-r, r + 1) if 0 <= y + dy < hb}
+    read = {(y, x + dx) for y, x in x_values for dx in range(-r, r + 1) if 0 <= x + dx < wb} | ch
+    d0, d1, d2, d3 = (int(v) for v in d_box)
+    tested = {(y, x) for y in range(hb) for x in range(wb) if d0 - r <= y <= d2 + r and d1 - r <= x <= d3 + r
+              and bool(inwin[y, x])}
+    at = lambda px: [(oy + y, ox + x) for y, x in px]  # noqa: E731
+    want = (_sectors(at(read), packed.shape[1], 4) + _sectors(at(tested), BLUR_FW, 4)
+            + _sectors(at(ch), BLUR_FW, 16)) * 32
+    assert got["bytes"] == want
+    assert got["operations"] == 2 * 4 * (2 * r + 1) * (len(x_values) + len(ch))
+
+
+def test_shatter_bound_matches_a_brute_count():
+    """shatter_bound: every listed piece written whole, each raster pixel
+    under a piece read once (16 bytes), counted pixel by pixel."""
+    from test_torch_cuda import shatter_case
+
+    _, rgba, oys, oxs, _ = shatter_case(0)
+    hs, ws = rgba.shape[:2]
+    got = chip_smoke.shatter_bound(torch, torch.from_numpy(rgba), oys, oxs)
+    covered = {(y, x) for oy, ox in zip(oys.tolist(), oxs.tolist()) for y in range(max(0, oy), min(hs, oy + 64))
+               for x in range(max(0, ox), min(ws, ox + 128))}
+    assert got["pieces"] == len(oys)
+    assert got["bytes"] == len(oys) * 64 * 128 * 4 + _sectors(covered, ws, 16) * 32

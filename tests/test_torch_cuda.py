@@ -1019,3 +1019,353 @@ def test_trace_records_the_card(cuda_device, tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cuda_runtime" or e.get("cat") == "kernel" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# The animated frame's kernels: blur_blend (B1) and shatter_into (S1), the
+# staged upload, and the frame they make.  The blur cases are shared with
+# the CPU comparison against the JAX package
+# (tests/test_torch_animated_frame.py).
+# ---------------------------------------------------------------------------
+
+# The blur cases' frame, its packed content plane padded to whole tiles.
+BLUR_FH, BLUR_FW = 136, 264
+BLUR_PH, BLUR_PW = 192, 384
+BLUR_RADII = [1, 5, 16, 64]
+# Dirty boxes (x0, y0, x1, y1, 1-based) at every edge and corner of the
+# frame and inside it; those reaching past the frame clip to it.
+BLUR_PLACES = {
+    "top_left": (-6, -4, 30, 18),
+    "top": (110, 1, 150, 22),
+    "top_right": (240, -3, BLUR_FW + 7, 20),
+    "left": (1, 60, 25, 80),
+    "centre": (120, 60, 150, 78),
+    "right": (BLUR_FW - 30, 55, BLUR_FW, 90),
+    "bottom_left": (-2, BLUR_FH - 15, 40, BLUR_FH + 4),
+    "bottom": (100, BLUR_FH - 20, 140, BLUR_FH),
+    "bottom_right": (BLUR_FW - 35, BLUR_FH - 25, BLUR_FW + 3, BLUR_FH + 9),
+}
+BLUR_ALPHAS = ["zero", "opaque", "mixed"]
+
+
+def blur_content(seed: int, h: int, w: int) -> np.ndarray:
+    """(h, w, 4) int32 premultiplied RGBA with opaque, clear and
+    translucent regions."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (h, w))
+    a[: h // 3, : w // 2] = 255
+    a[h // 3 : h // 2, w // 2 :] = 0
+    rgb = np.minimum((rng.random((h, w, 3)) * (a[..., None] + 1)).astype(np.int64), a[..., None])
+    return np.concatenate([rgb, a[..., None]], axis=-1).astype(np.int32)
+
+
+def packed_rgba(rgba: np.ndarray) -> np.ndarray:
+    """(..., 4) channels as packed int32 words."""
+    r, g, b, a = (rgba[..., i].astype(np.uint32) for i in range(4))
+    return (r | (g << 8) | (b << 16) | (a << 24)).view(np.int32)
+
+
+def unpacked_rgba(packed: np.ndarray) -> np.ndarray:
+    u = packed.view(np.uint32)
+    return np.stack([(u >> s) & 0xFF for s in (0, 8, 16, 24)], axis=-1).astype(np.int32)
+
+
+def blur_alpha(kind: str, seed: int, h: int, w: int) -> np.ndarray:
+    """A filter alpha plane: all 0, all 255, or 0, 255 and partial bands."""
+    if kind == "zero":
+        return np.zeros((h, w), np.int32)
+    if kind == "opaque":
+        return np.full((h, w), 255, np.int32)
+    rng = np.random.default_rng(seed)
+    fa = rng.integers(0, 256, (h, w)).astype(np.int32)
+    fa[: h // 4] = 0
+    fa[h // 2 :, w // 3 :] = 255
+    fa[h // 2 : h // 2 + 3] = rng.integers(1, 255, (3, w))
+    return fa
+
+
+def blur_case(radius: int, place: str, kind: str):
+    """(packed content plane, display, alpha plane, blur_window geometry)."""
+    from coherence_tpu_torch.raster import framepath as FP
+
+    seed = radius * 100 + list(BLUR_PLACES).index(place) * 10 + BLUR_ALPHAS.index(kind)
+    content = np.full((BLUR_PH, BLUR_PW, 4), 200, np.int32)  # padding the window never reads
+    content[:BLUR_FH, :BLUR_FW] = blur_content(seed, BLUR_FH, BLUR_FW)
+    display = np.random.default_rng(seed + 1).integers(0, 256, (BLUR_FH, BLUR_FW, 4)).astype(np.int32)
+    win = FP.blur_window(BLUR_PLACES[place], (1, 1, BLUR_FW, BLUR_FH), radius, BLUR_FH, BLUR_FW)
+    return packed_rgba(content), display, blur_alpha(kind, seed + 2, BLUR_FH, BLUR_FW), win
+
+
+def wrapped_blur_case(radius: int):
+    """A case whose int32 blur sums wrap (255 x total >= 2^31 above r =
+    140): a frame wider than the kernel, its top rows opaque white under an
+    opaque filter.  (packed content plane, display, alpha plane, the window
+    of a dirty box in those rows)."""
+    from coherence_tpu_torch.raster import framepath as FP
+
+    fh, fw = 48, 2 * radius + 100
+    content = np.full((64, 1024, 4), 200, np.int32)
+    content[:fh, :fw] = blur_content(radius, fh, fw)
+    content[:8, :fw] = 255
+    alpha = blur_alpha("mixed", radius, fh, fw)
+    alpha[:8] = 255
+    display = np.random.default_rng(radius).integers(0, 256, (fh, fw, 4)).astype(np.int32)
+    win = FP.blur_window((fw // 2 - 10, 1, fw // 2 + 10, 12), (1, 1, fw, fh), radius, fh, fw)
+    return packed_rgba(content), display, alpha, win
+
+
+def _blur_window_both(device, packed, display, alpha, win, kernel):
+    """(plain, card) blur_blend_into over the packed plane and over the
+    unpacked window, each [display after the packed form, after the
+    unpacked one]."""
+    from coherence_tpu_torch.raster import framepath as FP
+
+    _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = win
+    window = np.ascontiguousarray(unpacked_rgba(packed)[oy : oy + hb, ox : ox + wb])
+    out = []
+    for dev in ("cpu", device):
+        t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+        fn = FP.blur_blend_into_torch if dev == "cpu" else FP.blur_blend_into
+        a = fn(t(display), t(packed), (oy, ox), t(alpha), (oy, ox), hb, wb, ry0, rx0, h, w, d_box, kernel.values,
+               kernel.total)
+        b = fn(t(display), t(window), (0, 0), t(alpha), (oy, ox), hb, wb, ry0, rx0, h, w, d_box, kernel.values,
+               kernel.total)
+        out.append([a.cpu(), b.cpu()])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("place", list(BLUR_PLACES))
+@pytest.mark.parametrize("radius", BLUR_RADII)
+def test_blur_blend_window_kernel_matches_plain(cuda_device, radius, place):
+    """blur_blend in window mode against blur_blend_into_torch at every
+    edge and corner, each alpha plane, over the packed content plane and
+    over an unpacked window, bit for bit; one launch a call."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    kernel = V.mkgaussian(radius)
+    for kind in BLUR_ALPHAS:
+        packed, display, alpha, win = blur_case(radius, place, kind)
+        before = kernels.launches["blur_blend"]
+        (want, want_u), (got, got_u) = _blur_window_both(cuda_device, packed, display, alpha, win, kernel)
+        assert kernels.launches["blur_blend"] == before + 2
+        assert torch.equal(want, want_u), kind
+        assert torch.equal(got, want) and torch.equal(got_u, want), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", BLUR_ALPHAS)
+@pytest.mark.parametrize("radius", BLUR_RADII)
+def test_blur_blend_rect_kernel_matches_plain(cuda_device, radius, kind):
+    """blur_blend in rect mode against apply_blur_rect over the whole frame,
+    from unpacked RGBA and from the packed, padded plane, bit for bit."""
+    from coherence_tpu_torch.raster import convolve as V
+    from coherence_tpu_torch.raster import framepath as FP
+
+    kernel = V.mkgaussian(radius)
+    packed, _, alpha, _ = blur_case(radius, "centre", kind)
+    frame = np.ascontiguousarray(unpacked_rgba(packed)[:BLUR_FH, :BLUR_FW])
+    want = FP.apply_blur_rect(torch.from_numpy(frame), torch.from_numpy(alpha), kernel.values, kernel.total)
+    fa = torch.from_numpy(alpha).to(cuda_device)
+    got = FP.blur_blend_rect(torch.from_numpy(frame).to(cuda_device), fa, kernel.values, kernel.total)
+    got_p = FP.blur_blend_rect(torch.from_numpy(packed).to(cuda_device), fa, kernel.values, kernel.total)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got_p.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [150, 200])
+def test_blur_blend_kernel_wraps_as_the_plain_version(cuda_device, radius):
+    """Where 255 x total passes 2^31 the kernel's unsigned sums wrap as the
+    plain version's int32 sums do (and the JAX package's), in both modes."""
+    from coherence_tpu_torch.raster import convolve as V
+    from coherence_tpu_torch.raster import framepath as FP
+
+    kernel = V.mkgaussian(radius)
+    packed, display, alpha, win = wrapped_blur_case(radius)
+    fh, fw = alpha.shape
+    want = FP.blur_blend_rect(torch.from_numpy(packed), torch.from_numpy(alpha), kernel.values, kernel.total)
+    got = FP.blur_blend_rect(torch.from_numpy(packed).to(cuda_device), torch.from_numpy(alpha).to(cuda_device),
+                             kernel.values, kernel.total)
+    assert int(want.min()) < 0 and torch.equal(got.cpu(), want)
+    (want, want_u), (got, got_u) = _blur_window_both(cuda_device, packed, display, alpha, win, kernel)
+    assert int(want.min()) < 0 and torch.equal(got, want) and torch.equal(got_u, want)
+
+
+def shatter_case(seed: int, cap: int = 24, h: int = 150, w: int = 300):
+    """(atlas, raster, offsets, base): offsets below the raster, past it,
+    straddling its edges and inside, the last piece repeated as
+    _inplace_args pads a list."""
+    rng = np.random.default_rng(seed)
+    atlas = rng.integers(0, 2**32, (cap, TILE_H, TILE_W), dtype=np.uint64).astype(np.uint32)
+    rgba = rng.integers(0, 256, (h, w, 4)).astype(np.int32)
+    oys = np.asarray([-70, -64, -10, 0, 40, 100, 149, 150, 1 << 20, 40, 40, 40], np.int64)
+    oxs = np.asarray([-200, 5, -5, 0, 64, 200, 299, 0, 0, 64, 64, 64], np.int64)
+    return atlas, rgba, oys, oxs, 3 + seed
+
+
+def banded_shatter_case(seed: int):
+    """(band atlases, raster, (n_bands, n) offsets, base) as
+    BandedAtlas.update_inplace makes them: band 1 all out of range, band 2
+    its last piece repeated."""
+    n_bands, cap, n = 3, 16, 6
+    atlases = np.stack([shatter_case(seed * 10 + b, cap)[0] for b in range(n_bands)])
+    rgba = shatter_case(seed)[1]
+    oys = np.full((n_bands, n), 1 << 20, np.int32)
+    oxs = np.full((n_bands, n), 1 << 20, np.int32)
+    oys[0, :3], oxs[0, :3] = [-20, 0, 64], [10, -100, 128]
+    oys[2, 3:], oxs[2, 3:] = [100, 100, 100], [250, 250, 250]
+    return atlases, rgba, oys, oxs, 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_shatter_kernel_matches_plain(cuda_device, seed, banded):
+    """shatter_into against shatter_into_torch, both forms, bit for bit:
+    host offsets (staged inside) and staged tensors."""
+    from coherence_tpu_torch.raster.staging import stage
+
+    atlas, rgba, oys, oxs, base = banded_shatter_case(seed) if banded else shatter_case(seed)
+    want = T.shatter_into_torch(convert.packed(atlas, "cpu"), torch.from_numpy(rgba), oys, oxs, base)
+    r = torch.from_numpy(rgba).to(cuda_device)
+    before = kernels.launches["shatter_into"]
+    got = T.shatter_into(convert.packed(atlas, cuda_device), r, oys, oxs, base)
+    got_s = T.shatter_into(convert.packed(atlas, cuda_device), r, *stage(cuda_device, oys, oxs), base)
+    torch.cuda.synchronize()
+    assert kernels.launches["shatter_into"] == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(got_s.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_blur_and_shatter_wrappers_reject_bad_tensors(cuda_device):
+    from coherence_tpu_torch.raster import convolve as V
+
+    k = V.mkgaussian(5)
+    packed, display, alpha, win = blur_case(5, "centre", "mixed")
+    _, oy, ox, ry0, rx0, h, w, hb, wb, d_box = win
+    c, d, a = (torch.from_numpy(x).to(cuda_device) for x in (packed, display, alpha))
+
+    def window(content=c, f_alpha=a, disp=d, content_at=(oy, ox), at=(oy, ox)):
+        kernels.blur_blend_window(content, content_at, f_alpha, disp, at, hb, wb, ry0, rx0, h, w, d_box, k.values,
+                                  k.total)
+
+    window()
+    for bad in (dict(content=c.cpu()), dict(content=c.long()), dict(f_alpha=a.float()), dict(disp=d[:, :, :3]),
+                dict(content=c.t()), dict(f_alpha=a[:, 1:]), dict(disp=d[:-1]),
+                dict(content=c.view(-1)[1 : 1 + (BLUR_PH - 1) * BLUR_PW].view(BLUR_PH - 1, BLUR_PW)),  # misaligned
+                dict(content_at=(BLUR_PH - hb + 1, 0)), dict(at=(-1, ox)), dict(at=(oy, BLUR_FW - wb + 1))):
+        with pytest.raises(ValueError):
+            window(**bad)
+    with pytest.raises(ValueError):
+        kernels.blur_blend_window(c, (oy, ox), a, d, (oy, ox), hb, wb, ry0, rx0, h, w, d_box, (1, 2), 3)
+    with pytest.raises(ValueError):
+        kernels.blur_blend_rect(c, a.cpu(), k.values, k.total)
+    with pytest.raises(ValueError):
+        kernels.blur_blend_rect(c[:100], a, k.values, k.total)  # fewer rows than the frame
+
+    atlas, rgba, oys, oxs, base = shatter_case(0)
+    at = convert.packed(atlas, cuda_device)
+    r = torch.from_numpy(rgba).to(cuda_device)
+    y, x = (torch.from_numpy(v.astype(np.int32)).to(cuda_device) for v in (oys, oxs))
+    kernels.shatter_into(at, r, y, x, base)
+    for args in ((at, r, y.long(), x, base), (at, r.cpu(), y, x, base), (at, r[:, :, :3], y, x, base),
+                 (at, r, y, x[:-1], base), (at, r, y, x, at.shape[0] - 2), (at, r, y, x, -1),
+                 (at[:, :, :64], r, y, x, base), (at, r[:, 1:], y, x, base),
+                 (at, r, y[None], x[None], base),
+                 (at, r, y.new_zeros(13)[1:], x, base)):  # the last: a misaligned view
+        with pytest.raises(ValueError):
+            kernels.shatter_into(*args)
+
+
+def _animated_scene(device):
+    """test_torch_slice's shrunk bench scene (the lion at 512x256, a
+    translucent blob of r=20 reserved for in-place moves, a radius-2 blur
+    band) on `device`: (view, display, blob key)."""
+    from coherence_tpu_torch.raster import convolve as V
+    from coherence_tpu_torch.scene import fastframe as F
+
+    objs, blob, f_geom = examples.bench_scene(512, 256, blob_radius=20, blob_at=(32.0, 95.0),
+                                              f_box=(11, 76, 448, 251))
+    view = F.DeviceView(512, 256, atlas_cap=256, device=device)
+    view.set_scene(objs, tiled=True)
+    view.sprites[blob.idset] = F.tiled_sprite_of_object(blob, view.pw, view.ph, device)
+    view.order.insert(0, blob.idset)
+    view.make_animated(blob.idset)
+    disp = F.FilteredDisplay(view, F.alpha_plane_of_object(f_geom, 512, 256, device), V.mkgaussian(2))
+    disp.full_refresh()
+    return view, disp, blob.idset
+
+
+def _animated_delta(k: int):
+    return (7, 3) if (k // 20) % 2 == 0 else (-7, -3)
+
+
+@pytest.mark.cuda
+def test_400_unsynced_frames_equal_the_cpu(cuda_device):
+    """400 step_animated frames queued behind a long device-side wait, with
+    no host sync between them, so that the host runs far ahead of the card
+    and the staging ring must keep every pinned buffer until its copy has
+    run: display, content and atlas equal to the CPU's after the 400."""
+    from coherence_tpu_torch.raster import staging
+
+    cv, cd, ck = _animated_scene("cpu")
+    for k in range(400):
+        cd.step_animated(ck, *_animated_delta(k))
+    gv, gd, gk = _animated_scene(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s: the host queues many frames meanwhile
+    for k in range(400):
+        gd.step_animated(gk, *_animated_delta(k))
+    torch.cuda.synchronize()
+    assert len(staging._ring(torch.device(cuda_device.type, torch.cuda.current_device())).host) > 1
+    assert torch.equal(gd.rgba.cpu(), cd.rgba)
+    assert torch.equal(gv.frame.cpu(), cv.frame)
+    assert torch.equal(gv.ts.atlas().cpu(), cv.ts.atlas())
+
+
+@pytest.mark.cuda
+def test_steady_frame_is_one_copy_and_three_launches(cuda_device):
+    """A steady animated frame on the card issues exactly one host-to-device
+    copy and three kernel launches (shatter_into, composite_dirty,
+    blur_blend), as the runtime's rows of the profiler count them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    view, disp, key = _animated_scene(cuda_device)
+    for k in range(3):
+        disp.step_animated(key, *_animated_delta(k))
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        disp.step_animated(key, *_animated_delta(3))
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    launches = [n for n in names if n.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    copies = [n for n in names if n.startswith(("cudaMemcpy", "cudaMemset"))]
+    assert len(copies) == 1 and copies[0].startswith("cudaMemcpyAsync"), copies
+    assert len(launches) == 3, launches
+    assert {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]} == {
+        "shatter_into": 1, "composite_dirty": 1, "blur_blend": 1}
+
+
+@pytest.mark.cuda
+def test_no_card_frame_reaches_a_plain_version(cuda_device, monkeypatch):
+    """With the plain versions of blur_blend and shatter_into patched to
+    raise, the card builds the scene, refreshes the display, steps and
+    plays: no path on CUDA reaches them."""
+    from coherence_tpu_torch.raster import framepath as FP
+    from coherence_tpu_torch.raster import tiled_scene as TS
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((FP, "blur_blend_into_torch"), (FP, "apply_blur_rect"), (FP, "conv_blend_window"),
+                      (FP, "blur"), (TS, "shatter_into_torch")):
+        monkeypatch.setattr(mod, name, refuse)
+    view, disp, key = _animated_scene(cuda_device)
+    for k in range(5):
+        disp.step_animated(key, *_animated_delta(k))
+    disp.play_animated(key, [_animated_delta(k) for k in range(5, 10)], require_scan=True)
+    torch.cuda.synchronize()
+    assert bool((disp.rgba >= 0).all())
