@@ -258,11 +258,12 @@ STRIPES = 16  # 4-row stripes of a tile, stripe_ring.cuh's kStripes
 # with more host work (the fold's packs every layer) is timed behind a wait
 # made from its measured host time instead (event_ms's wait_ms).
 SLEEP_CYCLES = 400_000
-# The blur's and the shatter's bound counts their integer multiply-adds too
-# (two operations each) at the guide's CUDA-core float32 peak of the H100
-# SXM, 67 T/s: the card's int32 multiply-add rate is no higher, so the
-# bound it gives is a floor.
-CORE_OPS_PER_S = 67e12
+# The blur's bound counts its 32-bit integer multiply-adds too (two
+# operations each) at the H100 SXM's int32 rate: the CUDA C++ Programming
+# Guide's throughput table gives compute capability 9.0 64 integer
+# multiply-adds a clock per SM against 128 float32 FMAs, so half the
+# guide's CUDA-core float32 peak of 67 T/s.
+INT_OPS_PER_S = 67e12 / 2
 # The device-side wait before each timed blur_blend or shatter_into call:
 # longer than twice either wrapper's host time (H42).
 ANIMATED_WAIT_MS = 1.0
@@ -680,7 +681,7 @@ def blur_bound(torch, f_alpha, content_cols: int, oy, ox, ry0, rx0, h, w, d_box,
     pixel in rect mode, the others copied); and its multiply-adds: 4
     channels x (2r + 1) taps for each x-pass value the y pass reads and for
     each written pixel.  The bound is the larger of bytes at the HBM rate
-    and operations at CORE_OPS_PER_S."""
+    and operations at INT_OPS_PER_S."""
     dev = f_alpha.device
     rows = torch.arange(hb, device=dev)[:, None]
     cols = torch.arange(wb, device=dev)[None, :]
@@ -703,7 +704,7 @@ def blur_bound(torch, f_alpha, content_cols: int, oy, ox, ry0, rx0, h, w, d_box,
                + pixel_sectors(torch, written, oy, ox, alpha_w, 16))
     n_bytes = sectors * SECTOR_BYTES
     ops = 2 * 4 * (2 * radius + 1) * (int(x_values.sum()) + int(changed.sum()))
-    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
     return {"window": [hb, wb], "radius": radius, "changed_pixels": int(changed.sum()), "bytes": n_bytes,
             "operations": ops, "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
 
@@ -730,9 +731,12 @@ def animated_kernels(torch, dev, view, disp, key, step, scrub) -> dict:
     does; its moved raster into a copy of the atlas), each timed with the
     launch queued behind a
     device-side wait (ANIMATED_WAIT_MS, each call required to be queued
-    within half of it), beside its plain version's time and its bound.
-    The display and the reserved slots start from noise, so that every
-    written value is checked.  Returns {name: row}."""
+    within half of it), beside its plain version's time and its bound;
+    and the launch floor (launch_floor_ms), an empty kernel launched
+    through the same ctypes path and timed the same way.  The display and
+    the reserved slots start from noise, so that every written value is
+    checked.  Returns {name: row, "launch_floor_ms": ms}."""
+    from coherence_tpu_torch import kernels
     from coherence_tpu_torch.raster import framepath, staging
     from coherence_tpu_torch.raster import tiled_scene as T
     from coherence_tpu_torch.raster.compositor import unpack_rgba
@@ -795,7 +799,8 @@ def animated_kernels(torch, dev, view, disp, key, step, scrub) -> dict:
                "plain_ms": event_ms(torch, shatter_plain, scrub)}
     for row in (blur, shatter):
         row["share"] = row["bound_ms"] / row["ms"]
-    return {"blur_blend": blur, "shatter_into": shatter}
+    floor_ms = event_ms(torch, lambda: kernels.launch_floor(dev), scrub, wait_ms=ANIMATED_WAIT_MS, queued=True)
+    return {"blur_blend": blur, "shatter_into": shatter, "launch_floor_ms": floor_ms}
 
 
 def blur_rect_row(torch, dev, view, disp, scrub) -> dict:
@@ -900,7 +905,8 @@ def lion_kernels(torch, dev, scrub):
                               "listed_pieces": int(spans[2 * n_real + 1]), **dirty_row},
           "banded_one_band": "composite_full_banded and composite_dirty_banded over one band (the same striped ring)",
           "deep": deep, "blur_blend": {"equal_plain": True, **animated["blur_blend"]},
-          "shatter_into": {"equal_plain": True, **animated["shatter_into"]}})
+          "shatter_into": {"equal_plain": True, **animated["shatter_into"]},
+          "launch_floor_ms": animated["launch_floor_ms"]})
     return {"composite_full": full, "composite_dirty": dirty_row, **animated}
 
 
@@ -1085,7 +1091,8 @@ def interactive_path(torch, dev, kernels, scrub):
                              **runs_row},
           "composite_full": {"equal_banded_one_band": True, **full_row},
           "blur_blend": {"equal_plain": True, **animated["blur_blend"]},
-          "shatter_into": {"equal_plain": True, **animated["shatter_into"]}})
+          "shatter_into": {"equal_plain": True, **animated["shatter_into"]},
+          "launch_floor_ms": animated["launch_floor_ms"]})
     return counts, runs_row, full_row, animated
 
 
@@ -3562,6 +3569,8 @@ def main() -> int:
     rect = timed["blur_blend"]["rect"]
     line[-2]["rect_1080p"] = {key: rect[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share")}
     line[-2]["unpacked_ms"] = timed["blur_blend"]["unpacked_ms"]  # the same window over FrameBuffer's unpacked content
+    for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
+        row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -10,7 +10,9 @@ The library is loaded with ``ctypes``; every pointer and the stream
 ``cudaGetLastError()`` after its launch, and the wrapper raises on a
 nonzero value.
 
-``launches`` counts, per kernel, the launches made through its wrapper.
+``launches`` counts, per kernel, the launches made through its wrapper;
+``launch_floor``, an empty kernel for measuring what a launch costs, is
+not counted.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with no CUDA toolkit and no card.
@@ -39,7 +41,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_ptr, _i32, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # entry point -> argument types
 _ENTRY_POINTS = {
     "composite_dirty": [_ptr] * 6 + [_i32] * 2 + [_ptr],
@@ -49,12 +51,16 @@ _ENTRY_POINTS = {
     "composite_full_banded": [_ptr] * 5 + [_i32] * 5 + [_ptr],
     "composite_dirty_banded": [_ptr] * 6 + [_i32] * 6 + [_ptr],
     "fold_layers": [_ptr] * 7 + [_i32] * 3 + [_ptr],
-    "blur_blend": [_ptr] + [_i32] * 4 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 13 + [_ptr],
+    "blur_blend": [_ptr] + [_i32] * 4 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32, _u32] + [_i32] * 16
+                  + [_ptr],
     "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
 _QUERIES = {"fold_layers_tile": [_i32]}
+# entry point -> argument types, of those that launch a kernel doing none of
+# the program's work (not counted in `launches`)
+_PROBES = {"launch_floor": [_ptr]}
 
 launches = {name: 0 for name in _ENTRY_POINTS}
 
@@ -115,7 +121,7 @@ def load() -> Dict[str, ctypes._CFuncPtr]:
             build()
             lib = ctypes.CDLL(LIBRARY)
             fns = {}
-            for entry, argtypes in {**_ENTRY_POINTS, **_QUERIES}.items():
+            for entry, argtypes in {**_ENTRY_POINTS, **_QUERIES, **_PROBES}.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = _i32
@@ -391,20 +397,46 @@ def fold_layers(offs, layers, acc, open_mask, covered):
     return out
 
 
-# The blur's weights on each device, uploaded once per (device, weights).
-_weights: Dict[tuple, torch.Tensor] = {}
+# blur_blend.cu's tile: (rows, columns) of the window per block.
+BLUR_TILE = (16, 32)
+
+# The blur's weights on each device, uploaded once per (device, weights,
+# total), with the total's divider.
+_weights: Dict[tuple, tuple] = {}
 
 
-def _weights_on(device: torch.device, weights, total: int) -> torch.Tensor:
-    key = (device, tuple(int(v) for v in weights))
-    t = _weights.get(key)
-    if t is None:
+def blur_divider(total: int) -> tuple:
+    """(magic, shift) with floor(n / total) == magic * n >> shift for every
+    0 <= n < 2^31 and 0 < total < 2^31: with l = ceil(log2(total)), shift =
+    31 + l and magic = ceil(2^shift / total) < 2^32 (Granlund and
+    Montgomery, PLDI 1994, theorem 4.2 at 31 bits).  blur_blend.cu divides
+    a signed sum s by its sign's mask m = s >> 31 as m ^ ((s ^ m) / total),
+    which is the floor for every int32 s."""
+    shift = 31 + (total - 1).bit_length()
+    return -(-(1 << shift) // total), shift
+
+
+def _weights_on(device: torch.device, weights, total: int) -> tuple:
+    """(weights tensor on `device`, magic, shift)."""
+    key = (device, tuple(int(v) for v in weights), total)
+    got = _weights.get(key)
+    if got is None:
         if len(key[1]) % 2 == 0 or not all(0 <= v < 2**31 for v in key[1]):
             raise ValueError("blur weights: need an odd count of values in [0, 2^31)")
         if not 0 < total < 2**31:
             raise ValueError(f"blur total {total} is outside (0, 2^31)")
-        t = _weights[key] = torch.tensor(key[1], dtype=torch.int32, device=device)
-    return t
+        got = _weights[key] = (torch.tensor(key[1], dtype=torch.int32, device=device), *blur_divider(total))
+    return got
+
+
+def blur_launch_rect(hb: int, wb: int, ry0: int, rx0: int, h: int, w: int, d_box, radius: int) -> tuple:
+    """(y0, x0, y1, x1), half-open, of the pixels that window mode can
+    change: bloat(d_box, radius) & the logical window [ry0, ry0 + h) x
+    [rx0, rx0 + w) & the hb x wb window, all in window coordinates (d_box
+    inclusive).  Empty (y1 <= y0 or x1 <= x0) where none can change."""
+    d0, d1, d2, d3 = d_box
+    return (max(0, ry0, d0 - radius), max(0, rx0, d1 - radius),
+            min(hb, ry0 + h, d2 + radius + 1), min(wb, rx0 + w, d3 + radius + 1))
 
 
 def _check_plane_at(name: str, t: torch.Tensor, device, at, hb: int, wb: int, channels: bool) -> None:
@@ -418,22 +450,27 @@ def _check_plane_at(name: str, t: torch.Tensor, device, at, hb: int, wb: int, ch
         raise ValueError(f"{name}: the {hb}x{wb} window at {tuple(at)} is outside its {t.shape[0]}x{t.shape[1]} plane")
 
 
-def _blur_blend(content, content_at, f_alpha, dst, at, hb, wb, weights, total, rect, geometry) -> None:
+def _blur_blend(content, content_at, f_alpha, dst, at, hb, wb, weights, total, grid, geometry) -> None:
+    """One blur_blend launch over `grid` = (y0, x0, y1, x1) of the window,
+    in rect mode where `geometry` is None; none where `grid` is empty."""
     device = f_alpha.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA blur needs tensors on a CUDA device, got {device}")
-    if hb <= 0 or wb <= 0 or -(-hb // 32) > 65535:  # blur_blend.cu's 32-row tiles
+    if hb <= 0 or wb <= 0 or -(-hb // BLUR_TILE[0]) > 65535:
         raise ValueError(f"a {hb}x{wb} window is beyond the kernel's grid")
     _check_plane_at("content", content, device, content_at, hb, wb, content.dim() == 3)
     _check_plane_at("f_alpha", f_alpha, device, at, hb, wb, False)
     _check_plane_at("display", dst, device, at, hb, wb, True)
-    w = _weights_on(device, weights, total)
+    w, magic, shift = _weights_on(device, weights, total)
+    y0, x0, y1, x1 = grid
+    if y1 <= y0 or x1 <= x0:
+        return
     with torch.cuda.device(device):
         rc = load()["blur_blend"](
             content.data_ptr(), int(content.dim() == 2), content.shape[1], *content_at,
             f_alpha.data_ptr(), f_alpha.shape[1], *at, dst.data_ptr(), dst.shape[1], *at,
-            w.data_ptr(), len(weights) // 2, total, hb, wb, int(rect), *geometry,
-            torch.cuda.current_stream(device).cuda_stream,
+            w.data_ptr(), len(weights) // 2, magic, shift, hb, wb, y0, x0, y1 - y0, x1 - x0,
+            int(geometry is None), *(geometry or (0,) * 8), torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on("blur_blend", rc)
     launches["blur_blend"] += 1
@@ -447,12 +484,14 @@ def blur_blend_window(content, content_at, f_alpha, display, at, hb: int, wb: in
     plane or unpacked (rows, cols, 4), its window at `content_at`) by
     `f_alpha` ((H, W) int32, read at `at`), in place.  The logical window is
     [ry0, ry0 + h) x [rx0, rx0 + w) and d_box the dirty rect (row0, col0,
-    row1, col1 inclusive), both in window coordinates."""
+    row1, col1 inclusive), both in window coordinates.  The launch covers
+    only blur_launch_rect's pixels, and none where that is empty."""
     if tuple(f_alpha.shape) != tuple(display.shape[:2]):
         raise ValueError(f"f_alpha {tuple(f_alpha.shape)} and display {tuple(display.shape)} differ in size")
     d0, d1, d2, d3 = (int(v) for v in d_box)
-    _blur_blend(content, tuple(content_at), f_alpha, display, tuple(at), hb, wb, weights, total, False,
-                (ry0, rx0, h, w, d0, d1, d2, d3))
+    radius = len(weights) // 2
+    _blur_blend(content, tuple(content_at), f_alpha, display, tuple(at), hb, wb, weights, total,
+                blur_launch_rect(hb, wb, ry0, rx0, h, w, (d0, d1, d2, d3), radius), (ry0, rx0, h, w, d0, d1, d2, d3))
     return display
 
 
@@ -463,7 +502,7 @@ def blur_blend_rect(content, f_alpha, weights, total: int) -> torch.Tensor:
     the content elsewhere, into a new (H, W, 4) plane."""
     hb, wb = f_alpha.shape
     out = torch.empty((hb, wb, 4), dtype=torch.int32, device=f_alpha.device)
-    _blur_blend(content, (0, 0), f_alpha, out, (0, 0), hb, wb, weights, total, True, (0,) * 8)
+    _blur_blend(content, (0, 0), f_alpha, out, (0, 0), hb, wb, weights, total, (0, 0, hb, wb), None)
     return out
 
 
@@ -500,3 +539,16 @@ def shatter_into(atlas, rgba, oys, oxs, base: int) -> torch.Tensor:
     _raise_on("shatter_into", rc)
     launches["shatter_into"] += 1
     return atlas
+
+
+def launch_floor(device) -> None:
+    """Launch ``launch_floor``, an empty kernel, on the current stream of
+    the CUDA `device`: the least time a launch through this module takes,
+    beside which each kernel's time is read.  Not counted in `launches`: it
+    does none of the program's work."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"launch_floor needs a CUDA device, got {device}")
+    with torch.cuda.device(device):
+        rc = load()["launch_floor"](torch.cuda.current_stream(device).cuda_stream)
+    _raise_on("launch_floor", rc)

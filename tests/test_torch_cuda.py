@@ -1114,6 +1114,55 @@ def wrapped_blur_case(radius: int):
     return packed_rgba(content), display, alpha, win
 
 
+# The tiling cases: windows whose changed pixels (kernels.blur_launch_rect)
+# are one pixel, one row or one column, or end exactly on a block tile's
+# edge (32 x 64 pixels, 2 x 2 tiles of kernels.BLUR_TILE) and one pixel past
+# it; every window at an odd column of the packed plane, so that its rows
+# start off a 16-byte boundary.  name -> (oy, ox, ry0, rx0, h, w, hb, wb,
+# d_box).
+BLUR_TILE_FH, BLUR_TILE_FW = 80, 200
+BLUR_TILE_PH, BLUR_TILE_PW = 96, 256
+BLUR_TILING = {
+    "one_pixel": (7, 9, 0, 0, 1, 1, 1, 1, (0, 0, 0, 0)),
+    "one_row": (40, 3, 0, 5, 1, 140, 1, 150, (0, 30, 0, 70)),
+    "one_column": (2, 101, 3, 0, 60, 1, 70, 1, (20, 0, 35, 0)),
+    "tile_edge": (9, 21, 5, 3, 32, 64, 64, 128, (5, 3, 35, 65)),
+    "tile_edge_plus_one": (9, 21, 5, 3, 33, 65, 64, 128, (5, 3, 36, 66)),
+}
+BLUR_TILING_RADII = [1, 4, 5, 31, 150, 200]
+# Whole frames for rect mode: one pixel, one row, one column, 2 x 2 tiles and one pixel past them.
+BLUR_TINY_FRAMES = [(1, 1), (1, 150), (70, 1), (32, 64), (33, 65)]
+
+
+def tiling_case(name: str, radius: int):
+    """(packed content plane, display, alpha plane, window geometry as
+    blur_window gives it) of BLUR_TILING's case `name`."""
+    oy, ox, ry0, rx0, h, w, hb, wb, d_box = BLUR_TILING[name]
+    seed = 7000 + radius * 10 + list(BLUR_TILING).index(name)
+    content = np.full((BLUR_TILE_PH, BLUR_TILE_PW, 4), 200, np.int32)  # padding the window never reads
+    content[:BLUR_TILE_FH, :BLUR_TILE_FW] = blur_content(seed, BLUR_TILE_FH, BLUR_TILE_FW)
+    display = np.random.default_rng(seed + 1).integers(0, 256, (BLUR_TILE_FH, BLUR_TILE_FW, 4)).astype(np.int32)
+    alpha = blur_alpha("mixed", seed + 2, BLUR_TILE_FH, BLUR_TILE_FW)
+    win = (None, oy, ox, ry0, rx0, h, w, hb, wb, np.asarray(d_box, np.int32))
+    return packed_rgba(content), display, alpha, win
+
+
+def speckled_alpha(seed: int, h: int, w: int) -> np.ndarray:
+    """A filter alpha plane of any size: about a third each 0, 255 and
+    partial."""
+    rng = np.random.default_rng(seed)
+    return np.choose(rng.integers(0, 3, (h, w)), [0, 255, rng.integers(1, 255, (h, w))]).astype(np.int32)
+
+
+def tiny_frame_case(fh: int, fw: int, radius: int):
+    """(packed, padded content plane, (fh, fw, 4) unpacked frame, alpha
+    plane) of a whole fh x fw frame for rect mode."""
+    seed = 8000 + radius * 10 + BLUR_TINY_FRAMES.index((fh, fw))
+    content = np.full((fh + 5, fw + 7, 4), 200, np.int32)
+    content[:fh, :fw] = blur_content(seed, fh, fw)
+    return packed_rgba(content), np.ascontiguousarray(content[:fh, :fw]), speckled_alpha(seed + 1, fh, fw)
+
+
 def _blur_window_both(device, packed, display, alpha, win, kernel):
     """(plain, card) blur_blend_into over the packed plane and over the
     unpacked window, each [display after the packed form, after the
@@ -1172,6 +1221,54 @@ def test_blur_blend_rect_kernel_matches_plain(cuda_device, radius, kind):
     got_p = FP.blur_blend_rect(torch.from_numpy(packed).to(cuda_device), fa, kernel.values, kernel.total)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want) and torch.equal(got_p.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BLUR_TILING))
+@pytest.mark.parametrize("radius", BLUR_TILING_RADII)
+def test_blur_blend_window_kernel_matches_plain_on_tiles(cuda_device, radius, case):
+    """blur_blend in window mode against blur_blend_into_torch where the
+    grid of changed pixels is one pixel, one row or one column, or ends on
+    a tile's edge and one pixel past it, at odd columns of the packed plane,
+    over both content forms, bit for bit; one launch a call."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    kernel = V.mkgaussian(radius)
+    packed, display, alpha, win = tiling_case(case, radius)
+    before = kernels.launches["blur_blend"]
+    (want, want_u), (got, got_u) = _blur_window_both(cuda_device, packed, display, alpha, win, kernel)
+    assert kernels.launches["blur_blend"] == before + 2
+    assert torch.equal(want, want_u) and not torch.equal(want, torch.from_numpy(display))
+    assert torch.equal(got, want) and torch.equal(got_u, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_hw", BLUR_TINY_FRAMES)
+@pytest.mark.parametrize("radius", BLUR_TILING_RADII)
+def test_blur_blend_rect_kernel_matches_plain_on_tiny_frames(cuda_device, radius, frame_hw):
+    """blur_blend in rect mode against apply_blur_rect over frames of one
+    pixel, one row, one column, 2 x 2 tiles and one pixel past them, from
+    unpacked RGBA and from a wider packed plane, bit for bit."""
+    from coherence_tpu_torch.raster import convolve as V
+    from coherence_tpu_torch.raster import framepath as FP
+
+    kernel = V.mkgaussian(radius)
+    packed, frame, alpha = tiny_frame_case(*frame_hw, radius)
+    want = FP.apply_blur_rect(torch.from_numpy(frame), torch.from_numpy(alpha), kernel.values, kernel.total)
+    fa = torch.from_numpy(alpha).to(cuda_device)
+    got = FP.blur_blend_rect(torch.from_numpy(frame).to(cuda_device), fa, kernel.values, kernel.total)
+    got_p = FP.blur_blend_rect(torch.from_numpy(packed).to(cuda_device), fa, kernel.values, kernel.total)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got_p.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_launch_floor_runs(cuda_device):
+    """The empty kernel launches and is not counted."""
+    before = dict(kernels.launches)
+    kernels.launch_floor(cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.launches == before
 
 
 @pytest.mark.cuda
