@@ -102,12 +102,22 @@ Phases, one JSON line each:
   5. interactive_4k: config 5 on the card; its atlas, piece lists and
      display after 3 filtered frames held bit for bit against the same run
      on the CPU; frame times, build and zoom seconds, cache hits; the full
-     renders held against the dirty-path content;
+     renders held against the dirty-path content; brush_stamp launched at
+     the build and at each zoom step that misses the scene-build cache,
+     never at a hit;
   6. kernels_4k: composite_runs against composite_runs_torch and against
      composite_full, and composite_full against composite_full_banded over
      one band, on config 5's full-frame lists, bit for bit; the three timed
      in turns; blur_blend and shatter_into on config 5's animated step, as
-     in phase 3;
+     in phase 3; then brush_kernels: brush_stamp in plane mode (the
+     general renderer's stamp walk at profile_general.py's 31x31 brush of
+     1013 stamps, and a radius-120 brush), in piece mode (each of config
+     5's brush groups as its scene build stages them, at 3840x2160 and
+     after a 2x zoom) and smear_walk (profile_general.py's smear: 1024
+     steps over its 711x611 sprite, two passes), each against its plain
+     version on the same inputs, bit for bit, timed behind a device-side
+     wait made from the wrapper's host time, beside its plain version's
+     time, its bound and the launch floor;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -141,8 +151,10 @@ Phases, one JSON line each:
  14. general_filters: every incremental frame equal to the whole-window
      render, frame 0 also to a render with the cache off, frames 0-1 to the
      CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
-     affine, wireframe, smear and the CPG demo over the lion, each equal to
-     the CPU's and each changing the lion;
+     affine, wireframe, smear, the CPG demo and the brush and monobrush
+     demos over the lion, each equal to the CPU's and each changing the
+     lion; the smear launches smear_walk and each brush demo brush_stamp
+     (plane mode);
  15. convolve_1080p: ms per call beside its bound (the frame read and
      written once at 3.35 TB/s); the first call equal to the CPU's;
  16. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
@@ -209,7 +221,11 @@ carry in and out, with the record visits its tile lists imply, at the
 whole window and beside it at its other two shapes; its launches per
 phase, pdf_pages's among them; for blur_blend and shatter_into the bytes
 they must move per 32-byte sector and their multiply-adds, at the lion's
-step and at config 5's, blur_blend's rect mode beside) and, last,
+step and at config 5's, blur_blend's rect mode beside; for brush_stamp its
+output and lists' bytes and its stamp-pixel operations at config 5's
+largest brush group, every other shape beside; for smear_walk the canvas
+pixels its walk must read and write once and its mixed-pixel operations,
+beside them its step-by-step traffic, a serial chain of steps) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -270,6 +286,18 @@ ANIMATED_WAIT_MS = 1.0
 # A steady animated frame on the card: the staged copy of its lists, then
 # shatter_into, composite_dirty and blur_blend (profile_general.issued's count).
 STEADY_FRAME_OPS = 4
+# The brush kernels' plain versions run one step of torch operations a
+# stamp (about ten launches each, thousands of stamps): timed over fewer calls.
+N_BRUSH_PLAIN_TIMED = 3
+# The int32 operations of one stamp-pixel update, prelerp(p, t) =
+# p + t - (((a >> 8) + a) >> 8) with a = t * p + 128: a multiply, four
+# adds and two shifts.
+STAMP_OPS = 7
+# The int32 operations of one channel of a mixed smear pixel (0 < al < 255),
+# dissolve(dst, al) + dissolve(src, 255 - al) with dissolve(c, d) =
+# div255(c * d) and div255(i) = (i + (i >> 8) + 1) >> 8: two multiplies,
+# five adds and four shifts.
+SMEAR_OPS = 11
 
 
 T_IMPORT = time.perf_counter()
@@ -1010,6 +1038,8 @@ def interactive_path(torch, dev, kernels, scrub):
     counts_checked = dict(kernels.launches)
     require(counts_checked["shatter_into"] >= 3 and counts_checked["blur_blend"] >= 4,
             f"config 5's filtered frames did not reach shatter_into and blur_blend: {counts_checked}")
+    # The build's brush groups, each one brush_stamp launch in piece mode.
+    require(counts_checked["brush_stamp"] >= 1, f"config 5's build did not launch brush_stamp: {counts_checked}")
     filtered_ms, filtered_s = timed_frames(torch, lambda k: filtered_frame(view, disp, key, k), N_FRAMES4)
     plain_ms, plain_s = timed_frames(torch, lambda k: plain_frame(view, key, k), N_FRAMES4)
     dirty_content = view.frame.clone()
@@ -1027,12 +1057,17 @@ def interactive_path(torch, dev, kernels, scrub):
     for rep in range(N_ZOOMS):
         f = 2.0 if rep % 2 == 0 else 0.5
         cur = zoomed(cur, f)
+        misses, stamps = fastframe.scene_build_cache_stats()["misses"], kernels.launches["brush_stamp"]
         t0 = time.perf_counter()
         view.reset_scene(cur, tiled=True)
         view.render(full=True)
         torch.cuda.synchronize()
         zooms.append({"factor": f, "seconds": time.perf_counter() - t0, "pieces": view.ts._n_pieces,
-                      **fastframe.scene_build_cache_stats()})
+                      **fastframe.scene_build_cache_stats(), "brush_stamp": kernels.launches["brush_stamp"] - stamps})
+        # A miss rebuilds the strokes: at least one brush_stamp launch; a hit restores the atlas.
+        missed = zooms[-1]["misses"] > misses
+        require(zooms[-1]["brush_stamp"] >= 1 if missed else zooms[-1]["brush_stamp"] == 0,
+                f"zoom step {rep}: {zooms[-1]['brush_stamp']} brush_stamp launches on a {'miss' if missed else 'hit'}")
     fastframe.scene_build_cache_stats(reset=True)
     t0 = time.perf_counter()
     view.prefetch_zoom_candidates(cur)
@@ -1094,6 +1129,192 @@ def interactive_path(torch, dev, kernels, scrub):
           "shatter_into": {"equal_plain": True, **animated["shatter_into"]},
           "launch_floor_ms": animated["launch_floor_ms"]})
     return counts, runs_row, full_row, animated
+
+
+def brush_inputs(torch, dev) -> dict:
+    """The brush kernels' inputs as the program's paths give them on `dev`,
+    name -> (mode, arguments): plane mode at profile_general.py's brush
+    program (mkround(15.0, 0.5) along a circle of radius 250: a 31x31
+    patch, 1013 stamps) and at the same circle under mkround(120.0, 0.5);
+    the smear at profile_general.py's smear program (1024 steps of the
+    31x31 brush over its 711x611 sprite, two passes); piece mode at each
+    of config 5's brush groups as its scene build stages them
+    (stage_tiled_scene), at 3840x2160 and after one 2x zoom."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import brush, fills
+    from coherence_tpu_torch.scene import examples, fastframe
+    from profile_general import programs, recorded_brush_calls
+
+    progs = programs(torch, dev)
+    wide = (brush.mkround(120.0, 0.5), gshapes.circle(300.0, 300.0, 250.0))
+    with recorded_brush_calls() as calls:
+        progs["sprite_of_brushstroke"][2]()
+        brush.sprite_of_brushstroke(wide, fills.plain(C.darkorange), brush.shape_of_brushstroke(wide, dev)[0], dev)
+        progs["smear"][2]()
+    stamps = [args for name, args in calls if name == "_stamp_alpha"]
+    smears = [args for name, args in calls if name == "_smear_walk"]
+    require(len(stamps) == 2 and len(smears) == 1, f"the brush programs made {len(stamps)} stamp walks and "
+            f"{len(smears)} smears, not 2 and 1")
+    out = {"plane_31x31": ("plane", stamps[0]), "plane_r120": ("plane", stamps[1]), "smear": ("smear", smears[0])}
+    objs = examples.interactive_4k_scene(W4, H4)[0]
+    for name, scene in (("config5", objs), ("config5_zoom2x", zoomed(objs, 2.0))):
+        ph, pw = -(-H4 // 64) * 64, -(-W4 // 128) * 128
+        build = fastframe.stage_tiled_scene(ph // 64, pw // 128, pw, ph, list(enumerate(scene)), dev)[1]
+        for k, gkey in enumerate(sorted(build.groups)):
+            out[f"{name}_group{k}"] = ("pieces", (build, gkey))
+    return out
+
+
+def stamp_bound(torch, brushes, offsets, valid, hp: int, wp: int, out_words: int, windows=None, lists=()) -> dict:
+    """What brush_stamp must do: write its output once (4 bytes a word) and
+    read its host lists once (pack_brush_records' arrays and `lists`); and
+    STAMP_OPS int32 operations for each nonzero texel of each valid stamp
+    that lands on an output pixel: the whole plane in plane mode, in piece
+    mode the piece windows (stroke, row, col) of `windows`."""
+    import numpy as np
+
+    from coherence_tpu_torch import kernels
+
+    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp)
+    n_bytes = 4 * out_words + sum(a.nbytes for a in records if a is not None) + sum(a.nbytes for a in lists)
+    nz = [(b != 0).astype(np.int64) for b in brushes]
+    if windows is None:
+        updates = sum(int(valid[si].sum()) * int(nz[si].sum()) for si in range(len(brushes)))
+    else:
+        updates, bhb, bwb = 0, brushes.shape[1], brushes.shape[2]
+        for si in sorted({int(w[0]) for w in windows}):
+            plane = np.zeros((hp, wp), np.int64)  # the stamp texels over each pixel
+            for oy, ox in offsets[si][valid[si]]:
+                plane[oy : oy + bhb, ox : ox + bwb] += nz[si]
+            updates += sum(int(plane[oy : oy + 64, ox : ox + 128].sum()) for s_, oy, ox in windows if s_ == si)
+    ops = STAMP_OPS * updates
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "stamp_pixel_updates": updates, "operations": ops, "bound_ms": max(byte_ms, ops_ms),
+            "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def smear_bound(opac, offsets, dirs, height: int, width: int) -> dict:
+    """What smear_walk must do over its SMEAR_PASSES passes on an (height,
+    width) canvas: read once each canvas pixel that a step reads before the
+    walk has written it, and write once each pixel that a step writes (16
+    bytes a pixel); and SMEAR_OPS int32 operations for each channel of each
+    step's mixed pixels.  A texel of al == 255 reads and writes nothing, one
+    of al == 0 reads only its source.  Beside it, step_bytes: the walk's
+    traffic step by step (each step reads the union of its source and
+    destination patches, (bh + |dy|) x (bw + |dx|) pixels, and writes its
+    patch), which stays in L2: the walk is a serial chain of serial_steps
+    dependent steps."""
+    import numpy as np
+
+    from coherence_tpu_torch import kernels
+
+    opac = np.asarray(opac)
+    bh, bw = opac.shape
+    moves, mixes = opac != 255, (opac != 0) & (opac != 255)
+    read, written = np.zeros((height, width), bool), np.zeros((height, width), bool)
+    step_pixels = 0
+    for _ in range(kernels.SMEAR_PASSES):
+        for (r, c), (dx, dy) in zip(offsets, dirs):
+            src = (slice(r - dy, r - dy + bh), slice(c - dx, c - dx + bw))
+            dst = (slice(r, r + bh), slice(c, c + bw))
+            read[src] |= moves & ~written[src]
+            read[dst] |= mixes & ~written[dst]
+            written[dst] |= moves
+            step_pixels += (bh + abs(dy)) * (bw + abs(dx)) + bh * bw
+    steps = kernels.SMEAR_PASSES * len(offsets)
+    n_bytes = 16 * (int(read.sum()) + int(written.sum()))
+    ops = SMEAR_OPS * 4 * int(mixes.sum()) * steps
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": ops, "bound_ms": max(byte_ms, ops_ms),
+            "bound_by": "bytes" if byte_ms >= ops_ms else "operations", "step_bytes": 16 * step_pixels,
+            "serial_steps": steps}
+
+
+def brush_row(torch, dev, scrub, mode: str, args) -> dict:
+    """One brush kernel against its plain version on the card, bit for bit,
+    with its bound; then the wrapper's host time (fold_host_ms) and the two
+    timed: the kernel behind a device-side wait of max(ANIMATED_WAIT_MS, 4
+    x the slowest host call), each call queued within half of it (H42);
+    the plain version over N_BRUSH_PLAIN_TIMED calls (it runs one step of
+    torch operations a stamp, its host time in its window)."""
+    from coherence_tpu_torch.raster import brush
+
+    if mode == "plane":
+        brushes, offsets, valid, hp, wp, _ = args
+        shape = {"strokes": len(brushes), "plane": [hp, wp], "patch": list(brushes.shape[1:]),
+                 "stamps": int(valid.sum())}
+
+        def kernel():
+            return brush._stamp_alpha(brushes, offsets, valid, hp, wp, dev)
+
+        def plain():
+            return brush._stamp_alpha_torch(brushes, offsets, valid, hp, wp, dev)
+
+        got, want = kernel(), plain()
+        bound = stamp_bound(torch, brushes, offsets, valid, hp, wp, got.numel())
+    elif mode == "pieces":
+        from coherence_tpu_torch.raster.brush_tiles import _group_lists
+
+        build, gkey = args
+        items = build.groups[gkey]
+        brushes, offsets, valid, points, fills, radii, meta = _group_lists(gkey[4], items)
+        hp, wp = gkey[:2]
+        shape = {"strokes": len(items), "plane": [hp, wp], "patch": list(gkey[2:4]), "stamps": int(valid.sum()),
+                 "pieces": sum(len(it[7]) for it in items), "block_pieces": len(meta)}
+
+        def kernel():
+            return build._group_block(*gkey, items)
+
+        def plain():
+            return build._group_block_torch(*gkey, items)
+
+        got, want = kernel(), plain()
+        bound = stamp_bound(torch, brushes, offsets, valid, hp, wp, got.numel(), [tuple(m) for m in meta],
+                            (points, meta))
+    else:
+        cv, opac, offsets, dirs, bh, bw = args
+        work = cv.clone()
+        shape = {"canvas": list(cv.shape[:2]), "patch": [bh, bw], "steps": len(offsets)}
+
+        def kernel():
+            return brush._smear_walk(work, opac, offsets, dirs, bh, bw)
+
+        def plain():
+            return brush._smear_walk_torch(work, opac, offsets, dirs, bh, bw)
+
+        got = brush._smear_walk(cv.clone(), opac, offsets, dirs, bh, bw)
+        want = brush._smear_walk_torch(cv.clone(), opac, offsets, dirs, bh, bw)
+        bound = smear_bound(opac.cpu().numpy(), offsets, dirs, *cv.shape[:2])
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"brush kernel ({mode} mode) differs from its plain version at {shape}")
+    require(bool((want != 0).any()), f"brush kernel ({mode} mode): the case at {shape} is all zero")
+    row = {**shape, "max_abs_err": max_abs_err(got, want), **bound, **fold_host_ms(torch, kernel)}
+    row["wait_ms"] = max(ANIMATED_WAIT_MS, 4 * row["host_ms_max"])
+    retaken = RETAKEN[0]
+    row["ms"] = event_ms(torch, kernel, scrub, wait_ms=row["wait_ms"], queued=True)
+    row["retaken"] = RETAKEN[0] - retaken
+    row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
+    """brush_stamp (both modes) and smear_walk against their plain versions
+    on the card at brush_inputs' shapes, each a brush_row.  Returns the
+    kernels line's rows: {"brush_stamp": config 5's largest group with
+    every shape beside it, "smear_walk": the smear}."""
+    rows = uncounted(kernels, lambda: {name: brush_row(torch, dev, scrub, mode, args)
+                                       for name, (mode, args) in brush_inputs(torch, dev).items()})
+    for row in rows.values():
+        row["launch_floor_ms"] = floor_ms
+    emit({"phase": "brush_kernels", "tolerance": 0, "equal_plain": True, "shapes": rows})
+    groups = [name for name in rows if name.startswith("config5_group")]
+    main = max(groups, key=lambda name: rows[name]["pieces"])
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share", "host_ms")
+    stamp = {**rows[main], "shape": main, "max_abs_err": max(rows[n]["max_abs_err"] for n in rows if n != "smear"),
+             "shapes": {name: {k: row[k] for k in keys} for name, row in rows.items() if name != "smear"}}
+    return {"brush_stamp": stamp, "smear_walk": rows["smear"]}
 
 
 def layers_path(torch, dev, kernels, scrub):
@@ -1656,9 +1877,12 @@ def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: 
     return frames, stats
 
 
-def general_filters(torch, dev):
+def general_filters(torch, dev, kernels):
     """The lion under a blur lens with the blob dragged beneath it, then one
-    render of each other filter demo and of the CPG demo, against the CPU."""
+    render of each other filter demo, of the CPG demo and of the two brush
+    demos, against the CPU.  Returns the launches of the demos' card
+    renders by demo (brush_stamp for the brushes, smear_walk for the
+    smear)."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache, examples
     from coherence_tpu_torch.scene import render as R
@@ -1687,7 +1911,8 @@ def general_filters(torch, dev):
     # The lion is thinned to every DEMO_LION_STRIDE-th path here (the whole
     # lion lies under the lens above): the CPU's renders are this phase's time.
     objs = objs[::DEMO_LION_STRIDE]
-    names = ("monofilter", "hole", "rgbfilter", "affinefilter", "wireframe", "smear", "cpg_example")
+    names = ("monofilter", "hole", "rgbfilter", "affinefilter", "wireframe", "smear", "cpg_example", "brush",
+             "monobrush")
     placed = [R.position_anchor(R.Centre, (float(W * 3 // 16), float(H // 2)), getattr(examples, name)()) for name in names]
     rendered, demos = {}, {}
     for device in (dev, "cpu"):
@@ -1695,15 +1920,21 @@ def general_filters(torch, dev):
         shape = region.shape_of_box(WINDOW, device)
         bare = R.render_simple_scene(objs, shape, device)
         for name, demo in zip(names, placed):
+            before = dict(kernels.launches)
             rendered[name, device], st = measured(torch, device, lambda: R.render_simple_scene([demo] + objs, shape, device))
             if device == dev:
-                demos[name] = {"host_ms": st["host_ms"], "event_ms": st["event_ms"], "syncs": st["syncs"]}
+                demos[name] = {"host_ms": st["host_ms"], "event_ms": st["event_ms"], "syncs": st["syncs"],
+                               "launches": {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}}
     for name in names:
         require(rendered[name, dev] is not None and same_sprite(torch, rendered[name, dev], rendered[name, "cpu"]),
                 f"general_filters: {name} differs from the CPU's")
         require(not same_sprite(torch, rendered[name, "cpu"], bare), f"general_filters: {name} changed no pixel of the lion")
+    # The smear walks in one smear_walk launch; each brush stamps in one brush_stamp launch (plane mode).
+    for name, kernel in (("smear", "smear_walk"), ("brush", "brush_stamp"), ("monobrush", "brush_stamp")):
+        require(demos[name]["launches"].get(kernel, 0) >= 1, f"general_filter_demos: {name} launched no {kernel}")
     cache.clear()
     emit({"phase": "general_filter_demos", "lion_paths": len(objs), "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
+    return {name: demo["launches"] for name, demo in demos.items()}
 
 
 def convolve_1080p(torch, dev):
@@ -3469,6 +3700,7 @@ def main() -> int:
     timed = lion_kernels(torch, dev, scrub)
     lion = lion_path(torch, dev, kernels)
     counts4, timed["composite_runs"], full_4k, animated_4k = interactive_path(torch, dev, kernels, scrub)
+    timed.update(brush_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"]))
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
@@ -3482,7 +3714,7 @@ def main() -> int:
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
     del mesh
     counts_general, group_fold = general_lion(torch, dev, kernels)
-    general_filters(torch, dev)
+    counts_demos = general_filters(torch, dev, kernels)
     convolve_1080p(torch, dev)
     stroked_tiles(torch, dev, kernels)
     counts_edits, lion_sprites = scene_edits(torch, dev, kernels)
@@ -3569,6 +3801,21 @@ def main() -> int:
     rect = timed["blur_blend"]["rect"]
     line[-2]["rect_1080p"] = {key: rect[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share")}
     line[-2]["unpacked_ms"] = timed["blur_blend"]["unpacked_ms"]  # the same window over FrameBuffer's unpacked content
+    stamp, smear = timed["brush_stamp"], timed["smear_walk"]
+    # No one PyTorch call stamps a brush patch with alpha_over in order, nor walks a smear.
+    line.append({"name": "brush_stamp", "route": "cuda", "source": CSRC + "brush_stamp.cu",
+                 "replaces": "coherence_tpu/raster/brush_tiles.py:62", "also_replaces": ["coherence_tpu/raster/brush.py:182"],
+                 "pallas": False, "launches": counts4["brush_stamp"],
+                 "launches_general_filter_demos": {n: c["brush_stamp"] for n, c in counts_demos.items() if "brush_stamp" in c},
+                 "max_abs_err": stamp["max_abs_err"], "ms": stamp["ms"], "plain_ms": stamp["plain_ms"],
+                 "bound_ms": stamp["bound_ms"], "bound_by": stamp["bound_by"], "library_ms": None, "bytes": stamp["bytes"],
+                 "share": stamp["share"], "shape": stamp["shape"], "shapes": stamp["shapes"]})
+    line.append({"name": "smear_walk", "route": "cuda", "source": CSRC + "smear.cu",
+                 "replaces": "coherence_tpu/raster/brush.py:324", "pallas": False,
+                 "launches": counts_demos["smear"].get("smear_walk", 0), "max_abs_err": smear["max_abs_err"],
+                 "ms": smear["ms"], "plain_ms": smear["plain_ms"], "bound_ms": smear["bound_ms"],
+                 "bound_by": smear["bound_by"], "library_ms": None, "bytes": smear["bytes"], "share": smear["share"],
+                 "step_bytes": smear["step_bytes"], "serial_steps": smear["serial_steps"]})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

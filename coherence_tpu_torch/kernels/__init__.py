@@ -54,6 +54,8 @@ _ENTRY_POINTS = {
     "blur_blend": [_ptr] + [_i32] * 4 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32, _u32] + [_i32] * 16
                   + [_ptr],
     "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
+    "brush_stamp": [_ptr] * 6 + [_i32] * 6 + [_ptr],
+    "smear_walk": [_ptr, _i32, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
@@ -539,6 +541,217 @@ def shatter_into(atlas, rgba, oys, oxs, base: int) -> torch.Tensor:
     _raise_on("shatter_into", rc)
     launches["shatter_into"] += 1
     return atlas
+
+
+# brush_stamp.cu's atlas piece, and the (rows, columns) of output one block
+# owns: a strip of a plane, or a quarter of a piece.
+BRUSH_TILE = (64, 128)
+BRUSH_BLOCK = (16, 128)
+# brush_stamp.cu's kStrokeWords, kPatchSmem (a cropped patch of more bytes
+# is read from device memory) and kFar (a stamp or point record that touches
+# no tile).
+STROKE_WORDS = 12
+BRUSH_PATCH_SMEM = 32768
+FAR_RECORD = -(1 << 29)
+# The smear's passes over its steps: the reference smears twice (brush.ml:308).
+SMEAR_PASSES = 2
+
+
+def patch_extent(patch: np.ndarray) -> tuple:
+    """(ky0, kx0, kh, kw): the rows and columns of a brush patch that hold a
+    nonzero texel, (0, 0, 0, 0) where none does."""
+    rows, cols = np.nonzero(patch.any(axis=1))[0], np.nonzero(patch.any(axis=0))[0]
+    if not len(rows):
+        return 0, 0, 0, 0
+    return int(rows[0]), int(cols[0]), int(rows[-1] - rows[0] + 1), int(cols[-1] - cols[0] + 1)
+
+
+def pack_brush_records(brushes, offsets, valid, hp: int, wp: int, points=None, fills=None, radii=None) -> tuple:
+    """brush_stamp's host lists for s strokes of n stamps each over (hp, wp)
+    planes: (stamps, points, strokes, patches), int32 numpy arrays.
+
+      * stamps (s, n, 2): each valid stamp's patch corner (row, col), an
+        invalid one FAR_RECORD (its patch touches no tile);
+      * points (s, n, 2), or None without `points`: each stamp point that
+        lies in the plane (row, col), any other FAR_RECORD, as the JAX
+        package's scatter drops it;
+      * strokes (s, STROKE_WORDS): the nonzero extent of the stroke's patch
+        (patch_extent), its mask radii (wr, hr) from `radii`, the byte offset
+        of its cropped patch in `patches`, 0, its fill's four channels;
+      * patches: the strokes' cropped patches as bytes, four to a word, each
+        distinct patch once.
+
+    `brushes` is (s, bhb, bwb) int32 in 0..255, `offsets` (s, n, 2) patch
+    corners, `valid` (s, n) bool.  Raises ValueError where a valid stamp's
+    (bhb, bwb) patch leaves the plane (the JAX package would clamp it; the
+    host never makes one) or a texel lies outside 0..255."""
+    brushes, offsets, valid = np.asarray(brushes), np.asarray(offsets, np.int64), np.asarray(valid, bool)
+    s, bhb, bwb = brushes.shape
+    if offsets.ndim != 3 or offsets.shape[::2] != (s, 2) or valid.shape != offsets.shape[:2]:
+        raise ValueError(f"brush_stamp: offsets {offsets.shape} and valid {valid.shape} are not (s, n, 2) and "
+                         f"(s, n) for {s} strokes")
+    if brushes.size and (brushes.min() < 0 or brushes.max() > 255):
+        raise ValueError("brush_stamp: a brush texel lies outside 0..255")
+    oy, ox = offsets[..., 0], offsets[..., 1]
+    outside = valid & ((oy < 0) | (ox < 0) | (oy + bhb > hp) | (ox + bwb > wp))
+    if outside.any():
+        si, i = (int(v[0]) for v in np.nonzero(outside))
+        raise ValueError(f"brush_stamp: stroke {si}'s stamp {i} at {tuple(offsets[si, i])} puts its {bhb}x{bwb} "
+                         f"patch outside the {hp}x{wp} plane")
+    stamps = np.where(valid[..., None], offsets, FAR_RECORD).astype(np.int32)
+    strokes = np.zeros((s, STROKE_WORDS), np.int32)
+    blobs, at = {}, 0
+    for k in range(s):
+        ky0, kx0, kh, kw = patch_extent(brushes[k])
+        blob = brushes[k, ky0 : ky0 + kh, kx0 : kx0 + kw].astype(np.uint8).tobytes()
+        if blob not in blobs:
+            blobs[blob] = at
+            at += len(blob)
+        strokes[k, :4] = ky0, kx0, kh, kw
+        strokes[k, 6] = blobs[blob]
+    if radii is not None:
+        strokes[:, 4:6] = radii
+    if fills is not None:
+        strokes[:, 8:12] = fills
+    raw = b"".join(blobs)
+    patches = np.frombuffer(raw + bytes(-len(raw) % 4), np.uint8).view(np.int32)
+    packed_points = None
+    if points is not None:
+        pts = np.asarray(points, np.int64)
+        if pts.shape != offsets.shape:
+            raise ValueError(f"brush_stamp: points {pts.shape} are not shaped as the stamps {offsets.shape}")
+        inside = (pts[..., 0] >= 0) & (pts[..., 0] < hp) & (pts[..., 1] >= 0) & (pts[..., 1] < wp)
+        packed_points = np.where(inside[..., None], pts, FAR_RECORD).astype(np.int32)
+    return stamps, packed_points, strokes, patches
+
+
+def _brush_stamp(piece: bool, out, stamps, points, strokes, patches, meta, hp: int, wp: int) -> None:
+    device = out.device
+    s, n = stamps.shape[:2]
+    with torch.cuda.device(device):
+        rc = load()["brush_stamp"](
+            stamps.data_ptr(), points.data_ptr(), strokes.data_ptr(), patches.data_ptr(), meta.data_ptr(),
+            out.data_ptr(), int(piece), s, n, hp, wp, out.shape[0] if piece else 0,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("brush_stamp", rc)
+    launches["brush_stamp"] += 1
+
+
+def _cuda_device(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA device, got {device}")
+    return torch.device("cuda", torch.cuda.current_device()) if device.index is None else device
+
+
+def brush_stamp_planes(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
+    """Launch ``brush_stamp`` in plane mode: the (s, hp, wp) int32 alpha
+    planes of s strokes, each stroke's valid stamps alpha_over-ing its
+    (bhb, bwb) patch of `brushes` at `offsets` (s, n, 2) in order (the
+    plain version is raster/brush.py _stamp_alpha_torch).  The host lists
+    cross in one staged copy (pack_brush_records; it raises on a valid
+    stamp whose patch leaves the plane)."""
+    from ..raster.staging import stage
+
+    device = _cuda_device(device, "brush_stamp")
+    s = len(brushes)
+    if not (0 <= s <= 65535 and 0 <= hp and 0 <= wp and hp * wp < 2**31):
+        raise ValueError(f"brush_stamp: {s} planes of {hp}x{wp} are beyond the kernel's grid")
+    stamps, _, strokes, patches = pack_brush_records(brushes, offsets, valid, hp, wp)
+    out = torch.empty((s, hp, wp), dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out
+    stamps_d, strokes_d, patches_d = stage(device, stamps, strokes, patches)
+    _brush_stamp(False, out, stamps_d, stamps_d, strokes_d, patches_d, strokes_d, hp, wp)
+    return out
+
+
+def brush_stamp_pieces(brushes, offsets, valid, points, fills, radii, meta, hp: int, wp: int, device) -> torch.Tensor:
+    """Launch ``brush_stamp`` in piece mode: a brush-tile group's (pieces,
+    64, 128) packed int32 block.  Piece j is the 64x128 window at (row,
+    col) = meta[j, 1:] of stroke meta[j, 0]'s (hp, wp) plane: the stroke's
+    fill (fills, (s, 4)) dissolved by its stamped alpha where the stroke's
+    mask holds (a stamp point of `points` (s, n, 2) within its (wr, hr) of
+    `radii` (s, 2)), zero elsewhere (the plain version is
+    raster/brush_tiles.py BrushTileBuild._group_block_torch).  The host
+    lists cross in one staged copy."""
+    from ..raster.staging import stage
+
+    device = _cuda_device(device, "brush_stamp")
+    meta = np.asarray(meta, np.int64).reshape(-1, 3)
+    s = len(brushes)
+    th, tw = BRUSH_TILE
+    bad = (meta[:, 0] < 0) | (meta[:, 0] >= s) | (meta[:, 1] < 0) | (meta[:, 1] + th > hp) | (meta[:, 2] < 0) \
+        | (meta[:, 2] + tw > wp)
+    if bad.any():
+        j = int(np.nonzero(bad)[0][0])
+        raise ValueError(f"brush_stamp: piece {j} {tuple(meta[j])} is not a {th}x{tw} window of one of the {s} "
+                         f"{hp}x{wp} planes")
+    if len(meta) >= 2**31 or hp * wp >= 2**31:
+        raise ValueError(f"brush_stamp: {len(meta)} pieces of {hp}x{wp} planes are beyond the kernel's grid")
+    stamps, pts, strokes, patches = pack_brush_records(brushes, offsets, valid, hp, wp, points, fills, radii)
+    out = torch.empty((len(meta), th, tw), dtype=torch.int32, device=device)
+    if not len(meta):
+        return out
+    staged = stage(device, stamps, pts, strokes, patches, meta.astype(np.int32))
+    _brush_stamp(True, out, *staged, hp, wp)
+    return out
+
+
+def smear_steps(offsets, dirs, bh: int, bw: int, height: int, width: int) -> np.ndarray:
+    """smear_walk's (n, 4) int32 step records (row, col, dx, dy) from the
+    patch corners `offsets` (row, col) and directions `dirs` (dx, dy).
+    Raises ValueError, naming the first step at fault, where a step's (bh,
+    bw) patch or its source, shifted by -dir, leaves the (height, width)
+    canvas (the JAX package would clamp it; smear's host filter never makes
+    one)."""
+    steps = np.zeros((len(offsets), 4), np.int64)
+    if len(offsets):
+        steps[:, :2], steps[:, 2:] = np.asarray(offsets).reshape(-1, 2), np.asarray(dirs).reshape(-1, 2)
+    r, c, dx, dy = steps.T
+    bad = (np.minimum(r, r - dy) < 0) | (np.maximum(r, r - dy) + bh > height) \
+        | (np.minimum(c, c - dx) < 0) | (np.maximum(c, c - dx) + bw > width)
+    if bad.any():
+        j = int(np.nonzero(bad)[0][0])
+        raise ValueError(f"smear_walk: step {j} {tuple(steps[j])} moves a {bh}x{bw} patch outside the "
+                         f"{height}x{width} canvas")
+    return steps.astype(np.int32)
+
+
+def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
+    """Launch ``smear_walk``: the smear's SMEAR_PASSES passes over the (H,
+    W, 4) int32 canvas `cv`, in place, in one launch: at each step the (bh, bw) patch
+    at offsets[i] (row, col) takes the opacity-weighted mix of itself and
+    the patch shifted by -dirs[i] (dx, dy) (the plain version is
+    raster/brush.py _smear_walk_torch).  `opac` is the (bh, bw) int32
+    opacity plane on cv's device; the steps cross in one staged copy."""
+    from ..raster.staging import stage
+
+    device = cv.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA smear needs tensors on a CUDA device, got {device}")
+    if cv.dim() != 3 or cv.shape[2] != 4:
+        raise ValueError(f"smear_walk: need an (H, W, 4) canvas, got shape {tuple(cv.shape)}")
+    _check("canvas", cv, device)
+    _check("opac", opac, device, (bh, bw))
+    height, width = cv.shape[:2]
+    if not SMEAR_PASSES * len(offsets) < 2**31 or width >= 2**31 // 4:
+        raise ValueError(f"smear_walk: {len(offsets)} steps over a {height}x{width} canvas are beyond the kernel")
+    steps = smear_steps(offsets, dirs, bh, bw, height, width)
+    if not len(steps) or not bh * bw:
+        return cv
+    (steps_d,) = stage(device, steps)
+    # The new values of the patch pixels that a thread cannot keep in registers between a step's reads and writes.
+    spill = torch.empty((bh * bw, 4), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = load()["smear_walk"](
+            cv.data_ptr(), width, opac.data_ptr(), steps_d.data_ptr(), spill.data_ptr(), len(steps), SMEAR_PASSES,
+            bh, bw, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("smear_walk", rc)
+    launches["smear_walk"] += 1
+    return cv
 
 
 def launch_floor(device) -> None:

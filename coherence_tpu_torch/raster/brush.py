@@ -7,11 +7,14 @@ the brush at points spaced width/20 along the path (brush.ml:126-131),
 compositing alphas with ``alpha_over``; the fill is applied afterwards by
 dissolving the fill colour by the accumulated alpha (brush.ml:176-222).
 
-The stamps run one after another, in the reference's order and rounding,
-as tensor operations on a device canvas (``_stamp_alpha``, which the
-batched ``raster/brush_tiles`` build shares); the JAX package runs the same
-walk as a ``lax.scan``.  Its pow2 padding of canvas, brush and stamp count
-bounds compiled programs and is not kept.
+The stamps run in the reference's order and rounding (``_stamp_alpha``,
+which the batched ``raster/brush_tiles`` build shares); the JAX package
+runs the walk as a ``lax.scan``.  On a CUDA device the walk is one launch
+of the hand-written ``brush_stamp`` kernel and the smear's two passes one
+launch of ``smear_walk``; on the CPU each runs as torch operations, one
+step a stamp (``_stamp_alpha_torch``, ``_smear_walk_torch``).  The JAX
+package's pow2 padding of canvas, brush and stamp count bounds compiled
+programs and is not kept.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 from .. import transform as tr
 from ..geometry import path as gpath
 from . import region
@@ -174,9 +178,18 @@ def bounds_brushstroke(brushstroke):
 def _stamp_alpha(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
     """(s, hp, wp) int32 alpha planes: each stroke's valid stamps
     alpha_over its (bhb, bwb) brush patch at offsets[s, i] (top-left
-    corner), in stamp order.  Strokes are independent, so stamp i of every
-    stroke runs in one batched step; an invalid stamp leaves its patch as
-    it is, and a step with no valid stamp is skipped on the host."""
+    corner), in stamp order; an invalid stamp leaves its patch as it is.
+    On a CUDA device one ``brush_stamp`` launch (plane mode) computes them;
+    on the CPU ``_stamp_alpha_torch``."""
+    if torch.device(device).type == "cpu":
+        return _stamp_alpha_torch(brushes, offsets, valid, hp, wp, device)
+    return kernels.brush_stamp_planes(brushes, offsets, valid, hp, wp, device)
+
+
+def _stamp_alpha_torch(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
+    """Plain version of ``_stamp_alpha``.  Strokes are independent, so
+    stamp i of every stroke runs in one batched step; a step with no valid
+    stamp is skipped on the host."""
     s, bhb, bwb = brushes.shape
     canvas = torch.zeros((s, hp, wp), dtype=torch.int32, device=device)
     aa = torch.from_numpy(brushes).to(device)
@@ -291,17 +304,29 @@ def find_smear_directions(points):
 
 
 def _smear_walk(cv: torch.Tensor, opac_a: torch.Tensor, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
-    """One smear pass over the int32 (H, W, 4) canvas, in place: for each
-    point, read a brush-sized patch shifted by -dir, then dissolve it under
-    the patch at the point, weighted by the opacity brush (brush.ml:308-328).
-    At alpha 0 the smear writes the shifted patch (dissolve_between)."""
+    """The smear's two passes (the reference smears twice, brush.ml:308)
+    over the int32 (H, W, 4) canvas, in place: for each point, read a
+    brush-sized patch shifted by -dir, then dissolve it under the patch at
+    the point, weighted by the opacity brush (brush.ml:308-328).  At alpha
+    0 the smear writes the shifted patch (dissolve_between).  On a CUDA
+    device one ``smear_walk`` launch runs both passes; on the CPU
+    ``_smear_walk_torch``."""
+    if cv.device.type == "cpu":
+        return _smear_walk_torch(cv, opac_a, offsets, dirs, bh, bw)
+    return kernels.smear_walk(cv, opac_a, offsets, dirs, bh, bw)
+
+
+def _smear_walk_torch(cv: torch.Tensor, opac_a: torch.Tensor, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
+    """Plain version of ``_smear_walk``: one step of torch operations per
+    point and pass."""
     al = opac_a[..., None]
-    for (r, c), (dx, dy) in zip(offsets, dirs):
-        src = cv[r - dy : r - dy + bh, c - dx : c - dx + bw]
-        dst = cv[r : r + bh, c : c + bw]
-        # dissolve_between ~a:dst src ~alpha:opacbrush_alpha
-        mixed = C.dissolve_rgba(dst, al) + C.dissolve_rgba(src, 255 - al)
-        cv[r : r + bh, c : c + bw] = torch.where(al == 0, src, torch.where(al == 255, dst, mixed))
+    for _ in range(kernels.SMEAR_PASSES):
+        for (r, c), (dx, dy) in zip(offsets, dirs):
+            src = cv[r - dy : r - dy + bh, c - dx : c - dx + bw]
+            dst = cv[r : r + bh, c : c + bw]
+            # dissolve_between ~a:dst src ~alpha:opacbrush_alpha
+            mixed = C.dissolve_rgba(dst, al) + C.dissolve_rgba(src, 255 - al)
+            cv[r : r + bh, c : c + bw] = torch.where(al == 0, src, torch.where(al == 255, dst, mixed))
     return cv
 
 
@@ -346,7 +371,5 @@ def smear(spr, brushstroke, device):
         (bh, bw), 255, np.int32
     )
     opac_a = torch.from_numpy(opac).to(canvas.rgba.device)
-    cv = canvas.rgba.clone()
-    for _ in range(2):  # the reference smears twice (brush.ml:308)
-        cv = _smear_walk(cv, opac_a, offsets, dirs, bh, bw)
+    cv = _smear_walk(canvas.rgba.clone(), opac_a, offsets, dirs, bh, bw)
     return region.pickup(region.shape_of_sprite(spr), Canvas(cv, canvas.origin))

@@ -15,10 +15,12 @@ that ``TiledScene.add_rastered`` ingests:
     (stroke, tile) piece is sliced out packed.
 
 The JAX package runs this as one XLA program per group, not as a Pallas
-kernel; here it is plain torch ops.  Blocks keep the JAX layout (sorted
-groups, pow2 stroke and piece buckets, padding pieces cut from stroke 0 at
-the plane origin), so a scene's atlas is equal to the reference's slot for
-slot.
+kernel.  On a CUDA device a group is one launch of the hand-written
+``brush_stamp`` kernel in piece mode, its host lists in one staged copy;
+on the CPU it is torch operations (``_group_block_torch``).  Blocks keep
+the JAX layout (sorted groups, pow2 stroke and piece buckets, padding
+pieces cut from stroke 0 at the plane origin), so a scene's atlas is equal
+to the reference's slot for slot.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 from . import aa as raa
 from . import region
 from .brush import (
     GAUSSIAN,
     _int_points,
-    _stamp_alpha,
+    _stamp_alpha_torch,
     drawround_alpha,
     points_of_brushstroke,
     sizeof_brush,
@@ -44,6 +47,28 @@ from .compositor import TILE_H, TILE_W, pack_rgba
 # Stamp-point coordinates the JAX scatter drops (its mode="drop"); the
 # host filters them out before the scatter here.
 _FAR = 32767
+
+
+def _group_lists(npb: int, items) -> tuple:
+    """A group's host lists: (brushes (s, bhb, bwb), offsets (s, npb, 2),
+    valid (s, npb), points (s, npb, 2) with _FAR padding, fills (s, 4),
+    radii (s, 2) as (wr, hr), meta (pb, 3)).  meta lists each stroke's
+    pieces as (stroke, plane row, plane col) in staging order, then
+    padding pieces up to the pow2 bucket: stroke 0's plane at the origin,
+    as the JAX package's zero meta rows slice it."""
+    s = len(items)
+    offsets = np.zeros((s, npb, 2), np.int32)
+    valid = np.zeros((s, npb), bool)
+    points = np.full((s, npb, 2), _FAR, np.int32)
+    for si, it in enumerate(items):
+        offsets[si, : len(it[2])] = it[2]
+        valid[si, : len(it[3])] = it[3]
+        points[si, : len(it[4])] = it[4]
+    metas = [(si, oy, ox) for si, it in enumerate(items) for _tile, oy, ox in it[7]]
+    meta = np.zeros((raa.span_bucket(len(metas), floor=8), 3), np.int32)
+    meta[: len(metas)] = metas
+    return (np.stack([it[1] for it in items]), offsets, valid, points,
+            np.stack([it[5] for it in items]), np.array([it[6] for it in items], np.int32).reshape(s, 2), meta)
 
 
 class BrushTileBuild:
@@ -123,14 +148,20 @@ class BrushTileBuild:
 
     def _group_block(self, hp: int, wp: int, bhb: int, bwb: int, npb: int, items) -> torch.Tensor:
         """One group's (pb, TILE_H, TILE_W) int32 block: its strokes'
-        pieces in staging order, then padding pieces."""
-        s = len(items)
-        offsets = np.zeros((s, npb, 2), np.int32)
-        valid = np.zeros((s, npb), bool)
-        for si, it in enumerate(items):
-            offsets[si, : len(it[2])] = it[2]
-            valid[si, : len(it[3])] = it[3]
-        alpha = _stamp_alpha(np.stack([it[1] for it in items]), offsets, valid, hp, wp, self.device)
+        pieces in staging order, then padding pieces.  On a CUDA device one
+        ``brush_stamp`` launch (piece mode) makes it from the group's lists;
+        on the CPU ``_group_block_torch``."""
+        if self.device.type == "cpu":
+            return self._group_block_torch(hp, wp, bhb, bwb, npb, items)
+        return kernels.brush_stamp_pieces(*_group_lists(npb, items), hp, wp, self.device)
+
+    def _group_block_torch(self, hp: int, wp: int, bhb: int, bwb: int, npb: int, items) -> torch.Tensor:
+        """Plain version of ``_group_block``: the stamps as batched torch
+        steps (``_stamp_alpha_torch``), then per stroke the point scatter,
+        ``region._box_count``, the dissolve, the pack and one slice a
+        piece."""
+        brushes, offsets, valid, _, _, _, meta = _group_lists(npb, items)
+        alpha = _stamp_alpha_torch(brushes, offsets, valid, hp, wp, self.device)
         planes = []
         for si, (_, _, _, _, pt, f4, (wr, hr), _) in enumerate(items):
             pt = torch.from_numpy(pt[pt[:, 0] != _FAR].astype(np.int64)).to(self.device)
@@ -139,13 +170,7 @@ class BrushTileBuild:
             mask = region._box_count(ptplane, wr, hr) > 0
             fill = torch.from_numpy(f4).to(self.device)[None, None, :]
             planes.append(pack_rgba(torch.where(mask[..., None], C.dissolve_rgba(fill, alpha[si]), 0)))
-        metas = [(si, oy, ox) for si, it in enumerate(items) for _tile, oy, ox in it[7]]
-        # Padding pieces are stroke 0's plane at the origin, as the JAX
-        # package's zero meta rows slice it.
-        pad = planes[0][None, :TILE_H, :TILE_W]
-        pieces = [planes[si][oy : oy + TILE_H, ox : ox + TILE_W] for si, oy, ox in metas]
-        n_pad = raa.span_bucket(len(metas), floor=8) - len(metas)
-        return torch.cat([torch.stack(pieces), pad.expand(n_pad, TILE_H, TILE_W)])
+        return torch.stack([planes[si][oy : oy + TILE_H, ox : ox + TILE_W] for si, oy, ox in meta])
 
     def flush(self):
         """Returns (blocks, registry): a list of (p, TILE_H, TILE_W) int32

@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card:
 
 The general renderer (``render_simple_scene`` down through ``render_scene``,
 the coherence cache, ``region.caf`` and the anti-aliased polygon sprite)
-launches no hand-written kernel: it is eager torch operations.  This script
-says what they cost.  It builds ``chip_smoke.py``'s ``general_lion`` scene
-(the lion fitted to 1024 pixels in a 1920 x 1080 window) and writes, under
---out:
+is mostly eager torch operations; its hand-written kernels are the group
+fold (``fold_layers``), the brush stamp walk (``brush_stamp``) and the
+smear (``smear_walk``).  This script says what it costs.  It builds
+``chip_smoke.py``'s ``general_lion`` scene (the lion fitted to 1024 pixels
+in a 1920 x 1080 window) and writes, under --out:
 
   * rebuild_profile.txt: a ``torch.profiler`` window of one render after
     ``cache.clear()``: device time, device operations (device rows only:
@@ -22,6 +23,9 @@ says what they cost.  It builds ``chip_smoke.py``'s ``general_lion`` scene
     port's counterpart called five times under the profiler at a stated
     shape: per call its device operations (the card's rows), the launches
     and copies the host issued (the runtime's rows), and its device time.
+    The brush stroke's and the smear's walks also stand alone ("stamp
+    walk", "smear walk": the brush_stamp and smear_walk kernels' calls as
+    those two programs make them).
 
 It prints, last, one JSON line with those totals, the unprofiled host and
 CUDA-event milliseconds of a rebuild and of a warm render, the host syncs
@@ -31,6 +35,7 @@ and shares, and the unprofiled lines for times.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -115,7 +120,7 @@ def programs(torch, dev):
     frame = torch.from_numpy(rng.integers(0, 256, (1088, 1920, 4)).astype(np.int32)).to(dev)
     whole = torch.ones((1088, 1920), dtype=torch.bool, device=dev)
     k5 = convolve.mkgaussian(5)
-    return {
+    out = {
         "caf over": ("region._caf_kernel", "two 512x512 sprites, union box 711x611",
                      lambda: region.caf("over", "opaque", sa, sb)),
         "shape_union": ("region._shift_mask + _or", "two 512x512 masks", lambda: region.shape_union(a, b)),
@@ -143,6 +148,55 @@ def programs(torch, dev):
         "smear": ("brush._smear_scan", f"{len(brush.points_of_brushstroke_smear(stroke))} steps over a 711x611 sprite",
                   lambda: brush.smear(region.caf("over", "opaque", sa, sb)[0], stroke, dev)),
     }
+    out["stamp walk"] = ("brush._stamp_scan_alpha", "the sprite_of_brushstroke row's stamps alone",
+                         replayed(out["sprite_of_brushstroke"][2], "_stamp_alpha"))
+    out["smear walk"] = ("brush._smear_scan x 2", "the smear row's steps alone, both passes",
+                         replayed(out["smear"][2], "_smear_walk"))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_brush_calls():
+    """Inside, every raster/brush.py _stamp_alpha and _smear_walk call
+    appends (name, args) to the yielded list (the smear's canvas as a copy
+    taken before the walk), then runs as before."""
+    from coherence_tpu_torch.raster import brush
+
+    calls, real = [], {name: getattr(brush, name) for name in ("_stamp_alpha", "_smear_walk")}
+
+    def recording(name):
+        def call(*args):
+            calls.append((name, (args[0].clone(), *args[1:]) if name == "_smear_walk" else args))
+            return real[name](*args)
+
+        return call
+
+    for name in real:
+        setattr(brush, name, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(brush, name, fn)
+
+
+def replayed(program, name: str):
+    """A thunk that calls raster/brush.py's `name` (_stamp_alpha or
+    _smear_walk) with the arguments of the first such call that the thunk
+    `program` makes, which its first call records (the smear walks its
+    recorded canvas again each call)."""
+    from coherence_tpu_torch.raster import brush
+
+    recorded = []
+
+    def call():
+        if not recorded:
+            with recorded_brush_calls() as calls:
+                program()
+            recorded.append(next(args for n, args in calls if n == name))
+        return getattr(brush, name)(*recorded[0])
+
+    return call
 
 
 def main() -> int:

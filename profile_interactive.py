@@ -4,9 +4,13 @@
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit:
 
-    python3 profile_interactive.py [--out build/profile] [--frames 50]
+    python3 profile_interactive.py [--out build/profile] [--frames 50] [--tree DIR]
 
-It builds the scene as ``chip_smoke.py`` does and writes, under --out:
+--tree names the checkout whose package and ``chip_smoke.py`` run (by
+default this one), so that one call can hold two commits on the same card:
+unpack the other with ``git archive`` into a directory that ``.gitignore``
+lists and run both in turns.  It builds the scene as ``chip_smoke.py``
+does and writes, under --out:
 
   * build_cprofile.txt: cProfile of the scene build and full refresh;
   * frames_profile.txt: a ``torch.profiler`` window of --frames filtered
@@ -17,8 +21,12 @@ It builds the scene as ``chip_smoke.py`` does and writes, under --out:
   * zoom_cprofile.txt: cProfile of one 2x zoom step (a cache miss).
 
 It prints, last, one JSON line with those totals, the host milliseconds
-per filtered frame over 100 unprofiled frames, and the card's name and
-power limit.  The profiler adds tens of milliseconds per frame on the
+per filtered frame over 100 unprofiled frames, the zoom miss's split
+(zoom_split: the cumulative seconds under cProfile of the brush-tile
+build, ``BrushTileBuild.flush``, the stamp scan and its pieces; the host
+sweep, ``stage_tiled_scene``, the staging; the tile rasterizer's
+launches, ``TileBuild.flush``, the dispatch; and the rest of the step),
+and the card's name and power limit.  The profiler adds tens of milliseconds per frame on the
 host, so read its window for shares, not times.
 """
 
@@ -33,27 +41,60 @@ import sys
 import time
 
 
+def write_stats(path: str, seconds: float, stats) -> None:
+    """The 25 largest cumulative rows of `stats` into `path`."""
+    out = io.StringIO()
+    stats.stream = out
+    stats.sort_stats("cumtime").print_stats(25)
+    with open(path, "w") as f:
+        f.write(f"seconds {seconds}\n{out.getvalue()}")
+
+
 def cprofile_to(path: str, fn) -> float:
     """Run fn under cProfile, write the 25 largest cumulative rows to
     `path`, and return its seconds on the host clock."""
+    seconds, stats = cprofiled(fn)
+    write_stats(path, seconds, stats)
+    return seconds
+
+
+# zoom_split's parts: name -> (file, function) of the cProfile row whose
+# cumulative seconds it reads.
+ZOOM_PARTS = {
+    "stamp_scan": ("brush_tiles.py", "flush"),
+    "staging": ("fastframe.py", "stage_tiled_scene"),
+    "dispatch": ("tile_raster.py", "flush"),
+}
+
+
+def cprofiled(fn):
+    """(seconds on the host clock, pstats.Stats) of fn under cProfile."""
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
     fn()
     pr.disable()
-    seconds = time.perf_counter() - t0
-    out = io.StringIO()
-    pstats.Stats(pr, stream=out).sort_stats("cumtime").print_stats(25)
-    with open(path, "w") as f:
-        f.write(f"seconds {seconds}\n{out.getvalue()}")
-    return seconds
+    return time.perf_counter() - t0, pstats.Stats(pr)
+
+
+def zoom_split(stats, seconds: float) -> dict:
+    """ZOOM_PARTS' cumulative seconds from one cProfile of a zoom step, and
+    the rest of its `seconds`."""
+    parts = {name: sum(row[3] for (path, _, func), row in stats.stats.items()
+                       if os.path.basename(path) == fname and func == want)
+             for name, (fname, want) in ZOOM_PARTS.items()}
+    return {**parts, "rest": seconds - sum(parts.values()), "total": seconds}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile", help="directory for the profile files")
     ap.add_argument("--frames", type=int, default=50, help="filtered frames in the profiler window")
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="the checkout to run (its package and chip_smoke.py)")
     args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -64,9 +105,13 @@ def main() -> int:
     import chip_smoke as cs
     from coherence_tpu_torch import kernels
 
+    for mod in (cs, kernels):
+        if not os.path.abspath(mod.__file__).startswith(tree + os.sep):
+            raise RuntimeError(f"profile_interactive: {mod.__name__} came from {mod.__file__}, not from {tree}")
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    kernels.build()
     kernels.load()
     built = {}
 
@@ -115,10 +160,11 @@ def main() -> int:
         view.render(full=True)
         torch.cuda.synchronize()
 
-    zoom_s = cprofile_to(os.path.join(args.out, "zoom_cprofile.txt"), zoom)
-    print(json.dumps({"nvidia_smi": smi, "build_s": build_s, "device_ms_per_frame": device_ms,
+    zoom_s, zoom_stats = cprofiled(zoom)
+    write_stats(os.path.join(args.out, "zoom_cprofile.txt"), zoom_s, zoom_stats)
+    print(json.dumps({"tree": tree, "nvidia_smi": smi, "build_s": build_s, "device_ms_per_frame": device_ms,
                       "device_ops_per_frame": device_ops, "host_ms_per_frame_unprofiled": host_ms,
-                      "zoom_2x_miss_s": zoom_s}))
+                      "zoom_2x_miss_s": zoom_s, "zoom_split": zoom_split(zoom_stats, zoom_s)}))
     return 0
 
 

@@ -296,3 +296,69 @@ def test_shatter_bound_matches_a_brute_count():
                for x in range(max(0, ox), min(ws, ox + 128))}
     assert got["pieces"] == len(oys)
     assert got["bytes"] == len(oys) * 64 * 128 * 4 + _sectors(covered, ws, 16) * 32
+
+
+def _brute_smear(opac, offsets, dirs):
+    """(pixels read before the walk writes them, pixels written, mixed
+    texel-steps) of the smear's two passes, texel by texel: a texel of
+    al == 255 reads nothing, one of al == 0 its source, any other its
+    source and its destination; every step reads before it writes."""
+    bh, bw = opac.shape
+    read, written, mixed = set(), set(), 0
+    for _ in range(2):
+        for (r, c), (dx, dy) in zip(offsets, dirs):
+            step_writes = set()
+            for i in range(bh):
+                for j in range(bw):
+                    al = int(opac[i, j])
+                    if al == 255:
+                        continue
+                    wanted = [(r - dy + i, c - dx + j)] + ([(r + i, c + j)] if al else [])
+                    read |= {px for px in wanted if px not in written}
+                    step_writes.add((r + i, c + j))
+                    mixed += al != 0
+            written |= step_writes
+    return read, written, mixed
+
+
+@pytest.mark.parametrize("radius", [1.0, 12.0, 15.0])
+def test_smear_bound_matches_a_brute_count(radius):
+    """smear_bound: each pixel read before the walk writes it and each
+    pixel written, 16 bytes once; the mixed texels' operations; and the
+    step-by-step traffic of the union of source and destination."""
+    from test_torch_cuda import smear_case
+
+    canvas, opac, offsets, dirs = smear_case(radius, n=20)
+    got = chip_smoke.smear_bound(opac, offsets, dirs, *canvas.shape[:2])
+    read, written, mixed = _brute_smear(opac, offsets, dirs)
+    bh, bw = opac.shape
+    assert got["bytes"] == 16 * (len(read) + len(written))
+    assert got["operations"] == chip_smoke.SMEAR_OPS * 4 * mixed
+    assert got["serial_steps"] == 2 * len(offsets)
+    assert got["step_bytes"] == 2 * 16 * sum((bh + abs(dy)) * (bw + abs(dx)) + bh * bw for dx, dy in dirs)
+    assert got["bytes"] < got["step_bytes"]
+
+
+@pytest.mark.parametrize("radius", [1.0, 12.0])
+def test_smear_bound_reads_all_the_walk_needs(radius):
+    """The pixels the brute count leaves unread do not change the walk's
+    result, and those it leaves unwritten keep their values: changing every
+    other pixel of the canvas changes only them."""
+    from test_torch_cuda import smear_case
+
+    from coherence_tpu_torch.raster import brush as TB
+
+    canvas, opac, offsets, dirs = smear_case(radius, n=20)
+    read, written, _ = _brute_smear(opac, offsets, dirs)
+    bh, bw = opac.shape
+    other = np.ones(canvas.shape[:2], bool)
+    other[tuple(np.array(sorted(read)).T)] = False
+    changed = canvas.copy()
+    changed[other] = 255 - changed[other]
+    walk = [TB._smear_walk_torch(torch.from_numpy(cv.copy()), torch.from_numpy(opac), offsets, dirs, bh, bw).numpy()
+            for cv in (canvas, changed)]
+    mask = np.zeros(canvas.shape[:2], bool)
+    mask[tuple(np.array(sorted(written)).T)] = True
+    assert np.array_equal(walk[0][mask], walk[1][mask])
+    assert np.array_equal(walk[0][~mask], canvas[~mask]) and np.array_equal(walk[1][~mask], changed[~mask])
+    assert other.any() and (other & mask).any()

@@ -1466,3 +1466,267 @@ def test_no_card_frame_reaches_a_plain_version(cuda_device, monkeypatch):
     disp.play_animated(key, [_animated_delta(k) for k in range(5, 10)], require_scan=True)
     torch.cuda.synchronize()
     assert bool((disp.rgba >= 0).all())
+
+
+# ---------------------------------------------------------------------------
+# The brush kernels: brush_stamp (BR1, plane and piece modes) and smear_walk
+# (SM1) against their plain versions.  The cases are shared with the CPU
+# tests of tests/test_torch_brush_kernel.py, which hold the plain versions
+# to the JAX package and the kernels' host side to brute force.
+# ---------------------------------------------------------------------------
+
+BRUSH_RADII = [1.0, 12.0, 15.0, 20.0, 120.0]
+BRUSH_FAR = 32767  # raster/brush_tiles.py _FAR: a point the scatter drops
+
+
+def brush_case(radius: float, seed: int = 0):
+    """A brush-tile group of four strokes of mkround(radius, .) brushes as
+    BrushTileBuild stages it: (hp, wp, bhb, bwb, npb, items), each item
+    (key, padded patch, offsets, valid, points, fill, (wr, hr), pieces).
+    Stroke 0 stamps at the plane's four corners and along it, some stamps
+    invalid, points at every edge of the plane, dropped (_FAR) and
+    repeated; stroke 1 a second opacity with more stamps than one round of
+    the kernel (256) where the radius allows; stroke 2 is empty (no valid
+    stamp, every point dropped); stroke 3 has half its stamps invalid and
+    every point twice.  Pieces: the 2x2 real tiles after the bhb x bwb
+    margin, the plane's origin and its bottom-right corner."""
+    from coherence_tpu_torch.raster import aa as raa
+    from coherence_tpu_torch.raster import brush as TB
+    from coherence_tpu_torch.raster import region as TRG
+
+    rng = np.random.default_rng(seed * 1000 + int(radius * 10))
+    bh = bw = 2 * int(np.ceil(radius)) + 1
+    wr = hr = (bw - 1) // 2
+    bhb, bwb = TRG.bucket_hw(bh, bw)
+    hp, wp = 3 * bhb + 2 * TILE_H, 3 * bwb + 2 * TILE_W
+    n_stamps = [40, 300, 12, 60] if radius < 100 else [16, 24, 4, 10]
+    items = []
+    for si, n in enumerate(n_stamps):
+        offs = np.stack([rng.integers(0, hp - bhb + 1, n), rng.integers(0, wp - bwb + 1, n)], axis=1)
+        if si == 0:
+            offs[:4] = [(0, 0), (0, wp - bwb), (hp - bhb, 0), (hp - bhb, wp - bwb)]
+        val = np.ones(n, bool)
+        if si in (0, 3):
+            val[rng.random(n) < (0.2 if si == 0 else 0.5)] = False
+            val[:4] = True
+        if si == 2:
+            val[:] = False
+        pts = offs + (hr, wr)
+        if si == 0:
+            pts[4:10] = [(0, 5), (hp - 1, 7), (9, 0), (11, wp - 1), (0, 0), (hp - 1, wp - 1)]
+            pts[10:13] = BRUSH_FAR
+            pts[13] = pts[12] = pts[14]
+        if si == 2:
+            pts[:] = BRUSH_FAR
+        if si == 3:
+            pts[n // 2 :] = pts[: n - n // 2]
+        patch = np.zeros((bhb, bwb), np.int32)
+        patch[:bh, :bw] = TB.drawround_alpha(radius, [0.5, 0.8, 0.3, 1.0][si])
+        a = int(rng.integers(1, 256))
+        fill = np.append(rng.integers(0, a + 1, 3), a).astype(np.int32)
+        pieces = [(si * 4 + ty * 2 + tx, bhb + ty * TILE_H, bwb + tx * TILE_W) for ty in range(2) for tx in range(2)]
+        if si == 0:
+            pieces += [(100, 0, 0), (101, hp - TILE_H, wp - TILE_W)]
+        if si == 2:
+            pieces = pieces[:1]
+        items.append((f"stroke{si}", patch, offs.astype(np.int32), val, pts.astype(np.int32), fill, (wr, hr), pieces))
+    npb = raa.span_bucket(max(n_stamps), floor=8)
+    return hp, wp, bhb, bwb, npb, items
+
+
+def plane_inputs(case):
+    """brush_case's plane-mode inputs: (brushes, offsets, valid, hp, wp)."""
+    from coherence_tpu_torch.raster.brush_tiles import _group_lists
+
+    hp, wp, _, _, npb, items = case
+    brushes, offsets, valid = _group_lists(npb, items)[:3]
+    return brushes, offsets, valid, hp, wp
+
+
+SMEAR_DIRS = [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+def smear_case(radius: float, seed: int = 0, n: int = 60):
+    """(canvas (H, W, 4) int32 premultiplied, opacity (bh, bw) int32,
+    offsets [(row, col)], dirs [(dx, dy)]): a walk of n steps over all nine
+    directions (each at least once, then at random) that touches the
+    canvas's every edge, the opacity drawround_alpha(radius, 1.0) with its
+    0 corners (al == 0 writes the source) and its 255 centre."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    rng = np.random.default_rng(seed * 1000 + int(radius * 10))
+    opac = TB.drawround_alpha(radius, 1.0)
+    bh, bw = opac.shape
+    height, width = bh + 40, bw + 56
+    canvas = blur_content(seed + 7, height, width)
+    dirs = SMEAR_DIRS + [SMEAR_DIRS[k] for k in rng.integers(0, 9, n - 9)]
+    offsets = []
+    for k, (dx, dy) in enumerate(dirs):
+        if k < 4:  # the four corners of the range a step may take
+            r = [1, height - bh - 1][k % 2]
+            c = [1, width - bw - 1][k // 2]
+        else:
+            r, c = int(rng.integers(1, height - bh)), int(rng.integers(1, width - bw))
+        offsets.append((r, c))
+    return canvas, opac.astype(np.int32), offsets, dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", BRUSH_RADII)
+def test_brush_stamp_plane_mode_matches_plain(cuda_device, radius):
+    """brush_stamp in plane mode against _stamp_alpha_torch, bit for bit,
+    each launch counted once."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    brushes, offsets, valid, hp, wp = plane_inputs(brush_case(radius))
+    want = TB._stamp_alpha_torch(brushes, offsets, valid, hp, wp, "cpu")
+    before = kernels.launches["brush_stamp"]
+    got = TB._stamp_alpha(brushes, offsets, valid, hp, wp, cuda_device)
+    one = TB._stamp_alpha(brushes[:1], offsets[:1, :5], valid[:1, :5], hp, wp, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.launches["brush_stamp"] == before + 2
+    assert torch.equal(got.cpu(), want) and bool((want > 0).any())
+    assert torch.equal(one.cpu(), TB._stamp_alpha_torch(brushes[:1], offsets[:1, :5], valid[:1, :5], hp, wp, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", BRUSH_RADII)
+def test_brush_stamp_piece_mode_matches_plain(cuda_device, radius):
+    """brush_stamp in piece mode against _group_block_torch, bit for bit:
+    every piece, the padding pieces, a stroke of more stamps than one round
+    of records where the radius allows; one launch a group."""
+    from coherence_tpu_torch.raster import brush_tiles as TBT
+
+    hp, wp, bhb, bwb, npb, items = brush_case(radius)
+    want = TBT.BrushTileBuild(1, 1, "cpu")._group_block_torch(hp, wp, bhb, bwb, npb, items)
+    before = kernels.launches["brush_stamp"]
+    got = TBT.BrushTileBuild(1, 1, cuda_device)._group_block(hp, wp, bhb, bwb, npb, items)
+    torch.cuda.synchronize()
+    assert kernels.launches["brush_stamp"] == before + 1
+    assert got.shape == want.shape and torch.equal(got.cpu(), want)
+    assert bool((want != 0).any())
+
+
+@pytest.mark.cuda
+def test_brush_stamp_many_pieces_and_records(cuda_device):
+    """A group of one long stroke over 24 x 20 tiles (480 pieces, 7,848
+    stamps in 8,192 records: 32 rounds) in piece mode, and its plane in
+    plane mode, against the plain versions."""
+    from coherence_tpu_torch.raster import brush as TB
+    from coherence_tpu_torch.raster import brush_tiles as TBT
+
+    build = TBT.BrushTileBuild(24, 20, "cpu")
+    stroke = (TB.mkround(12.0, 0.5), _long_stroke_path())
+    assert build.add_stroke("long", stroke, np.array([120, 40, 10, 185], np.int32))
+    (gkey, items), = build.groups.items()
+    want = build._group_block_torch(*gkey, items)
+    got = TBT.BrushTileBuild(24, 20, cuda_device)._group_block(*gkey, items)
+    brushes, offsets, valid = TBT._group_lists(gkey[4], items)[:3]
+    plane = TB._stamp_alpha(brushes, offsets, valid, gkey[0], gkey[1], cuda_device)
+    torch.cuda.synchronize()
+    assert len(items[0][7]) == 480 and offsets.shape[1] == 8192
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(plane.cpu(), TB._stamp_alpha_torch(brushes, offsets, valid, gkey[0], gkey[1], "cpu"))
+
+
+def _long_stroke_path():
+    """A zigzag over a 2560 x 1536 frame: 7,848 stamps of a radius-12 brush."""
+    from coherence_tpu_torch.geometry import path as gpath
+
+    pts = [(40.0, 40.0), (2500.0, 300.0), (60.0, 700.0), (2480.0, 1100.0), (100.0, 1490.0)]
+    segs = tuple(gpath.Straight(a, b) for a, b in zip(pts, pts[1:]))
+    return gpath.Path(gpath.EVEN_ODD, (gpath.Subpath(False, False, segs),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", BRUSH_RADII)
+def test_smear_walk_matches_plain(cuda_device, radius):
+    """smear_walk against _smear_walk_torch, both passes in one launch, bit
+    for bit: every direction, al == 0 texels, a patch beyond the pixels the
+    kernel holds in registers at radius 120."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    canvas, opac, offsets, dirs = smear_case(radius)
+    bh, bw = opac.shape
+    want = TB._smear_walk_torch(torch.from_numpy(canvas.copy()), torch.from_numpy(opac), offsets, dirs, bh, bw)
+    cv = torch.from_numpy(canvas).to(cuda_device)
+    before = kernels.launches["smear_walk"]
+    got = TB._smear_walk(cv, torch.from_numpy(opac).to(cuda_device), offsets, dirs, bh, bw)
+    torch.cuda.synchronize()
+    assert kernels.launches["smear_walk"] == before + 1
+    assert got.data_ptr() == cv.data_ptr()  # in place
+    assert torch.equal(got.cpu(), want) and not np.array_equal(want.numpy(), canvas)
+
+
+@pytest.mark.cuda
+def test_brush_wrappers_reject_bad_inputs(cuda_device):
+    from coherence_tpu_torch.raster import brush as TB
+
+    brushes, offsets, valid, hp, wp = plane_inputs(brush_case(12.0))
+    moved = offsets.copy()
+    moved[1, 3] = (hp - brushes.shape[1] + 1, 0)  # a valid stamp whose padded patch leaves the plane
+    with pytest.raises(ValueError):
+        TB._stamp_alpha(brushes, moved, valid, hp, wp, cuda_device)
+    moved[1, 3] = (-1, 0)
+    with pytest.raises(ValueError):
+        kernels.brush_stamp_planes(brushes, moved, valid, hp, wp, cuda_device)
+    off = valid.copy()
+    off[1, 3] = False  # the same stamp invalid: no fault
+    TB._stamp_alpha(brushes, moved, off, hp, wp, cuda_device)
+    with pytest.raises(ValueError):
+        kernels.brush_stamp_planes(brushes, offsets, valid, hp, wp, "cpu")
+    with pytest.raises(ValueError):
+        kernels.brush_stamp_planes(brushes, offsets[:, :-1], valid, hp, wp, cuda_device)
+    hp_, wp_, bhb, bwb, npb, items = brush_case(12.0)
+    from coherence_tpu_torch.raster.brush_tiles import _group_lists
+
+    lists = list(_group_lists(npb, items))
+    lists[6] = lists[6].copy()
+    lists[6][0] = (0, hp_ - TILE_H + 1, 0)  # a piece past the plane's last row
+    with pytest.raises(ValueError):
+        kernels.brush_stamp_pieces(*lists, hp_, wp_, cuda_device)
+
+    canvas, opac, offsets, dirs = smear_case(12.0)
+    bh, bw = opac.shape
+    cv, op = torch.from_numpy(canvas).to(cuda_device), torch.from_numpy(opac).to(cuda_device)
+    for bad_off, bad_dir in (((0, 5), (0, 1)), ((5, 0), (1, 0)), ((cv.shape[0] - bh, 5), (0, -1)),
+                             ((5, cv.shape[1] - bw), (-1, 0))):
+        with pytest.raises(ValueError):
+            TB._smear_walk(cv, op, [bad_off], [bad_dir], bh, bw)
+    for args in ((cv.cpu(), op), (cv, op.cpu()), (cv.long(), op), (cv, op[:, 1:]), (cv[:, :, :3], op),
+                 (cv.transpose(0, 1), op)):
+        with pytest.raises(ValueError):
+            kernels.smear_walk(*args, offsets, dirs, bh, bw)
+
+
+@pytest.mark.cuda
+def test_no_card_brush_reaches_a_plain_version(cuda_device, monkeypatch):
+    """With the brush kernels' plain versions patched to raise, a brush
+    sprite, a smear and a brush-tile build run on the card: each reaches
+    brush_stamp or smear_walk, one launch each, and no per-stamp loop of
+    torch operations."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.geometry import shapes as gshapes
+    from coherence_tpu_torch.raster import brush as TB
+    from coherence_tpu_torch.raster import brush_tiles as TBT
+    from coherence_tpu_torch.raster import fills, region
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((TB, "_stamp_alpha_torch"), (TB, "_smear_walk_torch"), (TBT, "_stamp_alpha_torch"),
+                      (TBT.BrushTileBuild, "_group_block_torch")):
+        monkeypatch.setattr(mod, name, refuse)
+    stroke = (TB.mkround(6.0, 0.5), gshapes.circle(60.0, 50.0, 30.0))
+    before = dict(kernels.launches)
+    shp, _ = TB.shape_of_brushstroke(stroke, cuda_device)
+    spr = TB.sprite_of_brushstroke(stroke, fills.plain(C.darkorange), shp, cuda_device)
+    base = region.fillshape(region.shape_of_box((1, 1, 120, 90), cuda_device), fills.plain(C.dissolve(C.blue, delta=90)))
+    smeared = TB.smear(base, stroke, cuda_device)
+    build = TBT.BrushTileBuild(2, 2, cuda_device)
+    assert build.add_stroke("s", stroke, np.array([120, 40, 10, 185], np.int32))
+    blocks, registry = build.flush()
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]} == {
+        "brush_stamp": 2, "smear_walk": 1}
+    assert bool((spr.rgba > 0).any()) and smeared is not None and len(blocks) == 1 and registry["s"]
