@@ -114,10 +114,14 @@ Phases, one JSON line each:
      1013 stamps, and a radius-120 brush), in piece mode (each of config
      5's brush groups as its scene build stages them, at 3840x2160 and
      after a 2x zoom) and smear_walk (profile_general.py's smear: 1024
-     steps over its 711x611 sprite, two passes), each against its plain
+     steps over its 711x611 sprite, two passes, in window mode; a
+     radius-120 smear of 298 steps in global mode), each against its plain
      version on the same inputs, bit for bit, timed behind a device-side
      wait made from the wrapper's host time, beside its plain version's
-     time, its bound and the launch floor;
+     time, its bound and the launch floor (the smear also beside its chain
+     floor, its mode and its window's reloads, as the kernel counted
+     them; the demo must take window mode to its end, radius 120 global
+     mode);
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -139,8 +143,18 @@ Phases, one JSON line each:
      step_animated calls, with its time per frame; one play launches
      shatter_into, composite_dirty and blur_blend 400 times each and
      nothing else;
- 12. dryrun: parallel.dryrun.dryrun_multichip(2) on the card;
- 13. general_lion: the cold, rebuilt and warm renders (the lion group
+ 12. animated_chain: the lion's steady step_animated and config 5's
+     filtered frame with their launches queued ahead of the card (100
+     frames behind one device-side wait, CUDA events from the wait's end to
+     the last frame's, median of 5), where programmatic dependent launch
+     starts composite_dirty as shatter_into ends and blur_blend as
+     composite_dirty ends, each waiting on the card for the writes before
+     it; after each rep the display and content equal,
+     bit for bit, to a second scene's stepped one frame at a time, and
+     every frame launching shatter_into, composite_dirty and blur_blend
+     once each;
+ 13. dryrun: parallel.dryrun.dryrun_multichip(2) on the card;
+ 14. general_lion: the cold, rebuilt and warm renders (the lion group
      through the batched raster and one fold_layers launch) and one more
      rebuild through the per-member fold, all equal, and equal to the CPU's
      render of the same scene; per render the host and CUDA-event time, the
@@ -148,36 +162,36 @@ Phases, one JSON line each:
      raster/region.py, the cache's bytes; per route of the rebuild the
      launches and copies issued (profile_general.py's count) and the
      fold_layers launches; the peak device memory;
- 14. general_filters: every incremental frame equal to the whole-window
+ 15. general_filters: every incremental frame equal to the whole-window
      render, frame 0 also to a render with the cache off, frames 0-1 to the
      CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
      affine, wireframe, smear, the CPG demo and the brush and monobrush
      demos over the lion, each equal to the CPU's and each changing the
      lion; the smear launches smear_walk and each brush demo brush_stamp
      (plane mode);
- 15. convolve_1080p: ms per call beside its bound (the frame read and
+ 16. convolve_1080p: ms per call beside its bound (the frame read and
      written once at 3.35 TB/s); the first call equal to the CPU's;
- 16. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
+ 17. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
      each icon equal to the CPU's;
- 17. scene_edits: the sprite route's full render (composite_full) equal to
+ 18. scene_edits: the sprite route's full render (composite_full) equal to
      the tile route's and to the CPU's; after each edit the dirty render
      (composite_dirty) equal to a fresh view's full render of the edited
      scene, the first two also to the CPU's; the churn keeps the atlas's
      capacity and piece count; add_boxes equal to add_object of the same
      boxes; the fallback tile build equal to the sprite route; the edit
      times;
- 18. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
+ 19. frame_path: the frame times of recomposite_blur; frames 0-2 equal to
      the CPU's and to the general renderer's render of the same filtered
      scene; the last equal to a whole-window recomposite plus apply_blur;
      one blur_blend launch a frame and one for apply_blur;
- 19. fold_kernel: fold_layers against fold_layers_carry_torch at three
+ 20. fold_kernel: fold_layers against fold_layers_carry_torch at three
      shapes, in one call and in two with the carry, bit for bit, the two
      timed in turns: the lion's 132 sprites over the 1920x1080 window (all
      open); the lion group's fold as general_lion's render calls it (the
      update shape's mask open); the last recomposite_blur window of
      frame_path (its prefiltered layer pack, inwin open); per shape the
      bytes it must move and the record visits its tile lists imply;
- 20. serve_fast: what the client saw: seconds to the first paint, the drag
+ 21. serve_fast: what the client saw: seconds to the first paint, the drag
      latency (event sent to pixels landed; median and p95), the wire floor
      (a 2x2 paint's round trip), the slider latency, the bytes shipped and
      the host syncs per drag; one RefreshWindow and one composite_dirty
@@ -187,13 +201,13 @@ Phases, one JSON line each:
      scene-build cache is emptied between the two, so the card rasterizes
      the scene itself); after the session, a full-frame render of its view
      (composite_full, which the session never launches) equal to its content;
- 21. serve_engine: first paint, drag latency, slider latency, zoom in and
+ 22. serve_engine: first paint, drag latency, slider latency, zoom in and
      out seconds, objects visited and host syncs per drag; the client's
      image equal to the engine's framebuffer after every stage, and equal
      to the client's image of an Engine on the CPU after the first paint,
      the pick and each of the first 3 drags.  The loop runs with
      containment off: a handler's exception ends the phase;
- 22. pdf_pages: the document opened and its pages turned on the CPU, then
+ 23. pdf_pages: the document opened and its pages turned on the CPU, then
      on the card (both caches emptied between): the client's image and the
      engine's 1280x1024 framebuffer of each page equal, bit for bit, page 3
      unlike pages 1 and 2; first paint and the two page turns' seconds at
@@ -221,11 +235,14 @@ carry in and out, with the record visits its tile lists imply, at the
 whole window and beside it at its other two shapes; its launches per
 phase, pdf_pages's among them; for blur_blend and shatter_into the bytes
 they must move per 32-byte sector and their multiply-adds, at the lion's
-step and at config 5's, blur_blend's rect mode beside; for brush_stamp its
-output and lists' bytes and its stamp-pixel operations at config 5's
+step and at config 5's, blur_blend's rect mode beside, and under
+shatter_into the animated_chain's time per queued frame; for brush_stamp
+its output and lists' bytes and its stamp-pixel operations at config 5's
 largest brush group, every other shape beside; for smear_walk the canvas
 pixels its walk must read and write once and its mixed-pixel operations,
-beside them its step-by-step traffic, a serial chain of steps) and, last,
+beside them its step-by-step traffic, a serial chain of steps, the chain's
+floor at one SM's int32 rate, its mode, window and reloads as the kernel
+counted them, and the radius-120 smear in global mode) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -280,6 +297,9 @@ SLEEP_CYCLES = 400_000
 # multiply-adds a clock per SM against 128 float32 FMAs, so half the
 # guide's CUDA-core float32 peak of 67 T/s.
 INT_OPS_PER_S = 67e12 / 2
+# The H100 SXM's streaming multiprocessors: a chain of dependent steps on
+# one block runs on one of them, at its share of INT_OPS_PER_S at most.
+SMS = 132
 # The device-side wait before each timed blur_blend or shatter_into call:
 # longer than twice either wrapper's host time (H42).
 ANIMATED_WAIT_MS = 1.0
@@ -1141,22 +1161,29 @@ def brush_inputs(torch, dev) -> dict:
     of config 5's brush groups as its scene build stages them
     (stage_tiled_scene), at 3840x2160 and after one 2x zoom."""
     from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.geometry import path as gpath
     from coherence_tpu_torch.geometry import shapes as gshapes
-    from coherence_tpu_torch.raster import brush, fills
+    from coherence_tpu_torch.raster import brush, fills, region
     from coherence_tpu_torch.scene import examples, fastframe
     from profile_general import programs, recorded_brush_calls
 
     progs = programs(torch, dev)
     wide = (brush.mkround(120.0, 0.5), gshapes.circle(300.0, 300.0, 250.0))
+    # A radius-120 smear (smear_walk's global mode) along a 400-pixel stroke over a 900x700 gradient.
+    line = gpath.Path(gpath.EVEN_ODD, (gpath.Subpath(False, False, (gpath.Straight((250.0, 350.0), (650.0, 380.0)),)),))
+    grad = fills.gradient((0.0, 0.0), (900.0, 700.0), True, True, C.red, C.dissolve(C.blue, delta=120))
+    canvas = region.fillshape(region.shape_of_box((1, 1, 900, 700), dev), grad)
     with recorded_brush_calls() as calls:
         progs["sprite_of_brushstroke"][2]()
         brush.sprite_of_brushstroke(wide, fills.plain(C.darkorange), brush.shape_of_brushstroke(wide, dev)[0], dev)
         progs["smear"][2]()
+        brush.smear(canvas, (brush.mkround(120.0, 1.0), line), dev)
     stamps = [args for name, args in calls if name == "_stamp_alpha"]
     smears = [args for name, args in calls if name == "_smear_walk"]
-    require(len(stamps) == 2 and len(smears) == 1, f"the brush programs made {len(stamps)} stamp walks and "
-            f"{len(smears)} smears, not 2 and 1")
-    out = {"plane_31x31": ("plane", stamps[0]), "plane_r120": ("plane", stamps[1]), "smear": ("smear", smears[0])}
+    require(len(stamps) == 2 and len(smears) == 2, f"the brush programs made {len(stamps)} stamp walks and "
+            f"{len(smears)} smears, not 2 and 2")
+    out = {"plane_31x31": ("plane", stamps[0]), "plane_r120": ("plane", stamps[1]), "smear": ("smear", smears[0]),
+           "smear_r120": ("smear", smears[1])}
     objs = examples.interactive_4k_scene(W4, H4)[0]
     for name, scene in (("config5", objs), ("config5_zoom2x", zoomed(objs, 2.0))):
         ph, pw = -(-H4 // 64) * 64, -(-W4 // 128) * 128
@@ -1204,7 +1231,9 @@ def smear_bound(opac, offsets, dirs, height: int, width: int) -> dict:
     traffic step by step (each step reads the union of its source and
     destination patches, (bh + |dy|) x (bw + |dx|) pixels, and writes its
     patch), which stays in L2: the walk is a serial chain of serial_steps
-    dependent steps."""
+    dependent steps, and chain_floor_ms: those steps' operations at one
+    SM's share of the int32 rate (SMS), the least time a walk on one block
+    can take."""
     import numpy as np
 
     from coherence_tpu_torch import kernels
@@ -1228,7 +1257,20 @@ def smear_bound(opac, offsets, dirs, height: int, width: int) -> dict:
     byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
     return {"bytes": n_bytes, "operations": ops, "bound_ms": max(byte_ms, ops_ms),
             "bound_by": "bytes" if byte_ms >= ops_ms else "operations", "step_bytes": 16 * step_pixels,
-            "serial_steps": steps}
+            "serial_steps": steps, "chain_floor_ms": ops / (INT_OPS_PER_S / SMS) * 1e3}
+
+
+def smear_mode(stats, total: int) -> dict:
+    """smear_walk's mode from the `stats` its launch wrote ((4,) int32:
+    window rows and columns, the window's loads, the step from which the
+    walk ran in device memory) for a walk of `total` steps: the mode, the
+    window, its loads (reloads, the first included) and that step
+    (device_from: None where the window walk reached the end)."""
+    wh, ww, loads, device_from = (int(x) for x in stats.tolist())
+    if not wh:
+        return {"mode": "global", "window": None, "reloads": None, "device_from": 0}
+    return {"mode": "window", "window": [wh, ww], "reloads": loads,
+            "device_from": None if device_from == total else device_from}
 
 
 def brush_row(torch, dev, scrub, mode: str, args) -> dict:
@@ -1237,7 +1279,10 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
     timed: the kernel behind a device-side wait of max(ANIMATED_WAIT_MS, 4
     x the slowest host call), each call queued within half of it (H42);
     the plain version over N_BRUSH_PLAIN_TIMED calls (it runs one step of
-    torch operations a stamp, its host time in its window)."""
+    torch operations a stamp, its host time in its window).  A smear's row
+    also gives smear_walk's mode, window and reloads, as the kernel
+    counted them in its checked call (smear_mode)."""
+    from coherence_tpu_torch import kernels
     from coherence_tpu_torch.raster import brush
 
     if mode == "plane":
@@ -1283,9 +1328,11 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
         def plain():
             return brush._smear_walk_torch(work, opac, offsets, dirs, bh, bw)
 
-        got = brush._smear_walk(cv.clone(), opac, offsets, dirs, bh, bw)
+        stats = torch.zeros(4, dtype=torch.int32, device=dev)
+        got = kernels.smear_walk(cv.clone(), opac, offsets, dirs, bh, bw, stats=stats)
         want = brush._smear_walk_torch(cv.clone(), opac, offsets, dirs, bh, bw)
-        bound = smear_bound(opac.cpu().numpy(), offsets, dirs, *cv.shape[:2])
+        bound = {**smear_bound(opac.cpu().numpy(), offsets, dirs, *cv.shape[:2]),
+                 **smear_mode(stats, kernels.SMEAR_PASSES * len(offsets))}
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"brush kernel ({mode} mode) differs from its plain version at {shape}")
     require(bool((want != 0).any()), f"brush kernel ({mode} mode): the case at {shape} is all zero")
@@ -1303,7 +1350,8 @@ def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     """brush_stamp (both modes) and smear_walk against their plain versions
     on the card at brush_inputs' shapes, each a brush_row.  Returns the
     kernels line's rows: {"brush_stamp": config 5's largest group with
-    every shape beside it, "smear_walk": the smear}."""
+    every shape beside it, "smear_walk": the smear (window mode), the
+    radius-120 smear (global mode) beside it}."""
     rows = uncounted(kernels, lambda: {name: brush_row(torch, dev, scrub, mode, args)
                                        for name, (mode, args) in brush_inputs(torch, dev).items()})
     for row in rows.values():
@@ -1312,9 +1360,16 @@ def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     groups = [name for name in rows if name.startswith("config5_group")]
     main = max(groups, key=lambda name: rows[name]["pieces"])
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share", "host_ms")
-    stamp = {**rows[main], "shape": main, "max_abs_err": max(rows[n]["max_abs_err"] for n in rows if n != "smear"),
-             "shapes": {name: {k: row[k] for k in keys} for name, row in rows.items() if name != "smear"}}
-    return {"brush_stamp": stamp, "smear_walk": rows["smear"]}
+    smears = ("smear", "smear_r120")
+    stamp = {**rows[main], "shape": main, "max_abs_err": max(rows[n]["max_abs_err"] for n in rows if n not in smears),
+             "shapes": {name: {k: row[k] for k in keys} for name, row in rows.items() if name not in smears}}
+    wide = rows["smear_r120"]
+    require(rows["smear"]["mode"] == "window" and rows["smear"]["device_from"] is None,
+            f"the smear demo did not walk its window to the end: {rows['smear']['mode']}, {rows['smear']['device_from']}")
+    require(wide["mode"] == "global", f"the radius-120 smear took {wide['mode']} mode")
+    smear = {**rows["smear"], "max_abs_err": max(rows[n]["max_abs_err"] for n in smears),
+             "global_r120": {k: wide[k] for k in (*keys, "mode", "patch", "steps", "chain_floor_ms", "serial_steps")}}
+    return {"brush_stamp": stamp, "smear_walk": smear}
 
 
 def layers_path(torch, dev, kernels, scrub):
@@ -1669,6 +1724,36 @@ def play_path(torch, dev, kernels):
           "order": "steps, play, play, steps", "ms_per_frame": times["play"],
           "sequential_ms_per_frame": times["steps"], "launches_per_play": play_counts})
     return play_counts
+
+
+def animated_chain(torch, dev, kernels) -> dict:
+    """The animated frame with its launches queued ahead of the card
+    (profile_frame.queued_chain: frames behind one device-side wait, each
+    rep's display and content equal, bit for bit, to a second scene's
+    stepped one frame at a time): the lion's steady step_animated (one
+    staged copy, shatter_into, composite_dirty, blur_blend) and config 5's
+    filtered frame.  There programmatic dependent launch starts
+    composite_dirty as shatter_into ends and blur_blend as composite_dirty
+    ends.  Every frame of either scene launches each of the
+    three once.  Returns {"lion": chain, "config5": chain}."""
+    from profile_frame import queued_chain
+
+    this = sys.modules[__name__]
+    rows = {}
+    for name, build, frame in (
+            ("lion", lambda: build_scene(dev), lambda st, k: st[1].step_animated(st[2], *delta(k))),
+            ("config5", lambda: build_interactive(dev), lambda st, k: filtered_frame(st[0], st[1], st[2], k))):
+        state, reference = build(), build()
+        zero_counts(torch, kernels)
+        rows[name] = queued_chain(torch, this, frame, state, reference)
+        counts = dict(kernels.launches)
+        frames = 2 * rows[name]["frames"] * (rows[name]["reps"] + 2)  # both scenes, the untimed passes included
+        want = {"shatter_into": frames, "composite_dirty": frames, "blur_blend": frames}
+        require({k: counts[k] for k in want} == want, f"{name}'s chain launched {counts}, not {want}")
+        del state, reference
+        gc.collect()
+    emit({"phase": "animated_chain", "tolerance": 0, **rows})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3707,6 +3792,7 @@ def main() -> int:
     del udisp
     counts_lion17, dirty17, full17 = mesh_lion_path(torch, dev, kernels, scrub)
     counts_play = play_path(torch, dev, kernels)
+    chain = animated_chain(torch, dev, kernels)
     from coherence_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -3798,6 +3884,8 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None, "bytes": t["bytes"],
                      "share": t["share"], "ms_4k": t4["ms"], "plain_ms_4k": t4["plain_ms"],
                      "bound_ms_4k": t4["bound_ms"], "bytes_4k": t4["bytes"], "share_4k": t4["share"]})
+    line[-1]["animated_chain"] = {name: {key: row[key] for key in ("frames", "reps", "ms_per_frame", "readings")}
+                                  for name, row in chain.items()}  # the frame's queued chain, headed by shatter_into
     rect = timed["blur_blend"]["rect"]
     line[-2]["rect_1080p"] = {key: rect[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share")}
     line[-2]["unpacked_ms"] = timed["blur_blend"]["unpacked_ms"]  # the same window over FrameBuffer's unpacked content
@@ -3815,7 +3903,10 @@ def main() -> int:
                  "launches": counts_demos["smear"].get("smear_walk", 0), "max_abs_err": smear["max_abs_err"],
                  "ms": smear["ms"], "plain_ms": smear["plain_ms"], "bound_ms": smear["bound_ms"],
                  "bound_by": smear["bound_by"], "library_ms": None, "bytes": smear["bytes"], "share": smear["share"],
-                 "step_bytes": smear["step_bytes"], "serial_steps": smear["serial_steps"]})
+                 "step_bytes": smear["step_bytes"], "serial_steps": smear["serial_steps"],
+                 "chain_floor_ms": smear["chain_floor_ms"], "mode": smear["mode"], "window": smear["window"],
+                 "reloads": smear["reloads"], "device_from": smear["device_from"],
+                 "global_r120": smear["global_r120"]})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

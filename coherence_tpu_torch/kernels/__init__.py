@@ -55,7 +55,7 @@ _ENTRY_POINTS = {
                   + [_ptr],
     "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
     "brush_stamp": [_ptr] * 6 + [_i32] * 6 + [_ptr],
-    "smear_walk": [_ptr, _i32, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
+    "smear_walk": [_ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr] + [_i32] * 4 + [_ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
@@ -702,14 +702,19 @@ def brush_stamp_pieces(brushes, offsets, valid, points, fills, radii, meta, hp: 
 def smear_steps(offsets, dirs, bh: int, bw: int, height: int, width: int) -> np.ndarray:
     """smear_walk's (n, 4) int32 step records (row, col, dx, dy) from the
     patch corners `offsets` (row, col) and directions `dirs` (dx, dy).
-    Raises ValueError, naming the first step at fault, where a step's (bh,
-    bw) patch or its source, shifted by -dir, leaves the (height, width)
-    canvas (the JAX package would clamp it; smear's host filter never makes
-    one)."""
+    Raises ValueError, naming the first step at fault, where a direction is
+    not a unit step (a component outside -1..1: find_smear_directions gives
+    signs) or a step's (bh, bw) patch or its source, shifted by -dir, leaves
+    the (height, width) canvas (the JAX package would clamp it; smear's host
+    filter never makes one)."""
     steps = np.zeros((len(offsets), 4), np.int64)
     if len(offsets):
         steps[:, :2], steps[:, 2:] = np.asarray(offsets).reshape(-1, 2), np.asarray(dirs).reshape(-1, 2)
     r, c, dx, dy = steps.T
+    unit = (np.abs(dx) <= 1) & (np.abs(dy) <= 1)
+    if not unit.all():
+        j = int(np.nonzero(~unit)[0][0])
+        raise ValueError(f"smear_walk: step {j} {tuple(steps[j])} has a direction that is not a unit step")
     bad = (np.minimum(r, r - dy) < 0) | (np.maximum(r, r - dy) + bh > height) \
         | (np.minimum(c, c - dx) < 0) | (np.maximum(c, c - dx) + bw > width)
     if bad.any():
@@ -719,13 +724,19 @@ def smear_steps(offsets, dirs, bh: int, bw: int, height: int, width: int) -> np.
     return steps.astype(np.int32)
 
 
-def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
+def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``smear_walk``: the smear's SMEAR_PASSES passes over the (H,
     W, 4) int32 canvas `cv`, in place, in one launch: at each step the (bh, bw) patch
     at offsets[i] (row, col) takes the opacity-weighted mix of itself and
     the patch shifted by -dirs[i] (dx, dy) (the plain version is
     raster/brush.py _smear_walk_torch).  `opac` is the (bh, bw) int32
-    opacity plane on cv's device; the steps cross in one staged copy."""
+    opacity plane on cv's device; the steps cross in one staged copy.  The
+    kernel picks its mode by the patch's size (smear.cu window_shape).
+    `stats`, a (4,) int32 tensor on cv's device, receives what the launch
+    did: its shared-memory window's rows and columns (0, 0 in global mode),
+    the window's loads, and the step (of len(offsets) * SMEAR_PASSES) from
+    which the walk ran in device memory (0 in global mode; all of them
+    where the window walk reached the end)."""
     from ..raster.staging import stage
 
     device = cv.device
@@ -735,6 +746,8 @@ def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
         raise ValueError(f"smear_walk: need an (H, W, 4) canvas, got shape {tuple(cv.shape)}")
     _check("canvas", cv, device)
     _check("opac", opac, device, (bh, bw))
+    if stats is not None:
+        _check("stats", stats, device, (4,))
     height, width = cv.shape[:2]
     if not SMEAR_PASSES * len(offsets) < 2**31 or width >= 2**31 // 4:
         raise ValueError(f"smear_walk: {len(offsets)} steps over a {height}x{width} canvas are beyond the kernel")
@@ -742,12 +755,14 @@ def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int) -> torch.Tensor:
     if not len(steps) or not bh * bw:
         return cv
     (steps_d,) = stage(device, steps)
-    # The new values of the patch pixels that a thread cannot keep in registers between a step's reads and writes.
+    # The new values of the patch pixels that a thread cannot keep in registers between a step's reads and writes,
+    # where the walk runs in device memory.
     spill = torch.empty((bh * bw, 4), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         rc = load()["smear_walk"](
-            cv.data_ptr(), width, opac.data_ptr(), steps_d.data_ptr(), spill.data_ptr(), len(steps), SMEAR_PASSES,
-            bh, bw, torch.cuda.current_stream(device).cuda_stream,
+            cv.data_ptr(), height, width, opac.data_ptr(), steps_d.data_ptr(), spill.data_ptr(),
+            None if stats is None else stats.data_ptr(), len(steps), SMEAR_PASSES, bh, bw,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on("smear_walk", rc)
     launches["smear_walk"] += 1

@@ -28,8 +28,12 @@
 // writes its background unchanged.  composite_dirty_banded: block (x, b)
 // composites stripe x % 16 of slot x / 16 of band b, so an idle band's
 // blocks (its slots all passthrough) and padding slots (repeating a band's
-// last real slot) return at once.
+// last real slot) return at once.  composite_dirty_banded is launched with
+// programmatic dependent launch (pdl.cuh), as composite_dirty is: its
+// launch overlaps the end of the kernel before it (the banded
+// shatter_into), and it waits at entry for that kernel's writes.
 
+#include "pdl.cuh"
 #include "stripe_ring.cuh"
 
 namespace {
@@ -57,6 +61,7 @@ composite_dirty_banded_kernel(const int* __restrict__ coords, const int* __restr
                               uint32_t* __restrict__ frame, const uint32_t* __restrict__ atlas,
                               int n_slots, int pw, int band_rows, int idx_stride,
                               long atlas_stride) {
+  pdl::wait();  // the kernel before this one has finished and its writes are visible
   const int b = blockIdx.y;
   const long band = static_cast<long>(b) * 2 * n_slots;
   const long off = static_cast<long>(b) * band_rows * pw;
@@ -66,7 +71,8 @@ composite_dirty_banded_kernel(const int* __restrict__ coords, const int* __restr
 
 }  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError().
+// Each entry point launches on `stream` and returns the launch's error, else
+// cudaGetLastError().
 extern "C" int composite_full_banded(const void* starts, const void* idxs, const void* bg, void* out,
                                      const void* atlas, int n_bands, int band_tiles, int ntx,
                                      int idx_stride, int local_cap, void* stream) {
@@ -83,11 +89,10 @@ extern "C" int composite_dirty_banded(const void* coords, const void* spans, con
                                       const void* bg, void* frame, const void* atlas, int n_bands,
                                       int n_slots, int pw, int band_rows, int idx_stride,
                                       int local_cap, void* stream) {
-  dim3 grid(n_slots * kStripes, n_bands);
-  composite_dirty_banded_kernel<<<grid, kStripeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(coords), static_cast<const int*>(spans),
-      static_cast<const int*>(idxs), static_cast<const uint32_t*>(bg),
-      static_cast<uint32_t*>(frame), static_cast<const uint32_t*>(atlas), n_slots, pw, band_rows,
-      idx_stride, static_cast<long>(local_cap) * kTileH * kTileW);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pdl::launch(
+      composite_dirty_banded_kernel, dim3(n_slots * kStripes, n_bands), dim3(kStripeThreads), 0,
+      static_cast<cudaStream_t>(stream), static_cast<const int*>(coords), static_cast<const int*>(spans),
+      static_cast<const int*>(idxs), static_cast<const uint32_t*>(bg), static_cast<uint32_t*>(frame),
+      static_cast<const uint32_t*>(atlas), n_slots, pw, band_rows, idx_stride,
+      static_cast<long>(local_cap) * kTileH * kTileW));
 }

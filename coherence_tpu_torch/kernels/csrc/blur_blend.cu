@@ -67,10 +67,16 @@
 // tile takes 0.0085 ms against 0.0090 over its 117.  Rect mode at 1080p is
 // 31 % of its bound: over an all-zero alpha (a copy only) it takes 0.027
 // ms, and each unit of radius adds about 0.004 ms.
+//  5. Both modes launch with programmatic dependent launch (pdl.cuh), so
+//     that the launch overlaps the end of the kernel before them
+//     (composite_dirty in an animated frame), and wait at entry for its
+//     writes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
+
+#include "pdl.cuh"
 
 namespace {
 
@@ -245,6 +251,7 @@ template <bool kPacked, bool kRect>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) blur_blend_kernel(Params p) {
   using Pixel = typename Tile<kPacked>::Pixel;
   __shared__ Tile<kPacked> s;
+  pdl::wait();  // the kernel before this one has finished and its writes are visible
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int ty0 = p.gy0 + blockIdx.y * kTileRows, tx0 = p.gx0 + blockIdx.x * kCols;
   const int x = tx0 + lane, yl0 = warp * kOutRows;
@@ -353,15 +360,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) blur_blend_kernel(Params
 }
 
 template <bool kPacked, bool kRect>
-void launch(const Params& p, int gh, int gw, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int gh, int gw, cudaStream_t stream) {
   const dim3 grid((gw + kCols - 1) / kCols, (gh + kTileRows - 1) / kTileRows);
-  blur_blend_kernel<kPacked, kRect><<<grid, dim3(kCols, kWarps), 0, stream>>>(p);
+  return pdl::launch(blur_blend_kernel<kPacked, kRect>, grid, dim3(kCols, kWarps), 0, stream, p);
 }
 
 }  // namespace
 
 // Launches on `stream` over the gh x gw pixels of the window at (gy0, gx0)
-// and returns cudaGetLastError().  `packed` says which form the content
+// and returns the launch's error, else cudaGetLastError().  `packed` says which form the content
 // has; `rect` picks the mode (the geometry after it is read in window mode
 // only); (magic, shift) is kernels.blur_divider of the weights' total.
 extern "C" int blur_blend(const void* src, int packed, int src_stride, int sy, int sx, const void* alpha,
@@ -374,9 +381,7 @@ extern "C" int blur_blend(const void* src, int packed, int src_stride, int sy, i
                  magic, shift, hb, wb, gy0, gx0, ry0, rx0, h, w, d0, d1, d2, d3};
   const auto s = static_cast<cudaStream_t>(stream);
   if (packed) {
-    rect ? launch<true, true>(p, gh, gw, s) : launch<true, false>(p, gh, gw, s);
-  } else {
-    rect ? launch<false, true>(p, gh, gw, s) : launch<false, false>(p, gh, gw, s);
+    return static_cast<int>(rect ? launch<true, true>(p, gh, gw, s) : launch<true, false>(p, gh, gw, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rect ? launch<false, true>(p, gh, gw, s) : launch<false, false>(p, gh, gw, s));
 }

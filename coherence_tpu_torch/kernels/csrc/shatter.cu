@@ -27,6 +27,15 @@
 // adjacent pixels of a row as one 16-byte store (a warp covers one 512-byte
 // row), reading their RGBA from the raster's row (coalesced, 16 bytes a
 // pixel).  Positions are 64-bit, so that no offset can overflow.
+//
+// What holds it: the launch.  Its body took 1.7 us of device time in
+// config 5's frame, its launch floor about 4.7 us (an empty kernel timed as
+// chip_smoke.py times a kernel; NVIDIA H100 80GB HBM3, 700 W).  The
+// frame's next kernel (composite_dirty or composite_dirty_banded) is
+// launched with programmatic dependent launch (pdl.cuh), so that its launch
+// overlaps this kernel's end.  This kernel does not trigger its dependent
+// early: with a trigger at entry here and in composite_dirty, queued lion
+// frames took 1.8-3.0 us longer than with neither (pdl.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>

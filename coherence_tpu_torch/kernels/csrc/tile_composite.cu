@@ -19,8 +19,12 @@
 //
 // composite_dirty runs in place on the frame (stripe_ring.cuh
 // composite_dirty_stripe: passthrough slots leave their tile, padding
-// slots return at once).
+// slots return at once).  It is launched with programmatic dependent launch
+// (pdl.cuh), so that its launch overlaps the end of the kernel before it
+// (shatter_into in an animated frame), and waits at entry for that
+// kernel's writes.
 
+#include "pdl.cuh"
 #include "stripe_ring.cuh"
 
 namespace {
@@ -31,6 +35,7 @@ __global__ void __launch_bounds__(kStripeThreads)
 composite_dirty_kernel(const int* __restrict__ coords, const int* __restrict__ spans,
                        const int* __restrict__ idxs, const uint32_t* __restrict__ bg,
                        uint32_t* __restrict__ frame, const uint32_t* __restrict__ atlas, int pw) {
+  pdl::wait();  // the kernel before this one has finished and its writes are visible
   composite_dirty_stripe(coords, spans, idxs, bg, frame, atlas, pw);
 }
 
@@ -45,15 +50,16 @@ composite_full_kernel(const int* __restrict__ starts, const int* __restrict__ id
 
 }  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError().
+// Each entry point launches on `stream` and returns the launch's error, else
+// cudaGetLastError().
 extern "C" int composite_dirty(const void* coords, const void* spans, const void* idxs,
                                const void* bg, void* frame, const void* atlas, int n_slots,
                                int pw, void* stream) {
-  composite_dirty_kernel<<<n_slots * kStripes, kStripeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(coords), static_cast<const int*>(spans),
-      static_cast<const int*>(idxs), static_cast<const uint32_t*>(bg),
-      static_cast<uint32_t*>(frame), static_cast<const uint32_t*>(atlas), pw);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pdl::launch(composite_dirty_kernel, dim3(n_slots * kStripes), dim3(kStripeThreads), 0,
+                                      static_cast<cudaStream_t>(stream), static_cast<const int*>(coords),
+                                      static_cast<const int*>(spans), static_cast<const int*>(idxs),
+                                      static_cast<const uint32_t*>(bg), static_cast<uint32_t*>(frame),
+                                      static_cast<const uint32_t*>(atlas), pw));
 }
 
 extern "C" int composite_full(const void* starts, const void* idxs, const void* bg, void* out,

@@ -362,3 +362,43 @@ def test_smear_bound_reads_all_the_walk_needs(radius):
     assert np.array_equal(walk[0][mask], walk[1][mask])
     assert np.array_equal(walk[0][~mask], canvas[~mask]) and np.array_equal(walk[1][~mask], changed[~mask])
     assert other.any() and (other & mask).any()
+
+
+@pytest.mark.parametrize("radius", [1.0, 12.0, 15.0])
+def test_smear_chain_floor_matches_a_brute_count(radius):
+    """smear_bound's chain_floor_ms: every serial step's mixed-texel int32
+    operations (SMEAR_OPS a channel, counted texel by texel) at one SM's
+    share of the int32 rate: the least time a walk on one block can take."""
+    from test_torch_cuda import smear_case
+
+    canvas, opac, offsets, dirs = smear_case(radius, n=20)
+    got = chip_smoke.smear_bound(opac, offsets, dirs, *canvas.shape[:2])
+    _, _, mixed = _brute_smear(opac, offsets, dirs)
+    assert chip_smoke.SMS == 132
+    want = chip_smoke.SMEAR_OPS * 4 * mixed / (chip_smoke.INT_OPS_PER_S / 132) * 1e3
+    assert got["chain_floor_ms"] == pytest.approx(want, rel=1e-12)
+    assert got["chain_floor_ms"] > got["bound_ms"]
+
+
+def test_smear_chain_floor_at_the_demo(monkeypatch):
+    """At profile_general.py's smear program (1024 steps of a 31x31 patch,
+    two passes: the walk that chip_smoke.py times) the chain floor is 0.311
+    ms, 132 times the operations' share of the bound."""
+    import profile_general
+
+    from coherence_tpu_torch.raster import brush as TB
+
+    calls = []
+
+    def recorded(cv, opac, offsets, dirs, bh, bw):
+        calls.append((cv.shape[:2], opac.numpy(), offsets, dirs, bh, bw))
+        return cv
+
+    monkeypatch.setattr(TB, "_smear_walk", recorded)
+    profile_general.programs(torch, "cpu")["smear"][2]()
+    (height, width), opac, offsets, dirs, bh, bw = calls[0]
+    got = chip_smoke.smear_bound(opac, offsets, dirs, height, width)
+    assert (bh, bw, len(offsets), got["serial_steps"]) == (31, 31, 1024, 2048)
+    assert got["operations"] == 78_938_112 and got["bound_by"] == "operations"
+    assert got["chain_floor_ms"] == pytest.approx(0.3110397, abs=1e-6)
+    assert got["chain_floor_ms"] == pytest.approx(chip_smoke.SMS * got["bound_ms"], rel=1e-12)

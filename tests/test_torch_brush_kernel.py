@@ -12,6 +12,8 @@ Here, at the same cases (``brush_case``, ``smear_case`` from that file):
     that list; in piece mode the points whose window touches the piece and
     each thread's covered rows) against a per-pixel brute force, against
     ``region._box_count(...) > 0`` and against the plain versions;
+  * smear_walk's packed blend (window mode: two channels a 32-bit word)
+    against its exact blend at every (d, s, al);
   * the plain versions (``_stamp_alpha_torch``, ``_group_block_torch``
     through ``BrushTileBuild.flush``, ``_smear_walk_torch``) against the
     JAX package's ``_stamp_scan_alpha``, ``_brush_group_kernel`` and
@@ -34,7 +36,8 @@ from coherence_tpu_torch.raster import brush_tiles as TBT
 from coherence_tpu_torch.raster import region as TRG
 
 from _torch_threads import one_torch_thread  # noqa: F401
-from test_torch_cuda import BRUSH_FAR, BRUSH_RADII, SMEAR_DIRS, brush_case, plane_inputs, smear_case
+from test_torch_cuda import (BRUSH_FAR, BRUSH_RADII, SMEAR_DIRS, SMEAR_WALKS, brush_case, plane_inputs, smear_case,
+                             smear_walk_case)
 
 TH, TW = kernels.BRUSH_TILE
 BH, BW = kernels.BRUSH_BLOCK  # the strip a block owns
@@ -323,6 +326,63 @@ def test_smear_walk_plain_matches_jax(radius):
     assert not np.array_equal(got.numpy(), canvas)
 
 
+@pytest.mark.parametrize("kind,radius", SMEAR_WALKS)
+def test_smear_walks_plain_match_jax(kind, radius):
+    """_smear_walk_torch against _smear_scan run twice on the card tests'
+    walks: dense, with jumps, each step's source the last step's patch,
+    over channels or under an opacity outside 0..255."""
+    canvas, opac, offsets, dirs = smear_walk_case(kind, radius)
+    bh, bw = opac.shape
+    got = TB._smear_walk_torch(torch.from_numpy(canvas.copy()), torch.from_numpy(opac), offsets, dirs, bh, bw)
+    cv = jnp.asarray(canvas.copy())
+    args = (jnp.asarray(opac), jnp.asarray(np.array(offsets, np.int32)), jnp.asarray(np.array(dirs, np.int32)),
+            jnp.ones(len(offsets), bool))
+    for _ in range(2):
+        cv = JB._smear_scan(cv, *args, bh=bh, bw=bw, lbh=bh, lbw=bw)
+    assert np.array_equal(got.numpy(), np.asarray(cv))
+
+
+def _wrap(x):
+    """int64 values wrapped to int32, as the kernel's and torch's int32 sums wrap."""
+    return ((x + 2**31) % 2**32) - 2**31
+
+
+def _blend(d, s, al):
+    """smear.cu's exact blend of destination and source pixels by opacity
+    (int64 arrays holding int32 values, every product and sum wrapped)."""
+    def div255(i):
+        return _wrap(i + (i >> 8) + 1) >> 8
+
+    mixed = _wrap(div255(_wrap(d * al)) + div255(_wrap(s * _wrap(255 - al))))
+    return np.where(al == 0, s, np.where(al == 255, d, mixed))
+
+
+def _div255x2(x):
+    """smear.cu's div255x2 on uint64 arrays holding 32-bit words."""
+    return ((x + ((x >> 8) & 0x00FF00FF) + 0x00010001) >> 8) & 0x00FF00FF
+
+
+def test_packed_blend_matches_the_exact_blend():
+    """smear.cu's packed blend (two channels a 32-bit word, div255x2 on each
+    16-bit lane) equals the exact blend, al == 0 and al == 255 selects
+    included, at every (d, s, al) in 0..255, lane by lane, with the other
+    lane holding any channel; and every result lies in 0..255, so that the
+    packed walk stays packed."""
+    rng = np.random.default_rng(16)
+    d = np.arange(256, dtype=np.uint64)[:, None]
+    s = np.arange(256, dtype=np.uint64)[None, :]
+    for al in range(256):
+        od, os_ = (rng.integers(0, 256, (256, 256)).astype(np.uint64) for _ in range(2))
+        words = []
+        for lo, hi in ((d, od), (s, os_)):
+            words.append((lo | (hi << 16)) & 0xFFFFFFFF)
+        got = (_div255x2((words[0] * al) & 0xFFFFFFFF) + _div255x2((words[1] * (255 - al)) & 0xFFFFFFFF)) & 0xFFFFFFFF
+        want = _blend(d.astype(np.int64), s.astype(np.int64), np.int64(al))
+        want_hi = _blend(od.astype(np.int64), os_.astype(np.int64), np.int64(al))
+        assert np.array_equal(got & 0xFFFF, want) and np.array_equal(got >> 16, want_hi)
+        assert want.max() <= 255 and want.min() >= 0
+
+
 @pytest.mark.parametrize("radius", BRUSH_RADII)
 def test_smear_steps_pack_and_refuse_what_leaves_the_canvas(radius):
     canvas, opac, offsets, dirs = smear_case(radius)
@@ -335,6 +395,9 @@ def test_smear_steps_pack_and_refuse_what_leaves_the_canvas(radius):
                                   ((5, width - bw), (-1, 0)), ((height - bh + 1, 5), (0, 0)))):
         with pytest.raises(ValueError, match="step 1 "):
             kernels.smear_steps([offsets[0], off], [dirs[0], d], bh, bw, height, width)
+    for d in ((2, 0), (0, -2)):  # not a unit step: window mode's margin holds a shift of one pixel
+        with pytest.raises(ValueError, match="step 1 .* not a unit step"):
+            kernels.smear_steps([offsets[0], (8, 8)], [dirs[0], d], bh, bw, height, width)
 
 
 def test_wrappers_refuse_the_cpu():

@@ -1376,10 +1376,11 @@ def test_blur_and_shatter_wrappers_reject_bad_tensors(cuda_device):
             kernels.shatter_into(*args)
 
 
-def _animated_scene(device):
+def _animated_scene(device, mesh=None):
     """test_torch_slice's shrunk bench scene (the lion at 512x256, a
     translucent blob of r=20 reserved for in-place moves, a radius-2 blur
-    band) on `device`: (view, display, blob key)."""
+    band) on `device`, split over `mesh` if one is given: (view, display,
+    blob key)."""
     from coherence_tpu_torch.raster import convolve as V
     from coherence_tpu_torch.scene import fastframe as F
 
@@ -1390,6 +1391,8 @@ def _animated_scene(device):
     view.sprites[blob.idset] = F.tiled_sprite_of_object(blob, view.pw, view.ph, device)
     view.order.insert(0, blob.idset)
     view.make_animated(blob.idset)
+    if mesh is not None:
+        view.use_mesh(mesh)
     disp = F.FilteredDisplay(view, F.alpha_plane_of_object(f_geom, 512, 256, device), V.mkgaussian(2))
     disp.full_refresh()
     return view, disp, blob.idset
@@ -1420,6 +1423,55 @@ def test_400_unsynced_frames_equal_the_cpu(cuda_device):
     assert torch.equal(gd.rgba.cpu(), cd.rgba)
     assert torch.equal(gv.frame.cpu(), cv.frame)
     assert torch.equal(gv.ts.atlas().cpu(), cv.ts.atlas())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [1, 2])
+def test_queued_frames_equal_the_cpu_after_every_frame(cuda_device, bands):
+    """40 step_animated frames queued behind a long device-side wait, so
+    that each frame's launches wait on the card's queue before the kernel
+    ahead of them runs.  Programmatic dependent launch then starts
+    composite_dirty (composite_dirty_banded on a 2-band mesh) as
+    shatter_into ends, and blur_blend as composite_dirty ends; each must
+    wait for the writes of the kernel before it.  The display after
+    every frame equals the CPU plain path's, bit for bit; unmeshed, a
+    steady frame still issues one copy and three launches."""
+    from coherence_tpu_torch.parallel import make_mesh
+
+    n = 40
+    cv, cd, ck = _animated_scene("cpu")
+    want = []
+    for k in range(n):
+        cd.step_animated(ck, *_animated_delta(k))
+        want.append(cd.rgba.clone())
+    count = torch.cuda.device_count()
+    mesh = make_mesh(2, [f"cuda:{b * count // 2}" for b in range(2)]) if bands == 2 else None
+    gv, gd, gk = _animated_scene(cuda_device, mesh)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s: the host queues every frame meanwhile
+    got = []
+    for k in range(n):
+        gd.step_animated(gk, *_animated_delta(k))
+        got.append(gd.rgba.gather(cuda_device) if mesh is not None else gd.rgba.clone())
+    torch.cuda.synchronize()
+    for k in range(n):
+        assert torch.equal(got[k].cpu(), want[k]), f"frame {k} differs from the CPU's"
+    if mesh is None:
+        assert _issued_per_frame(gd, gk, n) == (1, 3)
+
+
+def _issued_per_frame(disp, key, k: int):
+    """(copies, launches) that one step_animated issues, as the CUDA
+    runtime's rows of the profiler count them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        disp.step_animated(key, *_animated_delta(k))
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    return (sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in names),
+            sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for n in names))
 
 
 @pytest.mark.cuda
@@ -1571,6 +1623,94 @@ def smear_case(radius: float, seed: int = 0, n: int = 60):
     return canvas, opac.astype(np.int32), offsets, dirs
 
 
+# smear_walk's walks beside smear_case's: (kind, radius).  Window mode at
+# radius 15 (the demo's 31x31 patch) and at 44 (89x89, the largest patch of
+# window mode: smear.cu window_shape); global mode at 45, just past it.
+SMEAR_WALKS = [("dense", 15.0), ("jumps", 15.0), ("carry", 15.0), ("wide", 15.0), ("wide_opacity", 12.0),
+               ("dense", 44.0), ("jumps", 45.0)]
+
+
+def _stroke_walk(radius: float, points, height: int, width: int):
+    """smear()'s steps for a brush of `radius` along `points` over an
+    (height, width) canvas at the origin: (offsets, dirs), each point's
+    patch corner and direction (find_smear_directions), the points whose
+    patch or source leaves the canvas clipped as smear() clips them."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    bh = bw = 2 * int(np.ceil(radius)) + 1
+    rad = (bh - 1) // 2
+    offsets, dirs = [], []
+    for (x, y), (dx, dy) in TB.find_smear_directions(points):
+        row, col = y - rad + 1, x - rad + 1
+        if 0 <= row - 1 - abs(dy) and 0 <= col - 1 - abs(dx) and row + bh + 1 <= height and col + bw + 1 <= width:
+            offsets.append((row, col))
+            dirs.append((dx, dy))
+    return offsets, dirs
+
+
+def _polyline_points(corners):
+    """points_of_brushstroke_smear of a polyline through `corners`."""
+    from coherence_tpu_torch.geometry import path as gpath
+    from coherence_tpu_torch.raster import brush as TB
+
+    segs = tuple(gpath.Straight(a, b) for a, b in zip(corners, corners[1:]))
+    path = gpath.Path(gpath.EVEN_ODD, (gpath.Subpath(False, False, segs),))
+    return TB.points_of_brushstroke_smear((TB.mkround(1.0, 1.0), path))
+
+
+def smear_walk_case(kind: str, radius: float, seed: int = 0):
+    """(canvas, opacity, offsets, dirs) of a smear walk over a canvas larger
+    than window mode's window, so that the window moves:
+      * dense: a zigzag stroke, every point on the canvas: the walk drifts
+        past the window's margin again and again, and the second pass
+        restarts at step 0, far from the last step;
+      * jumps: a stroke that leaves the canvas twice and comes back, its
+        points clipped as smear() clips them, so that the walk jumps;
+      * carry: unit moves along each step's own direction, turning now and
+        then, so that each step's source is the last step's patch, which
+        that step just wrote;
+      * wide: the dense walk over a canvas whose middle band holds channels
+        outside 0..255 (negative, and up to 2^20): window mode's packed walk
+        meets it partway and the walk goes on in device memory;
+      * wide_opacity: the dense walk under an opacity plane outside 0..255:
+        in device memory from the start."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    rng = np.random.default_rng(seed * 1000 + int(radius * 10) + len(kind))
+    opac = TB.drawround_alpha(radius, 1.0).astype(np.int32)
+    bh, bw = opac.shape
+    span = 3 if radius < 30 else 1  # zigzag legs
+    height, width = bh + 180, bw + 300 * span
+    canvas = blur_content(seed + 11, height, width)
+    if kind == "carry":
+        units = [(dx, dy) for dx, dy in SMEAR_DIRS if (dx, dy) != (0, 0)]
+        row, col = height // 2, width // 2
+        (dx, dy), offsets, dirs = units[0], [], []
+        for _ in range(600):
+            if rng.random() < 0.08:
+                dx, dy = units[int(rng.integers(0, len(units)))]
+            if not (2 <= row + dy <= height - bh - 2 and 2 <= col + dx <= width - bw - 2):
+                dx, dy = -dx, -dy
+            row, col = row + dy, col + dx
+            offsets.append((row, col))
+            dirs.append((dx, dy))
+        return canvas, opac, offsets, dirs
+    if kind == "wide":
+        band = canvas[:, 2 * width // 5 : 3 * width // 5]
+        band[...] = rng.integers(-(2**10), 2**20, band.shape)
+    if kind == "wide_opacity":
+        opac = opac * 3 - 100
+    lo_x, hi_x = bw, width - bw
+    if kind in ("dense", "wide", "wide_opacity"):
+        corners = [(lo_x, bh + 10.0)] + [(hi_x if k % 2 == 0 else lo_x, bh + 10.0 + 150.0 * (k + 1) / (2 * span))
+                                         for k in range(2 * span)]
+    else:
+        corners = [(lo_x, height / 2), (width + 60.0, height / 3), (width / 2, height - bh - 2.0), (-70.0, bh / 2),
+                   (hi_x, height / 2)]
+    offsets, dirs = _stroke_walk(radius, _polyline_points(corners), height, width)
+    return canvas, opac, offsets, dirs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("radius", BRUSH_RADII)
 def test_brush_stamp_plane_mode_matches_plain(cuda_device, radius):
@@ -1656,6 +1796,65 @@ def test_smear_walk_matches_plain(cuda_device, radius):
     assert kernels.launches["smear_walk"] == before + 1
     assert got.data_ptr() == cv.data_ptr()  # in place
     assert torch.equal(got.cpu(), want) and not np.array_equal(want.numpy(), canvas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,radius", SMEAR_WALKS)
+def test_smear_walk_modes_match_plain(cuda_device, kind, radius):
+    """smear_walk in the mode its kernel picks (window mode up to radius 44,
+    global mode from 45) against _smear_walk_torch, bit for bit, in place,
+    one launch: a long dense walk that moves its window many times, a walk
+    with jumps, a walk whose every step's source is the last step's patch,
+    walks over channels or under an opacity outside 0..255 (window mode
+    goes on in device memory); the pass restart in each.  The launch's
+    stats say which mode ran, how often the window loaded and from which
+    step the walk ran in device memory."""
+    from coherence_tpu_torch.raster import brush as TB
+
+    canvas, opac, offsets, dirs = smear_walk_case(kind, radius)
+    bh, bw = opac.shape
+    total = kernels.SMEAR_PASSES * len(offsets)
+    assert (kind.startswith("wide")) == bool(((canvas < 0) | (canvas > 255)).any() or ((opac < 0) | (opac > 255)).any())
+    want = TB._smear_walk_torch(torch.from_numpy(canvas.copy()), torch.from_numpy(opac), offsets, dirs, bh, bw)
+    cv = torch.from_numpy(canvas).to(cuda_device)
+    stats = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
+    before = kernels.launches["smear_walk"]
+    got = kernels.smear_walk(cv, torch.from_numpy(opac).to(cuda_device), offsets, dirs, bh, bw, stats=stats)
+    torch.cuda.synchronize()
+    assert kernels.launches["smear_walk"] == before + 1
+    assert got.data_ptr() == cv.data_ptr()  # in place
+    assert torch.equal(got.cpu(), want) and not np.array_equal(want.numpy(), canvas)
+    wh, ww, loads, device_from = stats.tolist()
+    if radius > 44:
+        assert (wh, ww, loads, device_from) == (0, 0, 0, 0)
+        return
+    assert (wh, ww) == (bh + 64, bw + 64)  # a margin of 32 pixels
+    if kind == "wide_opacity":
+        assert (loads, device_from) == (0, 0)
+    elif kind == "wide":
+        assert 0 < device_from < total and loads >= 1
+    else:
+        assert device_from == total and loads >= {"dense": 10, "jumps": 3}.get(kind, 1)
+
+
+@pytest.mark.cuda
+def test_smear_walk_stats_modes_by_patch(cuda_device):
+    """smear.cu's window_shape, read through the stats of a one-step walk:
+    window mode up to the 89x89 patch with a margin of 32 pixels, the
+    window cut to a small canvas; global mode from the 91x91 patch and for
+    a 1 x 8193 patch (more than 16 pixels a thread)."""
+    def window(bh, bw, height, width):
+        cv = torch.zeros((height, width, 4), dtype=torch.int32, device=cuda_device)
+        opac = torch.full((bh, bw), 128, dtype=torch.int32, device=cuda_device)
+        stats = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
+        kernels.smear_walk(cv, opac, [(1, 1)], [(1, 1)], bh, bw, stats=stats)
+        return tuple(stats.tolist()[:2])
+
+    assert window(31, 31, 400, 400) == (95, 95)
+    assert window(89, 89, 400, 400) == (153, 153)
+    assert window(31, 31, 40, 70) == (40, 70)
+    assert window(91, 91, 400, 400) == (0, 0)
+    assert window(1, 8193, 8, 8300) == (0, 0)
 
 
 @pytest.mark.cuda

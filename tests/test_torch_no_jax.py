@@ -182,6 +182,7 @@ engine.events = [("LeftDown", 1, 40, 40), ("LeftDragging", 1, 52, 47), ("LeftUp"
 # on page 2, among them a CCITT G4 one, text in every font kind on page 3).
 import os, tempfile
 import chip_smoke
+import profile_brush, profile_frame, profile_general, profile_smear  # the card's profiling scripts import no JAX either
 from coherence_tpu_torch.io import pdf as P
 pdf_dir = tempfile.mkdtemp()
 pdf_doc = P.Pdf(*chip_smoke.pdf_document(P, 480, 270, image_wh=(64, 48)))
