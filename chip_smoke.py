@@ -92,7 +92,10 @@ Phases, one JSON line each:
      versions on the inputs of one animated step, the display and the
      reserved slots starting from noise, each timed beside its plain
      version and its bound;
-  4. main_path: the lion, built and run 400 frames; per-frame times; the
+  4. main_path: the lion, built cold (the scene-build and sweep caches
+     emptied before the CPU's build and before the card's, so that the card
+     rasterizes its own atlas through tile_raster, held bit for bit against
+     the CPU's) and run 400 frames; per-frame times; the
      display after 20 frames held bit for bit against the same 20 frames
      run on the CPU through the plain versions; one full-frame render held
      against the dirty-path content; three more frames, each required to
@@ -102,9 +105,10 @@ Phases, one JSON line each:
   5. interactive_4k: config 5 on the card; its atlas, piece lists and
      display after 3 filtered frames held bit for bit against the same run
      on the CPU; frame times, build and zoom seconds, cache hits; the full
-     renders held against the dirty-path content; brush_stamp launched at
-     the build and at each zoom step that misses the scene-build cache,
-     never at a hit;
+     renders held against the dirty-path content; brush_stamp and
+     tile_raster launched at the build and at each zoom step that misses
+     the scene-build cache, never at a hit, tile_raster at the prefetch; the
+     sweep cache's hits and misses of each zoom step;
   6. kernels_4k: composite_runs against composite_runs_torch and against
      composite_full, and composite_full against composite_full_banded over
      one band, on config 5's full-frame lists, bit for bit; the three timed
@@ -121,7 +125,14 @@ Phases, one JSON line each:
      time, its bound and the launch floor (the smear also beside its chain
      floor, its mode and its window's reloads, as the kernel counted
      them; the demo must take window mode to its end, radius 120 global
-     mode);
+     mode); then tile_kernels: tile_raster over every block of the lion's
+     and of config 5's build (TileBuild.batches(), staged as the build
+     stages them) against the plain version on the card, bit for bit, timed
+     with the lists staged beforehand behind a device-side wait, beside the
+     plain version's time, the wrapper's host time, the bound (the lists
+     read once and every slot written once, or 1024 multiply-adds a fringe
+     pixel) and the launch floor; one TileBuild.flush required to issue one
+     copy and one launch a block;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -242,7 +253,10 @@ largest brush group, every other shape beside; for smear_walk the canvas
 pixels its walk must read and write once and its mixed-pixel operations,
 beside them its step-by-step traffic, a serial chain of steps, the chain's
 floor at one SM's int32 rate, its mode, window and reloads as the kernel
-counted them, and the radius-120 smear in global mode) and, last,
+counted them, and the radius-120 smear in global mode; for tile_raster
+the bytes of its lists and slots and its fringe multiply-adds at the lion's
+build blocks, config 5's beside, its launches at the lion's build, config
+5's build, each zoom step and the prefetch) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -961,7 +975,12 @@ def lion_kernels(torch, dev, scrub):
 def lion_path(torch, dev, kernels):
     """Phase 4: the lion's main path, counted from zero.  Returns the
     launch counts."""
-    # The first frames on the CPU, through the plain versions.
+    from coherence_tpu_torch.raster import tile_raster
+    from coherence_tpu_torch.scene import fastframe
+
+    # The first frames on the CPU, through the plain versions, built cold:
+    # neither build restores another's atlas or sweep (H37).
+    cold_caches()
     t0 = time.perf_counter()
     cview, cdisp, ckey = build_scene("cpu")
     cpu_build_s = time.perf_counter() - t0
@@ -973,12 +992,18 @@ def lion_path(torch, dev, kernels):
     cpu_display = cdisp.rgba.clone()
     del cview, cdisp
 
+    cold_caches()
     zero_counts(torch, kernels)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     view, disp, key = build_scene(dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_caches = {"scene_build": fastframe.scene_build_cache_stats(), "sweep": dict(tile_raster.sweep_cache_stats)}
+    build_tile_raster = kernels.launches["tile_raster"]
+    require(build_caches["scene_build"]["misses"] == 1 and build_tile_raster >= 1,
+            f"the lion's build on the card did not rasterize its own atlas: {build_caches}, "
+            f"{build_tile_raster} tile_raster launches")
     require(torch.equal(view.ts.atlas().cpu(), cpu_atlas), "card atlas differs from the CPU build")
     require(torch.equal(disp.f_alpha.cpu(), cpu_alpha), "card alpha plane differs from the CPU build")
     require(torch.equal(disp.rgba.cpu(), cpu_display0), "card full refresh differs from the CPU one")
@@ -1012,12 +1037,35 @@ def lion_path(torch, dev, kernels):
             f"steady frames issued {steady_ops} launches and copies, not {STEADY_FRAME_OPS} each")
     stats = frame_stats(frame_ms)
     emit({"phase": "main_path", "frames": N_FRAMES, "build_s": build_s, "cpu_reference_build_s": cpu_build_s,
+          "build_tile_raster": build_tile_raster, "build_caches": build_caches,
           "first_frame_ms": stats["first_ms"], "frame_ms_median": stats["median_ms"],
           "frame_ms_p95": stats["p95_ms"], "host_ms_per_frame": loop_s / N_FRAMES * 1e3,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
           "ops_per_steady_frame": steady_ops, "display_equal_cpu_after_frames": N_CHECK,
           "full_render_equal_dirty": True})
-    return counts
+    return {**counts, "tile_raster_build": build_tile_raster}
+
+
+def scene_caches_clear() -> None:
+    """Empty the scene-build cache and the sweep cache: the next tiled build
+    rasterizes its own atlas and sweeps its own objects (H37; the digest
+    and the sweep's key name no device)."""
+    from coherence_tpu_torch.raster import tile_raster
+    from coherence_tpu_torch.scene import fastframe
+
+    fastframe.scene_build_cache_clear()
+    tile_raster.sweep_cache_clear()
+
+
+def cold_caches() -> None:
+    """Empty the coherence cache and scene_caches_clear's caches, and zero
+    the scene-build cache's counts, so that the next build starts cold
+    (H23, H37)."""
+    from coherence_tpu_torch.scene import cache, fastframe
+
+    cache.clear()
+    scene_caches_clear()
+    fastframe.scene_build_cache_stats(reset=True)
 
 
 def interactive_path(torch, dev, kernels, scrub):
@@ -1031,7 +1079,10 @@ def interactive_path(torch, dev, kernels, scrub):
     from coherence_tpu_torch.raster import tiled_scene as T
     from coherence_tpu_torch.scene import fastframe
 
+    from coherence_tpu_torch.raster import tile_raster
+
     # The first 3 filtered frames on the CPU, through the plain versions.
+    cold_caches()
     t0 = time.perf_counter()
     cview, cdisp, ckey, _ = build_interactive("cpu")
     for k in range(3):
@@ -1043,12 +1094,15 @@ def interactive_path(torch, dev, kernels, scrub):
 
     zero_counts(torch, kernels)
     torch.cuda.reset_peak_memory_stats()
-    fastframe.scene_build_cache_clear()
-    fastframe.scene_build_cache_stats(reset=True)
+    cold_caches()
     t0 = time.perf_counter()
     view, disp, key, objs = build_interactive(dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_tile_raster = kernels.launches["tile_raster"]
+    build_sweep = dict(tile_raster.sweep_cache_stats)
+    require(build_tile_raster >= 1 and build_sweep["hits"] == 0,
+            f"config 5's build on the card: {build_tile_raster} tile_raster launches, sweep cache {build_sweep}")
     for k in range(3):
         filtered_frame(view, disp, key, k)
     atlas, pieces = scene_state(view)
@@ -1078,21 +1132,29 @@ def interactive_path(torch, dev, kernels, scrub):
         f = 2.0 if rep % 2 == 0 else 0.5
         cur = zoomed(cur, f)
         misses, stamps = fastframe.scene_build_cache_stats()["misses"], kernels.launches["brush_stamp"]
+        tiles, sweep = kernels.launches["tile_raster"], dict(tile_raster.sweep_cache_stats)
         t0 = time.perf_counter()
         view.reset_scene(cur, tiled=True)
         view.render(full=True)
         torch.cuda.synchronize()
         zooms.append({"factor": f, "seconds": time.perf_counter() - t0, "pieces": view.ts._n_pieces,
-                      **fastframe.scene_build_cache_stats(), "brush_stamp": kernels.launches["brush_stamp"] - stamps})
-        # A miss rebuilds the strokes: at least one brush_stamp launch; a hit restores the atlas.
+                      **fastframe.scene_build_cache_stats(), "brush_stamp": kernels.launches["brush_stamp"] - stamps,
+                      "tile_raster": kernels.launches["tile_raster"] - tiles,
+                      "sweep": {k: tile_raster.sweep_cache_stats[k] - sweep[k] for k in sweep}})
+        # A miss rebuilds the strokes and the paths: at least one brush_stamp and one tile_raster launch; a hit
+        # restores the atlas.
         missed = zooms[-1]["misses"] > misses
-        require(zooms[-1]["brush_stamp"] >= 1 if missed else zooms[-1]["brush_stamp"] == 0,
-                f"zoom step {rep}: {zooms[-1]['brush_stamp']} brush_stamp launches on a {'miss' if missed else 'hit'}")
+        for name in ("brush_stamp", "tile_raster"):
+            require(zooms[-1][name] >= 1 if missed else zooms[-1][name] == 0,
+                    f"zoom step {rep}: {zooms[-1][name]} {name} launches on a {'miss' if missed else 'hit'}")
     fastframe.scene_build_cache_stats(reset=True)
+    tiles = kernels.launches["tile_raster"]
     t0 = time.perf_counter()
     view.prefetch_zoom_candidates(cur)
     torch.cuda.synchronize()
     prefetch_s = time.perf_counter() - t0
+    prefetch_tile_raster = kernels.launches["tile_raster"] - tiles
+    require(prefetch_tile_raster >= 1, "the prefetch built no scene through tile_raster")
     half = zoomed(cur, 0.5)
     t0 = time.perf_counter()
     view.reset_scene(half, tiled=True)
@@ -1108,6 +1170,8 @@ def interactive_path(torch, dev, kernels, scrub):
     require(counts["composite_runs"] >= 1, "composite_runs never launched on the 4K path")
     emit({"phase": "interactive_4k", "width": W4, "height": H4, "objects": len(objs) + 1,
           "pieces": sum(len(p) for p in pieces), "listed_pieces": int(starts[-1]), "build_s": build_s,
+          "build_tile_raster": build_tile_raster, "build_sweep": build_sweep,
+          "prefetch_tile_raster": prefetch_tile_raster,
           "cpu_reference_s": cpu_s, "cpu_reference_size": [W4, H4], "filtered": frame_stats(filtered_ms),
           "filtered_host_ms_per_frame": filtered_s / N_FRAMES4 * 1e3, "plain": frame_stats(plain_ms),
           "plain_host_ms_per_frame": plain_s / N_FRAMES4 * 1e3, "zooms": zooms, "prefetch_s": prefetch_s,
@@ -1115,7 +1179,7 @@ def interactive_path(torch, dev, kernels, scrub):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
           "equal_cpu_after_frames": 3, "full_render_equal_dirty": True, "render_runs_equal_full": True})
     del view, disp, objs, cur, half, dirty_content, runs_frame
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
 
     runs = T.gather_runs(atlas_1x, idxs)
     runs_k = T.composite_runs(starts, background, runs, nty, ntx)
@@ -1148,6 +1212,8 @@ def interactive_path(torch, dev, kernels, scrub):
           "blur_blend": {"equal_plain": True, **animated["blur_blend"]},
           "shatter_into": {"equal_plain": True, **animated["shatter_into"]},
           "launch_floor_ms": animated["launch_floor_ms"]})
+    counts.update({"tile_raster_build": build_tile_raster, "tile_raster_prefetch": prefetch_tile_raster,
+                   "tile_raster_zooms": [z["tile_raster"] for z in zooms]})
     return counts, runs_row, full_row, animated
 
 
@@ -1372,6 +1438,113 @@ def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     return {"brush_stamp": stamp, "smear_walk": smear}
 
 
+def tile_inputs(torch, dev) -> dict:
+    """TR1's inputs as the build stages them on `dev`, name -> TileBuild:
+    the lion's 132 paths over its 17 x 15 tile grid (build_scene's
+    set_scene), and config 5's 1000 shapes over its 34 x 30 grid
+    (build_interactive's)."""
+    from coherence_tpu_torch.scene import examples, fastframe
+
+    objs, _, _ = examples.bench_scene(W, H, blob_radius=60, blob_at=(120, 400), f_box=F_BOX)
+    objs4, _, _ = examples.interactive_4k_scene(W4, H4)
+    return {name: fastframe.stage_tiled_scene(-(-h // 64), -(-w // 128), w, h, [(o.idset, o) for o in scene], dev)[0]
+            for name, scene, w, h in (("lion", objs, W, H), ("config5", objs4, W4, H4))}
+
+
+def tile_bound(tb, lists, batches) -> dict:
+    """What TR1 must do for a build's blocks: its lists read once (every
+    span word, row offset and fill, 4 bytes each) and every slot of every
+    block written once (PIECE_BYTES), over HBM_BYTES_PER_S; and its
+    operations, 1024 multiply-adds (two int32 operations each) at each
+    fringe pixel (the coverage mask's pixels of the edge items), at
+    INT_OPS_PER_S.  The bound is the larger."""
+    from coherence_tpu_torch.raster import tile_raster
+
+    list_bytes = sum(4 * t.numel() for lst in lists for t in lst[:5] if t is not None)
+    n_bytes = list_bytes + sum(nb for _, nb, _ in batches) * PIECE_BYTES
+    fringe = sum(int(tile_raster._tile_masks([it[2] for it in items], 64, 128, "cpu").sum())
+                 for items, _, edge in batches if edge)
+    ops = 2 * 1024 * fringe
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return {"list_bytes": list_bytes, "bytes": n_bytes, "fringe_pixels": fringe, "operations": ops,
+            "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def tile_raster_row(torch, dev, scrub, tb) -> dict:
+    """TR1 over one build's blocks (every batch of tb.batches()) against
+    the plain version on the card, bit for bit, with its bound.  Timed with
+    the lists staged beforehand (the window holds the launches alone),
+    behind a device-side wait of ANIMATED_WAIT_MS, each call queued within
+    half of it; the wrapper's whole host side (packing, staged copy,
+    launch) as host_ms (fold_host_ms over the same blocks); the plain
+    version over N_BRUSH_PLAIN_TIMED calls; each block's launch alone
+    (blocks_ms); one TileBuild.flush's issued launches and copies
+    (profile_general.issued), required to be two a block."""
+    import numpy as np
+
+    from coherence_tpu_torch import kernels
+    from profile_general import issued
+
+    batches = list(tb.batches())
+
+    def stage_all():
+        out = []
+        for items, _, edge in batches:
+            fills = np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4)
+            cross = [it[3 if edge else 2] for it in items]
+            out.append(kernels.stage_tile_lists(cross, fills, dev, cov=[it[2] for it in items] if edge else None,
+                                                aa=[it[4] for it in items] if edge else None))
+        return out
+
+    lists = stage_all()
+
+    def kernel():
+        return [kernels.tile_raster(lst, nb) for lst, (_, nb, _) in zip(lists, batches)]
+
+    def plain():
+        return [tb.block_torch(items, nb, edge) for items, nb, edge in batches]
+
+    def wrapper():
+        return [tb.block(items, nb, edge) for items, nb, edge in batches]
+
+    got, want, whole = kernel(), plain(), wrapper()
+    torch.cuda.synchronize()
+    for j, (g, w, h) in enumerate(zip(got, want, whole)):
+        require(torch.equal(g, w) and torch.equal(h, w), f"tile_raster's block {j} differs from its plain version")
+    n_issued = issued(torch, tb.flush)
+    require(n_issued == 2 * len(batches),
+            f"one TileBuild.flush issued {n_issued} launches and copies for {len(batches)} blocks, not 2 a block")
+    row = {"blocks": len(batches), "items": sum(len(items) for items, _, _ in batches),
+           "edge_items": sum(len(items) for items, _, edge in batches if edge),
+           "slots": sum(nb for _, nb, _ in batches), "flush_issued": n_issued,
+           "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)), **tile_bound(tb, lists, batches),
+           **fold_host_ms(torch, wrapper)}
+    row["ms"] = event_ms(torch, kernel, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True)
+    # Each block's launch alone: where a build's time goes, block by block.
+    row["blocks_ms"] = [{"edge": edge, "items": len(items), "slots": nb,
+                         "ms": event_ms(torch, lambda lst=lst, nb=nb: kernels.tile_raster(lst, nb), scrub,
+                                        wait_ms=ANIMATED_WAIT_MS, queued=True)}
+                        for lst, (items, nb, edge) in zip(lists, batches)]
+    row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def tile_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
+    """TR1 at the lion's and config 5's build blocks (tile_raster_row),
+    uncounted.  Returns the kernels line's row: the lion's, config 5's
+    beside it."""
+    rows = uncounted(kernels, lambda: {name: tile_raster_row(torch, dev, scrub, tb)
+                                       for name, tb in tile_inputs(torch, dev).items()})
+    for row in rows.values():
+        row["launch_floor_ms"] = floor_ms
+    emit({"phase": "tile_kernels", "tolerance": 0, "equal_plain": True, "builds": rows})
+    lion, big = rows["lion"], rows["config5"]
+    keys = ("blocks", "items", "fringe_pixels", "ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share", "host_ms")
+    return {**lion, "max_abs_err": max(lion["max_abs_err"], big["max_abs_err"]),
+            "config5": {k: big[k] for k in keys}}
+
+
 def layers_path(torch, dev, kernels, scrub):
     """Phase 7: config 2's stack over white through composite_layers,
     counted from zero, then the kernel against its plain version over
@@ -1424,13 +1597,13 @@ def mesh_4k_path(torch, dev, kernels):
     from coherence_tpu_torch.scene import fastframe
 
     mesh = make_mesh(2, mesh_devices(torch, 2))
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     zero_counts(torch, kernels)
     t0 = time.perf_counter()
     mview, mdisp, mkey, objs = build_interactive(dev, mesh)
     torch.cuda.synchronize()
     mesh_build_s = time.perf_counter() - t0
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     uview, udisp, ukey, _ = build_interactive(dev)
     require(torch.equal(mdisp.rgba.gather(dev), udisp.rgba), "4K meshed full refresh differs from the unsharded one")
     mview.render(full=True)
@@ -1480,7 +1653,7 @@ def mesh_4k_path(torch, dev, kernels):
     torch.cuda.synchronize()
     zoom_s = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     fresh = fastframe.DeviceView(W4, H4, atlas_cap=ATLAS_CAP4, device=dev)
     fresh.set_scene(cur, tiled=True)
     fresh.render(full=True)
@@ -2223,7 +2396,7 @@ def scene_edits(torch, dev, kernels):
     scene = [blob] + objs
     edits = lion_edits(objs)
     fresh_cache()
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     t0 = time.perf_counter()
     cview = fastframe.DeviceView(W, H, atlas_cap=ATLAS_CAP, device="cpu")
     cview.set_scene(scene)
@@ -2844,11 +3017,11 @@ def serve_fast(torch, dev, kernels):
     from coherence_tpu_torch.scene import cache, fastframe
 
     cache.clear()
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     cpu_image, cpu_stats, _ = fast_session(torch, "cpu", kernels, SERVE_CPU_FAST_DRAGS, whole=False)
     # The scene-build cache's digest names no device: cleared, so that the card rasterizes the scene itself.
     cache.clear()
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     builds0 = fastframe.scene_build_cache_stats()
     zero_counts(torch, kernels)
     n_drags = SERVE_WARM + SERVE_FAST_DRAGS
@@ -2877,7 +3050,7 @@ def serve_fast(torch, dev, kernels):
     check_full = kernels.launches["composite_full"] - session_counts["composite_full"]
     require(check_full == 1, f"serve_fast: the closing render launched composite_full {check_full} times")
     cache.clear()
-    fastframe.scene_build_cache_clear()
+    scene_caches_clear()
     emit({"phase": "serve_fast", "size": [W, H], "blur_radius": SERVE_BLUR, "drags": n_drags, **stats,
           "cpu_first_paint_s": cpu_stats["first_paint_s"], "launches": session_counts,
           "full_render_check_launches": check_full,
@@ -3686,10 +3859,10 @@ def pdf_pages(torch, dev, kernels):
             with open(name, "wb") as f:
                 f.write(data)
         cache.clear()
-        fastframe.scene_build_cache_clear()
+        scene_caches_clear()
         cpu_shots, cpu_stats = pdf_session(torch, "cpu", path)
         cache.clear()
-        fastframe.scene_build_cache_clear()
+        scene_caches_clear()
         zero_counts(torch, kernels)
         shots, stats = pdf_session(torch, dev, path, kernels)
         torch.cuda.synchronize()
@@ -3706,7 +3879,7 @@ def pdf_pages(torch, dev, kernels):
         require(not any(tile_counts.values()), f"pdf_pages: the general renderer launched a tile kernel: {counts}")
 
         cache.clear()
-        fastframe.scene_build_cache_clear()
+        scene_caches_clear()
         sealed_shots, sealed_stats = pdf_session(torch, dev, sealed_path)
         torch.cuda.synchronize()
         for page, (a, b) in enumerate(zip(sealed_shots, shots), start=1):
@@ -3786,6 +3959,7 @@ def main() -> int:
     lion = lion_path(torch, dev, kernels)
     counts4, timed["composite_runs"], full_4k, animated_4k = interactive_path(torch, dev, kernels, scrub)
     timed.update(brush_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"]))
+    timed["tile_raster"] = tile_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"])
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
@@ -3907,6 +4081,19 @@ def main() -> int:
                  "chain_floor_ms": smear["chain_floor_ms"], "mode": smear["mode"], "window": smear["window"],
                  "reloads": smear["reloads"], "device_from": smear["device_from"],
                  "global_r120": smear["global_r120"]})
+    tile = timed["tile_raster"]
+    # No one PyTorch call turns span lists into Gaussian-matted packed pieces.
+    line.append({"name": "tile_raster", "route": "cuda", "source": CSRC + "tile_raster.cu",
+                 "replaces": "coherence_tpu/raster/tile_raster.py:115",
+                 "also_replaces": ["coherence_tpu/raster/tile_raster.py:120", "coherence_tpu/raster/tile_raster.py:79",
+                                   "coherence_tpu/raster/tile_raster.py:102"],
+                 "pallas": False, "launches": lion["tile_raster_build"], "launches_4k_build": counts4["tile_raster_build"],
+                 "launches_4k_zooms": counts4["tile_raster_zooms"], "launches_4k_prefetch": counts4["tile_raster_prefetch"],
+                 "launches_4k": counts4["tile_raster"], "max_abs_err": tile["max_abs_err"], "ms": tile["ms"],
+                 "plain_ms": tile["plain_ms"], "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
+                 "library_ms": None, "bytes": tile["bytes"], "share": tile["share"], "blocks": tile["blocks"],
+                 "items": tile["items"], "fringe_pixels": tile["fringe_pixels"], "host_ms": tile["host_ms"],
+                 "flush_issued": tile["flush_issued"], "config5": tile["config5"]})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -56,6 +56,7 @@ _ENTRY_POINTS = {
     "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
     "brush_stamp": [_ptr] * 6 + [_i32] * 6 + [_ptr],
     "smear_walk": [_ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr] + [_i32] * 4 + [_ptr],
+    "tile_raster": [_ptr] * 6 + [_i32] * 2 + [_ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
@@ -767,6 +768,133 @@ def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int, stats: Optional[torch.
     _raise_on("smear_walk", rc)
     launches["smear_walk"] += 1
     return cv
+
+
+# tile_raster.cu's planes, (rows, columns) of one piece's span lists: the 1x
+# coverage and crossing masks, and the 16x AA t-plane (16 * 64 + 16 rows,
+# 16 * 128 + 16 columns; raster/tile_raster.py _TTH, _TTW).
+TILE_PLANE = (64, 128)
+AA_PLANE = (1040, 2064)
+
+
+def tile_span_lists(spans, h: int, w: int, base: int = 0) -> tuple:
+    """tile_raster's host lists of one span family of n items, each item a
+    (rows, starts, ends) triple of inclusive spans over an (h, w) plane:
+    (words, offsets), int32 numpy arrays.
+
+      * words: one per span, start | (end + 1) << 16, grouped by item and
+        by row in order (within a row the spans keep their order);
+      * offsets (n, h + 1): row r of item i is words[offsets[i, r] - base :
+        offsets[i, r + 1] - base] (offsets count from `base`, the family's
+        place in the kernel's one word list).
+
+    Spans on rows outside 0..h-1 are dropped, as the scatter of the JAX
+    package drops them (raster/aa.py mask_of_spans).  Raises ValueError
+    where a kept span's start or end + 1 lies outside 0..w (the plain
+    version's scatter refuses those too) or a value does not fit in int32.
+    The passes run on int32 copies: the packing is the host's share of a
+    block's build."""
+    n = len(spans)
+    lens = np.fromiter((len(sp[0]) for sp in spans), np.int64, n)
+    if lens.sum():
+        whole = [np.concatenate([sp[k] for sp in spans]) for k in range(3)]
+        if min(a.min() for a in whole) < -(2**31) or max(a.max() for a in whole) >= 2**31 - 1:
+            raise ValueError("tile_raster: a span's row or column does not fit in int32")
+        rows, starts, stops = (a.astype(np.int32) for a in whole)
+    else:
+        rows, starts, stops = (np.zeros(0, np.int32) for _ in range(3))
+    stops += 1
+    key = rows + np.repeat(np.arange(0, n * h, h, dtype=np.int32), lens)
+    if key.size and (rows.min() < 0 or rows.max() >= h):
+        keep = (rows >= 0) & (rows < h)
+        key, rows, starts, stops = key[keep], rows[keep], starts[keep], stops[keep]
+    if key.size and (min(starts.min(), stops.min()) < 0 or max(starts.max(), stops.max()) > w):
+        j = int(np.nonzero((starts < 0) | (starts > w) | (stops < 0) | (stops > w))[0][0])
+        raise ValueError(f"tile_raster: item {int(key[j]) // h}'s span on row {int(rows[j])} from {int(starts[j])} "
+                         f"to {int(stops[j]) - 1} leaves the {w} columns of its plane")
+    if key.size > 1 and (key[1:] < key[:-1]).any():
+        order = np.argsort(key, kind="stable")
+        key, starts, stops = key[order], starts[order], stops[order]
+    cum = np.zeros(n * h + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=n * h), out=cum[1:])
+    if base + cum[-1] >= 2**31:
+        raise ValueError(f"tile_raster: {base + int(cum[-1])} spans are beyond the kernel's int32 offsets")
+    offsets = np.empty((n, h + 1), np.int32)
+    offsets[:, :h] = (cum[:-1] + base).reshape(n, h)
+    offsets[:, h] = cum[h::h] + base
+    stops <<= 16
+    stops |= starts
+    return stops, offsets
+
+
+def stage_tile_lists(cross, fills, device, cov=None, aa=None) -> tuple:
+    """tile_raster's inputs for n items on the CUDA `device`, in one staged
+    copy: (words, cov offsets or None, cross offsets, aa offsets or None,
+    fills, n).  `cross`, `cov` and `aa` are per-item (rows, starts, ends)
+    span triples (tile_span_lists; cov and aa in edge mode only), `fills`
+    (n, 4) int32 premultiplied colours."""
+    from ..raster.staging import stage
+
+    device = _cuda_device(device, "tile_raster")
+    fills = np.asarray(fills, np.int64).reshape(-1, 4)
+    n = len(fills)
+    families = [(cross, TILE_PLANE)] + ([] if cov is None else [(cov, TILE_PLANE), (aa, AA_PLANE)])
+    if any(f is None or len(f) != n for f, _ in families):
+        raise ValueError(f"tile_raster: need {n} items' spans in every family")
+    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
+        raise ValueError("tile_raster: a fill does not fit in int32")
+    words, offsets, base = [], [], 0
+    for spans, (h, w) in families:
+        wd, off = tile_span_lists(spans, h, w, base)
+        words.append(wd)
+        offsets.append(off)
+        base += len(wd)
+    staged = stage(device, np.concatenate(words), *offsets, fills.astype(np.int32))
+    if cov is None:
+        return staged[0], None, staged[1], None, staged[2], n
+    return staged[0], staged[2], staged[1], staged[3], staged[4], n
+
+
+def tile_raster(lists, nb: int) -> torch.Tensor:
+    """Launch ``tile_raster``: a new (nb, 64, 128) int32 block whose slot i
+    is item i's packed piece, slots from n on zero, from stage_tile_lists'
+    `lists`.  Edge mode where the lists carry coverage and AA offsets
+    (raster/tile_raster.py _edge_impl), else interior mode (_interior_impl)."""
+    words, cov_off, cross_off, aa_off, fills, n = lists
+    device = words.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA tile rasterizer needs tensors on a CUDA device, got {device}")
+    if not 0 <= n <= nb or nb * 64 * 128 >= 2**31:
+        raise ValueError(f"tile_raster: {n} items do not fit a block of {nb} slots")
+    out = torch.empty((nb, 64, 128), dtype=torch.int32, device=device)
+    if nb == 0:
+        return out
+    with torch.cuda.device(device):
+        rc = load()["tile_raster"](
+            words.data_ptr(), None if cov_off is None else cov_off.data_ptr(), cross_off.data_ptr(),
+            None if aa_off is None else aa_off.data_ptr(), fills.data_ptr(), out.data_ptr(), n, nb,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("tile_raster", rc)
+    launches["tile_raster"] += 1
+    return out
+
+
+def tile_raster_edge(cov, cross, aa, fills, nb: int, device) -> torch.Tensor:
+    """Edge pieces in one launch: per item its 1x coverage and crossing
+    spans and 16x AA spans ((rows, starts, ends), tile-relative, inclusive),
+    `fills` (n, 4) int32.  Each piece is the fill where the crossing mask
+    holds outside the coverage mask, the fill dissolved by the Gaussian
+    matte's opacity where the coverage mask holds, zero elsewhere (the plain
+    version is raster/tile_raster.py _edge_impl)."""
+    return tile_raster(stage_tile_lists(cross, fills, device, cov=cov, aa=aa), nb)
+
+
+def tile_raster_interior(cross, fills, nb: int, device) -> torch.Tensor:
+    """Interior pieces in one launch: the fill where each item's crossing
+    mask holds, zero elsewhere (the plain version is raster/tile_raster.py
+    _interior_impl)."""
+    return tile_raster(stage_tile_lists(cross, fills, device), nb)
 
 
 def launch_floor(device) -> None:

@@ -12,25 +12,33 @@ scene's atlas:
   * tiles with fringe pixels become *edge* items (1x coverage and crossing
     spans plus 16x AA spans); tiles inside the shape become *interior*
     items (crossing spans only);
-  * items batch by span-capacity class; each batch scatters the spans into
-    difference planes, prefix-sums them to masks, takes the Gaussian-matte
-    AA coverage from the stride-16 table product (``raster/aa``), colours
-    and packs.
+  * items batch by span-capacity class.  On a CUDA device each batch is
+    one block of pieces made by one launch of TR1 (``kernels.tile_raster``,
+    ``kernels/csrc/tile_raster.cu``), its span lists uploaded in one staged
+    copy; on the CPU the plain version scatters the spans into difference
+    planes, prefix-sums them to masks, takes the Gaussian-matte AA coverage
+    from the stride-16 table product (``raster/aa``), colours and packs.
 
 Blocks keep the JAX package's batch layout (class order, fixed chunks,
 pow2 buckets, zero padding slots), so a scene's atlas is bit-identical to
 the reference's slot for slot.
+
+Each object's host sweep is memoized in a content-addressed, byte-capped
+LRU (the JAX package's sweep cache): a zoom back to a scale seen before
+re-stages from it every object whose edges come back bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import threading
+from collections import OrderedDict
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 from .. import colour as C
-from .. import native_lib
+from .. import kernels, native_lib
 from . import aa as raa
 from . import scanline
 from .compositor import TILE_H, TILE_W, pack_rgba
@@ -101,8 +109,65 @@ def _interior_impl(cross, fills: torch.Tensor) -> torch.Tensor:
     return pack_rgba(torch.where(crossm[..., None], fills[:, None, None, :], 0))
 
 
+# --- sweep cache ----------------------------------------------------------
+# Content-addressed memo of TileBuild._sweep_stage results: (edge bytes,
+# windings, grid) -> staged per-tile spans (host numpy only, so a hit serves
+# any device).  Byte-capped LRU; exact-bytes keys make a hit bit-identical
+# by construction (no invalidation).
+
+_SWEEP_CACHE: "OrderedDict" = OrderedDict()
+_SWEEP_CACHE_LOCK = threading.Lock()
+_SWEEP_CACHE_MAX_BYTES = 256 << 20
+_SWEEP_CACHE_BYTES = [0]
+sweep_cache_stats = {"hits": 0, "misses": 0}
+
+
+def _sweep_entry_bytes(ck, val) -> int:
+    n = len(ck[0]) + 64
+    if val is not False:
+        for part in val:
+            for item in part:
+                for x in item:
+                    if isinstance(x, tuple):
+                        n += sum(a.nbytes for a in x)
+    return n
+
+
+def _sweep_cache_get(ck):
+    with _SWEEP_CACHE_LOCK:
+        got = _SWEEP_CACHE.get(ck)
+        if got is None:
+            sweep_cache_stats["misses"] += 1
+            return None
+        sweep_cache_stats["hits"] += 1
+        _SWEEP_CACHE.move_to_end(ck)
+        return got[0]
+
+
+def _sweep_cache_put(ck, val) -> None:
+    nb = _sweep_entry_bytes(ck, val)
+    if nb > _SWEEP_CACHE_MAX_BYTES // 8:
+        return  # one huge object must not evict the whole working set
+    with _SWEEP_CACHE_LOCK:
+        old = _SWEEP_CACHE.pop(ck, None)
+        if old is not None:
+            _SWEEP_CACHE_BYTES[0] -= old[1]
+        _SWEEP_CACHE[ck] = (val, nb)
+        _SWEEP_CACHE_BYTES[0] += nb
+        while _SWEEP_CACHE_BYTES[0] > _SWEEP_CACHE_MAX_BYTES and _SWEEP_CACHE:
+            _, (_, evicted) = _SWEEP_CACHE.popitem(last=False)
+            _SWEEP_CACHE_BYTES[0] -= evicted
+
+
+def sweep_cache_clear() -> None:
+    with _SWEEP_CACHE_LOCK:
+        _SWEEP_CACHE.clear()
+        _SWEEP_CACHE_BYTES[0] = 0
+        sweep_cache_stats["hits"] = sweep_cache_stats["misses"] = 0
+
+
 class TileBuild:
-    """Staged work items, flushed with one batched pass per class."""
+    """Staged work items, flushed with one block per batch of a class."""
 
     def __init__(self, nty: int, ntx: int, device):
         self.nty, self.ntx = nty, ntx
@@ -114,8 +179,15 @@ class TileBuild:
 
     def add_object(self, key, edges, shape_winding, aa_winding, fill4) -> bool:
         """Sweep one object and stage its tile items.  False when it exceeds
-        every capacity class (nothing is staged then)."""
-        got = self._sweep_stage(np.asarray(edges, dtype=np.int64), shape_winding, aa_winding)
+        every capacity class (nothing is staged then).  The sweep comes from
+        the sweep cache where this geometry was swept before on this grid
+        (False results are cached too)."""
+        e64 = np.asarray(edges, dtype=np.int64)
+        ck = (e64.tobytes(), shape_winding, aa_winding, self.nty, self.ntx)
+        got = _sweep_cache_get(ck)
+        if got is None:
+            got = self._sweep_stage(e64, shape_winding, aa_winding)
+            _sweep_cache_put(ck, got)
         if got is False:
             return False
         staged_edge, staged_interior = got
@@ -126,7 +198,8 @@ class TileBuild:
         return True
 
     def _sweep_stage(self, e64, shape_winding, aa_winding):
-        """([(cls, tile, cov, cross, aa)], [(tile, cross)]), or False."""
+        """([(cls, tile, cov, cross, aa)], [(tile, cross)]), or False: a pure
+        function of (e64, windings, grid), the unit the sweep cache stores."""
         # The grid is the viewport: sweep only rows that can land in it.
         spans = scanline._edge_spans(
             e64, shape_winding, scanline._HALF, rows_clip=(1, self.nty * TILE_H)
@@ -174,8 +247,43 @@ class TileBuild:
             staged_edge.append((cls, t, cov1, cross1, aa1))
         return staged_edge, staged_interior
 
-    def _fills(self, items, col: int) -> torch.Tensor:
-        return torch.from_numpy(np.asarray([it[col] for it in items], np.int32).reshape(-1, 4)).to(self.device)
+    def batches(self) -> Iterator[Tuple[list, int, bool]]:
+        """(items, slots, edge) for each block of the flush, in block order:
+        every edge class in class order, then the interior items."""
+        for cls in sorted(self.edge_items):
+            for items, nb in _batches(self.edge_items[cls], _CHUNKS[cls]):
+                yield items, nb, True
+        if self.interior_items:
+            for items, nb in _batches(self.interior_items, _CHUNK_INTERIOR):
+                yield items, nb, False
+
+    def block(self, items, nb: int, edge: bool) -> torch.Tensor:
+        """One block of `nb` pieces for `items` (a batch of batches()): on a
+        CUDA device one TR1 launch (its lists in one staged copy), on the CPU
+        the plain version."""
+        if self.device.type != "cuda":
+            return self.block_torch(items, nb, edge)
+        fills = np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4)
+        if edge:
+            return kernels.tile_raster_edge([it[2] for it in items], [it[3] for it in items],
+                                            [it[4] for it in items], fills, nb, self.device)
+        return kernels.tile_raster_interior([it[2] for it in items], fills, nb, self.device)
+
+    def block_torch(self, items, nb: int, edge: bool) -> torch.Tensor:
+        """The plain version of block() on this build's device: _edge_impl
+        every _EDGE_STEP items, or _interior_impl, into a zeroed block."""
+        out = torch.zeros((nb, TILE_H, TILE_W), dtype=torch.int32, device=self.device)
+        fills = torch.from_numpy(np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4))
+        fills = fills.to(self.device)
+        if not edge:
+            if items:
+                out[: len(items)] = _interior_impl([it[2] for it in items], fills)
+            return out
+        for lo in range(0, len(items), _EDGE_STEP):
+            part = items[lo : lo + _EDGE_STEP]
+            out[lo : lo + len(part)] = _edge_impl([it[2] for it in part], [it[3] for it in part],
+                                                  [it[4] for it in part], fills[lo : lo + len(part)])
+        return out
 
     def flush(self):
         """Rasterize every staged item.  Returns (blocks, registry): blocks
@@ -184,26 +292,8 @@ class TileBuild:
         slot)]."""
         blocks: List[torch.Tensor] = []
         registry: Dict[object, List[Tuple[int, int, int]]] = {}
-
-        def new_block(items, nb) -> torch.Tensor:
+        for items, nb, edge in self.batches():
             for slot, it in enumerate(items):
                 registry.setdefault(it[0], []).append((it[1], len(blocks), slot))
-            blocks.append(torch.zeros((nb, TILE_H, TILE_W), dtype=torch.int32, device=self.device))
-            return blocks[-1]
-
-        for cls in sorted(self.edge_items):
-            for items, nb in _batches(self.edge_items[cls], _CHUNKS[cls]):
-                block = new_block(items, nb)
-                for lo in range(0, len(items), _EDGE_STEP):
-                    part = items[lo : lo + _EDGE_STEP]
-                    block[lo : lo + len(part)] = _edge_impl(
-                        [it[2] for it in part],
-                        [it[3] for it in part],
-                        [it[4] for it in part],
-                        self._fills(part, 5),
-                    )
-        if self.interior_items:
-            for items, nb in _batches(self.interior_items, _CHUNK_INTERIOR):
-                block = new_block(items, nb)
-                block[: len(items)] = _interior_impl([it[2] for it in items], self._fills(items, 3))
+            blocks.append(self.block(items, nb, edge))
         return blocks, registry

@@ -1929,3 +1929,196 @@ def test_no_card_brush_reaches_a_plain_version(cuda_device, monkeypatch):
     assert {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]} == {
         "brush_stamp": 2, "smear_walk": 1}
     assert bool((spr.rgba > 0).any()) and smeared is not None and len(blocks) == 1 and registry["s"]
+
+
+# --- TR1, the tile rasterizer ------------------------------------------------
+# Items as raster/tile_raster.py's TileBuild stages them: per family a
+# (rows, starts, ends) triple of inclusive, tile-relative spans (1x coverage
+# and crossing over 64 x 128, 16x AA over the 1040 x 2064 t-plane) and a
+# premultiplied fill.  The fills: translucent, opaque, alpha 0, and a second
+# translucent one for the empty item.
+TILE_FILLS = [(90, 40, 10, 170), (200, 120, 30, 255), (0, 0, 0, 0), (17, 34, 51, 68)]
+# Spans at the planes' edges (tile column 0 and 127, scaled column 2063) and
+# on rows the scatter drops (the last two of each list).
+TILE_EDGE_SPANS = [(0, 0, 0), (1, 127, 127), (2, 0, 127), (63, 126, 127), (64, 3, 9), (70, 0, 127)]
+AA_EDGE_SPANS = [(0, 0, 0), (5, 2063, 2063), (1039, 2000, 2063), (16, 0, 2063), (1040, 0, 100), (1100, 5, 9)]
+
+
+def tile_spans(rng, k: int, h: int, w: int, edge_spans=()):
+    """k spans over an (h, w) plane: `edge_spans` first, then random ones in
+    shuffled row order, about one in eight reversed (end < start: the
+    scatter's count goes negative between them) and many overlapping."""
+    k_rand = max(0, k - len(edge_spans))
+    rows = rng.integers(0, h, k_rand)
+    a, b = rng.integers(0, w, k_rand), rng.integers(0, w, k_rand)
+    s, e = np.minimum(a, b), np.maximum(a, b)
+    flip = rng.random(k_rand) < 0.125
+    s[flip], e[flip] = e[flip], s[flip]
+    fixed = np.asarray(list(edge_spans), np.int64).reshape(-1, 3)[:k]
+    return tuple(np.concatenate([fixed[:, i], part]).astype(np.int64) for i, part in enumerate((rows, s, e)))
+
+
+def tile_edge_items(cls: int, seed: int = 0):
+    """Four edge items of capacity class `cls` (raster/tile_raster.py
+    _CLASSES): [(cov, cross, aa, fill)].  Item 0 is at the class's capacity,
+    item 1 at a quarter of it, item 2 small, item 3 empty (no span at
+    all)."""
+    from coherence_tpu_torch.raster import tile_raster as TTR
+
+    k1, ka = TTR._CLASSES[cls]
+    rng = np.random.default_rng(100 + 17 * cls + seed)
+    items = []
+    for j, (n1, na) in enumerate(((k1 // 2, ka // 2), (k1 // 8, ka // 8), (9, 40), (0, 0))):
+        cov = tile_spans(rng, n1, 64, 128, TILE_EDGE_SPANS if j < 2 else ())
+        cross = tile_spans(rng, n1, 64, 128, TILE_EDGE_SPANS[::-1] if j < 2 else ())
+        aa = tile_spans(rng, na, 1040, 2064, AA_EDGE_SPANS if j < 2 else ())
+        items.append((cov, cross, aa, TILE_FILLS[j]))
+    return items
+
+
+def tile_interior_items(seed: int = 0):
+    """Four interior items: [(cross, fill)], up to _K_INTERIOR / 2 spans."""
+    rng = np.random.default_rng(200 + seed)
+    return [(tile_spans(rng, n, 64, 128, TILE_EDGE_SPANS if j < 2 else ()), TILE_FILLS[j])
+            for j, n in enumerate((128, 40, 3, 0))]
+
+
+def tile_build_items(items, edge: bool):
+    """The items as TileBuild stages them: (key, tile, cov, cross, aa, fill)
+    or (key, tile, cross, fill)."""
+    if edge:
+        return [(f"k{j}", j, cov, cross, aa, fill) for j, (cov, cross, aa, fill) in enumerate(items)]
+    return [(f"k{j}", j, cross, fill) for j, (cross, fill) in enumerate(items)]
+
+
+def _tile_block(device, items, nb: int, edge: bool):
+    """TR1's block for `items` on `device` and the plain version's."""
+    from coherence_tpu_torch.raster import tile_raster as TTR
+
+    staged = tile_build_items(items, edge)
+    build = TTR.TileBuild(1, 1, device)
+    return build.block(staged, nb, edge), build.block_torch(staged, nb, edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["class0", "class1", "class2", "class3", "class4", "interior"])
+def test_tile_raster_matches_plain(cuda_device, case):
+    """TR1 at every capacity class (items at capacity, reversed and
+    overlapping spans, spans at the planes' edges, dropped rows, an empty
+    item, fills with alpha 0 and 255) and in interior mode, against the
+    plain version on the card, bit for bit; padding slots zero."""
+    edge = case != "interior"
+    items = tile_edge_items(int(case[-1])) if edge else tile_interior_items()
+    before = kernels.launches["tile_raster"]
+    got, want = _tile_block(cuda_device, items, 8, edge)
+    torch.cuda.synchronize()
+    assert kernels.launches["tile_raster"] == before + 1
+    assert torch.equal(got, want)
+    assert not bool(got[len(items):].any()) and bool(got[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb", [(0, 8), (5, 8), (3, 16)])
+def test_tile_raster_empty_and_padded_blocks(cuda_device, n, nb):
+    """A block with no item is all zero; one with padding slots has them
+    zero, in both modes (the block starts from torch.empty: TR1 writes
+    every slot)."""
+    items = (tile_edge_items(0) + tile_edge_items(1, seed=1))[:n]
+    for edge, its in ((True, items), (False, [(cross, fill) for _, cross, _, fill in items])):
+        torch.full((64 * nb, 8192), -1, dtype=torch.int32, device=cuda_device)  # leave garbage in the allocator
+        got, want = _tile_block(cuda_device, its, nb, edge)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not bool(got[n:].any())
+
+
+def _tile_flush_scene(name: str, device):
+    """A staged TileBuild on `device`: the bench.py lion at 1920x1080, or a
+    strip of config 5 (its top 4 tile rows at 3840 wide)."""
+    from coherence_tpu_torch.scene import fastframe
+
+    if name == "lion":
+        objs, _, _ = examples.bench_scene(1920, 1080, blob_radius=60, blob_at=(120, 400), f_box=(40, 320, 1680, 1060))
+        nty, ntx, w, h = 17, 15, 1920, 1088
+    else:
+        objs, _, _ = examples.interactive_4k_scene(3840, 2160)
+        nty, ntx, w, h = 4, 30, 3840, 256
+    return fastframe.stage_tiled_scene(nty, ntx, w, h, [(o.idset, o) for o in objs], device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lion", "config5_strip"])
+def test_tile_build_flush_matches_plain(cuda_device, name):
+    """A whole TileBuild.flush on the card equals the plain version of each
+    of its blocks, and issues exactly one copy and one launch a block."""
+    tb = _tile_flush_scene(name, cuda_device)
+    batches = list(tb.batches())
+    assert len(batches) >= 2
+    before = kernels.launches["tile_raster"]
+    blocks, registry = tb.flush()
+    torch.cuda.synchronize()
+    assert kernels.launches["tile_raster"] == before + len(batches)
+    assert len(blocks) == len(batches)
+    for block, (items, nb, edge) in zip(blocks, batches):
+        assert torch.equal(block, tb.block_torch(items, nb, edge))
+    assert sum(len(v) for v in registry.values()) == sum(len(items) for items, _, _ in batches)
+    assert _issued_by(tb.flush) == (len(batches), len(batches))
+
+
+def _issued_by(fn):
+    """(copies, launches) that fn() issues, as the CUDA runtime's rows of
+    the profiler count them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    return (sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in names),
+            sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for n in names))
+
+
+@pytest.mark.cuda
+def test_tile_raster_reaches_no_plain_version(cuda_device, monkeypatch):
+    """With the plain versions patched to raise, a tiled sprite and a scene
+    build on the card rasterize through TR1 alone."""
+    from coherence_tpu_torch.raster import tile_raster as TTR
+    from coherence_tpu_torch.scene import fastframe
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("_edge_impl", "_interior_impl"):
+        monkeypatch.setattr(TTR, name, refuse)
+    monkeypatch.setattr(TTR.TileBuild, "block_torch", refuse)
+    objs, blob, _ = examples.bench_scene(640, 384, blob_radius=60, blob_at=(120, 200), f_box=(40, 100, 600, 380))
+    before = kernels.launches["tile_raster"]
+    spr = fastframe.tiled_sprite_of_object(blob, 640, 384, cuda_device)
+    view = fastframe.DeviceView(640, 384, atlas_cap=512, device=cuda_device)
+    fastframe.scene_build_cache_clear()
+    view.set_scene(objs, tiled=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["tile_raster"] - before >= 2 and bool((spr.rgba > 0).any())
+
+
+@pytest.mark.cuda
+def test_tile_raster_wrappers_reject_bad_input(cuda_device):
+    """CPU devices, columns outside the plane and mismatched families are
+    refused before any launch."""
+    items = tile_edge_items(0)
+    cov, cross, aa, fills = ([it[k] for it in items] for k in range(4))
+    with pytest.raises(ValueError):
+        kernels.tile_raster_edge(cov, cross, aa, fills, 8, "cpu")
+    with pytest.raises(ValueError):
+        kernels.tile_raster_interior(cross, fills, 8, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        kernels.tile_raster_edge(cov, cross, aa[:2], fills, 8, cuda_device)
+    with pytest.raises(ValueError):
+        kernels.tile_raster_edge(cov, cross, aa, fills, 2, cuda_device)
+    wide = (np.array([3]), np.array([5]), np.array([128]))  # end + 1 = 129 > 128
+    with pytest.raises(ValueError):
+        kernels.tile_raster_interior([wide], [fills[0]], 8, cuda_device)
+    wide_aa = (np.array([3]), np.array([-1]), np.array([5]))
+    with pytest.raises(ValueError):
+        kernels.tile_raster_edge([cov[0]], [cross[0]], [wide_aa], [fills[0]], 8, cuda_device)
