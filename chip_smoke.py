@@ -125,14 +125,15 @@ Phases, one JSON line each:
      time, its bound and the launch floor (the smear also beside its chain
      floor, its mode and its window's reloads, as the kernel counted
      them; the demo must take window mode to its end, radius 120 global
-     mode); then tile_kernels: tile_raster over every block of the lion's
-     and of config 5's build (TileBuild.batches(), staged as the build
-     stages them) against the plain version on the card, bit for bit, timed
-     with the lists staged beforehand behind a device-side wait, beside the
-     plain version's time, the wrapper's host time, the bound (the lists
-     read once and every slot written once, or 1024 multiply-adds a fringe
-     pixel) and the launch floor; one TileBuild.flush required to issue one
-     copy and one launch a block;
+     mode); then tile_kernels: tile_raster over the lion's and config 5's
+     build flush (every block of TileBuild.batches() in one launch, staged
+     as the build stages them) against the plain version on the card, bit
+     for bit, timed with the lists staged beforehand behind a device-side
+     wait, beside each class's block timed alone, the plain version's time,
+     the wrapper's host time, the bound (the lists read once and every slot
+     written once, or 1024 multiply-adds a fringe pixel), the bytes of the
+     kernel's lists and the launch floor; one TileBuild.flush required to
+     issue one copy and one launch;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -255,8 +256,8 @@ beside them its step-by-step traffic, a serial chain of steps, the chain's
 floor at one SM's int32 rate, its mode, window and reloads as the kernel
 counted them, and the radius-120 smear in global mode; for tile_raster
 the bytes of its lists and slots and its fringe multiply-adds at the lion's
-build blocks, config 5's beside, its launches at the lion's build, config
-5's build, each zoom step and the prefetch) and, last,
+build flush, config 5's beside, its launches (one a flush) at the lion's
+build, config 5's build, each zoom step and the prefetch) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -1451,16 +1452,24 @@ def tile_inputs(torch, dev) -> dict:
             for name, scene, w, h in (("lion", objs, W, H), ("config5", objs4, W4, H4))}
 
 
-def tile_bound(tb, lists, batches) -> dict:
-    """What TR1 must do for a build's blocks: its lists read once (every
-    span word, row offset and fill, 4 bytes each) and every slot of every
-    block written once (PIECE_BYTES), over HBM_BYTES_PER_S; and its
-    operations, 1024 multiply-adds (two int32 operations each) at each
-    fringe pixel (the coverage mask's pixels of the edge items), at
-    INT_OPS_PER_S.  The bound is the larger."""
+def tile_bound(batches) -> dict:
+    """What TR1 must do for a build's blocks: its lists read once, counted
+    as 4 bytes a span on a row of its plane, a row offset (rows + 1 of each
+    family of each item) and a fill channel, and every slot of every block
+    written once (PIECE_BYTES), over HBM_BYTES_PER_S; and its operations,
+    1024 multiply-adds (two int32 operations each) at each fringe pixel
+    (the coverage mask's pixels of the edge items), at INT_OPS_PER_S.  The
+    bound is the larger.  The count is the work's, not the bytes of the
+    kernel's list layout (tile_raster_row prints those beside it), so that
+    a share before and after a change of layout measures the same work."""
     from coherence_tpu_torch.raster import tile_raster
 
-    list_bytes = sum(4 * t.numel() for lst in lists for t in lst[:5] if t is not None)
+    spans = offsets = 0
+    for items, _, edge in batches:
+        for k, h in ((2, 64), (3, 64), (4, 1040)) if edge else ((2, 64),):
+            spans += sum(int(((it[k][0] >= 0) & (it[k][0] < h)).sum()) for it in items)
+            offsets += len(items) * (h + 1)
+    list_bytes = 4 * (spans + offsets + 4 * sum(len(items) for items, _, _ in batches))
     n_bytes = list_bytes + sum(nb for _, nb, _ in batches) * PIECE_BYTES
     fringe = sum(int(tile_raster._tile_masks([it[2] for it in items], 64, 128, "cpu").sum())
                  for items, _, edge in batches if edge)
@@ -1471,67 +1480,64 @@ def tile_bound(tb, lists, batches) -> dict:
 
 
 def tile_raster_row(torch, dev, scrub, tb) -> dict:
-    """TR1 over one build's blocks (every batch of tb.batches()) against
-    the plain version on the card, bit for bit, with its bound.  Timed with
-    the lists staged beforehand (the window holds the launches alone),
-    behind a device-side wait of ANIMATED_WAIT_MS, each call queued within
-    half of it; the wrapper's whole host side (packing, staged copy,
-    launch) as host_ms (fold_host_ms over the same blocks); the plain
-    version over N_BRUSH_PLAIN_TIMED calls; each block's launch alone
-    (blocks_ms); one TileBuild.flush's issued launches and copies
-    (profile_general.issued), required to be two a block."""
-    import numpy as np
-
+    """TR1 over one build's flush (every batch of tb.batches() in one
+    launch) against the plain version on the card, bit for bit, with its
+    bound (tile_bound) and, beside it, the bytes of the lists as the kernel
+    reads them (layout_bytes: rows, packed columns, offsets, fills and the
+    unit table).  Timed with the lists staged beforehand (the window holds
+    the launch alone), behind a device-side wait of ANIMATED_WAIT_MS, each
+    call queued within half of it; the wrapper's whole host side (packing,
+    staged copy, launch) as host_ms (fold_host_ms over TileBuild.flush);
+    the plain version over N_BRUSH_PLAIN_TIMED calls; each block alone, a
+    launch over one class's block (blocks_ms); one TileBuild.flush's issued
+    launches and copies (profile_general.issued), required to be two; the
+    blocks of the launch that an SM holds (the occupancy calculator)."""
     from coherence_tpu_torch import kernels
     from profile_general import issued
 
     batches = list(tb.batches())
-
-    def stage_all():
-        out = []
-        for items, _, edge in batches:
-            fills = np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4)
-            cross = [it[3 if edge else 2] for it in items]
-            out.append(kernels.stage_tile_lists(cross, fills, dev, cov=[it[2] for it in items] if edge else None,
-                                                aa=[it[4] for it in items] if edge else None))
-        return out
-
-    lists = stage_all()
+    blocks = [tb.kernel_lists(*b) for b in batches]
+    lists = kernels.stage_tile_lists(blocks, dev)
+    alone = [kernels.stage_tile_lists([blk], dev) for blk in blocks]
 
     def kernel():
-        return [kernels.tile_raster(lst, nb) for lst, (_, nb, _) in zip(lists, batches)]
+        return kernels.tile_raster(lists)
 
     def plain():
-        return [tb.block_torch(items, nb, edge) for items, nb, edge in batches]
+        return [tb.block_torch(*b) for b in batches]
 
     def wrapper():
-        return [tb.block(items, nb, edge) for items, nb, edge in batches]
+        return tb.flush()[0]
 
     got, want, whole = kernel(), plain(), wrapper()
     torch.cuda.synchronize()
+    got = list(got.split([nb for _, nb, _ in batches]))
     for j, (g, w, h) in enumerate(zip(got, want, whole)):
         require(torch.equal(g, w) and torch.equal(h, w), f"tile_raster's block {j} differs from its plain version")
     n_issued = issued(torch, tb.flush)
-    require(n_issued == 2 * len(batches),
-            f"one TileBuild.flush issued {n_issued} launches and copies for {len(batches)} blocks, not 2 a block")
+    require(n_issued == 2,
+            f"one TileBuild.flush issued {n_issued} launches and copies for {len(batches)} blocks, not 2")
     row = {"blocks": len(batches), "items": sum(len(items) for items, _, _ in batches),
            "edge_items": sum(len(items) for items, _, edge in batches if edge),
-           "slots": sum(nb for _, nb, _ in batches), "flush_issued": n_issued,
-           "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)), **tile_bound(tb, lists, batches),
+           "slots": sum(nb for _, nb, _ in batches), "units": int(lists[4].shape[0]), "flush_issued": n_issued,
+           "blocks_per_sm": kernels.tile_raster_blocks_per_sm(),
+           "layout_bytes": sum(4 * t.numel() for t in lists[:5]),
+           "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)), **tile_bound(batches),
            **fold_host_ms(torch, wrapper)}
     row["ms"] = event_ms(torch, kernel, scrub, wait_ms=ANIMATED_WAIT_MS, queued=True)
-    # Each block's launch alone: where a build's time goes, block by block.
+    # Each class's block alone: where a build's time goes, and what one launch for all of them saves.
     row["blocks_ms"] = [{"edge": edge, "items": len(items), "slots": nb,
-                         "ms": event_ms(torch, lambda lst=lst, nb=nb: kernels.tile_raster(lst, nb), scrub,
+                         "ms": event_ms(torch, lambda lst=lst: kernels.tile_raster(lst), scrub,
                                         wait_ms=ANIMATED_WAIT_MS, queued=True)}
-                        for lst, (items, nb, edge) in zip(lists, batches)]
+                        for lst, (items, nb, edge) in zip(alone, batches)]
+    row["blocks_alone_ms"] = sum(b["ms"] for b in row["blocks_ms"])
     row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
     row["share"] = row["bound_ms"] / row["ms"]
     return row
 
 
 def tile_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
-    """TR1 at the lion's and config 5's build blocks (tile_raster_row),
+    """TR1 at the lion's and config 5's build flush (tile_raster_row),
     uncounted.  Returns the kernels line's row: the lion's, config 5's
     beside it."""
     rows = uncounted(kernels, lambda: {name: tile_raster_row(torch, dev, scrub, tb)
@@ -1540,7 +1546,8 @@ def tile_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
         row["launch_floor_ms"] = floor_ms
     emit({"phase": "tile_kernels", "tolerance": 0, "equal_plain": True, "builds": rows})
     lion, big = rows["lion"], rows["config5"]
-    keys = ("blocks", "items", "fringe_pixels", "ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share", "host_ms")
+    keys = ("blocks", "items", "units", "fringe_pixels", "ms", "blocks_alone_ms", "plain_ms", "bound_ms", "bound_by",
+            "bytes", "layout_bytes", "share", "host_ms")
     return {**lion, "max_abs_err": max(lion["max_abs_err"], big["max_abs_err"]),
             "config5": {k: big[k] for k in keys}}
 
@@ -4092,8 +4099,9 @@ def main() -> int:
                  "launches_4k": counts4["tile_raster"], "max_abs_err": tile["max_abs_err"], "ms": tile["ms"],
                  "plain_ms": tile["plain_ms"], "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
                  "library_ms": None, "bytes": tile["bytes"], "share": tile["share"], "blocks": tile["blocks"],
-                 "items": tile["items"], "fringe_pixels": tile["fringe_pixels"], "host_ms": tile["host_ms"],
-                 "flush_issued": tile["flush_issued"], "config5": tile["config5"]})
+                 "items": tile["items"], "units": tile["units"], "fringe_pixels": tile["fringe_pixels"],
+                 "layout_bytes": tile["layout_bytes"], "blocks_per_sm": tile["blocks_per_sm"],
+                 "host_ms": tile["host_ms"], "flush_issued": tile["flush_issued"], "config5": tile["config5"]})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

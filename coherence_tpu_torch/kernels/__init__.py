@@ -60,7 +60,7 @@ _ENTRY_POINTS = {
 }
 
 # entry point -> argument types, of those that launch nothing
-_QUERIES = {"fold_layers_tile": [_i32]}
+_QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": []}
 # entry point -> argument types, of those that launch a kernel doing none of
 # the program's work (not counted in `launches`)
 _PROBES = {"launch_floor": [_ptr]}
@@ -772,129 +772,171 @@ def smear_walk(cv, opac, offsets, dirs, bh: int, bw: int, stats: Optional[torch.
 
 # tile_raster.cu's planes, (rows, columns) of one piece's span lists: the 1x
 # coverage and crossing masks, and the 16x AA t-plane (16 * 64 + 16 rows,
-# 16 * 128 + 16 columns; raster/tile_raster.py _TTH, _TTW).
+# 16 * 128 + 16 columns; raster/tile_raster.py _TTH, _TTW).  A unit, one
+# block of the launch, is one of an edge item's TILE_BANDS bands of 16 pixel
+# rows, or a whole interior item (mode TILE_WHOLE).
 TILE_PLANE = (64, 128)
 AA_PLANE = (1040, 2064)
+TILE_BANDS = 4
+TILE_WHOLE = 4
+_NO_SPANS = (np.zeros(0, np.int64),) * 3
 
 
-def tile_span_lists(spans, h: int, w: int, base: int = 0) -> tuple:
+def tile_span_lists(spans, h: int, w: int, base: int = 0, out=None) -> tuple:
     """tile_raster's host lists of one span family of n items, each item a
     (rows, starts, ends) triple of inclusive spans over an (h, w) plane:
-    (words, offsets), int32 numpy arrays.
+    (rows, cols, offsets), int32 numpy arrays.
 
-      * words: one per span, start | (end + 1) << 16, grouped by item and
-        by row in order (within a row the spans keep their order);
-      * offsets (n, h + 1): row r of item i is words[offsets[i, r] - base :
-        offsets[i, r + 1] - base] (offsets count from `base`, the family's
-        place in the kernel's one word list).
+      * rows, cols: one entry a span, each item's spans in their order and
+        the items in theirs (nothing is grouped: the kernel bins the rows
+        it needs), cols start | (end + 1) << 16;
+      * offsets (n + 1,): item i's spans are [offsets[i] - base,
+        offsets[i + 1] - base) (offsets count from `base`, the family's
+        place in the kernel's one span list).
 
-    Spans on rows outside 0..h-1 are dropped, as the scatter of the JAX
-    package drops them (raster/aa.py mask_of_spans).  Raises ValueError
-    where a kept span's start or end + 1 lies outside 0..w (the plain
-    version's scatter refuses those too) or a value does not fit in int32.
-    The passes run on int32 copies: the packing is the host's share of a
-    block's build."""
+    `out`, a pair of int32 arrays of the family's length, receives rows and
+    cols (and is returned) in place of new arrays.  A span on a row outside
+    0..h-1 is kept and touches nothing: the kernel reads only its plane's
+    rows, as the scatter of the JAX package drops the others (raster/aa.py
+    mask_of_spans).  Raises ValueError where a span on a row of the plane
+    has its start or end + 1 outside 0..w (the plain version's scatter
+    refuses those too) or a value does not fit in int32.  The checks run on
+    each family's whole columns."""
     n = len(spans)
     lens = np.fromiter((len(sp[0]) for sp in spans), np.int64, n)
-    if lens.sum():
-        whole = [np.concatenate([sp[k] for sp in spans]) for k in range(3)]
-        if min(a.min() for a in whole) < -(2**31) or max(a.max() for a in whole) >= 2**31 - 1:
-            raise ValueError("tile_raster: a span's row or column does not fit in int32")
-        rows, starts, stops = (a.astype(np.int32) for a in whole)
-    else:
-        rows, starts, stops = (np.zeros(0, np.int32) for _ in range(3))
+    offsets = np.full(n + 1, base, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    offsets[1:] += base
+    if offsets[-1] >= 2**31:
+        raise ValueError(f"tile_raster: {int(offsets[-1])} spans are beyond the kernel's int32 offsets")
+    total = int(offsets[-1] - base)
+    rows_out, cols_out = out if out is not None else (np.empty(total, np.int32), np.empty(total, np.int32))
+    if not total:
+        return rows_out, cols_out, offsets.astype(np.int32)
+    rows, starts, stops = (np.concatenate([sp[k] for sp in spans], dtype=np.int64) for k in range(3))
+    if min(rows.min(), starts.min(), stops.min()) < -(2**31) or max(rows.max(), starts.max(), stops.max()) >= 2**31 - 1:
+        raise ValueError("tile_raster: a span's row or column does not fit in int32")
     stops += 1
-    key = rows + np.repeat(np.arange(0, n * h, h, dtype=np.int32), lens)
-    if key.size and (rows.min() < 0 or rows.max() >= h):
-        keep = (rows >= 0) & (rows < h)
-        key, rows, starts, stops = key[keep], rows[keep], starts[keep], stops[keep]
-    if key.size and (min(starts.min(), stops.min()) < 0 or max(starts.max(), stops.max()) > w):
-        j = int(np.nonzero((starts < 0) | (starts > w) | (stops < 0) | (stops > w))[0][0])
-        raise ValueError(f"tile_raster: item {int(key[j]) // h}'s span on row {int(rows[j])} from {int(starts[j])} "
-                         f"to {int(stops[j]) - 1} leaves the {w} columns of its plane")
-    if key.size > 1 and (key[1:] < key[:-1]).any():
-        order = np.argsort(key, kind="stable")
-        key, starts, stops = key[order], starts[order], stops[order]
-    cum = np.zeros(n * h + 1, np.int64)
-    np.cumsum(np.bincount(key, minlength=n * h), out=cum[1:])
-    if base + cum[-1] >= 2**31:
-        raise ValueError(f"tile_raster: {base + int(cum[-1])} spans are beyond the kernel's int32 offsets")
-    offsets = np.empty((n, h + 1), np.int32)
-    offsets[:, :h] = (cum[:-1] + base).reshape(n, h)
-    offsets[:, h] = cum[h::h] + base
+    if min(starts.min(), stops.min()) < 0 or max(starts.max(), stops.max()) > w:
+        bad = (rows >= 0) & (rows < h) & ((starts < 0) | (starts > w) | (stops < 0) | (stops > w))
+        if bad.any():
+            j = int(np.nonzero(bad)[0][0])
+            i = int(np.searchsorted(offsets, base + j, side="right")) - 1
+            raise ValueError(f"tile_raster: item {i}'s span on row {int(rows[j])} from {int(starts[j])} to "
+                             f"{int(stops[j]) - 1} leaves the {w} columns of its plane")
     stops <<= 16
     stops |= starts
-    return stops, offsets
+    np.copyto(rows_out, rows, casting="unsafe")
+    np.copyto(cols_out, stops, casting="unsafe")
+    return rows_out, cols_out, offsets.astype(np.int32)
 
 
-def stage_tile_lists(cross, fills, device, cov=None, aa=None) -> tuple:
-    """tile_raster's inputs for n items on the CUDA `device`, in one staged
-    copy: (words, cov offsets or None, cross offsets, aa offsets or None,
-    fills, n).  `cross`, `cov` and `aa` are per-item (rows, starts, ends)
-    span triples (tile_span_lists; cov and aa in edge mode only), `fills`
-    (n, 4) int32 premultiplied colours."""
+def tile_raster_lists(blocks) -> tuple:
+    """TR1's host lists for one launch over `blocks`, each (cov, cross, aa,
+    fills, nb): n items' per-item (rows, starts, ends) span triples of the
+    1x coverage and crossing masks and of the 16x AA t-plane (cov and aa
+    None for a block of interior items), their (n, 4) int32 premultiplied
+    fills, and the block's nb >= n slots, the blocks' slots one after
+    another.  Returns (rows, cols, offsets, fills, units, n_items, slots):
+
+      * rows, cols: every item's coverage spans (tile_span_lists), then
+        every item's crossing spans, then every item's AA spans;
+      * offsets (3, n_items + 1): item i's spans of family f are
+        [offsets[f, i], offsets[f, i + 1]);
+      * fills (n_items, 4);
+      * units (U, 2), one a block of the launch: (slot, item << 3 | band)
+        for each of an edge item's TILE_BANDS bands, the items with the
+        most AA spans first; (slot, item << 3 | TILE_WHOLE) for each
+        interior item; (slot, -1) for each slot that no item owns.
+
+    Raises ValueError where a block's families or fills do not hold n items,
+    n > nb, a fill does not fit in int32, or tile_span_lists refuses a
+    family."""
+    fams, fills, slot_of, edge, pads, slots = ([], [], []), [], [], [], [], 0
+    for cov, cross, aa, block_fills, nb in blocks:
+        block_fills = np.asarray(block_fills, np.int64).reshape(-1, 4)
+        n = len(block_fills)
+        if (cov is None) != (aa is None) or any(f is not None and len(f) != n for f in (cov, cross, aa)):
+            raise ValueError(f"tile_raster: need {n} items' spans in every family")
+        if not 0 <= n <= nb:
+            raise ValueError(f"tile_raster: {n} items do not fit a block of {nb} slots")
+        for fam, spans in zip(fams, (cov, cross, aa)):
+            fam.extend([_NO_SPANS] * n if spans is None else spans)
+        fills.append(block_fills)
+        slot_of.append(np.arange(slots, slots + n))
+        edge.append(np.full(n, cov is not None))
+        pads.append(np.arange(slots + n, slots + nb))
+        slots += nb
+    n_items = len(fams[1])
+    if n_items >= 2**28:
+        raise ValueError(f"tile_raster: {n_items} items are beyond the kernel's unit codes")
+    fills = np.concatenate(fills) if fills else np.zeros((0, 4), np.int64)
+    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
+        raise ValueError("tile_raster: a fill does not fit in int32")
+    sizes = [sum(len(sp[0]) for sp in fam) for fam in fams]
+    rows, cols = np.empty(sum(sizes), np.int32), np.empty(sum(sizes), np.int32)
+    offsets, base = [], 0
+    for fam, (h, w), size in zip(fams, (TILE_PLANE, TILE_PLANE, AA_PLANE), sizes):
+        offsets.append(tile_span_lists(fam, h, w, base, (rows[base : base + size], cols[base : base + size]))[2])
+        base += size
+    offsets = np.stack(offsets)
+    slot_of = np.concatenate(slot_of) if slot_of else np.zeros(0, np.int64)
+    edge = np.concatenate(edge) if edge else np.zeros(0, bool)
+    items = np.nonzero(edge)[0]
+    items = items[np.argsort(offsets[2, items] - offsets[2, items + 1], kind="stable")]  # most AA spans first
+    bands = np.empty((len(items), TILE_BANDS, 2), np.int64)
+    bands[..., 0] = slot_of[items, None]
+    bands[..., 1] = (items[:, None] << 3) | np.arange(TILE_BANDS)
+    whole = np.nonzero(~edge)[0]
+    pads = np.concatenate(pads) if pads else np.zeros(0, np.int64)
+    units = np.concatenate([bands.reshape(-1, 2), np.stack([slot_of[whole], (whole << 3) | TILE_WHOLE], 1),
+                            np.stack([pads, np.full(len(pads), -1)], 1)])
+    return rows, cols, offsets, fills.astype(np.int32), units.astype(np.int32), n_items, slots
+
+
+def stage_tile_lists(blocks, device) -> tuple:
+    """tile_raster_lists(blocks) on the CUDA `device`, in one staged copy:
+    (rows, cols, offsets, fills, units, n_items, slots)."""
     from ..raster.staging import stage
 
     device = _cuda_device(device, "tile_raster")
-    fills = np.asarray(fills, np.int64).reshape(-1, 4)
-    n = len(fills)
-    families = [(cross, TILE_PLANE)] + ([] if cov is None else [(cov, TILE_PLANE), (aa, AA_PLANE)])
-    if any(f is None or len(f) != n for f, _ in families):
-        raise ValueError(f"tile_raster: need {n} items' spans in every family")
-    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
-        raise ValueError("tile_raster: a fill does not fit in int32")
-    words, offsets, base = [], [], 0
-    for spans, (h, w) in families:
-        wd, off = tile_span_lists(spans, h, w, base)
-        words.append(wd)
-        offsets.append(off)
-        base += len(wd)
-    staged = stage(device, np.concatenate(words), *offsets, fills.astype(np.int32))
-    if cov is None:
-        return staged[0], None, staged[1], None, staged[2], n
-    return staged[0], staged[2], staged[1], staged[3], staged[4], n
+    *arrays, n_items, slots = tile_raster_lists(blocks)
+    return (*stage(device, *arrays), n_items, slots)
 
 
-def tile_raster(lists, nb: int) -> torch.Tensor:
-    """Launch ``tile_raster``: a new (nb, 64, 128) int32 block whose slot i
-    is item i's packed piece, slots from n on zero, from stage_tile_lists'
-    `lists`.  Edge mode where the lists carry coverage and AA offsets
-    (raster/tile_raster.py _edge_impl), else interior mode (_interior_impl)."""
-    words, cov_off, cross_off, aa_off, fills, n = lists
-    device = words.device
+def tile_raster(lists) -> torch.Tensor:
+    """Launch ``tile_raster``: a new (slots, 64, 128) int32 tensor from
+    stage_tile_lists' `lists`, one block a unit: each item's packed piece
+    in its slot (an edge item's raster/tile_raster.py _edge_impl, an
+    interior item's _interior_impl), every other slot zero."""
+    rows, cols, offsets, fills, units, n_items, slots = lists
+    device = units.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA tile rasterizer needs tensors on a CUDA device, got {device}")
-    if not 0 <= n <= nb or nb * 64 * 128 >= 2**31:
-        raise ValueError(f"tile_raster: {n} items do not fit a block of {nb} slots")
-    out = torch.empty((nb, 64, 128), dtype=torch.int32, device=device)
-    if nb == 0:
+    n_units = units.shape[0]
+    if n_units >= 2**31 or tuple(offsets.shape) != (3, n_items + 1) or tuple(fills.shape) != (n_items, 4):
+        raise ValueError(f"tile_raster: lists for {n_items} items over {n_units} units are not stage_tile_lists'")
+    out = torch.empty((slots, 64, 128), dtype=torch.int32, device=device)
+    if n_units == 0:
         return out
     with torch.cuda.device(device):
         rc = load()["tile_raster"](
-            words.data_ptr(), None if cov_off is None else cov_off.data_ptr(), cross_off.data_ptr(),
-            None if aa_off is None else aa_off.data_ptr(), fills.data_ptr(), out.data_ptr(), n, nb,
-            torch.cuda.current_stream(device).cuda_stream,
+            rows.data_ptr(), cols.data_ptr(), offsets.data_ptr(), fills.data_ptr(), units.data_ptr(),
+            out.data_ptr(), n_items, n_units, torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on("tile_raster", rc)
     launches["tile_raster"] += 1
     return out
 
 
-def tile_raster_edge(cov, cross, aa, fills, nb: int, device) -> torch.Tensor:
-    """Edge pieces in one launch: per item its 1x coverage and crossing
-    spans and 16x AA spans ((rows, starts, ends), tile-relative, inclusive),
-    `fills` (n, 4) int32.  Each piece is the fill where the crossing mask
-    holds outside the coverage mask, the fill dissolved by the Gaussian
-    matte's opacity where the coverage mask holds, zero elsewhere (the plain
-    version is raster/tile_raster.py _edge_impl)."""
-    return tile_raster(stage_tile_lists(cross, fills, device, cov=cov, aa=aa), nb)
-
-
-def tile_raster_interior(cross, fills, nb: int, device) -> torch.Tensor:
-    """Interior pieces in one launch: the fill where each item's crossing
-    mask holds, zero elsewhere (the plain version is raster/tile_raster.py
-    _interior_impl)."""
-    return tile_raster(stage_tile_lists(cross, fills, device), nb)
+def tile_raster_blocks_per_sm() -> int:
+    """The blocks of tile_raster that one SM of the current device holds at
+    once, as the CUDA occupancy calculator gives them for the built
+    library."""
+    got = load()["tile_raster_blocks_per_sm"]()
+    if got < 0:
+        raise RuntimeError(f"tile_raster_blocks_per_sm: CUDA error {-got}")
+    return got
 
 
 def launch_floor(device) -> None:

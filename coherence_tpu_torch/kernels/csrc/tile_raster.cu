@@ -1,5 +1,6 @@
 // The tile rasterizer for Hopper (sm_90a): per-piece span lists to packed
-// 64x128 atlas pieces with the Gaussian-matte antialiasing (TR1).
+// 64x128 atlas pieces with the Gaussian-matte antialiasing (TR1), every
+// block of a build's flush in one launch.
 //
 // Replaces the XLA programs (not Pallas kernels) of the JAX package's tile
 // build: coherence_tpu/raster/tile_raster.py:115 _edge_tile_kernel over
@@ -10,54 +11,61 @@
 // wheres (raster/tile_raster.py _edge_impl, _interior_impl: the plain
 // versions, bit for bit).
 //
-// The function.  Item i of a block writes slot i; slots from n on are
-// zero.  An item has three span families, each span (row, start, end) with
-// an inclusive end, over a plane of its own: the 1x coverage and crossing
-// masks (64 x 128) and the 16x AA t-plane (1040 x 2064; pixel (y, x)'s
-// footprint is its rows 16y..16y+31, columns 16x..16x+31).  A family's mask
-// is _scatter_mask's: +1 at (row, start), -1 at (row, end + 1), a prefix sum
-// along the row, > 0.  So a reversed or overlapping span counts exactly as
-// it does there: this kernel builds every row from its counts.  Rows outside
-// the plane are dropped by the host (kernels.tile_span_lists, as the
-// scatter's mode="drop"), which also refuses columns outside 0..w.  Then
+// The function.  Item i writes its slot; a slot no item owns is zero.  An
+// item has three span families, each span (row, start, end) with an
+// inclusive end, over a plane of its own: the 1x coverage and crossing masks
+// (64 x 128) and the 16x AA t-plane (1040 x 2064; pixel (y, x)'s footprint
+// is its rows 16y..16y+31, columns 16x..16x+31).  A family's mask is
+// _scatter_mask's: +1 at (row, start), -1 at (row, end + 1), a prefix sum
+// along the row, > 0.  So a reversed, overlapping or empty span counts
+// exactly as it does there: every row is built from its counts.  A span on
+// a row outside its plane touches nothing (the scatter's mode="drop"); the
+// host refuses a kept span whose columns leave 0..w.  Then
 //   interior (cross & ~cov): the fill, packed;
 //   fringe (cov):            pack(dissolve(fill, opacity)), opacity =
 //                            (count * 256 + volume / 2) / volume, count the
 //                            Gaussian table summed over the footprint's set
 //                            samples, dissolve with the 0 / 255 early outs;
 //   elsewhere:               0.
-// Interior mode has no coverage or AA family: the fill where the crossing
-// mask holds.  The pack is the bare OR r | g << 8 | b << 16 | a << 24.
+// An interior item has no coverage or AA family: the fill where the
+// crossing mask holds.  The pack is the bare OR r | g << 8 | b << 16 |
+// a << 24.  No float anywhere: the table is integers <= 255 and a count an
+// exact int32 sum (at most 42,120).
 //
-// No float math in the count: the table is integers <= 255 and a count is
-// an exact int32 sum (at most 42,120), computed only at fringe pixels.
+// What bounds it: bytes at the program's shapes.  Its lists read once and
+// its pieces written once; the AA count is 1024 multiply-adds a fringe pixel
+// (an edge crosses a piece in a thin band, so fringe pixels are few).
 //
-// What bounds it: bytes at the program's shapes.  Its lists read once (4
-// bytes a span, 4 an offset) and its pieces written once; the AA count is
-// 1024 multiply-adds a fringe pixel, and fringe pixels are few (an edge
-// crosses a piece in a thin band), so the operations stay under the int32
-// rate.
-//
-// Design.  One block of 16 warps owns one piece and keeps everything in
-// shared memory (218,208 bytes: one block an SM).  A warp builds one mask row
-// at a time: its spans' +1 / -1 go into the warp's own row of counts by
-// shared-memory atomics, then the warp scans the row 32 columns a step (a
-// shuffle scan with the carry from the step before) and a ballot makes each
-// 32-column word of the mask.  The 1x masks take 128 such rows of 4 steps.
-// The t-plane of a piece is 268 KB as bits, more than a block's shared
-// memory, so it is built band by band (16 pixel rows, at most 272 t-rows)
-// and only where the band has fringe pixels: only the t-rows and the
-// word-aligned columns under the band's fringe bounding box are scanned, the
-// count of the spans left of the box's first column carried in.  A band's
-// fringe pixels are listed by an atomic counter, and each thread sums the
-// table over its listed pixel's 32 t-rows, 32 bits a row, the table in
-// constant memory (every lane of a warp reads the same entry).  A span is
-// read from device memory by the warp that scans its row, in one coalesced
-// read with the row's other spans (twice for the 16 t-rows two bands'
-// footprints share; never where no band needs its row), so nothing is
-// staged through shared memory; a row's spans are found through the item's
-// per-row offsets, which the host builds (kernels.tile_span_lists).  The
-// last pass writes the piece as 16-byte stores.
+// Design.  One launch covers a flush: a 256-thread block a unit (the host's
+// unit table, kernels.tile_raster_lists), heaviest items first.  A unit is a
+// band of 16 pixel rows of an edge item, a whole interior item, or a slot to
+// zero.  A band needs only its own 16 coverage and crossing rows and its 272
+// t-rows (256 b .. 256 b + 271; the last 16 are the next band's first), so
+// the bands of an item run side by side, two blocks an SM (113 KB of shared
+// memory each).  The spans arrive in the sweep's order, each item's families
+// in one run (the host groups nothing): a unit bins the rows it needs itself
+// by a counting sort in shared memory (a count per row, a scan, a scatter of
+// each span's start and end + 1 into its row's bin), each thread loading
+// kUnroll spans at once.  A band's t-rows are built only where a fringe
+// pixel's footprint reads them, and only the words it reads (word j of a
+// t-row is read by pixels 2j - 1, 2j and 2j + 1 of the two pixel rows over
+// it).  A row's count at a column is up - down, up its spans over the
+// column (start <= c < end + 1) and down its reversed spans over it (end + 1
+// <= c < start), so no row needs its events sorted:
+//   * up to kLaneCap spans: one lane counts both bit-sliced over each word's
+//     32 columns and sets the bits where up > down (no atomics);
+//   * more: the warp sums each word's count at its first column and scans
+//     the steps inside it through a window of 32 counts, a ballot making
+//     the word;
+//   * a row of more spans than the bins hold: the block scatters its
+//     +1 / -1 into a row of counts and one warp scans it 32 columns a step.
+// A band holding more spans than the bins is binned in runs of rows that
+// fit, one pass over its item's spans a run.  The footprint count reads the
+// Gaussian table as nibble sums, built in shared memory per block from the
+// table (each footprint row's sums on banks of their own): 8 lookups a
+// footprint row, 256 a fringe pixel, eight lanes a pixel (four footprint
+// rows each, added by shuffles).  The last pass writes the
+// unit's rows as 16-byte stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,37 +73,38 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileH = 64;                           // an atlas piece
+constexpr int kTileH = 64;                          // an atlas piece
 constexpr int kTileW = 128;
-constexpr int kScale = 16;                           // the AA mask's scale
-constexpr int kFoot = 2 * kScale;                    // a pixel's footprint: 32 x 32 samples
-constexpr int kPlaneH = kScale * kTileH + kScale;    // 1040: kernels.AA_PLANE
-constexpr int kPlaneW = kScale * kTileW + kScale;    // 2064
-constexpr int kRowWords = (kPlaneW + 31) / 32 + 1;   // 65 words: a t-row of 2080 columns
-constexpr int kDiffW = 32 * kRowWords;               // a warp's row of counts
-constexpr int kMaskWords = kTileW / 32;              // a 1x mask row: 4 words
-constexpr int kBand = 16;                            // pixel rows of a band
-constexpr int kBands = kTileH / kBand;
-constexpr int kBandRows = kScale * kBand + kScale;   // 272 t-rows at most
-constexpr int kThreads = 512;
+constexpr int kScale = 16;                          // the AA mask's scale
+constexpr int kFoot = 2 * kScale;                   // a pixel's footprint: 32 x 32 samples
+constexpr int kPlaneH = kScale * kTileH + kScale;   // 1040: kernels.AA_PLANE
+constexpr int kPlaneW = kScale * kTileW + kScale;   // 2064
+constexpr int kRowWords = (kPlaneW + 31) / 32;      // 65 words: a t-row of 2080 columns
+constexpr int kMaskWords = kTileW / 32;             // a 1x mask row: 4 words
+constexpr int kBand = 16;                           // pixel rows of a band
+constexpr int kBands = kTileH / kBand;              // kernels.TILE_BANDS
+constexpr int kBandRows = kScale * kBand + kScale;  // a band's 272 t-rows
+constexpr int kWhole = kBands;                      // a unit's mode: the whole piece, crossing spans only
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVolume = 42285;                       // raster/aa.py volume: sum(table) * 256 / 255
-static_assert(kScale * (kTileW - 1) + kFoot <= kDiffW, "a footprint's last column lies in a scanned row");
-static_assert(kScale * (kTileH - 1) + kFoot <= kPlaneH, "a footprint's last row lies in the plane");
-
-constexpr int kDiffBytes = kWarps * kDiffW * 4;
-constexpr int kBitsBytes = kBandRows * kRowWords * 4;
-constexpr int kMaskBytes = 2 * kTileH * kMaskWords * 4;
-constexpr int kBoxBytes = kBands * 8 * 4;
-constexpr int kOpacBytes = kTileH * kTileW;
-constexpr int kListBytes = kBand * kTileW * 2;
-constexpr int kSmemBytes = kDiffBytes + kBitsBytes + kMaskBytes + kBoxBytes + kOpacBytes + kListBytes;
-static_assert(kSmemBytes <= 232448, "a block's shared memory on sm_90");
+constexpr int kBinCap = 6144;                       // spans binned at once
+constexpr int kLaneCap = 32;                        // spans of a row that one lane builds
+constexpr int kUnroll = 8;                          // spans a thread loads at once
+constexpr int planes_for(int n) { return n < 2 ? 1 : 1 + planes_for(n / 2); }
+constexpr int kPlanes = planes_for(kLaneCap);       // bit planes of a lane's counts: up to kLaneCap
+constexpr int kVolume = 42285;                      // raster/aa.py volume: sum(table) * 256 / 255
+constexpr int kNibbles = kFoot / 4;                 // a footprint row's 32 samples as 8 nibbles
+constexpr int kTableRow = 16 * kNibbles + 2;        // a footprint row's nibble sums: 65 words, so rows fall on other banks
+static_assert(kScale * (kTileW - 1) + kFoot <= 32 * kRowWords, "a footprint's last column lies in a t-row's words");
+static_assert(kScale * (kBands - 1) * kBand + kBandRows == kPlaneH, "the last band's t-rows end at the plane's");
+static_assert(kPlaneW < 32 * kRowWords && kPlaneW < 0x10000, "a span's end + 1 lies in a row of counts and in 16 bits");
+static_assert(kThreads == kFoot * kNibbles, "one thread builds each (row, nibble) of the table");
+static_assert(kLaneCap < (1 << kPlanes), "a lane's counts fit its bit planes");
 
 // The truncated Gaussian, x255 (raster/aa.py maintable, polygon.ml:616-629):
 // kTable[v][u] weighs the footprint sample at row offset v, column offset u
 // (maintable[u][v]; the table is symmetric).
-__constant__ int kTable[kFoot][kFoot] = {
+__device__ const int kTable[kFoot][kFoot] = {
     {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0},
     {0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 4, 4, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0, 0, 0, 0, 0, 0},
     {0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 4, 5, 6, 7, 8, 8, 8, 8, 7, 6, 5, 4, 3, 2, 2, 1, 1, 0, 0, 0, 0, 0},
@@ -131,14 +140,36 @@ __constant__ int kTable[kFoot][kFoot] = {
 };
 
 struct Params {
-  const uint32_t* words;  // every span: start | (end + 1) << 16, by item and row
-  const int* cov_off;     // (n, kTileH + 1) row offsets into words, or null (interior mode)
-  const int* cross_off;   // (n, kTileH + 1)
-  const int* aa_off;      // (n, kPlaneH + 1), or null (interior mode)
-  const int4* fills;      // (n) premultiplied r, g, b, a
-  int* out;               // (nb, kTileH, kTileW)
+  const int* rows;     // every span's row: the coverage family's items, then the crossing's, then the AA's
+  const int* cols;     // every span's start | (end + 1) << 16
+  const int* offsets;  // (3, n + 1): item i's spans of family f are [offsets[f][i], offsets[f][i + 1])
+  const int4* fills;   // (n) premultiplied r, g, b, a
+  const int2* units;   // one a block: (slot, item << 3 | mode), mode a band or kWhole; (slot, -1) zeroes the slot
+  int* out;            // (slots, kTileH, kTileW)
   int n;
 };
+
+struct Smem {
+  uint32_t tbits[kBandRows][kRowWords];  // the band's t-rows, only the words the footprints read
+  union {
+    struct {
+      uint16_t start[kBinCap];  // the binned spans' starts and ends + 1, row by row
+      uint16_t stop[kBinCap];
+    } bin;
+    int diff[32 * kRowWords];  // one row's counts, where it holds more spans than the bins
+  } b;
+  uint16_t table[kFoot][kTableRow];     // the table's nibble sums: [v][16 k + m] = sum of kTable[v][4k + j] over m's bits j
+  int first[kBandRows + 1];             // a row's first bin, a run's rows counted from the run's first
+  int fill[kBandRows];                  // a row's span count, then its scatter cursor
+  int win[kWarps][32];                  // each warp's window of steps (warp_row), zero between rows
+  uint32_t masks[2 * kTileH][kMaskWords];  // the unit's coverage rows, then its crossing rows
+  uint32_t need[kBand][3];              // per pixel row of a band: the 65-bit mask of the t-row words its footprints read
+  uint8_t opac[kBand][kTileW];
+  uint16_t fringe[kBand * kTileW];      // the band's fringe pixels, y * kTileW + x
+  int listed;
+};
+static_assert(2 * (sizeof(Smem) + 1024) <= 233472, "two blocks share an SM's shared memory");
+static_assert(sizeof(int) * 32 * kRowWords <= sizeof(uint16_t) * 2 * kBinCap, "a row of counts fits the bins");
 
 __device__ __forceinline__ int wrap(uint32_t v) { return static_cast<int>(v); }
 
@@ -155,179 +186,393 @@ __device__ __forceinline__ uint32_t pack(int r, int g, int b, int a) {
          (static_cast<uint32_t>(a) << 24);
 }
 
-// One mask row, by one warp: the row's spans words[lo, hi) scattered as
-// +1 / -1 into `diff` (the warp's zeroed row of counts), then `steps` words
-// of the mask from column c0 (a multiple of 32) written to out[0, steps):
-// bit b of word s says that the running count at column c0 + 32 s + b is
-// positive.  Spans that end left of c0 only carry their count in; those
-// past the last column are not read.  Leaves `diff` zeroed.
-__device__ void scan_row(const uint32_t* __restrict__ words, int lo, int hi, int* diff, int c0, int steps,
-                         uint32_t* out) {
-  const int lane = threadIdx.x & 31;
-  const int cend = c0 + 32 * steps;
-  int carry = 0;
-  for (int i = lo + lane; i < hi; i += 32) {
-    const uint32_t w = words[i];
-    const int s = static_cast<int>(w & 0xFFFFu), e = static_cast<int>(w >> 16);
-    if (s < c0) {
-      ++carry;
-    } else if (s < cend) {
-      atomicAdd(diff + (s - c0), 1);
-    }
-    if (e < c0) {
-      --carry;
-    } else if (e < cend) {
-      atomicAdd(diff + (e - c0), -1);
-    }
-  }
-  carry = __reduce_add_sync(kFull, carry);
-  __syncwarp();
-  for (int step = 0; step < steps; ++step) {
-    int* d = diff + 32 * step + lane;
-    int x = *d;
-    *d = 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    x += carry;
-    const uint32_t bits = __ballot_sync(kFull, x > 0);
-    carry = __shfl_sync(kFull, x, 31);
-    if (lane == 0) out[step] = bits;
-  }
-  __syncwarp();
+__device__ __forceinline__ bool any(uint3 m) { return (m.x | m.y | m.z) != 0; }
+
+// Bits a .. b - 1 of a word, 0 <= a < b <= 32.
+__device__ __forceinline__ uint32_t run_bits(int a, int b) {
+  return (b >= 32 ? kFull : (1u << b) - 1u) & ~((1u << a) - 1u);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) tile_raster_kernel(Params p) {
-  extern __shared__ int4 smem4[];
-  int* diff = reinterpret_cast<int*>(smem4);
-  uint32_t* tbits = reinterpret_cast<uint32_t*>(smem4) + kDiffBytes / 4;  // the band's t-rows
-  uint32_t* cov = tbits + kBitsBytes / 4;                                  // (kTileH, kMaskWords)
-  uint32_t* cross = cov + kTileH * kMaskWords;
-  int* box = reinterpret_cast<int*>(cross + kTileH * kMaskWords);         // per band: y0, y1, x0, x1, fringe pixels
-  unsigned char* opac = reinterpret_cast<unsigned char*>(box + kBands * 8);
-  unsigned short* list = reinterpret_cast<unsigned short*>(opac + kOpacBytes);
+// Every 1x row is read whole.
+struct Need1x {
+  __device__ uint3 operator()(int) const { return make_uint3((1u << kMaskWords) - 1u, 0u, 0u); }
+};
 
-  const int slot = blockIdx.x;
-  uint4* out = reinterpret_cast<uint4*>(p.out + static_cast<long>(slot) * kTileH * kTileW);
-  if (slot >= p.n) {  // a padding slot
-    for (int q = threadIdx.x; q < kTileH * kTileW / 4; q += kThreads) out[q] = make_uint4(0, 0, 0, 0);
-    return;
+// T-row t of a band is read by the footprints of the band's pixel rows
+// t / 16 and t / 16 - 1.
+struct NeedAA {
+  const uint32_t* need;  // (kBand, 3)
+  __device__ uint3 operator()(int t) const {
+    const int y = t >> 4;
+    uint3 m = make_uint3(0u, 0u, 0u);
+    if (y < kBand) m = make_uint3(need[3 * y], need[3 * y + 1], need[3 * y + 2]);
+    if (y > 0) m.x |= need[3 * y - 3], m.y |= need[3 * y - 2], m.z |= need[3 * y - 1];
+    return m;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int q = threadIdx.x; q < kDiffBytes / 16; q += kThreads) smem4[q] = make_int4(0, 0, 0, 0);
-  __syncthreads();
-  int* my_diff = diff + warp * kDiffW;
+};
 
-  // The 1x coverage and crossing masks: 2 x 64 rows of 4 words.
-  for (int r = warp; r < 2 * kTileH; r += kWarps) {
-    const bool is_cov = r < kTileH;
-    const int row = is_cov ? r : r - kTileH;
-    const int* off = is_cov ? p.cov_off : p.cross_off;
-    uint32_t* bits = (is_cov ? cov : cross) + row * kMaskWords;
-    if (off == nullptr) {
-      if (lane < kMaskWords) bits[lane] = 0;
+// f(t, c) for every span of [lo, hi) and [lo2, hi2) on rows r0 .. r0 + nr -
+// 1 (t counted from r0; those of the second range from nr), c its packed
+// columns where kCols (else 0).  The block's threads take consecutive spans,
+// each thread kUnroll of them at once: their loads are in flight together.
+template <bool kCols, class F>
+__device__ __forceinline__ void for_spans(const int* __restrict__ rows, const int* __restrict__ cols, int lo,
+                                          int hi, int lo2, int hi2, int r0, int nr, F f) {
+  const int n1 = hi - lo, n = n1 + (hi2 - lo2);
+  for (int q0 = threadIdx.x; q0 < n; q0 += kThreads * kUnroll) {
+    int t[kUnroll], c[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = q0 + u * kThreads;
+      const bool first = q < n1;
+      const int k = first ? lo + q : lo2 + (q - n1);
+      t[u] = -1, c[u] = 0;
+      if (q < n) {
+        const unsigned d = static_cast<unsigned>(rows[k]) - static_cast<unsigned>(r0);
+        if (d < static_cast<unsigned>(nr)) t[u] = static_cast<int>(d) + (first ? 0 : nr);
+        if constexpr (kCols) c[u] = cols[k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (t[u] >= 0) f(t[u], c[u]);
+    }
+  }
+}
+
+// first[t] = the sum of cnt[0 .. t) for t in 0 .. n (n <= kBandRows), by one warp.
+__device__ void exclusive_scan(const int* cnt, int* first, int n) {
+  constexpr int kPer = (kBandRows + 31) / 32;
+  const int lane = threadIdx.x & 31, a = lane * kPer;
+  int sum = 0;
+  for (int j = 0; j < kPer; ++j) {
+    if (a + j < n) sum += cnt[a + j];
+  }
+  int x = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  int run = x - sum;
+  for (int j = 0; j < kPer; ++j) {
+    if (a + j < n) first[a + j] = run, run += cnt[a + j];
+  }
+  if (lane == 31) first[n] = x;
+}
+
+// c += m, column by column: c is a bit-sliced counter (bit b of c[p] is bit
+// p of column b's count).
+__device__ __forceinline__ void count_in(uint32_t (&c)[kPlanes], uint32_t m) {
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+    const uint32_t carry = c[p] & m;
+    c[p] ^= m;
+    m = carry;
+  }
+}
+
+// One row by one lane, from its k starts S and ends + 1 E (the lane's own
+// bins, in any order).  A span adds 1 to the count of the columns start ..
+// end where start < end + 1 and takes 1 from end + 1 .. start - 1 where it
+// is reversed, so the count at a column is up - down: up the spans over it,
+// down the reversed spans over it.  For each word of `need`, both are
+// counted bit-sliced over its 32 columns (no sort), and its bits are the
+// columns where up > down.
+__device__ void lane_row(const uint16_t* S, const uint16_t* E, int k, uint3 need, uint32_t* out) {
+  const uint32_t words[3] = {need.x, need.y, need.z};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    for (uint32_t m = words[q]; m; m &= m - 1) {
+      const int w = 32 * q + __ffs(m) - 1, c0 = 32 * w;
+      uint32_t up[kPlanes] = {}, down[kPlanes] = {};
+      for (int i = 0; i < k; ++i) {
+        const int s = S[i] - c0, e = E[i] - c0;
+        const int a = max(min(s, e), 0), b = min(max(s, e), 32);
+        if (a < b) {
+          if (s < e) count_in(up, run_bits(a, b));
+          else count_in(down, run_bits(a, b));
+        }
+      }
+      uint32_t gt = 0, eq = kFull;  // compared from the top plane down
+#pragma unroll
+      for (int p = kPlanes - 1; p >= 0; --p) {
+        gt |= eq & up[p] & ~down[p];
+        eq &= ~(up[p] ^ down[p]);
+      }
+      out[w] = gt;
+    }
+  }
+}
+
+// One row by one warp (the whole warp calls it), from its k starts S and
+// ends + 1 E (in any order): for each word of `need`, the count at its first
+// column c0 (each lane sums its share of the spans, then the warp) and the
+// steps at columns c0 + 1 .. c0 + 31 (each span's +1 / -1 into the warp's
+// window of 32 counts), scanned.  `win` starts and ends zero.
+__device__ void warp_row(const uint16_t* S, const uint16_t* E, int k, uint3 need, uint32_t* out, int* win) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t words[3] = {need.x, need.y, need.z};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    for (uint32_t m = words[q]; m; m &= m - 1) {
+      const int w = 32 * q + __ffs(m) - 1, c0 = 32 * w;
+      int x = 0;
+      for (int i = lane; i < k; i += 32) {
+        const int s = S[i] - c0, e = E[i] - c0;
+        x += (s <= 0) - (e <= 0);
+        if (s > 0 && s < 32) atomicAdd(win + s, 1);
+        if (e > 0 && e < 32) atomicAdd(win + e, -1);
+      }
+      const int base = __reduce_add_sync(kFull, x);
+      __syncwarp();
+      x = win[lane];
+      win[lane] = 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      const uint32_t bits = __ballot_sync(kFull, base + x > 0);
+      if (lane == 0) out[w] = bits;
+      __syncwarp();
+    }
+  }
+}
+
+// Row t of more spans than the bins hold, by the block: its +1 / -1 into a
+// row of counts, then one warp scans `words` words of it 32 columns a step.
+template <class Need>
+__device__ void one_row(Smem& s, const int* __restrict__ rows, const int* __restrict__ cols, int lo, int hi, int lo2,
+                        int hi2, int r0, int nr, int t, Need need, uint32_t* out, int words) {
+  for (int c = threadIdx.x; c < 32 * kRowWords; c += kThreads) s.b.diff[c] = 0;
+  __syncthreads();
+  for_spans<true>(rows, cols, lo, hi, lo2, hi2, r0, nr, [&](int tt, int c) {
+    if (tt == t) {
+      atomicAdd(&s.b.diff[c & 0xFFFF], 1);
+      atomicAdd(&s.b.diff[c >> 16], -1);
+    }
+  });
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const uint3 m = need(t);
+    const uint32_t mw[3] = {m.x, m.y, m.z};
+    int carry = 0;
+    for (int w = 0; w < words; ++w) {
+      int x = s.b.diff[32 * w + lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      x += carry;
+      const uint32_t bits = __ballot_sync(kFull, x > 0);
+      carry = __shfl_sync(kFull, x, 31);
+      if (lane == 0 && ((mw[w >> 5] >> (w & 31)) & 1u)) out[w] = bits;
+    }
+  }
+  __syncthreads();
+}
+
+// The words `need` names of rows r0 .. r0 + nr - 1 of the spans of [lo, hi)
+// (and of [lo2, hi2) as rows nr .. 2 nr - 1 where `two`) into out[t * words
+// + w], binned in shared memory first.  Ends with the block synchronized.
+template <class Need>
+__device__ void build_rows(Smem& s, const int* __restrict__ rows, const int* __restrict__ cols, int lo, int hi,
+                           int lo2, int hi2, bool two, int r0, int nr, Need need, uint32_t* out, int words) {
+  const int warp = threadIdx.x >> 5, nt = two ? 2 * nr : nr;
+  for (int t = threadIdx.x; t < nt; t += kThreads) s.fill[t] = 0;
+  __syncthreads();
+  for_spans<false>(rows, cols, lo, hi, lo2, hi2, r0, nr, [&](int t, int) {
+    if (any(need(t))) atomicAdd(&s.fill[t], 1);
+  });
+  __syncthreads();
+  if (warp == 0) exclusive_scan(s.fill, s.first, nt);
+  __syncthreads();
+  for (int ra = 0; ra < nt;) {
+    const int base = s.first[ra];
+    if (s.first[ra + 1] - base > kBinCap) {
+      one_row(s, rows, cols, lo, hi, lo2, hi2, r0, nr, ra, need, out + ra * words, words);
+      ++ra;
       continue;
     }
-    off += static_cast<long>(slot) * (kTileH + 1);
-    scan_row(p.words, off[row], off[row + 1], my_diff, 0, kMaskWords, bits);
+    // The run ra .. rb - 1: as many rows as the bins hold.
+    int rb = ra + 1, hi_rb = nt;
+    while (rb < hi_rb) {
+      const int mid = (rb + hi_rb + 1) >> 1;
+      if (s.first[mid] - base <= kBinCap) rb = mid;
+      else hi_rb = mid - 1;
+    }
+    for (int t = ra + threadIdx.x; t < rb; t += kThreads) s.fill[t] = s.first[t] - base;
+    __syncthreads();
+    for_spans<true>(rows, cols, lo, hi, lo2, hi2, r0, nr, [&](int t, int c) {
+      if (t >= ra && t < rb && any(need(t))) {
+        const int at = atomicAdd(&s.fill[t], 1);
+        s.b.bin.start[at] = static_cast<uint16_t>(c & 0xFFFF);
+        s.b.bin.stop[at] = static_cast<uint16_t>(c >> 16);
+      }
+    });
+    __syncthreads();
+    for (int t = ra + threadIdx.x; t < rb; t += kThreads) {
+      const int k = s.first[t + 1] - s.first[t], at = s.first[t] - base;
+      const uint3 m = need(t);
+      if (k <= kLaneCap && any(m)) lane_row(s.b.bin.start + at, s.b.bin.stop + at, k, m, out + t * words);
+    }
+    __syncwarp();
+    for (int t = ra + warp; t < rb; t += kWarps) {
+      const int k = s.first[t + 1] - s.first[t], at = s.first[t] - base;
+      if (k > kLaneCap) warp_row(s.b.bin.start + at, s.b.bin.stop + at, k, need(t), out + t * words, s.win[warp]);
+    }
+    __syncthreads();
+    ra = rb;
   }
-  __syncthreads();
+}
 
-  // The AA opacity of every fringe pixel, band by band.
-  if (p.aa_off != nullptr) {
-    const int* aoff = p.aa_off + static_cast<long>(slot) * (kPlaneH + 1);
-    for (int band = 0; band < kBands; ++band) {
-      int* bb = box + band * 8;
-      if (warp == 0) {  // the band's fringe bounding box
-        int y0 = kTileH, y1 = -1, x0 = kTileW, x1 = -1;
-        for (int k = lane; k < kBand * kMaskWords; k += 32) {
-          const int y = band * kBand + k / kMaskWords, wi = k % kMaskWords;
-          const uint32_t m = cov[y * kMaskWords + wi];
-          if (m) {
-            y0 = min(y0, y), y1 = max(y1, y);
-            x0 = min(x0, 32 * wi + __ffs(m) - 1), x1 = max(x1, 32 * wi + 31 - __clz(m));
+__global__ void __launch_bounds__(kThreads, 2) tile_raster_kernel(const Params p) {
+  extern __shared__ int4 smem4[];
+  Smem& s = *reinterpret_cast<Smem*>(smem4);
+  const int2 unit = p.units[blockIdx.x];
+  uint4* piece = reinterpret_cast<uint4*>(p.out + static_cast<long>(unit.x) * kTileH * kTileW);
+  if (unit.y < 0) {  // a slot no item owns
+    for (int q = threadIdx.x; q < kTileH * kTileW / 4; q += kThreads) piece[q] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const int item = unit.y >> 3, mode = unit.y & 7;
+  const bool whole = mode == kWhole;
+  const int y0 = whole ? 0 : kBand * mode, ny = whole ? kTileH : kBand;
+  const int* cov_off = p.offsets;
+  const int* cross_off = cov_off + (p.n + 1);
+  const int* aa_off = cross_off + (p.n + 1);
+  // The unit's list offsets and fill, loaded together.
+  const int cov_lo = whole ? 0 : cov_off[item], cov_hi = whole ? 0 : cov_off[item + 1];
+  const int cross_lo = cross_off[item], cross_hi = cross_off[item + 1];
+  const int aa_lo = aa_off[item], aa_hi = aa_off[item + 1];
+  const int4 f = p.fills[item];
+  uint32_t* cov = &s.masks[0][0];
+  uint32_t* cross = cov + ny * kMaskWords;
+  for (int q = threadIdx.x; q < kWarps * 32; q += kThreads) s.win[q / 32][q % 32] = 0;
+
+  // The unit's 1x rows: coverage (none in whole mode), then crossing.
+  build_rows(s, p.rows, p.cols, cov_lo, cov_hi, cross_lo, cross_hi, true, y0, ny, Need1x{}, cov, kMaskWords);
+
+  if (!whole) {
+    // The band's fringe pixels, and the t-row words their footprints read:
+    // word j under pixel row y where pixel 2j - 1, 2j or 2j + 1 is fringe.
+    if (threadIdx.x == 0) s.listed = 0;
+    if (threadIdx.x < kBand * 3) {
+      const int y = threadIdx.x / 3, q = threadIdx.x % 3;
+      const uint32_t* f = cov + y * kMaskWords;
+      uint32_t bits = 0;
+      for (int h = 0; h < 2; ++h) {  // columns 64 q + 32 h .. + 31 of the row dilated by one pixel each way
+        const int i = 2 * q + h;
+        const uint32_t fi = i < kMaskWords ? f[i] : 0u, before = i > 0 && i <= kMaskWords ? f[i - 1] : 0u;
+        const uint32_t after = i + 1 < kMaskWords ? f[i + 1] : 0u;
+        uint32_t d = fi | (fi << 1) | (before >> 31) | (fi >> 1) | (after << 31);
+        d &= 0x55555555u;  // its even columns 2 j: word j
+        d = (d | (d >> 1)) & 0x33333333u;
+        d = (d | (d >> 2)) & 0x0F0F0F0Fu;
+        d = (d | (d >> 4)) & 0x00FF00FFu;
+        d = (d | (d >> 8)) & 0x0000FFFFu;
+        bits |= d << (16 * h);
+      }
+      s.need[y][q] = bits;
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < kBand * kTileW; q += kThreads) {
+      if ((cov[(q >> 7) * kMaskWords + ((q & 127) >> 5)] >> (q & 31)) & 1u) {
+        s.fringe[atomicAdd(&s.listed, 1)] = static_cast<uint16_t>(q);
+      }
+    }
+    __syncthreads();
+    const int listed = s.listed;
+    if (listed > 0) {
+      {  // the table's nibble sums: thread (v, k) its 16
+        const int v = threadIdx.x / kNibbles, k = threadIdx.x % kNibbles;
+        const int* w = kTable[v] + 4 * k;
+        for (int m = 0; m < 16; ++m) {
+          s.table[v][16 * k + m] = static_cast<uint16_t>((m & 1) * w[0] + ((m >> 1) & 1) * w[1] + ((m >> 2) & 1) * w[2] +
+                                                   ((m >> 3) & 1) * w[3]);
+        }
+      }
+      build_rows(s, p.rows, p.cols, aa_lo, aa_hi, 0, 0, false, kScale * y0, kBandRows,
+                 NeedAA{&s.need[0][0]}, &s.tbits[0][0], kRowWords);
+      // Eight lanes a fringe pixel, four footprint rows each.
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, part = lane & 7;
+      for (int at = 4 * warp; at < listed; at += 4 * kWarps) {
+        const int q = at + (lane >> 3);
+        int count = 0, y = 0, x = 0;
+        if (q < listed) {
+          y = s.fringe[q] >> 7, x = s.fringe[q] & 127;
+          for (int v = part; v < kFoot; v += 8) {
+            const uint32_t* row = &s.tbits[kScale * y + v][x >> 1];
+            const uint32_t bits = (x & 1) ? __funnelshift_r(row[0], row[1], kScale) : row[0];
+#pragma unroll
+            for (int k = 0; k < kNibbles; ++k) count += s.table[v][16 * k + ((bits >> (4 * k)) & 15u)];
           }
         }
-        y0 = __reduce_min_sync(kFull, y0), y1 = __reduce_max_sync(kFull, y1);
-        x0 = __reduce_min_sync(kFull, x0), x1 = __reduce_max_sync(kFull, x1);
-        if (lane == 0) {
-          bb[0] = y0, bb[1] = y1, bb[2] = x0, bb[3] = x1;
-          bb[4] = 0;
-        }
+        count += __shfl_xor_sync(kFull, count, 4);
+        count += __shfl_xor_sync(kFull, count, 2);
+        count += __shfl_xor_sync(kFull, count, 1);
+        if (q < listed && part == 0) s.opac[y][x] = static_cast<uint8_t>((count * 256 + kVolume / 2) / kVolume);
       }
       __syncthreads();
-      const int y0 = bb[0], y1 = bb[1], x0 = bb[2], x1 = bb[3];
-      if (y1 < 0) continue;  // no fringe in the band (the same for every thread)
-      const int r0 = kScale * y0, rows = kScale * (y1 - y0) + kFoot;
-      const int c0 = (kScale * x0) & ~31;
-      const int steps = (kScale * x1 + kFoot - c0 + 31) / 32;
-      for (int t = warp; t < rows; t += kWarps) {
-        scan_row(p.words, aoff[r0 + t], aoff[r0 + t + 1], my_diff, c0, steps, tbits + t * kRowWords);
-      }
-      const int bw = x1 - x0 + 1, npix = (y1 - y0 + 1) * bw;
-      for (int q = threadIdx.x; q < npix; q += kThreads) {
-        const int dy = q / bw, x = x0 + q % bw;
-        if ((cov[(y0 + dy) * kMaskWords + (x >> 5)] >> (x & 31)) & 1u) {
-          list[atomicAdd(bb + 4, 1)] = static_cast<unsigned short>(dy * kTileW + x);
-        }
-      }
-      __syncthreads();
-      const int listed = bb[4];
-      for (int q = threadIdx.x; q < listed; q += kThreads) {
-        const int e = list[q], dy = e / kTileW, x = e % kTileW;
-        const int col = kScale * x - c0, sh = col & 31;
-        const uint32_t* row = tbits + kScale * dy * kRowWords + (col >> 5);
-        int count = 0;
-        for (int v = 0; v < kFoot; ++v, row += kRowWords) {
-          const uint32_t bits = sh ? __funnelshift_r(row[0], row[1], sh) : row[0];
-#pragma unroll
-          for (int u = 0; u < kFoot; ++u) count += static_cast<int>((bits >> u) & 1u) * kTable[v][u];
-        }
-        opac[(y0 + dy) * kTileW + x] = static_cast<unsigned char>((count * 256 + kVolume / 2) / kVolume);
-      }
-      __syncthreads();  // the next band's t-rows and list take these ones' place
     }
   }
 
-  // The piece: 4 pixels a 16-byte store.
-  const int4 f = p.fills[slot];
+  // The unit's rows: 4 pixels a 16-byte store.
   const uint32_t solid = pack(f.x, f.y, f.z, f.w);
-  for (int q = threadIdx.x; q < kTileH * kTileW / 4; q += kThreads) {
+  uint4* rows_out = piece + y0 * (kTileW / 4);
+  for (int q = threadIdx.x; q < ny * (kTileW / 4); q += kThreads) {
     const int y = q / (kTileW / 4), x = (q % (kTileW / 4)) * 4;
-    const uint32_t cv = cov[y * kMaskWords + (x >> 5)] >> (x & 31);
+    const uint32_t cv = whole ? 0u : cov[y * kMaskWords + (x >> 5)] >> (x & 31);
     const uint32_t cr = cross[y * kMaskWords + (x >> 5)] >> (x & 31);
     uint32_t px[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t v = 0;
       if ((cv >> j) & 1u) {
-        const int o = opac[y * kTileW + x + j];
+        const int o = s.opac[y][x + j];
         v = pack(dissolve(f.x, o), dissolve(f.y, o), dissolve(f.z, o), dissolve(f.w, o));
       } else if ((cr >> j) & 1u) {
         v = solid;
       }
       px[j] = v;
     }
-    out[q] = make_uint4(px[0], px[1], px[2], px[3]);
+    rows_out[q] = make_uint4(px[0], px[1], px[2], px[3]);
   }
+}
+
+// The attributes a launch needs, set per call (they belong to the current
+// device's context): the shared memory of two blocks an SM.
+cudaError_t allow() {
+  const cudaError_t e =
+      cudaFuncSetAttribute(tile_raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(tile_raster_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
-// Launches one block a slot of the (nb, 64, 128) `out` on `stream` and
-// returns the first error: the shared-memory attribute's (set per call: it
-// belongs to the current device's context), else cudaGetLastError().
-// Interior mode where cov_off and aa_off are null.
-extern "C" int tile_raster(const void* words, const void* cov_off, const void* cross_off, const void* aa_off,
-                           const void* fills, void* out, int n, int nb, void* stream) {
-  const cudaError_t allowed =
-      cudaFuncSetAttribute(tile_raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// Launches one block a unit of the (slots, 64, 128) `out` on `stream` and
+// returns the first error: the attributes', else cudaGetLastError().
+extern "C" int tile_raster(const void* rows, const void* cols, const void* offsets, const void* fills,
+                           const void* units, void* out, int n, int n_units, void* stream) {
+  const cudaError_t allowed = allow();
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  const Params p{static_cast<const uint32_t*>(words), static_cast<const int*>(cov_off),
-                 static_cast<const int*>(cross_off), static_cast<const int*>(aa_off), static_cast<const int4*>(fills),
-                 static_cast<int*>(out), n};
-  tile_raster_kernel<<<nb, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  const Params p{static_cast<const int*>(rows), static_cast<const int*>(cols), static_cast<const int*>(offsets),
+                 static_cast<const int4*>(fills), static_cast<const int2*>(units), static_cast<int*>(out), n};
+  tile_raster_kernel<<<n_units, kThreads, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of TR1 that one SM holds at once, or minus the error.
+extern "C" int tile_raster_blocks_per_sm() {
+  const cudaError_t allowed = allow();
+  if (allowed != cudaSuccess) return -static_cast<int>(allowed);
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tile_raster_kernel, kThreads,
+                                                                      sizeof(Smem));
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }

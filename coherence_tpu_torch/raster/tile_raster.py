@@ -12,12 +12,13 @@ scene's atlas:
   * tiles with fringe pixels become *edge* items (1x coverage and crossing
     spans plus 16x AA spans); tiles inside the shape become *interior*
     items (crossing spans only);
-  * items batch by span-capacity class.  On a CUDA device each batch is
-    one block of pieces made by one launch of TR1 (``kernels.tile_raster``,
-    ``kernels/csrc/tile_raster.cu``), its span lists uploaded in one staged
-    copy; on the CPU the plain version scatters the spans into difference
-    planes, prefix-sums them to masks, takes the Gaussian-matte AA coverage
-    from the stride-16 table product (``raster/aa``), colours and packs.
+  * items batch by span-capacity class.  On a CUDA device a flush is one
+    launch of TR1 (``kernels.tile_raster``, ``kernels/csrc/tile_raster.cu``)
+    over every block, its span lists uploaded in one staged copy, the
+    blocks views of its one output; on the CPU the plain version scatters
+    the spans into difference planes, prefix-sums them to masks, takes the
+    Gaussian-matte AA coverage from the stride-16 table product
+    (``raster/aa``), colours and packs, block by block.
 
 Blocks keep the JAX package's batch layout (class order, fixed chunks,
 pow2 buckets, zero padding slots), so a scene's atlas is bit-identical to
@@ -257,17 +258,22 @@ class TileBuild:
             for items, nb in _batches(self.interior_items, _CHUNK_INTERIOR):
                 yield items, nb, False
 
+    def kernel_lists(self, items, nb: int, edge: bool) -> tuple:
+        """kernels.tile_raster_lists' block for `items` (a batch of
+        batches()): (cov, cross, aa, fills, nb), cov and aa None for
+        interior items."""
+        fills = np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4)
+        if edge:
+            return [it[2] for it in items], [it[3] for it in items], [it[4] for it in items], fills, nb
+        return None, [it[2] for it in items], None, fills, nb
+
     def block(self, items, nb: int, edge: bool) -> torch.Tensor:
         """One block of `nb` pieces for `items` (a batch of batches()): on a
         CUDA device one TR1 launch (its lists in one staged copy), on the CPU
         the plain version."""
         if self.device.type != "cuda":
             return self.block_torch(items, nb, edge)
-        fills = np.asarray([it[5 if edge else 3] for it in items], np.int32).reshape(-1, 4)
-        if edge:
-            return kernels.tile_raster_edge([it[2] for it in items], [it[3] for it in items],
-                                            [it[4] for it in items], fills, nb, self.device)
-        return kernels.tile_raster_interior([it[2] for it in items], fills, nb, self.device)
+        return kernels.tile_raster(kernels.stage_tile_lists([self.kernel_lists(items, nb, edge)], self.device))
 
     def block_torch(self, items, nb: int, edge: bool) -> torch.Tensor:
         """The plain version of block() on this build's device: _edge_impl
@@ -288,12 +294,19 @@ class TileBuild:
     def flush(self):
         """Rasterize every staged item.  Returns (blocks, registry): blocks
         is a list of (n, TILE_H, TILE_W) int32 tensors whose slots past the
-        real items are zero; registry maps owner_key -> [(tile, block_id,
-        slot)]."""
-        blocks: List[torch.Tensor] = []
+        real items are zero (on a CUDA device views of one launch's output,
+        its lists in one staged copy); registry maps owner_key -> [(tile,
+        block_id, slot)]."""
+        batches = list(self.batches())
         registry: Dict[object, List[Tuple[int, int, int]]] = {}
-        for items, nb, edge in self.batches():
+        for block_id, (items, _, _) in enumerate(batches):
             for slot, it in enumerate(items):
-                registry.setdefault(it[0], []).append((it[1], len(blocks), slot))
-            blocks.append(self.block(items, nb, edge))
+                registry.setdefault(it[0], []).append((it[1], block_id, slot))
+        if self.device.type != "cuda":
+            blocks = [self.block_torch(items, nb, edge) for items, nb, edge in batches]
+        elif batches:
+            out = kernels.tile_raster(kernels.stage_tile_lists([self.kernel_lists(*b) for b in batches], self.device))
+            blocks = list(out.split([nb for _, nb, _ in batches]))
+        else:
+            blocks = []
         return blocks, registry

@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit:
 
-    python3 profile_build.py [--tree DIR] [--reps 3] [--out DIR]
+    python3 profile_build.py [--tree DIR] [--reps 3] [--out DIR] [--tr1-only]
 
 --tree names the checkout whose package, ``chip_smoke.py``,
 ``profile_general.py`` and ``profile_interactive.py`` run (by default this
@@ -39,6 +39,13 @@ one, the sweep cache emptied first.  It prints one JSON line:
     with the sweep cache's hits and misses in the step (null where the
     tree has no sweep cache).
 
+  * tr1: the tile rasterizer kernel at the lion's and config 5's build
+    flush, as the tree's ``chip_smoke.tile_raster_row`` times it (the
+    kernel's ms with the lists staged beforehand, each class's block
+    alone, the wrapper's host_ms, the bound), with the launch floor
+    (an empty kernel timed as the kernel is).  --tr1-only runs this part
+    alone.
+
 Beside them the card's name and power limit, as nvidia-smi prints them.
 """
 
@@ -57,6 +64,7 @@ def main() -> int:
                     help="the checkout to run (its package and scripts)")
     ap.add_argument("--reps", type=int, default=3, help="builds and flushes timed")
     ap.add_argument("--out", default="build/profile_build", help="directory for the flush's cProfile rows")
+    ap.add_argument("--tr1-only", action="store_true", help="time only the tile rasterizer kernel (tr1)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -102,6 +110,11 @@ def main() -> int:
     def gained(before):
         return None if before is None else {k: tile_raster.sweep_cache_stats[k] - before[k] for k in before}
 
+    tr1 = tr1_rows(torch, cs, kernels)
+    if args.tr1_only:
+        print(json.dumps({"tree": tree, "nvidia_smi": smi, "tr1": tr1}))
+        return 0
+
     # A first build outside the timing: the kernels' first launches, allocator growth.
     cold()
     cs.build_scene("cuda")
@@ -127,7 +140,7 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     pi.write_stats(os.path.join(args.out, "flush_cprofile.txt"), flush_prof_s, flush_stats)
     flush_split = {func: sum(row[3] for (path, _, f), row in flush_stats.stats.items() if f == func)
-                   for func in ("tile_span_lists", "stage", "mask_of_spans", "coverage_counts")}
+                   for func in ("tile_span_lists", "tile_raster_lists", "stage", "mask_of_spans", "coverage_counts")}
 
     cold()
     view, _, _, objs4 = cs.build_interactive("cuda")
@@ -169,8 +182,20 @@ def main() -> int:
                                      "issued": flush_issued, "profiled_s": flush_prof_s, "split": flush_split},
                       "zoom_2x_miss_s": miss_s, "zoom_2x_miss_s_median": statistics.median(miss_s),
                       "zoom_split": pi.zoom_split(split_stats, split_s),
-                      "zoom_back": {"sweep_cached": cached, "sweep_cold": swept}}))
+                      "zoom_back": {"sweep_cached": cached, "sweep_cold": swept}, "tr1": tr1}))
     return 0
+
+
+def tr1_rows(torch, cs, kernels) -> dict:
+    """The tree's chip_smoke.tile_raster_row at the lion's and config 5's
+    build (its inputs from tile_inputs), uncounted, with the launch floor."""
+    scrub = torch.empty(32 * 2**20, dtype=torch.int32, device="cuda")  # 128 MiB: past the 50 MB L2
+    floor_ms = cs.event_ms(torch, lambda: kernels.launch_floor("cuda"), scrub, wait_ms=cs.ANIMATED_WAIT_MS, queued=True)
+    keys = ("blocks", "items", "units", "slots", "ms", "blocks_ms", "blocks_alone_ms", "host_ms", "plain_ms",
+            "bound_ms", "share", "list_bytes", "layout_bytes", "blocks_per_sm", "flush_issued")
+    rows = cs.uncounted(kernels, lambda: {name: cs.tile_raster_row(torch, "cuda", scrub, tb)
+                                          for name, tb in cs.tile_inputs(torch, "cuda").items()})
+    return {"launch_floor_ms": floor_ms, **{name: {k: row.get(k) for k in keys} for name, row in rows.items()}}
 
 
 if __name__ == "__main__":

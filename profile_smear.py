@@ -36,13 +36,13 @@ import chip_smoke as cs
 VARIANT_DIR = os.path.join("build", "smear_variants")
 
 
-def compile_sources(kernels, sources: dict) -> dict:
+def compile_sources(kernels, sources: dict, directory: str = VARIANT_DIR) -> dict:
     """name -> (library path, nvcc's output) for each name -> .cu source,
-    one nvcc each, all started together."""
-    os.makedirs(VARIANT_DIR, exist_ok=True)
+    one nvcc each into `directory`, all started together."""
+    os.makedirs(directory, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        lib = os.path.join(VARIANT_DIR, f"{name}.so")
+        lib = os.path.join(directory, f"{name}.so")
         procs[name] = (lib, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", lib, src],
                                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}

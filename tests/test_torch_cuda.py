@@ -1983,6 +1983,76 @@ def tile_interior_items(seed: int = 0):
             for j, n in enumerate((128, 40, 3, 0))]
 
 
+def _full_rows(rows, w: int):
+    """Full-width spans on `rows` of a w-column plane."""
+    rows = np.asarray(rows, np.int64)
+    return rows, np.zeros_like(rows), np.full_like(rows, w - 1)
+
+
+def _joined(*parts):
+    return tuple(np.concatenate([p[i] for p in parts]).astype(np.int64) for i in range(3))
+
+
+def _odd_spans(rng, rows, w: int, k: int):
+    """k spans on `rows` (cycled) that the scatter counts in every way:
+    duplicated, overlapping, reversed, zero-length (end = start - 1), and
+    at columns 0, w - 1 and w (a start there adds only past the mask)."""
+    rows = np.resize(np.asarray(rows, np.int64), k)
+    a, b = rng.integers(0, w, k), rng.integers(0, w, k)
+    s, e = np.minimum(a, b), np.maximum(a, b)
+    kind = np.arange(k) % 6
+    s[kind == 1], e[kind == 1] = e[kind == 1], s[kind == 1]  # reversed
+    e[kind == 2] = s[kind == 2] - 1  # zero-length
+    s[kind == 3], e[kind == 3] = 0, w - 1
+    s[kind == 4] = w  # +1 at column w: nothing in the row, -1 at end + 1 before it
+    dup = kind == 5
+    s[dup], e[dup], rows[dup] = np.roll(s, 1)[dup], np.roll(e, 1)[dup], np.roll(rows, 1)[dup]
+    return rows, s, e
+
+
+# tile_raster.cu's kLaneCap and kBinCap: a row of more spans than kLaneCap is
+# built by a warp, one of more than kBinCap by the block, and a band of more
+# than kBinCap binned in runs (tests/test_torch_tile_kernel.py reads both
+# from the source).
+TILE_LANE_CAP, TILE_BIN_CAP = 32, 6144
+
+
+def tile_capacity_items(seed: int = 0):
+    """Edge items at the limits of TR1's paths: [(cov, cross, aa, fill)].
+
+      * item 0 is at the last capacity class's limit (2048 coverage, 2048
+        crossing and 32,768 AA spans), every AA span in band 1's t-rows
+        (256..527, the first and last 16 shared with bands 0 and 2): t-row
+        300 holds TILE_BIN_CAP + 900 spans, 301 holds 5 x TILE_LANE_CAP,
+        302 TILE_LANE_CAP + 1 and 303 exactly TILE_LANE_CAP, the rest
+        spread over the band; its coverage reaches every word of those
+        t-rows;
+      * item 1 puts its AA spans on the t-rows two bands share (256..271,
+        512..527, 768..783) and its coverage on the pixel rows over them;
+      * item 2 holds odd 1x spans (duplicated, reversed, zero-length,
+        columns 0, 127 and 128) and rows the scatter drops;
+      * item 3 has coverage but no AA span at all.
+    All four fit the last capacity class (raster/tile_raster.py _CLASSES)."""
+    rng = np.random.default_rng(300 + seed)
+    big = TILE_BIN_CAP + 900
+    heavy = [(300, big), (301, 5 * TILE_LANE_CAP), (302, TILE_LANE_CAP + 1), (303, TILE_LANE_CAP)]
+    rest = 32768 - sum(k for _, k in heavy)
+    aa0 = _joined(*(_odd_spans(rng, [r], 2064, k) for r, k in heavy),
+                  _odd_spans(rng, rng.integers(256, 528, rest), 2064, rest))
+    cov0 = _joined(_full_rows(range(15, 34), 128), tile_spans(rng, 2048 - 19, 64, 128, TILE_EDGE_SPANS))
+    cross0 = tile_spans(rng, 2048, 64, 128, TILE_EDGE_SPANS[::-1])
+    shared = np.concatenate([np.arange(256, 272), np.arange(512, 528), np.arange(768, 784)])
+    aa1 = _joined(_odd_spans(rng, shared, 2064, 3000), _full_rows(shared[::5], 2064))
+    cov1 = _joined(_full_rows([15, 16, 31, 32, 47, 48], 128), _odd_spans(rng, [15, 16, 31, 32, 47, 48], 128, 60))
+    cross1 = tile_spans(rng, 300, 64, 128)
+    cov2 = _joined(_odd_spans(rng, rng.integers(0, 64, 600), 128, 600), tile_spans(rng, 6, 64, 128, TILE_EDGE_SPANS))
+    cross2 = _joined(_odd_spans(rng, rng.integers(0, 64, 600), 128, 600), tile_spans(rng, 6, 64, 128, TILE_EDGE_SPANS))
+    aa2 = _joined(_odd_spans(rng, rng.integers(0, 1040, 5000), 2064, 5000), tile_spans(rng, 6, 1040, 2064, AA_EDGE_SPANS))
+    cov3, cross3 = tile_spans(rng, 200, 64, 128), tile_spans(rng, 200, 64, 128)
+    return [(cov0, cross0, aa0, TILE_FILLS[0]), (cov1, cross1, aa1, TILE_FILLS[1]),
+            (cov2, cross2, aa2, TILE_FILLS[3]), (cov3, cross3, tile_spans(rng, 0, 1040, 2064), TILE_FILLS[0])]
+
+
 def tile_build_items(items, edge: bool):
     """The items as TileBuild stages them: (key, tile, cov, cross, aa, fill)
     or (key, tile, cross, fill)."""
@@ -2050,19 +2120,74 @@ def _tile_flush_scene(name: str, device):
 @pytest.mark.parametrize("name", ["lion", "config5_strip"])
 def test_tile_build_flush_matches_plain(cuda_device, name):
     """A whole TileBuild.flush on the card equals the plain version of each
-    of its blocks, and issues exactly one copy and one launch a block."""
+    of its blocks, and issues exactly one copy and one launch."""
     tb = _tile_flush_scene(name, cuda_device)
     batches = list(tb.batches())
     assert len(batches) >= 2
     before = kernels.launches["tile_raster"]
     blocks, registry = tb.flush()
     torch.cuda.synchronize()
-    assert kernels.launches["tile_raster"] == before + len(batches)
+    assert kernels.launches["tile_raster"] == before + 1
     assert len(blocks) == len(batches)
     for block, (items, nb, edge) in zip(blocks, batches):
         assert torch.equal(block, tb.block_torch(items, nb, edge))
     assert sum(len(v) for v in registry.values()) == sum(len(items) for items, _, _ in batches)
-    assert _issued_by(tb.flush) == (len(batches), len(batches))
+    assert _issued_by(tb.flush) == (1, 1)
+
+
+def tile_flush_batches():
+    """One flush of every capacity class, tile_capacity_items and interior
+    items: [(items, nb, edge)], as TileBuild.batches() gives them."""
+    edge = [(tile_build_items(tile_edge_items(c), True), 8, True) for c in range(5)]
+    return edge + [(tile_build_items(tile_capacity_items(), True), 8, True),
+                   (tile_build_items(tile_interior_items(), False), 16, False)]
+
+
+@pytest.mark.cuda
+def test_tile_raster_one_launch_of_every_class(cuda_device):
+    """A TileBuild holding every capacity class, the limits' items and
+    interior items flushes in one launch and one copy (2 issued operations,
+    profile_general.issued), equal to the plain version block by block; its
+    blocks are views of one tensor."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from coherence_tpu_torch.raster import tile_raster as TTR
+    from profile_general import issued
+
+    batches = tile_flush_batches()
+    tb = TTR.TileBuild(1, 1, cuda_device)
+    tb.batches = lambda: iter(batches)
+    before = kernels.launches["tile_raster"]
+    blocks, _ = tb.flush()
+    torch.cuda.synchronize()
+    assert kernels.launches["tile_raster"] == before + 1
+    assert len({b.untyped_storage().data_ptr() for b in blocks}) == 1
+    for block, (items, nb, edge) in zip(blocks, batches):
+        assert torch.equal(block, tb.block_torch(items, nb, edge))
+    assert issued(torch, tb.flush) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item", range(4))
+def test_tile_raster_at_its_limits(cuda_device, item):
+    """Each of tile_capacity_items alone in a padded block (the item at
+    capacity with a row past the bins and rows past a lane; the t-rows two
+    bands share; odd 1x spans; coverage without AA spans), and all four in
+    one block, against the plain version, bit for bit."""
+    items = tile_capacity_items()
+    for its in ([items[item]], items):
+        got, want = _tile_block(cuda_device, its, 8, True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not bool(got[len(its):].any())
+
+
+@pytest.mark.cuda
+def test_tile_raster_fits_two_blocks_an_sm(cuda_device):
+    """The occupancy the design is built for: two blocks an SM."""
+    assert kernels.tile_raster_blocks_per_sm() >= 2
 
 
 def _issued_by(fn):
@@ -2109,16 +2234,16 @@ def test_tile_raster_wrappers_reject_bad_input(cuda_device):
     items = tile_edge_items(0)
     cov, cross, aa, fills = ([it[k] for it in items] for k in range(4))
     with pytest.raises(ValueError):
-        kernels.tile_raster_edge(cov, cross, aa, fills, 8, "cpu")
+        kernels.stage_tile_lists([(cov, cross, aa, fills, 8)], "cpu")
     with pytest.raises(ValueError):
-        kernels.tile_raster_interior(cross, fills, 8, torch.device("cpu"))
+        kernels.stage_tile_lists([(None, cross, None, fills, 8)], torch.device("cpu"))
     with pytest.raises(ValueError):
-        kernels.tile_raster_edge(cov, cross, aa[:2], fills, 8, cuda_device)
+        kernels.stage_tile_lists([(cov, cross, aa[:2], fills, 8)], cuda_device)
     with pytest.raises(ValueError):
-        kernels.tile_raster_edge(cov, cross, aa, fills, 2, cuda_device)
+        kernels.stage_tile_lists([(cov, cross, aa, fills, 2)], cuda_device)
     wide = (np.array([3]), np.array([5]), np.array([128]))  # end + 1 = 129 > 128
     with pytest.raises(ValueError):
-        kernels.tile_raster_interior([wide], [fills[0]], 8, cuda_device)
+        kernels.stage_tile_lists([(None, [wide], None, [fills[0]], 8)], cuda_device)
     wide_aa = (np.array([3]), np.array([-1]), np.array([5]))
     with pytest.raises(ValueError):
-        kernels.tile_raster_edge([cov[0]], [cross[0]], [wide_aa], [fills[0]], 8, cuda_device)
+        kernels.stage_tile_lists([([cov[0]], [cross[0]], [wide_aa], [fills[0]], 8)], cuda_device)
