@@ -122,7 +122,9 @@ Phases, one JSON line each:
      radius-120 smear of 298 steps in global mode), each against its plain
      version on the same inputs, bit for bit, timed behind a device-side
      wait made from the wrapper's host time, beside its plain version's
-     time, its bound and the launch floor (the smear also beside its chain
+     time, its bound and the launch floor (brush_stamp also alone on lists
+     staged beforehand, beside its staged copy alone, its blocks and the
+     longest and mean list a block reads; the smear also beside its chain
      floor, its mode and its window's reloads, as the kernel counted
      them; the demo must take window mode to its end, radius 120 global
      mode); then tile_kernels: tile_raster over the lion's and config 5's
@@ -250,7 +252,8 @@ they must move per 32-byte sector and their multiply-adds, at the lion's
 step and at config 5's, blur_blend's rect mode beside, and under
 shatter_into the animated_chain's time per queued frame; for brush_stamp
 its output and lists' bytes and its stamp-pixel operations at config 5's
-largest brush group, every other shape beside; for smear_walk the canvas
+largest brush group, every other shape beside, its time with its staged
+copy (ms) and alone (kernel_ms); for smear_walk the canvas
 pixels its walk must read and write once and its mixed-pixel operations,
 beside them its step-by-step traffic, a serial chain of steps, the chain's
 floor at one SM's int32 rate, its mode, window and reloads as the kernel
@@ -1260,18 +1263,21 @@ def brush_inputs(torch, dev) -> dict:
     return out
 
 
-def stamp_bound(torch, brushes, offsets, valid, hp: int, wp: int, out_words: int, windows=None, lists=()) -> dict:
+def stamp_bound(torch, lists, brushes, offsets, valid, hp: int, wp: int, out_words: int, windows=None,
+                extra=()) -> dict:
     """What brush_stamp must do: write its output once (4 bytes a word) and
-    read its host lists once (pack_brush_records' arrays and `lists`); and
-    STAMP_OPS int32 operations for each nonzero texel of each valid stamp
-    that lands on an output pixel: the whole plane in plane mode, in piece
-    mode the piece windows (stroke, row, col) of `windows`."""
+    read its host records once (as the first design read them, so that a
+    share compares across designs: a (row, col) int32 record a stamp of
+    `offsets`, valid or not, the stroke table and patches of `lists`, and
+    the arrays of `extra`; brush_row prints the bytes of the launch's own
+    lists beside it); and STAMP_OPS int32 operations for each nonzero texel
+    of each valid stamp that lands on an output pixel: the whole plane in
+    plane mode, in piece mode the piece windows (stroke, row, col) of
+    `windows`."""
     import numpy as np
 
-    from coherence_tpu_torch import kernels
-
-    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp)
-    n_bytes = 4 * out_words + sum(a.nbytes for a in records if a is not None) + sum(a.nbytes for a in lists)
+    records = 8 * offsets.shape[0] * offsets.shape[1] + lists.strokes.nbytes + lists.patches.nbytes
+    n_bytes = 4 * out_words + records + sum(a.nbytes for a in extra)
     nz = [(b != 0).astype(np.int64) for b in brushes]
     if windows is None:
         updates = sum(int(valid[si].sum()) * int(nz[si].sum()) for si in range(len(brushes)))
@@ -1344,11 +1350,19 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
     """One brush kernel against its plain version on the card, bit for bit,
     with its bound; then the wrapper's host time (fold_host_ms) and the two
     timed: the kernel behind a device-side wait of max(ANIMATED_WAIT_MS, 4
-    x the slowest host call), each call queued within half of it (H42);
-    the plain version over N_BRUSH_PLAIN_TIMED calls (it runs one step of
-    torch operations a stamp, its host time in its window).  A smear's row
-    also gives smear_walk's mode, window and reloads, as the kernel
-    counted them in its checked call (smear_mode)."""
+    x the slowest host call), each call queued within half of it (H42),
+    its lists' staged copy in the window (ms); the plain version over
+    N_BRUSH_PLAIN_TIMED calls (it runs one step of torch operations a
+    stamp, its host time in its window).  brush_stamp's row also gives the
+    kernel alone on lists staged beforehand (kernel_ms; that launch's output
+    is first held to the plain version, bit for bit) and the staged copy
+    alone (copy_ms), both behind a wait of ANIMATED_WAIT_MS; the blocks of
+    the launch, the longest and mean list a block reads
+    (kernels.brush_list_stats), the patch's shared memory, the blocks an SM
+    holds, and the bytes of the lists as the kernel reads them
+    (layout_bytes; the bound counts the first design's records).  A
+    smear's row also gives smear_walk's mode, window and reloads, as the
+    kernel counted them in its checked call (smear_mode)."""
     from coherence_tpu_torch import kernels
     from coherence_tpu_torch.raster import brush
 
@@ -1364,7 +1378,8 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
             return brush._stamp_alpha_torch(brushes, offsets, valid, hp, wp, dev)
 
         got, want = kernel(), plain()
-        bound = stamp_bound(torch, brushes, offsets, valid, hp, wp, got.numel())
+        lists = kernels.brush_plane_lists(brushes, offsets, valid, hp, wp)
+        bound = stamp_bound(torch, lists, brushes, offsets, valid, hp, wp, got.numel())
     elif mode == "pieces":
         from coherence_tpu_torch.raster.brush_tiles import _group_lists
 
@@ -1382,7 +1397,8 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
             return build._group_block_torch(*gkey, items)
 
         got, want = kernel(), plain()
-        bound = stamp_bound(torch, brushes, offsets, valid, hp, wp, got.numel(), [tuple(m) for m in meta],
+        lists = kernels.brush_piece_lists(brushes, offsets, valid, points, fills, radii, meta, hp, wp)
+        bound = stamp_bound(torch, lists, brushes, offsets, valid, hp, wp, got.numel(), [tuple(m) for m in meta],
                             (points, meta))
     else:
         cv, opac, offsets, dirs, bh, bw = args
@@ -1410,7 +1426,27 @@ def brush_row(torch, dev, scrub, mode: str, args) -> dict:
     row["retaken"] = RETAKEN[0] - retaken
     row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
     row["share"] = row["bound_ms"] / row["ms"]
+    if mode != "smear":
+        staged = kernels.stage_brush_lists(lists, dev)
+        alone = kernels.brush_stamp(lists, staged)
+        torch.cuda.synchronize()
+        require(torch.equal(alone, want), f"brush_stamp ({mode} mode) on lists staged beforehand differs from its "
+                f"plain version at {shape}")
+        row["kernel_ms"] = event_ms(torch, lambda: kernels.brush_stamp(lists, staged), scrub, wait_ms=ANIMATED_WAIT_MS,
+                                    queued=True)
+        row["copy_ms"] = event_ms(torch, lambda: kernels.stage_brush_lists(lists, dev), scrub,
+                                  wait_ms=ANIMATED_WAIT_MS, queued=True)
+        row["kernel_share"] = row["bound_ms"] / row["kernel_ms"]
+        row.update(kernels.brush_list_stats(lists), patch_smem=lists.patch_smem,
+                   layout_bytes=sum(a.nbytes for a in staged_arrays(lists)),
+                   blocks_per_sm=kernels.brush_stamp_blocks_per_sm(lists.piece, lists.patch_smem))
     return row
+
+
+def staged_arrays(lists) -> tuple:
+    """The arrays of a brush_stamp launch's staged copy, as
+    kernels.stage_brush_lists stages them."""
+    return lists.ranges, lists.stamps, lists.points, lists.strokes, lists.patches, lists.meta
 
 
 def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
@@ -1427,9 +1463,10 @@ def brush_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     groups = [name for name in rows if name.startswith("config5_group")]
     main = max(groups, key=lambda name: rows[name]["pieces"])
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "share", "host_ms")
+    stamp_keys = (*keys, "kernel_ms", "copy_ms", "kernel_share", "blocks", "stamp_list_max", "stamp_list_mean")
     smears = ("smear", "smear_r120")
     stamp = {**rows[main], "shape": main, "max_abs_err": max(rows[n]["max_abs_err"] for n in rows if n not in smears),
-             "shapes": {name: {k: row[k] for k in keys} for name, row in rows.items() if name not in smears}}
+             "shapes": {name: {k: row[k] for k in stamp_keys} for name, row in rows.items() if name not in smears}}
     wide = rows["smear_r120"]
     require(rows["smear"]["mode"] == "window" and rows["smear"]["device_from"] is None,
             f"the smear demo did not walk its window to the end: {rows['smear']['mode']}, {rows['smear']['device_from']}")
@@ -4078,7 +4115,12 @@ def main() -> int:
                  "launches_general_filter_demos": {n: c["brush_stamp"] for n, c in counts_demos.items() if "brush_stamp" in c},
                  "max_abs_err": stamp["max_abs_err"], "ms": stamp["ms"], "plain_ms": stamp["plain_ms"],
                  "bound_ms": stamp["bound_ms"], "bound_by": stamp["bound_by"], "library_ms": None, "bytes": stamp["bytes"],
-                 "share": stamp["share"], "shape": stamp["shape"], "shapes": stamp["shapes"]})
+                 "share": stamp["share"], "kernel_ms": stamp["kernel_ms"], "copy_ms": stamp["copy_ms"],
+                 "kernel_share": stamp["kernel_share"], "blocks": stamp["blocks"],
+                 "stamp_list_max": stamp["stamp_list_max"], "stamp_list_mean": stamp["stamp_list_mean"],
+                 "patch_smem": stamp["patch_smem"], "blocks_per_sm": stamp["blocks_per_sm"],
+                 "layout_bytes": stamp["layout_bytes"], "host_ms": stamp["host_ms"], "shape": stamp["shape"],
+                 "shapes": stamp["shapes"]})
     line.append({"name": "smear_walk", "route": "cuda", "source": CSRC + "smear.cu",
                  "replaces": "coherence_tpu/raster/brush.py:324", "pallas": False,
                  "launches": counts_demos["smear"].get("smear_walk", 0), "max_abs_err": smear["max_abs_err"],

@@ -27,7 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,13 +54,13 @@ _ENTRY_POINTS = {
     "blur_blend": [_ptr] + [_i32] * 4 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32] * 3 + [_ptr] + [_i32, _u32] + [_i32] * 16
                   + [_ptr],
     "shatter_into": [_ptr, _i32, _i32, _ptr, _ptr, _i32, _i32, _ptr, _i32, _i32, _ptr],
-    "brush_stamp": [_ptr] * 6 + [_i32] * 6 + [_ptr],
+    "brush_stamp": [_ptr] * 7 + [_i32] * 5 + [_ptr],
     "smear_walk": [_ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr] + [_i32] * 4 + [_ptr],
     "tile_raster": [_ptr] * 6 + [_i32] * 2 + [_ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
-_QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": []}
+_QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2}
 # entry point -> argument types, of those that launch a kernel doing none of
 # the program's work (not counted in `launches`)
 _PROBES = {"launch_floor": [_ptr]}
@@ -544,99 +544,181 @@ def shatter_into(atlas, rgba, oys, oxs, base: int) -> torch.Tensor:
     return atlas
 
 
-# brush_stamp.cu's atlas piece, and the (rows, columns) of output one block
-# owns: a strip of a plane, or a quarter of a piece.
+# brush_stamp.cu's atlas piece; the (rows, columns) of output one block
+# owns: a strip of a plane, or an eighth of a piece; and the bin whose lists
+# a block reads: its piece, or the plane's 64x128 tile around its strip.
 BRUSH_TILE = (64, 128)
-BRUSH_BLOCK = (16, 128)
-# brush_stamp.cu's kStrokeWords, kPatchSmem (a cropped patch of more bytes
-# is read from device memory) and kFar (a stamp or point record that touches
-# no tile).
+BRUSH_BLOCK = (8, 128)
+BRUSH_BIN = BRUSH_TILE
+# brush_stamp.cu's kStrokeWords and kPatchSmemMax (a cropped patch that
+# needs more shared memory, brush_patch_bytes, is read from device memory).
 STROKE_WORDS = 12
-BRUSH_PATCH_SMEM = 32768
-FAR_RECORD = -(1 << 29)
+BRUSH_PATCH_SMEM = 229376
 # The smear's passes over its steps: the reference smears twice (brush.ml:308).
 SMEAR_PASSES = 2
 
 
-def patch_extent(patch: np.ndarray) -> tuple:
-    """(ky0, kx0, kh, kw): the rows and columns of a brush patch that hold a
-    nonzero texel, (0, 0, 0, 0) where none does."""
-    rows, cols = np.nonzero(patch.any(axis=1))[0], np.nonzero(patch.any(axis=0))[0]
-    if not len(rows):
-        return 0, 0, 0, 0
-    return int(rows[0]), int(cols[0]), int(rows[-1] - rows[0] + 1), int(cols[-1] - cols[0] + 1)
+def _stroke_table(brushes: np.ndarray, radii=None, fills=None) -> tuple:
+    """(strokes, patches) of BrushLists for (s, bhb, bwb) `brushes` (the
+    native library's brush_stroke_table), the radii and fills written in
+    where given; raises ValueError where a texel lies outside 0..255."""
+    from .. import native_lib
 
-
-def pack_brush_records(brushes, offsets, valid, hp: int, wp: int, points=None, fills=None, radii=None) -> tuple:
-    """brush_stamp's host lists for s strokes of n stamps each over (hp, wp)
-    planes: (stamps, points, strokes, patches), int32 numpy arrays.
-
-      * stamps (s, n, 2): each valid stamp's patch corner (row, col), an
-        invalid one FAR_RECORD (its patch touches no tile);
-      * points (s, n, 2), or None without `points`: each stamp point that
-        lies in the plane (row, col), any other FAR_RECORD, as the JAX
-        package's scatter drops it;
-      * strokes (s, STROKE_WORDS): the nonzero extent of the stroke's patch
-        (patch_extent), its mask radii (wr, hr) from `radii`, the byte offset
-        of its cropped patch in `patches`, 0, its fill's four channels;
-      * patches: the strokes' cropped patches as bytes, four to a word, each
-        distinct patch once.
-
-    `brushes` is (s, bhb, bwb) int32 in 0..255, `offsets` (s, n, 2) patch
-    corners, `valid` (s, n) bool.  Raises ValueError where a valid stamp's
-    (bhb, bwb) patch leaves the plane (the JAX package would clamp it; the
-    host never makes one) or a texel lies outside 0..255."""
-    brushes, offsets, valid = np.asarray(brushes), np.asarray(offsets, np.int64), np.asarray(valid, bool)
-    s, bhb, bwb = brushes.shape
-    if offsets.ndim != 3 or offsets.shape[::2] != (s, 2) or valid.shape != offsets.shape[:2]:
-        raise ValueError(f"brush_stamp: offsets {offsets.shape} and valid {valid.shape} are not (s, n, 2) and "
-                         f"(s, n) for {s} strokes")
-    if brushes.size and (brushes.min() < 0 or brushes.max() > 255):
+    if brushes.dtype != np.int32 and brushes.size and (brushes.min() < 0 or brushes.max() > 255):
         raise ValueError("brush_stamp: a brush texel lies outside 0..255")
-    oy, ox = offsets[..., 0], offsets[..., 1]
-    outside = valid & ((oy < 0) | (ox < 0) | (oy + bhb > hp) | (ox + bwb > wp))
-    if outside.any():
-        si, i = (int(v[0]) for v in np.nonzero(outside))
-        raise ValueError(f"brush_stamp: stroke {si}'s stamp {i} at {tuple(offsets[si, i])} puts its {bhb}x{bwb} "
-                         f"patch outside the {hp}x{wp} plane")
-    stamps = np.where(valid[..., None], offsets, FAR_RECORD).astype(np.int32)
-    strokes = np.zeros((s, STROKE_WORDS), np.int32)
-    blobs, at = {}, 0
-    for k in range(s):
-        ky0, kx0, kh, kw = patch_extent(brushes[k])
-        blob = brushes[k, ky0 : ky0 + kh, kx0 : kx0 + kw].astype(np.uint8).tobytes()
-        if blob not in blobs:
-            blobs[blob] = at
-            at += len(blob)
-        strokes[k, :4] = ky0, kx0, kh, kw
-        strokes[k, 6] = blobs[blob]
+    strokes = np.zeros((brushes.shape[0], STROKE_WORDS), np.int32)
+    patches = native_lib.brush_stroke_table(np.ascontiguousarray(brushes, np.int32), strokes)
     if radii is not None:
         strokes[:, 4:6] = radii
     if fills is not None:
         strokes[:, 8:12] = fills
-    raw = b"".join(blobs)
-    patches = np.frombuffer(raw + bytes(-len(raw) % 4), np.uint8).view(np.int32)
-    packed_points = None
+    return strokes, patches
+
+
+def _stamp_arrays(brushes, offsets, valid) -> tuple:
+    brushes, offsets, valid = np.asarray(brushes), np.asarray(offsets), np.asarray(valid, bool)
+    s = brushes.shape[0]
+    if offsets.ndim != 3 or offsets.shape[::2] != (s, 2) or valid.shape != offsets.shape[:2]:
+        raise ValueError(f"brush_stamp: offsets {offsets.shape} and valid {valid.shape} are not (s, n, 2) and "
+                         f"(s, n) for {s} strokes")
+    return brushes, offsets, valid
+
+
+def _outside(si: int, i: int, offsets, bhb: int, bwb: int, hp: int, wp: int) -> ValueError:
+    return ValueError(f"brush_stamp: stroke {si}'s stamp {i} at {tuple(int(v) for v in offsets[si, i])} puts its "
+                      f"{bhb}x{bwb} patch outside the {hp}x{wp} plane")
+
+
+class BrushLists(NamedTuple):
+    """brush_stamp's host lists for one launch (brush_plane_lists,
+    brush_piece_lists).  Block b owns one BRUSH_BLOCK strip of output: in
+    plane mode strip (b // tiles_x) % strips_y, b % tiles_x of plane b //
+    (strips_y * tiles_x); in piece mode strip b % 8 of piece b // 8.  It
+    reads the lists of its BRUSH_BIN bin: in plane mode the plane's 64x128
+    tile around its strip, in piece mode its piece.
+
+      * ranges (blocks, 4): block b's stamp entries are stamps[ranges[b, 0] :
+        ranges[b, 1]], its point entries points[ranges[b, 2] : ranges[b, 3]]
+        (the blocks of one bin, and of pieces that repeat a window as
+        padding pieces do, share the lists);
+      * stamps: the valid stamps whose patch extent touches the bin, in stamp
+        order, each the extent's top-left corner relative to the bin, packed
+        as row & 0xFFFF | col << 16;
+      * points (piece mode): the stamp points in the plane whose (2 hr + 1) x
+        (2 wr + 1) window touches the bin, in order, each the point relative
+        to the bin, packed the same way;
+      * strokes (s, STROKE_WORDS): the nonzero extent (ky0, kx0, kh, kw) of
+        the stroke's patch, the rows and columns that hold a nonzero texel
+        (all 0 where none does), its mask radii (wr, hr), the byte offset of
+        its cropped patch in `patches`, 0, its fill's four channels;
+      * patches: the strokes' cropped patches as bytes (int32 words), each
+        distinct patch once, each starting on 16 bytes and padded to a
+        multiple of 16 (the kernel stages a patch 16 bytes a copy);
+      * meta: the pieces (piece mode);
+      * patch_smem: the bytes of shared memory a block holds its patch in,
+        the most brush_patch_bytes of a stroke's patch up to
+        BRUSH_PATCH_SMEM (a patch that needs more is read from device
+        memory)."""
+
+    piece: bool
+    shape: tuple
+    hp: int
+    wp: int
+    ranges: np.ndarray
+    stamps: np.ndarray
+    points: np.ndarray
+    strokes: np.ndarray
+    patches: np.ndarray
+    meta: np.ndarray
+    patch_smem: int
+
+
+def _int32(a, what: str) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != np.int32:
+        if a.size and (a.min() < -(2**31) or a.max() >= 2**31):
+            raise ValueError(f"brush_stamp: {what} do not fit in int32")
+        a = a.astype(np.int32)
+    return np.ascontiguousarray(a)
+
+
+def _brush_lists(piece: bool, shape: tuple, brushes, offsets, valid, hp: int, wp: int, points=None, fills=None,
+                 radii=None, meta=None) -> BrushLists:
+    from .. import native_lib
+
+    brushes, offsets, valid = _stamp_arrays(brushes, offsets, valid)
+    s, bhb, bwb = brushes.shape
+    corners = _int32(offsets, "stamp corners")
     if points is not None:
-        pts = np.asarray(points, np.int64)
-        if pts.shape != offsets.shape:
-            raise ValueError(f"brush_stamp: points {pts.shape} are not shaped as the stamps {offsets.shape}")
-        inside = (pts[..., 0] >= 0) & (pts[..., 0] < hp) & (pts[..., 1] >= 0) & (pts[..., 1] < wp)
-        packed_points = np.where(inside[..., None], pts, FAR_RECORD).astype(np.int32)
-    return stamps, packed_points, strokes, patches
+        points = _int32(points, "stamp points")
+        if points.shape != corners.shape:
+            raise ValueError(f"brush_stamp: points {points.shape} are not shaped as the stamps {corners.shape}")
+    strokes, patches = _stroke_table(brushes, radii, fills)
+    if s and 2 * int(strokes[:, 2:6].max()) + 1 >= 2**15 - 256:  # kh, kw; the mask window 2 wr + 1, 2 hr + 1
+        raise ValueError("brush_stamp: a patch or mask window is too large for the kernel's 16-bit entries")
+    sh, sw = BRUSH_BLOCK
+    blocks = BRUSH_TILE[0] // sh * len(meta) if piece else s * -(-hp // sh) * -(-wp // sw)
+    if blocks >= 2**31:
+        raise ValueError(f"brush_stamp: {shape} is beyond the kernel's grid")
+    ranges = np.empty((blocks, 4), np.int32)
+    stamps, point_entries, bad = native_lib.brush_strip_lists(corners, np.ascontiguousarray(valid), points, strokes,
+                                                              bhb, bwb, meta, hp, wp, ranges)
+    if bad is not None:
+        raise _outside(*bad, corners, bhb, bwb, hp, wp)
+    need = [brush_patch_bytes(int(kh), int(kw)) for kh, kw in strokes[:, 2:4] if kh]
+    patch_smem = max([n for n in need if n <= BRUSH_PATCH_SMEM], default=0)
+    return BrushLists(piece, shape, hp, wp, ranges, stamps, point_entries, strokes, patches,
+                      np.zeros((0, 3), np.int32) if meta is None else meta, patch_smem)
 
 
-def _brush_stamp(piece: bool, out, stamps, points, strokes, patches, meta, hp: int, wp: int) -> None:
-    device = out.device
-    s, n = stamps.shape[:2]
-    with torch.cuda.device(device):
-        rc = load()["brush_stamp"](
-            stamps.data_ptr(), points.data_ptr(), strokes.data_ptr(), patches.data_ptr(), meta.data_ptr(),
-            out.data_ptr(), int(piece), s, n, hp, wp, out.shape[0] if piece else 0,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on("brush_stamp", rc)
-    launches["brush_stamp"] += 1
+def brush_patch_bytes(kh, kw):
+    """brush_stamp.cu's patch_bytes: the shared memory a (kh, kw) patch
+    takes, with 8 zero rows above and below it (each pad rounded up to 16
+    bytes), so that a fold reads rows past its edges without a test."""
+    return 2 * (-(-8 * kw // 16) * 16) + -(-kh * kw // 16) * 16
+
+
+def brush_plane_lists(brushes, offsets, valid, hp: int, wp: int) -> BrushLists:
+    """brush_stamp's plane-mode lists: s (hp, wp) alpha planes of the
+    strokes of `brushes` (s, bhb, bwb) int32 in 0..255 stamped at `offsets`
+    (s, n, 2) where `valid` (s, n) holds.  Raises ValueError where a valid
+    stamp's (bhb, bwb) patch leaves the plane (the JAX package would clamp
+    it; the host never makes one) or a texel lies outside 0..255."""
+    if not (0 <= hp and 0 <= wp and hp * wp < 2**31):
+        raise ValueError(f"brush_stamp: planes of {hp}x{wp} are beyond the kernel's grid")
+    return _brush_lists(False, (len(brushes), hp, wp), brushes, offsets, valid, hp, wp)
+
+
+def brush_piece_lists(brushes, offsets, valid, points, fills, radii, meta, hp: int, wp: int) -> BrushLists:
+    """brush_stamp's piece-mode lists: the (pieces, 64, 128) packed block of
+    the windows `meta` (pieces, 3) = (stroke, row, col) of the strokes'
+    (hp, wp) planes (brush_stamp_pieces says what each piece holds; the
+    refusals are brush_plane_lists')."""
+    meta = np.asarray(meta, np.int64).reshape(-1, 3)
+    s = len(brushes)
+    th, tw = BRUSH_TILE
+    bad = (meta[:, 0] < 0) | (meta[:, 0] >= s) | (meta[:, 1] < 0) | (meta[:, 1] + th > hp) | (meta[:, 2] < 0) \
+        | (meta[:, 2] + tw > wp)
+    if bad.any():
+        j = int(np.nonzero(bad)[0][0])
+        raise ValueError(f"brush_stamp: piece {j} {tuple(meta[j])} is not a {th}x{tw} window of one of the {s} "
+                         f"{hp}x{wp} planes")
+    if hp * wp >= 2**31:
+        raise ValueError(f"brush_stamp: {len(meta)} pieces of {hp}x{wp} planes are beyond the kernel's grid")
+    return _brush_lists(True, (len(meta), th, tw), brushes, offsets, valid, hp, wp, points, fills, radii,
+                        meta.astype(np.int32))
+
+
+def brush_list_stats(lists: BrushLists) -> dict:
+    """The blocks of a launch and the entries each reads: the longest and
+    mean stamp list, and the same of the point lists in piece mode."""
+    lengths = lists.ranges[:, 1::2] - lists.ranges[:, 0::2]
+    out = {"blocks": len(lengths), "stamp_list_max": int(lengths[:, 0].max(initial=0)),
+           "stamp_list_mean": float(lengths[:, 0].mean()) if len(lengths) else 0.0}
+    if lists.piece:
+        out.update(point_list_max=int(lengths[:, 1].max(initial=0)),
+                   point_list_mean=float(lengths[:, 1].mean()) if len(lengths) else 0.0)
+    return out
 
 
 def _cuda_device(device, what: str) -> torch.device:
@@ -646,26 +728,57 @@ def _cuda_device(device, what: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device()) if device.index is None else device
 
 
+def stage_brush_lists(lists: BrushLists, device) -> list:
+    """A launch's lists on the card in one staged copy: int32 views
+    (ranges, stamps, points, strokes, patches, meta)."""
+    from ..raster.staging import stage
+
+    return stage(_cuda_device(device, "brush_stamp"), lists.ranges, lists.stamps, lists.points, lists.strokes,
+                 lists.patches, lists.meta)
+
+
+def brush_stamp(lists: BrushLists, staged) -> torch.Tensor:
+    """Launch ``brush_stamp`` over `lists` staged on the card (`staged`,
+    stage_brush_lists'): one block a strip of the output, which is
+    returned ((s, hp, wp) planes, or the (pieces, 64, 128) block)."""
+    ranges, stamps, points, strokes, patches, meta = staged
+    device = ranges.device
+    if device.type != "cuda":
+        raise ValueError(f"brush_stamp needs its lists on a CUDA device, got {device}")
+    out = torch.empty(lists.shape, dtype=torch.int32, device=device)
+    blocks = len(lists.ranges)
+    if blocks == 0 or out.numel() == 0:
+        return out
+    with torch.cuda.device(device):
+        rc = load()["brush_stamp"](
+            ranges.data_ptr(), stamps.data_ptr(), points.data_ptr(), strokes.data_ptr(), patches.data_ptr(),
+            meta.data_ptr(), out.data_ptr(), int(lists.piece), blocks, lists.hp, lists.wp, lists.patch_smem,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on("brush_stamp", rc)
+    launches["brush_stamp"] += 1
+    return out
+
+
+def brush_stamp_blocks_per_sm(piece: bool, patch_smem: int) -> int:
+    """The blocks of a brush_stamp launch one SM holds with `patch_smem`
+    bytes of dynamic shared memory (the occupancy calculator)."""
+    n = load()["brush_stamp_blocks_per_sm"](int(piece), patch_smem)
+    if n < 0:
+        raise RuntimeError(f"brush_stamp_blocks_per_sm: CUDA error {-n}")
+    return n
+
+
 def brush_stamp_planes(brushes, offsets, valid, hp: int, wp: int, device) -> torch.Tensor:
     """Launch ``brush_stamp`` in plane mode: the (s, hp, wp) int32 alpha
     planes of s strokes, each stroke's valid stamps alpha_over-ing its
     (bhb, bwb) patch of `brushes` at `offsets` (s, n, 2) in order (the
     plain version is raster/brush.py _stamp_alpha_torch).  The host lists
-    cross in one staged copy (pack_brush_records; it raises on a valid
-    stamp whose patch leaves the plane)."""
-    from ..raster.staging import stage
-
+    (brush_plane_lists; it raises on a valid stamp whose patch leaves the
+    plane) cross in one staged copy."""
     device = _cuda_device(device, "brush_stamp")
-    s = len(brushes)
-    if not (0 <= s <= 65535 and 0 <= hp and 0 <= wp and hp * wp < 2**31):
-        raise ValueError(f"brush_stamp: {s} planes of {hp}x{wp} are beyond the kernel's grid")
-    stamps, _, strokes, patches = pack_brush_records(brushes, offsets, valid, hp, wp)
-    out = torch.empty((s, hp, wp), dtype=torch.int32, device=device)
-    if out.numel() == 0:
-        return out
-    stamps_d, strokes_d, patches_d = stage(device, stamps, strokes, patches)
-    _brush_stamp(False, out, stamps_d, stamps_d, strokes_d, patches_d, strokes_d, hp, wp)
-    return out
+    lists = brush_plane_lists(brushes, offsets, valid, hp, wp)
+    return brush_stamp(lists, stage_brush_lists(lists, device))
 
 
 def brush_stamp_pieces(brushes, offsets, valid, points, fills, radii, meta, hp: int, wp: int, device) -> torch.Tensor:
@@ -676,28 +789,10 @@ def brush_stamp_pieces(brushes, offsets, valid, points, fills, radii, meta, hp: 
     mask holds (a stamp point of `points` (s, n, 2) within its (wr, hr) of
     `radii` (s, 2)), zero elsewhere (the plain version is
     raster/brush_tiles.py BrushTileBuild._group_block_torch).  The host
-    lists cross in one staged copy."""
-    from ..raster.staging import stage
-
+    lists (brush_piece_lists) cross in one staged copy."""
     device = _cuda_device(device, "brush_stamp")
-    meta = np.asarray(meta, np.int64).reshape(-1, 3)
-    s = len(brushes)
-    th, tw = BRUSH_TILE
-    bad = (meta[:, 0] < 0) | (meta[:, 0] >= s) | (meta[:, 1] < 0) | (meta[:, 1] + th > hp) | (meta[:, 2] < 0) \
-        | (meta[:, 2] + tw > wp)
-    if bad.any():
-        j = int(np.nonzero(bad)[0][0])
-        raise ValueError(f"brush_stamp: piece {j} {tuple(meta[j])} is not a {th}x{tw} window of one of the {s} "
-                         f"{hp}x{wp} planes")
-    if len(meta) >= 2**31 or hp * wp >= 2**31:
-        raise ValueError(f"brush_stamp: {len(meta)} pieces of {hp}x{wp} planes are beyond the kernel's grid")
-    stamps, pts, strokes, patches = pack_brush_records(brushes, offsets, valid, hp, wp, points, fills, radii)
-    out = torch.empty((len(meta), th, tw), dtype=torch.int32, device=device)
-    if not len(meta):
-        return out
-    staged = stage(device, stamps, pts, strokes, patches, meta.astype(np.int32))
-    _brush_stamp(True, out, *staged, hp, wp)
-    return out
+    lists = brush_piece_lists(brushes, offsets, valid, points, fills, radii, meta, hp, wp)
+    return brush_stamp(lists, stage_brush_lists(lists, device))
 
 
 def smear_steps(offsets, dirs, bh: int, bw: int, height: int, width: int) -> np.ndarray:

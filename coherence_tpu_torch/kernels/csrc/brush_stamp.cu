@@ -12,46 +12,57 @@
 // BrushTileBuild._group_block_torch: the plain versions, bit for bit).
 //
 // The function.  Stroke s stamps its brush patch (a (kh, kw) byte plane,
-// the nonzero extent of its (bhb, bwb) patch, at (ky0, kx0) inside it) at
-// each of its stamp records (oy, ox), the patch's top-left corner in plane
-// coordinates, in record order.  A pixel under texel t takes
+// the nonzero extent of its padded patch) at each of its valid stamps, in
+// stamp order.  A pixel under texel t takes
 //   t == 0: unchanged;  t == 255: 255;  else prelerp(p, t, t) =
 //   p + t - (((a >> 8) + a) >> 8) with a = t * p + 128 (colour.py:287),
 // so each pixel's value is a fold over the stamps that cover it, in stamp
-// order, independent of every other pixel.  An invalid stamp is a record
-// far outside every tile (kernels.pack_brush_records).
+// order, independent of every other pixel.
 //   plane mode writes the (s, hp, wp) int32 alpha planes;
-//   piece mode writes piece j of the group's (pieces, 64, 128) block from
-//     meta[j] = (stroke, row, col): the 64x128 window of that stroke's
-//     plane at (row, col), where each pixel is
+//   piece mode writes piece j of the group's (pieces, 64, 128) block, the
+//     64x128 window of its stroke's plane at (row, col) of meta[j], where
+//     each pixel is
 //       mask ? pack(dissolve(fill, alpha)) : 0,
 //     mask: a stamp point (py, px) of the stroke with |y - py| <= hr and
-//     |x - px| <= wr (region._box_count(points plane, wr, hr) > 0; a
-//     dropped point is far outside), dissolve with the 0 / 255 early outs
-//     and div255(i) = (i + (i >> 8) + 1) >> 8, pack the bare OR
-//     r | g << 8 | b << 16 | a << 24.
+//     |x - px| <= wr (region._box_count(points plane, wr, hr) > 0),
+//     dissolve with the 0 / 255 early outs and div255(i) = (i + (i >> 8) +
+//     1) >> 8, pack the bare OR r | g << 8 | b << 16 | a << 24.
 //
 // What bounds it: bytes at the brushes the program uses.  Its output
 // written once (4 bytes a plane pixel or piece pixel) and its lists read
 // once; the stamp-pixel updates (seven int32 operations each) stay under
-// the card's int32 rate.
+// the card's int32 rate.  At the program's shapes even the bytes take a
+// fraction of a launch: a launch is a launch floor plus its slowest
+// block's chain, the fold of the longest list over its pixels.
 //
-// Design.  The walk is independent from pixel to pixel, so one block of 8
-// warps owns one 16x128 strip of output (of a plane, or a quarter of a
-// piece) and holds its pixels in registers: a thread owns 8 rows of one
-// column.  The block streams its stroke's stamp records through shared
-// memory in rounds of 256; each round keeps, in order, the stamps whose
-// patch extent touches the strip (an ordered ballot/popc compaction, as
-// fold_layers.cu culls its layers), then folds that list into every pixel.
-// In piece mode the same round keeps the stamp points whose window touches
-// the strip, and each thread sets the bits of its covered rows.  The patch
-// is staged in shared memory as bytes when it fits kPatchSmem (up to radius
-// 90); a larger patch is read from device memory by the same code.  The
-// first design gave a block a whole 64x128 tile, 32 rows a thread: each
-// thread's chain of listed stamps times rows was four times as long, and
-// the lion-sized planes filled a third of the card's SMs (0.11-0.21 ms at
-// chip_smoke.py's shapes on an NVIDIA H100 80GB HBM3 at 700 W).
+// Design.  A block of 4 warps owns one 8x128 strip of output (of a plane,
+// or an eighth of a piece) and holds its pixels in registers: a thread
+// owns the 8 rows of one column, a warp 8 rows of 32 columns.
+//   * The host bins the records (kernels.brush_plane_lists,
+//     brush_piece_lists, with the native library's brush_strip_lists): the
+//     eight strips of a 64x128 bin (a piece, or a plane's tile) read its
+//     lists, the stamps whose patch extent touches it in stamp order and in
+//     piece mode the stamp points whose mask window touches it, each a
+//     4-byte entry relative to the bin.  The first design read every
+//     record of its stroke in rounds of 256 with an ordered compaction
+//     each.
+//   * The patch is staged into dynamic shared memory, 16 bytes a cp.async,
+//     between 8 zero rows above and below (patch_bytes), sized to the
+//     launch's largest patch while the block reads its lists; a patch that
+//     needs more than kernels.BRUSH_PATCH_SMEM (past radius 230 or so) is
+//     read from device memory, its rows clamped.
+//   * A list entry that misses a warp's 8 x 32 pixels costs the warp one
+//     uniform test.  A stamp's fold makes its eight texel loads (the column
+//     clamped into the patch and masked) before its eight blends, with no
+//     test of a texel: the first design tested each row and each texel, so
+//     that each load waited for the blend before it (600-750 SM cycles a
+//     listed stamp, chip_smoke.py's shapes 0.048-0.075 ms on an NVIDIA
+//     H100 80GB HBM3 at 700 W, the launch's span its longest block's).
+//   * Piece mode builds the mask first; a warp none of whose pixels lies in
+//     the mask skips the fold, a block with no stamp or no point writes
+//     zeros at once.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,27 +70,32 @@ namespace {
 
 constexpr int kTileH = 64;                         // an atlas piece
 constexpr int kTileW = 128;
-constexpr int kStripH = 16;                        // a block's rows: kernels.BRUSH_BLOCK
+constexpr int kStripH = 8;                         // a block's rows: kernels.BRUSH_BLOCK
 constexpr int kStrips = kTileH / kStripH;          // blocks a piece
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;
 constexpr int kRows = kStripH * kTileW / kThreads;  // rows of one column a thread: 8
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = kThreads;                   // list entries a block holds at once
+constexpr int kBatch = 4;                          // stamps a thread folds together
 constexpr int kStrokeWords = 12;                   // kernels.STROKE_WORDS
-constexpr int kPatchSmem = 32768;                  // kernels.BRUSH_PATCH_SMEM
-constexpr int kFar = -(1 << 29);                   // kernels.FAR_RECORD
+constexpr int kPatchSmemMax = 229376;              // kernels.BRUSH_PATCH_SMEM
 static_assert(kRows <= 32, "a thread's covered rows are the bits of one word");
 static_assert(kThreads % kTileW == 0 && kTileH % kStripH == 0, "threads split a strip's columns evenly");
+static_assert(kPatchSmemMax + (2 + kWarps) * kChunk * 4 <= 232448, "the patch and the lists fit a block's shared memory");
+static_assert(kChunk % kBatch == 0, "a warp's list is read kBatch entries at a time");
+static_assert(kPatchSmemMax % 16 == 0, "the patch is staged 16 bytes a copy");
 
 struct Params {
-  const int2* stamps;            // (s, n) patch corners (row, col)
-  const int2* points;            // (s, n) stamp points (row, col); piece mode
+  const int4* ranges;            // (blocks): each block's stamp entries [x, y) and point entries [z, w)
+  const int* stamps;             // stamp entries: patch extent corner - bin origin, row & 0xFFFF | col << 16
+  const int* points;             // point entries (piece mode): point - bin origin, packed the same way
   const int* strokes;            // (s, kStrokeWords): ky0, kx0, kh, kw, wr, hr, patch byte offset, 0, fill rgba
-  const unsigned char* patches;  // every stroke's (kh, kw) patch bytes
+  const unsigned char* patches;  // every stroke's (kh, kw) patch bytes, each on 16 bytes
   const int* meta;               // (pieces, 3) (stroke, row, col); piece mode
   int* out;
-  int n;                         // records a stroke
   int hp, wp;                    // the planes
-  int tiles_x;                   // plane mode: tiles across a plane
+  int tiles_x, strips_y;         // plane mode: strips across and down a plane
+  int patch_smem;                // dynamic shared memory: a patch of more bytes is read from device memory
 };
 
 __device__ __forceinline__ int wrap(uint32_t v) { return static_cast<int>(v); }
@@ -98,101 +114,176 @@ __device__ __forceinline__ int dissolve(int c, int d) {
   return d == 0 ? 0 : d == 255 ? c : div255(wrap(static_cast<uint32_t>(c) * static_cast<uint32_t>(d)));
 }
 
-// Appends this round's records whose `keep` is set to `list`, in thread
-// (record) order; returns how many there are.  The caller syncs before
-// reading the list.
-__device__ __forceinline__ int compact(bool keep, int2 rec, int2* list, int* counts) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) counts[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = counts[w];
-    before += w < warp ? c : 0;
-    total += c;
+// An entry's row and column (signed 16-bit halves).
+__device__ __forceinline__ int entry_row(int e) { return static_cast<int16_t>(e & 0xFFFF); }
+__device__ __forceinline__ int entry_col(int e) { return e >> 16; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// The bytes of shared memory a (kh, kw) patch takes: kRows zero rows above
+// and below it (each pad rounded up to 16 bytes), so that a fold reads
+// rows past the patch's edges without a test (kernels.brush_patch_bytes).
+__host__ __device__ __forceinline__ int patch_pad(int kw) { return (kRows * kw + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ int patch_bytes(int kh, int kw) { return 2 * patch_pad(kw) + (kh * kw + 15) / 16 * 16; }
+
+// Keeps, in order, the entries of list[0, m) that hit this warp's pixels
+// (`hits`, the same for every lane) in the warp's own list `mine`, 32 tests
+// at a time; returns how many it kept.
+template <class Hits>
+__device__ __forceinline__ int keep_hits(const int* list, int m, int* mine, Hits hits) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the warp is done with what `mine` held
+  int n = 0;
+  for (int i = 0; i < m; i += 32) {
+    const int e = i + lane < m ? list[i + lane] : 0;
+    const bool hit = i + lane < m && hits(e);
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (hit) mine[n + __popc(ballot & ((1u << lane) - 1u))] = e;
+    n += __popc(ballot);
   }
-  if (keep) list[before + __popc(ballot & ((1u << lane) - 1u))] = rec;
-  return total;
+  __syncwarp();
+  return n;
+}
+
+// kBatch stamps of the warp's list (entries e, the first `live` of them
+// real) into a thread's column, in order: every texel load first, then
+// every blend.  A stamp's texels are those of patch column col - (its
+// column), clamped into the patch and masked, rows r0 - (its row) and on;
+// outside the patch they count as 0 (prelerp(p, 0) == p and prelerp(p,
+// 255) == 255 for p in 0..255, so no texel needs a test).  The rows are
+// clamped too where kClampRows, else the patch has kRows zero rows above
+// and below (a stamp in the warp's list covers one of its rows).
+template <bool kClampRows>
+__device__ __forceinline__ void fold(int (&alpha)[kRows], const unsigned char* texels, int4 e, int live, int col,
+                                     int r0, int kh, int kw) {
+  const int entries[kBatch] = {e.x, e.y, e.z, e.w};
+  int t[kBatch][kRows];
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    const int kx = col - entry_col(entries[q]), ky = q < live ? r0 - entry_row(entries[q]) : 0;
+    const int inside = q < live && static_cast<unsigned>(kx) < static_cast<unsigned>(kw) ? 0xFF : 0;
+    const unsigned char* column = texels + min(max(kx, 0), kw - 1);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      if constexpr (kClampRows) {
+        const int row = ky + j;
+        t[q][j] = column[min(max(row, 0), kh - 1) * kw] &
+                  (static_cast<unsigned>(row) < static_cast<unsigned>(kh) ? inside : 0);
+      } else {
+        t[q][j] = column[(ky + j) * kw] & inside;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) alpha[j] = prelerp(alpha[j], t[q][j]);
+  }
+}
+
+// The block's stamp entries [first, end), in order, folded into its
+// threads' columns, a chunk at a time: each warp keeps the entries that hit
+// its kRows x 32 pixels in its own list, then folds them kBatch at a time.
+// A thread's rows start at row r0 of the bin the entries are relative to.
+// `folds`: whether the warp folds at all (warp-uniform).
+template <bool kClampRows>
+__device__ __forceinline__ void walk(int (&alpha)[kRows], int* list, int* mine, const int* stamps, int first, int end,
+                                     const unsigned char* texels, int kh, int kw, int col, int r0, bool folds) {
+  const int wx = col & ~31;  // this warp's first column
+  for (int base = first; base < end; base += kChunk) {
+    const int m = min(kChunk, end - base);
+    if (threadIdx.x < m) list[threadIdx.x] = stamps[base + threadIdx.x];
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (folds) {
+      const int n = keep_hits(list, m, mine, [&](int e) {
+        const int ry = entry_row(e), rx = entry_col(e);
+        return ry < r0 + kRows && ry + kh > r0 && rx < wx + 32 && rx + kw > wx;
+      });
+      for (int k = 0; k < n; k += kBatch) {
+        fold<kClampRows>(alpha, texels, *reinterpret_cast<const int4*>(mine + k), n - k, col, r0, kh, kw);
+      }
+    }
+    __syncthreads();  // the next chunk takes this one's place
+  }
 }
 
 template <bool kPiece>
 __global__ void __launch_bounds__(kThreads) brush_stamp_kernel(Params p) {
-  __shared__ unsigned char patch_s[kPatchSmem];
-  __shared__ int2 stamp_list[kThreads];
-  __shared__ int2 point_list[kPiece ? kThreads : 1];
-  __shared__ int counts[2][kWarps];
+  extern __shared__ __align__(16) unsigned char patch_s[];
+  __shared__ int stamp_list[kChunk];
+  __shared__ int point_list[kPiece ? kChunk : 1];
+  __shared__ __align__(16) int warp_lists[kWarps][kChunk];  // each warp's hits
+  int* mine = warp_lists[threadIdx.x >> 5];
 
-  int si, ty0, tx0;  // this block's strip: kStripH x kTileW pixels of plane si at (ty0, tx0)
+  const int b = blockIdx.x;
+  int si, ty0, tx0, sub;  // this block's strip: kStripH x kTileW pixels of plane si at (ty0, tx0), row sub of its bin
   if constexpr (kPiece) {
-    const int* m = p.meta + 3 * static_cast<long>(blockIdx.x / kStrips);
-    si = m[0], ty0 = m[1] + (blockIdx.x % kStrips) * kStripH, tx0 = m[2];
+    const int* m = p.meta + 3 * static_cast<long>(b / kStrips);
+    sub = (b % kStrips) * kStripH, si = m[0], ty0 = m[1] + sub, tx0 = m[2];
   } else {
-    si = blockIdx.y;
-    ty0 = (blockIdx.x / p.tiles_x) * kStripH;
-    tx0 = (blockIdx.x % p.tiles_x) * kTileW;
+    const int per_plane = p.strips_y * p.tiles_x, at = b % per_plane, strip = at / p.tiles_x;
+    sub = strip % kStrips * kStripH, si = b / per_plane, ty0 = strip * kStripH, tx0 = (at % p.tiles_x) * kTileW;
   }
-  const int* st = p.strokes + si * kStrokeWords;
-  const int ky0 = st[0], kx0 = st[1], kh = st[2], kw = st[3], wr = st[4], hr = st[5];
-  const unsigned char* texels = p.patches + st[6];
-  if (kh * kw <= kPatchSmem) {  // the same for every thread of the block
-    for (int i = threadIdx.x; i < kh * kw; i += kThreads) patch_s[i] = texels[i];
-    texels = patch_s;  // read after the first round's sync
-  }
-
+  const int4 lists = p.ranges[b];
   const int col = threadIdx.x % kTileW, r0 = (threadIdx.x / kTileW) * kRows;
-  const int x = tx0 + col, y0 = ty0 + r0;
+  const int rb = sub + r0;  // this thread's first row in its bin, where the entries are
+  const int wx = col & ~31;  // this warp's first column
   int alpha[kRows];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) alpha[j] = 0;
-  uint32_t covered = 0;  // piece mode: bit j says that row y0 + j lies in the stroke's mask
-  const int2* stamps = p.stamps + static_cast<long>(si) * p.n;
-  const int2* points = p.points + static_cast<long>(si) * p.n;
+  uint32_t covered = kPiece ? 0u : ~0u;  // piece mode: bit j says that row r0 + j lies in the stroke's mask
+  const int* st = p.strokes + si * kStrokeWords;
 
-  for (int base = 0; base < p.n; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int2 s = i < p.n ? stamps[i] : make_int2(kFar, kFar);
-    const int sy = s.x + ky0, sx = s.y + kx0;
-    const bool hit = sy < ty0 + kStripH && sy + kh > ty0 && sx < tx0 + kTileW && sx + kw > tx0;
-    const int m = compact(hit, s, stamp_list, counts[0]);
-    int mp = 0;
-    if constexpr (kPiece) {
-      const int2 q = i < p.n ? points[i] : make_int2(kFar, kFar);
-      const bool near = q.x - hr < ty0 + kStripH && q.x + hr >= ty0 && q.y - wr < tx0 + kTileW && q.y + wr >= tx0;
-      mp = compact(near, q, point_list, counts[1]);
+  // Block-uniform: a piece strip with no stamp or no point is zero.
+  if (lists.x < lists.y && (!kPiece || lists.z < lists.w)) {
+    const int kh = st[2], kw = st[3];
+    const unsigned char* texels = p.patches + st[6];
+    const bool shared = patch_bytes(kh, kw) <= p.patch_smem;  // the same for every thread of the block
+    if (shared) {  // zero pads around the patch, staged 16 bytes a copy
+      const int pad = patch_pad(kw), body = (kh * kw + 15) / 16;
+      for (int i = threadIdx.x; i < body; i += kThreads) cp_async16(patch_s + pad + 16 * i, texels + 16 * i);
+      asm volatile("cp.async.commit_group;\n" ::);
+      for (int i = threadIdx.x; i < pad / 8; i += kThreads) {
+        const int at = i < pad / 16 ? 16 * i : pad + 16 * body + 16 * (i - pad / 16);
+        *reinterpret_cast<int4*>(patch_s + at) = make_int4(0, 0, 0, 0);
+      }
     }
-    __syncthreads();
-
-    // The listed stamps, in order, into this thread's column.
-    for (int k = 0; k < m; ++k) {
-      const int2 o = stamp_list[k];
-      const int kx = x - o.y - kx0;
-      if (static_cast<unsigned>(kx) >= static_cast<unsigned>(kw)) continue;
-      const int ky = y0 - o.x - ky0;  // the patch row of this thread's row 0
-      const unsigned char* column = texels + kx;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (static_cast<unsigned>(ky + j) < static_cast<unsigned>(kh)) {
-          const int t = column[(ky + j) * kw];
-          if (t != 0) alpha[j] = t == 255 ? 255 : prelerp(alpha[j], t);
+    if constexpr (kPiece) {
+      const int wr = st[4], hr = st[5];
+      for (int base = lists.z; base < lists.w; base += kChunk) {
+        const int m = min(kChunk, lists.w - base);
+        if (threadIdx.x < m) point_list[threadIdx.x] = p.points[base + threadIdx.x];
+        __syncthreads();
+        const int n = keep_hits(point_list, m, mine, [&](int e) {
+          const int py = entry_row(e), px = entry_col(e);
+          return py - hr < rb + kRows && py + hr >= rb && px - wr < wx + 32 && px + wr >= wx;
+        });
+        for (int k = 0; k < n; ++k) {
+          const int e = mine[k];
+          const int py = entry_row(e), px = entry_col(e);
+          const int lo = max(py - hr - rb, 0), hi = min(py + hr - rb, kRows - 1);
+          if (abs(col - px) <= wr) covered |= (0xffffffffu >> (31 - (hi - lo))) << lo;  // bits lo..hi
         }
+        __syncthreads();  // the next chunk takes this one's place
       }
     }
-    if constexpr (kPiece) {
-      for (int k = 0; k < mp; ++k) {
-        const int2 q = point_list[k];
-        if (abs(x - q.y) > wr) continue;
-        const int lo = max(q.x - hr - y0, 0), hi = min(q.x + hr - y0, kRows - 1);
-        if (lo <= hi) covered |= (0xffffffffu >> (31 - (hi - lo))) << lo;  // bits lo..hi
-      }
+    const bool folds = __any_sync(0xffffffffu, covered != 0);  // warp-uniform
+    if (shared) {
+      walk<false>(alpha, stamp_list, mine, p.stamps, lists.x, lists.y, patch_s + patch_pad(kw), kh, kw, col, rb, folds);
+    } else {
+      walk<true>(alpha, stamp_list, mine, p.stamps, lists.x, lists.y, texels, kh, kw, col, rb, folds);
     }
-    __syncthreads();  // the next round's lists take these ones' place
   }
 
+  const int x = tx0 + col, y0 = ty0 + r0;
   if constexpr (kPiece) {
-    const int fr = st[8], fg = st[9], fb = st[10], fa = st[11];
-    int* out = p.out + static_cast<long>(blockIdx.x) * kStripH * kTileW + r0 * kTileW + col;
+    int fr = 0, fg = 0, fb = 0, fa = 0;
+    if (covered) fr = st[8], fg = st[9], fb = st[10], fa = st[11];
+    int* out = p.out + static_cast<long>(b) * kStripH * kTileW + r0 * kTileW + col;
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       uint32_t v = 0;
@@ -213,24 +304,62 @@ __global__ void __launch_bounds__(kThreads) brush_stamp_kernel(Params p) {
   }
 }
 
+// Lets brush_stamp_kernel<kPiece> take up to kPatchSmemMax bytes of dynamic
+// shared memory on the current device: by default a kernel takes at most
+// 48 KB less its static shared memory.  The attribute belongs to the
+// device's context, so it is set once a device and mode.
+constexpr int kMaxDevices = 64;
+
+template <bool kPiece>
+cudaError_t allow() {
+  static std::atomic<bool> done[kMaxDevices];
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess || (device < kMaxDevices && done[device].load(std::memory_order_acquire))) return rc;
+  rc = cudaFuncSetAttribute(brush_stamp_kernel<kPiece>, cudaFuncAttributeMaxDynamicSharedMemorySize, kPatchSmemMax);
+  if (rc == cudaSuccess && device < kMaxDevices) done[device].store(true, std::memory_order_release);
+  return rc;
+}
+
+template <bool kPiece>
+int launch(const Params& p, int blocks, cudaStream_t stream) {
+  const cudaError_t rc = allow<kPiece>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  brush_stamp_kernel<kPiece><<<blocks, kThreads, p.patch_smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPiece>
+int blocks_per_sm(int bytes) {
+  int n = 0;
+  cudaError_t rc = allow<kPiece>();
+  if (rc == cudaSuccess) rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, brush_stamp_kernel<kPiece>, kThreads, bytes);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError().  Plane mode
-// (piece == 0): one block per 16x128 strip of each of the s planes, into
-// the (s, hp, wp) `out`.  Piece mode: four blocks per piece of `meta`,
-// into the (pieces, 64, 128) `out`.
-extern "C" int brush_stamp(const void* stamps, const void* points, const void* strokes, const void* patches,
-                           const void* meta, void* out, int piece, int s, int n, int hp, int wp, int pieces,
-                           void* stream) {
-  const int tiles_x = (wp + kTileW - 1) / kTileW, strips_y = (hp + kStripH - 1) / kStripH;
-  const Params p{static_cast<const int2*>(stamps), static_cast<const int2*>(points), static_cast<const int*>(strokes),
-                 static_cast<const unsigned char*>(patches), static_cast<const int*>(meta), static_cast<int*>(out), n,
-                 hp, wp, tiles_x};
+// Launches on `stream` and returns the first CUDA error, 0 if none.  One
+// block per 8x128 strip: in plane mode each strip of each of the (hp, wp)
+// planes, plane-major and row-major within a plane, into the (s, hp, wp)
+// `out`; in piece mode eight a piece of `meta`, into the (pieces, 64, 128)
+// `out`.  `patch_smem` bytes of dynamic shared memory a block (a multiple of
+// 16, at most kPatchSmemMax).
+extern "C" int brush_stamp(const void* ranges, const void* stamps, const void* points, const void* strokes,
+                           const void* patches, const void* meta, void* out, int piece, int blocks, int hp, int wp,
+                           int patch_smem, void* stream) {
+  if (patch_smem < 0 || patch_smem > kPatchSmemMax || patch_smem % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const int4*>(ranges), static_cast<const int*>(stamps), static_cast<const int*>(points),
+                 static_cast<const int*>(strokes), static_cast<const unsigned char*>(patches),
+                 static_cast<const int*>(meta), static_cast<int*>(out), hp, wp, (wp + kTileW - 1) / kTileW,
+                 (hp + kStripH - 1) / kStripH, patch_smem};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (piece) {
-    brush_stamp_kernel<true><<<pieces * kStrips, kThreads, 0, st>>>(p);
-  } else {
-    brush_stamp_kernel<false><<<dim3(tiles_x * strips_y, s), kThreads, 0, st>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return piece ? launch<true>(p, blocks, st) : launch<false>(p, blocks, st);
+}
+
+// The blocks of a launch that one SM holds with `patch_smem` bytes of
+// dynamic shared memory (the occupancy calculator), in piece or plane mode;
+// minus the CUDA error where the query fails.
+extern "C" int brush_stamp_blocks_per_sm(int piece, int patch_smem) {
+  return piece ? blocks_per_sm<true>(patch_smem) : blocks_per_sm<false>(patch_smem);
 }

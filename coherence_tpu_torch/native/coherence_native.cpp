@@ -2,7 +2,9 @@
 // entry-point families of coherence_tpu/native/coherence_native.cpp that
 // the port calls (blit_masked_rgb, bezier_subdivide_batch, edge_spans_*,
 // expand_1x_*, expand_aa_*, jbig2_generic_region): the last five
-// unchanged, the blit taking its sprite as one uint8 plane.
+// unchanged, the blit taking its sprite as one uint8 plane; and the port's
+// own brush_stroke_table and brush_strip_lists, the host lists of the
+// brush_stamp kernel.
 //
 // The bezier subdivision and the scanline sweep are the per-scene host
 // geometry stage (polygon.ml:107-127 subdivision, polygon.ml:306-512 sweep):
@@ -542,6 +544,246 @@ int32_t jbig2_generic_region(const uint8_t* data, int64_t len,
     }
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// brush_stamp's stroke table (kernels/csrc/brush_stamp.cu; called by
+// kernels.brush_plane_lists and brush_piece_lists).  For s (bhb, bwb) int32
+// brushes: strokes[k * stroke_words + 0 .. 3] = the nonzero extent (ky0,
+// kx0, kh, kw) of brush k, the rows and columns that hold a nonzero texel
+// (all 0 where none does), and [6] the byte offset of its cropped (kh, kw)
+// patch in `patches`: each distinct crop once, in stroke order, on 16 bytes
+// and zero-padded to a multiple of 16 (the kernel stages a patch 16 bytes a
+// copy).  `patches` holds at least s * bhb * bwb rounded up to 16 bytes a
+// stroke.  Returns the bytes of `patches` used, or -1 where a texel lies
+// outside 0..255 (nothing else is written then).
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int64_t brush_stroke_table(const int32_t* brushes, int32_t s, int32_t bhb, int32_t bwb, int32_t* strokes,
+                           int32_t stroke_words, uint8_t* patches) {
+  const int64_t plane = (int64_t)bhb * bwb;
+  uint32_t bits = 0;  // a texel outside 0..255 sets a bit above the low 8 (one pass with no branch)
+  for (int64_t q = 0; q < s * plane; ++q) bits |= (uint32_t)brushes[q];
+  if (bits > 255u) return -1;
+  thread_local std::vector<int32_t> cols;  // each column's OR over the rows
+  int64_t used = 0;
+  for (int32_t k = 0; k < s; ++k) {
+    const int32_t* b = brushes + k * plane;
+    int32_t y0 = bhb, y1 = -1, x0 = 0, x1 = bwb - 1;
+    cols.assign((size_t)bwb, 0);
+    int32_t* col = cols.data();
+    for (int32_t y = 0; y < bhb; ++y) {
+      const int32_t* row = b + (int64_t)y * bwb;
+      int32_t any = 0;
+      for (int32_t x = 0; x < bwb; ++x) any |= row[x], col[x] |= row[x];
+      if (any) y0 = std::min(y0, y), y1 = y;
+    }
+    while (x0 < bwb && !col[x0]) ++x0;
+    while (x1 > x0 && !col[x1]) --x1;
+    int32_t* st = strokes + (int64_t)k * stroke_words;
+    const int32_t kh = y1 < 0 ? 0 : y1 - y0 + 1, kw = y1 < 0 ? 0 : x1 - x0 + 1;
+    st[0] = kh ? y0 : 0, st[1] = kh ? x0 : 0, st[2] = kh, st[3] = kw;
+    uint8_t* crop = patches + used;  // written at the end, kept only if no earlier crop equals it
+    for (int32_t y = 0; y < kh; ++y) {
+      for (int32_t x = 0; x < kw; ++x) crop[(int64_t)y * kw + x] = (uint8_t)b[(int64_t)(y0 + y) * bwb + x0 + x];
+    }
+    const int64_t bytes = (int64_t)kh * kw, padded = (bytes + 15) / 16 * 16;
+    std::memset(crop + bytes, 0, (size_t)(padded - bytes));
+    int64_t at = used;
+    for (int32_t j = 0; j < k; ++j) {  // an earlier stroke's crop of the same shape and bytes
+      const int32_t* sj = strokes + (int64_t)j * stroke_words;
+      if (sj[2] == kh && sj[3] == kw && std::memcmp(patches + sj[6], crop, (size_t)bytes) == 0) {
+        at = sj[6];
+        break;
+      }
+    }
+    st[6] = (int32_t)at;
+    if (at == used) used += padded;
+  }
+  return used;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// brush_stamp's lists (kernels/csrc/brush_stamp.cu; called by
+// kernels.brush_plane_lists and brush_piece_lists).  The blocks of a launch
+// each own an 8x128 strip of a 64x128 bin, and read the bin's lists: with
+// meta == nullptr (plane mode) block b owns strip (b / tiles_x) % strips_y,
+// b % tiles_x of plane b / (strips_y * tiles_x), its bin the plane's
+// 64x128 tile around it; else (piece mode) strip b % 8 of the window
+// meta[b / 8] = (stroke, row, col), its bin the window.  Stroke k's stamp i
+// is (row, col) = corners[k, i], used where valid[k, i]; its window is the
+// stroke's patch extent (kh, kw) at the corner plus (ky0, kx0) (strokes:
+// brush_stroke_table).  Its stamp point points[k, i] (points ==
+// nullptr: none), used where it lies in the (hp, wp) plane, has the (2 hr +
+// 1) x (2 wr + 1) window around it.
+//
+// A bin's stamp list holds the stamps whose window touches it, in stamp
+// order, each as its entry: the window's corner relative to the bin, row &
+// 0xFFFF | col << 16; its point list likewise the points, each the point
+// relative to the bin.  Blocks in one bin (its eight strips; padding pieces
+// repeat a window) share its lists.  Writes the stamp lists, then the point
+// lists, to `entries`, and for each of the ranges_rows blocks b
+// ranges[4 * b .. 4 * b + 3] = (first, end) of its stamp list and (first,
+// end) of its point list, point entries counted from the first point
+// entry; `counts` = (stamp entries, point entries).  The entries are
+// written only when they number at most `cap`.  Returns their number; -1
+// on bad arguments (ranges_rows not the launch's blocks among them); -2 -
+// (k * n + i) for the first valid stamp whose (bhb, bwb) padded patch
+// leaves the plane.
+//
+// The bins of one alignment (row mod 64, col mod 128) lie on a grid, and
+// each bin a block reads gets a list number: every record visits only the
+// grid cells its window covers, keeping (list, entry) pairs in record
+// order, and a counting sort places them list by list.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int64_t brush_strip_lists(const int32_t* corners, const uint8_t* valid, const int32_t* points, int32_t s, int32_t n,
+                          const int32_t* strokes, int32_t stroke_words, int32_t bhb, int32_t bwb, const int32_t* meta,
+                          int64_t pieces, int32_t hp, int32_t wp, int32_t* ranges, int64_t ranges_rows, int64_t* counts,
+                          int32_t* entries, int64_t cap) {
+  constexpr int kSh = 6, kSw = 7;  // a bin: 2^6 rows, 2^7 columns (kernels.BRUSH_BIN)
+  constexpr int32_t kStripH = 8, kStrips = 8;  // a block's strip (kernels.BRUSH_BLOCK); strips a bin
+  if (s < 0 || n < 0 || pieces < 0 || hp < 0 || wp < 0) return -1;
+  const int32_t last_y = hp - bhb, last_x = wp - bwb;  // a valid corner lies in 0..last
+  const auto outside = [&](int64_t q) {
+    return valid[q] & ((uint32_t)corners[2 * q] > (uint32_t)last_y | (uint32_t)corners[2 * q + 1] > (uint32_t)last_x |
+                       (last_y < 0) | (last_x < 0));
+  };
+  int any_outside = 0;  // one pass with no branch, then the first at fault
+  for (int64_t q = 0; q < (int64_t)s * n; ++q) any_outside |= outside(q);
+  for (int64_t q = 0; any_outside && q < (int64_t)s * n; ++q) {
+    if (outside(q)) return -2 - q;
+  }
+  const int32_t strips_y = (hp + kStripH - 1) / kStripH, tiles_x = (wp + (1 << kSw) - 1) >> kSw;
+  const int32_t bins_y = (strips_y + kStrips - 1) / kStrips;
+  const int64_t blocks = meta ? pieces * kStrips : (int64_t)s * strips_y * tiles_x;
+  const int64_t bins = meta ? pieces : (int64_t)s * bins_y * tiles_x;
+  if (blocks != ranges_rows) return -1;
+  // Scratch kept from call to call (a build makes many launches): no allocation once it has grown.
+  struct Grid { int32_t gy, gx, rows, cols; std::vector<int32_t> cell_list; };
+  thread_local std::vector<int32_t> bs_, by_, bx_, grid_of_, list_of_, list_y_, list_x_, pairs_;
+  thread_local std::vector<int64_t> start_;
+  thread_local std::vector<Grid> grids_;
+  // Bound once: each use of a thread_local itself looks its address up.
+  std::vector<int32_t> &bs = bs_, &by = by_, &bx = bx_, &grid_of = grid_of_, &list_of = list_of_, &list_y = list_y_,
+                       &list_x = list_x_, &pairs = pairs_;
+  std::vector<int64_t>& start = start_;
+  std::vector<Grid>& grids = grids_;
+  bs.resize((size_t)bins), by.resize((size_t)bins), bx.resize((size_t)bins);  // each bin's plane and corner
+  for (int64_t k = 0; k < bins; ++k) {
+    if (meta) {
+      bs[k] = meta[3 * k], by[k] = meta[3 * k + 1], bx[k] = meta[3 * k + 2];
+    } else {
+      const int64_t at = k % ((int64_t)bins_y * tiles_x);
+      bs[k] = (int32_t)(k / ((int64_t)bins_y * tiles_x)), by[k] = (int32_t)(at / tiles_x << kSh);
+      bx[k] = (int32_t)(at % tiles_x << kSw);
+    }
+    if (bs[k] < 0 || bs[k] >= s) return -1;
+  }
+  // Each alignment's grid; cell_list[cell] the list of the bin there, else -1 (bins that repeat a window share it).
+  grids.clear(), list_y.clear(), list_x.clear();
+  grid_of.resize((size_t)bins), list_of.resize((size_t)bins);
+  for (int64_t k = 0; k < bins; ++k) {
+    const int32_t gy = by[k] & ((1 << kSh) - 1), gx = bx[k] & ((1 << kSw) - 1);
+    size_t g = 0;
+    while (g < grids.size() && (grids[g].gy != gy || grids[g].gx != gx)) ++g;
+    if (g == grids.size()) grids.push_back({gy, gx, 0, 0, {}});
+    grid_of[k] = (int32_t)g;
+    grids[g].rows = std::max(grids[g].rows, ((by[k] - gy) >> kSh) + 1);
+    grids[g].cols = std::max(grids[g].cols, ((bx[k] - gx) >> kSw) + 1);
+  }
+  for (Grid& g : grids) g.cell_list.assign((size_t)s * g.rows * g.cols, -1);
+  for (int64_t k = 0; k < bins; ++k) {
+    Grid& g = grids[(size_t)grid_of[k]];
+    int32_t& list = g.cell_list[((size_t)bs[k] * g.rows + ((by[k] - g.gy) >> kSh)) * g.cols + ((bx[k] - g.gx) >> kSw)];
+    if (list < 0) {
+      list = (int32_t)list_y.size();
+      list_y.push_back(by[k]), list_x.push_back(bx[k]);
+    }
+    list_of[k] = list;
+  }
+  thread_local std::vector<int32_t> block_list_;  // the list block b reads, its bin's (no division a block)
+  std::vector<int32_t>& block_list = block_list_;
+  block_list.resize((size_t)blocks);
+  if (meta) {
+    for (int64_t b = 0; b < blocks; ++b) block_list[(size_t)b] = list_of[(size_t)(b / kStrips)];
+  } else {
+    int32_t* out = block_list.data();
+    for (int32_t k = 0; k < s; ++k) {
+      for (int32_t sy = 0; sy < strips_y; ++sy) {
+        const int32_t* bin_row = list_of.data() + ((int64_t)k * bins_y + sy / kStrips) * tiles_x;
+        out = std::copy(bin_row, bin_row + tiles_x, out);
+      }
+    }
+  }
+  const size_t lists = list_y.size();
+  start.assign(2 * (lists + 1), 0);  // per kind: at[l + 1] counts list l, then at[l] is its first entry
+  if (pairs.size() < (size_t)8 * s * n + 64) pairs.resize((size_t)8 * s * n + 64);  // (list, entry) in record order
+  size_t used = 0, kind_end[2] = {0, 0};
+  const int32_t *ly = list_y.data(), *lx = list_x.data();
+  for (int kind = 0; kind < 2; ++kind) {
+    const int32_t* records = kind ? points : corners;
+    int64_t* at = start.data() + kind * (lists + 1);
+    for (int32_t k = 0; records && k < s; ++k) {
+      const int32_t* st = strokes + (int64_t)k * stroke_words;
+      const int32_t dy = kind ? -st[5] : st[0], dx = kind ? -st[4] : st[1];  // record to window corner
+      const int32_t h = kind ? 2 * st[5] + 1 : st[2], w = kind ? 2 * st[4] + 1 : st[3];
+      if (h <= 0 || w <= 0) continue;
+      const int32_t* rec = records + 2 * (int64_t)k * n;
+      const uint8_t* ok = valid + (int64_t)k * n;
+      for (const Grid& g : grids) {
+        const int32_t* cells = g.cell_list.data() + (size_t)k * g.rows * g.cols;
+        const int32_t last_row = g.rows - 1, last_col = g.cols - 1, gy = g.gy - dy, gx = g.gx - dx;
+        if (used + 8 * (size_t)n + 8 > pairs.size()) pairs.resize(2 * pairs.size() + 8 * (size_t)n + 8);
+        for (int32_t i = 0; i < n; ++i) {
+          const int32_t ry = rec[2 * i], rx = rec[2 * i + 1];
+          if (kind ? (uint32_t)ry >= (uint32_t)hp || (uint32_t)rx >= (uint32_t)wp : !ok[i]) continue;
+          const int32_t ey = ry + (kind ? 0 : dy), ex = rx + (kind ? 0 : dx);  // what the entry holds
+          const int32_t r0 = std::max((ry - gy) >> kSh, 0), r1 = std::min((ry - gy + h - 1) >> kSh, last_row);
+          const int32_t c0 = std::max((rx - gx) >> kSw, 0), c1 = std::min((rx - gx + w - 1) >> kSw, last_col);
+          if (r0 > r1 || c0 > c1) continue;
+          const size_t most = 2 * (size_t)(r1 - r0 + 1) * (size_t)(c1 - c0 + 1);
+          if (used + most > pairs.size()) pairs.resize(2 * pairs.size() + most);
+          int32_t* out = pairs.data() + used;
+          for (int32_t gr = r0; gr <= r1; ++gr) {
+            const int32_t* row = cells + gr * g.cols;
+            for (int32_t gc = c0; gc <= c1; ++gc) {
+              const int32_t list = row[gc], l = std::max(list, 0);
+              out[0] = list;
+              out[1] = (int32_t)(((uint32_t)(ey - ly[l]) & 0xFFFFu) | ((uint32_t)(ex - lx[l]) << 16));
+              ++at[list + 1];  // at[0] counts the cells no block owns
+              out += 2 * (list >= 0);
+            }
+          }
+          used = (size_t)(out - pairs.data());
+        }
+      }
+    }
+    at[0] = 0;
+    for (size_t l = 0; l < lists; ++l) at[l + 1] += at[l];
+    for (int64_t b = 0; b < blocks; ++b) {
+      const int32_t list = block_list[(size_t)b];
+      ranges[4 * b + 2 * kind] = (int32_t)at[list], ranges[4 * b + 2 * kind + 1] = (int32_t)at[list + 1];
+    }
+    kind_end[kind] = used / 2;
+  }
+  counts[0] = (int64_t)kind_end[0], counts[1] = (int64_t)(kind_end[1] - kind_end[0]);
+  const int64_t total = (int64_t)(used / 2);
+  if (total > cap) return total;
+  for (int kind = 0; kind < 2; ++kind) {
+    int64_t* at = start.data() + kind * (lists + 1);
+    int32_t* out = entries + (kind ? kind_end[0] : 0);
+    for (size_t q = kind ? kind_end[0] : 0; q < kind_end[kind]; ++q) out[at[pairs[2 * q]]++] = pairs[2 * q + 1];
+  }
+  return total;
 }
 
 }  // extern "C"

@@ -4,8 +4,9 @@
 The port's copy of ``coherence_tpu.native_lib``, trimmed to the six entry
 points the port calls: ``blit_masked_rgb``, ``bezier_subdivide_batch``,
 ``edge_spans``, ``expand_1x_grouped``, ``expand_aa_grouped`` and
-``jbig2_generic_region``.  The library is compiled
-by g++ on first use, and again whenever the source is newer, into
+``jbig2_generic_region``; and the port's own ``brush_stroke_table`` and
+``brush_strip_lists`` (the brush_stamp kernel's host lists).  The library
+is compiled by g++ on first use, and again whenever the source is newer, into
 ``build/native/`` at the root of the checkout.  It is built with
 ``-march=native``, so its file name carries a hash of the flags and of the
 host's CPU model and feature flags: a library built on another host is
@@ -111,6 +112,13 @@ def _load() -> ctypes.CDLL:
         i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
         lib.jbig2_generic_region.restype = i32
         lib.jbig2_generic_region.argtypes = [u8p, i64, i32, i32, i32, i8p, i32, i32, u8p]
+        # Pointers as plain addresses: ndpointer's checks cost more than the lists (the wrapper checks).
+        vp = ctypes.c_void_p
+        lib.brush_stroke_table.restype = i64
+        lib.brush_stroke_table.argtypes = [vp, i32, i32, i32, vp, i32, vp]
+        lib.brush_strip_lists.restype = i64
+        lib.brush_strip_lists.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i64, i32, i32, vp, i64, vp, vp,
+                                          i64]
         _lib = lib
         return _lib
 
@@ -240,3 +248,58 @@ def jbig2_generic_region(data: bytes, w: int, h: int, template: int, at, tpgdon:
     if rc != 0:
         return NotImplemented
     return out
+
+
+def brush_stroke_table(brushes: np.ndarray, strokes: np.ndarray) -> np.ndarray:
+    """brush_stamp's stroke table (the C entry point says what it holds):
+    `brushes` (s, bhb, bwb) C-contiguous int32; fills the extents and patch
+    offsets of `strokes` ((s, words) C-contiguous int32) and returns the
+    patches as int32 words.  Raises ValueError where a texel lies outside
+    0..255."""
+    if brushes.dtype != np.int32 or not brushes.flags.c_contiguous or strokes.dtype != np.int32 \
+            or not strokes.flags.c_contiguous:
+        raise ValueError("brush_stroke_table: need C-contiguous int32 brushes and strokes")
+    s, bhb, bwb = brushes.shape
+    patches = np.empty(s * -(-bhb * bwb // 16) * 16, np.uint8)
+    used = _load().brush_stroke_table(brushes.ctypes.data, s, bhb, bwb, strokes.ctypes.data, strokes.shape[1],
+                                      patches.ctypes.data)
+    if used < 0:
+        raise ValueError("brush_stamp: a brush texel lies outside 0..255")
+    return patches[:used].view(np.int32)
+
+
+def brush_strip_lists(corners: np.ndarray, valid: np.ndarray, points, strokes: np.ndarray, bhb: int, bwb: int,
+                      meta, hp: int, wp: int, ranges: np.ndarray) -> tuple:
+    """brush_stamp's lists (the C entry point says what each holds):
+    `corners` (s, n, 2) int32 stamp corners, `valid` (s, n) bool, `points`
+    (s, n, 2) int32 stamp points or None (plane mode), `strokes` (s, words)
+    int32, `meta` (pieces, 3) int32 in piece mode, None in plane mode, every
+    array C-contiguous.  Fills `ranges` ((blocks, 4) int32) and returns
+    (stamp entries, point entries, None), int32, or (None, None, (stroke,
+    stamp)) for the first valid stamp whose (bhb, bwb) patch leaves the
+    plane."""
+    lib = _load()
+    s, n = corners.shape[:2]
+    for a, dtype in ((corners, np.int32), (valid, np.bool_), (points, np.int32), (strokes, np.int32), (meta, np.int32),
+                     (ranges, np.int32)):
+        if a is not None and (a.dtype != dtype or not a.flags.c_contiguous):
+            raise ValueError(f"brush_strip_lists: need C-contiguous {np.dtype(dtype)} arrays, got {a.dtype}")
+    counts = np.zeros(2, np.int64)
+    with _lock:  # the entries land in one buffer kept from call to call (fresh pages cost more than the lists)
+        while True:
+            entries = _brush_entries[0]
+            total = lib.brush_strip_lists(corners.ctypes.data, valid.ctypes.data,
+                                          None if points is None else points.ctypes.data, s, n, strokes.ctypes.data,
+                                          strokes.shape[1], bhb, bwb, None if meta is None else meta.ctypes.data,
+                                          0 if meta is None else len(meta), hp, wp, ranges.ctypes.data, len(ranges),
+                                          counts.ctypes.data, entries.ctypes.data, entries.size)
+            if total == -1:
+                raise ValueError("brush_strip_lists: a block's stroke, a size or the ranges' rows are out of range")
+            if total < -1:
+                return None, None, divmod(-2 - int(total), n)
+            if total <= entries.size:
+                return entries[: counts[0]].copy(), entries[counts[0] : total].copy(), None
+            _brush_entries[0] = np.empty(2 * int(total), np.int32)
+
+
+_brush_entries = [np.empty(1 << 16, np.int32)]

@@ -1,9 +1,10 @@
 """The brush kernels' refusals, held against the hosts that feed them, on
 the CPU.
 
-``kernels.pack_brush_records`` refuses a valid stamp whose patch leaves its
-plane, and ``kernels.smear_steps`` a smear step whose patch or source leaves
-its canvas or whose direction is not a unit step, where the JAX package's
+``kernels.brush_plane_lists`` and ``brush_piece_lists`` (brush_stamp's
+lists) refuse a valid stamp whose patch leaves its plane, and
+``kernels.smear_steps`` a smear step whose patch or source leaves its
+canvas or whose direction is not a unit step, where the JAX package's
 ``dynamic_slice`` would clamp them (coherence_tpu/raster/brush.py:191-197
 for stamps, :338-345 for the smear) and paint shifted pixels.  smear.cu's
 window mode relies on the smear's refusal.  Here hypothesis (a fixed seed)
@@ -56,7 +57,7 @@ def test_sprite_of_brushstroke_never_makes_an_off_plane_stamp(radius, corners, c
     stamped = []
 
     def stamp(brushes, offsets, valid, hp, wp, device):
-        stamped.append(kernels.pack_brush_records(brushes, offsets, valid, hp, wp))
+        stamped.append(kernels.brush_plane_lists(brushes, offsets, valid, hp, wp))
         return torch.zeros((len(brushes), hp, wp), dtype=torch.int32)
 
     stroke = (TB.mkround(radius, 0.5), _polyline(corners))
@@ -84,8 +85,7 @@ def test_brush_tile_build_never_makes_an_off_plane_stamp(radius, corners, nty, n
     build = TBT.BrushTileBuild(nty, ntx, "cpu")
     assert build.add_stroke("s", (TB.mkround(radius, 0.5), _polyline(corners)), np.array([90, 40, 10, 120], np.int32))
     for (hp, wp, _, _, npb), items in build.groups.items():
-        brushes, offsets, valid, points, fill4, radii, _ = TBT._group_lists(npb, items)
-        kernels.pack_brush_records(brushes, offsets, valid, hp, wp, points, fill4, radii)
+        kernels.brush_piece_lists(*TBT._group_lists(npb, items), hp, wp)
 
 
 @settings(max_examples=30, deadline=None, derandomize=True)

@@ -4,14 +4,15 @@
 card (tests/test_torch_cuda.py holds them to their plain versions there).
 Here, at the same cases (``brush_case``, ``smear_case`` from that file):
 
-  * the host lists the kernels read (``kernels.pack_brush_records``,
-    ``smear_steps``, the group lists of ``brush_tiles._group_lists``)
-    against brute force in numpy;
-  * a numpy model of what one block walks (its rounds of 256 records, the
-    ordered list of the stamps whose patch touches its tile, the fold of
-    that list; in piece mode the points whose window touches the piece and
-    each thread's covered rows) against a per-pixel brute force, against
-    ``region._box_count(...) > 0`` and against the plain versions;
+  * the host lists the kernels read (``kernels.brush_plane_lists`` and
+    ``brush_piece_lists``' stroke table and per-bin lists, ``smear_steps``,
+    the group lists of ``brush_tiles._group_lists``) against brute force in
+    numpy, the per-bin lists also by hypothesis;
+  * a numpy model of what one block walks (its strip's stamp list, in
+    stamp order, folded warp by warp, a warp skipping an entry that misses
+    its 8 x 32 pixels; in piece mode its point list's mask, a block with no
+    stamp or no point writing zeros) against a per-pixel brute force,
+    against ``region._box_count(...) > 0`` and against the plain versions;
   * smear_walk's packed blend (window mode: two channels a 32-bit word)
     against its exact blend at every (d, s, al);
   * the plain versions (``_stamp_alpha_torch``, ``_group_block_torch``
@@ -25,6 +26,7 @@ Tolerance 0 everywhere: the colour math is integer.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax.numpy as jnp
 from coherence_tpu.raster import brush as JB
@@ -41,17 +43,17 @@ from test_torch_cuda import (BRUSH_FAR, BRUSH_RADII, SMEAR_DIRS, SMEAR_WALKS, br
 
 TH, TW = kernels.BRUSH_TILE
 BH, BW = kernels.BRUSH_BLOCK  # the strip a block owns
-ROUND = 256  # brush_stamp.cu's kThreads: records a round
-ROWS = BH * BW // ROUND  # rows of one column a thread owns
+NH, NW = kernels.BRUSH_BIN  # the bin whose lists it reads
+ROWS = 8  # brush_stamp.cu's kRows: rows of one column a thread owns; a warp owns ROWS x WARP_COLS pixels
+WARP_COLS = 32
 
 
 def _cases():
     return [pytest.param(r, id=f"r{r:g}") for r in BRUSH_RADII]
 
 
-def _patches(records):
+def _patches(strokes, words):
     """The cropped patch of each stroke, read back from the packed bytes."""
-    _, _, strokes, words = records
     raw = words.view(np.uint8)
     return [raw[at : at + kh * kw].reshape(kh, kw).astype(np.int64) for _, _, kh, kw, _, _, at in strokes[:, :7]]
 
@@ -64,94 +66,125 @@ def _fold(alpha, texels):
     return np.where(t == 0, alpha, np.where(t == 255, 255, lerp))
 
 
-def block_stamp_list(records, si, ty0, tx0):
-    """The stamps one block walks for stroke si's strip at (ty0, tx0): its
-    rounds of ROUND records, each compacted in record order to those whose
-    patch extent touches the BH x BW strip."""
-    stamps, _, strokes, _ = records
-    ky0, kx0, kh, kw = strokes[si, :4]
-    out = []
-    for base in range(0, stamps.shape[1], ROUND):
-        rec = stamps[si, base : base + ROUND].astype(np.int64)
-        sy, sx = rec[:, 0] + ky0, rec[:, 1] + kx0
-        hit = (sy < ty0 + BH) & (sy + kh > ty0) & (sx < tx0 + BW) & (sx + kw > tx0)
-        out.extend(base + np.nonzero(hit)[0])
-    return out
+def _unpack(entries):
+    """List entries (row & 0xFFFF | col << 16, int32) as (row, col) pairs."""
+    e = np.asarray(entries, np.int64)
+    return np.stack([((e & 0xFFFF) ^ 0x8000) - 0x8000, e >> 16], axis=1).reshape(-1, 2)
 
 
-def block_alpha(records, si, ty0, tx0, order):
-    """The block's BH x BW alpha from its stamp list: each listed stamp's
-    texels folded into the pixels under them, in list order."""
-    stamps, _, strokes, _ = records
-    ky0, kx0, kh, kw = strokes[si, :4]
-    patch = _patches(records)[si]
+def block_origin(lists, b):
+    """(stroke, row, col) of block b's strip, and the row of its strip in
+    its bin."""
+    if lists.piece:
+        si, oy, ox = (int(v) for v in lists.meta[b // (TH // BH)])
+        return si, oy + b % (TH // BH) * BH, ox, b % (TH // BH) * BH
+    across, down = -(-lists.wp // BW), -(-lists.hp // BH)
+    at = b % (across * down)
+    return b // (across * down), at // across * BH, at % across * BW, at // across * BH % NH
+
+
+def bin_entries(lists, b):
+    """Block b's stamp and point entries, unpacked, relative to its bin."""
+    r = lists.ranges[b]
+    return _unpack(lists.stamps[r[0] : r[1]]), _unpack(lists.points[r[2] : r[3]])
+
+
+def block_entries(lists, b):
+    """Block b's stamp and point entries, unpacked, relative to its
+    strip (the lists hold them relative to its bin)."""
+    sub = np.array([block_origin(lists, b)[3], 0])
+    return tuple(e - sub for e in bin_entries(lists, b))
+
+
+def _warps():
+    return [(r0, wx) for r0 in range(0, BH, ROWS) for wx in range(0, BW, WARP_COLS)]
+
+
+def block_alpha(lists, b):
+    """The block's BH x BW alpha as its warps fold its stamp list: a warp
+    skips an entry whose patch extent misses its ROWS x WARP_COLS pixels and
+    folds the others into the pixels under them, in list order."""
+    si = block_origin(lists, b)[0]
+    kh, kw = (int(v) for v in lists.strokes[si, 2:4])
+    patch = _patches(lists.strokes, lists.patches)[si]
     alpha = np.zeros((BH, BW), np.int64)
-    for i in order:
-        oy, ox = (int(v) for v in stamps[si, i])
-        y0, x0 = oy + ky0 - ty0, ox + kx0 - tx0
-        ys, xs = slice(max(y0, 0), min(y0 + kh, BH)), slice(max(x0, 0), min(x0 + kw, BW))
-        sub = patch[ys.start - y0 : ys.stop - y0, xs.start - x0 : xs.stop - x0]
-        alpha[ys, xs] = _fold(alpha[ys, xs], sub)
+    for r0, wx in _warps():
+        for ry, rx in block_entries(lists, b)[0]:
+            if ry >= r0 + ROWS or ry + kh <= r0 or rx >= wx + WARP_COLS or rx + kw <= wx:
+                continue
+            ys = slice(max(ry, r0), min(ry + kh, r0 + ROWS))
+            xs = slice(max(rx, wx), min(rx + kw, wx + WARP_COLS))
+            alpha[ys, xs] = _fold(alpha[ys, xs], patch[ys.start - ry : ys.stop - ry, xs.start - rx : xs.stop - rx])
     return alpha
+
+
+def block_mask(lists, b):
+    """The strip's mask as the block makes it: each warp sets, for each of
+    its point entries whose (2 hr + 1) x (2 wr + 1) window reaches its
+    pixels, the rows of its ROWS that the window covers in the columns
+    within wr of the point."""
+    si = block_origin(lists, b)[0]
+    wr, hr = (int(v) for v in lists.strokes[si, 4:6])
+    mask = np.zeros((BH, BW), bool)
+    cols = np.arange(BW)
+    for r0, wx in _warps():
+        for py, px in block_entries(lists, b)[1]:
+            if py - hr >= r0 + ROWS or py + hr < r0 or px - wr >= wx + WARP_COLS or px + wr < wx:
+                continue
+            near = (np.abs(cols - px) <= wr) & (cols >= wx) & (cols < wx + WARP_COLS)
+            mask[max(py - hr, r0) : min(py + hr, r0 + ROWS - 1) + 1, near] = True
+    return mask
+
+
+def brute_lists(brushes, offsets, valid, points, radii, si, ty0, tx0, hp, wp, rows=NH, cols=NW):
+    """Per record, in order: the valid stamps whose patch extent touches the
+    rows x cols bin at (ty0, tx0), as (extent corner - bin origin), and the
+    stamp points in the plane whose (2 hr + 1) x (2 wr + 1) window touches
+    it, as (point - bin origin); a brute force of kernels.brush_*_lists."""
+    stamps, pts = [], []
+    patch = brushes[si] != 0
+    if patch.any():
+        (ky0, kx0), (ky1, kx1) = np.argwhere(patch).min(axis=0), np.argwhere(patch).max(axis=0)
+        for i in range(offsets.shape[1]):
+            sy, sx = int(offsets[si, i, 0]) + ky0, int(offsets[si, i, 1]) + kx0
+            if valid[si, i] and sy < ty0 + rows and sy + ky1 - ky0 >= ty0 and sx < tx0 + cols and sx + kx1 - kx0 >= tx0:
+                stamps.append((sy - ty0, sx - tx0))
+    if points is not None:
+        wr, hr = (int(v) for v in radii[si])
+        for py, px in points[si].astype(np.int64):
+            inside = 0 <= py < hp and 0 <= px < wp
+            if inside and py - hr < ty0 + rows and py + hr >= ty0 and px - wr < tx0 + cols and px + wr >= tx0:
+                pts.append((py - ty0, px - tx0))
+    return stamps, pts
 
 
 def brute_alpha(brushes, offsets, valid, si, ty0, tx0):
     """Per pixel of the strip: every valid stamp of the stroke that covers
     it, in stamp order, folded from 0 (the padded patch, no extent, no
-    lists).  Returns (alpha, the stamps that cover a pixel of the strip
-    with a nonzero texel)."""
+    lists)."""
     bhb, bwb = brushes.shape[1:]
     yy, xx = np.mgrid[ty0 : ty0 + BH, tx0 : tx0 + BW]
     alpha = np.zeros((BH, BW), np.int64)
-    touching = []
     for i in range(offsets.shape[1]):
         if not valid[si, i]:
             continue
         ky, kx = yy - offsets[si, i, 0], xx - offsets[si, i, 1]
         inside = (ky >= 0) & (ky < bhb) & (kx >= 0) & (kx < bwb)
-        t = np.where(inside, brushes[si][np.clip(ky, 0, bhb - 1), np.clip(kx, 0, bwb - 1)], 0).astype(np.int64)
-        if (t != 0).any():
-            touching.append(i)
-        alpha = _fold(alpha, t)
-    return alpha, touching
+        alpha = _fold(alpha, np.where(inside, brushes[si][np.clip(ky, 0, bhb - 1), np.clip(kx, 0, bwb - 1)], 0))
+    return alpha
 
 
-def block_mask(records, si, ty0, tx0):
-    """The strip's mask as the block makes it: the points of each round
-    whose (2 hr + 1) x (2 wr + 1) window touches the strip, then per thread
-    (one column, ROWS rows) the bits of its rows that a listed point within
-    wr of its column covers."""
-    _, points, strokes, _ = records
-    wr, hr = strokes[si, 4:6]
-    mask = np.zeros((BH, BW), bool)
-    for base in range(0, points.shape[1], ROUND):
-        rec = points[si, base : base + ROUND].astype(np.int64)
-        near = (rec[:, 0] - hr < ty0 + BH) & (rec[:, 0] + hr >= ty0) & (rec[:, 1] - wr < tx0 + BW) & \
-            (rec[:, 1] + wr >= tx0)
-        for py, px in rec[near]:
-            for r0 in range(0, BH, ROWS):
-                y0 = ty0 + r0
-                lo, hi = max(py - hr - y0, 0), min(py + hr - y0, ROWS - 1)
-                if lo > hi:
-                    continue
-                bits = ((0xFFFFFFFF >> (31 - (hi - lo))) << lo) & 0xFFFFFFFF
-                rows = [j for j in range(ROWS) if (bits >> j) & 1]
-                cols = np.nonzero(np.abs(np.arange(tx0, tx0 + BW) - px) <= wr)[0]
-                mask[np.ix_([r0 + j for j in rows], cols)] = True
-    return mask
-
-
-def _strips(hp, wp):
-    return [(ty0, tx0) for ty0 in range(0, hp, BH) for tx0 in range(0, wp, BW)]
-
-
-def piece_model(records, si, oy, ox, f):
-    """One TH x TW piece as its TH // BH blocks make it: per strip the
-    stamp list's alpha and the point mask, then the fill dissolved by the
-    alpha inside the mask and packed."""
-    alpha = np.concatenate([block_alpha(records, si, oy + k, ox, block_stamp_list(records, si, oy + k, ox))
-                            for k in range(0, TH, BH)])
-    mask = np.concatenate([block_mask(records, si, oy + k, ox) for k in range(0, TH, BH)])
+def piece_model(lists, j, f):
+    """One TH x TW piece as its TH // BH blocks make it: a block with no
+    stamp or no point entry writes zeros; else its list's alpha and its
+    point mask, the fill dissolved by the alpha inside the mask, packed."""
+    parts = []
+    for b in range(j * (TH // BH), (j + 1) * (TH // BH)):
+        stamps, pts = block_entries(lists, b)
+        live = len(stamps) and len(pts)
+        parts.append((block_alpha(lists, b), block_mask(lists, b) if live else np.zeros((BH, BW), bool)))
+    alpha = np.concatenate([a for a, _ in parts])
+    mask = np.concatenate([m for _, m in parts])
     f = f.astype(np.int64)
     dis = np.where(alpha[..., None] == 0, 0, np.where(alpha[..., None] == 255, f,
                    (f * alpha[..., None] + ((f * alpha[..., None]) >> 8) + 1) >> 8))
@@ -161,27 +194,44 @@ def piece_model(records, si, oy, ox, f):
 
 @pytest.mark.parametrize("radius", _cases())
 def test_stamp_and_point_records_pack_as_brute_force(radius):
+    """The lists' stroke table (each patch's nonzero extent, radii, fill and
+    cropped bytes, each distinct patch once on 16 bytes), and the records
+    behind the entries: over pieces that tile each stroke's plane, the
+    stamp entries give back exactly the valid stamps' corners and the point
+    entries exactly the stamp points inside the plane (an invalid stamp
+    and a dropped point, _FAR, are in no list)."""
     hp, wp, bhb, bwb, npb, items = brush_case(radius)
     brushes, offsets, valid, points, fills, radii, meta = TBT._group_lists(npb, items)
-    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp, points, fills, radii)
-    stamps, pts, strokes, words = records
-    assert stamps.dtype == pts.dtype == strokes.dtype == words.dtype == np.int32
-    assert stamps.shape == pts.shape == (len(items), npb, 2) and strokes.shape == (len(items), kernels.STROKE_WORDS)
+    lists = kernels.brush_piece_lists(brushes, offsets, valid, points, fills, radii, meta, hp, wp)
+    strokes, words = lists.strokes, lists.patches
+    assert lists.ranges.dtype == lists.stamps.dtype == lists.points.dtype == strokes.dtype == words.dtype == np.int32
+    assert strokes.shape == (len(items), kernels.STROKE_WORDS) and lists.ranges.shape == (len(meta) * (TH // BH), 4)
     for si in range(len(items)):
-        for i in range(npb):
-            want = tuple(offsets[si, i]) if valid[si, i] else (kernels.FAR_RECORD,) * 2
-            assert tuple(stamps[si, i]) == want
-            py, px = (int(v) for v in points[si, i])
-            inside = 0 <= py < hp and 0 <= px < wp
-            assert tuple(pts[si, i]) == ((py, px) if inside else (kernels.FAR_RECORD,) * 2)
         nz = np.argwhere(brushes[si] != 0)
         (ky0, kx0), (ky1, kx1) = nz.min(axis=0), nz.max(axis=0)
         assert tuple(strokes[si, :6]) == (ky0, kx0, ky1 - ky0 + 1, kx1 - kx0 + 1, *items[si][6])
         assert tuple(strokes[si, 8:]) == tuple(items[si][5])
-        assert np.array_equal(_patches(records)[si], brushes[si, ky0 : ky1 + 1, kx0 : kx1 + 1])
-    # One copy of each distinct patch (stroke 3 has its own opacity; none repeats here), four bytes to a word.
+        assert np.array_equal(_patches(strokes, words)[si], brushes[si, ky0 : ky1 + 1, kx0 : kx1 + 1])
+        assert strokes[si, 6] % 16 == 0  # each patch on 16 bytes: the kernel stages it 16 bytes a copy
+    # One copy of each distinct patch (stroke 3 has its own opacity; none repeats here), padded to 16 bytes.
     assert len(set(strokes[:, 6])) == len({b.tobytes() for b in brushes})
-    assert words.size * 4 >= sum(int(kh * kw) for kh, kw in strokes[:, 2:4])
+    sizes = {int(at): int(kh * kw) for _, _, kh, kw, _, _, at in strokes[:, :7]}
+    assert words.size * 4 == sum(-(-v // 16) * 16 for v in sizes.values())
+    # The plane lists carry the same table and patches.
+    planes = kernels.brush_plane_lists(brushes, offsets, valid, hp, wp)
+    assert np.array_equal(planes.strokes[:, :4], strokes[:, :4]) and np.array_equal(planes.patches, words)
+    windows = [(si, min(oy, hp - TH), min(ox, wp - TW)) for si in range(len(items)) for oy in range(0, hp, TH)
+               for ox in range(0, wp, TW)]
+    whole = kernels.brush_piece_lists(brushes, offsets, valid, points, fills, radii, np.array(windows), hp, wp)
+    for si in range(len(items)):
+        corners, kept = set(), set()
+        for j, (sj, oy, ox) in enumerate(windows):
+            if sj == si:
+                stamps, pts = bin_entries(whole, j * (TH // BH))
+                corners |= {(y + oy - strokes[si, 0], x + ox - strokes[si, 1]) for y, x in stamps}
+                kept |= {(y + oy, x + ox) for y, x in pts}
+        assert corners == {tuple(offsets[si, i]) for i in range(npb) if valid[si, i]}, si
+        assert kept == {(py, px) for py, px in points[si].tolist() if 0 <= py < hp and 0 <= px < wp}, si
 
 
 def test_pack_records_shares_a_patch_and_refuses_what_leaves_the_plane():
@@ -190,46 +240,69 @@ def test_pack_records_shares_a_patch_and_refuses_what_leaves_the_plane():
     brushes[2] = 0  # an empty patch: no extent
     offsets = np.array([[(0, 0), (40, 500)], [(3, 4), (1 << 20, -5)], [(7, 7), (0, 0)]], np.int32)
     valid = np.array([[True, True], [True, False], [False, True]])
-    stamps, pts, strokes, words = kernels.pack_brush_records(brushes, offsets, valid, 48, 640)
-    assert pts is None and strokes[0, 6] == strokes[1, 6] == 0 and words.size == 3  # 9 bytes, one copy
+    lists = kernels.brush_plane_lists(brushes, offsets, valid, 48, 640)
+    strokes, words = lists.strokes, lists.patches
+    assert strokes[0, 6] == strokes[1, 6] == 0 and words.size == 4  # 9 bytes, one copy, on 16
     assert tuple(strokes[2, :4]) == (0, 0, 0, 0)
-    assert tuple(stamps[1, 1]) == tuple(stamps[2, 0]) == (kernels.FAR_RECORD,) * 2  # invalid: anywhere
+    # Three valid stamps of a nonzero patch, each in one bin; the invalid ones and the empty patch in none.
+    assert len(lists.stamps) == 3 and not len(lists.points)
+    assert kernels.brush_patch_bytes(3, 3) == 2 * 32 + 16  # 8 zero rows of 3 bytes above and below, on 16
+    assert lists.patch_smem == 2 * 32 + 16 and lists.shape == (3, 48, 640)
+    assert len(lists.ranges) == 3 * -(-48 // BH) * 5
     for bad in ((40 + 1, 0), (-1, 3), (0, 640 - 128 + 1), (0, -2)):
         moved = offsets.copy()
         moved[0, 1] = bad
         with pytest.raises(ValueError, match="stroke 0's stamp 1"):
-            kernels.pack_brush_records(brushes, moved, valid, 48, 640)
+            kernels.brush_plane_lists(brushes, moved, valid, 48, 640)
     with pytest.raises(ValueError):
-        kernels.pack_brush_records(brushes + 256 * (brushes > 0), offsets, valid, 48, 640)
+        kernels.brush_plane_lists(brushes + 256 * (brushes > 0), offsets, valid, 48, 640)
     with pytest.raises(ValueError):
-        kernels.pack_brush_records(brushes, offsets[:, :1], valid, 48, 640)
+        kernels.brush_plane_lists(brushes, offsets[:, :1], valid, 48, 640)
+    with pytest.raises(ValueError):
+        kernels.brush_plane_lists(brushes, offsets.astype(np.int64) + (1 << 32), valid, 48, 640)
 
 
 @pytest.mark.parametrize("radius", _cases())
 def test_block_stamp_lists_fold_as_per_pixel_brute_force(radius):
-    """For every strip of every plane: the block's ordered stamp list holds
-    every stamp that covers a pixel of the strip with a nonzero texel, in
-    stamp order, and its fold equals the per-pixel brute force and the
-    plain version's plane."""
+    """For every strip of every plane: the block's stamp list (its bin's)
+    holds exactly the valid stamps whose patch extent touches the bin, in
+    stamp order (every stamp that covers a pixel of the strip among them),
+    the strips of a bin share it, and the strip's fold, warp by warp as
+    the kernel skips, equals the per-pixel brute force and the plain
+    version's plane."""
     case = brush_case(radius)
     brushes, offsets, valid, hp, wp = plane_inputs(case)
-    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp)
+    lists = kernels.brush_plane_lists(brushes, offsets, valid, hp, wp)
     planes = TB._stamp_alpha_torch(brushes, offsets, valid, hp, wp, "cpu").numpy()
-    listed = 0
-    for si in range(len(brushes)):
-        for ty0, tx0 in _strips(hp, wp):
-            order = block_stamp_list(records, si, ty0, tx0)
-            want, touching = brute_alpha(brushes, offsets, valid, si, ty0, tx0)
-            assert order == sorted(order) and set(touching) <= set(order)
-            assert all(valid[si, i] for i in order)
-            got = block_alpha(records, si, ty0, tx0, order)
-            assert np.array_equal(got, want)
-            plane = np.zeros((BH, BW), np.int64)
-            part = planes[si, ty0 : ty0 + BH, tx0 : tx0 + BW]
-            plane[: part.shape[0], : part.shape[1]] = part
-            assert np.array_equal(np.where(_in_plane(hp, wp, ty0, tx0), got, 0), plane)
-            listed += len(order)
-    assert listed
+    assert len(lists.ranges) == len(brushes) * -(-hp // BH) * -(-wp // BW)
+    bins = {}
+    for b in range(len(lists.ranges)):
+        si, ty0, tx0, sub = block_origin(lists, b)
+        assert bins.setdefault((si, ty0 - sub, tx0), tuple(lists.ranges[b])) == tuple(lists.ranges[b])
+        stamps, _ = bin_entries(lists, b)
+        assert [tuple(e) for e in stamps] == brute_lists(brushes, offsets, valid, None, None, si, ty0 - sub, tx0, hp,
+                                                         wp)[0]
+        got = block_alpha(lists, b)
+        assert np.array_equal(got, brute_alpha(brushes, offsets, valid, si, ty0, tx0))
+        plane = np.zeros((BH, BW), np.int64)
+        part = planes[si, ty0 : ty0 + BH, tx0 : tx0 + BW]
+        plane[: part.shape[0], : part.shape[1]] = part
+        assert np.array_equal(np.where(_in_plane(hp, wp, ty0, tx0), got, 0), plane)
+    assert sum(r[1] - r[0] for r in bins.values()) == len(lists.stamps) > 0
+
+
+def test_blend_needs_no_test_of_its_texel():
+    """brush_stamp.cu folds every texel under a stamp, its masked zeros
+    included, with no test of the texel: prelerp(p, 0) == p and prelerp(p,
+    255) == 255 for every p in 0..255, as the plain version's selects make
+    them, and every blend stays in 0..255."""
+    p = np.arange(256)[:, None]
+    t = np.arange(256)[None, :]
+    lerp = p + t - ((((t * p + 128) >> 8) + (t * p + 128)) >> 8)
+    assert np.array_equal(lerp[:, 0], p[:, 0]) and (lerp[:, 255] == 255).all()
+    pp, tt = np.broadcast_arrays(p, t)
+    assert np.array_equal(lerp, _fold(pp, tt))
+    assert lerp.min() >= 0 and lerp.max() <= 255
 
 
 def _in_plane(hp, wp, ty0, tx0):
@@ -239,21 +312,24 @@ def _in_plane(hp, wp, ty0, tx0):
 
 @pytest.mark.parametrize("radius", _cases())
 def test_block_mask_matches_box_count(radius):
-    """Each piece's mask as its blocks make it (strip by strip) equals
-    region._box_count of the stroke's point plane > 0, over the same
-    window; points at the plane's edges, dropped and repeated."""
+    """Each piece's mask as its blocks make it (strip by strip, warp by
+    warp) equals region._box_count of the stroke's point plane > 0, over
+    the same window, at the group's pieces and at the plane's corners;
+    points at the plane's edges, dropped and repeated."""
     hp, wp, _, _, npb, items = brush_case(radius)
     brushes, offsets, valid, points, fills, radii, meta = TBT._group_lists(npb, items)
-    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp, points, fills, radii)
+    corners = [(si, oy, ox) for si in range(len(items)) for oy, ox in ((0, 0), (hp - TH, wp - TW))]
+    windows = np.concatenate([meta, np.array(corners, np.int32)])
+    lists = kernels.brush_piece_lists(brushes, offsets, valid, points, fills, radii, windows, hp, wp)
     for si, (_, _, _, _, pt, _, (wr, hr), _) in enumerate(items):
         keep = pt[pt[:, 0] != BRUSH_FAR].astype(np.int64)
         plane = torch.zeros((hp, wp), dtype=torch.int32)
         plane.index_put_((torch.from_numpy(keep[:, 0]), torch.from_numpy(keep[:, 1])),
                          torch.ones(len(keep), dtype=torch.int32), accumulate=True)
         want = (TRG._box_count(plane, wr, hr) > 0).numpy()
-        windows = {(oy, ox) for s_, oy, ox in meta if s_ == si} | {(0, 0), (hp - TH, wp - TW)}
-        for oy, ox in windows:
-            got = np.concatenate([block_mask(records, si, oy + k, ox) for k in range(0, TH, BH)])
+        for j in np.nonzero(windows[:, 0] == si)[0]:
+            _, oy, ox = windows[j]
+            got = np.concatenate([block_mask(lists, b) for b in range(j * (TH // BH), (j + 1) * (TH // BH))])
             assert np.array_equal(got, want[oy : oy + TH, ox : ox + TW]), (si, oy, ox)
         assert want.any() == (len(keep) > 0)
 
@@ -262,8 +338,11 @@ def test_block_mask_matches_box_count(radius):
 def test_piece_lists_and_padding_pieces(radius):
     """The group's piece metadata lists each stroke's pieces in staging
     order, then padding pieces (stroke 0 at the plane origin) up to the
-    pow2 bucket of at least 8; the block model (alpha, mask, dissolve,
-    pack) of every piece, padding included, equals _group_block_torch."""
+    pow2 bucket of at least 8, whose blocks share one strip's lists; each
+    block's lists hold exactly the stamps and points that touch its strip,
+    in order; the block model (mask, alpha, dissolve, pack; zeros without
+    a stamp or a point) of every piece, padding included, equals
+    _group_block_torch."""
     hp, wp, bhb, bwb, npb, items = brush_case(radius)
     brushes, offsets, valid, points, fills, radii, meta = TBT._group_lists(npb, items)
     listed = [(si, oy, ox) for si, it in enumerate(items) for _, oy, ox in it[7]]
@@ -273,12 +352,70 @@ def test_piece_lists_and_padding_pieces(radius):
     assert not meta[len(listed) :].any() and pb > len(listed)
     assert np.array_equal(points[2], np.full((npb, 2), BRUSH_FAR))  # the empty stroke, padded with _FAR
     assert radii.tolist() == [list(it[6]) for it in items]
-    records = kernels.pack_brush_records(brushes, offsets, valid, hp, wp, points, fills, radii)
+    lists = kernels.brush_piece_lists(brushes, offsets, valid, points, fills, radii, meta, hp, wp)
+    strips = TH // BH
+    pad = lists.ranges[len(listed) * strips :].reshape(-1, strips, 4)
+    assert (pad == pad[:1]).all()  # one copy of the origin's lists for every padding piece
+    for b in range(len(lists.ranges)):
+        si, ty0, tx0, sub = block_origin(lists, b)
+        stamps, pts = bin_entries(lists, b)
+        want = brute_lists(brushes, offsets, valid, points, radii, si, ty0 - sub, tx0, hp, wp)
+        assert ([tuple(e) for e in stamps], [tuple(e) for e in pts]) == want, b
     want = TBT.BrushTileBuild(1, 1, "cpu")._group_block_torch(hp, wp, bhb, bwb, npb, items).numpy()
     assert want.shape == (pb, TH, TW)
     for j, (si, oy, ox) in enumerate(meta):
-        assert np.array_equal(piece_model(records, si, oy, ox, fills[si]), want[j]), j
-    assert all(np.array_equal(pad, want[len(listed)]) for pad in want[len(listed) :])
+        assert np.array_equal(piece_model(lists, j, fills[si]), want[j]), j
+    assert all(np.array_equal(p, want[len(listed)]) for p in want[len(listed) :])
+
+
+_EXTENTS = st.sampled_from([(8, 8), (16, 32), (32, 128), (40, 136)])
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(st.data())
+def test_strip_lists_hold_exactly_the_touching_records_in_order(data):
+    """kernels.brush_plane_lists and brush_piece_lists against brute force
+    (brute_lists) on random strokes: patches of any nonzero extent (or
+    none), stamps at the plane's edges, invalid and repeated, points at the
+    edges, outside the plane and dropped (_FAR), any mask radii, pieces on
+    and off the piece grid and repeated.  Every record whose patch extent or
+    point window touches a strip is in that strip's list, in record order,
+    and no other record is."""
+    bhb, bwb = data.draw(_EXTENTS)
+    s, n = data.draw(st.integers(1, 3)), data.draw(st.integers(1, 10))
+    hp, wp = data.draw(st.integers(max(bhb, TH), 3 * TH)), data.draw(st.integers(max(bwb, TW), 3 * TW))
+    rng = np.random.default_rng(data.draw(st.integers(0, 2**31)))
+    brushes = np.zeros((s, bhb, bwb), np.int32)
+    for k in range(s):
+        if data.draw(st.booleans()) or k == 0:
+            y0, x0 = rng.integers(0, bhb), rng.integers(0, bwb)
+            y1, x1 = rng.integers(y0, bhb), rng.integers(x0, bwb)
+            brushes[k, y0 : y1 + 1, x0 : x1 + 1] = rng.integers(0, 256, (y1 - y0 + 1, x1 - x0 + 1))
+            brushes[k, y0, x0] = brushes[k, y1, x1] = 255
+    offsets = np.stack([rng.choice([0, hp - bhb, *rng.integers(0, hp - bhb + 1, 3)], (s, n)),
+                        rng.choice([0, wp - bwb, *rng.integers(0, wp - bwb + 1, 3)], (s, n))], axis=-1)
+    offsets[:, n // 2 :] = offsets[:, : n - n // 2]  # repeated stamps
+    valid = rng.random((s, n)) < 0.8
+    points = offsets + rng.integers(-20, 40, (s, n, 2))
+    points[rng.random((s, n)) < 0.2] = BRUSH_FAR
+    points[:, 0] = (0, wp - 1)  # the plane's corners
+    points[:, -1] = (hp - 1, 0)
+    radii = rng.integers(0, 20, (s, 2))
+    lists = kernels.brush_plane_lists(brushes, offsets.astype(np.int32), valid, hp, wp)
+    for b in range(len(lists.ranges)):
+        si, ty0, tx0, sub = block_origin(lists, b)
+        got = [tuple(e) for e in bin_entries(lists, b)[0]]
+        assert got == brute_lists(brushes, offsets, valid, None, None, si, ty0 - sub, tx0, hp, wp)[0], b
+    meta = np.stack([rng.integers(0, s, 6), rng.choice([0, hp - TH, *rng.integers(0, hp - TH + 1, 2)], 6),
+                     rng.choice([0, wp - TW, *rng.integers(0, wp - TW + 1, 2)], 6)], axis=1)
+    meta[5] = meta[0]  # a repeated window
+    fills = rng.integers(0, 256, (s, 4))
+    lists = kernels.brush_piece_lists(brushes, offsets.astype(np.int32), valid, points.astype(np.int32), fills,
+                                      radii, meta, hp, wp)
+    for b in range(len(lists.ranges)):
+        si, ty0, tx0, sub = block_origin(lists, b)
+        got = tuple([tuple(e) for e in kinds] for kinds in bin_entries(lists, b))
+        assert got == brute_lists(brushes, offsets, valid, points, radii, si, ty0 - sub, tx0, hp, wp), b
 
 
 @pytest.mark.parametrize("radius", _cases())

@@ -1748,6 +1748,33 @@ def test_brush_stamp_piece_mode_matches_plain(cuda_device, radius):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("radius", [105.0, 120.0, 250.0])
+def test_brush_stamp_patch_paths(cuda_device, radius):
+    """Both modes against the plain versions on each of the patch's paths:
+    radius 105's 211x211 patch (47,920 bytes: under 48 KB alone, past it
+    with the block's static lists) and radius 120's 241x241 patch fold from
+    shared memory, radius 250's 501x501 one (past kernels.BRUSH_PATCH_SMEM)
+    from device memory; the blocks an SM holds with the launch's shared
+    memory."""
+    from coherence_tpu_torch.raster import brush as TB
+    from coherence_tpu_torch.raster import brush_tiles as TBT
+
+    case = brush_case(radius)
+    brushes, offsets, valid, hp, wp = plane_inputs(case)
+    lists = kernels.brush_plane_lists(brushes, offsets, valid, hp, wp)
+    need = int(kernels.brush_patch_bytes(*(int(v) for v in lists.strokes[0, 2:4])))
+    in_shared = need <= kernels.BRUSH_PATCH_SMEM
+    assert in_shared == (radius < 200) and lists.patch_smem == (need if in_shared else 0)
+    assert radius != 105.0 or 48 * 1024 - 3072 < need <= 48 * 1024
+    assert kernels.brush_stamp_blocks_per_sm(False, lists.patch_smem) >= 1
+    got = TB._stamp_alpha(brushes, offsets, valid, hp, wp, cuda_device)
+    block = TBT.BrushTileBuild(1, 1, cuda_device)._group_block(*case[:5], case[5])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), TB._stamp_alpha_torch(brushes, offsets, valid, hp, wp, "cpu"))
+    assert torch.equal(block.cpu(), TBT.BrushTileBuild(1, 1, "cpu")._group_block_torch(*case[:5], case[5]))
+
+
+@pytest.mark.cuda
 def test_brush_stamp_many_pieces_and_records(cuda_device):
     """A group of one long stroke over 24 x 20 tiles (480 pieces, 7,848
     stamps in 8,192 records: 32 rounds) in piece mode, and its plane in
