@@ -135,7 +135,16 @@ Phases, one JSON line each:
      the wrapper's host time, the bound (the lists read once and every slot
      written once, or 1024 multiply-adds a fringe pixel), the bytes of the
      kernel's lists and the launch floor; one TileBuild.flush required to
-     issue one copy and one launch;
+     issue one copy and one launch; then sprite_kernels: sprite_raster in
+     group mode over general_lion's 130 batched members (every group in one
+     launch) and in opacity mode over each of its two scalar members'
+     mattes, against the plain versions on the card (_raster_members over
+     each group's sub-batches, coverage_opacity_torch), bit for bit, every
+     plane contiguous on 16 bytes; the kernel alone on lists staged
+     beforehand, the staged copy alone, the plain version, the wrapper's
+     host time, the bound (the lists read once and the planes written once,
+     or 1024 multiply-adds a fringe pixel) and the launch floor; one call of
+     each wrapper required to issue one copy and one launch;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -174,8 +183,10 @@ Phases, one JSON line each:
      render of the same scene; per render the host and CUDA-event time, the
      objects the fold visited, its early exits, the host syncs counted in
      raster/region.py, the cache's bytes; per route of the rebuild the
-     launches and copies issued (profile_general.py's count) and the
-     fold_layers launches; the peak device memory;
+     launches and copies issued (profile_general.py's count), the
+     fold_layers and the sprite_raster launches (the batched route's
+     required to be the routing's prediction: one for the batched members,
+     one a scalar member's matte); the peak device memory;
  15. general_filters: every incremental frame equal to the whole-window
      render, frame 0 also to a render with the cache off, frames 0-1 to the
      CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
@@ -260,7 +271,10 @@ floor at one SM's int32 rate, its mode, window and reloads as the kernel
 counted them, and the radius-120 smear in global mode; for tile_raster
 the bytes of its lists and slots and its fringe multiply-adds at the lion's
 build flush, config 5's beside, its launches (one a flush) at the lion's
-build, config 5's build, each zoom step and the prefetch) and, last,
+build, config 5's build, each zoom step and the prefetch; for
+sprite_raster the same at general_lion's batched members, each scalar
+matte beside, its launches in the rebuild, on the fold route, in the
+filter frames and demos, serve_engine and pdf_pages) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -1589,6 +1603,185 @@ def tile_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
             "config5": {k: big[k] for k in keys}}
 
 
+def lion_members(dev):
+    """The lion group of general_lion as render.py expands it: its member
+    objects (fitted_lion's transform applied)."""
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import render as R
+
+    o = fitted_lion()
+    return [R.Obj(ident.new_ids(), x.geometry, tuple(tr.append(list(o.transform), list(x.transform))), x.compop)
+            for x in o.geometry.objects]
+
+
+def predicted_sprite_launches(objs) -> dict:
+    """The SR1 launches that one build of `objs` through the batched raster
+    must make, from the routing alone: one for every batched member
+    together, and one for the matte of each member that takes the scalar
+    route (its coverage plane's bucket over fastframe._MAX_T_ELEMS).
+    Every object must be a plain-filled path or stroked path."""
+    import numpy as np
+
+    from coherence_tpu_torch.raster import aa, region, scanline
+    from coherence_tpu_torch.scene import fastframe
+
+    batched = scalar = 0
+    for o in objs:
+        ext = fastframe._batch_extract(o)
+        require(ext is not None, "predicted_sprite_launches: an object the batched raster does not take")
+        spans = scanline._edge_spans(np.asarray(ext[0], dtype=np.int64), ext[1], scanline._HALF)
+        if spans is None or spans[0].size == 0:
+            continue
+        rows, cov_s, cov_e, x_rows, x_s, x_e = spans
+        x0, x1 = min(cov_s.min(), x_s.min(initial=cov_s.min())), max(cov_e.max(), x_e.max(initial=cov_e.max()))
+        hb, wb = region.bucket_hw(int(rows.max()) - int(rows.min()) + 1, int(x1) - int(x0) + 1)
+        if (aa._H * hb + aa._H) * (aa._H * wb + aa._H) > fastframe._MAX_T_ELEMS:
+            scalar += 1
+        else:
+            batched += 1
+    return {"batched_members": batched, "scalar_members": scalar, "launches": int(batched > 0) + scalar}
+
+
+def sprite_inputs(torch, dev) -> dict:
+    """SR1's inputs as general_lion's rebuild gives them on `dev`: the
+    lion's batched members (every group, as full_sprites_of_objects orders
+    them) and the (box, scaled spans) of each scalar member's matte,
+    recorded from kernels.sprite_raster_opacity while fastframe's grouping
+    builds the scalar members."""
+    from coherence_tpu_torch import kernels
+    from coherence_tpu_torch.scene import cache, fastframe
+
+    fresh_cache()
+    mattes, real = [], kernels.sprite_raster_opacity
+
+    def recording(box, scaled, device):
+        mattes.append((box, scaled))
+        return real(box, scaled, device)
+
+    kernels.sprite_raster_opacity = recording
+    try:
+        _, groups = fastframe._group_members(lion_members(dev), dev)
+    finally:
+        kernels.sprite_raster_opacity = real
+    cache.clear()
+    return {"groups": groups, "mattes": mattes}
+
+
+def sprite_bound(lists, fringe: int) -> dict:
+    """What SR1 must do for `lists`: its lists read once (the staged arrays'
+    bytes) and its outputs written once (a mask byte, a minshape byte and
+    16 bytes of RGBA a pixel; 4 bytes of opacity in opacity mode), over
+    HBM_BYTES_PER_S; and its operations, 1024 multiply-adds (two int32
+    operations each) at each of `fringe` pixels, at INT_OPS_PER_S.  The
+    bound is the larger."""
+    import numpy as np
+
+    list_bytes = sum(a.nbytes for a in (lists.spans, lists.offsets, lists.fills, lists.members, lists.units))
+    pixels = int((lists.members[:, 0].astype(np.int64) * lists.members[:, 1]).sum())
+    n_bytes = list_bytes + (4 if lists.opacity else 18) * pixels
+    ops = 2 * 1024 * fringe
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return {"list_bytes": list_bytes, "pixels": pixels, "bytes": n_bytes, "fringe_pixels": fringe, "operations": ops,
+            "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def sprite_raster_row(torch, dev, scrub, groups=None, matte=None) -> dict:
+    """SR1 in group mode over `groups`' members (one launch) or in opacity
+    mode over one `matte` (box, scaled), against its plain version on the
+    card (_raster_members over each group's sub-batches, or
+    coverage_opacity_torch), bit for bit, with its bound (sprite_bound).
+    The kernel alone on lists staged beforehand (ms: CUDA events, cold L2,
+    behind a device-side wait of max(ANIMATED_WAIT_MS, 4 x its slowest host
+    call), each call queued within half of it, H42); the staged copy alone
+    (copy_ms, behind a wait made alike from the copy's host time); the
+    plain version over N_BRUSH_PLAIN_TIMED calls; the
+    wrapper's whole host side (host_ms: packing, staged copy, launch); one
+    call of the wrapper's issued launches and copies, required to be two;
+    the units, spans, blocks an SM."""
+    from coherence_tpu_torch import kernels
+    from coherence_tpu_torch.raster import aa
+    from coherence_tpu_torch.scene import fastframe
+    from profile_general import issued
+
+    if groups is not None:
+        ordered = [m for members in groups.values() for m in members]
+        lists = kernels.sprite_raster_lists([(m.x0, m.y0, m.w, m.h) for m in ordered], [m.fill for m in ordered],
+                                            [m.cov for m in ordered], [m.cross for m in ordered],
+                                            [m.aa for m in ordered])
+
+        def plain():
+            return [p for members in groups.values() for run in fastframe._sub_batches(members)
+                    for p in zip(*fastframe._raster_members(run, dev))]
+
+        def wrapper():
+            return fastframe._sprite_raster_members(ordered, dev)
+    else:
+        box, scaled = matte
+        lists = kernels.sprite_opacity_lists(box, scaled)
+
+        def plain():
+            return aa.coverage_opacity_torch(box, scaled, dev)
+
+        def wrapper():
+            return kernels.sprite_raster_opacity(box, scaled, dev)
+
+    staged = kernels.stage_sprite_lists(lists, dev)
+
+    def kernel():
+        return kernels.sprite_raster(lists, staged)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if groups is not None:
+        require(len(got) == len(want), "sprite_raster: not one plane triple a member")
+        for j, (g, w) in enumerate(zip(got, want)):
+            require(all(torch.equal(a, b) and a.is_contiguous() and a.data_ptr() % 16 == 0 for a, b in zip(g, w)),
+                    f"sprite_raster: member {j} differs from its plain version")
+        fringe = sum(int((mask & ~minmask).sum()) for mask, minmask, _ in want)
+        err = max(max_abs_err(g[2], w[2]) for g, w in zip(got, want))
+        shape = {"members": len(ordered), "groups": len(groups)}
+    else:
+        require(torch.equal(got, want), f"sprite_raster's matte over {box} differs from its plain version")
+        fringe, err = got.numel(), max_abs_err(got, want)
+        shape = {"box": list(box), "aa_spans": 0 if scaled is None else len(scaled[0])}
+    n_issued = issued(torch, wrapper)
+    require(n_issued == 2, f"one sprite_raster call issued {n_issued} launches and copies, not 2")
+    row = {**shape, "units": len(lists.units), "spans": len(lists.spans), "max_abs_err": err,
+           "blocks_per_sm": kernels.sprite_raster_blocks_per_sm(), "issued": n_issued, **sprite_bound(lists, fringe),
+           **fold_host_ms(torch, wrapper)}
+    def copy():
+        return kernels.stage_sprite_lists(lists, dev)
+
+    row["wait_ms"] = max(ANIMATED_WAIT_MS, 4 * fold_host_ms(torch, kernel)["host_ms_max"])
+    row["ms"] = event_ms(torch, kernel, scrub, wait_ms=row["wait_ms"], queued=True)
+    row["copy_wait_ms"] = max(ANIMATED_WAIT_MS, 4 * fold_host_ms(torch, copy)["host_ms_max"])
+    row["copy_ms"] = event_ms(torch, copy, scrub, wait_ms=row["copy_wait_ms"], queued=True)
+    row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def sprite_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
+    """SR1 at general_lion's rebuild (sprite_inputs): its batched members
+    in one launch, and each scalar member's matte, by sprite_raster_row,
+    uncounted.  Returns the kernels line's row: the batched members', each
+    matte's beside it."""
+    def rows():
+        inputs = sprite_inputs(torch, dev)
+        return (sprite_raster_row(torch, dev, scrub, groups=inputs["groups"]),
+                [sprite_raster_row(torch, dev, scrub, matte=m) for m in inputs["mattes"]])
+
+    group, mattes = uncounted(kernels, rows)
+    for row in (group, *mattes):
+        row["launch_floor_ms"] = floor_ms
+    emit({"phase": "sprite_kernels", "tolerance": 0, "equal_plain": True, "lion_members": group, "mattes": mattes})
+    keys = ("box", "units", "spans", "fringe_pixels", "ms", "copy_ms", "plain_ms", "host_ms", "bound_ms", "bound_by",
+            "bytes", "share")
+    return {**group, "max_abs_err": max([group["max_abs_err"]] + [m["max_abs_err"] for m in mattes]),
+            "mattes": [{k: m[k] for k in keys} for m in mattes]}
+
+
 def layers_path(torch, dev, kernels, scrub):
     """Phase 7: config 2's stack over white through composite_layers,
     counted from zero, then the kernel against its plain version over
@@ -2076,15 +2269,17 @@ def general_lion(torch, dev, kernels):
     fresh_cache()
     obj = fitted_lion()
     n_objs = len(obj.geometry.objects)
+    predicted = predicted_sprite_launches(lion_members(dev))
     shape = region.shape_of_box(WINDOW, dev)
     render = lambda: R.render_simple_scene([obj], shape, dev)
     torch.cuda.reset_peak_memory_stats()
     zero_counts(torch, kernels)
     cold, cold_stats = measured(torch, dev, render)
     cache.clear()
-    before = kernels.launches["fold_layers"]
+    before = dict(kernels.launches)
     rebuilt, rebuild_stats = measured(torch, dev, render)
-    rebuild_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before
+    rebuild_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before["fold_layers"]
+    rebuild_stats["sprite_raster_launches"] = kernels.launches["sprite_raster"] - before["sprite_raster"]
     warm, warm_stats = measured(torch, dev, render)
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2092,9 +2287,10 @@ def general_lion(torch, dev, kernels):
     flags.set_flag("batch_group_raster", False)
     try:
         cache.clear()
-        before = kernels.launches["fold_layers"]
+        before = dict(kernels.launches)
         folded, fold_stats = measured(torch, dev, render)
-        fold_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before
+        fold_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before["fold_layers"]
+        fold_stats["sprite_raster_launches"] = kernels.launches["sprite_raster"] - before["sprite_raster"]
         fold_stats["issued"] = issued_rebuild(torch, render)
     finally:
         flags.set_flag("batch_group_raster", True)
@@ -2108,6 +2304,9 @@ def general_lion(torch, dev, kernels):
     require(fold_stats["objects_visited"] == n_objs + 1 and fold_stats["fold_layers_launches"] == 0,
             "general_lion: the fold route did not visit the group and each of its objects once")
     require(warm_stats["objects_visited"] == 1, "general_lion: the warm render did not come from the group's cached sprite")
+    require(rebuild_stats["sprite_raster_launches"] == predicted["launches"],
+            f"general_lion: the rebuild launched sprite_raster {rebuild_stats['sprite_raster_launches']} times, not "
+            f"{predicted['launches']} (its batched members in one launch and one a scalar member's matte)")
     cache.clear()
     with recorded_folds() as folds:
         on_cpu, cpu_stats = measured(torch, "cpu", lambda: R.render_simple_scene([obj], region.shape_of_box(WINDOW, "cpu"), "cpu"))
@@ -2117,9 +2316,11 @@ def general_lion(torch, dev, kernels):
     cache.clear()
     emit({"phase": "general_lion", "window": list(WINDOW), "fit": GENERAL_FIT, "objects": n_objs,
           "box": list(cold.box), "cold": cold_stats, "rebuild": rebuild_stats, "warm": warm_stats,
-          "rebuild_fold_route": fold_stats, "cpu": cpu_stats, "launches": counts,
+          "rebuild_fold_route": fold_stats, "cpu": cpu_stats, "launches": counts, "sprite_raster_predicted": predicted,
           "cache_max_bytes": GENERAL_CACHE_BYTES, "peak_device_bytes": peak,
           "equal": {"tolerance": 0, "cold_rebuild_warm": True, "fold_route": True, "cpu": True}})
+    counts["sprite_raster_rebuild"] = rebuild_stats["sprite_raster_launches"]
+    counts["sprite_raster_fold_route"] = fold_stats["sprite_raster_launches"]
     return counts, folds[0]
 
 
@@ -2182,17 +2383,19 @@ def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: 
 def general_filters(torch, dev, kernels):
     """The lion under a blur lens with the blob dragged beneath it, then one
     render of each other filter demo, of the CPG demo and of the two brush
-    demos, against the CPU.  Returns the launches of the demos' card
-    renders by demo (brush_stamp for the brushes, smear_walk for the
-    smear)."""
+    demos, against the CPU.  Returns the launches of the lens frames on the
+    card, and those of the demos' card renders by demo (brush_stamp for the
+    brushes, smear_walk for the smear)."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache, examples
     from coherence_tpu_torch.scene import render as R
 
     lens, blob, objs = filter_scene()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=N_GENERAL_SCRATCH_FRAMES)
     t1 = time.perf_counter()
+    frame_launches = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
     cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=0, whole=False)
     t2 = time.perf_counter()
     for k, (a, b) in enumerate(zip(frames, cpu_frames)):
@@ -2204,7 +2407,7 @@ def general_filters(torch, dev, kernels):
           "syncs_per_incremental_frame": statistics.median(s["incremental"]["syncs"] for s in stats),
           "syncs_per_whole_render": statistics.median(s["whole"]["syncs"] for s in stats),
           "objects_visited_per_incremental_frame": statistics.median(s["incremental"]["objects_visited"] for s in stats),
-          "seconds": {"card": t1 - t0, "cpu_reference": t2 - t1},
+          "seconds": {"card": t1 - t0, "cpu_reference": t2 - t1}, "launches": frame_launches,
           "equal": {"tolerance": 0, "whole_window": True, "cache_off_frames": N_GENERAL_SCRATCH_FRAMES,
                     "cpu_frames": N_GENERAL_CPU_FRAMES}})
 
@@ -2236,7 +2439,7 @@ def general_filters(torch, dev, kernels):
         require(demos[name]["launches"].get(kernel, 0) >= 1, f"general_filter_demos: {name} launched no {kernel}")
     cache.clear()
     emit({"phase": "general_filter_demos", "lion_paths": len(objs), "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
-    return {name: demo["launches"] for name, demo in demos.items()}
+    return frame_launches, {name: demo["launches"] for name, demo in demos.items()}
 
 
 def convolve_1080p(torch, dev):
@@ -3234,7 +3437,7 @@ def serve_engine(torch, dev, kernels):
     require(not (images[1] == images[2]).all(), "serve_engine: the first drag changed no pixel")
     require(stats["event_errors"] == 0, "serve_engine: a handler's error was contained")
     counts = dict(kernels.launches)
-    tile_counts = {k: n for k, n in counts.items() if k != "fold_layers"}
+    tile_counts = {k: n for k, n in counts.items() if k not in ("fold_layers", "sprite_raster")}
     require(not any(tile_counts.values()), f"serve_engine: the general renderer launched a tile kernel: {counts}")
     require(counts["fold_layers"] >= 1, "serve_engine: the lion group did not fold through fold_layers")
     cache.clear()
@@ -3919,7 +4122,7 @@ def pdf_pages(torch, dev, kernels):
         for other in (0, 1):
             require(not (shots[2][1] == shots[other][1]).all(), f"pdf_pages: page 3 looks like page {other + 1}")
         require(stats["fold_layers_per_page"][2] >= 1, "pdf_pages: no fold_layers launch on page 3 (the text group)")
-        tile_counts = {k: n for k, n in counts.items() if k != "fold_layers"}
+        tile_counts = {k: n for k, n in counts.items() if k not in ("fold_layers", "sprite_raster")}
         require(not any(tile_counts.values()), f"pdf_pages: the general renderer launched a tile kernel: {counts}")
 
         cache.clear()
@@ -4004,6 +4207,7 @@ def main() -> int:
     counts4, timed["composite_runs"], full_4k, animated_4k = interactive_path(torch, dev, kernels, scrub)
     timed.update(brush_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"]))
     timed["tile_raster"] = tile_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"])
+    timed["sprite_raster"] = sprite_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"])
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
@@ -4018,7 +4222,7 @@ def main() -> int:
     emit({"phase": "dryrun", **dry, "seconds": time.perf_counter() - t0})
     del mesh
     counts_general, group_fold = general_lion(torch, dev, kernels)
-    counts_demos = general_filters(torch, dev, kernels)
+    counts_filters, counts_demos = general_filters(torch, dev, kernels)
     convolve_1080p(torch, dev)
     stroked_tiles(torch, dev, kernels)
     counts_edits, lion_sprites = scene_edits(torch, dev, kernels)
@@ -4144,6 +4348,25 @@ def main() -> int:
                  "items": tile["items"], "units": tile["units"], "fringe_pixels": tile["fringe_pixels"],
                  "layout_bytes": tile["layout_bytes"], "blocks_per_sm": tile["blocks_per_sm"],
                  "host_ms": tile["host_ms"], "flush_issued": tile["flush_issued"], "config5": tile["config5"]})
+    sprite = timed["sprite_raster"]
+    # No one PyTorch call turns span lists into Gaussian-matted sprites or a matte.
+    line.append({"name": "sprite_raster", "route": "cuda", "source": CSRC + "sprite_raster.cu",
+                 "replaces": "coherence_tpu/scene/fastframe.py:170",
+                 "also_replaces": ["coherence_tpu/raster/aa.py:170", "coherence_tpu/raster/aa.py:144",
+                                   "coherence_tpu/raster/aa.py:93"],
+                 "pallas": False, "launches": counts_general["sprite_raster_rebuild"],
+                 "launches_general_lion": counts_general["sprite_raster"],
+                 "launches_fold_route": counts_general["sprite_raster_fold_route"],
+                 "launches_general_filter_demos": {n: c.get("sprite_raster", 0) for n, c in counts_demos.items()},
+                 "launches_general_filters": counts_filters.get("sprite_raster", 0),
+                 "launches_serve_engine": counts_engine["sprite_raster"],
+                 "launches_pdf_pages": counts_pdf["sprite_raster"],
+                 "max_abs_err": sprite["max_abs_err"], "ms": sprite["ms"], "copy_ms": sprite["copy_ms"],
+                 "plain_ms": sprite["plain_ms"], "bound_ms": sprite["bound_ms"], "bound_by": sprite["bound_by"],
+                 "library_ms": None, "bytes": sprite["bytes"], "share": sprite["share"], "host_ms": sprite["host_ms"],
+                 "members": sprite["members"], "groups": sprite["groups"], "units": sprite["units"],
+                 "spans": sprite["spans"], "fringe_pixels": sprite["fringe_pixels"],
+                 "blocks_per_sm": sprite["blocks_per_sm"], "issued": sprite["issued"], "mattes": sprite["mattes"]})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -57,10 +57,12 @@ _ENTRY_POINTS = {
     "brush_stamp": [_ptr] * 7 + [_i32] * 5 + [_ptr],
     "smear_walk": [_ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr] + [_i32] * 4 + [_ptr],
     "tile_raster": [_ptr] * 6 + [_i32] * 2 + [_ptr],
+    "sprite_raster": [_ptr] * 6 + [_i32] * 3 + [_ptr],
 }
 
 # entry point -> argument types, of those that launch nothing
-_QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2}
+_QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2,
+            "sprite_raster_blocks_per_sm": []}
 # entry point -> argument types, of those that launch a kernel doing none of
 # the program's work (not counted in `launches`)
 _PROBES = {"launch_floor": [_ptr]}
@@ -1032,6 +1034,190 @@ def tile_raster_blocks_per_sm() -> int:
     if got < 0:
         raise RuntimeError(f"tile_raster_blocks_per_sm: CUDA error {-got}")
     return got
+
+
+# sprite_raster.cu's lists.  Each span is one uint64, row << 42 | start << 21
+# | (end + 1), in its member's plane: the 1x box (h x w) or the 16x AA
+# t-plane (16 h + 16 x 16 w + 16, its origin at 16 y0 - 32, 16 x0 - 32).
+# A row off its plane is SPRITE_ROW_DROPPED; columns are clipped to the
+# plane's 0..width (the JAX package's scatter drops the one and clips the
+# other).  A unit, one block of the launch, is a band of SPRITE_BAND pixel
+# rows of a member and a strip of SPRITE_STRIP columns.
+SPRITE_ROW_BITS, SPRITE_COL_BITS = 22, 21
+SPRITE_ROW_DROPPED = (1 << SPRITE_ROW_BITS) - 1
+SPRITE_BAND, SPRITE_STRIP = 16, 128
+SPRITE_SCALE = 16  # the AA t-plane's scale (raster/aa.py _H)
+
+
+class SpriteLists(NamedTuple):
+    """One sprite_raster launch's host lists (sprite_raster_lists,
+    sprite_opacity_lists):
+
+      * spans (S, 2) int32: each span's uint64 as its low and high words,
+        every member's coverage spans in their order, then every member's
+        crossing spans, then every member's AA spans;
+      * offsets (3, n + 1): member m's spans of family f are
+        [offsets[f, m], offsets[f, m + 1]);
+      * fills (n, 4): premultiplied plain fills (zero in opacity mode);
+      * members (n, 8): h, w, and the offsets in 16-byte units of its mask,
+        minshape mask and RGBA (opacity mode: its int32 opacity) in the
+        output buffer, then three zeros;
+      * units (U, 4): (member, band, strip, 0), the members with the most
+        AA spans first;
+      * out_bytes: the output buffer's bytes; opacity: the mode."""
+
+    spans: np.ndarray
+    offsets: np.ndarray
+    fills: np.ndarray
+    members: np.ndarray
+    units: np.ndarray
+    out_bytes: int
+    opacity: bool
+
+
+def _sprite_lists(boxes, fills, fams, opacity: bool) -> SpriteLists:
+    """SpriteLists of n members: boxes (n, 4) [x0, y0, w, h], fills (n, 4),
+    fams the coverage, crossing and AA families, n triples each."""
+    boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
+    x0, y0, w, h = boxes.T
+    n = len(boxes)
+    if n and (w.min() < 1 or h.min() < 1):
+        raise ValueError("sprite_raster: a member's box is empty")
+    if n and (SPRITE_SCALE * h.max() + SPRITE_SCALE >= SPRITE_ROW_DROPPED
+              or SPRITE_SCALE * w.max() + SPRITE_SCALE >= 1 << SPRITE_COL_BITS):
+        raise ValueError(f"sprite_raster: a box of {int(w.max())} x {int(h.max())} pixels is beyond the span packing")
+    if any(len(f) != n for f in fams):
+        raise ValueError(f"sprite_raster: need {n} members' spans in every family")
+    from .. import native_lib
+
+    sc = SPRITE_SCALE
+    box = np.stack([y0, h, x0, w], 1)  # each plane: origin row, height, origin column, width
+    t_plane = np.stack([sc * y0 - 2 * sc, sc * h + sc, sc * x0 - 2 * sc, sc * w + sc], 1)
+    packed, counts = zip(*(native_lib.sprite_pack_spans(f, plane) for f, plane in zip(fams, (box, box, t_plane))))
+    offsets = np.zeros((3, n + 1), np.int64)
+    np.cumsum(np.stack(counts), axis=1, out=offsets[:, 1:])
+    offsets += np.cumsum([0, *(len(p) for p in packed[:2])])[:, None]
+    if offsets[-1, -1] >= 2**31:
+        raise ValueError(f"sprite_raster: {int(offsets[-1, -1])} spans are beyond the kernel's int32 offsets")
+    # The outputs: a member's mask and minshape mask (each padded to 16 bytes), then its RGBA; or its opacity.
+    pixels = h * w
+    mask16 = -(-pixels // 16)
+    sizes = (-(-4 * pixels // 16),) if opacity else (mask16, mask16, pixels)
+    ends = np.cumsum(np.stack(sizes, 1).reshape(-1)).reshape(n, len(sizes))
+    starts = ends - np.stack(sizes, 1)
+    members = np.zeros((n, 8), np.int64)
+    members[:, 0], members[:, 1] = h, w
+    if opacity:
+        members[:, 4] = starts[:, 0]
+    else:
+        members[:, 2:5] = starts
+    out_16 = int(ends[-1, -1]) if n else 0
+    if out_16 >= 2**31:
+        raise ValueError(f"sprite_raster: {16 * out_16} bytes of output are beyond the kernel's offsets")
+    # One unit a band of a strip, the members with the most AA spans first.
+    bands, strips = -(-h // SPRITE_BAND), -(-w // SPRITE_STRIP)
+    order = np.argsort(-counts[2], kind="stable")
+    per = (bands * strips)[order]
+    first = np.repeat(np.cumsum(per) - per, per)
+    j = np.arange(int(per.sum()), dtype=np.int64) - first
+    per_strips = np.repeat(strips[order], per)
+    units = np.zeros((len(j), 4), np.int64)
+    units[:, 0], units[:, 1], units[:, 2] = np.repeat(order, per), j // per_strips, j % per_strips
+    fills = np.asarray(fills, np.int64).reshape(n, 4)
+    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
+        raise ValueError("sprite_raster: a fill does not fit in int32")
+    spans = np.concatenate(packed).view(np.int32).reshape(-1, 2)
+    return SpriteLists(spans, offsets.astype(np.int32), fills.astype(np.int32), members.astype(np.int32),
+                       units.astype(np.int32), 16 * out_16, opacity)
+
+
+def sprite_raster_lists(boxes, fills, cov, cross, aa) -> SpriteLists:
+    """SR1's host lists for one launch in group mode over n members: boxes
+    (n, 4) [x0, y0, w, h] (the member's pixel box), fills (n, 4) int32
+    premultiplied plain fills, and per member its 1x coverage and crossing
+    spans and its 16x AA spans (absolute (rows, starts, ends) triples with
+    inclusive ends; an AA family may be None).  Raises ValueError where a
+    box is empty or too large for the packing, a family does not hold n
+    members, a fill does not fit in int32 or the lists outgrow int32
+    offsets."""
+    return _sprite_lists(boxes, fills, (cov, cross, aa), False)
+
+
+def sprite_opacity_lists(box, scaled) -> SpriteLists:
+    """SR1's host lists for one launch in opacity mode: the AA opacity of
+    the pixel box (x0, y0, x1, y1) from its 16x spans `scaled` (rows,
+    starts, ends) in absolute scaled coordinates, or None."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    return _sprite_lists([[x0, y0, x1 - x0 + 1, y1 - y0 + 1]], np.zeros((1, 4), np.int64), ([None], [None], [scaled]),
+                         True)
+
+
+def stage_sprite_lists(lists: SpriteLists, device) -> list:
+    """`lists` on the CUDA `device` in one staged copy: int32 views (spans,
+    offsets, fills, members, units)."""
+    from ..raster.staging import stage
+
+    return stage(_cuda_device(device, "sprite_raster"), lists.spans, lists.offsets, lists.fills, lists.members,
+                 lists.units)
+
+
+def sprite_raster(lists: SpriteLists, staged):
+    """Launch ``sprite_raster`` over `lists` staged on the card (`staged`,
+    stage_sprite_lists'): one block a unit.  Group mode returns each
+    member's (bool (h, w) shape mask, bool (h, w) minshape mask, int32 (h,
+    w, 4) RGBA) as views of one output buffer, each contiguous and on 16
+    bytes (the JAX package's _build_group_kernel over the member's own box;
+    the plain version is scene/fastframe.py _raster_members); opacity mode
+    the box's int32 (h, w) opacity (raster/aa.py coverage_opacity_torch)."""
+    spans, offsets, fills, members, units = staged
+    device = units.device
+    if device.type != "cuda":
+        raise ValueError(f"sprite_raster needs its lists on a CUDA device, got {device}")
+    n = len(lists.members)
+    if tuple(offsets.shape) != (3, n + 1) or tuple(units.shape) != lists.units.shape:
+        raise ValueError(f"sprite_raster: staged lists of {n} members are not stage_sprite_lists' of these lists")
+    out = torch.empty(lists.out_bytes, dtype=torch.uint8, device=device)
+    if len(lists.units):
+        with torch.cuda.device(device):
+            rc = load()["sprite_raster"](
+                spans.data_ptr(), offsets.data_ptr(), fills.data_ptr(), members.data_ptr(), units.data_ptr(),
+                out.data_ptr(), n, len(lists.units), int(lists.opacity), torch.cuda.current_stream(device).cuda_stream,
+            )
+        _raise_on("sprite_raster", rc)
+        launches["sprite_raster"] += 1
+    return sprite_views(lists, out)
+
+
+def sprite_views(lists: SpriteLists, out: torch.Tensor):
+    """The planes of `lists`' members in their uint8 output buffer `out`,
+    as sprite_raster returns them: each a contiguous view at a multiple of
+    16 bytes into the buffer."""
+    views = []
+    for h, w, mask, minmask, rgba, *_ in lists.members.tolist():
+        if lists.opacity:
+            return out[16 * rgba : 16 * rgba + 4 * h * w].view(torch.int32).view(h, w)
+        views.append((out[16 * mask : 16 * mask + h * w].view(torch.bool).view(h, w),
+                      out[16 * minmask : 16 * minmask + h * w].view(torch.bool).view(h, w),
+                      out[16 * rgba : 16 * rgba + 16 * h * w].view(torch.int32).view(h, w, 4)))
+    return views
+
+
+def sprite_raster_blocks_per_sm() -> int:
+    """The blocks of sprite_raster that one SM of the current device holds
+    at once (the occupancy calculator)."""
+    got = load()["sprite_raster_blocks_per_sm"]()
+    if got < 0:
+        raise RuntimeError(f"sprite_raster_blocks_per_sm: CUDA error {-got}")
+    return got
+
+
+def sprite_raster_opacity(box, scaled, device) -> torch.Tensor:
+    """Launch ``sprite_raster`` in opacity mode: the int32 (h, w) AA opacity
+    of the pixel box (x0, y0, x1, y1) from 16x spans in absolute scaled
+    coordinates (or None), on the CUDA `device`, its lists in one staged
+    copy (the plain version is raster/aa.py coverage_opacity_torch)."""
+    lists = sprite_opacity_lists(box, scaled)
+    return sprite_raster(lists, stage_sprite_lists(lists, device))
 
 
 def launch_floor(device) -> None:

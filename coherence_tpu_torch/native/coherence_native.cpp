@@ -4,7 +4,8 @@
 // expand_1x_*, expand_aa_*, jbig2_generic_region): the last five
 // unchanged, the blit taking its sprite as one uint8 plane; and the port's
 // own brush_stroke_table and brush_strip_lists, the host lists of the
-// brush_stamp kernel.
+// brush_stamp kernel, and sprite_pack_spans, those of the sprite_raster
+// kernel.
 //
 // The bezier subdivision and the scanline sweep are the per-scene host
 // geometry stage (polygon.ml:107-127 subdivision, polygon.ml:306-512 sweep):
@@ -784,6 +785,35 @@ int64_t brush_strip_lists(const int32_t* corners, const uint8_t* valid, const in
     for (size_t q = kind ? kind_end[0] : 0; q < kind_end[kind]; ++q) out[at[pairs[2 * q]]++] = pairs[2 * q + 1];
   }
   return total;
+}
+
+// ---------------------------------------------------------------------------
+// The sprite_raster kernel's span lists (kernels.sprite_raster_lists): one
+// span family of n members, member m's counts[m] inclusive spans in its
+// arrays rows, starts, ends (ptrs[3 m .. 3 m + 2], int64 addresses), packed
+// in order into out as one uint64 each, row << 42 | start << 21 | (end + 1),
+// in the member's plane (planes[4 m ..]: its origin row r0, height h,
+// origin column c0, width w): a row outside 0..h-1 becomes 2^22 - 1, past
+// every plane (the scatter drops it), and the columns are clipped to 0..w
+// (the scatter clips them).  The caller checks that h < 2^22 - 1 and
+// w < 2^21.
+// ---------------------------------------------------------------------------
+void sprite_pack_spans(const uint64_t* ptrs, const int64_t* counts, const int64_t* planes, int64_t n,
+                       uint64_t* out) {
+  const uint64_t dropped = (1u << 22) - 1;
+  for (int64_t m = 0; m < n; ++m) {
+    const int64_t* rows = reinterpret_cast<const int64_t*>(ptrs[3 * m]);
+    const int64_t* starts = reinterpret_cast<const int64_t*>(ptrs[3 * m + 1]);
+    const int64_t* ends = reinterpret_cast<const int64_t*>(ptrs[3 * m + 2]);
+    const int64_t r0 = planes[4 * m], h = planes[4 * m + 1], c0 = planes[4 * m + 2], w = planes[4 * m + 3];
+    for (int64_t k = 0; k < counts[m]; ++k) {
+      const int64_t r = rows[k] - r0;
+      const int64_t a = std::min(std::max(starts[k] - c0, (int64_t)0), w);
+      const int64_t b = std::min(std::max(ends[k] + 1 - c0, (int64_t)0), w);
+      const uint64_t row = (r >= 0 && r < h) ? (uint64_t)r : dropped;
+      *out++ = (row << 42) | ((uint64_t)a << 21) | (uint64_t)b;
+    }
+  }
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ The port's copy of ``coherence_tpu.native_lib``, trimmed to the six entry
 points the port calls: ``blit_masked_rgb``, ``bezier_subdivide_batch``,
 ``edge_spans``, ``expand_1x_grouped``, ``expand_aa_grouped`` and
 ``jbig2_generic_region``; and the port's own ``brush_stroke_table`` and
-``brush_strip_lists`` (the brush_stamp kernel's host lists).  The library
+``brush_strip_lists`` (the brush_stamp kernel's host lists) and
+``sprite_pack_spans`` (the sprite_raster kernel's).  The library
 is compiled by g++ on first use, and again whenever the source is newer, into
 ``build/native/`` at the root of the checkout.  It is built with
 ``-march=native``, so its file name carries a hash of the flags and of the
@@ -119,6 +120,8 @@ def _load() -> ctypes.CDLL:
         lib.brush_strip_lists.restype = i64
         lib.brush_strip_lists.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i64, i32, i32, vp, i64, vp, vp,
                                           i64]
+        lib.sprite_pack_spans.restype = None
+        lib.sprite_pack_spans.argtypes = [vp, vp, vp, i64, vp]
         _lib = lib
         return _lib
 
@@ -303,3 +306,28 @@ def brush_strip_lists(corners: np.ndarray, valid: np.ndarray, points, strokes: n
 
 
 _brush_entries = [np.empty(1 << 16, np.int32)]
+
+
+def sprite_pack_spans(fam, planes: np.ndarray) -> tuple:
+    """sprite_raster's packed spans of one family of n members (the C
+    entry point says how each is packed): `fam` n (rows, starts, ends)
+    triples of inclusive spans, or None for none; `planes` (n, 4) int64,
+    each member's plane (origin row, height, origin column, width).
+    Returns (the uint64 spans, member by member in their order, and the
+    (n,) int64 counts).  Raises ValueError where a triple's arrays differ
+    in length."""
+    n = len(fam)
+    ptrs, counts, kept = np.zeros(3 * n, np.uint64), np.zeros(n, np.int64), []
+    for m, sp in enumerate(fam):
+        if sp is None:
+            continue
+        trip = [np.ascontiguousarray(a, np.int64) for a in sp]
+        if not len(trip[0]) == len(trip[1]) == len(trip[2]):
+            raise ValueError(f"sprite_pack_spans: member {m}'s rows, starts and ends differ in length")
+        kept.extend(trip)  # alive through the call
+        counts[m] = len(trip[0])
+        ptrs[3 * m : 3 * m + 3] = [a.ctypes.data for a in trip]
+    planes = np.ascontiguousarray(planes, np.int64)
+    out = np.empty(int(counts.sum()), np.uint64)
+    _load().sprite_pack_spans(ptrs.ctypes.data, counts.ctypes.data, planes.ctypes.data, n, out.ctypes.data)
+    return out, counts

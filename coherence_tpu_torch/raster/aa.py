@@ -3,8 +3,11 @@
 The PyTorch counterpart of ``coherence_tpu.raster.aa``.  The reference sums
 a 32x32 truncated-Gaussian table under the 16x-scaled coverage mask of each
 fringe pixel; that is a stride-16 valid correlation of the scaled binary
-mask with the integer table, computed here as one float32 matrix product
-per batch (``aa.py:93-109`` in the JAX package).  The product is exact:
+mask with the integer table.  On a CUDA device a matte is one launch of SR1
+(``kernels/csrc/sprite_raster.cu``: the count as an exact integer sum of
+the table, from the span lists).  The plain version computes it as one
+float32 matrix product per batch (``aa.py:93-109`` in the JAX package),
+on the CPU and in the comparisons.  The product is exact:
 the inputs are 0/1, the weights are integers <= 255 and every partial sum
 is an integer below 2^24, so any summation order gives the same integers,
 provided float32 is not rounded to TF32 or bf16 on the way (checked at the
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 from . import scanline
 from .region import NULL_SPRITE, Sprite
 
@@ -119,9 +123,18 @@ _BAND_SAMPLES = 1 << 24
 def coverage_opacity(box, scaled, device) -> torch.Tensor:
     """Per-pixel AA opacity, int32 (h, w), over the pixel box `box`, from
     scaled spans (rows, s, e) in absolute scaled-pixel coordinates (or None
-    for an empty mask).  Computed in row bands of about _BAND_SAMPLES
-    samples; every pixel's value depends only on its own 32x32 footprint,
-    so the bands do not change it."""
+    for an empty mask): on a CUDA device one staged copy and one launch of
+    SR1 in opacity mode (kernels.sprite_raster_opacity), elsewhere
+    coverage_opacity_torch."""
+    if torch.device(device).type == "cuda":
+        return kernels.sprite_raster_opacity(box, scaled, device)
+    return coverage_opacity_torch(box, scaled, device)
+
+
+def coverage_opacity_torch(box, scaled, device) -> torch.Tensor:
+    """coverage_opacity's plain version, on any device: computed in row
+    bands of about _BAND_SAMPLES samples; every pixel's value depends only
+    on its own 32x32 footprint, so the bands do not change it."""
     x0, y0, x1, y1 = box
     w, h = x1 - x0 + 1, y1 - y0 + 1
     out = torch.zeros((h, w), dtype=torch.int32, device=device)

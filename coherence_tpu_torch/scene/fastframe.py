@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 from .. import transform as tr
 from ..geometry import path as gpath
 from ..geometry import shapes as gshapes
@@ -185,6 +186,7 @@ def _raster_members(members: List[_Member], device):
     group, each member's planes exactly its box's size: the JAX package's
     _build_group_kernel, as batched torch: one mask_of_spans per span
     family, the coverage product, then the fill dissolved by the opacity.
+    The CPU path, and SR1's plain version (_sprite_raster_members).
     The batch runs at the members' largest box; a pixel's value depends only
     on its own footprint, so the others' padding changes no value."""
     hp, wp = max(m.h for m in members), max(m.w for m in members)
@@ -209,6 +211,17 @@ def _raster_members(members: List[_Member], device):
             [rgba[j, :h, :w].contiguous() for j, (h, w) in enumerate(crop)])
 
 
+def _sprite_raster_members(members: List[_Member], device):
+    """_raster_members' planes for every member of a build on the CUDA
+    `device`: one staged copy of the host lists and one launch of SR1
+    (kernels.sprite_raster, kernels/csrc/sprite_raster.cu); each plane a
+    contiguous view of its one output buffer, on 16 bytes."""
+    lists = kernels.sprite_raster_lists([(m.x0, m.y0, m.w, m.h) for m in members], [m.fill for m in members],
+                                        [m.cov for m in members], [m.cross for m in members],
+                                        [m.aa for m in members])
+    return tuple(zip(*kernels.sprite_raster(lists, kernels.stage_sprite_lists(lists, device))))
+
+
 def _sub_batches(members: List[_Member]):
     """Consecutive runs of a group's members whose coverage planes, at the
     run's largest box, hold at most _SUB_BATCH_SAMPLES samples together."""
@@ -226,13 +239,11 @@ def _sub_batches(members: List[_Member]):
         yield run
 
 
-def full_sprites_of_objects(objs, device) -> List[Optional[Sprite]]:
-    """Batched ``full_sprite_of_object`` over a scene, on `device`:
-    plain-filled paths and stroked paths are rasterized together per
-    (bucket, span-capacity) group; any other object takes the scalar
-    pipeline.  A sprite (or None, for an empty object) per object, in
-    order; the coherence cache is seeded with each batched member's shape
-    and minshape, in the JAX package's order."""
+def _group_members(objs, device):
+    """(out, groups) of full_sprites_of_objects before its raster: out
+    holds the scalar route's sprites (None elsewhere), groups maps each
+    (bucket, span-capacity) key to its members in scene order, the keys in
+    the order the JAX package meets them."""
     out: List[Optional[Sprite]] = [None] * len(objs)
     groups: Dict[tuple, List[_Member]] = {}
     for i, o in enumerate(objs):
@@ -262,19 +273,35 @@ def full_sprites_of_objects(objs, device) -> List[Optional[Sprite]]:
                raa.span_bucket(2 * (aa[0].shape[0] if aa is not None else 0), _SPAN_BUCKET_MIN))
         groups.setdefault(key, []).append(_Member(i, (rows, cov_s, cov_e), (x_rows, x_s, x_e), aa, x0, y0, w, h,
                                                   tuple(int(v) for v in f4), (x0, y0, x1, y1), min_empty))
+    return out, groups
 
-    for members in groups.values():
-        for run in _sub_batches(members):
-            masks, minmasks, rgbas = _raster_members(run, device)
-            for m, mask, minmask, rgba in zip(run, masks, minmasks, rgbas):
-                out[m.index] = Sprite(m.box, mask, rgba)
-                # Seed the shape cache as the scalar path would have: an
-                # empty minshape as NULL_SHAPE, else the untightened shape
-                # with its emptiness left unknown.
-                idset = objs[m.index].idset
-                if cache.usecache and cache.getshape(idset) is None:
-                    minshp = region.NULL_SHAPE if m.min_empty else region.Shape(m.box, minmask, empty_known=False)
-                    cache.addshape(idset, region.Shape(m.box, mask, empty_known=False), minshp)
+
+def full_sprites_of_objects(objs, device) -> List[Optional[Sprite]]:
+    """Batched ``full_sprite_of_object`` over a scene, on `device`:
+    plain-filled paths and stroked paths are rasterized together (on a
+    CUDA device every member in one launch of SR1, elsewhere per
+    (bucket, span-capacity) group in sub-batches of _raster_members); any
+    other object takes the scalar pipeline.  A sprite (or None, for an
+    empty object) per object, in order; the coherence cache is seeded with
+    each batched member's shape and minshape, in the JAX package's
+    order."""
+    out, groups = _group_members(objs, device)
+    if torch.device(device).type == "cuda":
+        # Every group's members in one launch; the plain version's sub-batches only cap its planes' memory.
+        ordered = [m for members in groups.values() for m in members]
+        rastered = zip(ordered, *_sprite_raster_members(ordered, device)) if ordered else ()
+    else:
+        rastered = (got for members in groups.values() for run in _sub_batches(members)
+                    for got in zip(run, *_raster_members(run, device)))
+    for m, mask, minmask, rgba in rastered:
+        out[m.index] = Sprite(m.box, mask, rgba)
+        # Seed the shape cache as the scalar path would have: an empty
+        # minshape as NULL_SHAPE, else the untightened shape with its
+        # emptiness left unknown.
+        idset = objs[m.index].idset
+        if cache.usecache and cache.getshape(idset) is None:
+            minshp = region.NULL_SHAPE if m.min_empty else region.Shape(m.box, minmask, empty_known=False)
+            cache.addshape(idset, region.Shape(m.box, mask, empty_known=False), minshp)
     return out
 
 

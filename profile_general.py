@@ -32,12 +32,23 @@ CUDA-event milliseconds of a rebuild and of a warm render, the host syncs
 ``raster/region.py`` counted, and the card's name and power limit.  The
 profiler slows the host several times over, so read its window for counts
 and shares, and the unprofiled lines for times.
+
+    python3 profile_general.py --split [--out build/profile_general]
+
+instead splits the ``general_lion`` rebuild on both routes: unprofiled
+times of each (host clock after a synchronize), then one rebuild of each
+under cProfile (written to split_batched.txt and split_fold.txt), read as
+the cumulative seconds of the parts that ``SPLIT_PARTS`` names: the host
+sweep, the batched members' raster and its parts, the scalar members, the
+fold and the cache seeding; on the per-member fold route every object's
+``coverage_opacity``.
 """
 
 import argparse
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -199,9 +210,103 @@ def replayed(program, name: str):
     return call
 
 
+# A rebuild's parts: name -> (file, function, calling functions or None),
+# read as the cProfile row's cumulative seconds (only the calls from the
+# callers, where they are named: an older full_sprites_of_objects made the
+# batched build's calls itself, _group_members makes them now, so both are
+# named and a parent checkout splits alike).  Nested parts repeat their
+# parents' seconds: the AA sweep runs inside _edge_spans' calls from
+# scaled_spans_of_edgelist, not inside "sweep_1x".
+SPLIT_PARTS = {
+    "render": ("render.py", "render_simple_scene", None),
+    "full_sprites_of_objects": ("fastframe.py", "full_sprites_of_objects", None),
+    "sweep_1x": ("scanline.py", "_edge_spans", ("full_sprites_of_objects", "_group_members")),
+    "sweep_aa": ("scanline.py", "scaled_spans_of_edgelist", ("full_sprites_of_objects", "_group_members")),
+    "minshape_empty": ("fastframe.py", "_minshape_empty", None),
+    "raster_members": ("fastframe.py", "_raster_members", None),
+    "raster_members.spans_in": ("fastframe.py", "_spans_in", ("_raster_members",)),
+    "raster_members.mask_of_spans": ("aa.py", "mask_of_spans", ("_batch_masks",)),
+    "raster_members.coverage_counts": ("aa.py", "coverage_counts", ("_raster_members",)),
+    "raster_members.dissolve": ("colour.py", "dissolve_rgba", ("_raster_members",)),
+    "sprite_raster_members": ("fastframe.py", "_sprite_raster_members", None),
+    "sprite_raster_lists": ("__init__.py", "sprite_raster_lists", None),
+    "stage": ("staging.py", "stage", None),
+    "sprite_raster": ("__init__.py", "sprite_raster", None),
+    "scalar_members": ("fastframe.py", "full_sprite_of_object", ("full_sprites_of_objects", "_group_members")),
+    "coverage_opacity": ("aa.py", "coverage_opacity", None),
+    "polygon_sprite_edgelist": ("aa.py", "polygon_sprite_edgelist", None),
+    "shape_of_basicshape": ("render.py", "shape_of_basicshape", None),
+    "fold": ("framepath.py", "fold_layers_carry", None),
+    "cache_seeding": ("cache.py", "addshape", ("full_sprites_of_objects",)),
+}
+
+
+def split_of(stats) -> dict:
+    """SPLIT_PARTS' cumulative seconds and calls in a pstats.Stats, the
+    parts with no call left out."""
+    out = {}
+    for part, (file, func, caller) in SPLIT_PARTS.items():
+        seconds = calls = 0
+        for (path, _, f), (_, nc, _, ct, callers) in stats.stats.items():
+            if f != func or os.path.basename(path) != file:
+                continue
+            if caller is None:
+                seconds, calls = seconds + ct, calls + nc
+            else:
+                for (_, _, cf), (_, cnc, _, cct) in callers.items():
+                    if cf in caller:
+                        seconds, calls = seconds + cct, calls + cnc
+        if calls:
+            out[part] = {"s": seconds, "calls": calls}
+    return out
+
+
+def rebuild_split(torch, out_dir: str, smi: str, reps: int = 3, dev: str = "cuda") -> dict:
+    """The general_lion rebuild on the batched group route and on the
+    per-member fold route: `reps` unprofiled rebuilds each (host seconds
+    after a synchronize), then one of each under cProfile, split by
+    split_of."""
+    import chip_smoke as cs
+    from profile_interactive import cprofiled, write_stats
+
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import flags
+
+    cs.fresh_cache()
+    obj = cs.fitted_lion()
+    shape = region.shape_of_box(cs.WINDOW, dev)
+
+    def rebuild():
+        cache.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R.render_simple_scene([obj], shape, dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {"nvidia_smi": smi}
+    for route, batched in (("batched", True), ("fold", False)):
+        flags.set_flag("batch_group_raster", batched)
+        try:
+            rebuild()  # first use on this route
+            seconds = [rebuild() for _ in range(reps)]
+            cache.clear()
+            prof_s, stats = cprofiled(lambda: (R.render_simple_scene([obj], shape, dev), torch.cuda.synchronize()))
+        finally:
+            flags.set_flag("batch_group_raster", True)
+        write_stats(os.path.join(out_dir, f"split_{route}.txt"), prof_s, stats)
+        out[route] = {"s": seconds, "s_median": statistics.median(seconds), "profiled_s": prof_s,
+                      "split": split_of(stats)}
+    cache.clear()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_general", help="directory for the profile files")
+    ap.add_argument("--split", action="store_true", help="only split the rebuild on both routes")
     args = ap.parse_args()
 
     import torch
@@ -216,10 +321,13 @@ def main() -> int:
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
 
-    os.makedirs(args.out, exist_ok=True)
     dev = "cuda"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    os.makedirs(args.out, exist_ok=True)
+    if args.split:
+        print(json.dumps(rebuild_split(torch, args.out, smi)))
+        return 0
     cs.fresh_cache()
     obj = cs.fitted_lion()
     shape = region.shape_of_box(cs.WINDOW, dev)

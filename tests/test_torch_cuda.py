@@ -2274,3 +2274,285 @@ def test_tile_raster_wrappers_reject_bad_input(cuda_device):
     wide_aa = (np.array([3]), np.array([-1]), np.array([5]))
     with pytest.raises(ValueError):
         kernels.stage_tile_lists([([cov[0]], [cross[0]], [wide_aa], [fills[0]], 8)], cuda_device)
+
+# --- SR1, the sprite rasterizer ----------------------------------------------
+# Members as scene/fastframe.py's batched build gives them: a pixel box
+# (x0, y0, w, h), a premultiplied fill, and per family a (rows, starts, ends)
+# triple of inclusive spans in absolute coordinates (1x coverage and
+# crossing; 16x AA, its t-plane's origin at 16 y0 - 32, 16 x0 - 32).  The
+# fills: translucent, opaque, alpha 0, a second translucent one.
+SPRITE_FILLS = [(90, 40, 10, 170), (200, 120, 30, 255), (0, 0, 0, 0), (17, 34, 51, 68)]
+# Boxes that are not multiples of 16 or 128, one pixel wide, one pixel
+# tall, one pixel, more than one band and strip, exactly one band and strip.
+SPRITE_BOXES = [(-7, 5, 150, 37), (3, -20, 1, 40), (100, 100, 60, 1), (0, 0, 1, 1), (12, 30, 129, 17),
+                (40, 8, 128, 16), (-300, 2, 301, 45)]
+
+
+def sprite_spans(rng, k: int, r0: int, h: int, c0: int, w: int, margin: int):
+    """k spans around a plane of h x w at (r0, c0): rows up to `margin`
+    above and below it (the scatter drops those), columns up to `margin`
+    past either side (it clips those), and _odd_spans' kinds: reversed,
+    zero-length, full-width, starting at w, duplicated."""
+    rows, s, e = _odd_spans(rng, rng.integers(-margin, h + margin, k), w + 2 * margin, k)
+    return rows + r0, s + c0 - margin, e + c0 - margin
+
+
+def sprite_member_spans(rng, box, n1: int, na: int):
+    """(cov, cross, aa) of a member over `box`: n1 spans in each 1x family,
+    na in the AA one; the coverage's first span covers the box's top row."""
+    x0, y0, w, h = box
+    cov = _joined(([y0], [x0], [x0 + w - 1]), sprite_spans(rng, n1, y0, h, x0, w, 3))
+    cross = sprite_spans(rng, n1, y0, h, x0, w, 3)
+    aa = sprite_spans(rng, na, 16 * y0 - 32, 16 * h + 16, 16 * x0 - 32, 16 * w + 16, 40)
+    return cov, cross, aa
+
+
+def sprite_case(name: str, seed: int = 0):
+    """A group-mode case: (boxes, fills, cov, cross, aa), per member.
+
+      * "ragged": SPRITE_BOXES with random spans on and off their planes;
+        member 2 has no AA span (its family None), member 3 an empty
+        minshape (its crossing spans are its coverage spans);
+      * "heavy": two members wider than a strip whose AA family holds a
+        t-row of TILE_BIN_CAP + 900 spans (the block's row of counts),
+        rows of 5 x TILE_LANE_CAP and TILE_LANE_CAP + 1 spans (a warp's)
+        and a band of more than TILE_BIN_CAP spans in all (binned in runs),
+        their coverage over those rows."""
+    rng = np.random.default_rng(500 + seed)
+    if name == "ragged":
+        boxes, fams = list(SPRITE_BOXES), []
+        for j, box in enumerate(boxes):
+            x0, y0, w, h = box
+            cov, cross, aa = sprite_member_spans(rng, box, 4 * h + 3, 40 * h + 9)
+            if j == 2:
+                aa = None
+            if j == 3:
+                cross = cov
+            fams.append((cov, cross, aa))
+    elif name == "heavy":
+        boxes, fams = [(5, -9, 300, 40), (0, 0, 140, 20)], []
+        for x0, y0, w, h in boxes:
+            tw, t0 = 16 * w + 16, 16 * y0 - 32
+            heavy = [(300, TILE_BIN_CAP + 900), (301, 5 * TILE_LANE_CAP), (302, TILE_LANE_CAP + 1),
+                     (303, TILE_LANE_CAP)]
+            aa = _joined(*(_odd_spans(rng, [r], tw, k) for r, k in heavy),
+                         _odd_spans(rng, rng.integers(256, 528, 9000), tw, 9000),
+                         _odd_spans(rng, rng.integers(0, 16 * h + 16, 2000), tw, 2000))
+            aa = (aa[0] + t0, aa[1] + 16 * x0 - 32, aa[2] + 16 * x0 - 32)
+            cov = _joined(_full_rows(range(15, 22), w), _odd_spans(rng, rng.integers(0, h, 300), w, 300))
+            cov = (cov[0] + y0, cov[1] + x0, cov[2] + x0)
+            cross = sprite_spans(rng, 200, y0, h, x0, w, 2)
+            fams.append((cov, cross, aa))
+    else:
+        raise ValueError(name)
+    fills = [SPRITE_FILLS[j % len(SPRITE_FILLS)] for j in range(len(boxes))]
+    cov, cross, aa = (list(f) for f in zip(*fams))
+    return boxes, fills, cov, cross, aa
+
+
+def sprite_paths(device="cpu"):
+    """Plain-filled paths and stroked paths of the port (a circle, a
+    translucent rotated rectangle, a round-capped stroked circle, a
+    hairline whose minshape is empty, fills of alpha 0 and 255), as the
+    batched build groups them: (boxes, fills, cov, cross, aa) of every
+    member, groups in order."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.geometry import shapes as gs
+    from coherence_tpu_torch.raster import fills
+    from coherence_tpu_torch.scene import fastframe
+    from coherence_tpu_torch.scene import render as R
+
+    def obj(fill, shape, t=()):
+        return R.Obj(ident.new_ids(), R.Basic(fills.plain(fill), shape), tuple(t), R.OVER)
+
+    round_spec = gs.StrokeSpec(startcap=gs.RoundCap, join=gs.RoundJoin, endcap=gs.ButtCap, mitrelimit=10.0,
+                               linewidth=3.0)
+    hairline = gs.StrokeSpec(startcap=gs.ButtCap, join=gs.BevelJoin, endcap=gs.ButtCap, mitrelimit=10.0,
+                             linewidth=0.6)
+    objs = [obj(C.red, R.PathShape(gs.circle(30.0, 30.0, 20.0))),
+            obj(C.dissolve(C.blue, delta=120), R.PathShape(gs.rectangle(5.0, 5.0, 240.0, 25.0)),
+                [tr.Rotate((90.0, 20.0), 0.3)]),
+            obj(C.green, R.StrokedPathShape(gs.circle(160.0, 40.0, 35.0), round_spec)),
+            obj(C.red, R.StrokedPathShape(gs.circle(30.0, 30.0, 12.0), hairline)),
+            obj(C.dissolve(C.gold, delta=0), R.PathShape(gs.circle(33.5, 70.25, 19.0))),
+            obj(C.dissolve(C.teal, delta=200), R.PathShape(gs.circle(133.5, 170.25, 61.0)))]
+    return sprite_of_members(fastframe._group_members(objs, device)[1])
+
+
+def sprite_of_members(groups):
+    """(boxes, fills, cov, cross, aa) of the members of fastframe's groups,
+    in order."""
+    ms = [m for members in groups.values() for m in members]
+    return ([(m.x0, m.y0, m.w, m.h) for m in ms], [m.fill for m in ms], [m.cov for m in ms],
+            [m.cross for m in ms], [m.aa for m in ms])
+
+
+def sprite_as_members(case):
+    """A case's members as fastframe's _Member records, for its plain
+    version (_raster_members)."""
+    from coherence_tpu_torch.scene import fastframe
+
+    boxes, fills, cov, cross, aa = case
+    return [fastframe._Member(j, c, x, a, x0, y0, w, h, tuple(f), (x0, y0, x0 + w - 1, y0 + h - 1), False)
+            for j, ((x0, y0, w, h), f, c, x, a) in enumerate(zip(boxes, fills, cov, cross, aa))]
+
+
+def sprite_opacity_case(name: str, seed: int = 0):
+    """An opacity-mode case: (box (x0, y0, x1, y1), scaled spans or None).
+    "wide": 1920 x 24, taller than one band; "odd": 37 x 300; "pixel": one
+    pixel; "empty": no span; "circle": a circle's matte from the sweep."""
+    rng = np.random.default_rng(600 + seed)
+    boxes = {"wide": (3, -4, 1922, 19), "odd": (-5, 7, 31, 306), "pixel": (9, 9, 9, 9), "empty": (0, 0, 19, 21)}
+    if name == "circle":
+        from coherence_tpu_torch.geometry import path as gpath
+        from coherence_tpu_torch.geometry import shapes as gs
+        from coherence_tpu_torch.raster import scanline
+
+        circle = gs.circle(100.3, 90.7, 70.0)
+        edges = gpath.edgelist_of_path(circle)
+        shp, _ = scanline.shapeminshape_of_edgelist(edges, circle.winding, "cpu")
+        return shp.box, scanline.scaled_spans_of_edgelist(edges, circle.winding, 16)
+    box = boxes[name]
+    if name == "empty":
+        return box, None
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    return box, sprite_spans(rng, 60 * h * max(1, w // 64), 16 * y0 - 32, 16 * h + 16, 16 * x0 - 32, 16 * w + 16, 40)
+
+
+def lion_objects(fit: int = 1024):
+    """The lion group's member objects as render.py makes them for
+    chip_smoke.py's general_lion (the lion fitted to `fit` pixels and
+    flipped upright)."""
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import render as R
+
+    lion = examples.smalllion()
+    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(lion)
+    scale = float(fit) / max(xmax - xmin, ymax - ymin)
+    o = R.transform_renderobject_many(
+        [tr.Translate(0.0, float(fit)), tr.Scale((0.0, 0.0), 1.0, -1.0), tr.Scale((0.0, 0.0), scale, scale),
+         tr.Translate(-xmin, -ymin)], lion)
+    return [R.Obj(ident.new_ids(), x.geometry, tuple(tr.append(list(o.transform), list(x.transform))), x.compop)
+            for x in o.geometry.objects]
+
+
+def _sprite_group(device, case):
+    """SR1's planes of a group-mode case on `device` (one launch) and the
+    plain version's, member by member."""
+    from coherence_tpu_torch.scene import fastframe
+
+    lists = kernels.sprite_raster_lists(*case)
+    before = kernels.launches["sprite_raster"]
+    got = kernels.sprite_raster(lists, kernels.stage_sprite_lists(lists, device))
+    torch.cuda.synchronize()
+    assert kernels.launches["sprite_raster"] == before + 1
+    members = sprite_as_members(case)
+    want = [p for m in members for p in zip(*fastframe._raster_members([m], device))]
+    return got, want
+
+
+def _assert_sprite_planes(got, want):
+    assert len(got) == len(want)
+    for (mask, minmask, rgba), (wmask, wminmask, wrgba) in zip(got, want):
+        for g, w in ((mask, wmask), (minmask, wminmask), (rgba, wrgba)):
+            assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous() and g.data_ptr() % 16 == 0
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "heavy", "paths"])
+def test_sprite_raster_matches_plain(cuda_device, case):
+    """SR1 in group mode against _raster_members on the card, bit for bit:
+    ragged boxes with spans off their planes, reversed and overlapping; a
+    member with no AA span and one with an empty minshape; fills of alpha 0
+    and 255; rows past a lane's and a bin's capacity and a band binned in
+    runs; real paths and stroked paths.  Every plane is a contiguous view
+    on 16 bytes."""
+    got, want = _sprite_group(cuda_device, sprite_paths() if case == "paths" else sprite_case(case))
+    _assert_sprite_planes(got, want)
+    assert any(bool(m.any()) for m, _, _ in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wide", "odd", "pixel", "empty", "circle"])
+def test_sprite_raster_opacity_matches_plain(cuda_device, case):
+    """SR1 in opacity mode (one launch, whatever the box) against
+    coverage_opacity_torch's row bands, bit for bit."""
+    from coherence_tpu_torch.raster import aa
+
+    box, scaled = sprite_opacity_case(case)
+    before = kernels.launches["sprite_raster"]
+    got = aa.coverage_opacity(box, scaled, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.launches["sprite_raster"] == before + 1
+    want = aa.coverage_opacity_torch(box, scaled, "cpu")
+    assert got.dtype == torch.int32 and got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sprite_raster_lion(cuda_device, monkeypatch):
+    """The lion at chip_smoke.py's general_lion size: its 130 batched
+    members (24 groups) in one launch and its two scalar members' mattes,
+    each against its plain version, bit for bit; then
+    full_sprites_of_objects on the card equal to the CPU's, in one launch
+    for the batched members and one a scalar matte, with no plain version
+    reached."""
+    from coherence_tpu_torch.raster import aa
+    from coherence_tpu_torch.scene import cache, fastframe
+
+    objs = lion_objects()
+    cache.clear()  # the scalar members' shapes are cached on the device that computed them
+    mattes, real = [], kernels.sprite_raster_opacity
+    monkeypatch.setattr(kernels, "sprite_raster_opacity", lambda box, scaled, device: (
+        mattes.append((box, scaled)), real(box, scaled, device))[1])
+    _, groups = fastframe._group_members(objs, cuda_device)
+    assert len(groups) == 24 and sum(len(m) for m in groups.values()) == 130 and len(mattes) == 2
+    got, want = _sprite_group(cuda_device, sprite_of_members(groups))
+    _assert_sprite_planes(got, want)
+    for box, scaled in mattes:
+        assert torch.equal(real(box, scaled, cuda_device).cpu(), aa.coverage_opacity_torch(box, scaled, "cpu"))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    cache.clear()
+    cpu = fastframe.full_sprites_of_objects(objs, "cpu")
+    cache.clear()
+    monkeypatch.setattr(fastframe, "_raster_members", refuse)
+    monkeypatch.setattr(aa, "coverage_opacity_torch", refuse)
+    before = kernels.launches["sprite_raster"]
+    card = fastframe.full_sprites_of_objects(objs, cuda_device)
+    torch.cuda.synchronize()
+    cache.clear()
+    assert kernels.launches["sprite_raster"] == before + 3
+    for c, g in zip(cpu, card):
+        assert (c is None) == (g is None)
+        if c is not None:
+            assert c.box == g.box and torch.equal(c.mask, g.mask.cpu()) and torch.equal(c.rgba, g.rgba.cpu())
+
+
+@pytest.mark.cuda
+def test_sprite_raster_fits_two_blocks_an_sm(cuda_device):
+    """The occupancy the design is built for: two blocks an SM."""
+    assert kernels.sprite_raster_blocks_per_sm() >= 2
+
+
+@pytest.mark.cuda
+def test_sprite_raster_wrappers_reject_bad_input(cuda_device):
+    """CPU devices and lists that do not match are refused before any
+    launch."""
+    lists = kernels.sprite_raster_lists(*sprite_case("ragged"))
+    with pytest.raises(ValueError):
+        kernels.stage_sprite_lists(lists, "cpu")
+    staged = [t.cpu() for t in kernels.stage_sprite_lists(lists, cuda_device)]
+    with pytest.raises(ValueError):
+        kernels.sprite_raster(lists, staged)
+    with pytest.raises(ValueError):
+        kernels.sprite_raster_opacity((0, 0, 9, 9), None, "cpu")
+    other = kernels.sprite_raster_lists(*sprite_case("heavy"))
+    with pytest.raises(ValueError):
+        kernels.sprite_raster(lists, kernels.stage_sprite_lists(other, cuda_device))

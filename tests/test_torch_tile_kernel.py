@@ -58,8 +58,8 @@ from test_torch_cuda import (AA_EDGE_SPANS, TILE_BIN_CAP, TILE_EDGE_SPANS, TILE_
                              tile_capacity_items, tile_edge_items, tile_flush_batches, tile_interior_items,
                              tile_spans)
 
-CSRC = os.path.join(os.path.dirname(kernels.__file__), "csrc", "tile_raster.cu")
-SRC = open(CSRC).read()
+CSRC = os.path.join(os.path.dirname(kernels.__file__), "csrc")
+SRC = "".join(open(os.path.join(CSRC, f)).read() for f in ("span_rows.cuh", "tile_raster.cu"))  # TR1 and its row builders
 TABLE = TA.maintable.T.astype(np.int64)  # tile_raster.cu's kTable[v][u]
 LANE_CAP = int(re.search(r"kLaneCap = (\d+);", SRC).group(1))
 BIN_CAP = int(re.search(r"kBinCap = (\d+);", SRC).group(1))
