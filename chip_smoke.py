@@ -138,12 +138,15 @@ Phases, one JSON line each:
      issue one copy and one launch; then sprite_kernels: sprite_raster in
      group mode over general_lion's 130 batched members (every group in one
      launch) and in opacity mode over each of its two scalar members'
-     mattes, against the plain versions on the card (_raster_members over
-     each group's sub-batches, coverage_opacity_torch), bit for bit, every
+     mattes and a 131,071 x 2 matte past the first design's packing (H61),
+     against the plain versions on the card (_raster_members over each
+     group's sub-batches, coverage_opacity_torch), bit for bit, every
      plane contiguous on 16 bytes; the kernel alone on lists staged
      beforehand, the staged copy alone, the plain version, the wrapper's
-     host time, the bound (the lists read once and the planes written once,
-     or 1024 multiply-adds a fringe pixel) and the launch floor; one call of
+     host time, the spans a launch reads, the bound (the lists read once
+     and the planes written once, or 1024 multiply-adds a fringe pixel; a
+     matte's at its mixed pixels only, its every-pixel bound beside) and
+     the launch floor; one call of
      each wrapper required to issue one copy and one launch;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
@@ -273,7 +276,7 @@ the bytes of its lists and slots and its fringe multiply-adds at the lion's
 build flush, config 5's beside, its launches (one a flush) at the lion's
 build, config 5's build, each zoom step and the prefetch; for
 sprite_raster the same at general_lion's batched members, each scalar
-matte beside, its launches in the rebuild, on the fold route, in the
+matte and the H61 matte beside, its launches in the rebuild, on the fold route, in the
 filter frames and demos, serve_engine and pdf_pages) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
@@ -1668,29 +1671,92 @@ def sprite_inputs(torch, dev) -> dict:
     return {"groups": groups, "mattes": mattes}
 
 
-def sprite_bound(lists, fringe: int) -> dict:
+def h61_matte():
+    """A matte past the first design's span packing (H61): a rectangle's
+    16x spans over a box 131,071 pixels wide and 2 tall, (box, scaled):
+    empty footprints at its left end, mixed ones at both ends, full ones
+    between."""
+    from coherence_tpu_torch.geometry import path as gpath
+    from coherence_tpu_torch.geometry import shapes as gs
+    from coherence_tpu_torch.raster import scanline
+
+    rect = gs.rectangle(6.3, 0.0, 131066.9, 10.0)
+    scaled = scanline.scaled_spans_of_edgelist(gpath.edgelist_of_path(rect), rect.winding, 16)
+    return (3, 5, 3 + 131070, 6), scaled
+
+
+def mixed_pixels(torch, box, scaled, device) -> int:
+    """The pixels of a matte over `box` whose 32 x 32 footprint holds set
+    and clear samples both: the only ones SR1's opacity mode counts (an
+    all-clear footprint is 0, an all-set one 255).  From the t-plane in
+    coverage_opacity_torch's row bands, each 16 x 16 block's set samples
+    summed and four blocks a footprint."""
+    import numpy as np
+
+    from coherence_tpu_torch.raster import aa
+
+    if scaled is None:
+        return 0
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    rows, ss, ee = (np.asarray(a, np.int64) for a in scaled)
+    tw = 16 * w + 16
+    cs, ce = np.clip(ss - (16 * x0 - 32), 0, tw), np.clip(ee + 1 - (16 * x0 - 32), 0, tw)
+    band_h = max(1, aa._BAND_SAMPLES // (16 * (tw + 1)) - 1)
+    mixed = 0
+    for by in range(0, h, band_h):
+        bh = min(band_h, h - by)
+        r = rows - (16 * (y0 + by) - 32)
+        t = aa.mask_of_spans(1, 16 * bh + 16, tw, np.zeros_like(r), r, cs, ce, device)[0]
+        q = t.reshape(bh + 1, 16, w + 1, 16).sum((1, 3), dtype=torch.int32)
+        n = q[:-1, :-1] + q[:-1, 1:] + q[1:, :-1] + q[1:, 1:]
+        mixed += int(((n > 0) & (n < 1024)).sum())
+    return mixed
+
+
+def sprite_span_reads(lists) -> int:
+    """The spans a launch over `lists` reads: each unit's band ranges of
+    its three families, each span once a unit."""
+    import numpy as np
+
+    b = lists.bands[lists.units[:, 3]].astype(np.int64)
+    return int((b[:, 1:6:2] - b[:, 0:6:2]).sum())
+
+
+def sprite_bound(lists, fringe: int, mixed=None) -> dict:
     """What SR1 must do for `lists`: its lists read once (the staged arrays'
     bytes) and its outputs written once (a mask byte, a minshape byte and
     16 bytes of RGBA a pixel; 4 bytes of opacity in opacity mode), over
     HBM_BYTES_PER_S; and its operations, 1024 multiply-adds (two int32
     operations each) at each of `fringe` pixels, at INT_OPS_PER_S.  The
-    bound is the larger."""
+    bound is the larger.  In opacity mode `fringe` is every pixel of the
+    box and `mixed` the pixels whose footprint is mixed (mixed_pixels): the
+    bound counts the multiply-adds at those alone, the least work, and
+    bound_all_pixels_ms at every pixel beside it (the first design's count)."""
     import numpy as np
 
-    list_bytes = sum(a.nbytes for a in (lists.spans, lists.offsets, lists.fills, lists.members, lists.units))
+    list_bytes = sum(a.nbytes for a in (lists.spans, lists.bands, lists.fills, lists.members, lists.units))
     pixels = int((lists.members[:, 0].astype(np.int64) * lists.members[:, 1]).sum())
     n_bytes = list_bytes + (4 if lists.opacity else 18) * pixels
-    ops = 2 * 1024 * fringe
-    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-    return {"list_bytes": list_bytes, "pixels": pixels, "bytes": n_bytes, "fringe_pixels": fringe, "operations": ops,
-            "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    counted = fringe if mixed is None else mixed
+    ops = 2 * 1024 * counted
+    ops_ms = ops / INT_OPS_PER_S * 1e3
+    row = {"list_bytes": list_bytes, "pixels": pixels, "bytes": n_bytes, "fringe_pixels": fringe, "operations": ops,
+           "bound_ms": max(byte_ms, ops_ms), "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+    if mixed is not None:
+        row["mixed_pixels"] = mixed
+        row["bound_all_pixels_ms"] = max(byte_ms, 2 * 1024 * fringe / INT_OPS_PER_S * 1e3)
+    return row
 
 
 def sprite_raster_row(torch, dev, scrub, groups=None, matte=None) -> dict:
     """SR1 in group mode over `groups`' members (one launch) or in opacity
     mode over one `matte` (box, scaled), against its plain version on the
     card (_raster_members over each group's sub-batches, or
-    coverage_opacity_torch), bit for bit, with its bound (sprite_bound).
+    coverage_opacity_torch), bit for bit, with its bound (sprite_bound; a
+    matte's at its mixed pixels, mixed_pixels) and the spans a launch reads
+    (span_reads, sprite_span_reads).
     The kernel alone on lists staged beforehand (ms: CUDA events, cold L2,
     behind a device-side wait of max(ANIMATED_WAIT_MS, 4 x its slowest host
     call), each call queued within half of it, H42); the staged copy alone
@@ -1747,9 +1813,10 @@ def sprite_raster_row(torch, dev, scrub, groups=None, matte=None) -> dict:
         shape = {"box": list(box), "aa_spans": 0 if scaled is None else len(scaled[0])}
     n_issued = issued(torch, wrapper)
     require(n_issued == 2, f"one sprite_raster call issued {n_issued} launches and copies, not 2")
-    row = {**shape, "units": len(lists.units), "spans": len(lists.spans), "max_abs_err": err,
-           "blocks_per_sm": kernels.sprite_raster_blocks_per_sm(), "issued": n_issued, **sprite_bound(lists, fringe),
-           **fold_host_ms(torch, wrapper)}
+    mixed = None if groups is not None else mixed_pixels(torch, box, scaled, dev)
+    row = {**shape, "units": len(lists.units), "spans": len(lists.spans), "span_reads": sprite_span_reads(lists),
+           "max_abs_err": err, "blocks_per_sm": kernels.sprite_raster_blocks_per_sm(), "issued": n_issued,
+           **sprite_bound(lists, fringe, mixed), **fold_host_ms(torch, wrapper)}
     def copy():
         return kernels.stage_sprite_lists(lists, dev)
 
@@ -1764,20 +1831,21 @@ def sprite_raster_row(torch, dev, scrub, groups=None, matte=None) -> dict:
 
 def sprite_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     """SR1 at general_lion's rebuild (sprite_inputs): its batched members
-    in one launch, and each scalar member's matte, by sprite_raster_row,
+    in one launch, and each scalar member's matte, then the H61 matte
+    (h61_matte, past the first design's packing), by sprite_raster_row,
     uncounted.  Returns the kernels line's row: the batched members', each
     matte's beside it."""
     def rows():
         inputs = sprite_inputs(torch, dev)
         return (sprite_raster_row(torch, dev, scrub, groups=inputs["groups"]),
-                [sprite_raster_row(torch, dev, scrub, matte=m) for m in inputs["mattes"]])
+                [sprite_raster_row(torch, dev, scrub, matte=m) for m in (*inputs["mattes"], h61_matte())])
 
     group, mattes = uncounted(kernels, rows)
     for row in (group, *mattes):
         row["launch_floor_ms"] = floor_ms
     emit({"phase": "sprite_kernels", "tolerance": 0, "equal_plain": True, "lion_members": group, "mattes": mattes})
-    keys = ("box", "units", "spans", "fringe_pixels", "ms", "copy_ms", "plain_ms", "host_ms", "bound_ms", "bound_by",
-            "bytes", "share")
+    keys = ("box", "units", "spans", "span_reads", "fringe_pixels", "mixed_pixels", "ms", "copy_ms", "plain_ms",
+            "host_ms", "bound_ms", "bound_all_pixels_ms", "bound_by", "bytes", "share")
     return {**group, "max_abs_err": max([group["max_abs_err"]] + [m["max_abs_err"] for m in mattes]),
             "mattes": [{k: m[k] for k in keys} for m in mattes]}
 

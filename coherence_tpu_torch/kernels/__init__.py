@@ -1036,15 +1036,20 @@ def tile_raster_blocks_per_sm() -> int:
     return got
 
 
-# sprite_raster.cu's lists.  Each span is one uint64, row << 42 | start << 21
-# | (end + 1), in its member's plane: the 1x box (h x w) or the 16x AA
-# t-plane (16 h + 16 x 16 w + 16, its origin at 16 y0 - 32, 16 x0 - 32).
-# A row off its plane is SPRITE_ROW_DROPPED; columns are clipped to the
+# sprite_raster.cu's lists.  Each span is one uint64, (row & 511) << 54 |
+# start << 27 | (end + 1), in its member's plane: the 1x box (h x w) or the
+# 16x AA t-plane (16 h + 16 x 16 w + 16, its origin at 16 y0 - 32, 16 x0 -
+# 32).  A row off its plane is not packed and columns are clipped to the
 # plane's 0..width (the JAX package's scatter drops the one and clips the
-# other).  A unit, one block of the launch, is a band of SPRITE_BAND pixel
-# rows of a member and a strip of SPRITE_STRIP columns.
-SPRITE_ROW_BITS, SPRITE_COL_BITS = 22, 21
-SPRITE_ROW_DROPPED = (1 << SPRITE_ROW_BITS) - 1
+# other).  Each family of each member is sorted by 16-row groups, so that a
+# band's rows are one range: a 1x band's 16 rows, or an AA band's 272
+# t-rows (the next band's first 16 among them).  A unit, one block of the
+# launch, is a band of SPRITE_BAND pixel rows of a member and a strip of
+# SPRITE_STRIP columns; it reads only its band's ranges, and a row's low 9
+# bits give its place in them (a range spans fewer than 512 rows).  So a
+# box fits while its t-plane's columns fit 27 bits, 16 w + 16 < 2^27, and
+# its t-rows int32, 16 h + 16 < 2^31 (H61).
+SPRITE_ROW_BITS, SPRITE_COL_BITS = 9, 27
 SPRITE_BAND, SPRITE_STRIP = 16, 128
 SPRITE_SCALE = 16  # the AA t-plane's scale (raster/aa.py _H)
 
@@ -1054,20 +1059,20 @@ class SpriteLists(NamedTuple):
     sprite_opacity_lists):
 
       * spans (S, 2) int32: each span's uint64 as its low and high words,
-        every member's coverage spans in their order, then every member's
-        crossing spans, then every member's AA spans;
-      * offsets (3, n + 1): member m's spans of family f are
-        [offsets[f, m], offsets[f, m + 1]);
+        every member's coverage spans, then every member's crossing spans,
+        then every member's AA spans, each member's by 16-row groups;
+      * bands (B, 8): per band of each member, its coverage, crossing and
+        AA ranges [lo, hi) of spans, then two zeros;
       * fills (n, 4): premultiplied plain fills (zero in opacity mode);
       * members (n, 8): h, w, and the offsets in 16-byte units of its mask,
         minshape mask and RGBA (opacity mode: its int32 opacity) in the
         output buffer, then three zeros;
-      * units (U, 4): (member, band, strip, 0), the members with the most
-        AA spans first;
+      * units (U, 4): (member, band, strip, its row of bands), the units
+        that read the most spans first;
       * out_bytes: the output buffer's bytes; opacity: the mode."""
 
     spans: np.ndarray
-    offsets: np.ndarray
+    bands: np.ndarray
     fills: np.ndarray
     members: np.ndarray
     units: np.ndarray
@@ -1075,60 +1080,13 @@ class SpriteLists(NamedTuple):
     opacity: bool
 
 
-def _sprite_lists(boxes, fills, fams, opacity: bool) -> SpriteLists:
-    """SpriteLists of n members: boxes (n, 4) [x0, y0, w, h], fills (n, 4),
-    fams the coverage, crossing and AA families, n triples each."""
-    boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
-    x0, y0, w, h = boxes.T
-    n = len(boxes)
-    if n and (w.min() < 1 or h.min() < 1):
-        raise ValueError("sprite_raster: a member's box is empty")
-    if n and (SPRITE_SCALE * h.max() + SPRITE_SCALE >= SPRITE_ROW_DROPPED
-              or SPRITE_SCALE * w.max() + SPRITE_SCALE >= 1 << SPRITE_COL_BITS):
-        raise ValueError(f"sprite_raster: a box of {int(w.max())} x {int(h.max())} pixels is beyond the span packing")
-    if any(len(f) != n for f in fams):
-        raise ValueError(f"sprite_raster: need {n} members' spans in every family")
-    from .. import native_lib
-
+def _check_packing(w: int, h: int) -> None:
+    """Raise ValueError where a box of w x h pixels is beyond the span
+    packing: its t-plane's columns in 27 bits, its t-rows in int32 (H61)."""
     sc = SPRITE_SCALE
-    box = np.stack([y0, h, x0, w], 1)  # each plane: origin row, height, origin column, width
-    t_plane = np.stack([sc * y0 - 2 * sc, sc * h + sc, sc * x0 - 2 * sc, sc * w + sc], 1)
-    packed, counts = zip(*(native_lib.sprite_pack_spans(f, plane) for f, plane in zip(fams, (box, box, t_plane))))
-    offsets = np.zeros((3, n + 1), np.int64)
-    np.cumsum(np.stack(counts), axis=1, out=offsets[:, 1:])
-    offsets += np.cumsum([0, *(len(p) for p in packed[:2])])[:, None]
-    if offsets[-1, -1] >= 2**31:
-        raise ValueError(f"sprite_raster: {int(offsets[-1, -1])} spans are beyond the kernel's int32 offsets")
-    # The outputs: a member's mask and minshape mask (each padded to 16 bytes), then its RGBA; or its opacity.
-    pixels = h * w
-    mask16 = -(-pixels // 16)
-    sizes = (-(-4 * pixels // 16),) if opacity else (mask16, mask16, pixels)
-    ends = np.cumsum(np.stack(sizes, 1).reshape(-1)).reshape(n, len(sizes))
-    starts = ends - np.stack(sizes, 1)
-    members = np.zeros((n, 8), np.int64)
-    members[:, 0], members[:, 1] = h, w
-    if opacity:
-        members[:, 4] = starts[:, 0]
-    else:
-        members[:, 2:5] = starts
-    out_16 = int(ends[-1, -1]) if n else 0
-    if out_16 >= 2**31:
-        raise ValueError(f"sprite_raster: {16 * out_16} bytes of output are beyond the kernel's offsets")
-    # One unit a band of a strip, the members with the most AA spans first.
-    bands, strips = -(-h // SPRITE_BAND), -(-w // SPRITE_STRIP)
-    order = np.argsort(-counts[2], kind="stable")
-    per = (bands * strips)[order]
-    first = np.repeat(np.cumsum(per) - per, per)
-    j = np.arange(int(per.sum()), dtype=np.int64) - first
-    per_strips = np.repeat(strips[order], per)
-    units = np.zeros((len(j), 4), np.int64)
-    units[:, 0], units[:, 1], units[:, 2] = np.repeat(order, per), j // per_strips, j % per_strips
-    fills = np.asarray(fills, np.int64).reshape(n, 4)
-    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
-        raise ValueError("sprite_raster: a fill does not fit in int32")
-    spans = np.concatenate(packed).view(np.int32).reshape(-1, 2)
-    return SpriteLists(spans, offsets.astype(np.int32), fills.astype(np.int32), members.astype(np.int32),
-                       units.astype(np.int32), 16 * out_16, opacity)
+    if sc * w + sc >= 1 << SPRITE_COL_BITS or sc * h + sc >= 2**31:
+        raise ValueError(f"sprite_raster: a box of {w} x {h} pixels is beyond the span packing (16 w + 16 < "
+                         f"2^{SPRITE_COL_BITS}, 16 h + 16 < 2^31)")
 
 
 def sprite_raster_lists(boxes, fills, cov, cross, aa) -> SpriteLists:
@@ -1137,27 +1095,106 @@ def sprite_raster_lists(boxes, fills, cov, cross, aa) -> SpriteLists:
     premultiplied plain fills, and per member its 1x coverage and crossing
     spans and its 16x AA spans (absolute (rows, starts, ends) triples with
     inclusive ends; an AA family may be None).  Raises ValueError where a
-    box is empty or too large for the packing, a family does not hold n
-    members, a fill does not fit in int32 or the lists outgrow int32
-    offsets."""
-    return _sprite_lists(boxes, fills, (cov, cross, aa), False)
+    box is empty or too large for the packing (16 w + 16 >= 2^27 or
+    16 h + 16 >= 2^31), a family does not hold n members, a fill does not
+    fit in int32 or the lists outgrow int32 offsets."""
+    boxes = np.asarray(boxes, np.int64).reshape(-1, 4)
+    x0, y0, w, h = boxes.T
+    n = len(boxes)
+    if n and (w.min() < 1 or h.min() < 1):
+        raise ValueError("sprite_raster: a member's box is empty")
+    sc = SPRITE_SCALE
+    if n:
+        _check_packing(int(w.max()), int(h.max()))
+    fams = (cov, cross, aa)
+    if any(len(f) != n for f in fams):
+        raise ValueError(f"sprite_raster: need {n} members' spans in every family")
+    from .. import native_lib
+
+    box = np.stack([y0, h, x0, w], 1)  # each plane: origin row, height, origin column, width
+    t_plane = np.stack([sc * y0 - 2 * sc, sc * h + sc, sc * x0 - 2 * sc, sc * w + sc], 1)
+    packed, firsts = zip(*(native_lib.sprite_band_spans(f, plane) for f, plane in zip(fams, (box, box, t_plane))))
+    base = np.cumsum([0, *(len(p) for p in packed)])
+    if base[-1] >= 2**31:
+        raise ValueError(f"sprite_raster: {int(base[-1])} spans are beyond the kernel's int32 offsets")
+    # Each band's ranges from its family's 16-row groups: a 1x band is one
+    # group, an AA band groups 16 b .. 16 b + 16 of its t-plane's h + 1.
+    n_bands = -(-h // SPRITE_BAND)
+    band_start = np.cumsum(n_bands) - n_bands
+    member = np.repeat(np.arange(n), n_bands)
+    b = np.arange(int(n_bands.sum()), dtype=np.int64) - band_start[member]
+    groups_1x = n_bands + 1  # per member: its groups' firsts and their end
+    groups_aa = h + 2
+    at_1x = (np.cumsum(groups_1x) - groups_1x)[member] + b
+    at_aa = (np.cumsum(groups_aa) - groups_aa)[member]
+    bands = np.zeros((len(b), 8), np.int64)
+    for f in range(2):
+        bands[:, 2 * f], bands[:, 2 * f + 1] = firsts[f][at_1x] + base[f], firsts[f][at_1x + 1] + base[f]
+    bands[:, 4] = firsts[2][at_aa + SPRITE_BAND * b] + base[2]
+    bands[:, 5] = firsts[2][at_aa + np.minimum(SPRITE_BAND * b + SPRITE_BAND + 1, h[member] + 1)] + base[2]
+    # The outputs: a member's mask and minshape mask (each padded to 16 bytes), then its RGBA.
+    pixels = h * w
+    mask16 = -(-pixels // 16)
+    sizes = np.stack((mask16, mask16, pixels), 1)
+    ends = np.cumsum(sizes.reshape(-1)).reshape(n, 3)
+    members = np.zeros((n, 8), np.int64)
+    members[:, 0], members[:, 1], members[:, 2:5] = h, w, ends - sizes
+    out_16 = int(ends[-1, -1]) if n else 0
+    if out_16 >= 2**31:
+        raise ValueError(f"sprite_raster: {16 * out_16} bytes of output are beyond the kernel's offsets")
+    # One unit a band of a strip, those that read the most spans first.
+    strips = (-(-w // SPRITE_STRIP))[member]
+    row = np.repeat(np.arange(len(b)), strips)
+    units = np.zeros((len(row), 4), np.int64)
+    units[:, 0], units[:, 1], units[:, 3] = member[row], b[row], row
+    units[:, 2] = np.arange(len(row)) - np.repeat(np.cumsum(strips) - strips, strips)
+    reads = (bands[:, 1:6:2] - bands[:, 0:6:2]).sum(1)
+    units = units[np.argsort(-reads[row], kind="stable")]
+    fills = np.asarray(fills, np.int64).reshape(n, 4)
+    if fills.size and (fills.min() < -(2**31) or fills.max() >= 2**31):
+        raise ValueError("sprite_raster: a fill does not fit in int32")
+    spans = np.concatenate(packed).view(np.int32).reshape(-1, 2)
+    return SpriteLists(spans, bands.astype(np.int32), fills.astype(np.int32), members.astype(np.int32),
+                       units.astype(np.int32), 16 * out_16, False)
 
 
 def sprite_opacity_lists(box, scaled) -> SpriteLists:
     """SR1's host lists for one launch in opacity mode: the AA opacity of
     the pixel box (x0, y0, x1, y1) from its 16x spans `scaled` (rows,
-    starts, ends) in absolute scaled coordinates, or None."""
+    starts, ends) in absolute scaled coordinates, or None.  Any box of
+    fewer than 2^23 - 1 columns and 2^27 - 1 rows (H61)."""
     x0, y0, x1, y1 = (int(v) for v in box)
-    return _sprite_lists([[x0, y0, x1 - x0 + 1, y1 - y0 + 1]], np.zeros((1, 4), np.int64), ([None], [None], [scaled]),
-                         True)
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    if w < 1 or h < 1:
+        raise ValueError("sprite_raster: a member's box is empty")
+    _check_packing(w, h)
+    from .. import native_lib
+
+    # One member, no 1x spans: its bands' AA ranges alone (a matte is one
+    # call, and a fold-route rebuild makes 132 of them).
+    sc = SPRITE_SCALE
+    packed, first = native_lib.sprite_band_spans([scaled], [[sc * y0 - 2 * sc, sc * h + sc, sc * x0 - 2 * sc,
+                                                               sc * w + sc]])
+    n_bands, strips = -(-h // SPRITE_BAND), -(-w // SPRITE_STRIP)
+    b = np.arange(n_bands)
+    bands = np.zeros((n_bands, 8), np.int32)
+    bands[:, 4], bands[:, 5] = first[SPRITE_BAND * b], first[np.minimum(SPRITE_BAND * b + SPRITE_BAND + 1, h + 1)]
+    units = np.zeros((n_bands * strips, 4), np.int32)
+    units[:, 1] = units[:, 3] = np.repeat(np.argsort(bands[:, 4] - bands[:, 5], kind="stable"), strips)
+    units[:, 2] = np.tile(np.arange(strips), n_bands)
+    out_16 = -(-4 * h * w // 16)
+    if out_16 >= 2**31 or len(packed) >= 2**31:
+        raise ValueError(f"sprite_raster: a matte of {w} x {h} pixels is beyond the kernel's offsets")
+    return SpriteLists(packed.view(np.int32).reshape(-1, 2), bands, np.zeros((1, 4), np.int32),
+                       np.array([[h, w, 0, 0, 0, 0, 0, 0]], np.int32), units, 16 * out_16, True)
 
 
 def stage_sprite_lists(lists: SpriteLists, device) -> list:
     """`lists` on the CUDA `device` in one staged copy: int32 views (spans,
-    offsets, fills, members, units)."""
+    bands, fills, members, units)."""
     from ..raster.staging import stage
 
-    return stage(_cuda_device(device, "sprite_raster"), lists.spans, lists.offsets, lists.fills, lists.members,
+    return stage(_cuda_device(device, "sprite_raster"), lists.spans, lists.bands, lists.fills, lists.members,
                  lists.units)
 
 
@@ -1169,18 +1206,18 @@ def sprite_raster(lists: SpriteLists, staged):
     bytes (the JAX package's _build_group_kernel over the member's own box;
     the plain version is scene/fastframe.py _raster_members); opacity mode
     the box's int32 (h, w) opacity (raster/aa.py coverage_opacity_torch)."""
-    spans, offsets, fills, members, units = staged
+    spans, bands, fills, members, units = staged
     device = units.device
     if device.type != "cuda":
         raise ValueError(f"sprite_raster needs its lists on a CUDA device, got {device}")
     n = len(lists.members)
-    if tuple(offsets.shape) != (3, n + 1) or tuple(units.shape) != lists.units.shape:
+    if tuple(bands.shape) != lists.bands.shape or tuple(units.shape) != lists.units.shape:
         raise ValueError(f"sprite_raster: staged lists of {n} members are not stage_sprite_lists' of these lists")
     out = torch.empty(lists.out_bytes, dtype=torch.uint8, device=device)
     if len(lists.units):
         with torch.cuda.device(device):
             rc = load()["sprite_raster"](
-                spans.data_ptr(), offsets.data_ptr(), fills.data_ptr(), members.data_ptr(), units.data_ptr(),
+                spans.data_ptr(), bands.data_ptr(), fills.data_ptr(), members.data_ptr(), units.data_ptr(),
                 out.data_ptr(), n, len(lists.units), int(lists.opacity), torch.cuda.current_stream(device).cuda_stream,
             )
         _raise_on("sprite_raster", rc)
@@ -1192,13 +1229,13 @@ def sprite_views(lists: SpriteLists, out: torch.Tensor):
     """The planes of `lists`' members in their uint8 output buffer `out`,
     as sprite_raster returns them: each a contiguous view at a multiple of
     16 bytes into the buffer."""
+    words, flags = out.view(torch.int32), out.view(torch.bool)
     views = []
     for h, w, mask, minmask, rgba, *_ in lists.members.tolist():
         if lists.opacity:
-            return out[16 * rgba : 16 * rgba + 4 * h * w].view(torch.int32).view(h, w)
-        views.append((out[16 * mask : 16 * mask + h * w].view(torch.bool).view(h, w),
-                      out[16 * minmask : 16 * minmask + h * w].view(torch.bool).view(h, w),
-                      out[16 * rgba : 16 * rgba + 16 * h * w].view(torch.int32).view(h, w, 4)))
+            return words.as_strided((h, w), (w, 1), 4 * rgba)
+        views.append((flags.as_strided((h, w), (w, 1), 16 * mask), flags.as_strided((h, w), (w, 1), 16 * minmask),
+                      words.as_strided((h, w, 4), (4 * w, 4, 1), 4 * rgba)))
     return views
 
 
@@ -1215,7 +1252,9 @@ def sprite_raster_opacity(box, scaled, device) -> torch.Tensor:
     """Launch ``sprite_raster`` in opacity mode: the int32 (h, w) AA opacity
     of the pixel box (x0, y0, x1, y1) from 16x spans in absolute scaled
     coordinates (or None), on the CUDA `device`, its lists in one staged
-    copy (the plain version is raster/aa.py coverage_opacity_torch)."""
+    copy (the plain version is raster/aa.py coverage_opacity_torch).  Any
+    box of fewer than 2^23 - 1 columns and 2^27 - 1 rows (H61); past them
+    ValueError."""
     lists = sprite_opacity_lists(box, scaled)
     return sprite_raster(lists, stage_sprite_lists(lists, device))
 

@@ -4,7 +4,7 @@
 // expand_1x_*, expand_aa_*, jbig2_generic_region): the last five
 // unchanged, the blit taking its sprite as one uint8 plane; and the port's
 // own brush_stroke_table and brush_strip_lists, the host lists of the
-// brush_stamp kernel, and sprite_pack_spans, those of the sprite_raster
+// brush_stamp kernel, and sprite_band_spans, those of the sprite_raster
 // kernel.
 //
 // The bezier subdivision and the scanline sweep are the per-scene host
@@ -21,6 +21,7 @@
 #include <cmath>
 #include <algorithm>
 #include <array>
+#include <thread>
 #include <vector>
 
 extern "C" {
@@ -790,30 +791,82 @@ int64_t brush_strip_lists(const int32_t* corners, const uint8_t* valid, const in
 // ---------------------------------------------------------------------------
 // The sprite_raster kernel's span lists (kernels.sprite_raster_lists): one
 // span family of n members, member m's counts[m] inclusive spans in its
-// arrays rows, starts, ends (ptrs[3 m .. 3 m + 2], int64 addresses), packed
-// in order into out as one uint64 each, row << 42 | start << 21 | (end + 1),
-// in the member's plane (planes[4 m ..]: its origin row r0, height h,
-// origin column c0, width w): a row outside 0..h-1 becomes 2^22 - 1, past
-// every plane (the scatter drops it), and the columns are clipped to 0..w
-// (the scatter clips them).  The caller checks that h < 2^22 - 1 and
-// w < 2^21.
+// arrays rows, starts, ends (ptrs[3 m .. 3 m + 2], int64 addresses), in the
+// member's plane (planes[4 m ..]: its origin row r0, height h, origin column
+// c0, width w).  A span whose row lies outside 0..h-1 is dropped (the
+// scatter drops it); the others are sorted by their 16-row group (row >> 4)
+// with a counting sort, in any order inside a group, and packed into out
+// as one uint64 each, (row & 511) << 54 | start << 27 | (end + 1), the
+// columns clipped to 0..w (the scatter clips them): a kernel's unit reads
+// the groups of its rows and knows their rows from its own band (kernels.py
+// says how).  first receives, member by member, the index in out of each of
+// its ceil(h / 16) groups' first span and then its end (ceil(h / 16) + 1
+// entries).  The members are counted, then placed, by up to `threads`
+// threads (each a run of members with about as many spans).  Returns the
+// spans packed.  The caller checks that w < 2^27.
 // ---------------------------------------------------------------------------
-void sprite_pack_spans(const uint64_t* ptrs, const int64_t* counts, const int64_t* planes, int64_t n,
-                       uint64_t* out) {
-  const uint64_t dropped = (1u << 22) - 1;
-  for (int64_t m = 0; m < n; ++m) {
-    const int64_t* rows = reinterpret_cast<const int64_t*>(ptrs[3 * m]);
-    const int64_t* starts = reinterpret_cast<const int64_t*>(ptrs[3 * m + 1]);
-    const int64_t* ends = reinterpret_cast<const int64_t*>(ptrs[3 * m + 2]);
-    const int64_t r0 = planes[4 * m], h = planes[4 * m + 1], c0 = planes[4 * m + 2], w = planes[4 * m + 3];
-    for (int64_t k = 0; k < counts[m]; ++k) {
-      const int64_t r = rows[k] - r0;
-      const int64_t a = std::min(std::max(starts[k] - c0, (int64_t)0), w);
-      const int64_t b = std::min(std::max(ends[k] + 1 - c0, (int64_t)0), w);
-      const uint64_t row = (r >= 0 && r < h) ? (uint64_t)r : dropped;
-      *out++ = (row << 42) | ((uint64_t)a << 21) | (uint64_t)b;
+int64_t sprite_band_spans(const uint64_t* ptrs, const int64_t* counts, const int64_t* planes, int64_t n,
+                          int32_t threads, uint64_t* out, int64_t* first) {
+  std::vector<int64_t> at(n + 1, 0), firsts(n + 1, 0);  // each member's first span in out, its first group in first
+  for (int64_t m = 0; m < n; ++m) firsts[m + 1] = firsts[m] + ((planes[4 * m + 1] + 15) >> 4) + 1;
+  auto rows_of = [&](int64_t m) { return reinterpret_cast<const int64_t*>(ptrs[3 * m]); };
+  // Group g's spans counted at first[g + 1], their kept total at at[m + 1].
+  auto count = [&](int64_t m0, int64_t m1) {
+    for (int64_t m = m0; m < m1; ++m) {
+      const int64_t* rows = rows_of(m);
+      const int64_t r0 = planes[4 * m], h = planes[4 * m + 1];
+      int64_t* cnt = first + firsts[m];
+      std::fill(cnt, first + firsts[m + 1], (int64_t)0);
+      for (int64_t k = 0; k < counts[m]; ++k) {
+        const int64_t r = rows[k] - r0;
+        if (r >= 0 && r < h) ++cnt[(r >> 4) + 1];
+      }
+      int64_t kept = 0;
+      for (int64_t* c = cnt + 1; c < first + firsts[m + 1]; ++c) kept += *c;
+      at[m + 1] = kept;
     }
+  };
+  auto place = [&](int64_t m0, int64_t m1) {
+    std::vector<int64_t> cursor;
+    for (int64_t m = m0; m < m1; ++m) {
+      const int64_t* rows = rows_of(m);
+      const int64_t* starts = reinterpret_cast<const int64_t*>(ptrs[3 * m + 1]);
+      const int64_t* ends = reinterpret_cast<const int64_t*>(ptrs[3 * m + 2]);
+      const int64_t r0 = planes[4 * m], h = planes[4 * m + 1], c0 = planes[4 * m + 2], w = planes[4 * m + 3];
+      int64_t* f = first + firsts[m];
+      const int64_t groups = firsts[m + 1] - firsts[m] - 1;
+      f[0] = at[m];
+      for (int64_t g = 0; g < groups; ++g) f[g + 1] += f[g];
+      cursor.assign(f, f + groups);
+      for (int64_t k = 0; k < counts[m]; ++k) {
+        const int64_t r = rows[k] - r0;
+        if (r < 0 || r >= h) continue;
+        const int64_t a = std::min(std::max(starts[k] - c0, (int64_t)0), w);
+        const int64_t b = std::min(std::max(ends[k] + 1 - c0, (int64_t)0), w);
+        out[cursor[r >> 4]++] = ((uint64_t)(r & 511) << 54) | ((uint64_t)a << 27) | (uint64_t)b;
+      }
+    }
+  };
+  // Runs of members with about as many spans each, one a thread.
+  int64_t total = 0;
+  for (int64_t m = 0; m < n; ++m) total += counts[m];
+  const int64_t t = std::max<int64_t>(1, std::min<int64_t>(threads, n));
+  std::vector<int64_t> cut(t + 1, n);
+  cut[0] = 0;
+  for (int64_t m = 0, seen = 0, j = 1; m < n && j < t; ++m) {
+    seen += counts[m];
+    if (seen * t >= total * j) cut[j++] = m + 1;
   }
+  auto in_threads = [&](auto fn) {
+    std::vector<std::thread> pool;
+    for (int64_t j = 1; j < t; ++j) pool.emplace_back(fn, cut[j], cut[j + 1]);
+    fn(cut[0], cut[1]);
+    for (std::thread& th : pool) th.join();
+  };
+  in_threads(count);
+  for (int64_t m = 0; m < n; ++m) at[m + 1] += at[m];
+  in_threads(place);
+  return at[n];
 }
 
 }  // extern "C"

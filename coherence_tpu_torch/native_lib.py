@@ -6,7 +6,7 @@ points the port calls: ``blit_masked_rgb``, ``bezier_subdivide_batch``,
 ``edge_spans``, ``expand_1x_grouped``, ``expand_aa_grouped`` and
 ``jbig2_generic_region``; and the port's own ``brush_stroke_table`` and
 ``brush_strip_lists`` (the brush_stamp kernel's host lists) and
-``sprite_pack_spans`` (the sprite_raster kernel's).  The library
+``sprite_band_spans`` (the sprite_raster kernel's).  The library
 is compiled by g++ on first use, and again whenever the source is newer, into
 ``build/native/`` at the root of the checkout.  It is built with
 ``-march=native``, so its file name carries a hash of the flags and of the
@@ -39,6 +39,7 @@ GXX_FLAGS = [
     "-ffp-contract=off",
     "-shared",
     "-fPIC",
+    "-pthread",
 ]
 
 
@@ -120,8 +121,8 @@ def _load() -> ctypes.CDLL:
         lib.brush_strip_lists.restype = i64
         lib.brush_strip_lists.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i64, i32, i32, vp, i64, vp, vp,
                                           i64]
-        lib.sprite_pack_spans.restype = None
-        lib.sprite_pack_spans.argtypes = [vp, vp, vp, i64, vp]
+        lib.sprite_band_spans.restype = i64
+        lib.sprite_band_spans.argtypes = [vp, vp, vp, i64, i32, vp, vp]
         _lib = lib
         return _lib
 
@@ -308,14 +309,15 @@ def brush_strip_lists(corners: np.ndarray, valid: np.ndarray, points, strokes: n
 _brush_entries = [np.empty(1 << 16, np.int32)]
 
 
-def sprite_pack_spans(fam, planes: np.ndarray) -> tuple:
+def sprite_band_spans(fam, planes: np.ndarray) -> tuple:
     """sprite_raster's packed spans of one family of n members (the C
     entry point says how each is packed): `fam` n (rows, starts, ends)
     triples of inclusive spans, or None for none; `planes` (n, 4) int64,
     each member's plane (origin row, height, origin column, width).
-    Returns (the uint64 spans, member by member in their order, and the
-    (n,) int64 counts).  Raises ValueError where a triple's arrays differ
-    in length."""
+    Returns (the uint64 spans on their plane's rows, member by member and
+    16-row group by group, and the int64 index of each member's groups'
+    first spans and their end: ceil(height / 16) + 1 entries a member).
+    Raises ValueError where a triple's arrays differ in length."""
     n = len(fam)
     ptrs, counts, kept = np.zeros(3 * n, np.uint64), np.zeros(n, np.int64), []
     for m, sp in enumerate(fam):
@@ -323,11 +325,24 @@ def sprite_pack_spans(fam, planes: np.ndarray) -> tuple:
             continue
         trip = [np.ascontiguousarray(a, np.int64) for a in sp]
         if not len(trip[0]) == len(trip[1]) == len(trip[2]):
-            raise ValueError(f"sprite_pack_spans: member {m}'s rows, starts and ends differ in length")
+            raise ValueError(f"sprite_band_spans: member {m}'s rows, starts and ends differ in length")
         kept.extend(trip)  # alive through the call
         counts[m] = len(trip[0])
         ptrs[3 * m : 3 * m + 3] = [a.ctypes.data for a in trip]
-    planes = np.ascontiguousarray(planes, np.int64)
+    planes = np.ascontiguousarray(planes, np.int64).reshape(n, 4)
+    n_first = int(((planes[:, 1] + 15) // 16 + 1).sum())
+    if not kept:  # no spans: every group's range is empty
+        return np.zeros(0, np.uint64), np.zeros(n_first, np.int64)
     out = np.empty(int(counts.sum()), np.uint64)
-    _load().sprite_pack_spans(ptrs.ctypes.data, counts.ctypes.data, planes.ctypes.data, n, out.ctypes.data)
-    return out, counts
+    first = np.empty(n_first, np.int64)
+    threads = min(SPRITE_PACK_THREADS, 1 + len(out) // SPRITE_PACK_SPANS_A_THREAD)
+    packed = _load().sprite_band_spans(ptrs.ctypes.data, counts.ctypes.data, planes.ctypes.data, n, threads,
+                                       out.ctypes.data, first.ctypes.data)
+    return out[:packed], first
+
+
+# sprite_band_spans' threads: at most SPRITE_PACK_THREADS, one a
+# SPRITE_PACK_SPANS_A_THREAD spans (a thread's start costs as much as
+# packing some ten thousand spans).
+SPRITE_PACK_THREADS = 4
+SPRITE_PACK_SPANS_A_THREAD = 1 << 17

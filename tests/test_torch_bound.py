@@ -402,3 +402,75 @@ def test_smear_chain_floor_at_the_demo(monkeypatch):
     assert got["operations"] == 78_938_112 and got["bound_by"] == "operations"
     assert got["chain_floor_ms"] == pytest.approx(0.3110397, abs=1e-6)
     assert got["chain_floor_ms"] == pytest.approx(chip_smoke.SMS * got["bound_ms"], rel=1e-12)
+
+
+def _brute_t_mask(box, scaled) -> np.ndarray:
+    """A matte's whole t-plane (16 h + 16, 16 w + 16) as the scatter makes
+    it: rows off the plane dropped, columns clipped, a running count > 0."""
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    th, tw = 16 * h + 16, 16 * w + 16
+    diff = np.zeros((th, tw + 1), np.int64)
+    if scaled is not None:
+        rows, ss, ee = (np.asarray(a, np.int64) for a in scaled)
+        r = rows - (16 * y0 - 32)
+        keep = (r >= 0) & (r < th)
+        np.add.at(diff, (r[keep], np.clip(ss[keep] - (16 * x0 - 32), 0, tw)), 1)
+        np.add.at(diff, (r[keep], np.clip(ee[keep] + 1 - (16 * x0 - 32), 0, tw)), -1)
+    return np.cumsum(diff, axis=1)[:, :tw] > 0
+
+
+@pytest.mark.parametrize("name", ["wide", "odd", "pixel", "empty", "circle"])
+def test_mixed_pixels_match_a_brute_count(name):
+    """mixed_pixels counts the pixels whose 32 x 32 footprint holds set and
+    clear samples both, footprint by footprint."""
+    from test_torch_cuda import sprite_opacity_case
+
+    box, scaled = sprite_opacity_case(name)
+    t = _brute_t_mask(box, scaled)
+    x0, y0, x1, y1 = box
+    mixed = sum(0 < int(t[16 * y : 16 * y + 32, 16 * x : 16 * x + 32].sum()) < 1024
+                for y in range(y1 - y0 + 1) for x in range(x1 - x0 + 1))
+    assert chip_smoke.mixed_pixels(torch, box, scaled, "cpu") == mixed
+    assert name == "empty" or mixed > 0
+
+
+@pytest.mark.parametrize("name", ["ragged", "heavy", "tall"])
+def test_sprite_span_reads_match_a_brute_count(name):
+    """sprite_span_reads counts, unit by unit, the spans on its band's rows
+    of its member's three families: a 1x band's 16 rows, an AA band's 272
+    t-rows (those of its plane only)."""
+    from coherence_tpu_torch import kernels
+    from test_torch_cuda import sprite_case
+
+    boxes, fills, cov, cross, aa = sprite_case(name)
+    lists = kernels.sprite_raster_lists(boxes, fills, cov, cross, aa)
+    brute = 0
+    for m, b, _, _ in lists.units.tolist():
+        x0, y0, w, h = boxes[m]
+        for fam, r0, height, first, n in ((cov, y0, h, 16 * b, 16), (cross, y0, h, 16 * b, 16),
+                                          (aa, 16 * y0 - 32, 16 * h + 16, 256 * b, 272)):
+            if fam[m] is not None:
+                r = np.asarray(fam[m][0], np.int64) - r0
+                brute += int(((r >= first) & (r < first + n) & (r < height)).sum())
+    assert chip_smoke.sprite_span_reads(lists) == brute > 0
+
+
+def test_sprite_bound_counts_the_mixed_pixels_of_a_matte():
+    """In opacity mode the bound counts the multiply-adds at the mixed
+    pixels alone, and bound_all_pixels_ms at every pixel beside it; group
+    mode counts its fringe."""
+    from coherence_tpu_torch import kernels
+    from test_torch_cuda import sprite_opacity_case
+
+    box, scaled = sprite_opacity_case("circle")
+    lists = kernels.sprite_opacity_lists(box, scaled)
+    pixels = int(lists.members[0, 0]) * int(lists.members[0, 1])
+    mixed = chip_smoke.mixed_pixels(torch, box, scaled, "cpu")
+    got = chip_smoke.sprite_bound(lists, pixels, mixed)
+    list_ms = (got["list_bytes"] + 4 * pixels) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert got["operations"] == 2 * 1024 * mixed and got["mixed_pixels"] == mixed < pixels
+    assert got["bound_ms"] == max(list_ms, 2048 * mixed / chip_smoke.INT_OPS_PER_S * 1e3)
+    assert got["bound_all_pixels_ms"] == max(list_ms, 2048 * pixels / chip_smoke.INT_OPS_PER_S * 1e3)
+    assert got["list_bytes"] == sum(a.nbytes for a in (lists.spans, lists.bands, lists.fills, lists.members,
+                                                       lists.units))

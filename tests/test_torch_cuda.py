@@ -2317,9 +2317,14 @@ def sprite_case(name: str, seed: int = 0):
         t-row of TILE_BIN_CAP + 900 spans (the block's row of counts),
         rows of 5 x TILE_LANE_CAP and TILE_LANE_CAP + 1 spans (a warp's)
         and a band of more than TILE_BIN_CAP spans in all (binned in runs),
-        their coverage over those rows."""
+        their coverage over those rows;
+      * "tall": members of 13, 10 and 3 bands with random spans on and off
+        their planes (each band reads its own ranges of them)."""
     rng = np.random.default_rng(500 + seed)
-    if name == "ragged":
+    if name == "tall":
+        boxes = [(3, -5, 60, 200), (-2, 11, 20, 150), (7, 3, 130, 40)]
+        fams = [sprite_member_spans(rng, box, 4 * box[3] + 3, 40 * box[3] + 9) for box in boxes]
+    elif name == "ragged":
         boxes, fams = list(SPRITE_BOXES), []
         for j, box in enumerate(boxes):
             x0, y0, w, h = box
@@ -2422,6 +2427,20 @@ def sprite_opacity_case(name: str, seed: int = 0):
     return box, sprite_spans(rng, 60 * h * max(1, w // 64), 16 * y0 - 32, 16 * h + 16, 16 * x0 - 32, 16 * w + 16, 40)
 
 
+def sprite_h61_case():
+    """A matte past the first design's span packing (H61): a rectangle's
+    16x spans over a box 131,071 pixels wide and 2 tall, (box, scaled);
+    its footprints are empty at the left end, mixed at both ends and full
+    between."""
+    from coherence_tpu_torch.geometry import path as gpath
+    from coherence_tpu_torch.geometry import shapes as gs
+    from coherence_tpu_torch.raster import scanline
+
+    rect = gs.rectangle(6.3, 0.0, 131066.9, 10.0)
+    scaled = scanline.scaled_spans_of_edgelist(gpath.edgelist_of_path(rect), rect.winding, 16)
+    return (3, 5, 3 + 131070, 6), scaled
+
+
 def lion_objects(fit: int = 1024):
     """The lion group's member objects as render.py makes them for
     chip_smoke.py's general_lion (the lion fitted to `fit` pixels and
@@ -2464,14 +2483,14 @@ def _assert_sprite_planes(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged", "heavy", "paths"])
+@pytest.mark.parametrize("case", ["ragged", "heavy", "paths", "tall"])
 def test_sprite_raster_matches_plain(cuda_device, case):
     """SR1 in group mode against _raster_members on the card, bit for bit:
     ragged boxes with spans off their planes, reversed and overlapping; a
     member with no AA span and one with an empty minshape; fills of alpha 0
     and 255; rows past a lane's and a bin's capacity and a band binned in
-    runs; real paths and stroked paths.  Every plane is a contiguous view
-    on 16 bytes."""
+    runs; real paths and stroked paths; members of many bands.  Every
+    plane is a contiguous view on 16 bytes."""
     got, want = _sprite_group(cuda_device, sprite_paths() if case == "paths" else sprite_case(case))
     _assert_sprite_planes(got, want)
     assert any(bool(m.any()) for m, _, _ in got)
@@ -2491,6 +2510,22 @@ def test_sprite_raster_opacity_matches_plain(cuda_device, case):
     assert kernels.launches["sprite_raster"] == before + 1
     want = aa.coverage_opacity_torch(box, scaled, "cpu")
     assert got.dtype == torch.int32 and got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sprite_raster_h61_matte(cuda_device):
+    """H61: a matte 131,071 pixels wide, past the first design's packing,
+    through aa.coverage_opacity on the card (one launch) equals
+    coverage_opacity_torch bit for bit."""
+    from coherence_tpu_torch.raster import aa
+
+    box, scaled = sprite_h61_case()
+    before = kernels.launches["sprite_raster"]
+    got = aa.coverage_opacity(box, scaled, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.launches["sprite_raster"] == before + 1
+    want = aa.coverage_opacity_torch(box, scaled, "cpu")
+    assert got.shape == (2, 131071) and torch.equal(got.cpu(), want) and bool((want == 255).any())
 
 
 @pytest.mark.cuda
