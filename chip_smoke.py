@@ -147,7 +147,21 @@ Phases, one JSON line each:
      and the planes written once, or 1024 multiply-adds a fringe pixel; a
      matte's at its mixed pixels only, its every-pixel bound beside) and
      the launch floor; one call of
-     each wrapper required to issue one copy and one launch;
+     each wrapper required to issue one copy and one launch; then
+     region_kernels: caf (CF1), tight_bounds (TB1), box_morph (MR1) and
+     convolve_canvas (CV1) at every call general_filters' whole-window
+     render and first dragged frame make (recorded_region_calls), and CV1
+     at config 4's frame, each against its plain version on the card
+     (caf_torch, _tight_bounds_torch, dilate_torch and erode_torch,
+     convolve_canvas_torch), bit for bit; then timed at the frames'
+     shapes (caf: the last frame over a white 1920 x 1080 window, as
+     frame_path composes it, the frames' largest caf of two operands and
+     their median one; the largest and the median tight_bounds mask; each
+     distinct bloat and erosion; each convolve) beside the plain version,
+     the launch floor, the bound (each read plane's 32-byte sectors,
+     tensor_sectors, and the writes once; a convolve's multiply-adds
+     beside) and, for a bloat,
+     torch.nn.functional.max_pool2d's time over the same mask;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -192,13 +206,18 @@ Phases, one JSON line each:
      one a scalar member's matte); the peak device memory;
  15. general_filters: every incremental frame equal to the whole-window
      render, frame 0 also to a render with the cache off, frames 0-1 to the
-     CPU's; frame times; then general_filter_demos: monochrome, hole, rgb,
+     CPU's; frame times; each of caf, tight_bounds, box_morph and
+     convolve_canvas launched in the frames; the launches and copies
+     issued by one steady incremental frame (frame 4 of a second run) and
+     by the whole-window render after it, with the kernels launched in
+     each; then general_filter_demos: monochrome, hole, rgb,
      affine, wireframe, smear, the CPG demo and the brush and monobrush
      demos over the lion, each equal to the CPU's and each changing the
      lion; the smear launches smear_walk and each brush demo brush_stamp
      (plane mode);
  16. convolve_1080p: ms per call beside its bound (the frame read and
-     written once at 3.35 TB/s); the first call equal to the CPU's;
+     written once at 3.35 TB/s); the first call equal to the CPU's; two
+     convolve_canvas (CV1) launches a call and no other launch;
  17. stroked_tiles: the frame, atlas and piece lists equal to the CPU's;
      each icon equal to the CPU's;
  18. scene_edits: the sprite route's full render (composite_full) equal to
@@ -277,7 +296,13 @@ build flush, config 5's beside, its launches (one a flush) at the lion's
 build, config 5's build, each zoom step and the prefetch; for
 sprite_raster the same at general_lion's batched members, each scalar
 matte and the H61 matte beside, its launches in the rebuild, on the fold route, in the
-filter frames and demos, serve_engine and pdf_pages) and, last,
+filter frames and demos, serve_engine and pdf_pages; for caf, tight_bounds,
+box_morph and convolve_canvas the largest shape's row of region_kernels
+(a bloat's for box_morph, beside max_pool2d's time), every shape beside,
+the calls checked, the launches in general_filters' frames and per steady
+incremental frame with the frame's issued operations, in general_lion's
+rebuild on each route, the demos, convolve_1080p, scene_edits,
+serve_engine and pdf_pages) and, last,
 {"ok": true, "device": {...}}.  Any mismatch or exception ends the
 run with a nonzero exit code, as does an import of JAX or of the JAX
 package.
@@ -1850,6 +1875,213 @@ def sprite_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
             "mattes": [{k: m[k] for k in keys} for m in mattes]}
 
 
+@contextlib.contextmanager
+def recorded_region_calls():
+    """Inside, every call of the card routes of the region programs
+    appends its arguments to the yielded dict's list of its kernel, then
+    runs as before: region._caf_card (op, pred, a, b), kernels.tight_bounds
+    (mask), kernels.box_morph (mask, rx, ry, erode) and
+    kernels.convolve_canvas (kind, weights, total, radius, canvas, mask)."""
+    from coherence_tpu_torch import kernels
+    from coherence_tpu_torch.raster import region
+
+    calls = {name: [] for name in REGION_KERNELS}
+    owners = {"caf": (region, "_caf_card"), "tight_bounds": (kernels, "tight_bounds"),
+              "box_morph": (kernels, "box_morph"), "convolve_canvas": (kernels, "convolve_canvas")}
+    real = {name: getattr(*owner) for name, owner in owners.items()}
+
+    def recording(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+
+        return call
+
+    for name, (owner, attr) in owners.items():
+        setattr(owner, attr, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, (owner, attr) in owners.items():
+            setattr(owner, attr, real[name])
+
+
+def region_inputs(torch, dev) -> tuple:
+    """The region kernels' calls in general_filters' frames on `dev`
+    (recorded_region_calls): the whole-window render of the filter scene
+    and its first dragged frame's incremental render, which ends in the caf
+    of the patch over the last frame; and that frame."""
+    from coherence_tpu_torch.scene import cache
+
+    lens, blob, objs = filter_scene()
+    with recorded_region_calls() as calls:
+        frames, _ = filter_frames(torch, dev, lens, blob, objs, 1, scratch=0, whole=False)
+    cache.clear()
+    return calls, frames[-1]
+
+
+def tensor_sectors(torch, t) -> int:
+    """The 32-byte sectors holding the elements of `t`, a view with any
+    strides (an expanded plane's repeated elements once)."""
+    if t.is_contiguous():
+        first = t.data_ptr()
+        return -(-(first + t.numel() * t.element_size()) // SECTOR_BYTES) - first // SECTOR_BYTES
+    offsets = torch.zeros((), dtype=torch.int64, device=t.device)
+    for size, stride in zip(t.shape, t.stride()):
+        offsets = offsets[..., None] + torch.arange(size, dtype=torch.int64, device=t.device) * stride
+    return int(torch.unique((t.data_ptr() + offsets.flatten() * t.element_size()) // SECTOR_BYTES).numel())
+
+
+def region_bound(torch, reads, out_bytes: int, ops: int = 0) -> dict:
+    """A region kernel's bound: the sectors of each plane in `reads` read
+    once and `out_bytes` of new contiguous planes written once, over
+    HBM_BYTES_PER_S; its int32 operations at INT_OPS_PER_S; the larger."""
+    n_bytes = sum(tensor_sectors(torch, t) for t in reads) * SECTOR_BYTES + out_bytes
+    byte_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": ops, "bound_ms": max(byte_ms, ops_ms),
+            "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def region_row(torch, scrub, kernel, plain, bound: dict, library=None, **shape) -> dict:
+    """One shape of a region kernel: `kernel` (the card route's call, as
+    the path makes it) timed with event_ms (cold L2, behind a device-side
+    wait of max(ANIMATED_WAIT_MS, 4 x its slowest host call), each call
+    queued within half of it), `plain` over N_BRUSH_PLAIN_TIMED calls,
+    `library` (one PyTorch call of the same function, or None), beside
+    the bound and its share."""
+    row = {**shape, **bound, "wait_ms": max(ANIMATED_WAIT_MS, 4 * fold_host_ms(torch, kernel)["host_ms_max"])}
+    row["ms"] = event_ms(torch, kernel, scrub, wait_ms=row["wait_ms"], queued=True)
+    row["plain_ms"] = event_ms(torch, plain, scrub, reps=N_BRUSH_PLAIN_TIMED)
+    row["library_ms"] = None if library is None else event_ms(torch, library, scrub)
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def same_caf(torch, got, want) -> bool:
+    (gs, gf), (ws, wf) = got, want
+    return same_sprite(torch, gs, ws) and gf.box == wf.box and torch.equal(gf.mask, wf.mask)
+
+
+def conv_kernel(kind: str, weights, total: int, radius: int):
+    """raster/convolve.py's kernel of CV1's arguments."""
+    from coherence_tpu_torch.raster import convolve
+
+    if kind == "unit":
+        return convolve.UnitKernel(radius)
+    if kind == "xy":
+        return convolve.XYKernel(radius, total, tuple(weights))
+    n = 2 * radius + 1
+    return convolve.FullKernel(radius, total, tuple(tuple(weights[k * n : (k + 1) * n]) for k in range(n)))
+
+
+def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
+    """CF1, TB1, MR1 and CV1 at general_filters' calls (region_inputs), each
+    held bit for bit to its plain version on the card at every recorded
+    call, then timed (region_row) at the frame's shapes: caf at the last
+    frame over a white 1920 x 1080 window (frame_path's final caf), the
+    largest caf of two operands and the median caf; the largest and the
+    median tight_bounds mask; each distinct bloat and erosion; the frames'
+    convolves and config 4's 1088 x 1920 one.  Uncounted.  Returns the
+    kernels line's rows by kernel."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.raster import convolve, fills, region
+
+    F = torch.nn.functional
+
+    def run():
+        calls, last_frame = region_inputs(torch, dev)
+        counts = {name: len(c) for name, c in calls.items()}
+        for name in REGION_KERNELS:
+            require(counts[name] >= 1, f"region_kernels: general_filters' frames made no {name} call")
+        errs = dict.fromkeys(REGION_KERNELS, 0)
+        for (op, pred, a, b), _ in calls["caf"]:
+            got, want = region._caf_card(op, pred, a, b), region.caf_torch(op, pred, a, b)
+            require(same_caf(torch, got, want), f"caf {op} over {a and a.box} and {b and b.box} differs from its plain version")
+            errs["caf"] = max(errs["caf"], max_abs_err(got[0].rgba, want[0].rgba))
+        for (mask,), _ in calls["tight_bounds"]:
+            got, want = tuple(kernels.tight_bounds(mask).tolist()), region._tight_bounds_torch(mask)
+            require(got == want, f"tight_bounds of a {tuple(mask.shape)} mask differs from its plain version")
+            errs["tight_bounds"] = max([errs["tight_bounds"]] + [abs(g - w) for g, w in zip(got, want)])
+        for (mask, rx, ry), kw in calls["box_morph"]:
+            plain = region.erode_torch if kw["erode"] else region.dilate_torch
+            got, want = kernels.box_morph(mask, rx, ry, **kw), plain(mask, rx, ry)
+            require(torch.equal(got, want),
+                    f"box_morph of a {tuple(mask.shape)} mask at ({rx}, {ry}) {kw} differs from its plain version")
+            errs["box_morph"] = max(errs["box_morph"], max_abs_err(got, want))
+        frame, _ = convolve_frame(torch, dev)
+        whole = torch.ones((CONV_H, CONV_W), dtype=torch.bool, device=dev)
+        k5 = convolve.mkgaussian(BLUR_RADIUS)
+        conv_calls = calls["convolve_canvas"] + [(convolve.card_kernel(k5) + (frame, whole), {})]
+        for args, _ in conv_calls:
+            got, want = kernels.convolve_canvas(*args), convolve.convolve_canvas_torch(conv_kernel(*args[:4]), *args[4:])
+            require(torch.equal(got, want), f"convolve_canvas over {tuple(args[4].shape)} differs from its plain version")
+            errs["convolve_canvas"] = max(errs["convolve_canvas"], max_abs_err(got, want))
+
+        def union_wh(args):
+            boxes = [s.box for s in args[2:] if s is not None]
+            return region.box_wh(boxes[0] if len(boxes) == 1 else region.box_union(*boxes))
+
+        rows = {name: [] for name in REGION_KERNELS}
+        by_area = sorted((args for args, _ in calls["caf"]), key=lambda args: union_wh(args)[0] * union_wh(args)[1])
+        two = [args for args in by_area if args[2] is not None and args[3] is not None]
+        # The frame over the window's white backdrop, 1920 x 1080, as frame_path composes the general renderer's frames.
+        white = region.fillshape(region.shape_of_box(WINDOW, dev), fills.plain(C.white))
+        window = ("over", "opaque", last_frame, white)
+        require(same_caf(torch, region._caf_card(*window), region.caf_torch(*window)),
+                "caf of the frame over the window differs from its plain version")
+        for op, pred, a, b in (window, two[-1], by_area[len(by_area) // 2]):
+            w, h = union_wh((op, pred, a, b))
+            both = a is not None and b is not None
+            reads = [t for s in (a, b) if s is not None for t in (s.mask, s.rgba)]
+            rows["caf"].append(region_row(
+                torch, scrub, lambda: region._caf_card(op, pred, a, b), lambda: region.caf_torch(op, pred, a, b),
+                region_bound(torch, reads, (18 if both else 1) * h * w), op=op, union=[h, w],
+                operands=[list(s.box) for s in (a, b) if s is not None]))
+        masks = sorted((c[0][0] for c in calls["tight_bounds"]), key=lambda m: m.numel())
+        for mask in (masks[-1], masks[len(masks) // 2]):
+            rows["tight_bounds"].append(region_row(
+                torch, scrub, lambda: kernels.tight_bounds(mask), lambda: region._tight_bounds_torch(mask),
+                region_bound(torch, [mask], 16), mask=list(mask.shape)))
+        seen = set()
+        for (mask, rx, ry), kw in calls["box_morph"]:
+            key = (tuple(mask.shape), rx, ry, kw["erode"])
+            if key in seen:
+                continue
+            seen.add(key)
+            out = kernels.box_morph(mask, rx, ry, **kw)
+            library = None
+            if not kw["erode"]:
+                padded = F.pad(mask.to(torch.float16), (rx, rx, ry, ry))[None, None]
+                library = lambda: F.max_pool2d(padded, (2 * ry + 1, 2 * rx + 1), stride=1, padding=(ry, rx))
+                require(torch.equal(library()[0, 0] > 0, out), "box_morph: max_pool2d's dilation differs from bloat's")
+            plain = region.erode_torch if kw["erode"] else region.dilate_torch
+            rows["box_morph"].append(region_row(
+                torch, scrub, lambda: kernels.box_morph(mask, rx, ry, **kw), lambda: plain(mask, rx, ry),
+                region_bound(torch, [mask], out.numel()), library, mode="erode" if kw["erode"] else "bloat",
+                mask=list(mask.shape), radii=[rx, ry], out=list(out.shape)))
+        for args, _ in conv_calls:
+            kind, weights, total, r, canvas, mask = args
+            H, W = canvas.shape[:2]
+            passes = 1 if kind == "full" else 2
+            taps = (2 * r + 1) ** 2 if kind == "full" else 2 * (2 * r + 1)
+            ops = 2 * 4 * taps * int(mask[:H, :W].sum())  # a multiply-add a tap and channel at each masked pixel
+            rows["convolve_canvas"].append(region_row(
+                torch, scrub, lambda: kernels.convolve_canvas(*args),
+                lambda: convolve.convolve_canvas_torch(conv_kernel(*args[:4]), canvas, mask),
+                region_bound(torch, [canvas, mask[:H, :W]], 16 * H * W, ops), kind=kind, radius=r,
+                canvas=[H, W], passes=passes))
+        return counts, rows, errs
+
+    counts, rows, errs = uncounted(kernels, run)
+    for name, kernel_rows in rows.items():
+        for row in kernel_rows:
+            row["launch_floor_ms"] = floor_ms
+    emit({"phase": "region_kernels", "tolerance": 0, "equal_plain": True, "calls": counts, "max_abs_err": errs,
+          "rows": rows})
+    return {name: {"rows": kernel_rows, "calls": counts[name], "max_abs_err": errs[name]}
+            for name, kernel_rows in rows.items()}
+
+
 def layers_path(torch, dev, kernels, scrub):
     """Phase 7: config 2's stack over white through composite_layers,
     counted from zero, then the kernel against its plain version over
@@ -2225,7 +2457,7 @@ def animated_chain(torch, dev, kernels) -> dict:
         zero_counts(torch, kernels)
         rows[name] = queued_chain(torch, this, frame, state, reference)
         counts = dict(kernels.launches)
-        frames = 2 * rows[name]["frames"] * (rows[name]["reps"] + 2)  # both scenes, the untimed passes included
+        frames = 2 * rows[name]["frames"] * rows[name]["passes"]  # both scenes, the untimed passes and retakes included
         want = {"shatter_into": frames, "composite_dirty": frames, "blur_blend": frames}
         require({k: counts[k] for k in want} == want, f"{name}'s chain launched {counts}, not {want}")
         del state, reference
@@ -2247,6 +2479,10 @@ N_GENERAL_CPU_FRAMES = 2
 N_GENERAL_SCRATCH_FRAMES = 1  # frames also rendered with the cache off
 DEMO_LION_STRIDE = 4  # the filter demos lie over every fourth path of the lion, on the card and on the CPU
 CONV_H, CONV_W, CONV_CALLS = 1088, 1920, 30  # benchmarks/run.py config 4
+# The hand-written kernels of the general renderer's region programs (CF1, TB1, MR1, CV1).
+REGION_KERNELS = ("caf", "tight_bounds", "box_morph", "convolve_canvas")
+# The kernels the general renderer launches; any other is a tile kernel.
+GENERAL_KERNELS = ("fold_layers", "sprite_raster") + REGION_KERNELS
 
 
 def same_sprite(torch, a, b) -> bool:
@@ -2348,6 +2584,7 @@ def general_lion(torch, dev, kernels):
     rebuilt, rebuild_stats = measured(torch, dev, render)
     rebuild_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before["fold_layers"]
     rebuild_stats["sprite_raster_launches"] = kernels.launches["sprite_raster"] - before["sprite_raster"]
+    rebuild_stats["region_launches"] = {k: kernels.launches[k] - before[k] for k in REGION_KERNELS}
     warm, warm_stats = measured(torch, dev, render)
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2359,6 +2596,7 @@ def general_lion(torch, dev, kernels):
         folded, fold_stats = measured(torch, dev, render)
         fold_stats["fold_layers_launches"] = kernels.launches["fold_layers"] - before["fold_layers"]
         fold_stats["sprite_raster_launches"] = kernels.launches["sprite_raster"] - before["sprite_raster"]
+        fold_stats["region_launches"] = {k: kernels.launches[k] - before[k] for k in REGION_KERNELS}
         fold_stats["issued"] = issued_rebuild(torch, render)
     finally:
         flags.set_flag("batch_group_raster", True)
@@ -2389,6 +2627,7 @@ def general_lion(torch, dev, kernels):
           "equal": {"tolerance": 0, "cold_rebuild_warm": True, "fold_route": True, "cpu": True}})
     counts["sprite_raster_rebuild"] = rebuild_stats["sprite_raster_launches"]
     counts["sprite_raster_fold_route"] = fold_stats["sprite_raster_launches"]
+    counts["region_rebuild"], counts["region_fold_route"] = rebuild_stats["region_launches"], fold_stats["region_launches"]
     return counts, folds[0]
 
 
@@ -2406,30 +2645,38 @@ def filter_scene():
     return lens, blob, objs
 
 
-def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: bool = True):
+def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: bool = True, issued_out=None):
     """n frames of the blob dragged under the lens on `device`.  Each frame
     renders the dirty region (dirty_region carried up through the lens by
     dirty_filter) over the previous frame, and (if `whole`) the whole
     window; the first `scratch` frames also the whole window with the cache
     off (a rebuild of every object each), held equal to both.  Returns
-    (frames, per-frame stats)."""
+    (frames, per-frame stats).  With a dict `issued_out`, one frame more is
+    rendered after them, its incremental render and the whole-window render
+    after it each counted by profile_general.issued into it
+    ("incremental", "whole"), and held equal."""
     from coherence_tpu_torch.raster import region
     from coherence_tpu_torch.scene import cache
     from coherence_tpu_torch.scene import render as R
+    from profile_general import issued
 
     fresh_cache()
     master = region.shape_of_box(WINDOW, device)
     frame = R.render_simple_scene([lens, blob] + objs, master, device)
     frames, stats = [], []
-    for k in range(n):
-        moved = R.translate_renderobject(*delta(k * 40), blob)  # (7, 3) for 5 frames, then back
-        scene = [lens, moved] + objs
 
+    def incremental_of(moved, scene, blob, frame):
         def incremental():
             d = R.dirty_filter(moved.idset, R.dirty_region(blob, moved, device)(master), scene, device)
             patch, _, _ = R.render_scene(moved.idset, False, (d, None), scene, scene, master, device)
             return region.caf("over", "opaque", patch, region.portion(frame, region.shape_difference(master, d)))[0]
 
+        return incremental
+
+    for k in range(n):
+        moved = R.translate_renderobject(*delta(k * 40), blob)  # (7, 3) for 5 frames, then back
+        scene = [lens, moved] + objs
+        incremental = incremental_of(moved, scene, blob, frame)
         frame, inc = measured(torch, device, incremental)
         full = None
         if whole:
@@ -2445,6 +2692,18 @@ def filter_frames(torch, device, lens, blob, objs, n: int, scratch: int, whole: 
         frames.append(frame)
         stats.append({"incremental": inc, "whole": full})
         blob = moved
+    if issued_out is not None:
+        from coherence_tpu_torch import kernels
+
+        moved = R.translate_renderobject(*delta(n * 40), blob)
+        scene = [lens, moved] + objs
+        incremental, got = incremental_of(moved, scene, blob, frame), {}
+        for part, fn in (("incremental", incremental), ("whole", lambda: R.render_simple_scene(scene, master, device))):
+            before = dict(kernels.launches)
+            issued_out[part] = issued(torch, lambda: got.setdefault(part, fn()))
+            issued_out[part + "_launches"] = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        require(same_sprite(torch, got["incremental"], got["whole"]),
+                "general_filters: the counted frame differs from the whole-window render")
     return frames, stats
 
 
@@ -2464,6 +2723,13 @@ def general_filters(torch, dev, kernels):
     frames, stats = filter_frames(torch, dev, lens, blob, objs, N_GENERAL_FRAMES, scratch=N_GENERAL_SCRATCH_FRAMES)
     t1 = time.perf_counter()
     frame_launches = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+    for name in REGION_KERNELS:
+        require(frame_launches.get(name, 0) >= 1, f"general_filters: {name} was not launched in the frames")
+    # The launches and copies issued by a steady incremental frame (frame 4, as profile_general.py --filters
+    # counts it) and by the whole-window render after it, with each kernel's launches in them.
+    counted = {}
+    filter_frames(torch, dev, lens, blob, objs, 4, scratch=0, whole=False, issued_out=counted)
+    t1b = time.perf_counter()
     cpu_frames, _ = filter_frames(torch, "cpu", lens, blob, objs, N_GENERAL_CPU_FRAMES, scratch=0, whole=False)
     t2 = time.perf_counter()
     for k, (a, b) in enumerate(zip(frames, cpu_frames)):
@@ -2475,7 +2741,10 @@ def general_filters(torch, dev, kernels):
           "syncs_per_incremental_frame": statistics.median(s["incremental"]["syncs"] for s in stats),
           "syncs_per_whole_render": statistics.median(s["whole"]["syncs"] for s in stats),
           "objects_visited_per_incremental_frame": statistics.median(s["incremental"]["objects_visited"] for s in stats),
-          "seconds": {"card": t1 - t0, "cpu_reference": t2 - t1}, "launches": frame_launches,
+          "seconds": {"card": t1 - t0, "counted_frame": t1b - t1, "cpu_reference": t2 - t1b}, "launches": frame_launches,
+          "issued_per_incremental_frame": counted["incremental"], "issued_per_whole_render": counted["whole"],
+          "launches_per_incremental_frame": counted["incremental_launches"],
+          "launches_per_whole_render": counted["whole_launches"],
           "equal": {"tolerance": 0, "whole_window": True, "cache_off_frames": N_GENERAL_SCRATCH_FRAMES,
                     "cpu_frames": N_GENERAL_CPU_FRAMES}})
 
@@ -2507,24 +2776,34 @@ def general_filters(torch, dev, kernels):
         require(demos[name]["launches"].get(kernel, 0) >= 1, f"general_filter_demos: {name} launched no {kernel}")
     cache.clear()
     emit({"phase": "general_filter_demos", "lion_paths": len(objs), "demos": demos, "equal": {"tolerance": 0, "cpu": True}})
+    frame_launches["counted_frame"] = counted
     return frame_launches, {name: demo["launches"] for name, demo in demos.items()}
 
 
-def convolve_1080p(torch, dev):
-    """Config 4 as benchmarks/run.py defines it: a random premultiplied
-    1088 x 1920 frame, mkgaussian(5) over the whole frame, 30 chained
-    calls; the first call against the CPU's."""
+def convolve_frame(torch, dev):
+    """Config 4's input as benchmarks/run.py makes it: a random
+    premultiplied 1088 x 1920 int32 frame (seed 0) on `dev`, and its
+    numpy array."""
     import numpy as np
-
-    from coherence_tpu_torch.raster import convolve
 
     rng = np.random.default_rng(0)
     a = rng.integers(0, 256, (CONV_H, CONV_W, 1))
     rgb = (rng.integers(0, 256, (CONV_H, CONV_W, 3)) * a) // 255
     frame_np = np.concatenate([rgb, a], -1).astype(np.int32)
+    return torch.from_numpy(frame_np).to(dev), frame_np
+
+
+def convolve_1080p(torch, dev, kernels):
+    """Config 4 as benchmarks/run.py defines it: a random premultiplied
+    1088 x 1920 frame, mkgaussian(5) over the whole frame, 30 chained
+    calls, each two launches of convolve_canvas (CV1), counted from zero;
+    the first call against the CPU's.  Returns the launch counts."""
+    from coherence_tpu_torch.raster import convolve
+
+    frame, frame_np = convolve_frame(torch, dev)
     kernel = convolve.mkgaussian(BLUR_RADIUS)
-    frame = torch.from_numpy(frame_np).to(dev)
     mask = torch.ones((CONV_H, CONV_W), dtype=torch.bool, device=dev)
+    zero_counts(torch, kernels)
     first = convolve.convolve_canvas(kernel, frame, mask)
     want = convolve.convolve_canvas(kernel, torch.from_numpy(frame_np), torch.ones((CONV_H, CONV_W), dtype=torch.bool))
     require(torch.equal(first.cpu(), want), "convolve_1080p: the card's blur differs from the CPU's")
@@ -2534,12 +2813,17 @@ def convolve_1080p(torch, dev):
         state["x"] = convolve.convolve_canvas(kernel, state["x"], mask)
 
     ms, host_s = timed_frames(torch, call, CONV_CALLS)
+    counts = dict(kernels.launches)
+    require(counts["convolve_canvas"] == 2 * (CONV_CALLS + 1) and sum(counts.values()) == counts["convolve_canvas"],
+            f"convolve_1080p: not two convolve_canvas launches a call and nothing else: {counts}")
     require(bool(((state["x"] >= 0) & (state["x"] <= 255)).all()), "convolve_1080p: a channel left 0..255")
     # Each input read once, the output written once: the int32 frame twice and the mask.
     nbytes = 2 * frame.numel() * 4 + mask.numel()
     emit({"phase": "convolve_1080p", "shape": [CONV_H, CONV_W], "radius": BLUR_RADIUS, "calls": CONV_CALLS,
           **frame_stats(ms), "host_ms_per_call": host_s / CONV_CALLS * 1e3, "bytes": nbytes,
-          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "equal": {"tolerance": 0, "cpu_first_call": True}})
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "launches": counts["convolve_canvas"],
+          "equal": {"tolerance": 0, "cpu_first_call": True}})
+    return counts
 
 
 def stroked_tiles(torch, dev, kernels):
@@ -3505,7 +3789,7 @@ def serve_engine(torch, dev, kernels):
     require(not (images[1] == images[2]).all(), "serve_engine: the first drag changed no pixel")
     require(stats["event_errors"] == 0, "serve_engine: a handler's error was contained")
     counts = dict(kernels.launches)
-    tile_counts = {k: n for k, n in counts.items() if k not in ("fold_layers", "sprite_raster")}
+    tile_counts = {k: n for k, n in counts.items() if k not in GENERAL_KERNELS}
     require(not any(tile_counts.values()), f"serve_engine: the general renderer launched a tile kernel: {counts}")
     require(counts["fold_layers"] >= 1, "serve_engine: the lion group did not fold through fold_layers")
     cache.clear()
@@ -4190,7 +4474,7 @@ def pdf_pages(torch, dev, kernels):
         for other in (0, 1):
             require(not (shots[2][1] == shots[other][1]).all(), f"pdf_pages: page 3 looks like page {other + 1}")
         require(stats["fold_layers_per_page"][2] >= 1, "pdf_pages: no fold_layers launch on page 3 (the text group)")
-        tile_counts = {k: n for k, n in counts.items() if k not in ("fold_layers", "sprite_raster")}
+        tile_counts = {k: n for k, n in counts.items() if k not in GENERAL_KERNELS}
         require(not any(tile_counts.values()), f"pdf_pages: the general renderer launched a tile kernel: {counts}")
 
         cache.clear()
@@ -4276,6 +4560,7 @@ def main() -> int:
     timed.update(brush_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"]))
     timed["tile_raster"] = tile_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"])
     timed["sprite_raster"] = sprite_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"])
+    timed.update(region_kernels(torch, dev, kernels, scrub, timed["launch_floor_ms"]))
     counts_hsr, timed["composite_layers"] = layers_path(torch, dev, kernels, scrub)
     counts_mesh, mesh, udisp, ukey = mesh_4k_path(torch, dev, kernels)
     timed.update(mesh_kernels(torch, scrub, mesh, udisp, ukey))
@@ -4291,7 +4576,7 @@ def main() -> int:
     del mesh
     counts_general, group_fold = general_lion(torch, dev, kernels)
     counts_filters, counts_demos = general_filters(torch, dev, kernels)
-    convolve_1080p(torch, dev)
+    counts_conv = convolve_1080p(torch, dev, kernels)
     stroked_tiles(torch, dev, kernels)
     counts_edits, lion_sprites = scene_edits(torch, dev, kernels)
     counts_frame, blur_fold = frame_path(torch, dev, kernels, lion_sprites)
@@ -4435,6 +4720,35 @@ def main() -> int:
                  "members": sprite["members"], "groups": sprite["groups"], "units": sprite["units"],
                  "spans": sprite["spans"], "fringe_pixels": sprite["fringe_pixels"],
                  "blocks_per_sm": sprite["blocks_per_sm"], "issued": sprite["issued"], "mattes": sprite["mattes"]})
+    region_rows = (
+        # No one PyTorch call composites two masked, offset operands with an operator and reports a predicate.
+        ("caf", "region_ops.cu", "coherence_tpu/raster/region.py:611", []),
+        # No one PyTorch call gives the bounding box of a mask's set cells.
+        ("tight_bounds", "region_ops.cu", "coherence_tpu/raster/region.py:459", []),
+        # A bloat's library_ms is torch.nn.functional.max_pool2d's (stride 1, padding (ry, rx)); none erodes.
+        ("box_morph", "region_ops.cu", "coherence_tpu/raster/region.py:690",
+         ["coherence_tpu/raster/region.py:715", "coherence_tpu/raster/region.py:665"]),
+        # No one PyTorch call convolves exactly in integers with a divide and a clamp after each pass.
+        ("convolve_canvas", "convolve.cu", "coherence_tpu/raster/convolve.py:195", []),
+    )
+    for kname, source, replaces, also in region_rows:
+        t = timed[kname]
+        rows_k = t["rows"]
+        main_row = max(rows_k, key=lambda r: (r.get("library_ms") is not None, r["bytes"]))
+        line.append({"name": kname, "route": "cuda", "source": CSRC + source, "replaces": replaces,
+                     "also_replaces": also, "pallas": False, "launches": counts_filters.get(kname, 0),
+                     "launches_per_incremental_frame": counts_filters["counted_frame"]["incremental_launches"].get(kname, 0),
+                     "issued_per_incremental_frame": counts_filters["counted_frame"]["incremental"],
+                     "launches_general_lion": counts_general["region_rebuild"][kname],
+                     "launches_fold_route": counts_general["region_fold_route"][kname],
+                     "launches_general_filter_demos": {n: c.get(kname, 0) for n, c in counts_demos.items()},
+                     "launches_convolve_1080p": counts_conv.get(kname, 0),
+                     "launches_scene_edits": counts_edits.get(kname, 0), "launches_serve_engine": counts_engine[kname],
+                     "launches_pdf_pages": counts_pdf[kname], "calls_checked": t["calls"],
+                     "max_abs_err": t["max_abs_err"], "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                     "library_ms": main_row["library_ms"], "bytes": main_row["bytes"], "share": main_row["share"],
+                     "shapes": rows_k})
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

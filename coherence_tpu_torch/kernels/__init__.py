@@ -41,7 +41,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_ptr, _i32, _u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_ptr, _i32, _u32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 # entry point -> argument types
 _ENTRY_POINTS = {
     "composite_dirty": [_ptr] * 6 + [_i32] * 2 + [_ptr],
@@ -58,11 +58,15 @@ _ENTRY_POINTS = {
     "smear_walk": [_ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr] + [_i32] * 4 + [_ptr],
     "tile_raster": [_ptr] * 6 + [_i32] * 2 + [_ptr],
     "sprite_raster": [_ptr] * 6 + [_i32] * 3 + [_ptr],
+    "caf": [_ptr] * 10,
+    "tight_bounds": [_ptr, _i64, _i64, _i32, _i32, _i32, _ptr, _ptr, _ptr],
+    "box_morph": [_ptr] * 4,
+    "convolve_canvas": [_ptr] * 6,
 }
 
 # entry point -> argument types, of those that launch nothing
 _QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2,
-            "sprite_raster_blocks_per_sm": []}
+            "sprite_raster_blocks_per_sm": [], "tight_bounds_max_blocks": []}
 # entry point -> argument types, of those that launch a kernel doing none of
 # the program's work (not counted in `launches`)
 _PROBES = {"launch_floor": [_ptr]}
@@ -1257,6 +1261,226 @@ def sprite_raster_opacity(box, scaled, device) -> torch.Tensor:
     ValueError."""
     lists = sprite_opacity_lists(box, scaled)
     return sprite_raster(lists, stage_sprite_lists(lists, device))
+
+
+# region_ops.cu's caf operators: the four built-in codes, and the code of a
+# composed plane given by the caller (any other operator).
+CAF_OPS = {"over": 0, "alpha_over": 1, "plus": 2, "nocover": 3}
+CAF_GIVEN = 4
+# box_morph's output tile (rows, columns) a block, and the most rows of
+# tiles its grid holds (gridDim.y).
+MORPH_TILE = (8, 128)
+_GRID_Y = 65535
+
+
+class CafPlane(NamedTuple):
+    """An operand of caf: its box's offset (y0, x0) in the union box, its
+    bool (h, w) mask (None for a composed plane) and int32 (h, w, 4) RGBA,
+    each a view with any strides."""
+
+    y0: int
+    x0: int
+    mask: Optional[torch.Tensor]
+    rgba: torch.Tensor
+
+
+def _as_i64(values) -> ctypes.Array:
+    return (_i64 * len(values))(*values)
+
+
+def _caf_geometry(h: int, w: int, plane: Optional[CafPlane], device: torch.device) -> list:
+    """caf's 10 values of one plane (y0, x0, h, w, mask strides, RGBA
+    strides, one 16-byte load a pixel), zeros for an absent plane; raises
+    ValueError on a plane the kernel does not take."""
+    if plane is None:
+        return [0] * 10
+    y0, x0, mask, rgba = plane
+    if rgba.device != device or rgba.dtype != torch.int32 or rgba.dim() != 3 or rgba.shape[2] != 4:
+        raise ValueError(f"caf: an RGBA plane must be int32 (h, w, 4) on {device}, got {rgba.dtype} "
+                         f"{tuple(rgba.shape)} on {rgba.device}")
+    ph, pw = rgba.shape[:2]
+    if mask is not None and (mask.device != device or mask.dtype != torch.bool or tuple(mask.shape) != (ph, pw)):
+        raise ValueError(f"caf: a mask must be bool {(ph, pw)} on {device}, got {mask.dtype} {tuple(mask.shape)} "
+                         f"on {mask.device}")
+    if ph == 0 or pw == 0 or y0 < 0 or x0 < 0 or y0 + ph > h or x0 + pw > w:
+        raise ValueError(f"caf: a {ph}x{pw} plane at {(y0, x0)} is not inside the {h}x{w} union box")
+    msy, msx = mask.stride() if mask is not None else (0, 0)
+    rsy, rsx, rsc = rgba.stride()
+    vec = int(rsc == 1 and rsx == 4 and rsy % 4 == 0 and rgba.data_ptr() % 16 == 0)
+    return [y0, x0, ph, pw, msy, msx, rsy, rsx, rsc, vec]
+
+
+def caf(h: int, w: int, op: int, a: CafPlane, b: Optional[CafPlane] = None, composed: Optional[CafPlane] = None,
+        f_only: bool = False):
+    """Launch ``caf`` (CF1) over the h x w union box of operands `a` and `b`
+    (b None: one operand): where both masks are set the colour of the
+    built-in operator `op` (CAF_OPS) of a's over b's, or with CAF_GIVEN the
+    `composed` plane's (a view over the intersection of the boxes; None
+    where they do not meet), else the set operand's colour, else 0.
+    Returns new planes (int32 (h, w, 4) RGBA, bool mask, bool f = mask &
+    (alpha == 255)), or with `f_only` the f plane alone (the one-operand
+    caf: the result is that operand).  The plain version is
+    raster/region.py caf_torch."""
+    device = a.rgba.device
+    if device.type != "cuda":
+        raise ValueError(f"caf needs tensors on a CUDA device, got {device}")
+    if op not in (*CAF_OPS.values(), CAF_GIVEN) or (composed is not None and op != CAF_GIVEN):
+        raise ValueError(f"caf: operator code {op} with {'a' if composed is not None else 'no'} composed plane")
+    if not (0 < h < 2**31 and 0 < w < 2**31) or -(-w // 128) >= 2**31:
+        raise ValueError(f"caf: a {h}x{w} union box is beyond the kernel's grid")
+    if a.mask is None or (b is not None and b.mask is None) or (composed is not None and composed.mask is not None):
+        raise ValueError("caf: an operand needs a mask, the composed plane has none")
+    geom = _as_i64([h, w, op] + _caf_geometry(h, w, a, device) + _caf_geometry(h, w, b, device)
+                   + _caf_geometry(h, w, composed, device))
+    f = torch.empty((h, w), dtype=torch.bool, device=device)
+    rgba = None if f_only else torch.empty((h, w, 4), dtype=torch.int32, device=device)
+    mask = None if f_only else torch.empty((h, w), dtype=torch.bool, device=device)
+    planes = [a.mask, a.rgba, None if b is None else b.mask, None if b is None else b.rgba,
+              None if composed is None else composed.rgba, rgba, mask, f]
+    with torch.cuda.device(device):
+        rc = load()["caf"](ctypes.addressof(geom), *(None if t is None else t.data_ptr() for t in planes),
+                           torch.cuda.current_stream(device).cuda_stream)
+    _raise_on("caf", rc)
+    launches["caf"] += 1
+    return f if f_only else (rgba, mask, f)
+
+
+# tight_bounds' partials and ticket, per (device, stream): the ticket is 0
+# when the buffer is made and each launch leaves it 0.
+_bounds_scratch: Dict[tuple, torch.Tensor] = {}
+TIGHT_BOUNDS_CELLS = 256 * 8  # mask cells a thread of a block walks, at most, before a launch takes more blocks
+
+
+def tight_bounds_blocks(h: int, w: int, max_blocks: int) -> int:
+    """tight_bounds' blocks for an h x w mask: one a TIGHT_BOUNDS_CELLS
+    cells, at least one and at most `max_blocks`."""
+    return max(1, min(max_blocks, -(-h * w // TIGHT_BOUNDS_CELLS)))
+
+
+def _check_bool_plane(what: str, t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA device, got {t.device}")
+    if t.dtype != torch.bool or t.dim() != 2 or not (0 < t.shape[0] < 2**31 and 0 < t.shape[1] < 2**31):
+        raise ValueError(f"{what}: need a non-empty bool (h, w) mask, got {t.dtype} {tuple(t.shape)}")
+    return t.device
+
+
+def tight_bounds(mask: torch.Tensor) -> torch.Tensor:
+    """Launch ``tight_bounds`` (TB1): the int32 (4,) (x0, y0, x1, y1) of the
+    set cells of the bool (h, w) `mask` (any strides) on the card, (w, h,
+    -1, -1) where there is none; the caller reads it back.  The plain
+    version is raster/region.py _tight_bounds_torch."""
+    device = _check_bool_plane("tight_bounds", mask)
+    h, w = mask.shape
+    fns = load()
+    max_blocks = fns["tight_bounds_max_blocks"]()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scratch = _bounds_scratch.get((device, stream))
+    if scratch is None:
+        scratch = _bounds_scratch[device, stream] = torch.zeros(4 * max_blocks + 4, dtype=torch.int32, device=device)
+    out = torch.empty(4, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = fns["tight_bounds"](mask.data_ptr(), *mask.stride(), h, w, tight_bounds_blocks(h, w, max_blocks),
+                                 scratch.data_ptr(), out.data_ptr(), stream)
+    _raise_on("tight_bounds", rc)
+    launches["tight_bounds"] += 1
+    return out
+
+
+def box_morph_geometry(h: int, w: int, rx: int, ry: int, erode: bool) -> tuple:
+    """((H, W) of box_morph's output, (dx0, dx1, dy0, dy1): the window of
+    output cell (Y, X) in source rows [Y + dy0, Y + dy1] and columns [X +
+    dx0, X + dx1]) for an h x w mask: bloat's output is nbox's, (h + 2ry, w
+    + 2rx), whose cell (Y, X) lies at source (Y - ry, X - rx); erode's the
+    mask's own.  Raises ValueError where the output is beyond the grid."""
+    if rx < 0 or ry < 0:
+        raise ValueError(f"box_morph: radii ({rx}, {ry}) must be at least 0")
+    H, W = (h, w) if erode else (h + 2 * ry, w + 2 * rx)
+    if not (0 < W < 2**31 and 0 < H < 2**31) or -(-H // MORPH_TILE[0]) > _GRID_Y:
+        raise ValueError(f"box_morph: a {H}x{W} output is beyond the kernel's grid")
+    return (H, W), ((-rx, rx, -ry, ry) if erode else (-2 * rx, 0, -2 * ry, 0))
+
+
+def box_morph(mask: torch.Tensor, rx: int, ry: int, erode: bool) -> torch.Tensor:
+    """Launch ``box_morph`` (MR1) over the bool (h, w) `mask` (any strides):
+    bloat (erode False) returns the (h + 2ry, w + 2rx) mask of cells whose
+    (2rx+1) x (2ry+1) window holds a set cell of `mask` (placed at (ry,
+    rx)); erode returns the (h, w) mask of cells whose window lies inside
+    the plane and holds no unset cell.  Any radius.  The plain versions are
+    raster/region.py dilate_torch and erode_torch."""
+    device = _check_bool_plane("box_morph", mask)
+    h, w = mask.shape
+    (H, W), (dx0, dx1, dy0, dy1) = box_morph_geometry(h, w, rx, ry, erode)
+    out = torch.empty((H, W), dtype=torch.bool, device=device)
+    geom = _as_i64([h, w, *mask.stride(), H, W, dx0, dx1, dy0, dy1, int(erode), rx, ry])
+    with torch.cuda.device(device):
+        rc = load()["box_morph"](ctypes.addressof(geom), mask.data_ptr(), out.data_ptr(),
+                                 torch.cuda.current_stream(device).cuda_stream)
+    _raise_on("box_morph", rc)
+    launches["box_morph"] += 1
+    return out
+
+
+# convolve.cu's passes.
+CONV_PASS_X, CONV_PASS_Y, CONV_FULL = 0, 1, 2
+
+
+def convolve_plan(kind: str, weights, total: int, radius: int) -> tuple:
+    """(passes, weights, total, clamp) of convolve_canvas for a kernel of
+    `kind` ("full": (2r+1)^2 weights row by row, one 2D pass; "xy": 2r+1
+    weights, an x pass and a y pass, each clamped; "unit": every weight 1,
+    total 2r+1, two passes, no clamp).  Raises ValueError on another kind,
+    a radius under 1, another count of weights, or (as blur_blend) a weight
+    outside [0, 2^31) or a total outside (0, 2^31)."""
+    if radius < 1 or radius >= 2**15:
+        raise ValueError(f"convolve_canvas: radius {radius} is outside [1, 2^15)")
+    n = 2 * radius + 1
+    if kind == "unit":
+        weights, total = (1,) * n, n
+    elif kind not in ("full", "xy"):
+        raise ValueError(f"convolve_canvas: no kernel kind {kind!r}")
+    weights = tuple(int(v) for v in weights)
+    if len(weights) != (n * n if kind == "full" else n):
+        raise ValueError(f"convolve_canvas: {len(weights)} weights for a {kind} kernel of radius {radius}")
+    if not all(0 <= v < 2**31 for v in weights):
+        raise ValueError("convolve_canvas: need weights in [0, 2^31)")
+    if not 0 < total < 2**31:
+        raise ValueError(f"convolve_canvas: total {total} is outside (0, 2^31)")
+    passes = (CONV_FULL,) if kind == "full" else (CONV_PASS_X, CONV_PASS_Y)
+    return passes, weights, total, int(kind == "xy")
+
+
+def convolve_canvas(kind: str, weights, total: int, radius: int, canvas: torch.Tensor, mask: torch.Tensor):
+    """Launch ``convolve_canvas`` (CV1) once a pass (convolve_plan): the
+    int32 (H, W, 4) `canvas` (contiguous) convolved inside the top-left (H,
+    W) of the bool `mask` (any strides), into a new plane; an x pass into a
+    scratch plane, then the y pass.  The plain version is
+    raster/convolve.py convolve_canvas_torch."""
+    passes, weights, total, clamp = convolve_plan(kind, weights, total, radius)
+    device = canvas.device
+    if device.type != "cuda":
+        raise ValueError(f"convolve_canvas needs tensors on a CUDA device, got {device}")
+    if canvas.dim() != 3 or canvas.shape[2] != 4:
+        raise ValueError(f"convolve_canvas: need an (H, W, 4) canvas, got shape {tuple(canvas.shape)}")
+    _check("canvas", canvas, device)
+    H, W = canvas.shape[:2]
+    if not (0 < H < 2**31 and 0 < W < 2**31):
+        raise ValueError(f"convolve_canvas: an empty or oversized {H}x{W} canvas")
+    if mask.device != device or mask.dtype != torch.bool or mask.dim() != 2 or mask.shape[0] < H or mask.shape[1] < W:
+        raise ValueError(f"convolve_canvas: need a bool mask of at least {(H, W)} on {device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    w, magic, shift = _weights_on(device, weights, total)
+    src = canvas
+    with torch.cuda.device(device):
+        for mode in passes:
+            dst = torch.empty_like(canvas)
+            geom = _as_i64([H, W, *mask.stride(), radius, mode, clamp, magic, shift])
+            rc = load()["convolve_canvas"](ctypes.addressof(geom), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+                                           w.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            _raise_on("convolve_canvas", rc)
+            launches["convolve_canvas"] += 1
+            src = dst
+    return src
 
 
 def launch_floor(device) -> None:

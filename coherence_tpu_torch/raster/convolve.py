@@ -19,6 +19,10 @@ through TF32.
 Convolving "within a shape" (convolve.ml:207-232): the x-pass writes only
 pixels inside the shape (reads may come from outside), and the y-pass reads
 that mixed canvas.
+
+On a CUDA device ``convolve_canvas`` launches the hand-written kernel of
+``kernels/csrc/convolve.cu`` (CV1) once a pass, or raises; on the CPU it
+runs the plain version beside it, ``convolve_canvas_torch``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Union
 import torch
 
 from .. import colour as C
+from .. import kernels
 from . import region
 from .region import NULL_SPRITE, Canvas
 
@@ -134,9 +139,28 @@ def _setcanvas_xy(sums: torch.Tensor, total: int) -> torch.Tensor:
     )
 
 
+def card_kernel(kernel: Kernel) -> tuple:
+    """(kind, weights, total, radius) of `kernel` as CV1 takes it: a full
+    kernel's weights row by row."""
+    if isinstance(kernel, FullKernel):
+        return "full", tuple(v for row in kernel.values for v in row), kernel.total, kernel.radius
+    if isinstance(kernel, XYKernel):
+        return "xy", kernel.values, kernel.total, kernel.radius
+    n = 2 * kernel.radius + 1
+    return "unit", (1,) * n, n, kernel.radius
+
+
 def convolve_canvas(kernel: Kernel, canvas_rgba: torch.Tensor, shape_mask: torch.Tensor) -> torch.Tensor:
     """Convolve the int32 (H, W, 4) canvas within shape_mask (bool, at least
-    (H, W); its top-left (H, W) corner is used) -- convolve.ml:207-232."""
+    (H, W); its top-left (H, W) corner is used) -- convolve.ml:207-232.  On
+    a CUDA device CV1 (kernels.convolve_canvas), one launch a pass."""
+    if canvas_rgba.is_cuda:
+        return kernels.convolve_canvas(*card_kernel(kernel), canvas_rgba, shape_mask)
+    return convolve_canvas_torch(kernel, canvas_rgba, shape_mask)
+
+
+def convolve_canvas_torch(kernel: Kernel, canvas_rgba: torch.Tensor, shape_mask: torch.Tensor) -> torch.Tensor:
+    """The plain version of convolve_canvas, on any device."""
     c = canvas_rgba.to(torch.int32)
     m = shape_mask[: c.shape[0], : c.shape[1], None]
     if isinstance(kernel, FullKernel):

@@ -25,6 +25,12 @@ takes the device; binary operations on operands of different devices fail in
 torch itself.  ``syncs`` counts the places where a raster's content is read
 back to the host (emptiness, tight bounds, point membership, span lists).
 
+On a CUDA device ``caf``, ``_tight_bounds`` (``boxshape``, ``boxsprite``),
+``bloat`` and ``erode`` launch the hand-written kernels of
+``kernels/csrc/region_ops.cu`` (CF1, TB1, MR1) or raise; on the CPU they run
+the plain torch versions beside them (``caf_torch``, ``_tight_bounds_torch``,
+``dilate_torch``, ``erode_torch``).
+
 Operation parity map:
   shape_union / shape_difference / shape_intersection
                         <- sprite.ml:1172-1662
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import colour as C
+from .. import kernels
 
 Box = Tuple[int, int, int, int]  # x0, y0, x1, y1 inclusive
 
@@ -356,7 +363,17 @@ def translate_sprite(dx: int, dy: int, s: Optional[Sprite]) -> Optional[Sprite]:
 
 def _tight_bounds(mask: torch.Tensor):
     """(x0, y0, x1, y1) of the True cells, relative to the mask; x1 < x0
-    when there is none.  One readback."""
+    when there is none.  One readback; on the card after one launch of
+    TB1."""
+    if mask.is_cuda:
+        bounds = kernels.tight_bounds(mask)
+        _sync()
+        return tuple(bounds.tolist())
+    return _tight_bounds_torch(mask)
+
+
+def _tight_bounds_torch(mask: torch.Tensor):
+    """The plain version of _tight_bounds, on any device."""
     rows = mask.any(dim=1)
     cols = mask.any(dim=0)
     ny = torch.arange(mask.shape[0], device=mask.device)
@@ -481,6 +498,9 @@ register_caf_op("plus", C.pd_plus_rgba)
 # 'nocover' asserts disjointness (checked on host when debug_spritecheck);
 # the overlap region is empty so any value works: use b.
 register_caf_op("nocover", lambda a, b: b)
+# The entries registered at import: CF1 computes these itself while the
+# table still holds them (a caller may re-register a name).
+_BUILTIN_CAF_OPS = dict(_CAF_OPS)
 
 
 def _pred_opaque(rgba):
@@ -508,7 +528,71 @@ def caf(op: str, pred: str, a, b):
     opaque") is evaluated over every defined pixel of the result, which is
     what drives the renderer's early termination (render.ml:1291-1308).
     The result's box is the union of the operands' boxes, untightened.
+    On a CUDA device every call with an operand is one launch of CF1
+    (_caf_card).
     """
+    if a is None and b is None:
+        return NULL_SPRITE, NULL_SHAPE
+    if (b if a is None else a).mask.is_cuda:
+        return _caf_card(op, pred, a, b)
+    return caf_torch(op, pred, a, b)
+
+
+def _caf_op_code(op: str) -> Optional[int]:
+    """CF1's built-in code for `op` (kernels.CAF_OPS), or None where the
+    table's entry is not the function registered under that name at import:
+    the composed plane is then given (_caf_composed).  KeyError for an
+    operator that is not registered, as the plain version."""
+    fn = _CAF_OPS[op]
+    return kernels.CAF_OPS[op] if op in kernels.CAF_OPS and fn is _BUILTIN_CAF_OPS[op] else None
+
+
+def _caf_plane(s: Sprite, box: Box) -> kernels.CafPlane:
+    """Sprite `s` as an operand of CF1 over `box`, which holds its box: its
+    offset there, its own mask and RGBA in place."""
+    return kernels.CafPlane(s.box[1] - box[1], s.box[0] - box[0], s.mask, s.rgba)
+
+
+def _caf_composed(op: str, a: Sprite, b: Sprite) -> Optional[kernels.CafPlane]:
+    """`op`'s colours over the intersection of a's and b's boxes, from the
+    registered function on views of their RGBA, as a plane of CF1 over
+    their union box; None where the boxes do not meet.  Exact where every
+    operator is per pixel: the composed colour is read only where both
+    masks are set, all inside the intersection."""
+    ib = box_intersect(a.box, b.box)
+    if ib is None:
+        return None
+    box = box_union(a.box, b.box)
+    w, h = box_wh(ib)
+    crop = lambda s: s.rgba[ib[1] - s.box[1] : ib[3] - s.box[1] + 1, ib[0] - s.box[0] : ib[2] - s.box[0] + 1]
+    return kernels.CafPlane(ib[1] - box[1], ib[0] - box[0], None, _CAF_OPS[op](crop(a), crop(b)).expand(h, w, 4))
+
+
+def _caf_card(op: str, pred: str, a, b):
+    """caf on a CUDA device: one launch of CF1 (kernels.caf); one operand
+    gives its own sprite and the f plane alone."""
+    if _CAF_PREDS[pred] is not _pred_opaque:
+        raise ValueError(f"caf on the card: the predicate {pred!r} is not the built-in 'opaque'")
+    if a is None or b is None:
+        s = b if a is None else a
+        w, h = s.wh
+        f = kernels.caf(h, w, kernels.CAF_OPS["nocover"], _caf_plane(s, s.box), f_only=True)
+        return Sprite(s.box, s.mask, s.rgba), Shape(s.box, f)
+    box = box_union(a.box, b.box)
+    if debug_spritecheck and op == "nocover":
+        _sync()
+        ib = box_intersect(a.box, b.box)
+        if ib is not None and bool((_window(a.mask, a.box, ib) & _window(b.mask, b.box, ib)).any()):
+            raise C.Nocover("caf nocover: operands overlap")
+    code = _caf_op_code(op)
+    w, h = box_wh(box)
+    rgba, mask, f = kernels.caf(h, w, kernels.CAF_GIVEN if code is None else code, _caf_plane(a, box),
+                                _caf_plane(b, box), _caf_composed(op, a, b) if code is None else None)
+    return Sprite(box, mask, rgba), Shape(box, f)
+
+
+def caf_torch(op: str, pred: str, a, b):
+    """The plain version of caf, on any device."""
     if a is None and b is None:
         return NULL_SPRITE, NULL_SHAPE
     if a is None or b is None:
@@ -545,8 +629,17 @@ def bloat(rx: int, ry: int, s):
         # Dilation of a filled rectangle by a box kernel is the expanded
         # filled rectangle, exactly.
         return shape_of_box(nbox, s.mask.device)
-    m = _window(s.mask, s.box, nbox)
-    return Shape(nbox, _box_count(m.to(torch.int32), rx, ry) > 0)
+    if s.mask.is_cuda:
+        return Shape(nbox, kernels.box_morph(s.mask, rx, ry, erode=False))
+    return Shape(nbox, dilate_torch(s.mask, rx, ry))
+
+
+def dilate_torch(mask: torch.Tensor, rx: int, ry: int) -> torch.Tensor:
+    """The plain version of bloat's mask, on any device: the (h + 2ry, w +
+    2rx) dilation of `mask` placed at (ry, rx)."""
+    h, w = mask.shape
+    m = _window(mask, (0, 0, w - 1, h - 1), (-rx, -ry, w - 1 + rx, h - 1 + ry))
+    return _box_count(m.to(torch.int32), rx, ry) > 0
 
 
 def erode(rx: int, ry: int, s):
@@ -558,13 +651,20 @@ def erode(rx: int, ry: int, s):
         return NULL_SHAPE
     if rx == 0 and ry == 0:
         return s
-    w, h = box_wh(s.box)
-    dev = s.mask.device
+    if s.mask.is_cuda:
+        return Shape(s.box, kernels.box_morph(s.mask, rx, ry, erode=True))
+    return Shape(s.box, erode_torch(s.mask, rx, ry))
+
+
+def erode_torch(mask: torch.Tensor, rx: int, ry: int) -> torch.Tensor:
+    """The plain version of erode's mask, on any device."""
+    h, w = mask.shape
+    dev = mask.device
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
     interior = (yy >= ry) & (yy < h - ry) & (xx >= rx) & (xx < w - rx)
-    uncovered = (~s.mask).to(torch.int32)
-    return Shape(s.box, (_box_count(uncovered, rx, ry) == 0) & interior)
+    uncovered = (~mask).to(torch.int32)
+    return (_box_count(uncovered, rx, ry) == 0) & interior
 
 
 # ---------------------------------------------------------------------------

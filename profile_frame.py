@@ -43,7 +43,8 @@ frames give the times.
 --chain-only runs only one scene's chain (the lion's by default), at the
 frames the full run at its default --frames times it on (the same frame
 indices in every process, so that two trees run in turns compare frame
-for frame), over --chain-reps reps: one JSON line.  The frames' work
+for frame, unless a rep is retaken: a retake runs the next frames), over
+--chain-reps reps: one JSON line.  The frames' work
 follows the blob's position (frame k moves it by ``chip_smoke.delta(k)``,
 ``delta4(k)`` in config 5), so each rep gives the blob's box before and
 after its frames.
@@ -78,15 +79,19 @@ def queued_chain(torch, cs, frame, state, reference, first: int = 0, n: int = N_
     queued and untimed, so that the staging ring has grown to hold n
     frames' pinned buffers; the timed wait is 3 x the slower of the two
     host times (at least 20 ms).  A rep whose host time to queue its
-    frames outlasts half of its wait is taken again on the same frame
-    indices behind twice the wait ("retaken"; the blob then runs on from
-    where it is, so that process's later reps see other positions), and a
-    third such reading raises.  After each pass the same frames run
-    on `reference` (a second scene, built as `state` was) with a
-    synchronize after each, and the two scenes' displays and content must
-    be equal, bit for bit.  `state` and `reference` are (view, display,
-    key of the moved object, ...); "boxes" gives that object's box before
-    and after each rep's frames."""
+    frames outlasts half of its wait is taken again, on the next n frame
+    indices, behind twice the wait ("retaken"), and a third such reading
+    raises.  Every pass takes the next n indices, none twice, so the
+    moved object is always where frame k puts it (a move by index, run
+    twice, would carry it on, off the frame); "passes" counts the passes,
+    retakes included, each scene ran.  The collector is off while a pass
+    is queued, so that a collection is not a slow host.  After each pass
+    the same frames run on `reference` (a second scene, built as `state`
+    was) with a synchronize after each, and the two scenes' displays and
+    content must be equal, bit for bit.  `state` and `reference` are
+    (view, display, key of the moved object, ...); "boxes" gives that
+    object's box before and after each rep's frames."""
+    import gc
     import statistics
 
     def check(k0):
@@ -96,46 +101,63 @@ def queued_chain(torch, cs, frame, state, reference, first: int = 0, n: int = N_
         cs.require(torch.equal(state[1].rgba, reference[1].rgba) and torch.equal(state[0].frame, reference[0].frame),
                    f"{n} queued frames from frame {k0} differ from the same frames run one by one")
 
-    def queued(k0, wait_ms):
-        """(host ms to queue the frames, device ms per frame) behind a wait of wait_ms."""
+    passes = [first]  # the first frame index of the next pass
+
+    def next_pass():
+        k0 = passes[-1]
+        passes.append(k0 + n)
+        return k0
+
+    def queued(wait_ms):
+        """(host ms to queue the next pass's frames, device ms per frame) behind a wait of wait_ms."""
+        k0 = next_pass()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(int(wait_ms * cs.sleep_cycles_per_ms(torch)))
-        e0.record()
-        t0 = time.perf_counter()
-        for k in range(k0, k0 + n):
-            frame(state, k)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        e1.record()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            torch.cuda._sleep(int(wait_ms * cs.sleep_cycles_per_ms(torch)))
+            e0.record()
+            t0 = time.perf_counter()
+            for k in range(k0, k0 + n):
+                frame(state, k)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            e1.record()
+        finally:
+            if collecting:
+                gc.enable()
         e1.synchronize()
         check(k0)
         return host_ms, e0.elapsed_time(e1) / n
 
+    gc.collect()
+    k0 = next_pass()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for k in range(first, first + n):
+    for k in range(k0, k0 + n):
         frame(state, k)
     torch.cuda.synchronize()
     unqueued_ms = (time.perf_counter() - t0) * 1e3
-    check(first)
-    warm_ms = queued(first + n, max(20.0, 4 * unqueued_ms))[0]
+    check(k0)
+    warm_ms = queued(max(20.0, 4 * unqueued_ms))[0]
     wait_ms = max(20.0, 3 * max(unqueued_ms, warm_ms))
     readings, host, boxes, retaken = [], [], [], 0
     for rep in range(reps):
         before = state[0].sprites[state[2]].box
         rep_wait = wait_ms
-        host_ms, ms = queued(first + (rep + 2) * n, rep_wait)
+        host_ms, ms = queued(rep_wait)
         while host_ms >= rep_wait / 2:
             retaken += 1
             cs.require(retaken < 3, f"queueing {n} frames took {host_ms:.3f} ms of a {rep_wait:.3f} ms wait")
             rep_wait *= 2
-            host_ms, ms = queued(first + (rep + 2) * n, rep_wait)
+            host_ms, ms = queued(rep_wait)
         readings.append(ms)
         host.append(host_ms)
         boxes.append([list(before), list(state[0].sprites[state[2]].box)])
-    return {"frames": n, "reps": reps, "first": first, "ms_per_frame": statistics.median(readings),
-            "readings": readings, "boxes": boxes, "wait_ms": wait_ms, "unqueued_ms_per_frame": unqueued_ms / n,
-            "warm_queue_host_ms": warm_ms, "queue_host_ms": host, "retaken": retaken, "equal_unqueued": True}
+    return {"frames": n, "reps": reps, "first": first, "passes": len(passes) - 1,
+            "ms_per_frame": statistics.median(readings), "readings": readings, "boxes": boxes, "wait_ms": wait_ms,
+            "unqueued_ms_per_frame": unqueued_ms / n, "warm_queue_host_ms": warm_ms, "queue_host_ms": host,
+            "retaken": retaken, "equal_unqueued": True}
 
 
 def scene_line(torch, cs, pg, name, build, frame, n: int) -> dict:

@@ -8,8 +8,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card:
 The general renderer (``render_simple_scene`` down through ``render_scene``,
 the coherence cache, ``region.caf`` and the anti-aliased polygon sprite)
 is mostly eager torch operations; its hand-written kernels are the group
-fold (``fold_layers``), the brush stamp walk (``brush_stamp``) and the
-smear (``smear_walk``).  This script says what it costs.  It builds
+fold (``fold_layers``), the sprite rasterizer (``sprite_raster``), the
+brush stamp walk (``brush_stamp``), the smear (``smear_walk``) and the
+region programs (``caf``, ``tight_bounds``, ``box_morph``,
+``convolve_canvas``).  This script says what it costs.  It builds
 ``chip_smoke.py``'s ``general_lion`` scene (the lion fitted to 1024 pixels
 in a 1920 x 1080 window) and writes, under --out:
 
@@ -42,6 +44,24 @@ the cumulative seconds of the parts that ``SPLIT_PARTS`` names: the host
 sweep, the batched members' raster and its parts, the scalar members, the
 fold and the cache seeding; on the per-member fold route every object's
 ``coverage_opacity``.
+
+    python3 profile_general.py --filters
+
+instead splits ``chip_smoke.py``'s ``general_filters`` frames (the bench
+scene under the radius-5 blur lens, the blob dragged beneath it): for one
+steady incremental frame and for the whole-window render after it, the
+launches and copies the host issued (``issued``), the torch operations
+dispatched under each outermost function of ``raster/region.py``,
+``raster/convolve.py`` and ``raster/aa.py`` (``outermost_split``: a
+``TorchDispatchMode`` reading the Python stack at each operation), the
+hand-written kernels launched under each, and the host syncs
+``raster/region.py`` counted.  Frames 0-2 warm the scene and the caches;
+frame 3 is split, frame 4 counted under the profiler.  It also counts
+the launches and copies issued by ``general_lion``'s rebuild on each route
+and by the three pages of ``chip_smoke.py``'s PDF document painted cold,
+as ``pdf_pages`` counts them.  Run it in two checkouts in one call (the
+parent unpacked under ``build/parent``, this file copied there) to
+compare them.
 """
 
 import argparse
@@ -303,10 +323,180 @@ def rebuild_split(torch, out_dir: str, smi: str, reps: int = 3, dev: str = "cuda
     return out
 
 
+SPLIT_MODULES = ("region", "convolve", "aa")  # raster/ modules whose outermost functions the filters split names
+
+
+@contextlib.contextmanager
+def outermost_split():
+    """Inside, every torch operation dispatched and every hand-written
+    kernel launched (kernels._raise_on, which each wrapper calls after its
+    launch) is counted under the outermost function of SPLIT_MODULES on
+    the Python stack ("module.function"), or "other".  Yields {"ops":
+    {key: n}, "launches": {key: {kernel: n}}}."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from coherence_tpu_torch import kernels
+    from coherence_tpu_torch.raster import aa, convolve, region
+
+    files = {os.path.abspath(m.__file__): name for m, name in zip((region, convolve, aa), SPLIT_MODULES)}
+    out = {"ops": {}, "launches": {}}
+
+    def outermost(frame) -> str:
+        key = "other"
+        while frame is not None:
+            name = files.get(os.path.abspath(frame.f_code.co_filename))
+            if name is not None:
+                key = f"{name}.{frame.f_code.co_name}"
+            frame = frame.f_back
+        return key
+
+    class Counting(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            key = outermost(sys._getframe(1))
+            out["ops"][key] = out["ops"].get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    real = kernels._raise_on
+
+    def counted(name, rc):
+        real(name, rc)
+        by = out["launches"].setdefault(outermost(sys._getframe(1)), {})
+        by[name] = by.get(name, 0) + 1
+
+    kernels._raise_on = counted
+    try:
+        with Counting():
+            yield out
+    finally:
+        kernels._raise_on = real
+
+
+def filters_split(torch, smi: str, dev: str = "cuda", split_frame: int = 3) -> dict:
+    """general_filters' frames on `dev` as chip_smoke.filter_frames renders
+    them: frame `split_frame`'s incremental render and the whole-window
+    render after it split by outermost_split (with the syncs, ops and
+    launches in all), frame split_frame + 1's both counted by `issued`."""
+    import chip_smoke as cs
+
+    from coherence_tpu_torch import kernels
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    lens, blob, objs = cs.filter_scene()
+    cs.fresh_cache()
+    master = region.shape_of_box(cs.WINDOW, dev)
+    state = {"frame": R.render_simple_scene([lens, blob] + objs, master, dev), "blob": blob}
+    out = {"nvidia_smi": smi, "frames": {"warm": split_frame, "split": split_frame, "issued": split_frame + 1}}
+
+    def frame(k: int):
+        """(incremental, whole) thunks of frame k."""
+        moved = R.translate_renderobject(*cs.delta(k * 40), state["blob"])
+        scene = [lens, moved] + objs
+
+        def incremental():
+            d = R.dirty_filter(moved.idset, R.dirty_region(state["blob"], moved, dev)(master), scene, dev)
+            patch, _, _ = R.render_scene(moved.idset, False, (d, None), scene, scene, master, dev)
+            state["frame"] = region.caf("over", "opaque", patch,
+                                        region.portion(state["frame"], region.shape_difference(master, d)))[0]
+
+        def whole():
+            R.render_simple_scene(scene, master, dev)
+            state["blob"] = moved
+
+        return incremental, whole
+
+    for k in range(split_frame):
+        for fn in frame(k):
+            fn()
+    for part, fn in zip(("incremental", "whole"), frame(split_frame)):
+        torch.cuda.synchronize()
+        region.syncs = 0
+        before = dict(kernels.launches)
+        with outermost_split() as split:
+            fn()
+            torch.cuda.synchronize()
+        out[part] = {"syncs": region.syncs, "ops_total": sum(split["ops"].values()),
+                     "ops": dict(sorted(split["ops"].items(), key=lambda kv: -kv[1])), "launches": split["launches"],
+                     "kernel_launches": {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                                         if v != before.get(k, 0)}}
+    for part, fn in zip(("incremental", "whole"), frame(split_frame + 1)):
+        out[part]["issued"] = issued(torch, fn)
+    cache.clear()
+    out["general_lion_issued"] = lion_issued(torch, dev)
+    out["pdf_pages_issued"] = pdf_issued(torch, dev)
+    return out
+
+
+def lion_issued(torch, dev: str) -> dict:
+    """The launches and copies issued by one general_lion rebuild on each
+    route (the batched group route, the per-member fold route), after a
+    first render on that route, as chip_smoke.general_lion counts them."""
+    import chip_smoke as cs
+
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import flags
+
+    cs.fresh_cache()
+    obj = cs.fitted_lion()
+    shape = region.shape_of_box(cs.WINDOW, dev)
+    render = lambda: R.render_simple_scene([obj], shape, dev)
+    out = {}
+    for route, batched in (("batched", True), ("fold_route", False)):
+        flags.set_flag("batch_group_raster", batched)
+        try:
+            cache.clear()
+            render()
+            out[route] = cs.issued_rebuild(torch, render)
+        finally:
+            flags.set_flag("batch_group_raster", True)
+    cache.clear()
+    return out
+
+
+def pdf_issued(torch, dev: str) -> int:
+    """The launches and copies issued by the three pages of
+    chip_smoke.pdf_document painted cold through an Engine on `dev`, after
+    a first painting, as chip_smoke.pdf_pages counts them."""
+    import tempfile
+
+    import chip_smoke as cs
+
+    from coherence_tpu_torch.gui import app
+    from coherence_tpu_torch.gui import window as Wn
+    from coherence_tpu_torch.io import pdf as P
+    from coherence_tpu_torch.scene import cache
+
+    pdf = P.Pdf(*cs.pdf_document(P, cs.W, cs.H))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pdf_pages.pdf")
+        with open(path, "wb") as f:
+            f.write(P.pdf_to_bytes(pdf))
+
+        def all_pages():
+            eng = app.Engine(device=dev)
+            eng.event_handler((Wn.OPEN_FILE, path))
+            view = eng.views[0]
+            eng.render_rect(view.window, 0, 0, *cs.PDF_CANVAS)
+            for page in (1, 2):
+                eng.goto_page(view, page)
+                eng.render_rect(view.window, 0, 0, *cs.PDF_CANVAS)
+
+        cache.clear()
+        all_pages()
+        cache.clear()
+        n = issued(torch, all_pages)
+        cache.clear()
+    return n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_general", help="directory for the profile files")
     ap.add_argument("--split", action="store_true", help="only split the rebuild on both routes")
+    ap.add_argument("--filters", action="store_true", help="only split general_filters' incremental frame and whole render")
     args = ap.parse_args()
 
     import torch
@@ -327,6 +517,9 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.split:
         print(json.dumps(rebuild_split(torch, args.out, smi)))
+        return 0
+    if args.filters:
+        print(json.dumps(filters_split(torch, smi)))
         return 0
     cs.fresh_cache()
     obj = cs.fitted_lion()

@@ -474,3 +474,38 @@ def test_sprite_bound_counts_the_mixed_pixels_of_a_matte():
     assert got["bound_all_pixels_ms"] == max(list_ms, 2048 * pixels / chip_smoke.INT_OPS_PER_S * 1e3)
     assert got["list_bytes"] == sum(a.nbytes for a in (lists.spans, lists.bands, lists.fills, lists.members,
                                                        lists.units))
+
+
+def _views():
+    """name -> a view of a CPU tensor for tensor_sectors: contiguous at an
+    offset, a window of a canvas, every other column, an expanded colour
+    and mask row, a transposed mask."""
+    rgba = torch.arange(23 * 41 * 4, dtype=torch.int32).reshape(23, 41, 4)
+    mask = torch.ones((31, 77), dtype=torch.bool)
+    return {"contiguous": rgba[3:9], "window": rgba[2:17, 5:30], "columns": rgba[:, ::2], "rgba_expanded":
+            rgba[0, 0].expand(9, 11, 4), "mask_window": mask[4:20, 3:70], "mask_expanded": mask[0].expand(6, 77),
+            "mask_transposed": mask.t(), "mask_one": mask[5:6, 7:8]}
+
+
+@pytest.mark.parametrize("name", list(_views()))
+def test_tensor_sectors_match_a_brute_count(name):
+    """region_bound's read bytes: the 32-byte sectors of a view's elements,
+    each element's bytes counted at its address, repeated ones once."""
+    t = _views()[name]
+    sectors = set()
+    for idx in np.ndindex(*t.shape):
+        first = t.data_ptr() + sum(i * s for i, s in zip(idx, t.stride())) * t.element_size()
+        sectors.update(range(first // 32, (first + t.element_size() - 1) // 32 + 1))
+    assert chip_smoke.tensor_sectors(torch, t) == len(sectors)
+
+
+def test_region_bound_adds_reads_writes_and_operations():
+    """region_bound: the reads' sectors, the writes' bytes, over the
+    memory rate; the operations over the int32 rate; the larger."""
+    views = _views()
+    row = chip_smoke.region_bound(torch, [views["window"], views["mask_window"]], 1000)
+    want = (chip_smoke.tensor_sectors(torch, views["window"]) + chip_smoke.tensor_sectors(torch, views["mask_window"])) * 32
+    assert row["bytes"] == want + 1000 and row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(row["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    row = chip_smoke.region_bound(torch, [views["mask_one"]], 0, ops=10**9)
+    assert row["bound_by"] == "operations" and row["bound_ms"] == pytest.approx(1e9 / chip_smoke.INT_OPS_PER_S * 1e3)

@@ -54,13 +54,23 @@ def _frame(seed, h, w):
     return np.concatenate([rgb, a], -1).astype(np.int32)
 
 
-@pytest.mark.parametrize("mask_kind", ["all", "random", "none"])
+def _ring(h, w):
+    yy, xx = np.mgrid[:h, :w]
+    d = np.hypot(yy - h / 2, xx - w / 2)
+    return (d > min(h, w) / 6) & (d < min(h, w) / 3)
+
+
+@pytest.mark.parametrize("mask_kind", ["all", "random", "none", "ring", "wider"])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_convolve_canvas_matches_jax(kernel, mask_kind):
+    """Each kind over a 37 x 53 canvas, inside a full, random, empty or
+    ring mask, or a random one wider and taller than the canvas (its
+    top-left corner used)."""
     h, w = 37, 53
     frame = _frame(1, h, w)
     mask = {"all": np.ones((h, w), bool), "none": np.zeros((h, w), bool),
-            "random": np.random.default_rng(2).random((h, w)) < 0.6}[mask_kind]
+            "random": np.random.default_rng(2).random((h, w)) < 0.6, "ring": _ring(h, w),
+            "wider": np.random.default_rng(3).random((h + 3, w + 13)) < 0.6}[mask_kind]
     want = np.asarray(JV.convolve_canvas(_kernels(JV)[kernel], jnp.asarray(frame), jnp.asarray(mask)))
     got = TV.convolve_canvas(_kernels(TV)[kernel], torch.from_numpy(frame), torch.from_numpy(mask))
     assert got.dtype == torch.int32

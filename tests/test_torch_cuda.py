@@ -1930,7 +1930,8 @@ def test_no_card_brush_reaches_a_plain_version(cuda_device, monkeypatch):
     """With the brush kernels' plain versions patched to raise, a brush
     sprite, a smear and a brush-tile build run on the card: each reaches
     brush_stamp or smear_walk, one launch each, and no per-stamp loop of
-    torch operations."""
+    torch operations.  Their region programs (the stroke's bloat, the
+    smear's caf) launch the region kernels besides."""
     from coherence_tpu_torch import colour as C
     from coherence_tpu_torch.geometry import shapes as gshapes
     from coherence_tpu_torch.raster import brush as TB
@@ -1953,8 +1954,9 @@ def test_no_card_brush_reaches_a_plain_version(cuda_device, monkeypatch):
     assert build.add_stroke("s", stroke, np.array([120, 40, 10, 185], np.int32))
     blocks, registry = build.flush()
     torch.cuda.synchronize()
-    assert {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]} == {
-        "brush_stamp": 2, "smear_walk": 1}
+    launched = {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]}
+    region_kernels = ("caf", "tight_bounds", "box_morph", "convolve_canvas")
+    assert {k: n for k, n in launched.items() if k not in region_kernels} == {"brush_stamp": 2, "smear_walk": 1}
     assert bool((spr.rgba > 0).any()) and smeared is not None and len(blocks) == 1 and registry["s"]
 
 
@@ -2441,6 +2443,20 @@ def sprite_h61_case():
     return (3, 5, 3 + 131070, 6), scaled
 
 
+def lion_group(fit: int = 1024):
+    """chip_smoke.py's general_lion object: the lion as one group, fitted
+    to `fit` pixels and flipped upright."""
+    from coherence_tpu_torch import transform as tr
+    from coherence_tpu_torch.scene import render as R
+
+    lion = examples.smalllion()
+    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(lion)
+    scale = float(fit) / max(xmax - xmin, ymax - ymin)
+    return R.transform_renderobject_many(
+        [tr.Translate(0.0, float(fit)), tr.Scale((0.0, 0.0), 1.0, -1.0), tr.Scale((0.0, 0.0), scale, scale),
+         tr.Translate(-xmin, -ymin)], lion)
+
+
 def lion_objects(fit: int = 1024):
     """The lion group's member objects as render.py makes them for
     chip_smoke.py's general_lion (the lion fitted to `fit` pixels and
@@ -2449,12 +2465,7 @@ def lion_objects(fit: int = 1024):
     from coherence_tpu_torch import transform as tr
     from coherence_tpu_torch.scene import render as R
 
-    lion = examples.smalllion()
-    xmin, xmax, ymin, ymax = R.bounds_of_basicshape(lion)
-    scale = float(fit) / max(xmax - xmin, ymax - ymin)
-    o = R.transform_renderobject_many(
-        [tr.Translate(0.0, float(fit)), tr.Scale((0.0, 0.0), 1.0, -1.0), tr.Scale((0.0, 0.0), scale, scale),
-         tr.Translate(-xmin, -ymin)], lion)
+    o = lion_group(fit)
     return [R.Obj(ident.new_ids(), x.geometry, tuple(tr.append(list(o.transform), list(x.transform))), x.compop)
             for x in o.geometry.objects]
 
@@ -2591,3 +2602,424 @@ def test_sprite_raster_wrappers_reject_bad_input(cuda_device):
     other = kernels.sprite_raster_lists(*sprite_case("heavy"))
     with pytest.raises(ValueError):
         kernels.sprite_raster(lists, kernels.stage_sprite_lists(other, cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# The general renderer's region programs: CF1 caf, TB1 tight_bounds, MR1
+# box_morph (kernels/csrc/region_ops.cu) and CV1 convolve_canvas
+# (kernels/csrc/convolve.cu), each against its plain version on the card.
+# ---------------------------------------------------------------------------
+
+# (x0, y0, w, h) of caf's second operand against a first at (5, 7, 40, 23).
+CAF_PLACES = {"disjoint": (90, 70, 10, 10), "nested": (10, 9, 12, 9), "around": (1, 2, 70, 50),
+              "overlap": (20, 12, 40, 30)}
+CAF_LAYOUTS = ("dense", "view", "expanded", "empty_mask", "wide_sums")
+CAF_BUILTIN = ("over", "alpha_over", "plus", "nocover")
+
+
+def caf_registered():
+    """The operators other than the built-in four that the renderer
+    registers (render.py's CPG ops and blend_prime's, blend.py's PDF blend
+    modes), registered; their names."""
+    from coherence_tpu_torch.raster import blend, region
+    from coherence_tpu_torch.scene import render as R
+
+    region.register_caf_op("blend_att_out", R._att_out)
+    region.register_caf_op("blend_att_in", R._att_in)
+    return ["cpg_add", "cpg_sub", "cpg_min", "cpg_eor", "blend_att_out", "blend_att_in"] + [
+        "pdfblend_" + name for name in blend.BLEND_MODES]
+
+
+def caf_sprite(device, seed: int, place, layout: str):
+    """A sprite over the box at place = (x0, y0, w, h) on `device`, its
+    planes laid out as `layout` says: "dense" (contiguous), "view" (slices
+    of larger planes, as pickup cuts a canvas), "expanded" (one colour and
+    one mask row expanded, strides 0), "empty_mask" (no pixel set),
+    "wide_sums" (channels up to 600, as plus sums past 255 are)."""
+    from coherence_tpu_torch.raster import region
+
+    x0, y0, w, h = place
+    rng = np.random.default_rng(seed)
+    box = (x0, y0, x0 + w - 1, y0 + h - 1)
+    if layout == "expanded":
+        colour = torch.tensor([40, 90, 12, int(rng.choice([90, 255]))], dtype=torch.int32)
+        row = torch.from_numpy(rng.random(w) < 0.7)
+        return region.Sprite(box, row.to(device)[None, :].expand(h, w), colour.to(device).expand(h, w, 4))
+    top = 600 if layout == "wide_sums" else 255
+    alpha = rng.choice([0, 1, 90, 254, 255, top], (h + 5, w + 9, 1))
+    rgb = (rng.integers(0, top + 1, (h + 5, w + 9, 3)) * alpha) // max(top, 255)
+    mask = rng.random((h + 5, w + 9)) < (0.0 if layout == "empty_mask" else 0.6)
+    rgba = np.where(mask[..., None], np.concatenate([rgb, alpha], -1), 0).astype(np.int32)
+    rgba_t, mask_t = torch.from_numpy(rgba).to(device), torch.from_numpy(mask).to(device)
+    if layout == "view":
+        return region.Sprite(box, mask_t[3 : 3 + h, 5 : 5 + w], rgba_t[3 : 3 + h, 5 : 5 + w])
+    return region.Sprite(box, mask_t[:h, :w].contiguous(), rgba_t[:h, :w].contiguous())
+
+
+def assert_same_caf(got, want, what: str):
+    (gs, gf), (ws, wf) = got, want
+    assert (gs is None) == (ws is None) and (gf is None) == (wf is None), what
+    if gs is not None:
+        assert gs.box == ws.box, what
+        assert torch.equal(gs.mask.cpu(), ws.mask.cpu()), f"{what}: mask"
+        assert torch.equal(gs.rgba.cpu(), ws.rgba.cpu()), f"{what}: rgba"
+    if gf is not None:
+        assert gf.box == wf.box and torch.equal(gf.mask.cpu(), wf.mask.cpu()), f"{what}: f"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("place", list(CAF_PLACES))
+@pytest.mark.parametrize("op", [*CAF_BUILTIN, "registered"])
+def test_caf_matches_plain(cuda_device, op, place):
+    """CF1 against caf_torch on the card, bit for bit: every operator (the
+    registered ones through the given-plane route) on disjoint, nested,
+    containing and overlapping operands, each laid out dense, as views, as
+    expanded planes, with an empty mask and with channels past 255; one
+    launch a call, one operand included."""
+    from coherence_tpu_torch.raster import region
+
+    ops = caf_registered() if op == "registered" else [op]
+    for name in ops:
+        for la in CAF_LAYOUTS:
+            for lb in CAF_LAYOUTS:
+                a = caf_sprite(cuda_device, 1, (5, 7, 40, 23), la)
+                b = caf_sprite(cuda_device, 2, CAF_PLACES[place], lb)
+                for x, y in ((a, b), (b, a), (a, None), (None, b)):
+                    before = kernels.launches["caf"]
+                    got = region.caf(name, "opaque", x, y)
+                    assert kernels.launches["caf"] == before + 1
+                    assert_same_caf(got, region.caf_torch(name, "opaque", x, y), f"{name} {place} {la} {lb}")
+
+
+@pytest.mark.cuda
+def test_caf_plus_sums_feed_over(cuda_device):
+    """plus's sums past 255, unclamped, composed again by over on both
+    sides, and over's result through plus: the card's chain equal to the
+    plain chain."""
+    from coherence_tpu_torch.raster import region
+
+    a, b = caf_sprite(cuda_device, 3, (5, 7, 40, 23), "dense"), caf_sprite(cuda_device, 4, (20, 12, 40, 30), "view")
+    c = caf_sprite(cuda_device, 5, (1, 2, 70, 50), "wide_sums")
+    card, plain = region.caf("plus", "opaque", a, b)[0], region.caf_torch("plus", "opaque", a, b)[0]
+    assert int(card.rgba.max()) > 255
+    for op in ("over", "alpha_over", "plus"):
+        for x, y, px, py in ((card, c, plain, c), (c, card, c, plain)):
+            assert_same_caf(region.caf(op, "opaque", x, y), region.caf_torch(op, "opaque", px, py), f"plus then {op}")
+
+
+@pytest.mark.cuda
+def test_caf_reregistered_over_takes_the_given_plane(cuda_device, monkeypatch):
+    """A caller's own `over` (render.py re-registers table entries) is not
+    the built-in: CF1 takes its composed plane, and the result still
+    equals the plain version's."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.raster import region
+
+    monkeypatch.setitem(region._CAF_OPS, "over", lambda a, b: C.alpha_over_rgba(a, b))
+    assert region._caf_op_code("over") is None
+    a, b = caf_sprite(cuda_device, 6, (5, 7, 40, 23), "view"), caf_sprite(cuda_device, 7, (20, 12, 40, 30), "dense")
+    assert_same_caf(region.caf("over", "opaque", a, b), region.caf_torch("over", "opaque", a, b), "re-registered over")
+
+
+@pytest.mark.cuda
+def test_caf_nocover_spritecheck_on_the_card(cuda_device, monkeypatch):
+    """debug_spritecheck's overlap check stays a host check: overlapping
+    nocover operands raise before any launch, disjoint ones launch."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.raster import region
+
+    monkeypatch.setattr(region, "debug_spritecheck", True)
+    a, b = caf_sprite(cuda_device, 8, (5, 7, 40, 23), "dense"), caf_sprite(cuda_device, 9, (20, 12, 40, 30), "dense")
+    before = kernels.launches["caf"]
+    with pytest.raises(C.Nocover):
+        region.caf("nocover", "opaque", a, b)
+    assert kernels.launches["caf"] == before
+    far = caf_sprite(cuda_device, 9, CAF_PLACES["disjoint"], "dense")
+    assert_same_caf(region.caf("nocover", "opaque", a, far), region.caf_torch("nocover", "opaque", a, far), "nocover")
+
+
+def bounds_masks(device):
+    """name -> a bool mask on `device` for TB1: empty, one pixel (at each
+    corner and inside), full, random, sparse, strided views, 1080 x 1920."""
+    rng = np.random.default_rng(11)
+    out = {"empty": torch.zeros((37, 53), dtype=torch.bool), "full": torch.ones((37, 53), dtype=torch.bool),
+           "random": torch.from_numpy(rng.random((37, 53)) < 0.3), "one_by_one": torch.ones((1, 1), dtype=torch.bool)}
+    for name, (y, x) in {"pixel_tl": (0, 0), "pixel_br": (36, 52), "pixel_in": (17, 3)}.items():
+        m = torch.zeros((37, 53), dtype=torch.bool)
+        m[y, x] = True
+        out[name] = m
+    big = np.zeros((1080, 1920), bool)
+    big[rng.integers(0, 1080, 40), rng.integers(0, 1920, 40)] = True
+    out["sparse_1080p"] = torch.from_numpy(big)
+    out["random_1080p"] = torch.from_numpy(rng.random((1080, 1920)) < 0.5)
+    out["empty_1080p"] = torch.zeros((1080, 1920), dtype=torch.bool)
+    out = {k: v.to(device) for k, v in out.items()}
+    wide = torch.from_numpy(rng.random((90, 130)) < 0.02).to(device)
+    out["view"] = wide[7:60, 11:100]
+    out["strided"] = wide[::3, 5::2]
+    out["transposed"] = wide.t()
+    return out
+
+
+@pytest.mark.cuda
+def test_tight_bounds_matches_plain(cuda_device):
+    """TB1 against _tight_bounds_torch on the card at every mask of
+    bounds_masks, three times over (the ticket is reset by each launch):
+    one launch and one sync a call."""
+    from coherence_tpu_torch.raster import region
+
+    for _ in range(3):
+        for name, m in bounds_masks(cuda_device).items():
+            want = region._tight_bounds_torch(m)
+            before, syncs = kernels.launches["tight_bounds"], region.syncs
+            assert region._tight_bounds(m) == want, name
+            assert kernels.launches["tight_bounds"] == before + 1 and region.syncs == syncs + 1, name
+    assert region._tight_bounds(bounds_masks(cuda_device)["empty"]) == (53, 37, -1, -1)
+
+
+@pytest.mark.cuda
+def test_boxshape_boxsprite_on_the_card(cuda_device):
+    """boxshape and boxsprite through TB1 equal their CPU results."""
+    from coherence_tpu_torch.raster import region
+
+    for name, m in bounds_masks(cuda_device).items():
+        h, w = m.shape
+        s = region.Shape((4, 9, 4 + w - 1, 9 + h - 1), m)
+        got, want = region.boxshape(s), region.boxshape(region.Shape(s.box, m.cpu()))
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.box == want.box and torch.equal(got.mask.cpu(), want.mask), name
+        spr = region.Sprite(s.box, m, torch.where(m[..., None], 7, 0).to(torch.int32))
+        got = region.boxsprite(spr)
+        want = region.boxsprite(region.Sprite(s.box, m.cpu(), spr.rgba.cpu()))
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.box == want.box and torch.equal(got.rgba.cpu(), want.rgba), name
+
+
+MORPH_RADII = [(0, 1), (1, 0), (1, 1), (5, 5), (11, 11), (64, 64), (40, 3), (2, 33)]
+
+
+def morph_masks(device):
+    """name -> a bool mask on `device` for MR1: random, sparse, full,
+    empty, one pixel, a view of a larger mask, and general_filters' sizes."""
+    rng = np.random.default_rng(12)
+    out = {"random": rng.random((17, 29)) < 0.5, "sparse": rng.random((17, 29)) < 0.03,
+           "full": np.ones((17, 29), bool), "empty": np.zeros((17, 29), bool), "pixel": np.ones((1, 1), bool),
+           "filters_125x129": rng.random((129, 125)) < 0.9, "wide_1x300": rng.random((1, 300)) < 0.1}
+    out = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    out["view"] = torch.from_numpy(rng.random((60, 300)) < 0.4).to(device)[5:50, 7:290:2]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radii", MORPH_RADII, ids=[f"rx{a}ry{b}" for a, b in MORPH_RADII])
+def test_box_morph_matches_plain(cuda_device, radii):
+    """MR1 against dilate_torch and erode_torch on the card, both modes,
+    at every mask of morph_masks, radii 0 on one axis and past the box."""
+    from coherence_tpu_torch.raster import region
+
+    rx, ry = radii
+    for name, m in morph_masks(cuda_device).items():
+        assert torch.equal(kernels.box_morph(m, rx, ry, erode=False), region.dilate_torch(m, rx, ry)), f"bloat {name}"
+        assert torch.equal(kernels.box_morph(m, rx, ry, erode=True), region.erode_torch(m, rx, ry)), f"erode {name}"
+        s = region.Shape((3, 5, 3 + m.shape[1] - 1, 5 + m.shape[0] - 1), m)
+        cpu = region.Shape(s.box, m.cpu())
+        for fn in (region.bloat, region.erode):
+            got, want = fn(rx, ry, s), fn(rx, ry, cpu)
+            assert got.box == want.box and torch.equal(got.mask.cpu(), want.mask), f"{fn.__name__} {name}"
+
+
+def convolve_masks(device, h: int, w: int):
+    """name -> a bool mask of at least (h, w) on `device`: full, empty,
+    random, a ring, one wider than the canvas and a transposed one."""
+    rng = np.random.default_rng(h * 7919 + w)
+    yy, xx = np.mgrid[:h, :w]
+    d = np.hypot(yy - h / 2, xx - w / 2)
+    out = {"full": np.ones((h, w), bool), "empty": np.zeros((h, w), bool), "random": rng.random((h, w)) < 0.6,
+           "ring": (d > min(h, w) / 6) & (d < min(h, w) / 3), "wider": rng.random((h + 3, w + 13)) < 0.6}
+    out = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    out["transposed"] = torch.from_numpy(rng.random((w, h)) < 0.6).to(device).t()
+    return out
+
+
+def convolve_kernels():
+    """name -> a kernel of raster/convolve.py: each kind at r = 1, 5 and
+    16, and past the int32 wrap (r = 150, H52)."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    out = {}
+    for r in (1, 5, 16):
+        out[f"gaussian{r}"] = V.mkgaussian(r)
+        out[f"unit{r}"] = V.mkunit(r)
+    out["full_cone1"] = V.mkfull(1, lambda x, y: 5 - abs(x) - abs(y))
+    out["full_cone5"] = V.mkfull(5, lambda x, y: 11 - abs(x) - abs(y))
+    out["full_skew16"] = V.mkfull(16, lambda x, y: 1 + (x + 16) + 3 * (y + 16))
+    out["gaussian150"] = V.mkgaussian(150)
+    out["unit150"] = V.mkunit(150)
+    return out
+
+
+def convolve_canvas_case(seed: int, h: int, w: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (h, w, 1))
+    rgb = (rng.integers(0, 256, (h, w, 3)) * a) // 255
+    return np.concatenate([rgb, a], -1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1, 1), (13, 7), (177, 181)])
+@pytest.mark.parametrize("kernel", ["gaussian1", "gaussian5", "gaussian16", "unit1", "unit5", "unit16", "full_cone1",
+                                    "full_cone5", "full_skew16", "gaussian150", "unit150"])
+def test_convolve_canvas_matches_plain(cuda_device, kernel, size):
+    """CV1 against convolve_canvas_torch on the card, bit for bit, at every
+    mask of convolve_masks: two launches a call (one for a full kernel);
+    the sums past the int32 wrap at r = 150."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    k = convolve_kernels()[kernel]
+    canvas = torch.from_numpy(convolve_canvas_case(3, *size)).to(cuda_device)
+    for name, m in convolve_masks(cuda_device, *size).items():
+        before = kernels.launches["convolve_canvas"]
+        got = V.convolve_canvas(k, canvas, m)
+        assert kernels.launches["convolve_canvas"] == before + (1 if kernel.startswith("full") else 2)
+        want = V.convolve_canvas_torch(k, canvas, m)
+        assert torch.equal(got, want), f"{kernel} {size} {name}: {int((got != want).any(-1).sum())} pixels differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gaussian5", "unit1"])
+def test_convolve_canvas_1088x1920(cuda_device, kernel):
+    """CV1 at config 4's size against the plain version, full and random
+    masks, three chained calls."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    k = convolve_kernels()[kernel]
+    x = y = torch.from_numpy(convolve_canvas_case(0, 1088, 1920)).to(cuda_device)
+    masks = convolve_masks(cuda_device, 1088, 1920)
+    for name in ("full", "random"):
+        for _ in range(3):
+            x, y = V.convolve_canvas(k, x, masks[name]), V.convolve_canvas_torch(k, y, masks[name])
+            assert torch.equal(x, y), f"{kernel} {name}"
+
+
+@pytest.mark.cuda
+def test_region_kernels_reject_bad_input(cuda_device, monkeypatch):
+    """CPU tensors, other dtypes, strides the kernel does not take, a total
+    of 0 and planes outside the union box are refused before any launch."""
+    from coherence_tpu_torch.raster import region
+
+    before = dict(kernels.launches)
+    m = torch.ones((5, 7), dtype=torch.bool, device=cuda_device)
+    rgba = torch.zeros((5, 7, 4), dtype=torch.int32, device=cuda_device)
+    plane = kernels.CafPlane(0, 0, m, rgba)
+    bad = [
+        lambda: kernels.caf(5, 7, 0, kernels.CafPlane(0, 0, m.cpu(), rgba.cpu())),
+        lambda: kernels.caf(5, 7, 0, kernels.CafPlane(0, 0, m, rgba.long())),
+        lambda: kernels.caf(5, 7, 0, kernels.CafPlane(0, 0, m.to(torch.uint8), rgba)),
+        lambda: kernels.caf(5, 7, 0, kernels.CafPlane(1, 0, m, rgba)),
+        lambda: kernels.caf(5, 7, 0, plane, composed=kernels.CafPlane(0, 0, None, rgba)),
+        lambda: kernels.caf(5, 7, 9, plane),
+        lambda: kernels.tight_bounds(m.cpu()),
+        lambda: kernels.tight_bounds(m.to(torch.uint8)),
+        lambda: kernels.box_morph(m.cpu(), 1, 1, erode=False),
+        lambda: kernels.box_morph(m, -1, 1, erode=True),
+        lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.cpu(), m.cpu()),
+        lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.transpose(0, 1).contiguous().transpose(0, 1), m),
+        lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.float(), m),
+        lambda: kernels.convolve_canvas("xy", (0, 0, 0), 0, 1, rgba, m),
+        lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba, m[:4]),
+        lambda: kernels.convolve_canvas("cone", (1, 2, 1), 4, 1, rgba, m),
+    ]
+    for k, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+    monkeypatch.setitem(region._CAF_PREDS, "opaque_again", lambda t: t[..., 3] == 255)
+    with pytest.raises(ValueError):
+        region.caf("over", "opaque_again", region.Sprite((1, 1, 7, 5), m, rgba), None)
+    assert kernels.launches == before
+
+
+def filters_frame_scene(w: int = 640, h: int = 384):
+    """(lens, blob, objs): bench.py's scene at w x h under a radius-5
+    filters.blur lens, as chip_smoke.py's general_filters builds it."""
+    from coherence_tpu_torch import ident
+    from coherence_tpu_torch.raster import convolve
+    from coherence_tpu_torch.scene import filters
+    from coherence_tpu_torch.scene import render as R
+
+    objs, blob, f_geom = examples.bench_scene(w, h, blob_radius=60, blob_at=(120, 200), f_box=(40, 100, 600, 380))
+    lens = R.Obj(ident.new_ids(), filters.blur(f_geom.geometry, convolve.mkgaussian(5)), (), R.OVER)
+    return lens, blob, objs
+
+
+@pytest.mark.cuda
+def test_filters_frame_through_the_region_kernels(cuda_device, monkeypatch):
+    """A general_filters frame (the whole render, then one dragged frame's
+    incremental render) on the card equal to the CPU's, with the plain
+    versions patched to raise on the card and each of CF1, TB1, MR1 and
+    CV1 launched."""
+    from coherence_tpu_torch.raster import convolve, region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+
+    lens, blob, objs = filters_frame_scene()
+    frames = {}
+    for device in ("cpu", cuda_device):
+        cache.clear()
+        before = dict(kernels.launches)
+        master = region.shape_of_box((1, 1, 640, 384), device)
+        first = R.render_simple_scene([lens, blob] + objs, master, device)
+        moved = R.translate_renderobject(7, 3, blob)
+        scene = [lens, moved] + objs
+        d = R.dirty_filter(moved.idset, R.dirty_region(blob, moved, device)(master), scene, device)
+        patch, _, _ = R.render_scene(moved.idset, False, (d, None), scene, scene, master, device)
+        frames[str(device)] = (first, region.caf("over", "opaque", patch,
+                                                 region.portion(first, region.shape_difference(master, d)))[0])
+        launched = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        if device == "cpu":
+            assert not launched
+            for name in ("caf_torch", "_tight_bounds_torch", "dilate_torch", "erode_torch"):
+                monkeypatch.setattr(region, name, _refuse)
+            monkeypatch.setattr(convolve, "convolve_canvas_torch", _refuse)
+        else:
+            for name in ("caf", "tight_bounds", "box_morph", "convolve_canvas"):
+                assert launched.get(name, 0) >= 1, name
+    cache.clear()
+    for k in range(2):
+        a, b = frames["cpu"][k], frames[str(cuda_device)][k]
+        assert a.box == b.box and torch.equal(a.mask, b.mask.cpu()) and torch.equal(a.rgba, b.rgba.cpu()), k
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a plain version ran on the card")
+
+
+@pytest.mark.cuda
+def test_lion_fold_route_through_the_region_kernels(cuda_device, monkeypatch):
+    """general_lion's per-member fold route (the lion at 512 pixels) on the
+    card equal to the CPU's, its cafs through CF1 with caf_torch patched to
+    raise."""
+    from coherence_tpu_torch.raster import region
+    from coherence_tpu_torch.scene import cache
+    from coherence_tpu_torch.scene import render as R
+    from coherence_tpu_torch.utils import flags
+
+    lion = lion_group(512)
+    n_members = len(lion.geometry.objects)
+    got = {}
+    flags.set_flag("batch_group_raster", False)
+    try:
+        for device in ("cpu", cuda_device):
+            cache.clear()
+            if device != "cpu":
+                monkeypatch.setattr(region, "caf_torch", _refuse)
+            before = kernels.launches["caf"]
+            got[str(device)] = R.render_simple_scene([lion], region.shape_of_box((1, 1, 640, 540), device), device)
+            if device != "cpu":
+                assert kernels.launches["caf"] - before >= n_members
+    finally:
+        flags.set_flag("batch_group_raster", True)
+        cache.clear()
+    a, b = got["cpu"], got[str(cuda_device)]
+    assert a.box == b.box and torch.equal(a.mask, b.mask.cpu()) and torch.equal(a.rgba, b.rgba.cpu())

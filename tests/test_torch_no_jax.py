@@ -274,7 +274,8 @@ def test_small_slice_runs_on_cpu(report):
                                   "composite_layers": 0, "composite_full_banded": 0,
                                   "composite_dirty_banded": 0, "fold_layers": 0, "blur_blend": 0,
                                   "shatter_into": 0, "brush_stamp": 0, "smear_walk": 0, "tile_raster": 0,
-                                  "sprite_raster": 0}
+                                  "sprite_raster": 0, "caf": 0, "tight_bounds": 0, "box_morph": 0,
+                                  "convolve_canvas": 0}
 
 
 def test_scene_edits_and_window_path_run_on_cpu(report):

@@ -204,6 +204,75 @@ def test_caf_matches_jax(op, place):
     assert all(side.region.caf(op, "opaque", None, None) == (None, None) for side in SIDES)
 
 
+def _laid_out_sprite(side, seed, x0, y0, w, h, layout):
+    """A sprite over the box at (x0, y0) of w x h pixels whose planes the
+    port holds as `layout` says, the JAX package dense with the same values:
+    "view" (slices of larger planes, as pickup cuts a canvas), "expanded"
+    (one mask row and one colour expanded over the box, strides 0),
+    "wide" (channels up to 600, as unclamped plus sums are)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    box = (x0, y0, x0 + w - 1, y0 + h - 1)
+    if layout == "expanded":
+        mask = np.broadcast_to(rng.random(w) < 0.7, (h, w))
+        rgba = np.broadcast_to(np.array([40, 90, 12, 255 if seed % 2 else 90], np.int32), (h, w, 4))
+    else:
+        top = 600 if layout == "wide" else 255
+        alpha = rng.choice([0, 1, 90, 254, 255, top], (h + 5, w + 9, 1))
+        rgb = (rng.integers(0, top + 1, (h + 5, w + 9, 3)) * alpha) // max(top, 255)
+        mask = rng.random((h + 5, w + 9)) < 0.6
+        rgba = np.where(mask[..., None], np.concatenate([rgb, alpha], -1), 0).astype(np.int32)
+        mask, rgba = mask[3 : 3 + h, 5 : 5 + w], rgba[3 : 3 + h, 5 : 5 + w]
+    dense = np.where(mask[..., None], rgba, 0).astype(np.int32)
+    if side is JAX:
+        import jax.numpy as jnp
+
+        return side.region.pickup(side.shape_of_mask(box, np.ascontiguousarray(mask)),
+                                  side.region.Canvas(jnp.asarray(dense), (x0, y0)))
+    if layout == "expanded":
+        return side.region.Sprite(box, torch.from_numpy(np.array(mask[:1])).expand(h, w),
+                                  torch.from_numpy(np.array(rgba[:1, :1])).expand(h, w, 4))
+    full_mask = np.zeros((h + 5, w + 9), bool)
+    full_rgba = np.zeros((h + 5, w + 9, 4), np.int32)
+    full_mask[3 : 3 + h, 5 : 5 + w], full_rgba[3 : 3 + h, 5 : 5 + w] = mask, dense
+    return side.region.Sprite(box, torch.from_numpy(full_mask)[3 : 3 + h, 5 : 5 + w],
+                              torch.from_numpy(full_rgba)[3 : 3 + h, 5 : 5 + w])
+
+
+@pytest.mark.parametrize("place", ["overlap", "inside", "around"])
+@pytest.mark.parametrize("layouts", [("view", "view"), ("view", "expanded"), ("expanded", "wide"), ("wide", "view")])
+@pytest.mark.parametrize("op", ["over", "alpha_over", "plus", "nocover"])
+def test_caf_strided_and_expanded_operands_match_jax(op, layouts, place):
+    """caf with the port's operands as views of larger planes, as expanded
+    planes and with channels past 255 (the JAX package's dense, with the
+    same values): equal in box, mask, colours and f."""
+    got = []
+    for side in SIDES:
+        a = _laid_out_sprite(side, 41, 5, 7, 40, 23, layouts[0])
+        b = _laid_out_sprite(side, 42, *PLACES[place], layouts[1])
+        got.append(side.region.caf(op, "opaque", a, b) + side.region.caf(op, "opaque", b, a))
+    j, t = got
+    for k in (0, 2):
+        assert_same_sprite(j[k], t[k], f"caf {op} {layouts} sprite {k}")
+        assert_same_shape(j[k + 1], t[k + 1], f"caf {op} {layouts} shape {k}")
+
+
+def test_caf_plus_sums_past_255_feed_over_match_jax():
+    """plus's sums past 255 (no clamp) composed again by over and
+    alpha_over, on either side, and plus again: equal to the JAX
+    package's chain."""
+    got = []
+    for side in SIDES:
+        a, b = _laid_out_sprite(side, 43, 5, 7, 40, 23, "wide"), _laid_out_sprite(side, 44, 20, 12, 40, 30, "view")
+        c = _laid_out_sprite(side, 45, 1, 2, 70, 50, "view")
+        s, _ = side.region.caf("plus", "opaque", a, b)
+        got.append([side.region.caf(op, "opaque", x, y) for op in ("over", "alpha_over", "plus") for x, y in ((s, c), (c, s))])
+    for k, (j, t) in enumerate(zip(*got)):
+        assert_same_sprite(j[0], t[0], f"chain {k}")
+        assert_same_shape(j[1], t[1], f"chain {k}")
+
+
 def test_caf_nocover_returns_b_on_overlap_and_raises_under_spritecheck():
     got = []
     for side in SIDES:
@@ -246,6 +315,26 @@ def test_bloat_erode_match_jax(radii, kind):
     for k, name in enumerate(["bloat", "erode", "erode(bloat)", "bloat(erode(bloat))"]):
         assert_same_shape(j[k], t[k], f"{name} {radii} {kind}")
     assert all(side.region.bloat(rx, ry, None) is None and side.region.erode(rx, ry, None) is None for side in SIDES)
+
+
+WIDE_RADII = [(0, 9), (9, 0), (20, 1), (3, 12), (40, 40)]
+
+
+@pytest.mark.parametrize("kind", ["mask", "full", "sparse"])
+@pytest.mark.parametrize("radii", WIDE_RADII, ids=[f"rx{a}ry{b}" for a, b in WIDE_RADII])
+def test_bloat_erode_zero_axis_and_wider_than_the_box_match_jax(radii, kind):
+    """A radius of 0 on one axis, and erosions (and bloats) whose window is
+    wider or taller than the 29 x 17 box, of a mask and of its bloat."""
+    rx, ry = radii
+    got = []
+    for side in SIDES:
+        r = side.region
+        s = _operand(side, 9, kind, 3, 5, 29, 17)
+        grown = r.bloat(rx, ry, s)
+        got.append((grown, r.erode(rx, ry, s), r.erode(rx, ry, grown), r.erode(2 * rx + 1, 2 * ry + 1, grown)))
+    j, t = got
+    for k, name in enumerate(["bloat", "erode", "erode(bloat)", "erode wider than the bloat"]):
+        assert_same_shape(j[k], t[k], f"{name} {radii} {kind}")
 
 
 @pytest.mark.parametrize("border", [0, 1, 10])
