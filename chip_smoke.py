@@ -157,11 +157,12 @@ Phases, one JSON line each:
      shapes (caf: the last frame over a white 1920 x 1080 window, as
      frame_path composes it, the frames' largest caf of two operands and
      their median one; the largest and the median tight_bounds mask; each
-     distinct bloat and erosion; each convolve) beside the plain version,
-     the launch floor, the bound (each read plane's 32-byte sectors,
-     tensor_sectors, and the writes once; a convolve's multiply-adds
-     beside) and, for a bloat,
-     torch.nn.functional.max_pool2d's time over the same mask;
+     distinct bloat and erosion, and a synthetic bloat on box_morph's
+     second route, MORPH_SECOND_ROUTE, checked bit for bit too; each
+     convolve) beside the plain version, the launch floor, the bound (each
+     read plane's 32-byte sectors, tensor_sectors, and the writes once; a
+     convolve's multiply-adds beside), each box_morph row's route and, for
+     a bloat, torch.nn.functional.max_pool2d's time over the same mask;
   7. hsr_layers: config 2's stack through composite_layers, then the
      kernel against composite_layers_torch over noise and over white, bit
      for bit, timed;
@@ -298,7 +299,9 @@ sprite_raster the same at general_lion's batched members, each scalar
 matte and the H61 matte beside, its launches in the rebuild, on the fold route, in the
 filter frames and demos, serve_engine and pdf_pages; for caf, tight_bounds,
 box_morph and convolve_canvas the largest shape's row of region_kernels
-(a bloat's for box_morph, beside max_pool2d's time), every shape beside,
+(a bloat's for box_morph, beside max_pool2d's time), every shape beside
+(the synthetic one too), caf's and box_morph's registers and static
+shared memory from the build's ptxas lines (ptxas_info),
 the calls checked, the launches in general_filters' frames and per steady
 incremental frame with the frame's issued operations, in general_lion's
 rebuild on each route, the demos, convolve_1080p, scene_edits,
@@ -311,6 +314,7 @@ package.
 import contextlib
 import gc
 import json
+import re
 import socket
 import statistics
 import subprocess
@@ -1974,6 +1978,56 @@ def conv_kernel(kind: str, weights, total: int, radius: int):
     return convolve.FullKernel(radius, total, tuple(tuple(weights[k * n : (k + 1) * n]) for k in range(n)))
 
 
+def union_wh(args):
+    """(w, h) of the union box of a recorded caf's (op, pred, a, b)."""
+    from coherence_tpu_torch.raster import region
+
+    boxes = [s.box for s in args[2:] if s is not None]
+    return region.box_wh(boxes[0] if len(boxes) == 1 else region.box_union(*boxes))
+
+
+def caf_timed_calls(torch, dev, calls, last_frame) -> list:
+    """The (op, pred, a, b) of the cafs region_kernels times, from
+    general_filters' recorded calls: the last frame over a white 1920 x
+    1080 window (frame_path's final caf), the largest caf of two operands
+    and the median caf."""
+    from coherence_tpu_torch import colour as C
+    from coherence_tpu_torch.raster import fills, region
+
+    by_area = sorted((args for args, _ in calls["caf"]), key=lambda args: union_wh(args)[0] * union_wh(args)[1])
+    two = [args for args in by_area if args[2] is not None and args[3] is not None]
+    white = region.fillshape(region.shape_of_box(WINDOW, dev), fills.plain(C.white))
+    return [("over", "opaque", last_frame, white), two[-1], by_area[len(by_area) // 2]]
+
+
+# MR1's synthetic call on its second route: a sparse 2400 x 96 mask bloated
+# by (3, 900), whose staged reach is past one block's shared memory.
+MORPH_SECOND_ROUTE = {"shape": (2400, 96), "density": 0.01, "rx": 3, "ry": 900}
+
+
+def morph_second_route(torch, dev) -> tuple:
+    """((mask, rx, ry), {"erode": False}) of MORPH_SECOND_ROUTE, the mask
+    made from a fixed seed on `dev`."""
+    import numpy as np
+
+    c = MORPH_SECOND_ROUTE
+    mask = torch.from_numpy(np.random.default_rng(23).random(c["shape"]) < c["density"]).to(dev)
+    return (mask, c["rx"], c["ry"]), {"erode": False}
+
+
+def morph_timed_calls(torch, dev, calls) -> list:
+    """The ((mask, rx, ry), kw) of the box_morphs region_kernels times: each
+    distinct (shape, radii, mode) of general_filters' recorded calls, then
+    morph_second_route's."""
+    seen, out = set(), []
+    for (mask, rx, ry), kw in calls["box_morph"]:
+        key = (tuple(mask.shape), rx, ry, kw["erode"])
+        if key not in seen:
+            seen.add(key)
+            out.append(((mask, rx, ry), kw))
+    return out + [morph_second_route(torch, dev)]
+
+
 def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     """CF1, TB1, MR1 and CV1 at general_filters' calls (region_inputs), each
     held bit for bit to its plain version on the card at every recorded
@@ -1983,8 +2037,7 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     median tight_bounds mask; each distinct bloat and erosion; the frames'
     convolves and config 4's 1088 x 1920 one.  Uncounted.  Returns the
     kernels line's rows by kernel."""
-    from coherence_tpu_torch import colour as C
-    from coherence_tpu_torch.raster import convolve, fills, region
+    from coherence_tpu_torch.raster import convolve, region
 
     F = torch.nn.functional
 
@@ -2017,19 +2070,11 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
             require(torch.equal(got, want), f"convolve_canvas over {tuple(args[4].shape)} differs from its plain version")
             errs["convolve_canvas"] = max(errs["convolve_canvas"], max_abs_err(got, want))
 
-        def union_wh(args):
-            boxes = [s.box for s in args[2:] if s is not None]
-            return region.box_wh(boxes[0] if len(boxes) == 1 else region.box_union(*boxes))
-
         rows = {name: [] for name in REGION_KERNELS}
-        by_area = sorted((args for args, _ in calls["caf"]), key=lambda args: union_wh(args)[0] * union_wh(args)[1])
-        two = [args for args in by_area if args[2] is not None and args[3] is not None]
-        # The frame over the window's white backdrop, 1920 x 1080, as frame_path composes the general renderer's frames.
-        white = region.fillshape(region.shape_of_box(WINDOW, dev), fills.plain(C.white))
-        window = ("over", "opaque", last_frame, white)
-        require(same_caf(torch, region._caf_card(*window), region.caf_torch(*window)),
+        timed_cafs = caf_timed_calls(torch, dev, calls, last_frame)
+        require(same_caf(torch, region._caf_card(*timed_cafs[0]), region.caf_torch(*timed_cafs[0])),
                 "caf of the frame over the window differs from its plain version")
-        for op, pred, a, b in (window, two[-1], by_area[len(by_area) // 2]):
+        for op, pred, a, b in timed_cafs:
             w, h = union_wh((op, pred, a, b))
             both = a is not None and b is not None
             reads = [t for s in (a, b) if s is not None for t in (s.mask, s.rgba)]
@@ -2042,23 +2087,24 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
             rows["tight_bounds"].append(region_row(
                 torch, scrub, lambda: kernels.tight_bounds(mask), lambda: region._tight_bounds_torch(mask),
                 region_bound(torch, [mask], 16), mask=list(mask.shape)))
-        seen = set()
-        for (mask, rx, ry), kw in calls["box_morph"]:
-            key = (tuple(mask.shape), rx, ry, kw["erode"])
-            if key in seen:
-                continue
-            seen.add(key)
+        for (mask, rx, ry), kw in morph_timed_calls(torch, dev, calls):
             out = kernels.box_morph(mask, rx, ry, **kw)
+            plain = region.erode_torch if kw["erode"] else region.dilate_torch
+            want = plain(mask, rx, ry)
+            require(torch.equal(out, want),
+                    f"box_morph of a {tuple(mask.shape)} mask at ({rx}, {ry}) {kw} differs from its plain version")
+            errs["box_morph"] = max(errs["box_morph"], max_abs_err(out, want))
             library = None
             if not kw["erode"]:
                 padded = F.pad(mask.to(torch.float16), (rx, rx, ry, ry))[None, None]
                 library = lambda: F.max_pool2d(padded, (2 * ry + 1, 2 * rx + 1), stride=1, padding=(ry, rx))
                 require(torch.equal(library()[0, 0] > 0, out), "box_morph: max_pool2d's dilation differs from bloat's")
-            plain = region.erode_torch if kw["erode"] else region.dilate_torch
+            route = kernels.box_morph_route(*mask.shape, rx, ry, kw["erode"])._asdict()
             rows["box_morph"].append(region_row(
                 torch, scrub, lambda: kernels.box_morph(mask, rx, ry, **kw), lambda: plain(mask, rx, ry),
                 region_bound(torch, [mask], out.numel()), library, mode="erode" if kw["erode"] else "bloat",
-                mask=list(mask.shape), radii=[rx, ry], out=list(out.shape)))
+                mask=list(mask.shape), radii=[rx, ry], out=list(out.shape), route=route,
+                synthetic=tuple(mask.shape) == MORPH_SECOND_ROUTE["shape"]))
         for args, _ in conv_calls:
             kind, weights, total, r, canvas, mask = args
             H, W = canvas.shape[:2]
@@ -4523,6 +4569,34 @@ def pdf_pages(torch, dev, kernels):
     return counts
 
 
+def ptxas_info(log: str, function: str):
+    """{"registers", "static_smem_bytes", "spill_bytes"} of each entry
+    function of nvcc's ptxas output `log` whose name holds `function`, by
+    its unmangled name; {} for an empty log (a library already built)."""
+    out, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1) or m.group(2)
+            short = re.search(r"([a-z_]+_kernel)(?:ILb([01])E)?", name)
+            current = None
+            if function in name and short:  # a template's instantiations apart: caf_kernel<true>, caf_kernel<false>
+                flag = short.group(2)
+                current = short.group(1) + ("" if flag is None else "<true>" if flag == "1" else "<false>")
+            continue
+        if current is None:
+            continue
+        row = out.setdefault(current, {"registers": None, "static_smem_bytes": 0, "spill_bytes": 0})
+        if "spill stores" in ln:
+            row["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            row["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            row["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return {name: row for name, row in out.items() if row["registers"] is not None}
+
+
 def main() -> int:
     import torch
 
@@ -4734,7 +4808,7 @@ def main() -> int:
     for kname, source, replaces, also in region_rows:
         t = timed[kname]
         rows_k = t["rows"]
-        main_row = max(rows_k, key=lambda r: (r.get("library_ms") is not None, r["bytes"]))
+        main_row = max(rows_k, key=lambda r: (not r.get("synthetic"), r.get("library_ms") is not None, r["bytes"]))
         line.append({"name": kname, "route": "cuda", "source": CSRC + source, "replaces": replaces,
                      "also_replaces": also, "pallas": False, "launches": counts_filters.get(kname, 0),
                      "launches_per_incremental_frame": counts_filters["counted_frame"]["incremental_launches"].get(kname, 0),
@@ -4749,6 +4823,8 @@ def main() -> int:
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"], "bytes": main_row["bytes"], "share": main_row["share"],
                      "shapes": rows_k})
+        if kname in ("caf", "box_morph"):  # their second designs' registers and static shared memory
+            line[-1]["ptxas"] = ptxas_info(log, f"{kname}_")
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -60,13 +60,16 @@ _ENTRY_POINTS = {
     "sprite_raster": [_ptr] * 6 + [_i32] * 3 + [_ptr],
     "caf": [_ptr] * 10,
     "tight_bounds": [_ptr, _i64, _i64, _i32, _i32, _i32, _ptr, _ptr, _ptr],
-    "box_morph": [_ptr] * 4,
+    "box_morph": [_ptr] * 4 + [_i32, _ptr],
     "convolve_canvas": [_ptr] * 6,
 }
 
 # entry point -> argument types, of those that launch nothing
 _QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2,
             "sprite_raster_blocks_per_sm": [], "tight_bounds_max_blocks": []}
+# entry point -> argument types, of those that launch a later pass of a
+# kernel of _ENTRY_POINTS, counted under that kernel's name
+_PASSES = {"box_morph_cols": [_ptr] * 5}
 # entry point -> argument types, of those that launch a kernel doing none of
 # the program's work (not counted in `launches`)
 _PROBES = {"launch_floor": [_ptr]}
@@ -130,7 +133,7 @@ def load() -> Dict[str, ctypes._CFuncPtr]:
             build()
             lib = ctypes.CDLL(LIBRARY)
             fns = {}
-            for entry, argtypes in {**_ENTRY_POINTS, **_QUERIES, **_PROBES}.items():
+            for entry, argtypes in {**_ENTRY_POINTS, **_PASSES, **_QUERIES, **_PROBES}.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = _i32
@@ -1267,10 +1270,19 @@ def sprite_raster_opacity(box, scaled, device) -> torch.Tensor:
 # composed plane given by the caller (any other operator).
 CAF_OPS = {"over": 0, "alpha_over": 1, "plus": 2, "nocover": 3}
 CAF_GIVEN = 4
-# box_morph's output tile (rows, columns) a block, and the most rows of
-# tiles its grid holds (gridDim.y).
-MORPH_TILE = (8, 128)
-_GRID_Y = 65535
+# caf's union boxes of at most this many pixels read every colour over its
+# box beside the masks, in one round trip; larger ones read the masks, then
+# only the colours the result takes (on an NVIDIA H100 80GB HBM3 at 700 W,
+# profile_region.py: one round trip is the faster at the 133 x 151 caf, two
+# at the 1080 x 689 one, whose unset pixels' colours cost more than a round
+# trip).
+CAF_ONE_TRIP_PIXELS = 1 << 16
+# box_morph's output tile (rows, columns) a block of the staged launch; the
+# shared memory of a block of the staged route, at most, and of any block on
+# sm_90 (the second route's row pass).
+MORPH_TILE = (32, 128)
+MORPH_SMEM = 48 * 1024
+MORPH_SMEM_MAX = 232448
 
 
 class CafPlane(NamedTuple):
@@ -1310,6 +1322,12 @@ def _caf_geometry(h: int, w: int, plane: Optional[CafPlane], device: torch.devic
     return [y0, x0, ph, pw, msy, msx, rsy, rsx, rsc, vec]
 
 
+def caf_one_trip(h: int, w: int) -> bool:
+    """Whether caf over an h x w union box reads every operand's colours
+    over its box beside the masks (one round trip), not after them."""
+    return h * w <= CAF_ONE_TRIP_PIXELS
+
+
 def caf(h: int, w: int, op: int, a: CafPlane, b: Optional[CafPlane] = None, composed: Optional[CafPlane] = None,
         f_only: bool = False):
     """Launch ``caf`` (CF1) over the h x w union box of operands `a` and `b`
@@ -1319,8 +1337,9 @@ def caf(h: int, w: int, op: int, a: CafPlane, b: Optional[CafPlane] = None, comp
     where they do not meet), else the set operand's colour, else 0.
     Returns new planes (int32 (h, w, 4) RGBA, bool mask, bool f = mask &
     (alpha == 255)), or with `f_only` the f plane alone (the one-operand
-    caf: the result is that operand).  The plain version is
-    raster/region.py caf_torch."""
+    caf: the result is that operand).  One launch; its colours read in one
+    round trip with the masks or after them (caf_one_trip).  The plain
+    version is raster/region.py caf_torch."""
     device = a.rgba.device
     if device.type != "cuda":
         raise ValueError(f"caf needs tensors on a CUDA device, got {device}")
@@ -1330,8 +1349,8 @@ def caf(h: int, w: int, op: int, a: CafPlane, b: Optional[CafPlane] = None, comp
         raise ValueError(f"caf: a {h}x{w} union box is beyond the kernel's grid")
     if a.mask is None or (b is not None and b.mask is None) or (composed is not None and composed.mask is not None):
         raise ValueError("caf: an operand needs a mask, the composed plane has none")
-    geom = _as_i64([h, w, op] + _caf_geometry(h, w, a, device) + _caf_geometry(h, w, b, device)
-                   + _caf_geometry(h, w, composed, device))
+    geom = _as_i64([h, w, op, int(caf_one_trip(h, w))] + _caf_geometry(h, w, a, device)
+                   + _caf_geometry(h, w, b, device) + _caf_geometry(h, w, composed, device))
     f = torch.empty((h, w), dtype=torch.bool, device=device)
     rgba = None if f_only else torch.empty((h, w, 4), dtype=torch.int32, device=device)
     mask = None if f_only else torch.empty((h, w), dtype=torch.bool, device=device)
@@ -1392,13 +1411,56 @@ def box_morph_geometry(h: int, w: int, rx: int, ry: int, erode: bool) -> tuple:
     output cell (Y, X) in source rows [Y + dy0, Y + dy1] and columns [X +
     dx0, X + dx1]) for an h x w mask: bloat's output is nbox's, (h + 2ry, w
     + 2rx), whose cell (Y, X) lies at source (Y - ry, X - rx); erode's the
-    mask's own.  Raises ValueError where the output is beyond the grid."""
+    mask's own.  Raises ValueError where the output is past 2^31 - 1 rows
+    or columns."""
     if rx < 0 or ry < 0:
         raise ValueError(f"box_morph: radii ({rx}, {ry}) must be at least 0")
     H, W = (h, w) if erode else (h + 2 * ry, w + 2 * rx)
-    if not (0 < W < 2**31 and 0 < H < 2**31) or -(-H // MORPH_TILE[0]) > _GRID_Y:
+    if not (0 < W < 2**31 and 0 < H < 2**31):
         raise ValueError(f"box_morph: a {H}x{W} output is beyond the kernel's grid")
     return (H, W), ((-rx, rx, -ry, ry) if erode else (-2 * rx, 0, -2 * ry, 0))
+
+
+class MorphRoute(NamedTuple):
+    """How box_morph runs at a shape: `launches` 1 (the staged route: a
+    block stages its 32 x 128 tile's reach and writes the tile) or 2 (a row
+    pass of the same kernel over `tile_rows` source rows a block into a bit
+    plane, then the column pass); the staged launch's source rows a block
+    at most (`rows`), words a staged row (`words`) and dynamic shared memory
+    in bytes (`smem`)."""
+
+    launches: int
+    tile_rows: int
+    rows: int
+    words: int
+    smem: int
+
+
+def _morph_smem(rows: int, words: int) -> int:
+    """region_ops.cu box_morph_kernel's shared memory: the staged bits and
+    their prefix counts, the row pass's 4 words a staged row, the tile's 32
+    x 4 output words."""
+    return 4 * (2 * rows * words + MORPH_TILE[1] // 32 * (rows + MORPH_TILE[0]))
+
+
+def box_morph_route(h: int, w: int, rx: int, ry: int, erode: bool) -> MorphRoute:
+    """box_morph's route for an h x w mask at radii (rx, ry), from the shape
+    alone: the staged route where a tile's reach (its rows and columns
+    clipped to the mask) fits MORPH_SMEM bytes, else the second route, its
+    row pass over 32 source rows a block, or one where 32 rows' reach is
+    past MORPH_SMEM_MAX.  Raises ValueError where one row's is (a mask over
+    about 900,000 columns wide at rx over about 450,000), or on the
+    geometry's refusals."""
+    (H, W), (dx0, dx1, dy0, dy1) = box_morph_geometry(h, w, rx, ry, erode)
+    words = -(-(min(MORPH_TILE[1] + dx1 - dx0, w) + 31) // 32) + 1
+    rows = min(MORPH_TILE[0] + dy1 - dy0, h)
+    if _morph_smem(rows, words) <= MORPH_SMEM:
+        return MorphRoute(1, MORPH_TILE[0], rows, words, _morph_smem(rows, words))
+    for tile_rows in (MORPH_TILE[0], 1):
+        rows = min(tile_rows, h)
+        if _morph_smem(rows, words) <= MORPH_SMEM_MAX:
+            return MorphRoute(2, tile_rows, rows, words, _morph_smem(rows, words))
+    raise ValueError(f"box_morph: a row's reach of {words} words at ({rx}, {ry}) is past a block's shared memory")
 
 
 def box_morph(mask: torch.Tensor, rx: int, ry: int, erode: bool) -> torch.Tensor:
@@ -1406,18 +1468,37 @@ def box_morph(mask: torch.Tensor, rx: int, ry: int, erode: bool) -> torch.Tensor
     bloat (erode False) returns the (h + 2ry, w + 2rx) mask of cells whose
     (2rx+1) x (2ry+1) window holds a set cell of `mask` (placed at (ry,
     rx)); erode returns the (h, w) mask of cells whose window lies inside
-    the plane and holds no unset cell.  Any radius.  The plain versions are
-    raster/region.py dilate_torch and erode_torch."""
+    the plane and holds no unset cell.  Any radius: one launch on the
+    staged route, two on the second (box_morph_route), each counted.  The
+    plain versions are raster/region.py dilate_torch and erode_torch."""
     device = _check_bool_plane("box_morph", mask)
     h, w = mask.shape
     (H, W), (dx0, dx1, dy0, dy1) = box_morph_geometry(h, w, rx, ry, erode)
+    route = box_morph_route(h, w, rx, ry, erode)
+    sy, sx = mask.stride()
+    vec = int(sx == 1 and sy % 4 == 0 and mask.data_ptr() % 4 == 0)
     out = torch.empty((H, W), dtype=torch.bool, device=device)
-    geom = _as_i64([h, w, *mask.stride(), H, W, dx0, dx1, dy0, dy1, int(erode), rx, ry])
+    fns = load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    tiling = [vec, route.tile_rows, route.rows, route.words]
     with torch.cuda.device(device):
-        rc = load()["box_morph"](ctypes.addressof(geom), mask.data_ptr(), out.data_ptr(),
-                                 torch.cuda.current_stream(device).cuda_stream)
-    _raise_on("box_morph", rc)
-    launches["box_morph"] += 1
+        if route.launches == 1:
+            geom = _as_i64([h, w, sy, sx, H, W, dx0, dx1, dy0, dy1, int(erode), rx, ry, *tiling, 0])
+            _raise_on("box_morph", fns["box_morph"](ctypes.addressof(geom), mask.data_ptr(), out.data_ptr(), None,
+                                                    route.smem, stream))
+            launches["box_morph"] += 1
+            return out
+        ww = -(-W // 32)
+        words = torch.empty((h, ww), dtype=torch.int32, device=device)
+        geom = _as_i64([h, w, sy, sx, h, W, dx0, dx1, 0, 0, int(erode), rx, ry, *tiling, ww])
+        _raise_on("box_morph", fns["box_morph"](ctypes.addressof(geom), mask.data_ptr(), None, words.data_ptr(),
+                                                route.smem, stream))
+        launches["box_morph"] += 1
+        scratch = torch.empty((H, ww), dtype=torch.int32, device=device)
+        geom = _as_i64([h, w, sy, sx, H, W, dx0, dx1, dy0, dy1, int(erode), rx, ry, vec, 0, 0, 0, ww])
+        _raise_on("box_morph", fns["box_morph_cols"](ctypes.addressof(geom), words.data_ptr(), scratch.data_ptr(),
+                                                     out.data_ptr(), stream))
+        launches["box_morph"] += 1
     return out
 
 

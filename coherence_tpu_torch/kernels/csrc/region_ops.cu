@@ -14,26 +14,34 @@
 //                    _box_count, bloat, erode).
 //
 // CF1.  One launch writes the union box's int32 RGBA (h, w, 4), its mask and
-// the predicate plane f = (ma | mb) & (rgba.a == 255), a thread a pixel.
-// Each operand's mask and RGBA are read in place over the operand's own box
-// at its offset in the union box, through their element strides (views of
-// a canvas, expanded planes): outside an operand's box its mask reads False
-// and its colour 0, as the plain version's zero-filled windows do.  The
-// composed colour is the operator's where both masks are set, else the set
-// operand's colour, else 0.  The four built-in operators are computed here
-// exactly as colour.over_rgba, alpha_over_rgba, pd_plus_rgba and the
-// `nocover` entry do, in int32 arithmetic that wraps (the plain version's
-// `plus` has no clamp and its sums feed later `over`s): products and sums in
-// unsigned form, arithmetic right shifts on the signed result.  Any other
-// operator arrives as a given composed plane over the intersection of the two
-// boxes (the wrapper computes it with the operator's torch function on the
+// the predicate plane f = (ma | mb) & (rgba.a == 255).  Each operand's mask
+// and RGBA are read in place over the operand's own box at its offset in
+// the union box, through their element strides (views of a canvas, expanded
+// planes): outside an operand's box its mask reads False and its colour 0,
+// as the plain version's zero-filled windows do.  The composed colour is the
+// operator's where both masks are set, else the set operand's colour, else
+// 0.  The four built-in operators are computed here exactly as
+// colour.over_rgba, alpha_over_rgba, pd_plus_rgba and the `nocover` entry
+// do, in int32 arithmetic that wraps (the plain version's `plus` has no
+// clamp and its sums feed later `over`s): products and sums in unsigned
+// form, arithmetic right shifts on the signed result.  Any other operator
+// arrives as a given composed plane over the intersection of the two boxes
+// (the wrapper computes it with the operator's torch function on the
 // operands' views), read only where both masks are set.  With no output
 // planes given it writes f alone (the one-operand caf).
 //   Bound: bytes.  Each operand's 17 bytes a pixel read once, the result's
-//   18 written once.  Design: a warp's lanes on adjacent pixels of a row, a
-//   16-byte load of an operand's pixel where its layout allows it (channels
-//   adjacent, rows on 16 bytes), a 16-byte store of the result; rows in a
-//   grid-stride loop over gridDim.y.
+//   18 written once.  Design (the second): a thread a pixel.  A union box
+//   of at most kernels.CAF_ONE_TRIP_PIXELS pixels (caf_kernel<true>, a
+//   256-thread block 8 rows of 32) reads both masks and every operand's
+//   colour over its box, each into a register of its own, none used before
+//   all are issued: one round trip.  A larger box (caf_kernel<false>, a
+//   128-thread block 128 pixels of a row) keeps the first design's two
+//   rounds, the masks and then only the colours the result takes: there
+//   the colours of unset pixels cost more bytes than the round trip saves,
+//   and its 32 registers keep every thread slot of an SM filled.  Threads
+//   of 2 or 4 pixels (32 apart, or 4 adjacent with 4-byte mask words and
+//   ballot-packed stores) and one instantiation for both were each slower
+//   at one or more of region_kernels' shapes (profile_region.py; PERF.md).
 //
 // TB1.  One launch reduces a bool mask (any strides) to (x0, y0, x1, y1) of
 // its set cells, (w, h, -1, -1) where there is none.  A thread walks the
@@ -51,18 +59,30 @@
 // window.  Erode mode writes the (h, w) mask of interior cells (their window
 // inside the plane) whose window holds no unset cell.  Both are "any cell of
 // a value v in a window of rows [Y+dy0, Y+dy1] and columns [X+dx0, X+dx1]",
-// clipped to the source.  A 128-thread block owns an 8 x 128 output tile and
-// walks, top to bottom, the source rows its windows reach; for each row it
-// scans the source columns its windows reach, left to right in chunks of
-// 128 with a carry, as an inclusive max-scan of "last column holding v"
-// (L); a window [a, b] of that row holds v exactly where L(b) >= a.  Each
-// thread carries, down its column, the last source row whose row window
-// held v, and sets its output rows' bits as their windows' last rows pass.
-// Any radius runs in the same shared memory, up to and past the box's size.
-//   Bound: bytes, the mask read once and the output written once.  The
-//   block's walk reads each source row once per tile row it serves, (8 +
-//   2ry) / 8 times in all, from L2.
+// clipped to the source.
+//   Bound: bytes, the mask read once and the output written once.  Design
+//   (the second; the first design's block walked its rows and chunks as a
+//   serial chain of a load, a scan and three barriers each): a 512-thread
+//   block owns a 32 x 128 output tile and stages, in one round of loads,
+//   every source row and column its windows reach (clipped to the source)
+//   into shared memory as bit rows, 32 columns a word, of "cell == v": a
+//   lane reads 4 cells (4 bytes in one load where the rows are contiguous
+//   and aligned) and shuffles gather 8 lanes' nibbles into a word.  Row
+//   pass: "a v in columns [a, b]" is a difference of prefix popcounts (each
+//   row's exclusive scan of its words' popcounts, and __popc of the masked
+//   last word), a lane a column and one ballot an output word.  Column
+//   pass: a warp a column word, a lane an output row, the van Herk /
+//   Gil-Werman scheme over blocks of 2ry + 1 rows (a segmented suffix OR
+//   and a segmented prefix OR by shuffles): three ORs a cell whatever the
+//   radius.  Then 4 bytes a lane out.  Where the tile's reach does not fit
+//   kernels.MORPH_SMEM bytes, the wrapper takes the second route: the same
+//   kernel as a row pass over 32 (or 1) source rows a block into a bit
+//   plane in device memory, then box_morph_cols_kernel, a warp a column
+//   word and a block of 2ry + 1 rows, van Herk in device memory with the
+//   lanes on 32 rows at a time.  Each source row is staged (32 + 2ry) / 32
+//   times (the first design read it (8 + 2ry) / 8 times).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -72,8 +92,15 @@ namespace {
 // CF1 caf
 // ---------------------------------------------------------------------------
 
-constexpr int kCafThreads = 128;
-constexpr int kCafRowsMax = 65535;  // gridDim.y
+// A block's pixels, a thread each: one round trip takes 8 rows of 32 (more
+// blocks, fewer bytes each), two rounds 1 row of 128 (as the first design).
+template <bool kOneTrip>
+struct CafTile {
+  static constexpr int kThreads = kOneTrip ? 256 : 128;
+  static constexpr int kCols = kOneTrip ? 32 : 128;
+  static constexpr int kRows = kThreads / kCols;
+};
+constexpr int kCafRowTilesMax = 65535;              // gridDim.y
 
 enum CafOp { kOver = 0, kAlphaOver = 1, kPlus = 2, kNocover = 3, kGiven = 4 };
 
@@ -82,7 +109,7 @@ struct Plane {
   const int* rgba;            // int32 (h, w, 4)
   long long msy, msx;         // mask element strides
   long long rsy, rsx, rsc;    // rgba element strides
-  int y0, x0, h, w;           // its box in the union box's coordinates
+  int y0, x0, h, w;           // its box in the union box's coordinates; h 0: absent
   int vec;                    // rgba rows on 16 bytes with adjacent channels: one int4 load a pixel
 };
 
@@ -95,18 +122,14 @@ struct CafParams {
   unsigned char* out_f;
 };
 
-__device__ __forceinline__ bool covers(const Plane& p, int y, int x) {
-  return y >= p.y0 && y < p.y0 + p.h && x >= p.x0 && x < p.x0 + p.w;
+__device__ __forceinline__ bool covers(const Plane& q, int y, int x) {
+  return y >= q.y0 && y < q.y0 + q.h && x >= q.x0 && x < q.x0 + q.w;
 }
 
-__device__ __forceinline__ bool mask_at(const Plane& p, int y, int x) {
-  return covers(p, y, x) && p.mask[(y - p.y0) * p.msy + (x - p.x0) * p.msx] != 0;
-}
-
-__device__ __forceinline__ int4 rgba_at(const Plane& p, int y, int x) {
-  const int* q = p.rgba + (y - p.y0) * p.rsy + (x - p.x0) * p.rsx;
-  if (p.vec) return *reinterpret_cast<const int4*>(q);
-  return make_int4(q[0], q[p.rsc], q[2 * p.rsc], q[3 * p.rsc]);
+// Plane q's colour at union (y, x), which lies in its box.
+__device__ __forceinline__ int4 colour_at(const Plane& q, int y, int x) {
+  const int* p = q.rgba + (y - q.y0) * q.rsy + (x - q.x0) * q.rsx;
+  return q.vec ? *reinterpret_cast<const int4*>(p) : make_int4(p[0], p[q.rsc], p[2 * q.rsc], p[3 * q.rsc]);
 }
 
 __device__ __forceinline__ unsigned u(int v) { return static_cast<unsigned>(v); }
@@ -137,26 +160,56 @@ __device__ __forceinline__ int4 compose(int op, int4 a, int4 b) {
   }
 }
 
-__global__ void __launch_bounds__(kCafThreads) caf_kernel(CafParams p) {
-  const int x = blockIdx.x * kCafThreads + threadIdx.x;
+template <bool kOneTrip>
+__global__ void __launch_bounds__(CafTile<kOneTrip>::kThreads) caf_kernel(CafParams p) {
+  using T = CafTile<kOneTrip>;
+  const int x = blockIdx.x * T::kCols + threadIdx.x % T::kCols;
   if (x >= p.w) return;
-  for (int y = blockIdx.y; y < p.h; y += gridDim.y) {
-    const bool ma = mask_at(p.a, y, x), mb = mask_at(p.b, y, x);
-    int4 out = make_int4(0, 0, 0, 0);
-    if (ma && mb) {
-      out = p.op == kGiven ? rgba_at(p.c, y, x) : compose(p.op, rgba_at(p.a, y, x), rgba_at(p.b, y, x));
-    } else if (ma) {
-      out = rgba_at(p.a, y, x);
-    } else if (mb) {
-      out = rgba_at(p.b, y, x);
+  const bool given = p.op == kGiven;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int y = blockIdx.y * T::kRows + threadIdx.x / T::kCols; y < p.h; y += gridDim.y * T::kRows) {
+    bool sa, sb;
+    int4 out;
+    if constexpr (kOneTrip) {
+      // Both masks and every colour over its box, each into a register of
+      // its own, none used before all are issued: one round trip.
+      const bool in_a = covers(p.a, y, x), in_b = covers(p.b, y, x), in_c = covers(p.c, y, x);
+      const unsigned char ra = in_a ? p.a.mask[(y - p.a.y0) * p.a.msy + (x - p.a.x0) * p.a.msx] : 0;
+      const unsigned char rb = in_b ? p.b.mask[(y - p.b.y0) * p.b.msy + (x - p.b.x0) * p.b.msx] : 0;
+      const int4 ca = in_a ? colour_at(p.a, y, x) : zero, cb = in_b ? colour_at(p.b, y, x) : zero;
+      const int4 cc = in_c ? colour_at(p.c, y, x) : zero;
+      sa = ra != 0, sb = rb != 0;
+      out = sa && sb ? (given ? cc : compose(p.op, ca, cb)) : sa ? ca : sb ? cb : zero;
+    } else {
+      // The masks, then only the colours the result takes.
+      sa = covers(p.a, y, x) && p.a.mask[(y - p.a.y0) * p.a.msy + (x - p.a.x0) * p.a.msx] != 0;
+      sb = covers(p.b, y, x) && p.b.mask[(y - p.b.y0) * p.b.msy + (x - p.b.x0) * p.b.msx] != 0;
+      out = zero;
+      if (sa && sb) {
+        out = given ? colour_at(p.c, y, x) : compose(p.op, colour_at(p.a, y, x), colour_at(p.b, y, x));
+      } else if (sa) {
+        out = colour_at(p.a, y, x);
+      } else if (sb) {
+        out = colour_at(p.b, y, x);
+      }
     }
     const long long i = static_cast<long long>(y) * p.w + x;
-    p.out_f[i] = (ma || mb) && out.w == 255;
+    p.out_f[i] = (sa || sb) && out.w == 255;
     if (p.out_rgba != nullptr) {
       p.out_rgba[i] = out;
-      p.out_mask[i] = ma || mb;
+      p.out_mask[i] = sa || sb;
     }
   }
+}
+
+template <bool kOneTrip>
+int launch_caf(const CafParams& p, cudaStream_t stream) {
+  using T = CafTile<kOneTrip>;
+  const long long row_tiles = (p.h + T::kRows - 1LL) / T::kRows;
+  const dim3 grid(static_cast<unsigned>((p.w + T::kCols - 1LL) / T::kCols),
+                  static_cast<unsigned>(row_tiles < kCafRowTilesMax ? row_tiles : kCafRowTilesMax));
+  caf_kernel<kOneTrip><<<grid, T::kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -229,85 +282,332 @@ tight_bounds_kernel(const unsigned char* __restrict__ mask, long long sy, long l
 // MR1 box_morph
 // ---------------------------------------------------------------------------
 
-constexpr int kMorphCols = 128;  // threads a block, output columns a tile, source columns a chunk
-constexpr int kMorphRows = 8;    // output rows a tile (bits of a thread's word)
-constexpr int kMorphWarps = kMorphCols / 32;
-constexpr int kMorphRowsMax = 65535;  // gridDim.y
+constexpr int kMorphThreads = 512;
+constexpr int kMorphWarps = kMorphThreads / 32;
+constexpr int kMorphRows = 32;                 // output rows a tile: a lane each in the column pass
+constexpr int kMorphCols = 128;                // output columns a tile
+constexpr int kMorphWords = kMorphCols / 32;   // output words a tile row: a warp each in the column pass
+constexpr int kMorphBatch = 4;                 // staged items a warp loads before it packs any
+constexpr int kMorphTilesMax = 65535;          // gridDim.y
+constexpr int kMorphSmemMax = 232448;          // a block's shared memory on sm_90 (kernels.MORPH_SMEM_MAX)
+constexpr int kMorphColsWarps = 4;              // warps a block of the second route's column pass
+constexpr unsigned kAll = 0xffffffffu;
 
 struct MorphParams {
   const unsigned char* src;  // bool (h, w)
   long long sy, sx;
   int h, w;
-  unsigned char* out;        // bool (H, W), contiguous
-  int H, W;
+  unsigned char* out;        // bool (H, W), contiguous; null: the second route's row pass into `words`
+  unsigned* words;           // the second route's bit plane (h, ww): bit X % 32 of word X / 32
+  unsigned* scratch;         // the column pass's prefixes (H, ww)
+  int H, W, ww;
   long long dx0, dx1, dy0, dy1;  // the window of output (Y, X) in source coordinates
   int erode;                 // look for unset cells; keep interior cells whose window holds none
   long long rx, ry;
+  int vec;                   // source rows contiguous on 4 bytes: 4 bytes a lane
+  int wvec;                  // W % 4 == 0 and `out` on 4 bytes: 4 output bytes a store
+  int tile_rows;             // output rows a tile: kMorphRows, or 1 (a row pass too wide for 32 rows)
+  int rows_cap;              // source rows a tile stages, at most: min(tile_rows + dy1 - dy0, h)
+  int sw;                    // staged words a row
 };
 
-__global__ void __launch_bounds__(kMorphCols) box_morph_kernel(MorphParams p) {
-  __shared__ int last_col[kMorphCols];
-  __shared__ int warp_max[kMorphWarps];
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const long long X0 = static_cast<long long>(blockIdx.x) * kMorphCols, Y0 = static_cast<long long>(blockIdx.y) * kMorphRows;
-  const long long X = X0 + t;
-  // The source columns the tile's windows reach, and this column's window in
-  // them, relative to s0: [a, b], b < 0 where the window misses the plane.
-  const long long s0 = max(0LL, X0 + p.dx0);
-  const long long s_end = min(static_cast<long long>(p.w) - 1, X0 + kMorphCols - 1 + p.dx1);
-  const long long a = max(X + p.dx0, s0) - s0;
-  const long long b = min(X + p.dx1, static_cast<long long>(p.w) - 1) - s0;
-  const long long ys = max(0LL, Y0 + p.dy0), ye = min(static_cast<long long>(p.h) - 1, Y0 + kMorphRows - 1 + p.dy1);
+// Bits [lo, hi) of a word, 0 <= lo, hi <= 32.
+__device__ __forceinline__ unsigned bit_range(long long lo, long long hi) {
+  const unsigned below_hi = hi >= 32 ? kAll : (1u << hi) - 1u, below_lo = lo >= 32 ? kAll : (1u << lo) - 1u;
+  return hi > lo ? below_hi & ~below_lo : 0u;
+}
+
+// Erode's interior: bits e of columns X + e, e < n, whose window lies inside the plane, at row Y.
+__device__ __forceinline__ unsigned interior(const MorphParams& p, long long Y, long long X, int n) {
+  if (Y < p.ry || Y >= p.h - p.ry) return 0u;
+  const long long lo = min(max(p.rx - X, 0LL), static_cast<long long>(n));
+  const long long hi = min(max(p.w - p.rx - X, 0LL), static_cast<long long>(n));
+  return bit_range(lo, hi);
+}
+
+// 4 bits as 4 bool bytes.
+__device__ __forceinline__ unsigned bytes_of(unsigned nib) {
+  return (nib & 1u) | (nib & 2u) << 7 | (nib & 4u) << 14 | (nib & 8u) << 21;
+}
+
+// Stages source rows first .. first + held - 1, columns sb .. sb + 32 sw - 1,
+// into `bits` as rows of sw words of "cell == want" (0 outside the source).
+// An item is 4 words of a row: lane l reads the 4 cells from column sb +
+// 128 g + 4 l (one 4-byte load with p.vec where they lie in the source,
+// else 4 byte loads), makes their nibble, and the 8 nibbles of a word are
+// ORed by shuffles.  A warp issues the loads of kMorphBatch items before it
+// packs any: at the general renderer's radii, two rounds of loads a block
+// (batches of 8 and 16 took more registers and were slower; the kernel is
+// held to 64 registers, two blocks an SM).
+__device__ __forceinline__ void stage(const MorphParams& p, unsigned* bits, int held, long long first, long long sb,
+                                      bool want, int lane, int warp) {
+  const int sw = p.sw, groups = (sw + 3) / 4, items = held * groups;
+  for (int base = warp; base < items; base += kMorphWarps * kMorphBatch) {
+    unsigned raw[kMorphBatch];
+#pragma unroll
+    for (int b = 0; b < kMorphBatch; ++b) {
+      const int it = base + b * kMorphWarps;
+      const long long c = sb + 128LL * (it % groups) + 4 * lane;
+      const unsigned char* row = p.src + (first + it / groups) * p.sy;
+      raw[b] = 0;
+      if (it < items) {
+        if (p.vec && c + 4 <= p.w) {
+          raw[b] = *reinterpret_cast<const unsigned*>(row + c);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c + e < p.w) raw[b] |= static_cast<unsigned>(row[(c + e) * p.sx]) << (8 * e);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kMorphBatch; ++b) {
+      const int it = base + b * kMorphWarps;
+      if (it >= items) break;
+      const long long c = sb + 128LL * (it % groups) + 4 * lane;
+      unsigned nib = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + e < p.w && (((raw[b] >> (8 * e)) & 0xffu) != 0) == want) nib |= 1u << e;
+      }
+      unsigned v = nib << (4 * (lane % 8));
+      v |= __shfl_xor_sync(kAll, v, 1);
+      v |= __shfl_xor_sync(kAll, v, 2);
+      v |= __shfl_xor_sync(kAll, v, 4);
+      const int k = (it % groups) * 4 + lane / 8;
+      if (lane % 8 == 0 && k < sw) bits[(it / groups) * sw + k] = v;
+    }
+  }
+}
+
+// Shared memory: bits[rows_cap][sw] (the staged rows), pre[rows_cap][sw]
+// (each word's count of set bits before it in its row), rowp[rows_cap][4]
+// (the row pass), tile[32][4] (the output words).
+__global__ void __launch_bounds__(kMorphThreads, 2) box_morph_kernel(MorphParams p) {
+  extern __shared__ unsigned morph_smem[];
+  const int sw = p.sw;
+  unsigned* bits = morph_smem;
+  unsigned* pre = bits + p.rows_cap * sw;
+  unsigned* rowp = pre + p.rows_cap * sw;
+  unsigned* tile = rowp + p.rows_cap * kMorphWords;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const bool want = !p.erode;  // the value looked for
-  long long last_row = -1;     // the last source row whose row window held it, down this column
-  unsigned bits = 0;           // output rows of the tile whose window held it
-  for (long long y = ys; y <= ye; ++y) {
-    bool held = false;
-    int carry = -1;
-    for (long long cs = 0; cs <= s_end - s0; cs += kMorphCols) {
-      const long long c = cs + t;
-      int v = -1;
-      if (c <= s_end - s0 && (p.src[y * p.sy + (c + s0) * p.sx] != 0) == want) v = static_cast<int>(c);
-      // Inclusive max-scan over the block, on top of the carry.
+  const long long X0 = static_cast<long long>(blockIdx.x) * kMorphCols;
+  // The source columns the tile's windows reach, clipped to the source, are
+  // staged from sb, a multiple of 32.  In the row pass warp w takes output
+  // word j = w % 4 of every fourth staged row: its lane's window, [X + dx0,
+  // X + dx1] for X = X0 + 32 j + lane, in staged bits [a, b), clamped to
+  // the staged words (outside them the source holds none).
+  const long long sb = max(X0 + p.dx0, 0LL) & ~31LL, q_max = 32LL * (sw - 1);
+  const int j = warp % kMorphWords;
+  const long long X = X0 + 32 * j + lane;
+  const int a = static_cast<int>(min(max(X + p.dx0 - sb, 0LL), q_max));
+  const int b = static_cast<int>(min(max(X + p.dx1 + 1 - sb, 0LL), q_max));
+  const unsigned below_a = (1u << (a & 31)) - 1u, below_b = (1u << (b & 31)) - 1u;
+  // The column pass in 32-bit arithmetic: Ly < 2^31 (the output's rows).
+  const unsigned Ly = static_cast<unsigned>(p.dy1 - p.dy0), n = Ly + 1;
+  const unsigned i = lane, end_i = i - i % n + n - 1, end_31 = 31 - 31 % n + n - 1, before = (Ly + i) % n;
+  for (long long Y0 = static_cast<long long>(blockIdx.y) * p.tile_rows; Y0 < p.H;
+       Y0 += static_cast<long long>(gridDim.y) * p.tile_rows) {
+    // Window row s of the tile (s in [0, tile_rows + Ly)) is source row r0 + s;
+    // those inside the source, [lo, hi], are staged.
+    const long long r0 = Y0 + p.dy0;
+    const long long lo = max(0LL, -r0), hi = min(p.tile_rows + static_cast<long long>(Ly) - 1, p.h - 1 - r0);
+    const int held = hi >= lo ? static_cast<int>(hi - lo + 1) : 0;
+    stage(p, bits, held, r0 + lo, sb, want, lane, warp);
+    __syncthreads();
+    for (int r = threadIdx.x; r < held; r += kMorphThreads) {
+      unsigned count = 0;
+      for (int k = 0; k < sw; ++k) {
+        pre[r * sw + k] = count;
+        count += __popc(bits[r * sw + k]);
+      }
+    }
+    __syncthreads();
+    // Row pass: "a v in the window" is a difference of the counts of set bits before its ends.
+    for (int r = warp / kMorphWords; r < held; r += kMorphWarps / kMorphWords) {
+      const unsigned* br = bits + r * sw;
+      const unsigned* pr = pre + r * sw;
+      const unsigned before_b = pr[b >> 5] + __popc(br[b >> 5] & below_b);
+      const unsigned before_a = pr[a >> 5] + __popc(br[a >> 5] & below_a);
+      const unsigned word = __ballot_sync(kAll, before_b > before_a);
+      if (lane == 0) rowp[r * kMorphWords + j] = word;
+    }
+    __syncthreads();
+    // Column pass, van Herk / Gil-Werman: warp j takes column word j, lane i
+    // output row i, whose window is rows [i, i + Ly] = the suffix of i's
+    // block of n rows (from i to the block's end) and the prefix of the next
+    // block (up to i + Ly).  Both are segmented scans across lanes; rows of
+    // lane 31's block past row 31 are ORed in by the whole warp.
+    if (warp < kMorphWords) {
+      const auto row = [&](long long s) { return s >= lo && s <= hi ? rowp[(s - lo) * kMorphWords + warp] : 0u; };
+      unsigned suffix = row(i);
+#pragma unroll
+      for (unsigned d = 1; d < 32; d *= 2) {
+        const unsigned t = __shfl_down_sync(kAll, suffix, d);
+        if (i + d < 32 && i + d <= end_i) suffix |= t;
+      }
+      unsigned rest = 0;
+      for (long long s = max(32LL, lo) + i; s <= min(static_cast<long long>(end_31), hi); s += 32) {
+        rest |= rowp[(s - lo) * kMorphWords + warp];
+      }
+      rest = __reduce_or_sync(kAll, rest);
+      if (end_i == end_31) suffix |= rest;
+      unsigned prefix = row(static_cast<long long>(Ly) + i);
+#pragma unroll
+      for (unsigned d = 1; d < 32; d *= 2) {
+        const unsigned t = __shfl_up_sync(kAll, prefix, d);
+        if (i >= d && d <= before) prefix |= t;
+      }
+      const unsigned v = i % n == 0 ? suffix : suffix | prefix;
+      if (p.out != nullptr) {
+        tile[i * kMorphWords + warp] = v;
+      } else if (i < static_cast<unsigned>(p.tile_rows) && Y0 + i < p.H && X0 / 32 + warp < p.ww) {
+        p.words[(Y0 + i) * p.ww + X0 / 32 + warp] = v;
+      }
+    }
+    __syncthreads();
+    if (p.out == nullptr) continue;
+    // 4 output bytes a lane, a warp a row.
+    for (int y = warp; y < kMorphRows; y += kMorphWarps) {
+      const long long Y = Y0 + y, Xo = X0 + 4 * lane;
+      if (Y >= p.H || Xo >= p.W) continue;
+      unsigned nib = (tile[y * kMorphWords + lane / 8] >> (4 * (lane % 8))) & 0xfu;
+      if (p.erode) nib = ~nib & interior(p, Y, Xo, 4);
+      unsigned char* o = p.out + Y * p.W + Xo;
+      if (p.wvec && Xo + 4 <= p.W) {
+        *reinterpret_cast<unsigned*>(o) = bytes_of(nib);
+      } else {
+        for (int e = 0; Xo + e < p.W && e < 4; ++e) o[e] = (nib >> e) & 1u;
+      }
+    }
+  }
+}
+
+// The second route's column pass over the row pass's bit plane: warp (c,
+// b) takes column word c and the output rows Y = b n + t, t < n, whose
+// windows start in van Herk block b of window rows (source row Y + dy0).
+// Its lanes take 32 rows at a time: block b + 1's prefixes by an OR scan
+// across lanes with the chunk before's carry, into `scratch`; then block
+// b's suffixes from its end, each output row's the OR of the two.  O(1) a
+// cell whatever the radius.
+__global__ void __launch_bounds__(kMorphColsWarps * 32) box_morph_cols_kernel(MorphParams p) {
+  const unsigned* __restrict__ words = p.words;
+  unsigned* __restrict__ scratch = p.scratch;
+  unsigned char* __restrict__ out = p.out;
+  const long long n = p.dy1 - p.dy0 + 1, blocks = (p.H + n - 1) / n;
+  const long long id = static_cast<long long>(blockIdx.x) * kMorphColsWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (id >= blocks * p.ww) return;
+  const int c = static_cast<int>(id % p.ww);
+  const long long Yb = id / p.ww * n, s0 = Yb + p.dy0;  // the block's first output row, its window's first row
+  const auto row = [&](long long s) { return s >= 0 && s < p.h ? words[s * p.ww + c] : 0u; };
+  // 4 chunks of 32 rows a lane's loads in flight before the scans use them.
+  unsigned carry = 0;
+  for (long long t0 = 1; t0 < n && Yb + t0 < p.H; t0 += 4 * 32) {
+    unsigned v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long t = t0 + 32 * q + lane;  // output row Yb + t: the prefix of rows s0 + n .. s0 + n + t - 1
+      v[q] = t < n ? row(s0 + n + t - 1) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long t = t0 + 32 * q + lane;
 #pragma unroll
       for (int d = 1; d < 32; d *= 2) {
-        const int o = __shfl_up_sync(0xffffffffu, v, d);
-        if (lane >= d) v = max(v, o);
+        const unsigned o = __shfl_up_sync(kAll, v[q], d);
+        if (lane >= d) v[q] |= o;
       }
-      if (lane == 31) warp_max[warp] = v;
-      __syncthreads();
-      for (int k = 0; k < warp; ++k) v = max(v, warp_max[k]);
-      v = max(v, carry);
-      last_col[t] = v;
-      __syncthreads();
-      if (b >= cs && b < cs + kMorphCols && b >= a) held = last_col[b - cs] >= a;
-      carry = last_col[kMorphCols - 1];
-      __syncthreads();
-    }
-    if (held) last_row = y;
-    // Output rows whose window's (clipped) last row is y.
-    const long long first = max(Y0, y - p.dy1);
-    const long long final_ = min(Y0 + kMorphRows - 1, y == p.h - 1 ? Y0 + kMorphRows - 1 : y - p.dy1);
-    for (long long Y = first; Y <= final_; ++Y) {
-      if (last_row >= max(Y + p.dy0, ys)) bits |= 1u << (Y - Y0);
+      v[q] |= carry;
+      if (t < n && Yb + t < p.H) scratch[(Yb + t) * p.ww + c] = v[q];
+      carry = __shfl_sync(kAll, v[q], 31);
     }
   }
-  if (X >= p.W) return;
-  for (int k = 0; k < kMorphRows && Y0 + k < p.H; ++k) {
-    const long long Y = Y0 + k;
-    bool v = (bits >> k) & 1u;
-    if (p.erode) v = !v && Y >= p.ry && Y < p.h - p.ry && X >= p.rx && X < p.w - p.rx;
-    p.out[Y * p.W + X] = v;
+  __syncwarp();
+  const long long X = 32LL * c;
+  carry = 0;
+  for (long long t1 = n - 1; t1 >= 0; t1 -= 4 * 32) {
+    unsigned v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long t = t1 - 32 * q - lane;  // output row Yb + t: the suffix of rows s0 + t .. s0 + n - 1
+      v[q] = t >= 0 ? row(s0 + t) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const unsigned o = __shfl_up_sync(kAll, v[q], d);
+        if (lane >= d) v[q] |= o;
+      }
+      v[q] |= carry;
+      carry = __shfl_sync(kAll, v[q], 31);
+      const long long t = t1 - 32 * q - lane, Y = Yb + t;
+      if (t < 0 || Y >= p.H) continue;
+      unsigned w = t > 0 ? v[q] | scratch[Y * p.ww + c] : v[q];
+      if (p.erode) w = ~w & interior(p, Y, X, 32);
+      unsigned char* o = out + Y * p.W + X;
+      if (p.wvec && X + 32 <= p.W) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) reinterpret_cast<unsigned*>(o)[e] = bytes_of((w >> (4 * e)) & 0xfu);
+      } else {
+        for (int e = 0; X + e < p.W && e < 32; ++e) o[e] = (w >> e) & 1u;
+      }
+    }
   }
+}
+
+MorphParams morph_params(const long long* geom, const void* src, void* out, void* words, void* scratch) {
+  MorphParams p;
+  p.src = static_cast<const unsigned char*>(src);
+  p.h = static_cast<int>(geom[0]);
+  p.w = static_cast<int>(geom[1]);
+  p.sy = geom[2];
+  p.sx = geom[3];
+  p.H = static_cast<int>(geom[4]);
+  p.W = static_cast<int>(geom[5]);
+  p.dx0 = geom[6];
+  p.dx1 = geom[7];
+  p.dy0 = geom[8];
+  p.dy1 = geom[9];
+  p.erode = static_cast<int>(geom[10]);
+  p.rx = geom[11];
+  p.ry = geom[12];
+  p.vec = static_cast<int>(geom[13]);
+  p.tile_rows = static_cast<int>(geom[14]);
+  p.rows_cap = static_cast<int>(geom[15]);
+  p.sw = static_cast<int>(geom[16]);
+  p.ww = static_cast<int>(geom[17]);
+  p.out = static_cast<unsigned char*>(out);
+  p.words = static_cast<unsigned*>(words);
+  p.scratch = static_cast<unsigned*>(scratch);
+  p.wvec = p.W % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  return p;
+}
+
+// Lets box_morph_kernel take up to kMorphSmemMax bytes of dynamic shared
+// memory on the current device (by default 48 KB), once a device.
+constexpr int kMaxDevices = 64;
+
+cudaError_t allow_morph_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess || (device < kMaxDevices && done[device].load(std::memory_order_acquire))) return rc;
+  rc = cudaFuncSetAttribute(box_morph_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMorphSmemMax);
+  if (rc == cudaSuccess && device < kMaxDevices) done[device].store(true, std::memory_order_release);
+  return rc;
 }
 
 }  // namespace
 
 // Each entry launches on `stream` and returns cudaGetLastError().
 //
-// caf: geom holds h, w, op, then for each of a, b and the composed plane c
-// (y0, x0, h, w, msy, msx, rsy, rsx, rsc, vec); a plane of height 0 is
-// absent.  out_rgba and out_mask null: f alone.
+// caf: geom holds h, w, op, one_trip, then for each of a, b and the composed
+// plane c (y0, x0, h, w, msy, msx, rsy, rsx, rsc, vec); a plane of height 0
+// is absent.  out_rgba and out_mask null: f alone.
 extern "C" int caf(const long long* geom, const void* ma, const void* ra, const void* mb, const void* rb,
                    const void* rc, void* out_rgba, void* out_mask, void* out_f, void* stream) {
   CafParams p;
@@ -318,7 +618,7 @@ extern "C" int caf(const long long* geom, const void* ma, const void* ra, const 
   const void* masks[3] = {ma, mb, nullptr};
   const void* colours[3] = {ra, rb, rc};
   for (int k = 0; k < 3; ++k) {
-    const long long* g = geom + 3 + 10 * k;
+    const long long* g = geom + 4 + 10 * k;
     Plane& q = *planes[k];
     q.mask = static_cast<const unsigned char*>(masks[k]);
     q.rgba = static_cast<const int*>(colours[k]);
@@ -336,9 +636,8 @@ extern "C" int caf(const long long* geom, const void* ma, const void* ra, const 
   p.out_rgba = static_cast<int4*>(out_rgba);
   p.out_mask = static_cast<unsigned char*>(out_mask);
   p.out_f = static_cast<unsigned char*>(out_f);
-  const dim3 grid((p.w + kCafThreads - 1) / kCafThreads, p.h < kCafRowsMax ? p.h : kCafRowsMax);
-  caf_kernel<<<grid, kCafThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return geom[3] ? launch_caf<true>(p, st) : launch_caf<false>(p, st);
 }
 
 // tight_bounds: `scratch` holds 4 * tight_bounds_max_blocks() + 1 int32, the
@@ -352,26 +651,35 @@ extern "C" int tight_bounds(const void* mask, long long sy, long long sx, int h,
 
 extern "C" int tight_bounds_max_blocks() { return kTbMaxBlocks; }
 
-// box_morph: geom holds h, w, sy, sx, H, W, dx0, dx1, dy0, dy1, erode, rx, ry.
-extern "C" int box_morph(const long long* geom, const void* src, void* out, void* stream) {
-  MorphParams p;
-  p.src = static_cast<const unsigned char*>(src);
-  p.h = static_cast<int>(geom[0]);
-  p.w = static_cast<int>(geom[1]);
-  p.sy = geom[2];
-  p.sx = geom[3];
-  p.out = static_cast<unsigned char*>(out);
-  p.H = static_cast<int>(geom[4]);
-  p.W = static_cast<int>(geom[5]);
-  p.dx0 = geom[6];
-  p.dx1 = geom[7];
-  p.dy0 = geom[8];
-  p.dy1 = geom[9];
-  p.erode = static_cast<int>(geom[10]);
-  p.rx = geom[11];
-  p.ry = geom[12];
-  const dim3 grid((p.W + kMorphCols - 1) / kMorphCols, (p.H + kMorphRows - 1) / kMorphRows);
-  if (grid.y > kMorphRowsMax) return static_cast<int>(cudaErrorInvalidValue);
-  box_morph_kernel<<<grid, kMorphCols, 0, static_cast<cudaStream_t>(stream)>>>(p);
+// box_morph: geom holds h, w, sy, sx, H, W, dx0, dx1, dy0, dy1, erode, rx,
+// ry, vec, tile_rows, rows_cap, sw, ww; `smem` the launch's dynamic shared
+// memory.  With `out`: the staged route's one launch into the bool (H, W)
+// `out`; else the second route's row pass into the (H, ww) bit plane
+// `words` (H = h, dy0 = dy1 = 0).
+extern "C" int box_morph(const long long* geom, const void* src, void* out, void* words, int smem, void* stream) {
+  const MorphParams p = morph_params(geom, src, out, words, nullptr);
+  if (smem < 0 || smem > kMorphSmemMax || p.tile_rows < 1 || p.tile_rows > kMorphRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = allow_morph_smem();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const long long tiles = (p.H + p.tile_rows - 1LL) / p.tile_rows;
+  const dim3 grid(static_cast<unsigned>((p.W + kMorphCols - 1LL) / kMorphCols),
+                  static_cast<unsigned>(tiles < kMorphTilesMax ? tiles : kMorphTilesMax));
+  box_morph_kernel<<<grid, kMorphThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// box_morph_cols: the second route's column pass, geom as box_morph's with
+// the output's H and window rows, from the bit plane `words` through the
+// (H, ww) `scratch` into the bool (H, W) `out`.
+extern "C" int box_morph_cols(const long long* geom, const void* words, void* scratch, void* out, void* stream) {
+  MorphParams p = morph_params(geom, nullptr, out, const_cast<void*>(words), scratch);
+  const long long n = p.dy1 - p.dy0 + 1, warps = (p.H + n - 1) / n * p.ww;
+  const long long blocks = (warps + kMorphColsWarps - 1) / kMorphColsWarps;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  box_morph_cols_kernel<<<static_cast<unsigned>(blocks), kMorphColsWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2656,6 +2656,28 @@ def caf_sprite(device, seed: int, place, layout: str):
     return region.Sprite(box, mask_t[:h, :w].contiguous(), rgba_t[:h, :w].contiguous())
 
 
+WORDS_LAYOUTS = ("dense", "rows16", "strided", "expanded")
+
+
+def words_case(device, layout: str, width: int, column: int, offset: int):
+    """A 5-row sprite of `width` columns whose box starts at column 100 +
+    `offset` (a caf operand beside one at column 100: its offset in the
+    union box), its mask laid out as `layout`: "dense" (contiguous),
+    "rows16" (a view from `column` of a mask whose rows are 16 bytes
+    apart), "strided" (every other column), "expanded" (one row from
+    `column`, strides (0, 1)); its RGBA contiguous."""
+    from coherence_tpu_torch.raster import region
+
+    rng = np.random.default_rng(width * 31 + column)
+    base = torch.from_numpy(rng.random((5, 32)) < 0.6).to(device)
+    mask = {"dense": lambda: base[:, :width].contiguous(),
+            "rows16": lambda: base[:, :16].contiguous()[:, column : column + width],
+            "strided": lambda: base[:, column : column + 2 * width : 2],
+            "expanded": lambda: base[0].contiguous()[column : column + width][None, :].expand(5, width)}[layout]()
+    rgba = torch.where(mask[..., None], torch.tensor([10, 20, 30, 255], dtype=torch.int32, device=device), 0)
+    return region.Sprite((100 + offset, 7, 100 + offset + width - 1, 11), mask, rgba.contiguous())
+
+
 def assert_same_caf(got, want, what: str):
     (gs, gf), (ws, wf) = got, want
     assert (gs is None) == (ws is None) and (gf is None) == (wf is None), what
@@ -2689,6 +2711,50 @@ def test_caf_matches_plain(cuda_device, op, place):
                     got = region.caf(name, "opaque", x, y)
                     assert kernels.launches["caf"] == before + 1
                     assert_same_caf(got, region.caf_torch(name, "opaque", x, y), f"{name} {place} {la} {lb}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", WORDS_LAYOUTS)
+def test_caf_tails_and_alignments_match_plain(cuda_device, monkeypatch, layout):
+    """CF1 against caf_torch on the card at union widths 1-9 (a block's
+    last columns), operand offsets 0-3 in the union box, mask columns 0-3
+    bytes into their rows, dense, as views, strided and expanded
+    (words_case); both orders, built-in and registered operators, one
+    operand; both ways of reading the colours."""
+    from coherence_tpu_torch.raster import region
+
+    caf_registered()
+    b = caf_sprite(cuda_device, 4, (100, 7, 12, 5), "dense")
+    for limit in (kernels.CAF_ONE_TRIP_PIXELS, 0):
+        monkeypatch.setattr(kernels, "CAF_ONE_TRIP_PIXELS", limit)
+        for width in range(1, 10):
+            for column in range(4):
+                for offset in range(4):
+                    a = words_case(cuda_device, layout, width, column, offset)
+                    for op in ("over", "plus", "cpg_eor"):
+                        for x, y in ((a, b), (b, a), (a, None)):
+                            assert_same_caf(region.caf(op, "opaque", x, y), region.caf_torch(op, "opaque", x, y),
+                                            f"{op} {layout} {width} {column} {offset} {limit}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("place", list(CAF_PLACES))
+def test_caf_after_the_masks_matches_plain(cuda_device, monkeypatch, place):
+    """CF1 reading its colours after the masks, only where the result takes
+    them (the way of union boxes past CAF_ONE_TRIP_PIXELS, here forced at
+    every size), against caf_torch: test_caf_matches_plain's operators,
+    places and layouts."""
+    from coherence_tpu_torch.raster import region
+
+    monkeypatch.setattr(kernels, "CAF_ONE_TRIP_PIXELS", 0)
+    for name in [*CAF_BUILTIN, *caf_registered()]:
+        for la in CAF_LAYOUTS:
+            for lb in CAF_LAYOUTS:
+                a = caf_sprite(cuda_device, 1, (5, 7, 40, 23), la)
+                b = caf_sprite(cuda_device, 2, CAF_PLACES[place], lb)
+                for x, y in ((a, b), (b, a), (a, None), (None, b)):
+                    assert_same_caf(region.caf(name, "opaque", x, y), region.caf_torch(name, "opaque", x, y),
+                                    f"{name} {place} {la} {lb}")
 
 
 @pytest.mark.cuda
@@ -2809,25 +2875,75 @@ def morph_masks(device):
            "filters_125x129": rng.random((129, 125)) < 0.9, "wide_1x300": rng.random((1, 300)) < 0.1}
     out = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
     out["view"] = torch.from_numpy(rng.random((60, 300)) < 0.4).to(device)[5:50, 7:290:2]
+    wide = torch.from_numpy(rng.random((40, 260)) < 0.3).to(device)
+    out["rows_on_4_bytes"] = wide[:33, :200]  # 4 source bytes a lane
+    out["rows_off_4_bytes"] = wide[2:35, 3:203]  # contiguous rows, not on 4 bytes
+    out["transposed"] = wide[:, :37].t()
     return out
+
+
+def _random_mask(shape, density: float, rx: int, ry: int, seed: int):
+    return lambda device: (torch.from_numpy(np.random.default_rng(seed).random(shape) < density).to(device), rx, ry)
+
+
+def _chip_smoke_second_route(device):
+    import chip_smoke
+
+    return chip_smoke.morph_second_route(torch, device)[0]
+
+
+# name -> fn(device) -> (mask, rx, ry) past MR1's staged route: a tall mask
+# at ry = 20000, a wide one at rx = 3000, one whose 32 rows' reach is past a
+# block's shared memory (1 row a row-pass block), and
+# chip_smoke.MORPH_SECOND_ROUTE's.
+MORPH_SECOND_ROUTE_CASES = {"tall_ry20000": _random_mask((30000, 3), 0.0005, 0, 20000, 1),
+                            "wide_rx3000": _random_mask((40, 7000), 0.002, 3000, 1, 2),
+                            "one_row_tiles": _random_mask((33, 29500), 0.0003, 14750, 0, 3),
+                            "chip_smoke": _chip_smoke_second_route}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("radii", MORPH_RADII, ids=[f"rx{a}ry{b}" for a, b in MORPH_RADII])
 def test_box_morph_matches_plain(cuda_device, radii):
     """MR1 against dilate_torch and erode_torch on the card, both modes,
-    at every mask of morph_masks, radii 0 on one axis and past the box."""
+    at every mask of morph_masks (strided, transposed, rows on 4 bytes and
+    off them), radii 0 on one axis and past the box: the staged route, one
+    counted launch a call."""
     from coherence_tpu_torch.raster import region
 
     rx, ry = radii
     for name, m in morph_masks(cuda_device).items():
+        before = kernels.launches["box_morph"]
         assert torch.equal(kernels.box_morph(m, rx, ry, erode=False), region.dilate_torch(m, rx, ry)), f"bloat {name}"
         assert torch.equal(kernels.box_morph(m, rx, ry, erode=True), region.erode_torch(m, rx, ry)), f"erode {name}"
+        assert kernels.launches["box_morph"] == before + 2
         s = region.Shape((3, 5, 3 + m.shape[1] - 1, 5 + m.shape[0] - 1), m)
         cpu = region.Shape(s.box, m.cpu())
         for fn in (region.bloat, region.erode):
             got, want = fn(rx, ry, s), fn(rx, ry, cpu)
             assert got.box == want.box and torch.equal(got.mask.cpu(), want.mask), f"{fn.__name__} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MORPH_SECOND_ROUTE_CASES))
+def test_box_morph_second_route_matches_plain(cuda_device, case):
+    """MR1's second route (a row-pass launch into a bit plane, then the
+    column-pass launch: two counted launches) against dilate_torch and
+    erode_torch on the card, both modes, at MORPH_SECOND_ROUTE_CASES, and
+    on a strided view of the same mask."""
+    from coherence_tpu_torch.raster import region
+
+    mask, rx, ry = MORPH_SECOND_ROUTE_CASES[case](cuda_device)
+    wider = torch.zeros((mask.shape[0], 2 * mask.shape[1] + 1), dtype=torch.bool, device=cuda_device)
+    wider[:, 1::2] = mask
+    for m in (mask, wider[:, 1::2]):
+        for erode in (False, True):
+            assert kernels.box_morph_route(*m.shape, rx, ry, erode).launches == 2
+            before = kernels.launches["box_morph"]
+            got = kernels.box_morph(m, rx, ry, erode=erode)
+            assert kernels.launches["box_morph"] == before + 2
+            want = (region.erode_torch if erode else region.dilate_torch)(m, rx, ry)
+            assert torch.equal(got, want), f"{case} erode={erode} strides {m.stride()}"
 
 
 def convolve_masks(device, h: int, w: int):
@@ -2924,6 +3040,8 @@ def test_region_kernels_reject_bad_input(cuda_device, monkeypatch):
         lambda: kernels.tight_bounds(m.to(torch.uint8)),
         lambda: kernels.box_morph(m.cpu(), 1, 1, erode=False),
         lambda: kernels.box_morph(m, -1, 1, erode=True),
+        lambda: kernels.box_morph(torch.ones((1, 10**6), dtype=torch.bool, device=cuda_device), 5 * 10**5, 0,
+                                  erode=False),
         lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.cpu(), m.cpu()),
         lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.transpose(0, 1).contiguous().transpose(0, 1), m),
         lambda: kernels.convolve_canvas("xy", (1, 2, 1), 4, 1, rgba.float(), m),
