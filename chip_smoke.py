@@ -1884,7 +1884,7 @@ def recorded_region_calls():
     """Inside, every call of the card routes of the region programs
     appends its arguments to the yielded dict's list of its kernel, then
     runs as before: region._caf_card (op, pred, a, b), kernels.tight_bounds
-    (mask), kernels.box_morph (mask, rx, ry, erode) and
+    (mask, word), kernels.box_morph (mask, rx, ry, erode) and
     kernels.convolve_canvas (kind, weights, total, radius, canvas, mask)."""
     from coherence_tpu_torch import kernels
     from coherence_tpu_torch.raster import region
@@ -2028,15 +2028,44 @@ def morph_timed_calls(torch, dev, calls) -> list:
     return out + [morph_second_route(torch, dev)]
 
 
+def bounds_ticket_mask(torch, dev):
+    """TB1's synthetic mask, on its ticket route over 270 blocks: a 3840 x
+    2160 window's mask (config 5's frame) with 40 cells set (seed 24)."""
+    import numpy as np
+
+    rng = np.random.default_rng(24)
+    m = np.zeros((2160, 3840), bool)
+    m[rng.integers(0, 2160, 40), rng.integers(0, 3840, 40)] = True
+    return torch.from_numpy(m).to(dev)
+
+
+# CV1's radius past the staged route's shared memory: its second route, the two passes.
+CONV_SECOND_RADIUS = 23
+
+
+def conv_second_route(torch, dev, recorded) -> tuple:
+    """CV1's arguments on its second route: mkgaussian(CONV_SECOND_RADIUS)
+    over the canvas and mask of the smallest recorded convolve (the frame's
+    incremental one)."""
+    from coherence_tpu_torch.raster import convolve
+
+    args = min((a for a, _ in recorded), key=lambda a: a[4].shape[0] * a[4].shape[1])
+    return convolve.card_kernel(convolve.mkgaussian(CONV_SECOND_RADIUS)) + tuple(args[4:])
+
+
 def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
     """CF1, TB1, MR1 and CV1 at general_filters' calls (region_inputs), each
     held bit for bit to its plain version on the card at every recorded
     call, then timed (region_row) at the frame's shapes: caf at the last
     frame over a white 1920 x 1080 window (frame_path's final caf), the
     largest caf of two operands and the median caf; the largest and the
-    median tight_bounds mask; each distinct bloat and erosion; the frames'
-    convolves and config 4's 1088 x 1920 one.  Uncounted.  Returns the
-    kernels line's rows by kernel."""
+    median tight_bounds mask (on the ticket and one-block routes) and
+    bounds_ticket_mask's (270 blocks of the ticket route), each also through
+    region._tight_bounds (the mapped host word, its host ms); each distinct
+    bloat and erosion; the frames' convolves and config 4's 1088 x 1920 one
+    (the staged route) and conv_second_route's (the two passes).  Each row
+    names its route.  Uncounted.  Returns the kernels line's rows by
+    kernel."""
     from coherence_tpu_torch.raster import convolve, region
 
     F = torch.nn.functional
@@ -2051,7 +2080,7 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
             got, want = region._caf_card(op, pred, a, b), region.caf_torch(op, pred, a, b)
             require(same_caf(torch, got, want), f"caf {op} over {a and a.box} and {b and b.box} differs from its plain version")
             errs["caf"] = max(errs["caf"], max_abs_err(got[0].rgba, want[0].rgba))
-        for (mask,), _ in calls["tight_bounds"]:
+        for (mask, *_), _ in calls["tight_bounds"]:  # (mask, the mapped word) as region._tight_bounds calls it
             got, want = tuple(kernels.tight_bounds(mask).tolist()), region._tight_bounds_torch(mask)
             require(got == want, f"tight_bounds of a {tuple(mask.shape)} mask differs from its plain version")
             errs["tight_bounds"] = max([errs["tight_bounds"]] + [abs(g - w) for g, w in zip(got, want)])
@@ -2083,10 +2112,15 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
                 region_bound(torch, reads, (18 if both else 1) * h * w), op=op, union=[h, w],
                 operands=[list(s.box) for s in (a, b) if s is not None]))
         masks = sorted((c[0][0] for c in calls["tight_bounds"]), key=lambda m: m.numel())
-        for mask in (masks[-1], masks[len(masks) // 2]):
+        for mask, synthetic in ((masks[-1], False), (masks[len(masks) // 2], False), (bounds_ticket_mask(torch, dev), True)):
+            got, want = tuple(kernels.tight_bounds(mask).tolist()), region._tight_bounds_torch(mask)
+            require(got == want and region._tight_bounds(mask) == want,
+                    f"tight_bounds of a {tuple(mask.shape)} mask differs from its plain version")
+            route = kernels.tight_bounds_route(*mask.shape, *mask.stride())
             rows["tight_bounds"].append(region_row(
                 torch, scrub, lambda: kernels.tight_bounds(mask), lambda: region._tight_bounds_torch(mask),
-                region_bound(torch, [mask], 16), mask=list(mask.shape)))
+                region_bound(torch, [mask], 16), mask=list(mask.shape), route=route._asdict(), synthetic=synthetic,
+                readback_host_ms=fold_host_ms(torch, lambda: region._tight_bounds(mask))))
         for (mask, rx, ry), kw in morph_timed_calls(torch, dev, calls):
             out = kernels.box_morph(mask, rx, ry, **kw)
             plain = region.erode_torch if kw["erode"] else region.dilate_torch
@@ -2105,17 +2139,22 @@ def region_kernels(torch, dev, kernels, scrub, floor_ms: float) -> dict:
                 region_bound(torch, [mask], out.numel()), library, mode="erode" if kw["erode"] else "bloat",
                 mask=list(mask.shape), radii=[rx, ry], out=list(out.shape), route=route,
                 synthetic=tuple(mask.shape) == MORPH_SECOND_ROUTE["shape"]))
-        for args, _ in conv_calls:
+        second = conv_second_route(torch, dev, calls["convolve_canvas"])
+        got, want = kernels.convolve_canvas(*second), convolve.convolve_canvas_torch(conv_kernel(*second[:4]), *second[4:])
+        require(torch.equal(got, want), f"convolve_canvas at r = {second[3]} differs from its plain version")
+        errs["convolve_canvas"] = max(errs["convolve_canvas"], max_abs_err(got, want))
+        for args, _ in conv_calls + [(second, {"synthetic": True})]:
             kind, weights, total, r, canvas, mask = args
             H, W = canvas.shape[:2]
-            passes = 1 if kind == "full" else 2
+            route = kernels.convolve_route(kind, H, W, r)
             taps = (2 * r + 1) ** 2 if kind == "full" else 2 * (2 * r + 1)
             ops = 2 * 4 * taps * int(mask[:H, :W].sum())  # a multiply-add a tap and channel at each masked pixel
             rows["convolve_canvas"].append(region_row(
                 torch, scrub, lambda: kernels.convolve_canvas(*args),
                 lambda: convolve.convolve_canvas_torch(conv_kernel(*args[:4]), canvas, mask),
                 region_bound(torch, [canvas, mask[:H, :W]], 16 * H * W, ops), kind=kind, radius=r,
-                canvas=[H, W], passes=passes))
+                canvas=[H, W], route={**route._asdict(), "launches": route.launches},
+                synthetic=args is second))
         return counts, rows, errs
 
     counts, rows, errs = uncounted(kernels, run)
@@ -2842,8 +2881,10 @@ def convolve_frame(torch, dev):
 def convolve_1080p(torch, dev, kernels):
     """Config 4 as benchmarks/run.py defines it: a random premultiplied
     1088 x 1920 frame, mkgaussian(5) over the whole frame, 30 chained
-    calls, each two launches of convolve_canvas (CV1), counted from zero;
-    the first call against the CPU's.  Returns the launch counts."""
+    calls, each the launches of convolve_canvas (CV1) that
+    kernels.convolve_route gives (one, the staged route) and no other,
+    counted from zero; the first call against the CPU's.  Returns the
+    launch counts."""
     from coherence_tpu_torch.raster import convolve
 
     frame, frame_np = convolve_frame(torch, dev)
@@ -2860,14 +2901,18 @@ def convolve_1080p(torch, dev, kernels):
 
     ms, host_s = timed_frames(torch, call, CONV_CALLS)
     counts = dict(kernels.launches)
-    require(counts["convolve_canvas"] == 2 * (CONV_CALLS + 1) and sum(counts.values()) == counts["convolve_canvas"],
-            f"convolve_1080p: not two convolve_canvas launches a call and nothing else: {counts}")
+    route = kernels.convolve_route("xy", CONV_H, CONV_W, kernel.radius)
+    require(counts["convolve_canvas"] == route.launches * (CONV_CALLS + 1)
+            and sum(counts.values()) == counts["convolve_canvas"],
+            f"convolve_1080p: not the {route.launches} convolve_canvas launches of its route a call and nothing else: "
+            f"{counts}")
     require(bool(((state["x"] >= 0) & (state["x"] <= 255)).all()), "convolve_1080p: a channel left 0..255")
     # Each input read once, the output written once: the int32 frame twice and the mask.
     nbytes = 2 * frame.numel() * 4 + mask.numel()
     emit({"phase": "convolve_1080p", "shape": [CONV_H, CONV_W], "radius": BLUR_RADIUS, "calls": CONV_CALLS,
           **frame_stats(ms), "host_ms_per_call": host_s / CONV_CALLS * 1e3, "bytes": nbytes,
           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "launches": counts["convolve_canvas"],
+          "route": {**route._asdict(), "launches": route.launches},
           "equal": {"tolerance": 0, "cpu_first_call": True}})
     return counts
 
@@ -4578,11 +4623,12 @@ def ptxas_info(log: str, function: str):
         m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", ln)
         if m:
             name = m.group(1) or m.group(2)
-            short = re.search(r"([a-z_]+_kernel)(?:ILb([01])E)?", name)
+            short = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", name)
             current = None
-            if function in name and short:  # a template's instantiations apart: caf_kernel<true>, caf_kernel<false>
-                flag = short.group(2)
-                current = short.group(1) + ("" if flag is None else "<true>" if flag == "1" else "<false>")
+            if function in name and short:  # a template's instantiations apart: caf_kernel<true>, ..<0,1>
+                args = re.findall(r"L([ib])(\d+)E", short.group(2) or "")
+                shown = [("true" if v == "1" else "false") if t == "b" else v for t, v in args]
+                current = short.group(1) + (f"<{','.join(shown)}>" if shown else "")
             continue
         if current is None:
             continue
@@ -4823,8 +4869,8 @@ def main() -> int:
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"], "bytes": main_row["bytes"], "share": main_row["share"],
                      "shapes": rows_k})
-        if kname in ("caf", "box_morph"):  # their second designs' registers and static shared memory
-            line[-1]["ptxas"] = ptxas_info(log, f"{kname}_")
+        # the second designs' registers and static shared memory
+        line[-1]["ptxas"] = ptxas_info(log, "convolve_" if kname == "convolve_canvas" else f"{kname}_")
     for row in line:  # an empty kernel's launch, timed as each kernel is: the floor under every time
         row["launch_floor_ms"] = timed["launch_floor_ms"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

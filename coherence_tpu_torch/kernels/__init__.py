@@ -59,14 +59,15 @@ _ENTRY_POINTS = {
     "tile_raster": [_ptr] * 6 + [_i32] * 2 + [_ptr],
     "sprite_raster": [_ptr] * 6 + [_i32] * 3 + [_ptr],
     "caf": [_ptr] * 10,
-    "tight_bounds": [_ptr, _i64, _i64, _i32, _i32, _i32, _ptr, _ptr, _ptr],
+    "tight_bounds": [_ptr] * 5,
     "box_morph": [_ptr] * 4 + [_i32, _ptr],
     "convolve_canvas": [_ptr] * 6,
 }
 
 # entry point -> argument types, of those that launch nothing
 _QUERIES = {"fold_layers_tile": [_i32], "tile_raster_blocks_per_sm": [], "brush_stamp_blocks_per_sm": [_i32] * 2,
-            "sprite_raster_blocks_per_sm": [], "tight_bounds_max_blocks": []}
+            "sprite_raster_blocks_per_sm": [], "mapped_pointer": [_ptr] * 2,
+            "convolve_staged_smem": [_i32]}
 # entry point -> argument types, of those that launch a later pass of a
 # kernel of _ENTRY_POINTS, counted under that kernel's name
 _PASSES = {"box_morph_cols": [_ptr] * 5}
@@ -1364,16 +1365,81 @@ def caf(h: int, w: int, op: int, a: CafPlane, b: Optional[CafPlane] = None, comp
     return f if f_only else (rgba, mask, f)
 
 
-# tight_bounds' partials and ticket, per (device, stream): the ticket is 0
-# when the buffer is made and each launch leaves it 0.
+# tight_bounds' partials and ticket, per (device, stream), for its ticket
+# route: the ticket is 0 when the buffer is made and each launch leaves it
+# 0.
 _bounds_scratch: Dict[tuple, torch.Tensor] = {}
-TIGHT_BOUNDS_CELLS = 256 * 8  # mask cells a thread of a block walks, at most, before a launch takes more blocks
+# A thread's loads a round, all issued before any is used (region_ops.cu
+# kTbLoads); a block's warps; the ticket route's blocks at most
+# (kTbMaxBlocks, the scratch's partials).
+TIGHT_BOUNDS_LOADS = 8
+TIGHT_BOUNDS_WARPS = 8
+TIGHT_BOUNDS_MAX_BLOCKS = 528
+# tight_bounds_route's routes and layouts, as region_ops.cu numbers them.
+BOUNDS_ONE, BOUNDS_TICKET = 0, 1
+BOUNDS_GRANULES, BOUNDS_BYTES = 0, 1
 
 
-def tight_bounds_blocks(h: int, w: int, max_blocks: int) -> int:
-    """tight_bounds' blocks for an h x w mask: one a TIGHT_BOUNDS_CELLS
-    cells, at least one and at most `max_blocks`."""
-    return max(1, min(max_blocks, -(-h * w // TIGHT_BOUNDS_CELLS)))
+class BoundsRoute(NamedTuple):
+    """How tight_bounds runs at a shape: `route` BOUNDS_ONE (one block) or
+    BOUNDS_TICKET (`blocks` blocks and the self-resetting ticket); `layout`
+    BOUNDS_GRANULES (a lane a 16-byte granule of a row) or BOUNDS_BYTES (a
+    lane a cell); `segs` a row's warp segments of 32 units; `rows` a
+    block's rows."""
+
+    route: int
+    layout: int
+    segs: int
+    rows: int
+    blocks: int
+
+
+def tight_bounds_route(h: int, w: int, sy: int, sx: int) -> BoundsRoute:
+    """tight_bounds' route for an h x w mask of element strides (sy, sx),
+    from the shape alone: the granule layout where a row's cells are
+    adjacent and rows do not overlap, else the byte layout; one block where
+    every row fits one round of one block (TIGHT_BOUNDS_WARPS warps, each
+    TIGHT_BOUNDS_LOADS items of a row segment), else the ticket route over
+    blocks of one round each, at most TIGHT_BOUNDS_MAX_BLOCKS of them
+    (their rows a multiple of the warps)."""
+    layout = BOUNDS_GRANULES if sx == 1 and (h == 1 or sy >= w) else BOUNDS_BYTES
+    units = (w + 30) // 16 if layout == BOUNDS_GRANULES else w  # granules a row spans, at most
+    segs = -(-units // 32)
+    warps = TIGHT_BOUNDS_WARPS
+    a_round = warps * max(1, TIGHT_BOUNDS_LOADS // segs)  # a block's rows in one round
+    if h <= a_round:
+        return BoundsRoute(BOUNDS_ONE, layout, segs, h, 1)
+    rows = warps * -(-h // (warps * min(-(-h // a_round), TIGHT_BOUNDS_MAX_BLOCKS)))
+    return BoundsRoute(BOUNDS_TICKET, layout, segs, rows, -(-h // rows))
+
+
+class BoundsWord(NamedTuple):
+    """A pinned int32 (4,) host tensor that tight_bounds writes through
+    `address`, its mapped device address."""
+
+    host: torch.Tensor
+    address: int
+
+
+_bounds_words: Dict[tuple, BoundsWord] = {}
+
+
+def bounds_word(device) -> BoundsWord:
+    """The pinned host word of the CUDA `device`'s current stream and the
+    calling thread, made on first use: tight_bounds writes its result
+    there, so that the caller reads it after a stream synchronize, with no
+    copy issued."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream, threading.get_ident())
+    word = _bounds_words.get(key)
+    if word is None:
+        host = torch.zeros(4, dtype=torch.int32, pin_memory=True)
+        address = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _raise_on("mapped_pointer", load()["mapped_pointer"](host.data_ptr(), ctypes.byref(address)))
+        word = _bounds_words[key] = BoundsWord(host, address.value)
+    return word
 
 
 def _check_bool_plane(what: str, t: torch.Tensor) -> torch.device:
@@ -1384,23 +1450,34 @@ def _check_bool_plane(what: str, t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def tight_bounds(mask: torch.Tensor) -> torch.Tensor:
-    """Launch ``tight_bounds`` (TB1): the int32 (4,) (x0, y0, x1, y1) of the
-    set cells of the bool (h, w) `mask` (any strides) on the card, (w, h,
-    -1, -1) where there is none; the caller reads it back.  The plain
-    version is raster/region.py _tight_bounds_torch."""
+def tight_bounds(mask: torch.Tensor, word: Optional[BoundsWord] = None) -> torch.Tensor:
+    """Launch ``tight_bounds`` (TB1) on the route tight_bounds_route gives:
+    the int32 (4,) (x0, y0, x1, y1) of the set cells of the bool (h, w)
+    `mask` (any strides), (w, h, -1, -1) where there is none.  Without
+    `word` a new tensor on the card, which the caller reads back; with a
+    BoundsWord (bounds_word) the kernel writes its pinned host tensor,
+    returned, which holds the result once the stream has reached it.  The
+    plain version is raster/region.py _tight_bounds_torch."""
     device = _check_bool_plane("tight_bounds", mask)
     h, w = mask.shape
+    sy, sx = mask.stride()
+    route = tight_bounds_route(h, w, sy, sx)
+    if route.layout == BOUNDS_GRANULES and h == 1:
+        sy = w  # the kernel takes a byte's row from its offset over sy
     fns = load()
-    max_blocks = fns["tight_bounds_max_blocks"]()
     stream = torch.cuda.current_stream(device).cuda_stream
-    scratch = _bounds_scratch.get((device, stream))
-    if scratch is None:
-        scratch = _bounds_scratch[device, stream] = torch.zeros(4 * max_blocks + 4, dtype=torch.int32, device=device)
-    out = torch.empty(4, dtype=torch.int32, device=device)
+    scratch = None
+    if route.route == BOUNDS_TICKET:
+        scratch = _bounds_scratch.get((device, stream))
+        if scratch is None:
+            scratch = _bounds_scratch[device, stream] = torch.zeros(4 * TIGHT_BOUNDS_MAX_BLOCKS + 4, dtype=torch.int32,
+                                                                    device=device)
+    out = torch.empty(4, dtype=torch.int32, device=device) if word is None else word.host
+    geom = _as_i64([h, w, sy, sx, route.layout, route.route, route.segs, route.rows, route.blocks])
     with torch.cuda.device(device):
-        rc = fns["tight_bounds"](mask.data_ptr(), *mask.stride(), h, w, tight_bounds_blocks(h, w, max_blocks),
-                                 scratch.data_ptr(), out.data_ptr(), stream)
+        rc = fns["tight_bounds"](ctypes.addressof(geom), mask.data_ptr(),
+                                 None if scratch is None else scratch.data_ptr(),
+                                 out.data_ptr() if word is None else word.address, stream)
     _raise_on("tight_bounds", rc)
     launches["tight_bounds"] += 1
     return out
@@ -1502,15 +1579,20 @@ def box_morph(mask: torch.Tensor, rx: int, ry: int, erode: bool) -> torch.Tensor
     return out
 
 
-# convolve.cu's passes.
-CONV_PASS_X, CONV_PASS_Y, CONV_FULL = 0, 1, 2
+# convolve.cu's modes: the first design's passes and 2D pass, the staged route's one launch.
+CONV_PASS_X, CONV_PASS_Y, CONV_FULL, CONV_STAGED = 0, 1, 2, 3
+# The staged route's output tile (rows, columns) a block, and its shared
+# memory at most: two blocks an SM (radius 22 and under).
+CONV_TILE = (16, 64)
+CONV_SMEM = 113 * 1024
+CONV_ROW_TILES_MAX = 65535
 
 
 def convolve_plan(kind: str, weights, total: int, radius: int) -> tuple:
-    """(passes, weights, total, clamp) of convolve_canvas for a kernel of
-    `kind` ("full": (2r+1)^2 weights row by row, one 2D pass; "xy": 2r+1
-    weights, an x pass and a y pass, each clamped; "unit": every weight 1,
-    total 2r+1, two passes, no clamp).  Raises ValueError on another kind,
+    """(weights, total, clamp) of convolve_canvas for a kernel of `kind`
+    ("full": (2r+1)^2 weights row by row; "xy": 2r+1 weights, an x pass and
+    a y pass, each clamped; "unit": every weight 1, total 2r+1, two passes,
+    no clamp); convolve_route gives the launches.  Raises ValueError on another kind,
     a radius under 1, another count of weights, or (as blur_blend) a weight
     outside [0, 2^31) or a total outside (0, 2^31)."""
     if radius < 1 or radius >= 2**15:
@@ -1527,17 +1609,56 @@ def convolve_plan(kind: str, weights, total: int, radius: int) -> tuple:
         raise ValueError("convolve_canvas: need weights in [0, 2^31)")
     if not 0 < total < 2**31:
         raise ValueError(f"convolve_canvas: total {total} is outside (0, 2^31)")
-    passes = (CONV_FULL,) if kind == "full" else (CONV_PASS_X, CONV_PASS_Y)
-    return passes, weights, total, int(kind == "xy")
+    return weights, total, int(kind == "xy")
+
+
+def convolve_staged_smem(radius: int) -> int:
+    """convolve.cu's StagedLayout: the staged route's shared memory at
+    `radius`, in bytes: the canvas tile and its halo (16 + 2r rows and a
+    pad row, an odd pitch of at least 64 + 2r + 1 pixels; the x pass
+    overwrites its tile columns), the weights, the mask bytes of the
+    tile's columns, the copy's 8-byte barrier, and 128 bytes to align the
+    tile for the tensor copy."""
+    rows = CONV_TILE[0] + 2 * radius
+    pitch = (CONV_TILE[1] + 2 * radius + 1) | 1
+    bar = -(-(16 * (rows + 1) * pitch + 4 * (2 * radius + 1) + rows * CONV_TILE[1]) // 8) * 8
+    return bar + 8 + 128
+
+
+class ConvRoute(NamedTuple):
+    """How convolve_canvas runs: `modes`, one launch each (CONV_STAGED
+    alone, the first design's CONV_PASS_X then CONV_PASS_Y, or CONV_FULL),
+    and the staged launch's dynamic shared memory (`smem`, else 0)."""
+
+    modes: tuple
+    smem: int
+
+    @property
+    def launches(self) -> int:
+        return len(self.modes)
+
+
+def convolve_route(kind: str, H: int, W: int, radius: int) -> ConvRoute:
+    """convolve_canvas' route for an H x W canvas, from the shape, the kind
+    and the radius alone: `full` one 2D launch; `xy` and `unit` the staged
+    route's one launch where its shared memory fits CONV_SMEM and its row
+    tiles the grid, else the two passes."""
+    if kind == "full":
+        return ConvRoute((CONV_FULL,), 0)
+    smem = convolve_staged_smem(radius)
+    if smem <= CONV_SMEM and -(-H // CONV_TILE[0]) <= CONV_ROW_TILES_MAX:
+        return ConvRoute((CONV_STAGED,), smem)
+    return ConvRoute((CONV_PASS_X, CONV_PASS_Y), 0)
 
 
 def convolve_canvas(kind: str, weights, total: int, radius: int, canvas: torch.Tensor, mask: torch.Tensor):
-    """Launch ``convolve_canvas`` (CV1) once a pass (convolve_plan): the
-    int32 (H, W, 4) `canvas` (contiguous) convolved inside the top-left (H,
-    W) of the bool `mask` (any strides), into a new plane; an x pass into a
-    scratch plane, then the y pass.  The plain version is
+    """Launch ``convolve_canvas`` (CV1) on convolve_route's route: the int32
+    (H, W, 4) `canvas` (contiguous) convolved inside the top-left (H, W) of
+    the bool `mask` (any strides), into a new plane; one launch on the
+    staged route, else the x pass into a scratch plane and the y pass, or
+    one 2D launch (`full`); each launch counted.  The plain version is
     raster/convolve.py convolve_canvas_torch."""
-    passes, weights, total, clamp = convolve_plan(kind, weights, total, radius)
+    weights, total, clamp = convolve_plan(kind, weights, total, radius)
     device = canvas.device
     if device.type != "cuda":
         raise ValueError(f"convolve_canvas needs tensors on a CUDA device, got {device}")
@@ -1553,7 +1674,7 @@ def convolve_canvas(kind: str, weights, total: int, radius: int, canvas: torch.T
     w, magic, shift = _weights_on(device, weights, total)
     src = canvas
     with torch.cuda.device(device):
-        for mode in passes:
+        for mode in convolve_route(kind, H, W, radius).modes:
             dst = torch.empty_like(canvas)
             geom = _as_i64([H, W, *mask.stride(), radius, mode, clamp, magic, shift])
             rc = load()["convolve_canvas"](ctypes.addressof(geom), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),

@@ -44,16 +44,31 @@
 //   at one or more of region_kernels' shapes (profile_region.py; PERF.md).
 //
 // TB1.  One launch reduces a bool mask (any strides) to (x0, y0, x1, y1) of
-// its set cells, (w, h, -1, -1) where there is none.  A thread walks the
-// flattened mask in a grid-stride loop and keeps its own extremes; a block
-// folds its threads' by warp reductions and shared memory and writes its
-// partial; the last block to finish (an atomic ticket behind a fence) folds
-// every block's partial, writes the result and resets the ticket to 0 for
-// the next launch, so that no memset is launched.  The partials and the
-// ticket live in a scratch buffer the wrapper keeps per device and stream.
-//   Bound: bytes, the mask read once.  A call is one launch and the 16-byte
-//   readback that follows it.
-//
+// its set cells, (w, h, -1, -1) where there is none.
+//   Bound: bytes, the mask read once.  Design (the second; the first
+//   design's thread walked the flattened mask a byte at a time, each load
+//   feeding its fold before the next was issued, with a 64-bit division a
+//   cell, and every launch folded its blocks through a fence, an atomic
+//   ticket and the last block's second fold, even for one block): a warp
+//   walks rows, indexed in 2D with no division.  Where the rows' cells are
+//   adjacent (sx 1; the granule layout) a lane takes one 16-byte aligned
+//   granule of its row a load: the nonzero bytes by __vcmpne4, the row's
+//   first and last set column within the granule by __ffs and __clz.  A
+//   granule holding a byte outside the mask's span (at most one at each
+//   end) is read byte by byte, a byte a lane of block 0's first warp, so
+//   that no load leaves the mask's bytes.  Other strides (the byte layout) take a cell a lane.  A
+//   thread issues all kernels.TIGHT_BOUNDS_LOADS loads of a round into
+//   registers before it uses any.  The route is chosen from the shape by
+//   the wrapper (kernels.tight_bounds_route), each its own instantiation:
+//   one block for a mask whose items fit one round of one block (no
+//   partials, no fence, no ticket); past that blocks of one round each
+//   with the first design's self-resetting ticket.  (A thread-block
+//   cluster folding through distributed shared memory was slower than the
+//   ticket at every mask it took: profile_region.py --routes.)  The result goes
+//   to device memory, or straight to a pinned host word through its mapped
+//   device address, so that the caller reads it after a stream
+//   synchronize with no copy issued.
+
 // MR1.  Bloat mode writes nbox's (H, W) = (h + 2ry, w + 2rx) mask: a cell is
 // set where any cell of the source mask lies in its (2rx+1) x (2ry+1)
 // window.  Erode mode writes the (h, w) mask of interior cells (their window
@@ -85,6 +100,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -218,7 +234,23 @@ int launch_caf(const CafParams& p, cudaStream_t stream) {
 
 constexpr int kTbThreads = 256;
 constexpr int kTbWarps = kTbThreads / 32;
-constexpr int kTbMaxBlocks = 528;  // four blocks an SM of 132; the scratch's partials
+constexpr int kTbLoads = 8;        // loads a thread issues before it uses any (kernels.TIGHT_BOUNDS_LOADS);
+                                   // 16 made a longer code path and were slower (profile_region.py)
+constexpr int kTbMaxBlocks = 528;  // the ticket route's partials: four blocks an SM of 132
+                                   // (kernels.TIGHT_BOUNDS_MAX_BLOCKS)
+
+enum TbLayout { kTbGranules = 0, kTbBytes = 1 };
+enum TbRoute { kTbOne = 0, kTbTicket = 1 };
+
+struct TbParams {
+  const unsigned char* mask;  // cell (y, x) at mask + y sy + x sx
+  long long sy, sx;           // the granule layout: sx 1 and sy >= w (h 1: sy = w)
+  int h, w;
+  int segs;                   // a row's warp segments, 32 units (granules or cells) each
+  int rows;                   // rows a block walks
+  int* scratch;               // the ticket route's partials, then its ticket
+  int* out;                   // (x0, y0, x1, y1): device memory or a mapped host word
+};
 
 struct Bounds {
   int x0, y0, x1, y1;
@@ -242,40 +274,179 @@ __device__ Bounds block_fold(Bounds mine, Bounds (&warps)[kTbWarps]) {
   return mine;
 }
 
-// scratch: kTbMaxBlocks partials (x0, y0, x1, y1), then the ticket.
-__global__ void __launch_bounds__(kTbThreads)
-tight_bounds_kernel(const unsigned char* __restrict__ mask, long long sy, long long sx, int h, int w,
-                    int* scratch, int* __restrict__ out) {
+// Bit b set where byte b of v is nonzero (b < 4): __vcmpne4's 0xff bytes'
+// top bits gathered into bits 28-31 by one multiply.
+__device__ __forceinline__ unsigned nonzero4(unsigned v) {
+  return ((__vcmpne4(v, 0u) & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+__device__ __forceinline__ unsigned nonzero16(uint4 v) {
+  return nonzero4(v.x) | nonzero4(v.y) << 4 | nonzero4(v.z) << 8 | nonzero4(v.w) << 12;
+}
+
+// A warp's walk: warp `warp` takes rows y0 + warp, y0 + warp + kTbWarps,
+// ... below y1, each row's segs segments in turn, a lane a unit of each.
+__device__ __forceinline__ void next_item(int& y, int& s, int segs) {
+  if (++s == segs) s = 0, y += kTbWarps;
+}
+
+template <int kLayout>
+struct TbUnit {
+  using T = typename std::conditional<kLayout == kTbGranules, uint4, unsigned>::type;
+};
+
+// The unit of item (y, s) at `lane`: in the granule layout the 16-byte
+// aligned granule 32 s + lane of row y's (from the granule holding its
+// first cell), zero past the row and where it holds a byte outside the
+// mask's span [lo, hi) (an edge granule, read by edge_bounds); in the byte
+// layout the cell at column 32 s + lane, zero past the row.
+template <int kLayout>
+__device__ __forceinline__ typename TbUnit<kLayout>::T load_unit(const TbParams& p, int y, int s, int lane,
+                                                                 uintptr_t lo, uintptr_t hi) {
+  if constexpr (kLayout == kTbGranules) {
+    const uintptr_t row = lo + static_cast<uintptr_t>(y) * p.sy;
+    const uintptr_t a = (row & ~static_cast<uintptr_t>(15)) + 16u * static_cast<unsigned>(32 * s + lane);
+    return a >= lo && a + 16 <= hi && a < row + p.w ? __ldg(reinterpret_cast<const uint4*>(a)) : make_uint4(0, 0, 0, 0);
+  } else {
+    const int x = 32 * s + lane;
+    return x < p.w ? static_cast<unsigned>(__ldg(p.mask + y * p.sy + x * p.sx)) : 0u;
+  }
+}
+
+// Folds the set cells of item (y, s)'s unit `v` at `lane` into `mine`.
+template <int kLayout>
+__device__ __forceinline__ void take_unit(Bounds& mine, const TbParams& p, int y, int s, int lane, uintptr_t lo,
+                                          typename TbUnit<kLayout>::T v) {
+  if constexpr (kLayout == kTbGranules) {
+    const long long row = static_cast<long long>(y) * p.sy;  // the row's first byte, from lo
+    const long long first = static_cast<long long>(((lo + row) & ~static_cast<uintptr_t>(15)) - lo);
+    const long long a = first + 16LL * (32 * s + lane);  // the granule, from lo
+    const int b0 = static_cast<int>(min(max(row - a, 0LL), 16LL));
+    const int b1 = static_cast<int>(min(max(row + p.w - a, 0LL), 16LL));
+    const unsigned bits = nonzero16(v) & ((1u << b1) - 1u) & ~((1u << b0) - 1u);
+    if (bits != 0) {
+      const int x = static_cast<int>(a - row);
+      mine = fold(mine, {x + __ffs(bits) - 1, y, x + 31 - __clz(bits), y});
+    }
+  } else {
+    if (v != 0) mine = fold(mine, {32 * s + lane, y, 32 * s + lane, y});
+  }
+}
+
+// The granule layout's edge granules, those holding a byte of [lo, hi)
+// and one outside (at most two: one at each end; `hi` where there is
+// none).  They are read byte by byte, lane b of warp 0 of block 0 taking
+// byte b of each: a set byte's (y, x) from its offset, and a byte of a
+// row's gap (x >= w) is not a cell.
+__device__ __forceinline__ void edge_granules(uintptr_t lo, uintptr_t hi, uintptr_t& g0, uintptr_t& g1) {
+  const uintptr_t first = lo & ~static_cast<uintptr_t>(15), last = (hi - 1) & ~static_cast<uintptr_t>(15);
+  const bool first_edge = first != lo || first + 16 > hi, last_edge = last != first && last + 16 > hi;
+  g0 = first_edge ? first : last_edge ? last : hi;
+  g1 = first_edge && last_edge ? last : hi;
+}
+
+__device__ __forceinline__ unsigned char edge_byte(uintptr_t a, uintptr_t lo, uintptr_t hi) {
+  return a >= lo && a < hi ? __ldg(reinterpret_cast<const unsigned char*>(a)) : 0;
+}
+
+__device__ __forceinline__ void take_edge_byte(Bounds& mine, const TbParams& p, uintptr_t a, uintptr_t lo,
+                                               unsigned char v) {
+  if (v == 0) return;
+  const long long off = static_cast<long long>(a - lo), y = off / p.sy, x = off - y * p.sy;
+  if (x < p.w) mine = fold(mine, {static_cast<int>(x), static_cast<int>(y), static_cast<int>(x), static_cast<int>(y)});
+}
+
+// The block's rows' bounds in each thread's `mine`: rounds of kTbLoads
+// items a thread, every load of a round issued into registers before any
+// is used (a warp issues in order: a load whose value the next instruction
+// takes would hold back every later load), then folded.  Block 0's first
+// 16 threads also read the granule layout's edge granules, their loads
+// issued before the first round's.
+template <int kLayout>
+__device__ Bounds walk(const TbParams& p) {
+  using Unit = typename TbUnit<kLayout>::T;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(p.mask);
+  const uintptr_t hi = lo + static_cast<uintptr_t>(p.h - 1) * p.sy + p.w;
+  const int y_end = min(p.h, (static_cast<int>(blockIdx.x) + 1) * p.rows);
+  Bounds mine = {p.w, p.h, -1, -1};
+  int y = static_cast<int>(blockIdx.x) * p.rows + warp, s = 0;
+  // The edge granules' bytes, a lane each, issued before the walk's loads.
+  const bool edges = kLayout == kTbGranules && blockIdx.x == 0 && threadIdx.x < 16;
+  uintptr_t g0 = hi, g1 = hi;
+  unsigned char e0 = 0, e1 = 0;
+  if (edges) {
+    edge_granules(lo, hi, g0, g1);
+    g0 += threadIdx.x, g1 += threadIdx.x;
+    e0 = edge_byte(g0, lo, hi), e1 = edge_byte(g1, lo, hi);
+  }
+  do {
+    const int y_round = y, s_round = s;
+    Unit v[kTbLoads];
+#pragma unroll
+    for (int j = 0; j < kTbLoads; ++j) {
+      v[j] = y < y_end ? load_unit<kLayout>(p, y, s, lane, lo, hi) : Unit{};
+      next_item(y, s, p.segs);
+    }
+    y = y_round, s = s_round;
+#pragma unroll
+    for (int j = 0; j < kTbLoads; ++j) {
+      if (y < y_end) take_unit<kLayout>(mine, p, y, s, lane, lo, v[j]);
+      next_item(y, s, p.segs);
+    }
+  } while (y < y_end);
+  if (edges) {
+    take_edge_byte(mine, p, g0, lo, e0);
+    take_edge_byte(mine, p, g1, lo, e1);
+  }
+  return mine;
+}
+
+__device__ __forceinline__ void write_bounds(int* out, const Bounds& b) {
+  *reinterpret_cast<int4*>(out) = make_int4(b.x0, b.y0, b.x1, b.y1);
+}
+
+// kTbOne: one block walks the mask and writes the result: no partials, no
+// fence, no ticket.  kTbTicket: any number of blocks, each writing its
+// partial to `scratch`; the last to finish (an atomic ticket behind a
+// fence) folds them, writes the result and resets the ticket to 0 for the
+// next launch.
+template <int kLayout, int kRoute>
+__global__ void __launch_bounds__(kTbThreads) tight_bounds_kernel(TbParams p) {
   __shared__ Bounds warps[kTbWarps];
-  __shared__ bool last;
-  Bounds mine = {w, h, -1, -1};
-  const long long n = static_cast<long long>(h) * w;
-  for (long long i = static_cast<long long>(blockIdx.x) * kTbThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kTbThreads) {
-    const int y = static_cast<int>(i / w), x = static_cast<int>(i - static_cast<long long>(y) * w);
-    if (mask[y * sy + x * sx] != 0) mine = fold(mine, {x, y, x, y});
-  }
-  mine = block_fold(mine, warps);
-  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 4 * kTbMaxBlocks);
-  if (threadIdx.x == 0) {
-    reinterpret_cast<int4*>(scratch)[blockIdx.x] = make_int4(mine.x0, mine.y0, mine.x1, mine.y1);
+  if constexpr (kRoute == kTbOne) {
+    const Bounds mine = block_fold(walk<kLayout>(p), warps);
+    if (threadIdx.x == 0) write_bounds(p.out, mine);
+  } else {
+    __shared__ bool last;
+    const Bounds mine = block_fold(walk<kLayout>(p), warps);
+    unsigned* ticket = reinterpret_cast<unsigned*>(p.scratch + 4 * kTbMaxBlocks);
+    if (threadIdx.x == 0) {
+      reinterpret_cast<int4*>(p.scratch)[blockIdx.x] = make_int4(mine.x0, mine.y0, mine.x1, mine.y1);
+      __threadfence();
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
     __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    Bounds all = {p.w, p.h, -1, -1};
+    for (int k = threadIdx.x; k < gridDim.x; k += kTbThreads) {
+      const int4 q = __ldcg(reinterpret_cast<const int4*>(p.scratch) + k);
+      all = fold(all, {q.x, q.y, q.z, q.w});
+    }
+    __syncthreads();  // warps[] is read again
+    all = block_fold(all, warps);
+    if (threadIdx.x == 0) {
+      write_bounds(p.out, all);
+      *ticket = 0u;
+    }
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  Bounds all = {w, h, -1, -1};
-  for (int k = threadIdx.x; k < gridDim.x; k += kTbThreads) {
-    const int4 q = __ldcg(reinterpret_cast<const int4*>(scratch) + k);
-    all = fold(all, {q.x, q.y, q.z, q.w});
-  }
-  __syncthreads();  // warps[] is read again
-  all = block_fold(all, warps);
-  if (threadIdx.x == 0) {
-    *reinterpret_cast<int4*>(out) = make_int4(all.x0, all.y0, all.x1, all.y1);
-    *ticket = 0u;
-  }
+}
+
+template <int kLayout, int kRoute>
+int launch_tight_bounds(const TbParams& p, int blocks, cudaStream_t stream) {
+  tight_bounds_kernel<kLayout, kRoute><<<blocks, kTbThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -640,16 +811,45 @@ extern "C" int caf(const long long* geom, const void* ma, const void* ra, const 
   return geom[3] ? launch_caf<true>(p, st) : launch_caf<false>(p, st);
 }
 
-// tight_bounds: `scratch` holds 4 * tight_bounds_max_blocks() + 1 int32, the
-// last (the ticket) 0 before the first launch; each launch leaves it 0.
-extern "C" int tight_bounds(const void* mask, long long sy, long long sx, int h, int w, int blocks, void* scratch,
-                            void* out, void* stream) {
-  tight_bounds_kernel<<<blocks, kTbThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(mask), sy, sx, h, w, static_cast<int*>(scratch), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+// tight_bounds: geom holds h, w, sy, sx, layout (0 granules, 1 bytes),
+// route (0 one block, 1 the ticket), segs, rows, blocks
+// (kernels.tight_bounds_route).  `scratch` (the ticket route's) holds 4 *
+// kTbMaxBlocks + 1 int32, the last (the ticket) 0 before the first launch;
+// each launch leaves it 0.  `out`: 4 int32 in device memory, or a mapped
+// host word's device address.
+extern "C" int tight_bounds(const long long* geom, const void* mask, void* scratch, void* out, void* stream) {
+  TbParams p;
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.h = static_cast<int>(geom[0]);
+  p.w = static_cast<int>(geom[1]);
+  p.sy = geom[2];
+  p.sx = geom[3];
+  p.segs = static_cast<int>(geom[6]);
+  p.rows = static_cast<int>(geom[7]);
+  p.scratch = static_cast<int*>(scratch);
+  p.out = static_cast<int*>(out);
+  const int layout = static_cast<int>(geom[4]), route = static_cast<int>(geom[5]);
+  const long long blocks = geom[8];
+  const bool layout_ok = layout == kTbBytes || (layout == kTbGranules && p.sx == 1 && p.sy >= p.w);
+  if (!layout_ok || (route != kTbOne && route != kTbTicket) || blocks < 1 ||
+      blocks > (route == kTbOne ? 1 : kTbMaxBlocks) || p.segs < 1 || p.rows < 1 || blocks * p.rows < p.h ||
+      (route == kTbTicket && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(blocks);
+  if (layout == kTbGranules) {
+    return route == kTbOne ? launch_tight_bounds<kTbGranules, kTbOne>(p, n, st)
+                           : launch_tight_bounds<kTbGranules, kTbTicket>(p, n, st);
+  }
+  return route == kTbOne ? launch_tight_bounds<kTbBytes, kTbOne>(p, n, st)
+                         : launch_tight_bounds<kTbBytes, kTbTicket>(p, n, st);
 }
 
-extern "C" int tight_bounds_max_blocks() { return kTbMaxBlocks; }
+// The device address of the pinned host word `host` (cudaHostGetDevicePointer).
+extern "C" int mapped_pointer(void* host, void** device) {
+  return static_cast<int>(cudaHostGetDevicePointer(device, host, 0));
+}
 
 // box_morph: geom holds h, w, sy, sx, H, W, dx0, dx1, dy0, dy1, erode, rx,
 // ry, vec, tile_rows, rows_cap, sw, ww; `smem` the launch's dynamic shared

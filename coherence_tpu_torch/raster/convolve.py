@@ -21,8 +21,10 @@ pixels inside the shape (reads may come from outside), and the y-pass reads
 that mixed canvas.
 
 On a CUDA device ``convolve_canvas`` launches the hand-written kernel of
-``kernels/csrc/convolve.cu`` (CV1) once a pass, or raises; on the CPU it
-runs the plain version beside it, ``convolve_canvas_torch``.
+``kernels/csrc/convolve.cu`` (CV1) on ``kernels.convolve_route``'s route
+(one launch for both passes where the tile and its halo fit shared memory,
+else one a pass), or raises; on the CPU it runs the plain version beside
+it, ``convolve_canvas_torch``.
 """
 
 from __future__ import annotations
@@ -153,7 +155,8 @@ def card_kernel(kernel: Kernel) -> tuple:
 def convolve_canvas(kernel: Kernel, canvas_rgba: torch.Tensor, shape_mask: torch.Tensor) -> torch.Tensor:
     """Convolve the int32 (H, W, 4) canvas within shape_mask (bool, at least
     (H, W); its top-left (H, W) corner is used) -- convolve.ml:207-232.  On
-    a CUDA device CV1 (kernels.convolve_canvas), one launch a pass."""
+    a CUDA device CV1 (kernels.convolve_canvas) on kernels.convolve_route's
+    route."""
     if canvas_rgba.is_cuda:
         return kernels.convolve_canvas(*card_kernel(kernel), canvas_rgba, shape_mask)
     return convolve_canvas_torch(kernel, canvas_rgba, shape_mask)

@@ -363,12 +363,16 @@ def translate_sprite(dx: int, dy: int, s: Optional[Sprite]) -> Optional[Sprite]:
 
 def _tight_bounds(mask: torch.Tensor):
     """(x0, y0, x1, y1) of the True cells, relative to the mask; x1 < x0
-    when there is none.  One readback; on the card after one launch of
-    TB1."""
+    when there is none.  One readback; on the card one launch of TB1,
+    which writes the result straight into a pinned host word
+    (kernels.bounds_word), read after a stream synchronize: no copy is
+    issued."""
     if mask.is_cuda:
-        bounds = kernels.tight_bounds(mask)
+        word = kernels.bounds_word(mask.device)
+        kernels.tight_bounds(mask, word)
+        torch.cuda.current_stream(mask.device).synchronize()
         _sync()
-        return tuple(bounds.tolist())
+        return tuple(word.host.tolist())
     return _tight_bounds_torch(mask)
 
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""caf (CF1) and box_morph (MR1) at the general renderer's shapes on one
-CUDA card: against another checkout's design in turns, their time split
-into parts, and each block's span on the card's global timer.
+"""The region kernels, caf (CF1), box_morph (MR1), tight_bounds (TB1) and
+convolve_canvas (CV1), at the general renderer's shapes on one CUDA card:
+against another checkout's design in turns, their time split into parts,
+and each block's span on the card's global timer.
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit:
 
-    python3 profile_region.py [--parent DIR] [--split] [--timeline] [--tiny] [--warm]
+    python3 profile_region.py [--parent DIR] [--split] [--timeline] [--tiny] [--warm] [--kernels K,...]
+    python3 profile_region.py --routes
 
 The shapes are ``chip_smoke.region_kernels``' timed calls, recorded from
 ``general_filters``' whole-window render and first dragged frame
@@ -14,7 +16,12 @@ The shapes are ``chip_smoke.region_kernels``' timed calls, recorded from
 1920 x 1080 window, the largest caf of two operands and the median caf
 (``caf_timed_calls``, each caught at ``kernels.caf``'s arguments); MR1 at
 each distinct bloat and erosion and at ``morph_second_route``'s synthetic
-call, past one block's shared memory (``morph_timed_calls``).  Every time
+call, past one block's shared memory (``morph_timed_calls``); TB1 at the
+largest and the median recorded tight_bounds mask and at
+``chip_smoke.bounds_ticket_mask`` (its ticket route); CV1 at each recorded
+convolve_canvas call (the frames' canvases), at config 4's 1088 x 1920
+frame under mkgaussian(5) (``chip_smoke.convolve_frame``) and at
+``chip_smoke.conv_second_route`` (its two passes).  Every time
 is CUDA events, cold L2, each call queued behind a device-side wait of
 max(1 ms, 4 x its slowest host call) (``chip_smoke.event_ms``).
 
@@ -24,7 +31,11 @@ wrapper's host side alone (``host_ms``: median and quartiles).  With
 (``profile_sprite.load_tree``: its library built in DIR's own ``build/``)
 and each shape is timed in turns with DIR's design on the same inputs
 (``chip_smoke.in_turns``: parent, this, this, parent); the two designs'
-outputs must be equal.
+outputs must be equal.  For TB1 each tree's ``region._tight_bounds`` (the
+launch and its readback to the host, synchronized) is timed on the host
+clock as well (``readback_*_host_ms``), and this tree's kernel read back
+by a device-to-host copy instead of its mapped host word
+(``readback_this_copy_host_ms``).
 
 --split compiles this checkout's ``region_ops.cu`` (and DIR's with
 --parent) into ``build/region_variants/`` as probes that stop after one
@@ -35,14 +46,28 @@ staging and bit packing) and ``scan`` (the first design's scans and
 barriers over values made in registers; the second's staging and row
 pass, no column pass or write); for CF1 ``launch``, ``masks`` (the mask
 loads alone) and ``colours`` (every load and the composition, no
+store); for TB1 ``launch``, ``walk`` (the first design's loads and
+per-thread fold with no block fold, ticket or second fold) and ``fold``
+(its block fold, fence, ticket and last block's fold over values made in
+registers, no load); for CV1 ``launch`` (both passes' launches, each
+returning at once), ``xpass`` (the x pass's launch alone, the y pass
+returning at once) and ``taps`` (each pass's loads, no multiply and no
 store).  --timeline runs
 each whole kernel once more with every block's start and end recorded on
 the global timer (``%globaltimer``) and its SM: the launch's span, the
 blocks' durations and the start spread.  --tiny adds a caf of two 1 x 1
-operands and a bloat of a 1 x 1 mask (one block, a few bytes: the fixed
-cost of each kernel's code path); --warm leaves L2 warm between calls (a
+operands, a bloat of a 1 x 1 mask, the tight bounds of a 1 x 1 mask and a
+radius-5 convolve of a 1 x 1 canvas (one block, a few bytes: the fixed
+cost of each kernel's code path); --kernels takes only the named kernels'
+shapes (caf, box_morph, tight_bounds, convolve_canvas); --warm leaves L2 warm between calls (a
 4-byte scrub), so that data and code come from L2.  Last each build's
 registers and static shared memory (ptxas).
+
+--routes times TB1 alone at every distinct recorded tight_bounds mask
+(shape, strides and alignment) and at ``chip_smoke.bounds_ticket_mask``:
+the route ``kernels.tight_bounds_route`` picks in turns with the other
+route forced (``bounds_routes``), ROUTE_ROUNDS times; the outputs must be
+equal to each other and to the plain version.
 
 Each mode prints JSON lines and, last, one with the launch floor (an empty
 kernel timed alike) and the card's name and power limit.  Then take the
@@ -63,25 +88,37 @@ from profile_sprite import load_tree, wait_for
 
 VARIANT_DIR = os.path.join("build", "region_variants")
 PROBE_BLOCKS = 1 << 15  # the timeline probe's records (a launch of more blocks records its first ones)
-KERNELS = {"caf": "caf_kernel", "box_morph": "box_morph_kernel"}
+# kernel -> (its source in csrc/, its __global__ functions: the probes of
+# launch and timeline take the first the source has; CV1's second design
+# runs convolve_staged_kernel at every timed shape)
+KERNELS = {"caf": ("region_ops.cu", ("caf_kernel",)), "box_morph": ("region_ops.cu", ("box_morph_kernel",)),
+           "tight_bounds": ("region_ops.cu", ("tight_bounds_kernel",)),
+           "convolve_canvas": ("convolve.cu", ("convolve_staged_kernel", "convolve_kernel"))}
 
 
 def tiny_shapes(torch, kernels, dev) -> list:
-    """--tiny's shapes: a caf of two 1 x 1 operands and a radius-5 bloat of
-    a 1 x 1 mask, each one block whose data is a few bytes: the fixed cost
-    of a kernel's code path."""
+    """--tiny's shapes: a caf of two 1 x 1 operands, a radius-5 bloat of a
+    1 x 1 mask, the tight bounds of a 1 x 1 mask and a radius-5 Gaussian
+    convolve of a 1 x 1 canvas, each one block whose data is a few bytes:
+    the fixed cost of a kernel's code path."""
+    from coherence_tpu_torch.raster import convolve
+
     one = torch.ones((1, 1), dtype=torch.bool, device=dev)
     rgba = torch.full((1, 1, 4), 255, dtype=torch.int32, device=dev)
     plane = kernels.CafPlane(0, 0, one, rgba)
     return [("caf_tiny_1x1", "caf", ((1, 1, kernels.CAF_OPS["over"], plane, plane), {})),
-            ("bloat_tiny_1x1_r5_5", "box_morph", (one, 5, 5, False))]
+            ("bloat_tiny_1x1_r5_5", "box_morph", (one, 5, 5, False)),
+            ("bounds_tiny_1x1", "tight_bounds", (one,)),
+            ("convolve_tiny_1x1_r5", "convolve_canvas", convolve.card_kernel(convolve.mkgaussian(5)) + (rgba, one))]
 
 
-def shapes(torch, cs, kernels, dev, tiny: bool = False) -> list:
+def shapes(torch, cs, kernels, dev, tiny: bool = False, only=tuple(KERNELS)) -> list:
     """[(name, kernel, args)]: kernels.caf's (args, kw) of each timed caf,
-    (mask, rx, ry, erode) of each timed box_morph; with `tiny`
-    tiny_shapes' too."""
-    from coherence_tpu_torch.raster import region
+    (mask, rx, ry, erode) of each timed box_morph, (mask,) of each timed
+    tight_bounds, (kind, weights, total, radius, canvas, mask) of each
+    timed convolve_canvas; with `tiny` tiny_shapes' too; only the kernels
+    named in `only`."""
+    from coherence_tpu_torch.raster import convolve, region
 
     calls, last_frame = cs.region_inputs(torch, dev)
     out = tiny_shapes(torch, kernels, dev) if tiny else []
@@ -98,7 +135,19 @@ def shapes(torch, cs, kernels, dev, tiny: bool = False) -> list:
     for (mask, rx, ry), kw in cs.morph_timed_calls(torch, dev, calls):
         mode = "erode" if kw["erode"] else "bloat"
         out.append((f"{mode}_{mask.shape[0]}x{mask.shape[1]}_r{rx}_{ry}", "box_morph", (mask, rx, ry, kw["erode"])))
-    return out
+    masks = sorted((c[0][0] for c in calls["tight_bounds"]), key=lambda m: m.numel())
+    for label, mask in (("largest", masks[-1]), ("median", masks[len(masks) // 2]),
+                        ("ticket", cs.bounds_ticket_mask(torch, dev))):
+        out.append((f"bounds_{label}_{mask.shape[0]}x{mask.shape[1]}", "tight_bounds", (mask,)))
+    frame, _ = cs.convolve_frame(torch, dev)
+    whole = torch.ones(frame.shape[:2], dtype=torch.bool, device=dev)
+    config4 = convolve.card_kernel(convolve.mkgaussian(cs.BLUR_RADIUS)) + (frame, whole)
+    for args, _ in calls["convolve_canvas"] + [(config4, {})]:
+        H, W = args[4].shape[:2]
+        out.append((f"convolve_{args[0]}_{H}x{W}_r{args[3]}", "convolve_canvas", args))
+    second = cs.conv_second_route(torch, dev, calls["convolve_canvas"])
+    out.append((f"convolve_second_{second[4].shape[0]}x{second[4].shape[1]}_r{second[3]}", "convolve_canvas", second))
+    return [row for row in out if row[1] in only]
 
 
 def caller(k, kernel: str, args):
@@ -107,15 +156,35 @@ def caller(k, kernel: str, args):
     if kernel == "box_morph":
         mask, rx, ry, erode = args
         return lambda: k.box_morph(mask, rx, ry, erode=erode)
+    if kernel == "tight_bounds":
+        return lambda: k.tight_bounds(*args)
+    if kernel == "convolve_canvas":
+        return lambda: k.convolve_canvas(*args)
     a, kw = args
     a = tuple(k.CafPlane(*x) if isinstance(x, tuple) else x for x in a)
     return lambda: k.caf(*a, **kw)
 
 
-def route_of(k, args) -> object:
-    """MR1's route at `args` where tree `k` has more than one, else None."""
-    mask, rx, ry, erode = args
-    return k.box_morph_route(*mask.shape, rx, ry, erode)._asdict() if hasattr(k, "box_morph_route") else None
+def route_of(k, kernel: str, args) -> object:
+    """The route of tree `k`'s `kernel` at `args` where the tree has more
+    than one (MR1's box_morph_route, TB1's tight_bounds_route, CV1's
+    convolve_route), else None."""
+    if kernel == "box_morph":
+        mask, rx, ry, erode = args
+        return k.box_morph_route(*mask.shape, rx, ry, erode)._asdict() if hasattr(k, "box_morph_route") else None
+    if kernel == "tight_bounds" and hasattr(k, "tight_bounds_route"):
+        return k.tight_bounds_route(*args[0].shape, *args[0].stride())._asdict()
+    if kernel == "convolve_canvas" and hasattr(k, "convolve_route"):
+        kind, _, _, radius, canvas, _ = args
+        return k.convolve_route(kind, *canvas.shape[:2], radius)._asdict()
+    return None
+
+
+def region_of(k):
+    """Tree `k`'s raster/region module (k is its kernels module)."""
+    import importlib
+
+    return importlib.import_module(k.__name__.rsplit(".", 1)[0] + ".raster.region")
 
 
 def same_output(torch, a, b) -> bool:
@@ -124,16 +193,16 @@ def same_output(torch, a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def compare(torch, cs, trees, scrub, dev: str, tiny: bool) -> None:
+def compare(torch, cs, trees, scrub, dev: str, tiny: bool, only) -> None:
     """The default mode: per shape each tree's kernel, in turns."""
     kernels = trees["this"]
-    for name, kernel, args in shapes(torch, cs, kernels, dev, tiny):
+    for name, kernel, args in shapes(torch, cs, kernels, dev, tiny, only):
         calls = {who: caller(k, kernel, args) for who, k in trees.items()}
         row = {"shape": name, "kernel": kernel}
-        if kernel == "box_morph":
-            row.update({f"{who}_route": route_of(k, args) for who, k in trees.items()})
-        else:
+        if kernel == "caf":
             row["this_one_trip"] = kernels.caf_one_trip(*args[0][:2])
+        else:
+            row.update({f"{who}_route": route_of(k, kernel, args) for who, k in trees.items()})
         outs = {}
         for who, c in calls.items():
             before = trees[who].launches[kernel]
@@ -146,7 +215,69 @@ def compare(torch, cs, trees, scrub, dev: str, tiny: bool) -> None:
         wait = wait_for(torch, cs, *calls.values())
         got = cs.in_turns(torch, calls["this"], scrub, wait_ms=wait,
                           **{who: c for who, c in calls.items() if who != "this"})
+        if kernel == "tight_bounds":
+            readbacks = {who: (lambda r=region_of(k), m=args[0]: r._tight_bounds(m)) for who, k in trees.items()}
+            if hasattr(kernels, "bounds_word"):  # this tree's kernel read back by a copy, not its mapped word
+                readbacks["this_copy"] = lambda m=args[0]: tuple(kernels.tight_bounds(m).tolist())
+            values = {who: c() for who, c in readbacks.items()}
+            row["bounds"] = values["this"]
+            cs.require(len(set(values.values())) == 1, f"profile_region: {name}'s readbacks differ: {values}")
+            row.update({f"readback_{key}": v for key, v in host_ms(torch, readbacks).items()})
         cs.emit({**row, "wait_ms": wait, **got, **host_ms(torch, calls)})
+
+
+ROUTE_ROUNDS = 3  # --routes: in_turns rounds a mask
+
+
+def bounds_routes(k, mask) -> dict:
+    """--routes: {"picked": the route tree `k`'s tight_bounds_route picks at
+    `mask`, "other": the other route forced}: one block over every row
+    where it picks the ticket; where it picks one block, the ticket over
+    the fewest blocks past one (their rows a multiple of the warps; one
+    block for a mask of at most TIGHT_BOUNDS_WARPS rows)."""
+    h, w = mask.shape
+    picked = k.tight_bounds_route(h, w, *mask.stride())
+    if picked.route != k.BOUNDS_ONE:
+        return {"picked": picked, "other": picked._replace(route=k.BOUNDS_ONE, rows=h, blocks=1)}
+    warps = k.TIGHT_BOUNDS_WARPS
+    rows = warps * max(1, -(-h // (2 * warps)))
+    return {"picked": picked, "other": picked._replace(route=k.BOUNDS_TICKET, rows=rows, blocks=-(-h // rows))}
+
+
+def forced_bounds(k, mask, route):
+    """A call of tree `k`'s kernels.tight_bounds on `mask` with its route
+    function giving `route`."""
+    def run():
+        saved = k.tight_bounds_route
+        k.tight_bounds_route = lambda h, w, sy, sx: route
+        try:
+            return k.tight_bounds(mask)
+        finally:
+            k.tight_bounds_route = saved
+    return run
+
+
+def routes(torch, cs, k, scrub, dev: str) -> None:
+    """--routes: per mask the picked route in turns with the other."""
+    from coherence_tpu_torch.raster import region
+
+    calls, _ = cs.region_inputs(torch, dev)
+    distinct = {}
+    for (mask, *_), _ in calls["tight_bounds"]:
+        distinct.setdefault((tuple(mask.shape), mask.stride(), mask.data_ptr() % 16), mask)
+    for mask in sorted(distinct.values(), key=lambda m: m.numel()) + [cs.bounds_ticket_mask(torch, dev)]:
+        named = bounds_routes(k, mask)
+        run = {name: forced_bounds(k, mask, r) for name, r in named.items()}
+        outs = {name: tuple(c().tolist()) for name, c in run.items()}
+        want = region._tight_bounds_torch(mask)
+        cs.require(set(outs.values()) == {want}, f"profile_region: {tuple(mask.shape)}'s routes differ: {outs}, {want}")
+        wait = wait_for(torch, cs, *run.values())
+        rounds = [cs.in_turns(torch, run["picked"], scrub, wait_ms=wait, other=run["other"])
+                  for _ in range(ROUTE_ROUNDS)]
+        cs.emit({"mask": list(mask.shape), "strides": list(mask.stride()), "align16": mask.data_ptr() % 16,
+                 **{f"{name}_route": r._asdict() for name, r in named.items()}, "bounds": want, "wait_ms": wait,
+                 "picked_ms": [r["ms"] for r in rounds], "other_ms": [r["other_ms"] for r in rounds],
+                 "readings": [r["readings"] for r in rounds]})
 
 
 def host_ms(torch, calls, rounds: int = 30) -> dict:
@@ -205,6 +336,50 @@ STOPS[("box_morph", "scan")].append([(MR1_ROWS, MR1_ROWS + MR1_KEEP % "rowp")])
 STOPS[("caf", "masks")].append([(CF1_ONE_TRIP, "      if ((ra ^ rb) == p.op + 7) p.out_f[0] = 1;\n      continue;\n" + CF1_ONE_TRIP),
                                 (CF1_TWO_TRIPS, "      if (sa == sb && p.op > 7) p.out_f[0] = 1;\n      continue;\n" + CF1_TWO_TRIPS)])
 # (The first design's colours stop, before the stores, fits the second too.)
+# TB1's and CV1's first designs (PR 22).
+TB1_WALKED = "  mine = block_fold(mine, warps);\n  unsigned* ticket"
+# TB1's second design: `walk` the one-block route's walk with no block
+# fold (the other routes unchanged), `fold` every route's folds over values
+# made in registers (the walk returns at once).
+TB1_ONE = ("    const Bounds mine = block_fold(walk<kLayout>(p), warps);\n"
+           "    if (threadIdx.x == 0) write_bounds(p.out, mine);\n")
+TB1_WALK = "  // The edge granules' bytes, a lane each"
+STOPS[("tight_bounds", "walk")] = [
+    [(TB1_ONE, "    const Bounds mine = walk<kLayout>(p);\n"
+               "    if (mine.x0 == -7) p.out[0] = mine.y1 ^ mine.x1 ^ mine.y0;\n")],
+    [(TB1_WALKED, "  if (mine.x0 == -7) out[0] = mine.y1 ^ mine.x1 ^ mine.y0;\n  return;\n" + TB1_WALKED)],
+]
+STOPS[("tight_bounds", "fold")] = [
+    [(TB1_WALK, "  if (p.h > 0) return {static_cast<int>(threadIdx.x) % p.w, 0, static_cast<int>(threadIdx.x) % p.w,\n"
+                "                      static_cast<int>(blockIdx.x) % p.h};\n" + TB1_WALK)],
+]
+STOPS[("tight_bounds", "fold")] += [
+    [("  for (long long i = static_cast<long long>(blockIdx.x) * kTbThreads + threadIdx.x; i < n;",
+      "  if (n > 0) mine = {static_cast<int>(threadIdx.x) % w, static_cast<int>(blockIdx.x) % h,\n"
+      "                     static_cast<int>(threadIdx.x) % w, static_cast<int>(blockIdx.x) % h};\n"
+      "  for (long long i = n; i < n;")],
+]
+CV1_ENTRY = "__global__ void __launch_bounds__(kThreads) convolve_kernel(Params p) {\n"
+# CV1's second design (the staged route): `stage` stops after the staging,
+# `xpass` after the x pass (no y pass, no store); each listed first, since
+# the first design's recipes fit its second route too.
+CV1_STAGED = "  __syncthreads();\n\n  // 2. The x pass"
+CV1_XDONE = "  __syncthreads();\n\n  // 3. The y pass"
+CV1_KEEP = "  if (p.radius < 0) p.dst[threadIdx.x] = cs[threadIdx.x];\n  return;\n"
+STOPS[("convolve_canvas", "stage")] = [
+    [(CV1_STAGED, CV1_STAGED.replace("  // 2.", CV1_KEEP + "  // 2."))],
+]
+STOPS[("convolve_canvas", "xpass")] = [
+    [(CV1_XDONE, CV1_XDONE.replace("  // 3.", CV1_KEEP + "  // 3."))],
+    [(CV1_ENTRY, CV1_ENTRY + "  if (p.mode == kPassY) return;\n")],
+]
+STOPS[("convolve_canvas", "taps")] = [
+    [("  acc[0] += w * static_cast<uint32_t>(v.x);\n",
+      "  acc[0] ^= static_cast<uint32_t>(v.x ^ v.y ^ v.z ^ v.w);\n  return;\n"),
+     ("      p.dst[i] = p.src[i];\n", "      if (p.src[i].x == 0x7fffffff) p.dst[i].x = 1;\n"),
+     ("    p.dst[i] = make_int4(rr, gg, floordiv(acc[2], p), a);\n",
+      "    if (rr + gg + a == 0x7ffffff1) p.dst[i].x = acc[2];\n")],
+]
 
 PROBE_HEAD = """
 // probe: the timeline's records, (start, end, SM) a block.
@@ -252,19 +427,28 @@ def kernel_body(src: str, kernel: str):
     return src[:start], src[start:end], src[end:]
 
 
-def probe_sources(csrc: str, directory: str) -> dict:
-    """(kernel, probe) -> .cu path: probes of `csrc`/region_ops.cu (every
-    entry point unchanged), each written into a directory of its own."""
-    with open(os.path.join(csrc, "region_ops.cu")) as f:
-        src = f.read()
+def probe_sources(csrc: str, directory: str, only=tuple(KERNELS)) -> dict:
+    """(kernel, probe) -> .cu path: probes of the source in `csrc` of each
+    kernel named in `only` (every entry point unchanged), each written into
+    a directory of its own; a probe none of whose recipes fits the source
+    is left out."""
+    sources = {}
+    for name in {KERNELS[k][0] for k in only}:
+        with open(os.path.join(csrc, name)) as f:
+            sources[name] = f.read()
     edits = {}
-    for kernel, fn in KERNELS.items():
-        head, body, tail = kernel_body(src, fn)
+    for kernel in only:
+        file, fns = KERNELS[kernel]
+        src = sources[file]
+        head, body, tail = kernel_body(src, next(fn for fn in fns if re.search(r"\b%s\(" % fn, src)))
         edits[kernel, "launch"] = head + "  return;\n" + body + tail
         timed = body.replace("return;", TIMELINE_END)
         edits[kernel, "timeline"] = (head.replace("namespace {\n", PROBE_HEAD + "namespace {\n", 1) + TIMELINE_START
                                      + timed + "  " + TIMELINE_END + "\n" + tail + PROBE_TAIL)
     for (kernel, probe), recipes in STOPS.items():
+        if kernel not in only:
+            continue
+        src = sources[KERNELS[kernel][0]]
         for recipe in recipes:
             if all(old in src for old, _ in recipe):
                 text = src
@@ -273,12 +457,12 @@ def probe_sources(csrc: str, directory: str) -> dict:
                 edits[kernel, probe] = text
                 break
         else:
-            raise RuntimeError(f"profile_region: no recipe of the {kernel} {probe} probe fits {csrc}/region_ops.cu")
+            continue  # this design has no such probe
     out = {}
     for (kernel, probe), text in edits.items():
         d = os.path.join(directory, f"{kernel}_{probe}")
         os.makedirs(d, exist_ok=True)
-        out[kernel, probe] = os.path.join(d, "region_ops.cu")
+        out[kernel, probe] = os.path.join(d, KERNELS[kernel][0])
         with open(out[kernel, probe], "w") as f:
             f.write(text)
     return out
@@ -320,6 +504,8 @@ def timeline_stats(torch, lib: str, run) -> dict:
     if rc != 0:
         raise RuntimeError(f"profile_region: the timeline probe's copy failed with CUDA error {rc}")
     rec = rec[rec[:, 0] != 0]
+    if len(rec) == 0:  # the probed kernel did not run: the shape takes another route
+        return {"blocks": 0}
     dur = (rec[:, 1] - rec[:, 0]) / 1e3
     return {"blocks": int(rec.shape[0]), "span_us": float(rec[:, 1].max() - rec[:, 0].min()) / 1e3,
             "start_spread_us": float(rec[:, 0].max() - rec[:, 0].min()) / 1e3,
@@ -327,29 +513,31 @@ def timeline_stats(torch, lib: str, run) -> dict:
             "blocks_per_sm_max": int(np.bincount(rec[:, 2]).max())}
 
 
-def split(torch, cs, trees, scrub, dev: str, probes, timeline: bool, tiny: bool) -> dict:
+def split(torch, cs, trees, scrub, dev: str, probes, timeline: bool, tiny: bool, only) -> dict:
     """--split and --timeline: per tree and shape, each probe in turns with
     the tree's whole kernel; the timeline's block records."""
     from profile_smear import compile_sources
 
     kernels = trees["this"]
-    wanted = [name for name in ("launch", "loads", "scan", "masks", "colours") if probes] + (
-        ["timeline"] if timeline else [])
+    wanted = [name for name in ("launch", "loads", "scan", "masks", "colours", "walk", "fold", "stage", "xpass", "taps")
+              if probes] + (["timeline"] if timeline else [])
     built, logs = {}, {}
     for who, k in trees.items():
         csrc = os.path.join(os.path.dirname(os.path.abspath(k.__file__)), "csrc")
-        sources = {f"{who}_{kn}_{p}": path for (kn, p), path in probe_sources(csrc, os.path.join(VARIANT_DIR, who)).items()
-                   if p in wanted}
+        probes_of = probe_sources(csrc, os.path.join(VARIANT_DIR, who), only)
+        sources = {f"{who}_{kn}_{p}": path for (kn, p), path in probes_of.items() if p in wanted}
         for name, (lib, log) in compile_sources(kernels, sources, VARIANT_DIR).items():
             built[name] = lib
             logs[name] = cs.ptxas_info(log, "_kernel")
-    entries = {"caf": ["caf"], "box_morph": ["box_morph"]}  # a second-route call's column pass stays the tree's
-    for name, kernel, args in shapes(torch, cs, kernels, dev, tiny):
+    # a second-route MR1 call's column pass stays the tree's
+    entries = {"caf": ["caf"], "box_morph": ["box_morph"], "tight_bounds": ["tight_bounds"],
+               "convolve_canvas": ["convolve_canvas"]}
+    for name, kernel, args in shapes(torch, cs, kernels, dev, tiny, only):
         for who, k in trees.items():
             whole = caller(k, kernel, args)
             row = {"shape": name, "kernel": kernel, "tree": who}
-            if kernel == "box_morph":
-                row["route"] = route_of(k, args)
+            if kernel != "caf":
+                row["route"] = route_of(k, kernel, args)
             mine = {p: through(k, built[f"{who}_{kernel}_{p}"], whole, entries[kernel])
                     for p in wanted if f"{who}_{kernel}_{p}" in built}
             wait = wait_for(torch, cs, whole, *mine.values())
@@ -369,7 +557,12 @@ def main() -> int:
     ap.add_argument("--timeline", action="store_true", help="record each block's start and end")
     ap.add_argument("--tiny", action="store_true", help="also time 1-pixel shapes: each kernel's fixed cost")
     ap.add_argument("--warm", action="store_true", help="leave L2 warm between calls (no 128 MiB scrub)")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to take, comma-separated (default all)")
+    ap.add_argument("--routes", action="store_true", help="TB1's picked route in turns with its other route")
     args = ap.parse_args()
+    only = tuple(args.kernels.split(","))
+    if not set(only) <= set(KERNELS):
+        ap.error(f"--kernels: no kernel {sorted(set(only) - set(KERNELS))}")
     import torch
 
     if not torch.cuda.is_available():
@@ -394,11 +587,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     last = {"parent": args.parent and os.path.abspath(args.parent), "launch_floor_ms": floor, "warm": args.warm}
-    if args.split or args.timeline:
-        last["ptxas_probes"] = split(torch, cs, trees, scrub, dev, args.split, args.timeline, args.tiny)
+    if args.routes:
+        routes(torch, cs, kernels, scrub, dev)
+    elif args.split or args.timeline:
+        last["ptxas_probes"] = split(torch, cs, trees, scrub, dev, args.split, args.timeline, args.tiny, only)
     else:
-        compare(torch, cs, trees, scrub, dev, args.tiny)
-    last["ptxas"] = {fn: cs.ptxas_info(log, fn) for fn in ("caf_", "box_morph_")}
+        compare(torch, cs, trees, scrub, dev, args.tiny, only)
+    last["ptxas"] = {fn: cs.ptxas_info(log, fn) for fn in ("caf_", "box_morph_", "tight_bounds_", "convolve_")}
     print(json.dumps({**last, "retaken": cs.RETAKEN[0], "nvidia_smi": smi, "seconds": time.perf_counter() - t0}))
     return 0
 

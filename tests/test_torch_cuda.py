@@ -2827,20 +2827,58 @@ def bounds_masks(device):
     return out
 
 
+BOUNDS_ROUTES = {"one": kernels.BOUNDS_ONE, "ticket": kernels.BOUNDS_TICKET}
+
+
+def forced_bounds_route(h: int, w: int, sy: int, sx: int, route: int, picked=None):
+    """tight_bounds_route's (or `picked`'s) layout and segments with the
+    route `route` forced: one block over every row (its rounds as many as
+    they take), or the ticket over blocks of TIGHT_BOUNDS_WARPS rows."""
+    r = (picked or kernels.tight_bounds_route)(h, w, sy, sx)
+    warps = kernels.TIGHT_BOUNDS_WARPS
+    if route == kernels.BOUNDS_ONE:
+        return r._replace(route=route, rows=h, blocks=1)
+    return r._replace(route=route, rows=warps, blocks=-(-h // warps))
+
+
 @pytest.mark.cuda
-def test_tight_bounds_matches_plain(cuda_device):
+@pytest.mark.parametrize("route", ["picked", *BOUNDS_ROUTES])
+def test_tight_bounds_matches_plain(cuda_device, monkeypatch, route):
     """TB1 against _tight_bounds_torch on the card at every mask of
-    bounds_masks, three times over (the ticket is reset by each launch):
-    one launch and one sync a call."""
+    bounds_masks, three times over (the ticket route's ticket is reset by
+    each launch), on the route tight_bounds_route picks and on each route
+    forced: through region._tight_bounds (the mapped host word) one launch,
+    one sync and no copy a call; through kernels.tight_bounds with no word,
+    a device tensor."""
     from coherence_tpu_torch.raster import region
 
+    if route != "picked":
+        picked = kernels.tight_bounds_route
+        monkeypatch.setattr(kernels, "tight_bounds_route",
+                            lambda h, w, sy, sx: forced_bounds_route(h, w, sy, sx, BOUNDS_ROUTES[route], picked))
     for _ in range(3):
         for name, m in bounds_masks(cuda_device).items():
             want = region._tight_bounds_torch(m)
             before, syncs = kernels.launches["tight_bounds"], region.syncs
             assert region._tight_bounds(m) == want, name
             assert kernels.launches["tight_bounds"] == before + 1 and region.syncs == syncs + 1, name
+            on_card = kernels.tight_bounds(m)
+            assert on_card.is_cuda and tuple(on_card.tolist()) == want, name
     assert region._tight_bounds(bounds_masks(cuda_device)["empty"]) == (53, 37, -1, -1)
+
+
+@pytest.mark.cuda
+def test_tight_bounds_issues_no_copy(cuda_device):
+    """region._tight_bounds issues one launch and no copy (its result comes
+    through the mapped host word); the word is one per stream and thread."""
+    from profile_general import issued
+    from coherence_tpu_torch.raster import region
+
+    m = bounds_masks(cuda_device)["random"]
+    got = []
+    assert issued(torch, lambda: got.append(region._tight_bounds(m))) == 1
+    assert got == [region._tight_bounds_torch(m)]
+    assert kernels.bounds_word(cuda_device) is kernels.bounds_word(cuda_device)
 
 
 @pytest.mark.cuda
@@ -2989,8 +3027,9 @@ def convolve_canvas_case(seed: int, h: int, w: int) -> np.ndarray:
                                     "full_cone5", "full_skew16", "gaussian150", "unit150"])
 def test_convolve_canvas_matches_plain(cuda_device, kernel, size):
     """CV1 against convolve_canvas_torch on the card, bit for bit, at every
-    mask of convolve_masks: two launches a call (one for a full kernel);
-    the sums past the int32 wrap at r = 150."""
+    mask of convolve_masks: the launches convolve_route gives a call (one
+    on the staged route and for a full kernel, two past the staged route's
+    shared memory, r = 150); the sums past the int32 wrap at r = 150."""
     from coherence_tpu_torch.raster import convolve as V
 
     k = convolve_kernels()[kernel]
@@ -2998,9 +3037,39 @@ def test_convolve_canvas_matches_plain(cuda_device, kernel, size):
     for name, m in convolve_masks(cuda_device, *size).items():
         before = kernels.launches["convolve_canvas"]
         got = V.convolve_canvas(k, canvas, m)
-        assert kernels.launches["convolve_canvas"] == before + (1 if kernel.startswith("full") else 2)
+        kind, _, _, radius = V.card_kernel(k)
+        route = kernels.convolve_route(kind, *size, radius)
+        assert route.launches == (2 if k.radius > 22 else 1)
+        assert kernels.launches["convolve_canvas"] == before + route.launches
         want = V.convolve_canvas_torch(k, canvas, m)
         assert torch.equal(got, want), f"{kernel} {size} {name}: {int((got != want).any(-1).sum())} pixels differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1, 1), (13, 7), (41, 37), (177, 181)])
+@pytest.mark.parametrize("kernel", ["gaussian5", "unit5", "gaussian22", "unit22", "gaussian23"])
+def test_convolve_canvas_on_each_route(cuda_device, monkeypatch, kernel, size):
+    """xy and unit kernels on their route (the staged route's one launch up
+    to r = 22, the two passes past its shared memory at r = 23) and forced
+    onto the two passes, each equal to convolve_canvas_torch at every mask
+    of convolve_masks; the staged route's shared memory as the kernel
+    counts it."""
+    from coherence_tpu_torch.raster import convolve as V
+
+    r = int(kernel[-2:]) if kernel[-2:].isdigit() else int(kernel[-1])
+    k = (V.mkgaussian if kernel.startswith("gaussian") else V.mkunit)(r)
+    assert kernels.load()["convolve_staged_smem"](r) == kernels.convolve_staged_smem(r)
+    canvas = torch.from_numpy(convolve_canvas_case(5, *size)).to(cuda_device)
+    passes = kernels.ConvRoute((kernels.CONV_PASS_X, kernels.CONV_PASS_Y), 0)
+    for forced in (None, passes):
+        if forced is not None:
+            monkeypatch.setattr(kernels, "convolve_route", lambda *args: forced)
+        for name, m in convolve_masks(cuda_device, *size).items():
+            before = kernels.launches["convolve_canvas"]
+            got = V.convolve_canvas(k, canvas, m)
+            assert kernels.launches["convolve_canvas"] == before + (1 if forced is None and r <= 22 else 2)
+            want = V.convolve_canvas_torch(k, canvas, m)
+            assert torch.equal(got, want), f"{kernel} {size} {name} {forced}"
 
 
 @pytest.mark.cuda

@@ -7,9 +7,11 @@ plain version there).  Here each wrapper's host side is held to the plain
 versions through a model of its kernel, written from the kernel's source:
 CF1 reading its operand planes at their offsets in the union box, with the
 operator code or the composed plane the card route picks; MR1's walk of a
-block over its tile, chunk by chunk, as box_morph_kernel does it; CV1's
-passes from convolve_plan, divided by blur_divider's multiply and shift on
-sums that wrap.  Then the refusals, and that on the CPU no launch counter
+block over its tile, chunk by chunk, as box_morph_kernel does it; TB1's
+rows, lanes and loads and each route's fold as tight_bounds_kernel walks
+them; CV1's staged tile, halo rows and edge zeros as convolve_staged_kernel
+stages them, and its passes from convolve_route, divided by blur_divider's
+multiply and shift on sums that wrap.  Then the refusals, and that on the CPU no launch counter
 moves.  Tolerance 0: the colour math is integer.
 """
 
@@ -24,10 +26,10 @@ from coherence_tpu_torch.raster import convolve as V
 from coherence_tpu_torch.raster import region
 
 from _torch_threads import one_torch_thread  # noqa: F401
-from test_torch_cuda import (CAF_BUILTIN, CAF_LAYOUTS, CAF_PLACES, MORPH_RADII, MORPH_SECOND_ROUTE_CASES,
-                             assert_same_caf, bounds_masks, caf_registered, caf_sprite, convolve_canvas_case,
-                             convolve_kernels, convolve_masks, morph_masks, WORDS_LAYOUTS,
-                             words_case)
+from test_torch_cuda import (BOUNDS_ROUTES, CAF_BUILTIN, CAF_LAYOUTS, CAF_PLACES, MORPH_RADII,
+                             MORPH_SECOND_ROUTE_CASES, assert_same_caf, bounds_masks, caf_registered, caf_sprite,
+                             convolve_canvas_case, convolve_kernels, convolve_masks, forced_bounds_route, morph_masks,
+                             WORDS_LAYOUTS, words_case)
 
 # CF1's built-in operators by code, as caf_kernel's `compose` computes them.
 CF1_OPS = {0: C.over_rgba, 1: C.alpha_over_rgba, 2: C.pd_plus_rgba, 3: lambda a, b: b}
@@ -213,13 +215,197 @@ def test_caf_composed_plane_is_the_operator_over_the_intersection():
     assert region._caf_composed("over", a, caf_sprite("cpu", 2, CAF_PLACES["disjoint"], "dense")) is None
 
 
+def tb1_model(mask: torch.Tensor, route=None) -> tuple:
+    """TB1 on the CPU from kernels.tight_bounds' arguments, as region_ops.cu's
+    tight_bounds_kernel walks, on tight_bounds_route's route (or `route`):
+    block b walks rows [b rows, (b + 1) rows), its warp wp the rows b rows +
+    wp, + TIGHT_BOUNDS_WARPS, ..., each row's segs segments in turn, in
+    rounds of TIGHT_BOUNDS_LOADS items a lane (a round runs while the
+    warp's next item is in the block's rows).  In the granule layout lane
+    l's unit of item (y, s) is the 16-byte granule 32 s + l of row y's,
+    read from the mask's storage at the kernel's address (wide_reads: on 16
+    bytes, inside the storage), skipped past the row and where it holds a
+    byte outside the mask's span [lo, hi); those edge granules block 0's
+    thread 0 reads byte by byte, each set byte's (y, x) from its offset.
+    Its set columns are the granule's nonzero bytes within the row.  In the
+    byte layout a unit is the cell at column 32 s + l.  Each block folds
+    its threads' bounds and the route folds every block's."""
+    h, w = mask.shape
+    sy, sx = mask.stride()
+    r = route or kernels.tight_bounds_route(h, w, sy, sx)
+    granules = r.layout == kernels.BOUNDS_GRANULES
+    if granules and h == 1:
+        sy = w
+    assert r.blocks * r.rows >= h and (r.route != kernels.BOUNDS_ONE or r.blocks == 1)
+    flat, base = storage_bytes(mask)
+    lo = mask.data_ptr()
+    hi = lo + (h - 1) * sy + w
+    lanes = np.arange(32)
+    out = [w, h, -1, -1]
+
+    def take(ys, xs):
+        if len(xs):
+            out[:] = [min(out[0], int(xs.min())), min(out[1], int(ys.min())), max(out[2], int(xs.max())),
+                      max(out[3], int(ys.max()))]
+
+    for b in range(r.blocks):
+        y_end = min(h, (b + 1) * r.rows)
+        for warp in range(kernels.TIGHT_BOUNDS_WARPS):
+            y, seg = b * r.rows + warp, 0
+            while True:
+                items = []
+                for _ in range(kernels.TIGHT_BOUNDS_LOADS):
+                    items.append((y, seg))
+                    seg += 1
+                    if seg == r.segs:
+                        seg, y = 0, y + kernels.TIGHT_BOUNDS_WARPS
+                for yy, ss in items:
+                    if yy >= y_end:
+                        continue
+                    if granules:
+                        row = lo + yy * sy
+                        a = (row & ~15) + 16 * (32 * ss + lanes)
+                        ok = (a >= lo) & (a + 16 <= hi) & (a < row + w)
+                        v = np.zeros((32, 16), np.uint8)
+                        if ok.any():
+                            v[ok] = wide_reads(mask, a[ok], 16).numpy()
+                        byte = np.arange(16)
+                        inside = (a[:, None] + byte >= row) & (a[:, None] + byte < row + w)
+                        li, bi = np.nonzero((v != 0) & inside)
+                        take(np.full(len(li), yy), a[li] + bi - row)
+                    else:
+                        x = 32 * ss + lanes
+                        x = x[x < w]
+                        v = flat[torch.from_numpy(lo - base + yy * sy + x * sx)].numpy()
+                        take(np.full(int((v != 0).sum()), yy), x[v != 0])
+                if y >= y_end:
+                    break
+    if granules:
+        first, last = lo & ~15, (hi - 1) & ~15
+        edges = [g for g, edge in ((first, first != lo or first + 16 > hi), (last, last != first and last + 16 > hi))
+                 if edge]
+        for g in edges:
+            addr = np.arange(max(g, lo), min(g + 16, hi))
+            v = flat[torch.from_numpy(addr - base)].numpy()
+            off = addr[v != 0] - lo
+            ys, xs = off // sy, off % sy
+            take(ys[xs < w], xs[xs < w])
+    return tuple(out)
+
+
 def test_tight_bounds_blocks():
-    """TB1's grid: one block a TIGHT_BOUNDS_CELLS cells, at least one, at
-    most the scratch's partials."""
-    cells = kernels.TIGHT_BOUNDS_CELLS
-    for h, w in [(1, 1), (37, 53), (1, cells), (1, cells + 1), (1080, 1920), (10**5, 10**4)]:
-        n = kernels.tight_bounds_blocks(h, w, 528)
-        assert 1 <= n <= 528 and (n == 528 or n * cells >= h * w > (n - 1) * cells)
+    """TB1's grid (tight_bounds_route): its blocks' rows cover the mask,
+    one block where one round of one block's items covers it, else the
+    ticket route within TIGHT_BOUNDS_MAX_BLOCKS blocks, each a multiple of
+    the warps' rows, one round a block where the cap allows."""
+    warps, loads = kernels.TIGHT_BOUNDS_WARPS, kernels.TIGHT_BOUNDS_LOADS
+    for h, w in [(1, 1), (37, 53), (53, 68), (1073, 522), (1, 8000), (1080, 1920), (10**5, 10**4), (4096, 3)]:
+        for sy, sx in [(w, 1), (1, h), (w + 5, 2)]:
+            r = kernels.tight_bounds_route(h, w, sy, sx)
+            units = (w + 30) // 16 if r.layout == kernels.BOUNDS_GRANULES else w
+            assert r.segs == -(-units // 32)
+            per_round = warps * max(1, loads // r.segs)
+            assert r.blocks * r.rows >= h > (r.blocks - 1) * r.rows
+            if h <= per_round:
+                assert (r.route, r.blocks, r.rows) == (kernels.BOUNDS_ONE, 1, h)
+            else:
+                assert r.route == kernels.BOUNDS_TICKET and r.blocks <= kernels.TIGHT_BOUNDS_MAX_BLOCKS
+                assert r.rows % warps == 0
+                # a round a block, or the fewest rows a block within the cap
+                assert r.rows <= per_round or -(-h // (r.rows - warps)) > kernels.TIGHT_BOUNDS_MAX_BLOCKS
+
+
+def test_tight_bounds_route_at_its_limits():
+    """The layout: granules where a row's cells are adjacent and rows do
+    not overlap (sx 1, sy >= w, or one row), else bytes; the routes at
+    their edges: one round of one block, past it the ticket over blocks of
+    one round, past TIGHT_BOUNDS_MAX_BLOCKS of them more rows a block."""
+    route = kernels.tight_bounds_route
+    assert route(37, 53, 53, 1).layout == kernels.BOUNDS_GRANULES
+    assert route(1, 53, 0, 1).layout == kernels.BOUNDS_GRANULES
+    for sy, sx in [(1, 37), (53, 2), (40, 1), (0, 1)]:
+        assert route(37, 53, sy, sx).layout == kernels.BOUNDS_BYTES
+    # 68 columns: 6 granules a row at most, one segment, 64 rows a round.
+    assert route(64, 68, 68, 1)[:2] == (kernels.BOUNDS_ONE, kernels.BOUNDS_GRANULES)
+    assert route(65, 68, 68, 1) == kernels.BoundsRoute(kernels.BOUNDS_TICKET, kernels.BOUNDS_GRANULES, 1, 40, 2)
+    assert route(64 * 528, 68, 68, 1)[3:] == (64, 528)
+    assert route(64 * 528 + 1, 68, 68, 1)[3:] == (72, 470)
+    # 522 columns: 34 granules, two segments, 32 rows a round: the largest mask of
+    # general_filters in 34 blocks.
+    assert route(1073, 522, 522, 1) == kernels.BoundsRoute(kernels.BOUNDS_TICKET, kernels.BOUNDS_GRANULES, 2, 32, 34)
+    assert route(53, 68, 68, 1) == kernels.BoundsRoute(kernels.BOUNDS_ONE, kernels.BOUNDS_GRANULES, 1, 53, 1)
+
+
+def test_tight_bounds_constants_match_the_source():
+    """kernels' TB1 constants are region_ops.cu's: a thread's loads a
+    round, the ticket route's blocks at most (the scratch the wrapper
+    makes holds that many partials), a block's warps, and the numbers of
+    the routes and layouts."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc", "region_ops.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+
+    assert const("kTbLoads") == kernels.TIGHT_BOUNDS_LOADS
+    assert const("kTbMaxBlocks") == kernels.TIGHT_BOUNDS_MAX_BLOCKS
+    assert const("kTbThreads") == 32 * kernels.TIGHT_BOUNDS_WARPS
+    assert "enum TbRoute { kTbOne = %d, kTbTicket = %d };" % (kernels.BOUNDS_ONE, kernels.BOUNDS_TICKET) in src
+    assert "enum TbLayout { kTbGranules = %d, kTbBytes = %d };" % (kernels.BOUNDS_GRANULES, kernels.BOUNDS_BYTES) in src
+
+
+@pytest.mark.parametrize("route", ["picked", *BOUNDS_ROUTES])
+def test_tight_bounds_model_at_the_card_test_masks(route):
+    """The model of TB1 against _tight_bounds_torch at every mask of the
+    card test (empty, single pixels, full, random, sparse and random
+    1080p, views, strided, transposed), on the route tight_bounds_route
+    picks and on each route forced."""
+    for name, m in bounds_masks("cpu").items():
+        forced = None if route == "picked" else forced_bounds_route(*m.shape, *m.stride(), BOUNDS_ROUTES[route])
+        assert tb1_model(m, forced) == region._tight_bounds_torch(m), name
+
+
+@st.composite
+def bounds_cases(draw):
+    """A bool mask as a view of a larger plane: odd strides, rows starting
+    off their 16 bytes, transposed, wider than a segment, set cells only
+    at the edges or none; and a route to force, or None."""
+    h, w = draw(st.integers(1, 70)), draw(st.integers(1, 600))
+    sy, sx = draw(st.sampled_from([1, 1, 1, 2, 3])), draw(st.sampled_from([1, 1, 2, 5]))
+    oy, ox = draw(st.integers(0, 3)), draw(st.integers(0, 17))
+    transposed = draw(st.booleans())
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    row = ox + sx * w + draw(st.integers(0, 20))  # a row's elements of the plane, past the view's
+    shape = (row, oy + sy * h) if transposed else (oy + sy * h, row)
+    base = np.zeros(shape, bool)
+    kind = draw(st.sampled_from(["random", "sparse", "empty", "corners", "outside_only"]))
+    if kind == "random":
+        base = rng.random(shape) < 0.3
+    elif kind == "sparse":
+        base[tuple(rng.integers(0, n, 3) for n in shape)] = True
+    elif kind == "outside_only":  # set cells of the plane around the view only
+        base = rng.random(shape) < 0.5
+    t = torch.from_numpy(base)
+    view = t.t()[oy :: sy, ox :: sx][:h, :w] if transposed else t[oy :: sy, ox :: sx][:h, :w]
+    if kind == "outside_only":
+        view[...] = False
+    elif kind == "corners":
+        view[0, 0] = view[-1, -1] = True
+    return view, draw(st.sampled_from([None, *BOUNDS_ROUTES.values()]))
+
+
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(bounds_cases())
+def test_tight_bounds_model_on_random_views(case):
+    """The model of TB1 on random views (offsets, strides, transposed,
+    unaligned rows, cells set only outside the view) on the picked route
+    and each route forced, against _tight_bounds_torch."""
+    mask, route = case
+    forced = None if route is None else forced_bounds_route(*mask.shape, *mask.stride(), route)
+    assert tb1_model(mask, forced) == region._tight_bounds_torch(mask)
 
 
 def test_tight_bounds_plain_at_the_card_test_masks():
@@ -502,13 +688,22 @@ def test_box_morph_model_on_random_views(case):
     assert np.array_equal(mr1_model(mask.numpy(), rx, ry, erode, route), want)
 
 
+def cv1_passes(kind: str, r: int) -> tuple:
+    """convolve_route's modes where a canvas takes no staged launch: one
+    row tile past the staged grid's (xy and unit the x pass and the y
+    pass; full its one 2D pass)."""
+    return kernels.convolve_route(kind, kernels.CONV_TILE[0] * kernels.CONV_ROW_TILES_MAX + 1, 1, r).modes
+
+
 def cv1_model(kernel, canvas: np.ndarray, mask: np.ndarray) -> np.ndarray:
-    """CV1's passes on the CPU from convolve_plan and blur_divider: each
-    pass a sum of the taps inside the canvas in uint32 (wrapping), the
-    floor division by the multiply and shift on its magnitude, the clamp,
-    written where the mask holds and copied elsewhere."""
+    """CV1's passes on the CPU from convolve_plan, convolve_route's passes
+    (cv1_passes) and blur_divider: each pass a sum of the taps inside the
+    canvas in uint32 (wrapping), the floor division by the multiply and
+    shift on its magnitude, the clamp, written where the mask holds and
+    copied elsewhere."""
     kind, weights, total, r = V.card_kernel(kernel)
-    passes, weights, total, clamp = kernels.convolve_plan(kind, weights, total, r)
+    passes = cv1_passes(kind, r)
+    weights, total, clamp = kernels.convolve_plan(kind, weights, total, r)
     magic, shift = kernels.blur_divider(total)
     H, W = canvas.shape[:2]
     m = mask[:H, :W, None]
@@ -532,6 +727,145 @@ def cv1_model(kernel, canvas: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return src.astype(np.int32)
 
 
+def cv1_divided(acc: np.ndarray, magic: int, shift: int, clamp: int) -> np.ndarray:
+    """convolve.cu divided(): each uint32 sum as int32, floored by the
+    multiply and shift on its magnitude, r and g clamped to a with
+    `clamp`."""
+    s = acc.astype(np.uint32).view(np.int32).astype(np.int64)
+    sign = s >> 31
+    q = ((magic * (s ^ sign)) >> shift) ^ sign
+    if clamp:
+        q[..., 0] = np.minimum(q[..., 0], q[..., 3])
+        q[..., 1] = np.minimum(q[..., 1], q[..., 3])
+    return q
+
+
+def cv1_staged_model(kernel, canvas: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """CV1's staged route on the CPU, block by block as
+    convolve_staged_kernel runs: each 16 x 64 tile stages the canvas over
+    its rows and columns +- r (zero outside the canvas) and the mask over
+    its staged rows and its own columns; the x pass over every staged row
+    and the tile's columns into cx (the canvas where the mask is unset,
+    zero on rows outside the canvas and on columns past it); the y pass
+    over cx, written where the tile lies in the canvas (the canvas where
+    the mask is unset).  Sums in uint32, wrapping."""
+    kind, weights, total, r = V.card_kernel(kernel)
+    H, W = canvas.shape[:2]
+    assert kernels.convolve_route(kind, H, W, r).modes == (kernels.CONV_STAGED,)
+    weights, total, clamp = kernels.convolve_plan(kind, weights, total, r)
+    magic, shift = kernels.blur_divider(total)
+    TH, TW = kernels.CONV_TILE
+    S = TH + 2 * r
+    w64 = [np.uint64(v) for v in weights]
+    out = np.zeros_like(canvas)
+    for ty0 in range(0, H, TH):
+        for tx0 in range(0, W, TW):
+            ys, xs = ty0 - r + np.arange(S), tx0 - r + np.arange(TW + 2 * r)
+            yin, xin = (ys >= 0) & (ys < H), (xs >= 0) & (xs < W)
+            cs = np.zeros((S, TW + 2 * r, 4), np.uint64)
+            cs[np.ix_(yin, xin)] = canvas[np.ix_(ys[yin], xs[xin])].astype(np.uint32)
+            cols = tx0 + np.arange(TW)
+            m = np.zeros((S, TW), bool)
+            m[np.ix_(yin, cols < W)] = mask[np.ix_(ys[yin], cols[cols < W])]
+            acc = sum(w64[k] * cs[:, k : k + TW] for k in range(2 * r + 1)) % 2**32
+            cx = np.where(m[..., None], cv1_divided(acc, magic, shift, clamp), cs[:, r : r + TW].astype(np.int64))
+            cx[~yin] = 0
+            cx[:, cols >= W] = 0
+            cx = cx.astype(np.uint32).astype(np.uint64)
+            acc = sum(w64[k] * cx[k : k + TH] for k in range(2 * r + 1)) % 2**32
+            o = np.where(m[r : r + TH, :, None], cv1_divided(acc, magic, shift, clamp),
+                         cs[r : r + TH, r : r + TW].astype(np.int64))
+            hh, ww = min(TH, H - ty0), min(TW, W - tx0)
+            out[ty0 : ty0 + hh, tx0 : tx0 + ww] = o[:hh, :ww]
+    return out
+
+
+STAGED_KERNELS = ["gaussian1", "gaussian5", "unit1", "unit5", "gaussian16", "unit22"]
+
+
+def staged_kernel(name: str):
+    """convolve_kernels()'s kernel, or mkunit at r = 22 (the staged route's
+    largest radius)."""
+    return V.mkunit(22) if name == "unit22" else convolve_kernels()[name]
+
+
+@pytest.mark.parametrize("kernel", STAGED_KERNELS)
+def test_convolve_staged_model_matches_plain(kernel):
+    """The model of CV1's staged route against convolve_canvas_torch at
+    every mask of the card test over 1 x 1, 13 x 7, 41 x 37 and 70 x 130
+    canvases (tiles cut by the canvas's edge, more than one tile each way,
+    r past the canvas)."""
+    k = staged_kernel(kernel)
+    for size in ((1, 1), (13, 7), (41, 37), (70, 130)):
+        canvas = convolve_canvas_case(3, *size)
+        for name, m in convolve_masks("cpu", *size).items():
+            want = V.convolve_canvas_torch(k, torch.from_numpy(canvas), m).numpy()
+            assert np.array_equal(cv1_staged_model(k, canvas, m.numpy()), want), f"{kernel} {size} {name}"
+
+
+@st.composite
+def staged_cases(draw):
+    """A canvas and a mask of at least its size as a view (offset, strides,
+    transposed, wider and taller than the canvas), set at random, nowhere,
+    or only on rows that are some tile's halo (within r of a tile's top or
+    bottom edge), with channels past 255 (plus sums) or any int32."""
+    H, W = draw(st.integers(1, 50)), draw(st.integers(1, 140))
+    kernel = draw(st.sampled_from(STAGED_KERNELS))
+    r = staged_kernel(kernel).radius
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    extra_h, extra_w = draw(st.integers(0, 4)), draw(st.integers(0, 9))
+    sy, sx = draw(st.sampled_from([1, 2])), draw(st.sampled_from([1, 3]))
+    transposed = draw(st.booleans())
+    mh, mw = H + extra_h, W + extra_w
+    kind = draw(st.sampled_from(["random", "empty", "halo_rows"]))
+    m = rng.random((mh, mw)) < 0.6 if kind == "random" else np.zeros((mh, mw), bool)
+    if kind == "halo_rows":
+        rows = np.arange(mh)
+        near = np.minimum(rows % kernels.CONV_TILE[0], kernels.CONV_TILE[0] - 1 - rows % kernels.CONV_TILE[0]) < r
+        m[near] = rng.random((int(near.sum()), mw)) < 0.7
+    big = np.zeros((mw * sx + 1, mh * sy + 2) if transposed else (mh * sy + 2, mw * sx + 1), bool)
+    t = torch.from_numpy(big)
+    view = (t.t() if transposed else t)[1 :: sy, :: sx][:mh, :mw]
+    view[...] = torch.from_numpy(m)
+    scale = draw(st.sampled_from(["rgba", "wide", "any"]))
+    canvas = convolve_canvas_case(draw(st.integers(0, 99)), H, W)
+    if scale == "wide":
+        canvas = (canvas * rng.integers(1, 4, canvas.shape)).astype(np.int32)
+    elif scale == "any":
+        canvas = rng.integers(-(2**31), 2**31, canvas.shape, dtype=np.int64).astype(np.int32)
+    return staged_kernel(kernel), canvas, view
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(staged_cases())
+def test_convolve_staged_model_on_random_views(case):
+    """The model of CV1's staged route on random canvases and mask views
+    (strided, transposed, larger than the canvas, set only on halo rows,
+    channels past 255 and any int32, so that sums wrap) against
+    convolve_canvas_torch."""
+    k, canvas, mask = case
+    want = V.convolve_canvas_torch(k, torch.from_numpy(canvas), mask).numpy()
+    assert np.array_equal(cv1_staged_model(k, canvas, mask.numpy()), want)
+
+
+def test_convolve_route_at_its_limits():
+    """xy and unit take the staged route up to the radius whose tile fits
+    CONV_SMEM (22: two blocks an SM), the two passes past it or past the
+    grid's row tiles; full its one 2D launch; the shared memory as
+    convolve.cu's StagedLayout counts it."""
+    assert kernels.convolve_staged_smem(5) == -(-(16 * 27 * 75 + 4 * 11 + 26 * 64) // 8) * 8 + 8 + 128
+    for kind in ("xy", "unit"):
+        assert kernels.convolve_route(kind, 1088, 1920, 5) == kernels.ConvRoute((kernels.CONV_STAGED,), 34248)
+        assert kernels.convolve_route(kind, 1, 1, 22).modes == (kernels.CONV_STAGED,)
+        assert kernels.convolve_staged_smem(22) <= kernels.CONV_SMEM < kernels.convolve_staged_smem(23)
+        for r in (23, 24, 150):
+            assert kernels.convolve_route(kind, 177, 181, r).modes == (kernels.CONV_PASS_X, kernels.CONV_PASS_Y)
+        assert kernels.convolve_route(kind, 16 * 65535, 3, 5).launches == 1
+        assert kernels.convolve_route(kind, 16 * 65535 + 1, 3, 5).launches == 2
+    assert kernels.convolve_route("full", 1088, 1920, 5) == kernels.ConvRoute((kernels.CONV_FULL,), 0)
+    assert 2 * (kernels.convolve_staged_smem(22) + 1024) <= 233472  # two blocks in an SM's 228 KiB
+
+
 @pytest.mark.parametrize("kernel", ["gaussian1", "gaussian5", "unit5", "full_cone5", "gaussian150", "unit150"])
 def test_convolve_passes_match_plain(kernel):
     """The model of CV1's passes against convolve_canvas_torch at every
@@ -546,17 +880,20 @@ def test_convolve_passes_match_plain(kernel):
 
 
 def test_convolve_plan_and_card_kernel():
-    """Each kind's passes, weights (a full kernel's row by row; a unit
-    kernel's ones) and clamp; the refusals: another kind, a radius under 1,
+    """Each kind's weights (a full kernel's row by row; a unit kernel's
+    ones) and clamp, and its passes off the staged route (convolve_route); the refusals: another kind, a radius under 1,
     another count of weights, a weight outside [0, 2^31), a total of 0."""
     ks = convolve_kernels()
     g = V.card_kernel(ks["gaussian5"])
     assert g == ("xy", ks["gaussian5"].values, ks["gaussian5"].total, 5)
-    assert kernels.convolve_plan(*g) == ((kernels.CONV_PASS_X, kernels.CONV_PASS_Y), g[1], g[2], 1)
-    assert kernels.convolve_plan(*V.card_kernel(ks["unit5"])) == ((0, 1), (1,) * 11, 11, 0)
+    assert kernels.convolve_plan(*g) == (g[1], g[2], 1)
+    assert cv1_passes("xy", 5) == (kernels.CONV_PASS_X, kernels.CONV_PASS_Y)
+    assert kernels.convolve_plan(*V.card_kernel(ks["unit5"])) == ((1,) * 11, 11, 0)
+    assert cv1_passes("unit", 5) == (0, 1)
     kind, weights, total, r = V.card_kernel(ks["full_cone1"])
     assert (kind, weights, r) == ("full", (3, 4, 3, 4, 5, 4, 3, 4, 3), 1)
-    assert kernels.convolve_plan(kind, weights, total, r) == ((kernels.CONV_FULL,), weights, total, 0)
+    assert kernels.convolve_plan(kind, weights, total, r) == (weights, total, 0)
+    assert cv1_passes(kind, r) == kernels.convolve_route(kind, 3, 3, r).modes == (kernels.CONV_FULL,)
     for args in [("cone", (1, 2, 1), 4, 1), ("xy", (1, 2, 1), 4, 0), ("xy", (1, 2, 1, 1), 5, 1),
                  ("full", (1, 2, 1), 4, 1), ("xy", (1, -2, 1), 4, 1), ("xy", (1, 2**31, 1), 4, 1),
                  ("xy", (0, 0, 0), 0, 1), ("xy", (1, 2, 1), 2**31, 1)]:
